@@ -1,0 +1,474 @@
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout.  It needs one CUDA device and `nvcc`, and
+exits non-zero without a result line when either is missing or any check
+fails; no phase catches its own failure.  Phases, each printed as one
+JSON line:
+
+1. device   — the card's name and power limit (nvidia-smi).
+2. build    — every kernel in src/repro_torch/kernels/csrc is compiled
+              from the checkout (nvcc, sm_90a), with ptxas' registers and
+              spills.
+3. kernel_checks — each hand-written kernel against its plain PyTorch
+              version on the card, at the OLMo-1B decode / prefill shapes
+              and at GQA, window + prefix, head_dim 16 and ragged-length
+              cases.  Tolerances: f32 1e-4 (another summation order than
+              the plain version), bf16 2e-2 (as tests/test_kernels.py).
+4. parity_f32 — a 2-layer full-width OLMo-1B in f32 serves 4 greedy
+              requests through the engine; its tokens must equal a plain
+              greedy recompute on the card (full forward, plain attention,
+              no cache, every step).
+5. serve_bf16 — the main path: the full OLMo-1B (16 layers, bf16, seeded
+              random weights) serves 12 requests through
+              InferenceEngine.submit/step, with the kernels' launch
+              counters set to 0 just before and read just after; every
+              request must finish with its exact budget, every page must
+              be returned, and the launch counts must equal
+              n_layers x decode_block x decode dispatches (paged decode)
+              and n_layers x prefill dispatches (flash).
+6. kernels  — per kernel: its launches on the main path, its error
+              against the plain version, its time (CUDA events, median of
+              30 runs after warm-up, each from a cold L2) beside the plain
+              version's, the least time the card could take (bound), and
+              one PyTorch library call computing the same function where
+              there is one.  Paged decode is timed at the main path's
+              decode shape; flash at the serve's widest prefill (rows x
+              bucket).
+
+The last line is {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks from NVIDIA's data sheet (dense, full 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+REPS = 30
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+_l2_flush = []
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median of `reps` CUDA-event timings of fn() after 3 warm-up calls,
+    each from a cold L2: a 256 MiB buffer (five times the H100's 50 MB
+    L2) is written before every timed call, outside its events."""
+    if not _l2_flush:
+        _l2_flush.append(torch.empty(256 << 20, dtype=torch.uint8,
+                                     device="cuda"))
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        _l2_flush[0].zero_()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def check_close(name, got, want, tol) -> float:
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bad = err > tol + tol * w.abs()
+    if bool(bad.any()) or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name}: max |err| {float(err.max()):.3e} "
+                             f"beyond atol=rtol={tol}")
+    return float(err.max())
+
+
+def tol_of(dtype) -> float:
+    return 1e-4 if dtype == torch.float32 else 2e-2
+
+
+# --------------------------------------------------------------------- #
+# kernel cases
+
+def paged_case(dev, dtype, *, B, K, G, hd, ps, pps, pos, seed):
+    """Pools, a sentinel-padded table covering each slot's pos with
+    scattered pages, and grouped queries, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    n_pages = B * pps + 3
+    table = np.full((B, pps), n_pages, np.int32)
+    perm = iter(rng.permutation(n_pages))
+    for i, p in enumerate(pos):
+        for j in range(p // ps + 1):
+            table[i, j] = next(perm)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+    return (t(B, K, G, hd), t(n_pages, ps, K, hd), t(n_pages, ps, K, hd),
+            torch.from_numpy(table).to(dev),
+            torch.from_numpy(np.asarray(pos, np.int32)).to(dev))
+
+
+def flash_case(dev, dtype, *, B, H, K, S, hd, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+    return t(B, H, S, hd), t(B, K, S, hd), t(B, K, S, hd)
+
+
+def olmo_decode_pos(rng, B, max_len):
+    """Ragged positions up to max_len - 1, one slot at pos 0."""
+    pos = rng.integers(1, max_len, B)
+    pos[0], pos[-1] = 0, max_len - 1
+    return [int(p) for p in pos]
+
+
+def kernel_checks(dev, ops, paged_ref, flash_ref):
+    """Every kernel against its plain version; returns the rows."""
+    rows = []
+    rng = np.random.default_rng(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        olmo_pos = olmo_decode_pos(rng, 8, 1024)
+        cases = [
+            ("olmo_decode", dict(B=8, K=16, G=1, hd=128, ps=16, pps=64,
+                                 pos=olmo_pos), 0, 0),
+            ("gqa_g4_hd64", dict(B=4, K=4, G=4, hd=64, ps=16, pps=8,
+                                 pos=[0, 37, 100, 127]), 0, 0),
+            ("window_prefix", dict(B=3, K=2, G=2, hd=64, ps=8, pps=16,
+                                   pos=[5, 70, 127]), 32, 4),
+            ("hd16_g8", dict(B=3, K=2, G=8, hd=16, ps=8, pps=6,
+                             pos=[7, 19, 40]), 0, 0),
+        ]
+        for name, kw, win, pre in cases:
+            args = paged_case(dev, dtype, seed=len(rows), **kw)
+            got = ops.paged_decode_attention(*args, window=win, prefix=pre)
+            torch.cuda.synchronize()
+            want = paged_ref(*args, window=win, prefix=pre)
+            err = check_close(f"paged_decode_attention/{name}", got, want,
+                              tol_of(dtype))
+            rows.append({"kernel": "paged_decode_attention", "case": name,
+                         "dtype": str(dtype), "max_abs_err": err})
+        fcases = [
+            ("olmo_prefill", dict(B=1, H=16, K=16, S=1024, hd=128), 0, 0),
+            ("gqa_h8_k2", dict(B=2, H=8, K=2, S=256, hd=64), 0, 0),
+            ("window_prefix", dict(B=1, H=4, K=2, S=256, hd=64), 48, 16),
+            ("hd16_ragged", dict(B=2, H=4, K=4, S=200, hd=16), 0, 0),
+            ("ragged_1000", dict(B=1, H=16, K=16, S=1000, hd=128), 0, 0),
+        ]
+        for name, kw, win, pre in fcases:
+            q, k, v = flash_case(dev, dtype, seed=len(rows), **kw)
+            got = ops.flash_attention(q, k, v, causal=True, window=win,
+                                      prefix=pre)
+            torch.cuda.synchronize()
+            want = flash_ref(q, k, v, causal=True, window=win, prefix=pre)
+            err = check_close(f"flash_attention/{name}", got, want,
+                              tol_of(dtype))
+            rows.append({"kernel": "flash_attention", "case": name,
+                         "dtype": str(dtype), "max_abs_err": err})
+        q, k, v = flash_case(dev, dtype, B=1, H=4, K=2, S=128, hd=64, seed=99)
+        got = ops.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        err = check_close("flash_attention/noncausal", got,
+                          flash_ref(q, k, v, causal=False), tol_of(dtype))
+        rows.append({"kernel": "flash_attention", "case": "noncausal",
+                     "dtype": str(dtype), "max_abs_err": err})
+    return rows
+
+
+def bound(nbytes: float, flops: float, peak_flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def kernel_timings(dev, ops, paged_ref, flash_ref, prefill_shape):
+    """Time each kernel, its plain version and the library yardstick at
+    the main path's OLMo-1B bf16 shapes, each held against its plain
+    version there first: decode over 8 slots with ragged positions up to
+    1023 (max_len 1024, pages of 16), and the (rows, bucket) prefill
+    `prefill_shape` that serve_bf16 dispatched."""
+    F = torch.nn.functional
+    out = {}
+    dt = torch.bfloat16
+    pos = olmo_decode_pos(np.random.default_rng(1), 8, 1024)
+    args = paged_case(dev, dt, B=8, K=16, G=1, hd=128, ps=16, pps=64, pos=pos,
+                      seed=7)
+    q, kp = args[0], args[1]
+    err = check_close("paged_decode_attention/timed",
+                      ops.paged_decode_attention(*args), paged_ref(*args),
+                      tol_of(dt))
+    n_kv = sum(p + 1 for p in pos)           # valid (slot, position) pairs
+    K, G, hd, sz = 16, 1, 128, kp.element_size()
+    nbytes = (2 * n_kv * K * hd * sz + 2 * q.numel() * sz
+              + args[3].numel() * 4 + args[4].numel() * 4)
+    b_ms, b_by = bound(nbytes, 4 * n_kv * K * G * hd, BF16_FLOPS)
+    out["paged_decode_attention"] = {
+        "shape": "B=8 K=16 G=1 hd=128 ps=16 pps=64 bf16, pos up to 1023",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.paged_decode_attention(*args)),
+        "plain_ms": time_ms(lambda: paged_ref(*args), reps=10),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    (B, S), H = prefill_shape, 16
+    q, k, v = flash_case(dev, dt, B=B, H=H, K=16, S=S, hd=128, seed=8)
+    err = check_close("flash_attention/timed", ops.flash_attention(q, k, v),
+                      flash_ref(q, k, v), tol_of(dt))
+    pairs = B * S * (S + 1) // 2             # visible causal (q, k) pairs
+    nbytes = 4 * q.numel() * q.element_size()
+    b_ms, b_by = bound(nbytes, 4 * H * 128 * pairs, BF16_FLOPS)
+    out["flash_attention"] = {
+        "shape": f"B={B} H=16 K=16 S={S} hd=128 bf16 causal",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.flash_attention(q, k, v)),
+        "plain_ms": time_ms(lambda: flash_ref(q, k, v), reps=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # a yardstick only: the port never calls it
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))}
+    return out
+
+
+# --------------------------------------------------------------------- #
+# engine phases
+
+def greedy_recompute(tf, params, cfg, prompt, n):
+    """Plain greedy decode: a full forward with plain attention and no
+    cache at every step."""
+    toks = list(prompt)
+    out = []
+    for _ in range(n):
+        ids = torch.tensor([toks], device=params["embed"].device)
+        logits = tf.forward(params, cfg, ids, impl="full")[0, -1]
+        nxt = int(logits.argmax())
+        out.append(nxt)
+        toks.append(nxt)
+    return out
+
+
+def parity_f32(dev, ops):
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                     SamplingParams)
+    cfg = dataclasses.replace(ARCHS["olmo-1b"], n_layers=2, dtype="f32")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = build(cfg, dev).init(gen)
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        n_slots=4, max_len=512, decode_block=4, paged_attention=True),
+        device=dev)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in (1, 17, 100, 300)]
+    reqs = [Request(model=cfg.name, prompt=p,
+                    sampling=SamplingParams(max_tokens=16)) for p in prompts]
+    ops.reset_launches()
+    for r in reqs:
+        assert eng.submit(r)
+    eng.run_until_done()
+    launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    if min(launched.values()) == 0:
+        raise AssertionError(f"parity_f32: a kernel never ran: {launched}")
+    mismatches = []
+    for r, p in zip(reqs, prompts):
+        want = greedy_recompute(tf, params, cfg, p, 16)
+        if r.output != want:
+            mismatches.append({"prompt_len": len(p), "got": r.output,
+                               "want": want})
+    emit({"phase": "parity_f32", "layers": cfg.n_layers, "d_model":
+          cfg.d_model, "prompt_lens": [len(p) for p in prompts],
+          "tokens_each": 16, "launches": launched,
+          "match": not mismatches})
+    if mismatches:
+        raise AssertionError(f"parity_f32 mismatches: {mismatches}")
+
+
+def serve_setup(dev):
+    """The main path's model, engine and 12 seeded requests: the full
+    OLMo-1B in bf16 with random weights from a seed; prompt lengths in
+    16..896, budgets in 1..64; 10 greedy and 2 sampled requests."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                     SamplingParams)
+    cfg = ARCHS["olmo-1b"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build(cfg, dev).init(gen)
+    ecfg = EngineConfig(n_slots=8, max_len=1024, page_size=16,
+                        decode_block=8, paged_attention=True)
+    eng = InferenceEngine(cfg, params, ecfg, device=dev)
+
+    def requests():
+        rng = np.random.default_rng(3)
+        reqs = []
+        for i in range(12):
+            n = int(rng.integers(16, 897))
+            budget = int(rng.integers(1, 65))
+            sampled = i in (4, 9)
+            sp = SamplingParams(max_tokens=budget,
+                                temperature=0.8 if sampled else 0.0,
+                                top_k=40 if sampled else 0,
+                                top_p=0.95 if sampled else 1.0)
+            reqs.append(Request(model=cfg.name,
+                                prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                                sampling=sp))
+        return reqs
+    return cfg, ecfg, eng, requests
+
+
+def drive(eng, reqs):
+    """Submit every request and step the engine until it drains; returns
+    (per-step host milliseconds, wall seconds)."""
+    t0 = time.perf_counter()
+    for r in reqs:
+        assert eng.submit(r)
+    step_ms = []
+    while eng.slot_req or eng.scheduler.depth:
+        s0 = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        if len(step_ms) > 1000:
+            raise AssertionError("the engine did not drain in 1000 steps")
+    return step_ms, time.perf_counter() - t0
+
+
+def serve_bf16(dev, ops, card):
+    cfg, ecfg, eng, requests = serve_setup(dev)
+    reqs = requests()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path: counters at 0 just before, read just after
+    ops.reset_launches()
+    step_ms, wall = drive(eng, reqs)
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    st = eng.perf_stats()
+    budgets = [r.sampling.max_tokens for r in reqs]
+    lens = [len(r.output) for r in reqs]
+    if lens != budgets or any(r.error for r in reqs):
+        raise AssertionError(f"serve_bf16 budgets {budgets} got {lens}")
+    if any(not 0 <= t < cfg.vocab for r in reqs for t in r.output):
+        raise AssertionError("serve_bf16: token outside the vocabulary")
+    if eng.pool.pages_in_use != 0:
+        raise AssertionError(f"{eng.pool.pages_in_use} pages not returned")
+    want_paged = cfg.n_layers * ecfg.decode_block * st["decode_dispatches"]
+    want_flash = cfg.n_layers * st["prefill_dispatches"]
+    if launches["paged_decode_attention"] != want_paged \
+            or launches["flash_attention"] != want_flash:
+        raise AssertionError(f"launches {launches}, want paged {want_paged}"
+                             f", flash {want_flash}")
+    ttft = sorted(r.ttft for r in reqs)
+    emit({"phase": "serve_bf16", "model": cfg.name, "layers": cfg.n_layers,
+          "params": cfg.num_params(), "requests": len(reqs),
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "budgets": budgets, "tokens": st["tokens"], "wall_s": wall,
+          "tok_per_s": st["tokens"] / wall,
+          "p50_step_ms": float(np.median(step_ms)),
+          "p50_ttft_ms": float(np.median(ttft)) * 1e3,
+          "steps": st["steps"], "dispatches": st["dispatches"],
+          "prefill_dispatches": st["prefill_dispatches"],
+          "decode_dispatches": st["decode_dispatches"],
+          "host_syncs": st["host_syncs"],
+          "prefill_traces": st["prefill_traces"],
+          "prefill_shapes": st["prefill_shapes"],
+          "decode_traces": st["decode_traces"],
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+          "launches": launches, "card": card})
+    # the prefill whose attention did the most work: rows x bucket^2
+    widest = max(st["prefill_shapes"], key=lambda s: s[0] * s[1] ** 2)
+    return launches, tuple(widest)
+
+
+# --------------------------------------------------------------------- #
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_ref)
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    emit({"phase": "device", "kind": kind, "nvidia_smi": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    libs = ops.build()
+    ptxas = {}
+    for name, path in libs.items():
+        log = (path.parent / f"{name}.log").read_text()
+        regs = [int(w) for line in log.splitlines() if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt.startswith("registers") and w.isdigit()]
+        spills = [line.strip() for line in log.splitlines()
+                  if "spill" in line and not line.strip().endswith(
+                      "0 bytes spill stores, 0 bytes spill loads")]
+        ptxas[name] = {"max_registers": max(regs or [0]),
+                       "spilling": spills[:4]}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "dir": str(ops.build_dir().relative_to(ROOT)), "ptxas": ptxas})
+
+    rows = kernel_checks(dev, ops, paged_decode_attention_ref,
+                         flash_attention_ref)
+    emit({"phase": "kernel_checks", "cases": rows})
+
+    parity_f32(dev, ops)
+    launches, prefill_shape = serve_bf16(dev, ops, card)
+    timings = kernel_timings(dev, ops, paged_decode_attention_ref,
+                             flash_attention_ref, prefill_shape)
+    meta = {
+        "paged_decode_attention": (
+            "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+            "src/repro/kernels/paged_attention.py:239"),
+        "flash_attention": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:113"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        t = timings[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                        "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"], "shape": t["shape"],
+                        "card": card})
+    emit({"kernels": kernels})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

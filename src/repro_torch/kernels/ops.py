@@ -1,0 +1,232 @@
+"""Public kernel wrappers, routed by device, and the kernels' build.
+
+Each wrapper takes the JAX package's layouts.  A CPU tensor goes to the
+kernel's plain PyTorch version; a CUDA tensor launches the hand-written
+kernel or raises — there is no fallback.  Each wrapper counts its
+launches in a plain integer attribute, `<wrapper>.launches`, which
+`chip_smoke.py` reads to show that the main path ran the kernels.
+
+Build: at first use on the card, every `csrc/*.cu` is compiled by `nvcc`
+for sm_90a into its own shared library with a plain C interface (all
+sources at once, one process each), under `build/kernels/<hash>/` at the
+root of the checkout, keyed by a hash of the sources and flags.  The
+libraries are bound with ctypes; pointers and the stream are passed as
+Python ints from `data_ptr()` and `torch.cuda.current_stream()`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.paged_attention import paged_decode_attention_ref
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+KERNELS = ("paged_decode_attention", "flash_attention")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build_dir() -> Path:
+    """`build/kernels/<hash of sources and flags>`."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        if src.suffix in (".cu", ".cuh"):
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Dict[str, Path]:
+    """Compile every kernel not yet built for these sources; returns the
+    library path of each.  `nvcc`'s report (registers, shared memory,
+    spills from `-Xptxas -v`) is kept beside each library as `<name>.log`.
+    Raises on any compile failure."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    libs = {name: out / f"lib{name}.so" for name in KERNELS}
+    todo = [n for n, p in libs.items() if not p.exists()]
+    if not todo:
+        return libs
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:   # one nvcc per source, all started together
+        tmp = out / f"lib{name}.so.{os.getpid()}.tmp"
+        log = open(out / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT), tmp, log)
+    failed = []
+    for name, (proc, tmp, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{name} (rc {rc}):\n"
+                          + (out / f"{name}.log").read_text()[-4000:])
+        else:
+            os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return libs
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    with _lock:
+        if name not in _libs:
+            path = build()[name]
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, name)
+            p, i = ctypes.c_void_p, ctypes.c_int
+            if name == "paged_decode_attention":
+                fn.argtypes = [p] * 6 + [i] * 10 + [ctypes.c_float, p]
+            else:
+                fn.argtypes = [p] * 4 + [i] * 10 + [ctypes.c_float, p]
+            fn.restype = i
+            lib.error_string.argtypes = [i]
+            lib.error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is "
+                             "not contiguous")
+
+
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor not 16-byte aligned")
+
+
+def _run(name: str, device: torch.device, *args) -> None:
+    lib = _lib(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.error_string(err).decode()} ({err})")
+
+
+# --------------------------------------------------------------------- #
+# wrappers
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           pos: torch.Tensor, *, window: int = 0,
+                           prefix: int = 0) -> torch.Tensor:
+    """q (B, K, G, hd); pools (P, ps, K, hd); page_table (B, pps) int32
+    with sentinel == P; pos (B,) int32.  Returns (B, K, G, hd)."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, page_table, pos,
+                                          window=window, prefix=prefix)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
+    name = "paged_decode_attention"
+    _check_cuda(name, q, k_pool, v_pool, page_table, pos)
+    b, nkv, g, hd = q.shape
+    n_pages, ps = k_pool.shape[0], k_pool.shape[1]
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise TypeError(f"{name}: q {q.dtype}, pools {k_pool.dtype}/"
+                        f"{v_pool.dtype}; needs f32 or bf16, all the same")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+    if tuple(k_pool.shape) != (n_pages, ps, nkv, hd) \
+            or v_pool.shape != k_pool.shape:
+        raise ValueError(f"{name}: pools {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if page_table.dtype != torch.int32 or pos.dtype != torch.int32 \
+            or page_table.dim() != 2 or page_table.shape[0] != b \
+            or tuple(pos.shape) != (b,):
+        raise ValueError(f"{name}: page_table (B, pps) and pos (B,) must be "
+                         "int32 for B = q.shape[0]")
+    if not isinstance(window, int) or not isinstance(prefix, int):
+        raise TypeError(f"{name}: window and prefix must be static ints")
+    out = torch.empty_like(q)
+    _check_aligned(name, q, k_pool, v_pool, out)
+    _run(name, q.device, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+         page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, nkv, g,
+         hd, n_pages, ps, page_table.shape[1], window, prefix,
+         _DTYPES[q.dtype], hd ** -0.5)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    prefix: int = 0) -> torch.Tensor:
+    """q (B, H, Sq, hd); k, v (B, K, Skv, hd) with H % K == 0.  Returns
+    (B, H, Sq, hd).  Sq and Skv may be any length."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   prefix=prefix)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    name = "flash_attention"
+    _check_cuda(name, q, k, v)
+    b, h, sq, hd = q.shape
+    nkv, skv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q {q.dtype}, k {k.dtype}, v {v.dtype}; "
+                        "needs f32 or bf16, all the same")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+    if tuple(k.shape) != (b, nkv, skv, hd) or v.shape != k.shape \
+            or nkv == 0 or h % nkv:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if not isinstance(window, int) or not isinstance(prefix, int):
+        raise TypeError(f"{name}: window and prefix must be static ints")
+    out = torch.empty_like(q)
+    _check_aligned(name, q, k, v, out)
+    _run(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         out.data_ptr(), b, h, nkv, sq, skv, hd, int(causal), window, prefix,
+         _DTYPES[q.dtype], hd ** -0.5)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+WRAPPERS = (paged_decode_attention, flash_attention)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0

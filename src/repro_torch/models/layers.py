@@ -1,0 +1,83 @@
+"""Core layers: norms, RoPE, SwiGLU MLP — plain PyTorch, the JAX layouts.
+
+Activations are `(batch, seq, d_model)`; attention heads stay explicit
+dims `(batch, seq, heads, head_dim)`.  Every function reproduces the
+rounding order of its counterpart in `repro.models.layers`: statistics
+and rotations in f32, cast back to the activation dtype at the same
+points.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+# --------------------------------------------------------------------- #
+# Norms
+
+def rms_norm(x: torch.Tensor, scale=None, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    if scale is not None:
+        xf = xf * (1.0 + scale.float()) if scale.dim() == 1 else xf * scale
+    return xf.to(dt)
+
+
+def nonparam_ln(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm: no scale, no bias.  The variance
+    is the population variance (`jnp.var`), hence `correction=0`."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dt)
+
+
+def norm(x: torch.Tensor, scale, kind: str) -> torch.Tensor:
+    if kind == "nonparam_ln":
+        return nonparam_ln(x)
+    return rms_norm(x, scale)
+
+
+# --------------------------------------------------------------------- #
+# RoPE (half-split, not interleaved)
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions: (...,) int -> cos/sin (..., head_dim // 2) in f32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=positions.device), exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (B, S, H, hd); cos/sin: (S, hd//2) or (B, S, hd//2)."""
+    half = x.shape[-1] // 2
+    if cos.dim() == 2:          # (S, half) -> broadcast over B, H
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                       # (B, S, half)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# MLP
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """silu in f32, cast to the activation dtype, then times `up` in that
+    dtype (the JAX rounding order)."""
+    return F.silu(gate.float()).to(up.dtype) * up
+
+
+def mlp_apply(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor
+              ) -> torch.Tensor:
+    """Dense SwiGLU FFN.  x: (B, S, D); wi: (2, D, F); wo: (F, D)."""
+    return swiglu(x @ wi[0], x @ wi[1]) @ wo

@@ -1,0 +1,36 @@
+"""Model facade: the interface the serving engine talks to, limited to
+what the engine calls.  The counterpart of `repro.models.model`, for the
+dense causal decoders the port covers."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import params as params_lib
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tf
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+    device: torch.device
+
+    def init(self, generator: torch.Generator) -> params_lib.Params:
+        return params_lib.init_params(self.cfg, generator, self.device)
+
+    def prefill(self, params, tokens, lengths):
+        return tf.prefill(params, self.cfg, tokens, lengths=lengths)
+
+    def decode_paged(self, params, cache, token, pos, page_table,
+                     write_table):
+        return tf.decode_step_paged(params, self.cfg, cache, token, pos,
+                                    page_table, write_table)
+
+
+def build(cfg: ArchConfig, device: DeviceLike = None) -> Model:
+    """A model on `device` ("cuda" unless given)."""
+    params_lib.require_dense_causal(cfg)
+    return Model(cfg, resolve_device(device))

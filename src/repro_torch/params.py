@@ -1,0 +1,138 @@
+"""Parameters of the dense causal decoder: seeded init and JAX import.
+
+The layout is the JAX package's, stacked over layers with a leading `L`
+dim, as a nested dict of tensors:
+
+    embed (V, d)                         tied LM head when cfg.tie_embeddings
+    layers.attn.wq (L, d, h, hd)   wk, wv (L, d, K, hd)   wo (L, h, hd, d)
+    layers.mlp.wi  (L, 2, d, f)          index 0 = gate, 1 = up (swiglu)
+    layers.mlp.wo  (L, f, d)
+    layers.ln1 / ln2 (L, d), final_norm (d,)      rms-norm configs only
+    lm_head (d, V)                                untied configs only
+
+`init_params` draws every leaf from the same distribution as the JAX
+init (truncated normal at +-2 sigma; 0.02 for embeddings, 1/sqrt(d_in)
+for dense layers; zeros for rms scales).  The numbers differ from
+`jax.random`'s; tests that compare the two packages carry JAX's params
+across with `from_jax`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+
+Params = Dict[str, Any]
+
+
+def require_dense_causal(cfg: ArchConfig) -> None:
+    """The port's model covers dense causal decoders; other families are
+    queued in ROADMAP.md A7."""
+    unsupported = []
+    if cfg.block != "transformer":
+        unsupported.append(f"block={cfg.block}")
+    if cfg.moe is not None:
+        unsupported.append("moe")
+    if cfg.encdec is not None:
+        unsupported.append("encoder-decoder")
+    if cfg.swa_window:
+        unsupported.append("sliding window")
+    if cfg.n_meta_tokens or cfg.n_prefix_tokens or cfg.frontend:
+        unsupported.append("prefix tokens")
+    if cfg.d_ff <= 0 or cfg.act != "swiglu":
+        unsupported.append(f"ffn act={cfg.act} d_ff={cfg.d_ff}")
+    if unsupported:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(unsupported)} is not ported yet "
+            f"(ROADMAP.md A7); repro_torch runs dense causal decoders")
+
+
+# --------------------------------------------------------------------- #
+# init
+
+_LO, _HI = -2.0, 2.0
+
+
+def _trunc_normal(shape, scale: float, dtype, gen: torch.Generator,
+                  device: torch.device) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2] (as jax.random.truncated_normal),
+    times `scale`, by inverse CDF in f32."""
+    cdf = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))  # noqa: E731
+    lo, hi = cdf(_LO), cdf(_HI)
+    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    x = torch.special.ndtri(lo + (hi - lo) * u).clamp_(_LO, _HI)
+    return (x * scale).to(dtype)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device: DeviceLike = None) -> Params:
+    """Random params for `cfg` on `device` ("cuda" unless given), drawn
+    from `generator`, which must live on that device."""
+    require_dense_causal(cfg)
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, params on {dev}")
+    dt = torch_dtype(cfg.dtype)
+    n, d, hd = cfg.n_layers, cfg.d_model, cfg.head_dim
+    h, kv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+
+    def dense(d_in, *shape):
+        return _trunc_normal(shape, (1.0 / d_in) ** 0.5, dt, generator, dev)
+
+    layers: Params = {
+        "attn": {"wq": dense(d, n, d, h, hd), "wk": dense(d, n, d, kv, hd),
+                 "wv": dense(d, n, d, kv, hd),
+                 "wo": dense(h * hd, n, h, hd, d)},
+        "mlp": {"wi": dense(d, n, 2, d, f), "wo": dense(f, n, f, d)},
+    }
+    params: Params = {
+        "embed": _trunc_normal((cfg.vocab, d), 0.02, dt, generator, dev),
+        "layers": layers}
+    if cfg.norm == "rms":
+        layers["ln1"] = torch.zeros((n, d), dtype=dt, device=dev)
+        layers["ln2"] = torch.zeros((n, d), dtype=dt, device=dev)
+        params["final_norm"] = torch.zeros((d,), dtype=dt, device=dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _trunc_normal((d, cfg.vocab), 0.02, dt,
+                                          generator, dev)
+    return params
+
+
+# --------------------------------------------------------------------- #
+# JAX import (numpy leaves in, tensors out)
+
+def _leaf(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bf16: move the raw bits through a 16-bit view
+        bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def from_jax(tree: Params, cfg: ArchConfig, device: DeviceLike = None
+             ) -> Params:
+    """Carry a JAX param pytree (leaves already `np.asarray`'d) across,
+    leaf by leaf, keeping the stacked layout.  Takes numpy arrays only;
+    it imports nothing of JAX."""
+    require_dense_causal(cfg)
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _leaf(node, dev)
+    return conv(tree)
+
+
+def param_bytes(params: Params) -> int:
+    def walk(node):
+        if isinstance(node, dict):
+            return sum(walk(v) for v in node.values())
+        return node.numel() * node.element_size()
+    return walk(params)

@@ -1,0 +1,113 @@
+"""The port's hand-written kernels against their plain PyTorch versions,
+on the card.  Every test here carries the `cuda` marker and skips where
+there is no CUDA device; it imports no JAX, so it runs on the machine
+with the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: f32 1e-4 (another summation order than the plain version),
+bf16 2e-2 (as tests/test_kernels.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.paged_attention import paged_decode_attention_ref
+
+DTYPES = {"f32": (torch.float32, 1e-4), "bf16": (torch.bfloat16, 2e-2)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (runs on the H100)")
+    return torch.device("cuda")
+
+
+def _tensors(seed, dev, dtype, *shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev, dtype) for s in shapes]
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+PAGED = [
+    # B, K, G, n_pages, pps, ps, hd, window, prefix
+    (3, 2, 4, 24, 6, 8, 64, 0, 0),
+    (2, 4, 2, 32, 8, 4, 32, 0, 0),
+    (4, 1, 8, 24, 4, 8, 128, 0, 0),
+    (3, 2, 4, 24, 6, 8, 64, 16, 4),      # window + prefix
+    (2, 2, 3, 40, 5, 8, 16, 0, 0),       # hd 16, G 3
+    (2, 2, 12, 40, 5, 8, 32, 0, 0),      # G > 8 runs in chunks
+    (3, 16, 1, 200, 64, 16, 128, 0, 0),  # OLMo-1B decode shape
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", PAGED)
+def test_paged_kernel_matches_plain(cuda, case, dt):
+    B, K, G, n_pages, pps, ps, hd, win, pre = case
+    dtype, tol = DTYPES[dt]
+    rng = np.random.default_rng(1)
+    pos = [0, ps * 2 + 3, ps * pps - 1][:B] + [5] * max(B - 3, 0)
+    table = np.full((B, pps), n_pages, np.int32)     # sentinel-padded
+    free = iter(rng.permutation(n_pages))
+    for i, p in enumerate(pos):
+        for j in range(p // ps + 1):
+            table[i, j] = next(free)
+    q, kp, vp = _tensors(2, cuda, dtype, (B, K, G, hd),
+                         (n_pages, ps, K, hd), (n_pages, ps, K, hd))
+    args = (q, kp, vp, torch.from_numpy(table).to(cuda),
+            torch.tensor(pos, dtype=torch.int32, device=cuda))
+    before = ops.paged_decode_attention.launches
+    got = ops.paged_decode_attention(*args, window=win, prefix=pre)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches == before + 1
+    _close(got, paged_decode_attention_ref(*args, window=win, prefix=pre),
+           tol)
+
+
+FLASH = [
+    # B, H, K, S, hd, window, prefix, causal
+    (2, 4, 2, 128, 64, 0, 0, True),
+    (1, 4, 2, 128, 64, 48, 16, True),    # window + prefix
+    (1, 6, 2, 192, 64, 0, 0, True),      # 6 heads
+    (2, 4, 4, 100, 16, 0, 0, True),      # ragged length, hd 16
+    (1, 8, 2, 72, 128, 0, 0, True),
+    (1, 4, 2, 128, 64, 0, 0, False),     # non-causal
+    (1, 16, 16, 1024, 128, 0, 0, True),  # OLMo-1B prefill bucket
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", FLASH)
+def test_flash_kernel_matches_plain(cuda, case, dt):
+    B, H, K, S, hd, win, pre, causal = case
+    dtype, tol = DTYPES[dt]
+    q, k, v = _tensors(3, cuda, dtype, (B, H, S, hd), (B, K, S, hd),
+                       (B, K, S, hd))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=win, prefix=pre)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    _close(got, flash_attention_ref(q, k, v, causal=causal, window=win,
+                                    prefix=pre), tol)
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v = _tensors(4, cuda, torch.float32, (1, 2, 8, 24), (1, 2, 8, 24),
+                       (1, 2, 8, 24))
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _tensors(4, cuda, torch.float16, (1, 2, 8, 16), (1, 2, 8, 16),
+                       (1, 2, 8, 16))
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k, v)

@@ -1,0 +1,43 @@
+"""The port stands alone: importing it loads no JAX and nothing of the JAX
+package, and its entry points need a card unless told to use the CPU."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PROBE = """
+import sys
+import repro_torch, repro_torch.serving, repro_torch.kernels.ops
+import repro_torch.models, repro_torch.params, repro_torch.configs
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+
+import torch
+from repro_torch.configs import ARCHS
+from repro_torch.models import build
+from repro_torch.serving import EngineConfig, InferenceEngine
+cfg = ARCHS["olmo-1b"].reduced(dtype="f32")
+params = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
+eng = InferenceEngine(cfg, params, EngineConfig(), device="cpu")
+assert eng.device.type == "cpu"
+if not torch.cuda.is_available():
+    try:
+        InferenceEngine(cfg, params, EngineConfig())
+    except RuntimeError as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("engine ran without CUDA and without 'cpu'")
+print("ok")
+"""
+
+
+def test_port_imports_no_jax_and_needs_cuda():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")

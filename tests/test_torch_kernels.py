@@ -1,0 +1,187 @@
+"""The port's attention kernels against the JAX package's.
+
+On the CPU: each plain PyTorch version (`paged_decode_attention_ref`,
+`flash_attention_ref`) is held against the Pallas kernel in interpret
+mode and against the JAX reference, on the cases of
+`tests/test_kernels.py`; the device-routing wrappers send CPU tensors to
+the plain versions and launch nothing.  Inputs are made with numpy from
+a seed and handed to both packages.  Tolerances: f32 2e-5 (the same
+online softmax in another summation order), bf16 2e-2 (as
+tests/test_kernels.py).  The kernels themselves are held against these
+plain versions on the card by tests/test_torch_cuda.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import paged_attention as jax_pa
+from repro.kernels import ref as jax_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.paged_attention import paged_decode_attention_ref
+
+torch.set_num_threads(2)
+
+F32_TOL, BF16_TOL = 2e-5, 2e-2
+
+
+def _arrays(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _jax(a, dt):
+    return jnp.asarray(a, dt)
+
+
+def _torch(a, dt, device="cpu"):
+    return torch.from_numpy(a).to(device=device, dtype=dt)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _f32(t: torch.Tensor) -> np.ndarray:
+    return t.float().cpu().numpy()
+
+
+# ------------------- paged decode attention ------------------------ #
+PAGED_CASES = [
+    # B, K, G, n_pages, pps, ps, hd, window  (tests/test_kernels.py)
+    (3, 2, 4, 24, 6, 8, 64, 0),
+    (2, 4, 2, 32, 8, 4, 32, 0),
+    (4, 1, 8, 24, 4, 8, 128, 0),
+    (3, 2, 4, 24, 6, 8, 64, 16),     # sliding window
+]
+
+
+def _paged_case(seed, B, K, G, n_pages, pps, ps, hd):
+    """Pools, a sentinel-padded table mapping just enough pages to cover
+    each slot's ragged pos, and grouped queries — as numpy."""
+    rng = np.random.default_rng(seed)
+    pos = np.asarray([ps - 1, ps * 2 + 3, ps * (pps - 1)][:B]
+                     + [5] * max(B - 3, 0), np.int32)
+    table = np.full((B, pps), n_pages, np.int32)
+    free = iter(rng.permutation(n_pages))
+    for i, p in enumerate(pos):
+        for j in range(p // ps + 1):
+            table[i, j] = next(free)
+    kp, vp, q = _arrays(seed + 1, (n_pages, ps, K, hd), (n_pages, ps, K, hd),
+                        (B, K, G, hd))
+    return q, kp, vp, table, pos
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_ref_matches_jax(case):
+    B, K, G, n_pages, pps, ps, hd, win = case
+    q, kp, vp, table, pos = _paged_case(11, B, K, G, n_pages, pps, ps, hd)
+    args = [_jax(q, jnp.float32), _jax(kp, jnp.float32),
+            _jax(vp, jnp.float32), jnp.asarray(table), jnp.asarray(pos)]
+    want_kernel = jax_pa.paged_decode_attention(*args, window=win,
+                                                interpret=True)
+    want_ref = jax_pa.paged_decode_attention_ref(*args, window=win)
+    got = paged_decode_attention_ref(
+        _torch(q, torch.float32), _torch(kp, torch.float32),
+        _torch(vp, torch.float32), torch.from_numpy(table),
+        torch.from_numpy(pos), window=win)
+    _close(got, want_kernel, F32_TOL)
+    _close(got, want_ref, F32_TOL)
+
+
+def test_paged_ref_shared_pages():
+    """Two slots mapping the same physical prefix page read the same keys
+    through their own tables (the shared-page case of test_kernels.py)."""
+    B, K, G, n_pages, ps, hd = 2, 2, 2, 16, 8, 32
+    kp, vp, q1 = _arrays(5, (n_pages, ps, K, hd), (n_pages, ps, K, hd),
+                         (1, K, G, hd))
+    q = np.tile(q1, (B, 1, 1, 1))
+    table = np.asarray([[3, 5, 16, 16], [3, 7, 16, 16]], np.int32)
+    pos = np.asarray([ps * 2 - 1, ps * 2 - 1], np.int32)
+    want = jax_pa.paged_decode_attention(
+        _jax(q, jnp.float32), _jax(kp, jnp.float32), _jax(vp, jnp.float32),
+        jnp.asarray(table), jnp.asarray(pos), interpret=True)
+    got = paged_decode_attention_ref(
+        _torch(q, torch.float32), _torch(kp, torch.float32),
+        _torch(vp, torch.float32), torch.from_numpy(table),
+        torch.from_numpy(pos))
+    _close(got, want, F32_TOL)
+
+
+def test_paged_ref_bf16_matches_jax():
+    B, K, G, n_pages, pps, ps, hd, _ = PAGED_CASES[0]
+    q, kp, vp, table, pos = _paged_case(3, B, K, G, n_pages, pps, ps, hd)
+    want = jax_pa.paged_decode_attention(
+        _jax(q, jnp.bfloat16), _jax(kp, jnp.bfloat16),
+        _jax(vp, jnp.bfloat16), jnp.asarray(table), jnp.asarray(pos),
+        interpret=True)
+    got = paged_decode_attention_ref(
+        _torch(q, torch.bfloat16), _torch(kp, torch.bfloat16),
+        _torch(vp, torch.bfloat16), torch.from_numpy(table),
+        torch.from_numpy(pos))
+    assert got.dtype == torch.bfloat16
+    _close(_f32(got), want.astype(jnp.float32), BF16_TOL)
+
+
+# ------------------- flash attention ------------------------------- #
+FLASH_CASES = [
+    # B, H, K, Sq, Skv, hd, win, prefix, dtype (small rows of test_kernels)
+    (2, 4, 2, 128, 128, 64, 0, 0, "f32"),
+    (1, 4, 2, 128, 128, 64, 48, 16, "f32"),     # window + prefix
+    (1, 2, 2, 64, 64, 32, 0, 0, "bf16"),
+    (1, 6, 2, 192, 192, 64, 0, 0, "f32"),       # non-pow2 heads
+]
+_DT = {"f32": (jnp.float32, torch.float32, F32_TOL),
+       "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_ref_matches_jax(case):
+    B, H, K, Sq, Skv, hd, win, pre, dt = case
+    jdt, tdt, tol = _DT[dt]
+    q, k, v = _arrays(21, (B, H, Sq, hd), (B, K, Skv, hd), (B, K, Skv, hd))
+    jq, jk, jv = _jax(q, jdt), _jax(k, jdt), _jax(v, jdt)
+    want_kernel = jax_flash(jq, jk, jv, causal=True, window=win, prefix=pre,
+                            block_q=64, block_k=64, interpret=True)
+    want_ref = jax_ref.flash_attention_ref(jq, jk, jv, causal=True,
+                                           window=win, prefix=pre)
+    got = flash_attention_ref(_torch(q, tdt), _torch(k, tdt), _torch(v, tdt),
+                              causal=True, window=win, prefix=pre)
+    assert got.dtype == tdt
+    _close(_f32(got), want_kernel.astype(jnp.float32), tol)
+    _close(_f32(got), want_ref.astype(jnp.float32), tol)
+
+
+def test_flash_ref_noncausal():
+    q, k, v = _arrays(22, (1, 4, 128, 64), (1, 2, 128, 64), (1, 2, 128, 64))
+    want = jax_flash(_jax(q, jnp.float32), _jax(k, jnp.float32),
+                     _jax(v, jnp.float32), causal=False, block_q=64,
+                     block_k=64, interpret=True)
+    got = flash_attention_ref(_torch(q, torch.float32),
+                              _torch(k, torch.float32),
+                              _torch(v, torch.float32), causal=False)
+    _close(got, want, F32_TOL)
+
+
+# ------------------- device routing -------------------------------- #
+def test_cpu_tensors_route_to_plain_versions():
+    """CPU tensors take the plain versions, bit for bit, and launch no
+    kernel."""
+    ops.reset_launches()
+    B, K, G, n_pages, pps, ps, hd, _ = PAGED_CASES[1]
+    q, kp, vp, table, pos = _paged_case(4, B, K, G, n_pages, pps, ps, hd)
+    targs = (_torch(q, torch.float32), _torch(kp, torch.float32),
+             _torch(vp, torch.float32), torch.from_numpy(table),
+             torch.from_numpy(pos))
+    assert torch.equal(ops.paged_decode_attention(*targs),
+                       paged_decode_attention_ref(*targs))
+    fq, fk, fv = (_torch(a, torch.float32) for a in
+                  _arrays(6, (1, 4, 40, 32), (1, 2, 40, 32), (1, 2, 40, 32)))
+    assert torch.equal(ops.flash_attention(fq, fk, fv),
+                       flash_attention_ref(fq, fk, fv))
+    assert ops.paged_decode_attention.launches == 0
+    assert ops.flash_attention.launches == 0

@@ -1,0 +1,111 @@
+"""Where the time goes on the port's main path, on one CUDA device.
+
+    python3 tools/profile_serve.py
+
+Runs chip_smoke.py's serve_bf16 workload (the full OLMo-1B in bf16,
+12 seeded requests) three times on one engine: a cold run (first use:
+kernel libraries loaded, cuBLAS initialised, pinned buffers allocated),
+a warm run timed on the host clock, and a warm run under
+torch.profiler.  Prints one JSON line per run; the profiled one carries
+the device busy time (sum of kernel times; one stream, so kernels do not
+overlap), the device idle share of the profiled wall time, the device
+time per kernel family and the top kernels, and the CUDA kernel launches
+per decode step.  Exits non-zero without a CUDA device.
+"""
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (adds src/ to the path)
+
+FAMILIES = (("paged_decode_kernel", "paged_decode_attention"),
+            ("flash_kernel", "flash_attention"),
+            ("gemm", "matmul"), ("cutlass", "matmul"), ("sm90", "matmul"),
+            ("nvjet", "matmul"))
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for key, fam in FAMILIES:
+        if key in low:
+            return fam
+    return "other (elementwise, norms, copies, sampling)"
+
+
+def run_line(tag, eng, step_ms, wall, before):
+    st = eng.perf_stats()
+    tokens = st["tokens"] - before["tokens"]
+    return {"run": tag, "tokens": tokens, "wall_s": wall,
+            "tok_per_s": tokens / wall,
+            "p50_step_ms": float(np.median(step_ms)),
+            "steps": st["steps"] - before["steps"],
+            "decode_dispatches": (st["decode_dispatches"]
+                                  - before["decode_dispatches"]),
+            "prefill_dispatches": (st["prefill_dispatches"]
+                                   - before["prefill_dispatches"])}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_serve: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda", 0)
+    card = chip_smoke.card_line()
+    ops.build()
+    _, ecfg, eng, requests = chip_smoke.serve_setup(dev)
+    for tag in ("cold", "warm"):
+        before = eng.perf_stats()
+        step_ms, wall = chip_smoke.drive(eng, requests())
+        chip_smoke.emit({**run_line(tag, eng, step_ms, wall, before),
+                         "card": card})
+    before = eng.perf_stats()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_ms, wall = chip_smoke.drive(eng, requests())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    line = run_line("profiled", eng, step_ms, wall, before)
+    kernels, fams, launches = [], {}, 0
+    for evt in prof.key_averages():
+        if evt.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += evt.count
+        # device-side events only (kernels, copies, sets): CPU ops also
+        # carry their children's device time, which would count twice
+        if evt.device_type == DeviceType.CUDA:
+            dev_us = evt.self_device_time_total
+            kernels.append((dev_us, evt.count, evt.key))
+            fam = family(evt.key)
+            fams[fam] = fams.get(fam, 0.0) + dev_us
+    busy_s = sum(k[0] for k in kernels) / 1e6
+    kernels.sort(reverse=True)
+    decode_steps = line["decode_dispatches"] * ecfg.decode_block
+    chip_smoke.emit({
+        **line, "device_busy_s": busy_s,
+        "device_idle_share": 1.0 - busy_s / wall,
+        "device_ms_by_family": {k: v / 1e3 for k, v in sorted(
+            fams.items(), key=lambda kv: -kv[1])},
+        "top_kernels": [{"name": n[:90], "count": c, "device_ms": us / 1e3}
+                        for us, c, n in kernels[:12]],
+        "kernel_launches": launches,
+        "decode_steps": decode_steps,
+        "card": card})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
