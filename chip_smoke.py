@@ -12,30 +12,47 @@ JSON line:
               from the checkout (nvcc, sm_90a), with ptxas' registers and
               spills.
 3. kernel_checks — each hand-written kernel against its plain PyTorch
-              version on the card, at the OLMo-1B decode / prefill shapes
-              and at GQA, window + prefix, head_dim 16 and ragged-length
-              cases.  Tolerances: f32 1e-4 (another summation order than
-              the plain version), bf16 2e-2 (as tests/test_kernels.py).
+              version on the card, at the OLMo-1B decode / prefill /
+              projection / head shapes and at GQA, window + prefix,
+              head_dim 16, strided-cache and ragged cases.  Tolerances:
+              f32 1e-4 (another summation order than the plain version),
+              bf16 2e-2 (as tests/test_kernels.py); the int8 products are
+              held against the plain dequantize-then-multiply, so they too
+              differ only in the order of summation.
 4. parity_f32 — a 2-layer full-width OLMo-1B in f32 serves 4 greedy
-              requests through the engine; its tokens must equal a plain
-              greedy recompute on the card (full forward, plain attention,
-              no cache, every step).
-5. serve_bf16 — the main path: the full OLMo-1B (16 layers, bf16, seeded
+              requests through the engine in each decode mode (paged
+              attention, gather, contiguous) and in the gather mode with
+              int8 weights; its tokens must equal a plain greedy
+              recompute on the card (full forward, plain attention, no
+              cache, every step; for int8 on the dequantized weights).
+5. serve_bf16 — a main path: the full OLMo-1B (16 layers, bf16, seeded
               random weights) serves 12 requests through
-              InferenceEngine.submit/step, with the kernels' launch
-              counters set to 0 just before and read just after; every
-              request must finish with its exact budget, every page must
-              be returned, and the launch counts must equal
-              n_layers x decode_block x decode dispatches (paged decode)
-              and n_layers x prefill dispatches (flash).
-6. kernels  — per kernel: its launches on the main path, its error
-              against the plain version, its time (CUDA events, median of
-              30 runs after warm-up, each from a cold L2) beside the plain
-              version's, the least time the card could take (bound), and
-              one PyTorch library call computing the same function where
-              there is one.  Paged decode is timed at the main path's
-              decode shape; flash at the serve's widest prefill (rows x
-              bucket).
+              InferenceEngine.submit/step in the paged-attention mode,
+              with the kernels' launch counters set to 0 just before and
+              read just after; every request must finish with its exact
+              budget, every page must be returned, and the launch counts
+              must equal n_layers x decode_block x decode dispatches
+              (paged decode) and n_layers x prefill dispatches (flash).
+6. serve_int8 — the other main path: the same model, engine sizes and
+              requests under quantize="int8" in the JAX engine's default
+              decode mode (gather), counters reset just before and read
+              just after: exact budgets, every page returned, launches
+              n_layers x decode_block x decode dispatches (decode
+              attention), 0 (paged decode), n_layers x prefill dispatches
+              (flash), (7 n_layers + 1) x model calls (int8 matmul: wq,
+              wk, wv, wo, gate, up, down per layer plus the tied head, in
+              each prefill and each decode step), and int8 weights under
+              0.65 x the bf16 model's bytes.
+7. kernels  — per kernel: its launches on the path that runs it, its
+              error against the plain version, its time (CUDA events,
+              median of 30 runs after warm-up, each from a cold L2)
+              beside the plain version's, the least time the card could
+              take (bound), and one PyTorch library call computing the
+              same function where there is one.  Both decode kernels are
+              timed at the serves' decode shape; flash at serve_bf16's
+              widest prefill (rows x bucket); the int8 matmul at decode
+              M = 8 for 2048 -> 8192 (its entry), the tied head and
+              serve_int8's widest prefill M (its "shapes").
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -143,6 +160,40 @@ def flash_case(dev, dtype, *, B, H, K, S, hd, seed):
     return t(B, H, S, hd), t(B, K, S, hd), t(B, K, S, hd)
 
 
+def decode_case(dev, dtype, *, B, K, G, S, hd, pos, seed, strided):
+    """q and caches from a numpy seed; `strided` caches are the
+    (B, K, S, hd) permuted views of (B, S, K, hd) tensors, the layout the
+    engine hands the kernel."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+    if strided:
+        k, v = (t(B, S, K, hd).permute(0, 2, 1, 3) for _ in range(2))
+    else:
+        k, v = t(B, K, S, hd), t(B, K, S, hd)
+    return (t(B, K, G, hd), k, v,
+            torch.tensor(pos, dtype=torch.int32, device=dev))
+
+
+def int8_case(dev, dtype, q_lib, *, M, K, N, head, seed):
+    """x and an int8 weight quantized per output channel, or, for the
+    tied head's route, the (K, N) view of an (N, K) embedding quantized
+    per K with its (K, 1) scale."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+    w = (t(N, K) if head else t(K, N)) * 0.1
+    qd = q_lib.quantize_array(w, 8)
+    wq, sc = qd["__q__"], qd["scale"]
+    if head:
+        wq, sc = wq.t(), sc.t()
+    return t(M, K).to(dtype), wq, sc
+
+
 def olmo_decode_pos(rng, B, max_len):
     """Ragged positions up to max_len - 1, one slot at pos 0."""
     pos = rng.integers(1, max_len, B)
@@ -150,8 +201,10 @@ def olmo_decode_pos(rng, B, max_len):
     return [int(p) for p in pos]
 
 
-def kernel_checks(dev, ops, paged_ref, flash_ref):
+def kernel_checks(dev, ops, refs, q_lib):
     """Every kernel against its plain version; returns the rows."""
+    paged_ref, flash_ref = refs["paged_decode_attention"], \
+        refs["flash_attention"]
     rows = []
     rng = np.random.default_rng(0)
     for dtype in (torch.bfloat16, torch.float32):
@@ -199,6 +252,51 @@ def kernel_checks(dev, ops, paged_ref, flash_ref):
                           flash_ref(q, k, v, causal=False), tol_of(dtype))
         rows.append({"kernel": "flash_attention", "case": "noncausal",
                      "dtype": str(dtype), "max_abs_err": err})
+        dcases = [
+            ("olmo_decode_strided", dict(B=8, K=16, G=1, S=1024, hd=128,
+                                         pos=olmo_pos, strided=True), 0, 0),
+        ] + [   # the DECODE_CASES of tests/test_kernels.py
+            (f"decode_case_{i}", dict(
+                B=B, K=K, G=G, S=S, hd=hd, strided=False,
+                pos=rng.integers(max(win, 1), S, B).tolist()), win, 0)
+            for i, (B, K, G, S, hd, win) in enumerate(
+                [(2, 2, 4, 512, 64, 0), (4, 8, 8, 256, 128, 0),
+                 (2, 1, 4, 512, 64, 128), (1, 4, 2, 1024, 64, 0),
+                 (3, 2, 8, 256, 32, 0)])
+        ] + [
+            ("window_prefix", dict(B=3, K=2, G=2, S=300, hd=64,
+                                   pos=[5, 70, 299], strided=False), 32, 4),
+            ("hd16_g8", dict(B=3, K=2, G=8, S=40, hd=16, pos=[7, 19, 39],
+                             strided=False), 0, 0),
+            ("strided_gqa", dict(B=4, K=4, G=4, S=200, hd=64,
+                                 pos=[0, 50, 150, 199], strided=True), 0, 0),
+        ]
+        for name, kw, win, pre in dcases:
+            args = decode_case(dev, dtype, seed=len(rows), **kw)
+            got = ops.decode_attention(*args, window=win, prefix=pre)
+            torch.cuda.synchronize()
+            want = refs["decode_attention"](*args, window=win, prefix=pre)
+            err = check_close(f"decode_attention/{name}", got, want,
+                              tol_of(dtype))
+            rows.append({"kernel": "decode_attention", "case": name,
+                         "dtype": str(dtype), "max_abs_err": err})
+        icases = [(f"m{m}_{k}x{n}", dict(M=m, K=k, N=n, head=False))
+                  for m in (8, 4096)
+                  for k, n in ((2048, 2048), (2048, 8192), (8192, 2048))]
+        icases += [
+            ("head_m8_2048x50304", dict(M=8, K=2048, N=50304, head=True)),
+            ("ragged_3x100x77", dict(M=3, K=100, N=77, head=False)),
+            ("ragged_70x100x77", dict(M=70, K=100, N=77, head=False)),
+            ("head_ragged_5x37x61", dict(M=5, K=37, N=61, head=True)),
+        ]
+        for name, kw in icases:
+            x, wq, sc = int8_case(dev, dtype, q_lib, seed=len(rows), **kw)
+            got = ops.int8_matmul(x, wq, sc)
+            torch.cuda.synchronize()
+            err = check_close(f"int8_matmul/{name}", got,
+                              refs["int8_matmul"](x, wq, sc), tol_of(dtype))
+            rows.append({"kernel": "int8_matmul", "case": name,
+                         "dtype": str(dtype), "max_abs_err": err})
     return rows
 
 
@@ -208,33 +306,58 @@ def bound(nbytes: float, flops: float, peak_flops: float):
                                        else "operations")
 
 
-def kernel_timings(dev, ops, paged_ref, flash_ref, prefill_shape):
+def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
     """Time each kernel, its plain version and the library yardstick at
-    the main path's OLMo-1B bf16 shapes, each held against its plain
+    the main paths' OLMo-1B bf16 shapes, each held against its plain
     version there first: decode over 8 slots with ragged positions up to
-    1023 (max_len 1024, pages of 16), and the (rows, bucket) prefill
-    `prefill_shape` that serve_bf16 dispatched."""
+    1023 (max_len 1024, pages of 16), the (rows, bucket) prefill
+    `prefill_shape` that serve_bf16 dispatched, and the int8 products at
+    decode M = 8, the tied head and serve_int8's widest prefill M
+    `int8_m`."""
     F = torch.nn.functional
     out = {}
     dt = torch.bfloat16
     pos = olmo_decode_pos(np.random.default_rng(1), 8, 1024)
+    n_kv = sum(p + 1 for p in pos)           # valid (slot, position) pairs
+    K, G, hd, sz = 16, 1, 128, 2
+    kv_bytes = 2 * n_kv * K * hd * sz + 2 * 8 * K * G * hd * sz + 8 * 4
+    kv_flops = 4 * n_kv * K * G * hd
+
+    paged_ref = refs["paged_decode_attention"]
     args = paged_case(dev, dt, B=8, K=16, G=1, hd=128, ps=16, pps=64, pos=pos,
                       seed=7)
-    q, kp = args[0], args[1]
     err = check_close("paged_decode_attention/timed",
                       ops.paged_decode_attention(*args), paged_ref(*args),
                       tol_of(dt))
-    n_kv = sum(p + 1 for p in pos)           # valid (slot, position) pairs
-    K, G, hd, sz = 16, 1, 128, kp.element_size()
-    nbytes = (2 * n_kv * K * hd * sz + 2 * q.numel() * sz
-              + args[3].numel() * 4 + args[4].numel() * 4)
-    b_ms, b_by = bound(nbytes, 4 * n_kv * K * G * hd, BF16_FLOPS)
+    b_ms, b_by = bound(kv_bytes + args[3].numel() * 4, kv_flops, BF16_FLOPS)
     out["paged_decode_attention"] = {
         "shape": "B=8 K=16 G=1 hd=128 ps=16 pps=64 bf16, pos up to 1023",
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.paged_decode_attention(*args)),
         "plain_ms": time_ms(lambda: paged_ref(*args), reps=10),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    dec_ref = refs["decode_attention"]
+    q, k, v, p = decode_case(dev, dt, B=8, K=16, G=1, S=1024, hd=128, pos=pos,
+                             seed=9, strided=True)
+    err = check_close("decode_attention/timed", ops.decode_attention(
+        q, k, v, p), dec_ref(q, k, v, p), tol_of(dt))
+    b_ms, b_by = bound(kv_bytes, kv_flops, BF16_FLOPS)
+    # the yardstick: one SDPA call, G = 1 so heads line up, with the
+    # ragged boolean mask (B, 1, 1, S)
+    mask = (torch.arange(1024, device=dev)[None, :]
+            <= p[:, None].long())[:, None, None, :]
+    out["decode_attention"] = {
+        "shape": "B=8 K=16 G=1 S=1024 hd=128 bf16, (B, S, K, hd) cache "
+                 "view, pos up to 1023",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.decode_attention(q, k, v, p)),
+        "plain_ms": time_ms(lambda: dec_ref(q, k, v, p), reps=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask))}
+
+    flash_ref = refs["flash_attention"]
     (B, S), H = prefill_shape, 16
     q, k, v = flash_case(dev, dt, B=B, H=H, K=16, S=S, hd=128, seed=8)
     err = check_close("flash_attention/timed", ops.flash_attention(q, k, v),
@@ -251,6 +374,36 @@ def kernel_timings(dev, ops, paged_ref, flash_ref, prefill_shape):
         # a yardstick only: the port never calls it
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True))}
+
+    mm_ref = refs["int8_matmul"]
+    shapes = []
+    for label, M, Kd, N, head in (
+            ("decode", 8, 2048, 8192, False),
+            ("head", 8, 2048, 50304, True),
+            ("prefill", int8_m, 2048, 8192, False)):
+        x, wq, sc = int8_case(dev, dt, q_lib, M=M, K=Kd, N=N, head=head,
+                              seed=10)
+        err = check_close(f"int8_matmul/timed_{label}",
+                          ops.int8_matmul(x, wq, sc), mm_ref(x, wq, sc),
+                          tol_of(dt))
+        # bytes: int8 weights, x, out (bf16) and the scale, each once;
+        # operations at the bf16 tensor-core peak, the rate the card has
+        # for this product
+        nbytes = Kd * N + (M * Kd + M * N) * 2 + 4 * sc.numel()
+        b_ms, b_by = bound(nbytes, 2 * M * Kd * N, BF16_FLOPS)
+        w16 = (wq.float() * sc).to(dt)       # dequantized beforehand
+        shapes.append({
+            "label": label, "shape": f"M={M} K={Kd} N={N} bf16"
+            + (" (tied head: embed_q.t(), per-K scale)" if head else ""),
+            "max_abs_err": err,
+            "ms": time_ms(lambda: ops.int8_matmul(x, wq, sc)),
+            "plain_ms": time_ms(lambda: mm_ref(x, wq, sc), reps=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            # a yardstick only: the same product on a bf16 weight
+            # dequantized beforehand, twice the weight bytes
+            "library_ms": time_ms(lambda: torch.matmul(x, w16))})
+        del w16
+    out["int8_matmul"] = {**shapes[0], "shapes": shapes}
     return out
 
 
@@ -272,56 +425,78 @@ def greedy_recompute(tf, params, cfg, prompt, n):
 
 
 def parity_f32(dev, ops):
+    """The 2-layer f32 model in each decode mode, and int8 in the gather
+    mode, against the plain greedy recompute (dense, or on the
+    dequantized int8 weights)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build
     from repro_torch.models import transformer as tf
     from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
                                      SamplingParams)
+    from repro_torch.serving import quantization as q_lib
     cfg = dataclasses.replace(ARCHS["olmo-1b"], n_layers=2, dtype="f32")
     gen = torch.Generator(device=dev).manual_seed(1)
     params = build(cfg, dev).init(gen)
-    eng = InferenceEngine(cfg, params, EngineConfig(
-        n_slots=4, max_len=512, decode_block=4, paged_attention=True),
-        device=dev)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab, n).tolist()
                for n in (1, 17, 100, 300)]
-    reqs = [Request(model=cfg.name, prompt=p,
-                    sampling=SamplingParams(max_tokens=16)) for p in prompts]
-    ops.reset_launches()
-    for r in reqs:
-        assert eng.submit(r)
-    eng.run_until_done()
-    launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
-    if min(launched.values()) == 0:
-        raise AssertionError(f"parity_f32: a kernel never ran: {launched}")
-    mismatches = []
-    for r, p in zip(reqs, prompts):
-        want = greedy_recompute(tf, params, cfg, p, 16)
-        if r.output != want:
-            mismatches.append({"prompt_len": len(p), "got": r.output,
-                               "want": want})
+    dense = [greedy_recompute(tf, params, cfg, p, 16) for p in prompts]
+    deq = q_lib.dequant_tree(q_lib.quantize_tree(params, 8))
+    int8 = [greedy_recompute(tf, deq, cfg, p, 16) for p in prompts]
+    del deq
+    runs = (("paged_attention", dict(paged_attention=True), dense,
+             {"paged_decode_attention", "flash_attention"}),
+            ("gather", {}, dense, {"decode_attention", "flash_attention"}),
+            ("contiguous", dict(paged=False), dense,
+             {"decode_attention", "flash_attention"}),
+            ("gather_int8", dict(quantize="int8"), int8,
+             {"decode_attention", "flash_attention", "int8_matmul"}))
+    lines, mismatches = [], []
+    for mode, kw, wants, kernels in runs:
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            n_slots=4, max_len=512, decode_block=4, **kw), device=dev)
+        reqs = [Request(model=cfg.name, prompt=p,
+                        sampling=SamplingParams(max_tokens=16))
+                for p in prompts]
+        ops.reset_launches()
+        for r in reqs:
+            assert eng.submit(r)
+        eng.run_until_done()
+        launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+        ran = {name for name, n in launched.items() if n}
+        if ran != kernels:
+            raise AssertionError(f"parity_f32 {mode}: kernels {launched}, "
+                                 f"want exactly {sorted(kernels)}")
+        bad = [{"mode": mode, "prompt_len": len(p), "got": r.output,
+                "want": w} for r, p, w in zip(reqs, prompts, wants)
+               if r.output != w]
+        mismatches += bad
+        lines.append({"mode": mode, "launches": launched, "match": not bad})
+        del eng
     emit({"phase": "parity_f32", "layers": cfg.n_layers, "d_model":
           cfg.d_model, "prompt_lens": [len(p) for p in prompts],
-          "tokens_each": 16, "launches": launched,
-          "match": not mismatches})
+          "tokens_each": 16, "runs": lines, "match": not mismatches})
     if mismatches:
         raise AssertionError(f"parity_f32 mismatches: {mismatches}")
 
 
-def serve_setup(dev):
-    """The main path's model, engine and 12 seeded requests: the full
+def serve_setup(dev, **engine_kw):
+    """The main paths' model, engine and 12 seeded requests: the full
     OLMo-1B in bf16 with random weights from a seed; prompt lengths in
-    16..896, budgets in 1..64; 10 greedy and 2 sampled requests."""
+    16..896, budgets in 1..64; 10 greedy and 2 sampled requests.
+    `engine_kw` picks the decode mode and quantization.  Also returns
+    the bf16 weights' bytes."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build
     from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
                                      SamplingParams)
+    from repro_torch.serving.quantization import tree_bytes
     cfg = ARCHS["olmo-1b"]
     gen = torch.Generator(device=dev).manual_seed(0)
     params = build(cfg, dev).init(gen)
+    dense_bytes = tree_bytes(params)
     ecfg = EngineConfig(n_slots=8, max_len=1024, page_size=16,
-                        decode_block=8, paged_attention=True)
+                        decode_block=8, **engine_kw)
     eng = InferenceEngine(cfg, params, ecfg, device=dev)
 
     def requests():
@@ -339,7 +514,7 @@ def serve_setup(dev):
                                 prompt=rng.integers(0, cfg.vocab, n).tolist(),
                                 sampling=sp))
         return reqs
-    return cfg, ecfg, eng, requests
+    return cfg, ecfg, eng, requests, dense_bytes
 
 
 def drive(eng, reqs):
@@ -358,12 +533,27 @@ def drive(eng, reqs):
     return step_ms, time.perf_counter() - t0
 
 
-def serve_bf16(dev, ops, card):
-    cfg, ecfg, eng, requests = serve_setup(dev)
+def expected_launches(cfg, ecfg, st):
+    """Each kernel's launches for a serve with these stats: one attention
+    kernel per layer per model call, and under int8 one int8 matmul per
+    linear (wq, wk, wv, wo, gate, up, down) per layer plus the tied head
+    per model call (a prefill dispatch or a decode step)."""
+    n = cfg.n_layers
+    steps = ecfg.decode_block * st["decode_dispatches"]
+    paged = st["paged_attention"]
+    return {"paged_decode_attention": n * steps if paged else 0,
+            "flash_attention": n * st["prefill_dispatches"],
+            "decode_attention": 0 if paged else n * steps,
+            "int8_matmul": ((7 * n + 1) * (st["prefill_dispatches"] + steps)
+                            if ecfg.quantize == "int8" else 0)}
+
+
+def serve(phase, dev, ops, card, **engine_kw):
+    cfg, ecfg, eng, requests, dense_bytes = serve_setup(dev, **engine_kw)
     reqs = requests()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    # the main path: counters at 0 just before, read just after
+    # the path: counters at 0 just before, read just after
     ops.reset_launches()
     step_ms, wall = drive(eng, reqs)
     launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
@@ -371,20 +561,23 @@ def serve_bf16(dev, ops, card):
     budgets = [r.sampling.max_tokens for r in reqs]
     lens = [len(r.output) for r in reqs]
     if lens != budgets or any(r.error for r in reqs):
-        raise AssertionError(f"serve_bf16 budgets {budgets} got {lens}")
+        raise AssertionError(f"{phase} budgets {budgets} got {lens}")
     if any(not 0 <= t < cfg.vocab for r in reqs for t in r.output):
-        raise AssertionError("serve_bf16: token outside the vocabulary")
+        raise AssertionError(f"{phase}: token outside the vocabulary")
     if eng.pool.pages_in_use != 0:
         raise AssertionError(f"{eng.pool.pages_in_use} pages not returned")
-    want_paged = cfg.n_layers * ecfg.decode_block * st["decode_dispatches"]
-    want_flash = cfg.n_layers * st["prefill_dispatches"]
-    if launches["paged_decode_attention"] != want_paged \
-            or launches["flash_attention"] != want_flash:
-        raise AssertionError(f"launches {launches}, want paged {want_paged}"
-                             f", flash {want_flash}")
+    want = expected_launches(cfg, ecfg, st)
+    if launches != want:
+        raise AssertionError(f"{phase} launches {launches}, want {want}")
+    mem = eng.memory_report()
+    if ecfg.quantize == "int8" and mem["param_bytes"] >= 0.65 * dense_bytes:
+        raise AssertionError(f"{phase}: int8 weights {mem['param_bytes']} B"
+                             f", bf16 {dense_bytes} B")
     ttft = sorted(r.ttft for r in reqs)
-    emit({"phase": "serve_bf16", "model": cfg.name, "layers": cfg.n_layers,
-          "params": cfg.num_params(), "requests": len(reqs),
+    emit({"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
+          "params": cfg.num_params(), "quantize": ecfg.quantize,
+          "paged": st["paged"], "paged_attention": st["paged_attention"],
+          "requests": len(reqs),
           "prompt_lens": [len(r.prompt) for r in reqs],
           "budgets": budgets, "tokens": st["tokens"], "wall_s": wall,
           "tok_per_s": st["tokens"] / wall,
@@ -397,11 +590,11 @@ def serve_bf16(dev, ops, card):
           "prefill_traces": st["prefill_traces"],
           "prefill_shapes": st["prefill_shapes"],
           "decode_traces": st["decode_traces"],
+          "logical_bytes_moved": st["logical_bytes_moved"],
+          "param_bytes": mem["param_bytes"], "bf16_param_bytes": dense_bytes,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
           "launches": launches, "card": card})
-    # the prefill whose attention did the most work: rows x bucket^2
-    widest = max(st["prefill_shapes"], key=lambda s: s[0] * s[1] ** 2)
-    return launches, tuple(widest)
+    return launches, [tuple(s) for s in st["prefill_shapes"]]
 
 
 # --------------------------------------------------------------------- #
@@ -410,9 +603,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_ref
     from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.int8_matmul import int8_matmul_ref
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention_ref)
+    from repro_torch.serving import quantization as q_lib
+    refs = {"paged_decode_attention": paged_decode_attention_ref,
+            "flash_attention": flash_attention_ref,
+            "decode_attention": decode_attention_ref,
+            "int8_matmul": int8_matmul_ref}
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -437,31 +637,48 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "dir": str(ops.build_dir().relative_to(ROOT)), "ptxas": ptxas})
 
-    rows = kernel_checks(dev, ops, paged_decode_attention_ref,
-                         flash_attention_ref)
+    rows = kernel_checks(dev, ops, refs, q_lib)
     emit({"phase": "kernel_checks", "cases": rows})
 
     parity_f32(dev, ops)
-    launches, prefill_shape = serve_bf16(dev, ops, card)
-    timings = kernel_timings(dev, ops, paged_decode_attention_ref,
-                             flash_attention_ref, prefill_shape)
+    bf16_launches, bf16_shapes = serve("serve_bf16", dev, ops, card,
+                                       paged_attention=True)
+    int8_launches, int8_shapes = serve("serve_int8", dev, ops, card,
+                                       quantize="int8")
+    # the prefill whose attention did the most work: rows x bucket^2; the
+    # widest int8 product: rows x bucket
+    widest = max(bf16_shapes, key=lambda s: s[0] * s[1] ** 2)
+    int8_m = max(r * b for r, b in int8_shapes)
+    timings = kernel_timings(dev, ops, refs, q_lib, widest, int8_m)
     meta = {
         "paged_decode_attention": (
             "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-            "src/repro/kernels/paged_attention.py:239"),
+            "src/repro/kernels/paged_attention.py:239", "serve_bf16"),
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:113"),
+            "src/repro/kernels/flash_attention.py:113", "serve_bf16"),
+        "decode_attention": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:131", "serve_int8"),
+        "int8_matmul": (
+            "src/repro_torch/kernels/csrc/int8_matmul.cu",
+            "src/repro/kernels/int8_matmul.py:58", "serve_int8"),
     }
+    path_launches = {"serve_bf16": bf16_launches, "serve_int8": int8_launches}
     kernels = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, path) in meta.items():
         t = timings[name]
+        launches = path_launches[path][name]
+        if launches == 0:
+            raise AssertionError(f"{name} never ran on {path}")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                        "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "replaces": replaces, "launches": launches,
+                        "path": path, "max_abs_err": t["max_abs_err"],
+                        "ms": t["ms"], "kernel_ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"], "shape": t["shape"],
+                        **({"shapes": t["shapes"]} if "shapes" in t else {}),
                         "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -1,4 +1,4 @@
-// Shared helpers of the port's hand-written attention kernels.
+// Shared helpers of the port's hand-written kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,6 +47,76 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+
+// ---- decode attention: one query token against rows of keys/values ---- //
+// A group of LPR lanes owns one key/value row, each lane VEC elements of
+// it along hd; the group keeps its own online-softmax state (m, l, acc)
+// for GC query rows in registers.
+
+// Fold one key/value row into the group's state.  Every lane of the warp
+// must call it (the q.k partial sums are reduced with shuffles); `valid`
+// is the row's mask bit.
+template <int GC, int VEC, int LPR>
+__device__ __forceinline__ void online_row(const float (&qv)[GC][VEC],
+                                           const float (&kr)[VEC],
+                                           const float (&vr)[VEC],
+                                           bool valid, float (&m)[GC],
+                                           float (&l)[GC],
+                                           float (&acc)[GC][VEC]) {
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    float s = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) s = fmaf(qv[g][e], kr[e], s);
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (valid) {
+      const float m_new = fmaxf(m[g], s);
+      const float corr = expf(m[g] - m_new);
+      const float p = expf(s - m_new);
+      l[g] = l[g] * corr + p;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        acc[g][e] = fmaf(p, vr[e], acc[g][e] * corr);
+      m[g] = m_new;
+    }
+  }
+}
+
+// Merge the CTA's NPART group states (the usual log-sum-exp rescale) and
+// store the first `ng` query rows: row g at out + g * HD.  `part` is the
+// calling group's index, d0 its lanes' first element along hd.  Every
+// thread of the CTA must call it.
+template <typename T, int GC, int VEC, int HD, int NPART, int NTHREADS>
+__device__ __forceinline__ void merge_store(int part, bool group_leader,
+                                            int d0, const float (&m)[GC],
+                                            const float (&l)[GC],
+                                            const float (&acc)[GC][VEC],
+                                            T* __restrict__ out, int ng) {
+  __shared__ float sm_m[NPART][GC];
+  __shared__ float sm_l[NPART][GC];
+  __shared__ float sm_acc[NPART][GC][HD];
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    if (group_leader) { sm_m[part][g] = m[g]; sm_l[part][g] = l[g]; }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) sm_acc[part][g][d0 + e] = acc[g][e];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < ng * HD; idx += NTHREADS) {
+    const int g = idx / HD, d = idx % HD;
+    float mx = kNegInf;
+    for (int p = 0; p < NPART; ++p) mx = fmaxf(mx, sm_m[p][g]);
+    float den = 0.f, num = 0.f;
+    for (int p = 0; p < NPART; ++p) {
+      const float w = expf(sm_m[p][g] - mx);
+      den = fmaf(sm_l[p][g], w, den);
+      num = fmaf(sm_acc[p][g][d], w, num);
+    }
+    out[(size_t)g * HD + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
+  }
 }
 
 }  // namespace repro

@@ -52,10 +52,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   constexpr int NPART = kWarps * RPW; // partial states per CTA
   constexpr int UNROLL = GC >= 8 ? 2 : 4;
 
-  __shared__ float sm_m[NPART][GC];
-  __shared__ float sm_l[NPART][GC];
-  __shared__ float sm_acc[NPART][GC][HD];
-
   const int b = blockIdx.x / n_kv;
   const int kh = blockIdx.x % n_kv;
   const int warp = threadIdx.x / 32;
@@ -116,52 +112,15 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
           valid = valid && (kv_pos > pos - window ||
                             (prefix > 0 && kv_pos < prefix));
         }
-#pragma unroll
-        for (int g = 0; g < GC; ++g) {
-          float s = 0.f;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) s = fmaf(qv[g][e], kr[u][e], s);
-          // every lane of the warp takes part in the shuffles
-#pragma unroll
-          for (int off = LPR / 2; off > 0; off >>= 1)
-            s += __shfl_xor_sync(0xffffffffu, s, off);
-          if (valid) {
-            const float m_new = fmaxf(m[g], s);
-            const float corr = expf(m[g] - m_new);
-            const float p = expf(s - m_new);
-            l[g] = l[g] * corr + p;
-#pragma unroll
-            for (int e = 0; e < VEC; ++e)
-              acc[g][e] = fmaf(p, vr[u][e], acc[g][e] * corr);
-            m[g] = m_new;
-          }
-        }
+        repro::online_row<GC, VEC, LPR>(qv, kr[u], vr[u], valid, m, l, acc);
       }
     }
   }
 
   // merge the CTA's NPART partial states
-  const int part = warp * RPW + grp;
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    if (lane % LPR == 0) { sm_m[part][g] = m[g]; sm_l[part][g] = l[g]; }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) sm_acc[part][g][d0 + e] = acc[g][e];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < ng * HD; idx += kThreads) {
-    const int g = idx / HD, d = idx % HD;
-    float mx = kNegInf;
-    for (int p = 0; p < NPART; ++p) mx = fmaxf(mx, sm_m[p][g]);
-    float den = 0.f, num = 0.f;
-    for (int p = 0; p < NPART; ++p) {
-      const float w = expf(sm_m[p][g] - mx);
-      den = fmaf(sm_l[p][g], w, den);
-      num = fmaf(sm_acc[p][g][d], w, num);
-    }
-    out[((size_t)(b * n_kv + kh) * G + g0 + g) * HD + d] =
-        repro::from_f32<T>(num / fmaxf(den, 1e-30f));
-  }
+  repro::merge_store<T, GC, VEC, HD, NPART, kThreads>(
+      warp * RPW + grp, lane % LPR == 0, d0, m, l, acc,
+      out + ((size_t)(b * n_kv + kh) * G + g0) * HD, ng);
 }
 
 template <typename T, int HD>

@@ -26,12 +26,15 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels.decode_attention import decode_attention_ref
 from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.int8_matmul import int8_matmul_ref
 from repro_torch.kernels.paged_attention import paged_decode_attention_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("paged_decode_attention", "flash_attention")
+KERNELS = ("paged_decode_attention", "flash_attention",
+           "decode_attention", "int8_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HEAD_DIMS = (16, 32, 64, 128)
@@ -101,11 +104,15 @@ def _lib(name: str) -> ctypes.CDLL:
             path = build()[name]
             lib = ctypes.CDLL(str(path))
             fn = getattr(lib, name)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            if name == "paged_decode_attention":
-                fn.argtypes = [p] * 6 + [i] * 10 + [ctypes.c_float, p]
-            else:
-                fn.argtypes = [p] * 4 + [i] * 10 + [ctypes.c_float, p]
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            f = ctypes.c_float
+            fn.argtypes = {
+                "paged_decode_attention": [p] * 6 + [i] * 10 + [f, p],
+                "flash_attention": [p] * 4 + [i] * 10 + [f, p],
+                "decode_attention": ([p] * 5 + [i] * 5 + [ll] * 3
+                                     + [i] * 3 + [f, p]),
+                "int8_matmul": [p] * 4 + [i] * 3 + [ll] * 2 + [i] * 2 + [p],
+            }[name]
             fn.restype = i
             lib.error_string.argtypes = [i]
             lib.error_string.restype = ctypes.c_char_p
@@ -113,11 +120,16 @@ def _lib(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def _check_device(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    _check_device(name, *tensors)
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is "
                              "not contiguous")
@@ -224,7 +236,104 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 
-WRAPPERS = (paged_decode_attention, flash_attention)
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     window: int = 0, prefix: int = 0) -> torch.Tensor:
+    """q (B, K, G, hd) contiguous; caches (B, K, S, hd), S any length, as
+    strided views: the last dim contiguous, every other stride a whole
+    number of 16-byte rows, the same strides for K and V.  That takes the
+    `permute(0, 2, 1, 3)` view of a (B, S, K, hd) cache in place.  pos
+    (B,) int32.  Returns (B, K, G, hd)."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, pos, window=window,
+                                    prefix=prefix)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for {q.device}")
+    name = "decode_attention"
+    _check_cuda(name, q, pos)
+    _check_device(name, q, k_cache, v_cache, pos)
+    b, nkv, g, hd = q.shape
+    s = k_cache.shape[2]
+    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise TypeError(f"{name}: q {q.dtype}, caches {k_cache.dtype}/"
+                        f"{v_cache.dtype}; needs f32 or bf16, all the same")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+    if tuple(k_cache.shape) != (b, nkv, s, hd) or s < 1 \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name}: caches {tuple(k_cache.shape)}/"
+                         f"{tuple(v_cache.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    strides = k_cache.stride()
+    row = 16 // q.element_size()
+    if v_cache.stride() != strides or strides[3] != 1 \
+            or any(st % row for st in strides[:3]):
+        raise ValueError(f"{name}: cache strides {strides}/"
+                         f"{v_cache.stride()} must match, with the last dim "
+                         "contiguous and 16-byte rows")
+    if pos.dtype != torch.int32 or tuple(pos.shape) != (b,):
+        raise ValueError(f"{name}: pos must be (B,) int32 for B = {b}")
+    if not isinstance(window, int) or not isinstance(prefix, int):
+        raise TypeError(f"{name}: window and prefix must be static ints")
+    out = torch.empty_like(q)
+    _check_aligned(name, q, k_cache, v_cache, out)
+    _run(name, q.device, q.data_ptr(), k_cache.data_ptr(),
+         v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), b, nkv, g, hd,
+         s, *strides[:3], window, prefix, _DTYPES[q.dtype], hd ** -0.5)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) f32 or bf16, contiguous; w_q (K, N) int8, a strided view
+    with unit stride along N or along K (`embed_q.t()`); scale f32,
+    contiguous, (1, N) per output channel or (K, 1) per input channel.
+    Returns x @ (w_q * scale) as (M, N) in x.dtype."""
+    if x.device.type == "cpu":
+        return int8_matmul_ref(x, w_q, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_matmul: no kernel for {x.device}")
+    name = "int8_matmul"
+    _check_cuda(name, x, scale)
+    _check_device(name, x, w_q, scale)
+    if x.dtype not in _DTYPES or w_q.dtype != torch.int8 \
+            or scale.dtype != torch.float32:
+        raise TypeError(f"{name}: x {x.dtype}, w_q {w_q.dtype}, scale "
+                        f"{scale.dtype}; needs f32/bf16, int8, f32")
+    if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w_q "
+                         f"{tuple(w_q.shape)} do not multiply")
+    m, k = x.shape
+    n = w_q.shape[1]
+    if tuple(scale.shape) == (1, n):
+        per_k = 0
+    elif tuple(scale.shape) == (k, 1):
+        per_k = 1
+    else:
+        raise ValueError(f"{name}: scale {tuple(scale.shape)} is neither "
+                         f"(1, {n}) nor ({k}, 1)")
+    swk, swn = w_q.stride()
+    if swn != 1 and swk != 1:
+        raise ValueError(f"{name}: w_q strides {w_q.stride()} have no unit "
+                         "stride")
+    if k == 0:
+        raise ValueError(f"{name}: K = 0")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _run(name, x.device, x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+         out.data_ptr(), m, n, k, swk, swn, per_k, _DTYPES[x.dtype])
+    int8_matmul.launches += 1
+    return out
+
+
+int8_matmul.launches = 0
+
+WRAPPERS = (paged_decode_attention, flash_attention, decode_attention,
+            int8_matmul)
 
 
 def reset_launches() -> None:

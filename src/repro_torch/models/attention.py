@@ -1,8 +1,9 @@
-"""Attention cores in plain PyTorch: the visibility mask, the GQA fold and
-the reference full attention.  The model's prefill attention goes
-through `kernels.ops.flash_attention` (the hand-written kernel on the
-card); `full_attention` is its plain counterpart and the oracle of the
-flash kernel's plain version.
+"""Attention cores in plain PyTorch: the visibility mask, the GQA fold,
+the reference full attention and the reference decode attention.  The
+model's attention goes through `kernels.ops` (the hand-written kernels
+on the card); `full_attention` and `decode_attention` are the plain
+counterparts of `repro.models.attention`'s and the oracles of the flash
+and decode kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -52,3 +53,32 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
     return out.reshape(b, qlen, h, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     window: int = 0, prefix: int = 0,
+                     slot_pos=None) -> torch.Tensor:
+    """One new token per row against a cache.  q: (B, 1, H, hd); caches
+    (B, S, K, hd); pos: (B,) int, the index of the current token (cache
+    slots past it are invalid).  slot_pos: (B, S) absolute position of
+    each cache slot (ring-buffer caches); defaults to 0..S-1."""
+    b, _, h, hd = q.shape
+    s, nkv = k_cache.shape[1], k_cache.shape[2]
+    qf = _gqa_fold(q, nkv).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf,
+                          k_cache.float()) / (hd ** 0.5)
+    if slot_pos is None:
+        slot_pos = torch.arange(s, device=q.device).expand(b, s)
+    pos = pos.long()
+    valid = slot_pos <= pos[:, None]
+    if window > 0:
+        vis = slot_pos > (pos[:, None] - window)
+        if prefix > 0:
+            vis = vis | (slot_pos < prefix)
+        valid = valid & vis
+    scores = torch.where(valid[:, None, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bkgqd", w, v_cache.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(q.dtype)

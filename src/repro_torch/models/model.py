@@ -24,6 +24,9 @@ class Model:
     def prefill(self, params, tokens, lengths):
         return tf.prefill(params, self.cfg, tokens, lengths=lengths)
 
+    def decode(self, params, cache, token, pos):
+        return tf.decode_step(params, self.cfg, cache, token, pos)
+
     def decode_paged(self, params, cache, token, pos, page_table,
                      write_table):
         return tf.decode_step_paged(params, self.cfg, cache, token, pos,

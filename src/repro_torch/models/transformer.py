@@ -1,13 +1,23 @@
 """Dense causal decoder: full-sequence forward, bucketed prefill, and one
-decode step straight against the paged KV pool.
+decode step against a contiguous cache or straight against the paged KV
+pool.
 
 The counterpart of the dense causal subset of `repro.models.transformer`,
 with the same stacked `(L, ...)` params (see `repro_torch.params`) and
 the same layouts at every public function.  Where JAX scans over layers,
 this loops over them in Python.  Prefill attention runs the flash kernel
-(`kernels.ops.flash_attention`), decode attention the paged decode
-kernel (`kernels.ops.paged_decode_attention`); on CPU tensors both take
-their plain versions.
+(`kernels.ops.flash_attention`); decode attention runs the decode kernel
+over a contiguous cache (`decode_step`, `kernels.ops.decode_attention`)
+or the paged decode kernel through the page table (`decode_step_paged`,
+`kernels.ops.paged_decode_attention`).  On CPU tensors every kernel
+takes its plain version.
+
+Under quantize="int8" the params come from
+`serving.quantization.int8_operands`: each matmul weight is a dict leaf
+`{"__q__": int8 q, "col": per-column f32 scale, ...}` and every linear
+layer, and the tied LM head, runs `kernels.ops.int8_matmul` on it.  The
+embedding lookup dequantizes only the gathered rows, which equals JAX's
+dequantize-then-take element for element.
 """
 from __future__ import annotations
 
@@ -24,35 +34,80 @@ from repro_torch.params import Params, require_dense_causal
 Cache = Dict[str, torch.Tensor]
 
 
+# A weight is a dense tensor or an int8 leaf (a dict, see the docstring);
+# these three act on either.
+
+def _index(w, i):
+    if isinstance(w, dict):         # the scales are shared by all layers
+        return {**w, "__q__": w["__q__"][i]}
+    return w[i]
+
+
+def _reshape(w, *shape):
+    if isinstance(w, dict):
+        return {**w, "__q__": w["__q__"].reshape(*shape)}
+    return w.reshape(*shape)
+
+
+def _matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x (..., K) @ w (K, N)."""
+    if not isinstance(w, dict):
+        return x @ w
+    out = kernel_ops.int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(),
+                                 w["__q__"], w["col"])
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
 def _layer(params: Params, i: int) -> Params:
     lp = params["layers"]
-    out = {"attn": {k: v[i] for k, v in lp["attn"].items()},
-           "mlp": {k: v[i] for k, v in lp["mlp"].items()}}
+    out = {"attn": {k: _index(v, i) for k, v in lp["attn"].items()},
+           "mlp": {k: _index(v, i) for k, v in lp["mlp"].items()}}
     for name in ("ln1", "ln2"):
         if name in lp:
             out[name] = lp[name][i]
     return out
 
 
-def _head(params: Params, cfg: ArchConfig) -> torch.Tensor:
-    """(d, V) LM head: the tied embedding's transpose, or lm_head."""
-    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    e = params["embed"]
+    if isinstance(e, dict):
+        return (e["__q__"][tokens].float() * e["scale"]).to(e["dtype"])
+    return e[tokens]
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor
+            ) -> torch.Tensor:
+    """h (..., d) through the LM head: the tied embedding's transpose, or
+    lm_head.  The int8 tied head multiplies the strided (d, V) view of
+    the int8 embedding with its per-d scale as a (d, 1) per-K scale: no
+    transposed or dequantized copy of the embedding exists."""
+    if not cfg.tie_embeddings:
+        return _matmul(h, params["lm_head"])
+    e = params["embed"]
+    if isinstance(e, dict):
+        return _matmul(h, {"__q__": e["__q__"].t(), "col": e["col"].t()})
+    return h @ e.t()
+
+
+def _project(x: torch.Tensor, w) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul."""
-    d, h, hd = w.shape
-    return (x @ w.reshape(d, h * hd)).reshape(*x.shape[:-1], h, hd)
+    d, h, hd = (w["__q__"] if isinstance(w, dict) else w).shape
+    return _matmul(x, _reshape(w, d, h * hd)).reshape(*x.shape[:-1], h, hd)
 
 
-def _out_project(a: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+def _out_project(a: torch.Tensor, wo) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matmul."""
-    h, hd, d = wo.shape
-    return a.reshape(*a.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+    h, hd, d = (wo["__q__"] if isinstance(wo, dict) else wo).shape
+    return _matmul(a.reshape(*a.shape[:-2], h * hd),
+                   _reshape(wo, h * hd, d))
 
 
 def _ffn(lp: Params, x: torch.Tensor) -> torch.Tensor:
-    return L.mlp_apply(x, lp["mlp"]["wi"], lp["mlp"]["wo"])
+    wi, wo = lp["mlp"]["wi"], lp["mlp"]["wo"]
+    if not isinstance(wi, dict):
+        return L.mlp_apply(x, wi, wo)
+    return _matmul(L.swiglu(_matmul(x, _index(wi, 0)),
+                            _matmul(x, _index(wi, 1))), wo)
 
 
 def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
@@ -92,7 +147,7 @@ def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     require_dense_causal(cfg)
     if impl not in ("flash", "full"):
         raise ValueError(f"impl must be 'flash' or 'full', not {impl!r}")
-    h = params["embed"][tokens]
+    h = _embed(params, tokens)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         h, (k, v) = _decoder_layer(_layer(params, i), cfg, h, impl=impl)
@@ -108,7 +163,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     attention; impl="full" the plain reference attention (the no-cache
     recompute oracle)."""
     h, _ = _trunk(params, cfg, tokens, impl=impl)
-    return h @ _head(params, cfg)
+    return _logits(params, cfg, h)
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -131,11 +186,52 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     else:
         pos = (lengths.to(h.device) - 1).to(torch.int32)
     last = h[torch.arange(b, device=h.device), pos.long()]      # (B, D)
-    return last @ _head(params, cfg), cache, pos
+    return _logits(params, cfg, last), cache, pos
 
 
 # --------------------------------------------------------------------- #
-# paged decode
+# decode
+
+def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
+                token: torch.Tensor, pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step against a contiguous cache {"k", "v": (L, B, S, K,
+    hd)}: the engine's per-slot strips (`paged=False`) or the logical
+    view gathered out of the page pool (the gather mode).  token/pos:
+    (B,) int32, pos the position of the new token.
+
+    The new KV is written at `pos` in place — the counterpart of JAX
+    donating the cache — and `cache` is returned as is.  A write at
+    pos >= S (a finished slot whose pos froze at max_len) lands at S - 1,
+    as JAX's clamped dynamic_update_slice does.  Attention reads the
+    (B, K, S, hd) permuted view of each layer's cache in place.
+    Returns (logits (B, V), cache)."""
+    require_dense_causal(cfg)
+    b = token.shape[0]
+    nkv, hd = cfg.n_kv_heads, cfg.head_dim
+    rows = torch.arange(b, device=token.device)
+    w_pos = pos.long().clamp(0, cache["k"].shape[2] - 1)
+    h = _embed(params, token)[:, None]                          # (B,1,D)
+    cos, sin = L.rope_cos_sin(pos[:, None], hd, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        kc, vc = cache["k"][i], cache["v"][i]                   # (B,S,K,hd)
+        x = L.norm(h, lp.get("ln1"), cfg.norm)
+        q = L.apply_rope(_project(x, lp["attn"]["wq"]), cos, sin)
+        k_new = L.apply_rope(_project(x, lp["attn"]["wk"]), cos, sin)
+        v_new = _project(x, lp["attn"]["wv"])
+        kc[rows, w_pos] = k_new[:, 0].to(kc.dtype)
+        vc[rows, w_pos] = v_new[:, 0].to(vc.dtype)
+        qf = q[:, 0].reshape(b, nkv, q.shape[2] // nkv, hd)     # kv-major
+        a_out = kernel_ops.decode_attention(qf, kc.permute(0, 2, 1, 3),
+                                            vc.permute(0, 2, 1, 3), pos)
+        h = h + _out_project(a_out.reshape(b, 1, q.shape[2], hd),
+                             lp["attn"]["wo"])
+        x = L.norm(h, lp.get("ln2"), cfg.norm)
+        h = h + _ffn(lp, x)
+    h = L.norm(h, params.get("final_norm"), cfg.norm)
+    return _logits(params, cfg, h)[:, 0], cache
+
 
 def _paged_write(pool: torch.Tensor, new_kv: torch.Tensor,
                  write_table: torch.Tensor, w_pos: torch.Tensor) -> None:
@@ -174,7 +270,7 @@ def decode_step_paged(params: Params, cfg: ArchConfig, cache: Cache,
     require_dense_causal(cfg)
     b = token.shape[0]
     nkv, hd = cfg.n_kv_heads, cfg.head_dim
-    h = params["embed"][token][:, None]                         # (B,1,D)
+    h = _embed(params, token)[:, None]                          # (B,1,D)
     cos, sin = L.rope_cos_sin(pos[:, None], hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
@@ -193,4 +289,4 @@ def decode_step_paged(params: Params, cfg: ArchConfig, cache: Cache,
         x = L.norm(h, lp.get("ln2"), cfg.norm)
         h = h + _ffn(lp, x)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
-    return (h @ _head(params, cfg))[:, 0], cache
+    return _logits(params, cfg, h)[:, 0], cache

@@ -129,10 +129,3 @@ def from_jax(tree: Params, cfg: ArchConfig, device: DeviceLike = None
         return _leaf(node, dev)
     return conv(tree)
 
-
-def param_bytes(params: Params) -> int:
-    def walk(node):
-        if isinstance(node, dict):
-            return sum(walk(v) for v in node.values())
-        return node.numel() * node.element_size()
-    return walk(params)

@@ -1,5 +1,5 @@
 """Continuous-batching inference engine on the card — the counterpart of
-`repro.serving.engine.InferenceEngine` in its paged-attention mode.
+`repro.serving.engine.InferenceEngine` for dense causal decoders.
 
 Each `step()` issues at most two dispatches, each ending in exactly one
 host sync:
@@ -11,10 +11,27 @@ host sync:
   persistent per-slot state tensors are updated in place.  One `.cpu()`
   brings back the first tokens and done flags.
 * **fused K-step decode** — `decode_block` decode+sample steps run back to
-  back on the device against the paged pool (the paged decode kernel),
-  with per-slot sampling params and an on-device done mask (EOS, token
-  budget, cache end).  Nothing in the K-step loop waits on the device;
-  the (K, n_slots) token / emit / done blocks come back with one `.cpu()`.
+  back on the device, with per-slot sampling params and an on-device
+  done mask (EOS, token budget, cache end).  Nothing in the K-step loop
+  waits on the device; the (K, n_slots) token / emit / done blocks come
+  back with one `.cpu()`.
+
+Three decode modes, as in JAX:
+
+* **gather** (`paged=True, paged_attention=False`, the default): one
+  gather copies every slot's logical view out of the page pool, the K
+  steps run `decode_step` (the decode kernel) on it, one scatter writes
+  it back.
+* **paged attention** (`paged_attention=True`): the K steps attend
+  straight through the page table (the paged decode kernel) and write
+  each token's KV into its page; no copy.
+* **contiguous** (`paged=False`): per-slot `max_len` strips, written and
+  read in place by `decode_step`; the page pool only books them.
+
+`quantize="int8"` keeps the weights int8 at rest and runs every linear
+layer and the tied head through the int8 matmul kernel;
+`quantize="int4"` dequantizes the whole packed tree per dispatch, as the
+JAX engine does for both.
 
 Where JAX donates buffers to a jitted call, this engine updates the page
 pools and the slot-state tensors in place.  Where JAX counts compiles
@@ -41,10 +58,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import (DeviceLike, generator_for, resolve_device,
                                 torch_dtype)
 from repro_torch.models import build
-from repro_torch.params import Params, param_bytes
+from repro_torch.params import Params
+from repro_torch.serving import quantization as q_lib
 from repro_torch.serving.kv_cache import (PagedKVPool, cache_bytes,
-                                          new_pools, scatter_prefill_rows,
-                                          to_device)
+                                          gather_pages, new_pools,
+                                          scatter_pages,
+                                          scatter_prefill_rows, split_paged,
+                                          to_device, write_slots)
 from repro_torch.serving.request import (CODE_ENGINE_FAILED,
                                          CODE_INVALID_REQUEST, Request,
                                          RequestState)
@@ -56,7 +76,7 @@ from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 class EngineConfig:
     n_slots: int = 4
     max_len: int = 128
-    quantize: str = ""            # not ported yet (ROADMAP.md A4)
+    quantize: str = ""            # "", "int8", "int4"
     top_k: int = 0                # engine-wide default (per-request wins)
     top_p: float = 1.0
     seed: int = 0
@@ -64,14 +84,11 @@ class EngineConfig:
     prefill_bucket_min: int = 8   # smallest power-of-two prompt bucket
     page_size: int = 16           # KV tokens per physical page
     kv_pages: int = 0             # page budget; 0 => n_slots full strips
-    paged: bool = True            # False (contiguous strips): ROADMAP A4
+    paged: bool = True            # False => contiguous per-slot strips
     prefix_cache: bool = False    # not ported yet (ROADMAP.md A4)
     host_kv_pages: int = 0        # not ported yet (ROADMAP.md A4)
-    # True by default here (False in the JAX engine): attending straight
-    # through the page table is the only decode mode this port has; the
-    # gather mode, which copies each slot's view out and back per
-    # dispatch, is queued in ROADMAP.md A4
-    paged_attention: bool = True
+    paged_attention: bool = False  # attend through the page table (no
+    #                                per-dispatch gather/scatter copy)
     speculative: bool = False     # not ported yet (ROADMAP.md A4)
 
 
@@ -88,12 +105,6 @@ def _next_pow2(n: int) -> int:
 
 def _unsupported(ecfg: EngineConfig) -> List[str]:
     out = []
-    if ecfg.quantize:
-        out.append(f"quantize={ecfg.quantize!r}")
-    if not ecfg.paged:
-        out.append("paged=False")
-    if not ecfg.paged_attention:
-        out.append("paged_attention=False (the gather decode mode)")
     if ecfg.prefix_cache:
         out.append("prefix_cache")
     if ecfg.host_kv_pages:
@@ -123,25 +134,46 @@ class InferenceEngine:
             raise NotImplementedError(
                 f"engine features not ported yet (ROADMAP.md A4): "
                 f"{', '.join(missing)}")
+        if engine_cfg.quantize not in ("", "int8", "int4"):
+            raise ValueError(f"quantize={engine_cfg.quantize!r}: "
+                             "'', 'int8' or 'int4'")
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.model = build(cfg, self.device)
-        self.params = _to(params, self.device)
         self.scheduler = scheduler or Scheduler(SchedulerConfig())
         self._dead = False
         self._gen = generator_for(self.device, engine_cfg.seed)
         self._pos_limit = engine_cfg.max_len
+        self._paged = engine_cfg.paged
+        self._paged_attn = engine_cfg.paged_attention and self._paged
         self.pool = PagedKVPool(engine_cfg.n_slots, engine_cfg.max_len,
                                 page_size=engine_cfg.page_size,
-                                n_pages=engine_cfg.kv_pages,
+                                n_pages=(engine_cfg.kv_pages
+                                         if self._paged else 0),
                                 device=self.device)
         # page-aware admission: the scheduler charges each queued request
         # its projected page cost against the engine's free page budget
         self.scheduler.pages_for = self._pages_for
-        self.cache = new_pools(cfg.n_layers, self.pool.n_pages,
-                               self.pool.page_size, cfg.n_kv_heads,
-                               cfg.head_dim, torch_dtype(cfg.dtype),
-                               self.device)
+        # weights at rest: as given, or quantized (what memory_report
+        # counts); int8 also builds its kernel operands here, once
+        self.params = _to(params, self.device)
+        self._int8 = None
+        if engine_cfg.quantize:
+            self.params = q_lib.quantize_tree(
+                self.params, bits=8 if engine_cfg.quantize == "int8" else 4)
+            if engine_cfg.quantize == "int8":
+                self._int8 = q_lib.int8_operands(self.params)
+        dt = torch_dtype(cfg.dtype)
+        if self._paged:
+            self.cache = new_pools(cfg.n_layers, self.pool.n_pages,
+                                   self.pool.page_size, cfg.n_kv_heads,
+                                   cfg.head_dim, dt, self.device)
+        else:
+            shape = (cfg.n_layers, engine_cfg.n_slots, engine_cfg.max_len,
+                     cfg.n_kv_heads, cfg.head_dim)
+            self.cache = {name: torch.zeros(shape, dtype=dt,
+                                            device=self.device)
+                          for name in ("k", "v")}
         self.slot_req: Dict[int, Request] = {}
         # persistent per-slot device state, written in place on admission,
         # release and cancel, and by the fused decode
@@ -155,10 +187,18 @@ class InferenceEngine:
         self.top_ks = torch.zeros(ns, **i32)
         self.top_ps = torch.ones(ns, dtype=torch.float32, device=dev)
         self.eos_ids = torch.full((ns,), -1, **i32)
-        # all-slot KV bytes one decode step writes into the pool
-        self._write_token_bytes = (2 * ns * cfg.n_layers * cfg.n_kv_heads
-                                   * cfg.head_dim * self.cache["k"]
-                                   .element_size())
+        # logical KV bytes one fused dispatch moves: the gather mode
+        # copies every slot's logical view out and back (2x view); the
+        # paged-attention mode only writes K new tokens' KV in place
+        self._view_bytes = 0
+        self._write_token_bytes = 0     # all-slot KV write bytes, 1 step
+        if self._paged:
+            for leaf in split_paged(self.cache)[0].values():
+                per_tok = (leaf.element_size() * leaf.shape[0]
+                           * int(np.prod(leaf.shape[3:])))
+                self._view_bytes += (per_tok * ns * self.pool.pages_per_slot
+                                     * self.pool.page_size)
+                self._write_token_bytes += per_tok * ns
         # metrics
         self.total_tokens = 0
         self.total_steps = 0
@@ -171,14 +211,16 @@ class InferenceEngine:
         self.decode_traces = 0    # distinct decode programs (modes)
         self.preemptions = 0      # slots evicted on page exhaustion
         self.prefill_dispatch_tokens = 0   # rows x bucket actually forwarded
-        self.logical_bytes_moved = 0       # KV bytes written per decode
+        self.logical_bytes_moved = 0       # KV bytes copied/written
         self._prefill_programs: Set[Tuple[int, int]] = set()
         self._decode_programs: Set[str] = set()
 
     def _pages_for(self, req: Request) -> int:
         """Projected page cost of admitting `req` now: its full context
         (prompt + tokens already generated) plus one position of decode
-        headroom."""
+        headroom; a contiguous strip always costs `max_len`."""
+        if not self._paged:
+            return self.pool.pages_per_slot
         eff = len(req.prompt) + len(req.output)
         return self.pool.pages_for_tokens(min(eff + 1, self.ecfg.max_len))
 
@@ -256,6 +298,8 @@ class InferenceEngine:
         """Pages the in-flight slots need for their next decode block —
         held out of the admission budget so a fresh admit cannot starve
         running requests into preemption."""
+        if not self._paged:
+            return 0
         debt = 0
         for slot in self.slot_req:
             target = min(self.pool.lengths[slot] + self.ecfg.decode_block,
@@ -275,8 +319,9 @@ class InferenceEngine:
     def _admit_prefill(self, group: List[Request]):
         admitted: List[Tuple[int, Request]] = []
         for req in group:
-            slot = self.pool.alloc(req.request_id,
-                                   len(req.prompt) + len(req.output))
+            slot = self.pool.alloc(
+                req.request_id, len(req.prompt) + len(req.output),
+                reserve_tokens=0 if self._paged else self.ecfg.max_len)
             if slot is None:                    # defensive; the admission
                 self.scheduler.requeue(req)     # budget above bounds the
                 continue                        # group — never drop it
@@ -322,11 +367,14 @@ class InferenceEngine:
         self._post_admit(admitted, host[0], host[1])
 
     def _prefill_admit(self, toks, lengths, row_pages, slots, r_i32, r_f32):
-        """The admission program: forward, page scatter, first-token
-        sample and the slot-state update, all queued on the device.
-        Padded batch rows are dropped here on the host (`slots` holds only
-        the admitted rows), where JAX scatters them to slot == n_slots
-        with mode="drop"."""
+        """The admission program: forward, the rows' KV into their pages
+        (or, contiguous, into the first `bucket` positions of their
+        strips; positions past `pos` keep what was there, where JAX
+        zeroes them, and are masked), first-token sample and the
+        slot-state update, all queued on the device.  Padded batch rows
+        are dropped here on the host (`slots` holds only the admitted
+        rows), where JAX scatters them to slot == n_slots with
+        mode="drop"."""
         if toks.shape not in self._prefill_programs:
             self._prefill_programs.add(toks.shape)
             self.prefill_traces += 1
@@ -337,8 +385,11 @@ class InferenceEngine:
         r_topk, r_eos, r_budget = ri[0], ri[1], ri[2]
         r_temps, r_topp = rf[0], rf[1]
         logits, rows, pos1 = self.model.prefill(
-            self.params, tokens, lengths=to_device(lengths, dev))
-        scatter_prefill_rows(self.cache, rows, row_pages)
+            self._run_params(), tokens, lengths=to_device(lengths, dev))
+        if self._paged:
+            scatter_prefill_rows(self.cache, rows, row_pages)
+        else:
+            write_slots(self.cache, rows, slots)
         first = sample_batched(logits, self._gen, r_temps, r_topk, r_topp)
         done0 = ((r_budget <= 1) | ((r_eos >= 0) & (first == r_eos))
                  # prompt fills the cache: no room to decode further
@@ -410,6 +461,8 @@ class InferenceEngine:
     def _ensure_decode_pages(self):
         """Grow every active slot's pages to cover the next fused block,
         preempting lowest-deficit slots until the growth fits."""
+        if not self._paged:
+            return
         k = self.ecfg.decode_block
         for slot in sorted(self.slot_req):
             if slot not in self.slot_req:      # evicted by a prior pass
@@ -429,8 +482,13 @@ class InferenceEngine:
             return 0
         mode = self._decode_mode()
         toks, emits, dones = self._fused_decode(mode)
-        self.logical_bytes_moved += \
-            self.ecfg.decode_block * self._write_token_bytes
+        if self._paged_attn:
+            # page-table-direct: only the block's new KV is written
+            self.logical_bytes_moved += \
+                self.ecfg.decode_block * self._write_token_bytes
+        elif self._paged:
+            # gather + scatter move every slot's full logical view
+            self.logical_bytes_moved += 2 * self._view_bytes
         self.dispatches += 1
         self.decode_dispatches += 1
         host = torch.stack([toks, emits.to(torch.int32),
@@ -461,16 +519,26 @@ class InferenceEngine:
         if mode not in self._decode_programs:
             self._decode_programs.add(mode)
             self.decode_traces += 1
+        params = self._run_params()
         page_table = self.pool.page_table()
         write_table = self.pool.write_table()
+        gather = self._paged and not self._paged_attn
+        if gather:
+            # one gather per dispatch materializes every slot's view
+            pool_p, _ = split_paged(self.cache)
+            view = gather_pages(pool_p, page_table)
+        else:
+            view = self.cache
         last_tok, pos = self.last_tok, self.pos
         active, remaining = self.active, self.remaining
         eos = self.eos_ids
         toks, emits, dones = [], [], []
         for _ in range(self.ecfg.decode_block):
-            logits, _ = self.model.decode_paged(
-                self.params, self.cache, last_tok, pos, page_table,
-                write_table)
+            if self._paged_attn:
+                logits, _ = self.model.decode_paged(
+                    params, view, last_tok, pos, page_table, write_table)
+            else:
+                logits, _ = self.model.decode(params, view, last_tok, pos)
             if mode == "greedy":
                 sampled = logits.argmax(-1).to(torch.int32)
             else:
@@ -491,11 +559,25 @@ class InferenceEngine:
             toks.append(tok)
             emits.append(emit)
             dones.append(done)
+        if gather:
+            # one scatter per dispatch lands the block's writes back in
+            # the pool, through the write table
+            scatter_pages(pool_p, view, write_table)
         # the slot state stays on the device for the next dispatch; it is
         # rebound, not copied into, because `emits[0]` is the old `active`
         self.last_tok, self.pos = last_tok, pos
         self.active, self.remaining = active, remaining
         return torch.stack(toks), torch.stack(emits), torch.stack(dones)
+
+    def _run_params(self) -> Params:
+        """The params a dispatch runs with: as given, the int8 kernel
+        operands built at init, or (int4) the whole tree dequantized, once
+        per dispatch as in JAX."""
+        if self._int8 is not None:
+            return self._int8
+        if self.ecfg.quantize:
+            return q_lib.dequant_tree(self.params)
+        return self.params
 
     def run_until_done(self, max_steps: int = 10_000) -> int:
         steps = 0
@@ -508,12 +590,12 @@ class InferenceEngine:
     # ------------------------------------------------------------- #
     def page_pressure(self) -> float:
         """Fraction of the device page budget committed to live work."""
-        if self.pool.n_pages == 0:
+        if not self._paged or self.pool.n_pages == 0:
             return 0.0
         return self.pool.pages_in_use / self.pool.n_pages
 
     def memory_report(self) -> Dict[str, int]:
-        return {"param_bytes": param_bytes(self.params),
+        return {"param_bytes": q_lib.tree_bytes(self.params),
                 "cache_bytes": cache_bytes(self.cache)}
 
     def perf_stats(self) -> Dict[str, Any]:
@@ -532,8 +614,8 @@ class InferenceEngine:
             "prefill_shapes": sorted(self._prefill_programs),
             "decode_traces": self.decode_traces,
             "decode_block": self.ecfg.decode_block,
-            "paged": True,
-            "paged_attention": True,
+            "paged": self._paged,
+            "paged_attention": self._paged_attn,
             "logical_bytes_moved": self.logical_bytes_moved,
             "logical_bytes_moved_per_token": self.logical_bytes_moved / t,
             "preemptions": self.preemptions,

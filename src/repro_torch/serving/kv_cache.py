@@ -9,10 +9,14 @@ the page budget; the engine admits page-aware and preempts on exhaustion.
 
 The physical cache is a dict of flat pools, `{"k", "v": (L, n_pages + 1,
 page_size, K, hd)}`: page `n_pages`, the sentinel's id, is a scratch page
-that takes the decode writes JAX drops and is never read.
-`scatter_prefill_rows` lands freshly prefilled rows in their pages.  Page sharing between slots (the prefix cache) and the
-host swap tier are not ported yet (ROADMAP.md A4), so every page has one
-owner and the write table equals the page table.
+that takes the writes JAX drops and that attention never reads.
+`scatter_prefill_rows` lands freshly prefilled rows in their pages;
+`gather_pages` / `scatter_pages` copy every slot's logical view out of
+the pool and back (the gather decode mode); `write_slots` lands rows in
+the contiguous per-slot strips (`paged=False`).  Page sharing between
+slots (the prefix cache) and the host swap tier are not ported yet
+(ROADMAP.md A4), so every page has one owner and the write table equals
+the page table.
 """
 from __future__ import annotations
 
@@ -67,11 +71,13 @@ class PagedKVPool:
     def pages_for_tokens(self, n_tokens: int) -> int:
         return max(-(-n_tokens // self.page_size), 1)
 
-    def alloc(self, request_id: int, n_tokens: int) -> Optional[int]:
-        """Claim a slot plus pages covering `n_tokens` positions.
-        All-or-nothing: None (claiming nothing) when slots or pages run
-        out."""
-        total = self.pages_for_tokens(n_tokens)
+    def alloc(self, request_id: int, n_tokens: int,
+              reserve_tokens: int = 0) -> Optional[int]:
+        """Claim a slot plus pages covering `n_tokens` positions
+        (`reserve_tokens`, when larger, widens the claim: the contiguous
+        mode reserves the full `max_len` strip up front).  All-or-nothing:
+        None (claiming nothing) when slots or pages run out."""
+        total = self.pages_for_tokens(max(n_tokens, reserve_tokens))
         if not self.free_slots or n_tokens > self.max_len \
                 or total > len(self.free_pages):
             return None
@@ -174,6 +180,16 @@ class PagedKVPool:
 
 
 # --------------------------------------------------------------------- #
+PAGED_LEAVES = ("k", "v")
+
+
+def split_paged(cache: Dict) -> (Dict, Dict):
+    """Partition a cache dict into (paged, resident) leaf sub-dicts."""
+    paged = {k: v for k, v in cache.items() if k in PAGED_LEAVES}
+    resident = {k: v for k, v in cache.items() if k not in PAGED_LEAVES}
+    return paged, resident
+
+
 def new_pools(n_layers: int, n_pages: int, page_size: int, n_kv_heads: int,
               head_dim: int, dtype: torch.dtype,
               device: torch.device) -> Dict[str, torch.Tensor]:
@@ -211,6 +227,51 @@ def scatter_prefill_rows(paged: Dict, rows: Dict, row_pages) -> None:
                                           + r.shape[3:])], dim=2)
         pages = r.reshape((leaf.shape[0], n_rows * npr, ps) + leaf.shape[3:])
         leaf[:, dst] = pages[:, src].to(leaf.dtype)
+
+
+def gather_pages(paged: Dict, page_table: torch.Tensor) -> Dict:
+    """Each slot's logical view out of the pool, one gather per leaf:
+    leaves (L, P + 1, ps, ...) -> (L, n_slots, pps * ps, ...).  Sentinel
+    entries read the scratch page (JAX fills zeros there): such rows lie
+    past every slot's `pos` and attention masks them."""
+    n_slots, pps = page_table.shape
+    idx = page_table.reshape(-1).long()
+    return {k: v.index_select(1, idx).reshape(
+                (v.shape[0], n_slots, pps * v.shape[2]) + v.shape[3:])
+            for k, v in paged.items()}
+
+
+def scatter_pages(paged: Dict, view: Dict, page_table: torch.Tensor
+                  ) -> Dict:
+    """Write the logical views back into the pool in place, one scatter
+    per leaf; sentinel entries land in the scratch page, which nothing
+    reads (JAX drops them).  Returns `paged`."""
+    n_slots, pps = page_table.shape
+    idx = page_table.reshape(-1).long()
+    for k, leaf in paged.items():
+        rows = view[k].reshape((leaf.shape[0], n_slots * pps)
+                               + leaf.shape[2:])
+        leaf[:, idx] = rows.to(leaf.dtype)
+    return paged
+
+
+def write_slots(cache: Dict, rows: Dict, slots) -> None:
+    """Land a batch of prefilled rows in the contiguous per-slot strips,
+    in place.  cache leaves (L, n_slots, S, ...); rows leaves (L, n_rows,
+    S_rows, ...) with S_rows <= S, written at positions [0, S_rows);
+    `slots` a host array of n_rows slot ids, where ids >= n_slots (padded
+    batch rows) are dropped here on the host, as JAX's mode="drop"
+    scatter does on the device."""
+    slots = np.asarray(slots, np.int64)
+    first = next(iter(cache.values()))
+    keep = np.nonzero(slots < first.shape[1])[0]
+    if keep.size == 0:
+        return
+    src = to_device(keep, first.device)
+    dst = to_device(slots[keep], first.device)
+    for k, leaf in cache.items():
+        r = rows[k]
+        leaf[:, dst, :r.shape[2]] = r[:, src].to(leaf.dtype)
 
 
 def cache_bytes(cache: Dict) -> int:

@@ -6,15 +6,20 @@ with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 1e-4 (another summation order than the plain version),
-bf16 2e-2 (as tests/test_kernels.py).
+bf16 2e-2 (as tests/test_kernels.py).  The int8 products are held
+against the plain dequantize-then-multiply, so they too differ only in
+the order of summation.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import decode_attention_ref
 from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.int8_matmul import int8_matmul_ref
 from repro_torch.kernels.paged_attention import paged_decode_attention_ref
+from repro_torch.serving.quantization import quantize_array
 
 DTYPES = {"f32": (torch.float32, 1e-4), "bf16": (torch.bfloat16, 2e-2)}
 
@@ -101,6 +106,88 @@ def test_flash_kernel_matches_plain(cuda, case, dt):
                                     prefix=pre), tol)
 
 
+DECODE = [
+    # B, K, G, S, hd, window, prefix, pos (None: ragged from a seed)
+    (2, 2, 4, 512, 64, 0, 0, None),      # DECODE_CASES of test_kernels.py
+    (4, 8, 8, 256, 128, 0, 0, None),
+    (2, 1, 4, 512, 64, 128, 0, None),
+    (1, 4, 2, 1024, 64, 0, 0, None),
+    (3, 2, 8, 256, 32, 0, 0, None),
+    (4, 2, 2, 512, 64, 0, 0, [0, 63, 200, 511]),
+    (3, 2, 4, 300, 64, 48, 16, [5, 100, 299]),     # window + prefix, S % 8
+    (3, 2, 8, 40, 16, 0, 0, [0, 17, 39]),          # hd 16, G 8
+    (2, 2, 12, 64, 32, 0, 0, [10, 63]),            # G > 8 in chunks
+    (8, 16, 1, 1024, 128, 0, 0, [0, 5, 300, 511, 700, 900, 1000, 1023]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", DECODE)
+@pytest.mark.parametrize("strided", [False, True])
+def test_decode_kernel_matches_plain(cuda, case, dt, strided):
+    """Contiguous (B, K, S, hd) caches, and the permuted view of a
+    (B, S, K, hd) cache, the layout the engine hands the kernel."""
+    B, K, G, S, hd, win, pre, pos = case
+    dtype, tol = DTYPES[dt]
+    if pos is None:
+        pos = np.random.default_rng(5).integers(max(win, 1), S, B).tolist()
+    q, = _tensors(6, cuda, dtype, (B, K, G, hd))
+    if strided:
+        kc, vc = (c.permute(0, 2, 1, 3) for c in
+                  _tensors(7, cuda, dtype, (B, S, K, hd), (B, S, K, hd)))
+    else:
+        kc, vc = _tensors(7, cuda, dtype, (B, K, S, hd), (B, K, S, hd))
+    args = (q, kc, vc, torch.tensor(pos, dtype=torch.int32, device=cuda))
+    before = ops.decode_attention.launches
+    got = ops.decode_attention(*args, window=win, prefix=pre)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    _close(got, decode_attention_ref(*args, window=win, prefix=pre), tol)
+
+
+INT8 = [
+    # M, K, N, weight layout
+    (128, 256, 128, "kn"),               # INT8_CASES of test_kernels.py
+    (256, 512, 256, "kn"),
+    (128, 128, 384, "kn"),
+    (8, 2048, 2048, "kn"),               # OLMo-1B decode projections
+    (8, 2048, 8192, "kn"),
+    (8, 8192, 2048, "kn"),
+    (1, 2048, 8192, "kn"),
+    (3, 100, 77, "kn"),                  # ragged M, K, N
+    (13, 33, 200, "kn"),
+    (70, 100, 77, "kn"),
+    (8, 2048, 50304, "head"),            # the tied head's route
+    (2, 2048, 50304, "head"),
+    (40, 96, 200, "head"),
+    (5, 37, 61, "head"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", INT8)
+def test_int8_kernel_matches_plain(cuda, case, dt):
+    """The head route is the model's: the embedding (V, d) quantized per
+    d, passed as the strided (d, V) view with its (d, 1) scale."""
+    M, K, N, layout = case
+    dtype, tol = DTYPES[dt]
+    x, w = _tensors(8, cuda, torch.float32, (M, K), (K, N) if layout == "kn"
+                    else (N, K))
+    qd = quantize_array(w * 0.1, 8)
+    wq, sc = qd["__q__"], qd["scale"]
+    if layout == "head":
+        wq, sc = wq.t(), sc.t().contiguous()
+    x = x.to(dtype)
+    before = ops.int8_matmul.launches
+    got = ops.int8_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    assert ops.int8_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    _close(got, int8_matmul_ref(x, wq, sc), tol)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q, k, v = _tensors(4, cuda, torch.float32, (1, 2, 8, 24), (1, 2, 8, 24),
@@ -111,3 +198,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                        (1, 2, 8, 16))
     with pytest.raises(TypeError):
         ops.flash_attention(q, k, v)
+    kc = torch.zeros(2, 4, 16, 32, device=cuda)[:, :, :, :16]   # rows of 64 B
+    q = torch.zeros(2, 4, 1, 16, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    ops.decode_attention(q, kc, kc, pos)     # 16-byte rows: accepted
+    with pytest.raises(ValueError, match="strides"):
+        ops.decode_attention(q, kc.transpose(2, 3)[:, :, :16], kc, pos)
+    x = torch.zeros(4, 8, device=cuda)
+    w = torch.zeros(8, 6, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="scale"):
+        ops.int8_matmul(x, w, torch.ones(1, 8, device=cuda))
+    with pytest.raises(TypeError):
+        ops.int8_matmul(x, w.float(), torch.ones(1, 6, device=cuda))

@@ -38,6 +38,7 @@ def tparams(cfg, jparams):
 
 
 def _engine(cfg, params, **kw):
+    kw.setdefault("paged_attention", True)
     kw.setdefault("n_slots", 4)
     kw.setdefault("max_len", 64)
     kw.setdefault("page_size", 8)
@@ -200,8 +201,7 @@ def test_sample_batched_support_and_greedy_rows():
 
 def test_out_of_slice_engine_features_raise(cfg, tparams):
     for kw in (dict(prefix_cache=True), dict(speculative=True),
-               dict(paged_attention=False), dict(paged=False),
-               dict(quantize="int8"), dict(host_kv_pages=8)):
+               dict(host_kv_pages=8)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
             _engine(cfg, tparams, **kw)
 

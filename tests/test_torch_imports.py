@@ -10,6 +10,7 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 PROBE = """
 import sys
 import repro_torch, repro_torch.serving, repro_torch.kernels.ops
+import repro_torch.serving.quantization
 import repro_torch.models, repro_torch.params, repro_torch.configs
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -24,6 +25,9 @@ cfg = ARCHS["olmo-1b"].reduced(dtype="f32")
 params = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
 eng = InferenceEngine(cfg, params, EngineConfig(), device="cpu")
 assert eng.device.type == "cpu"
+eng = InferenceEngine(cfg, params, EngineConfig(quantize="int8", paged=False),
+                      device="cpu")
+assert eng.perf_stats()["paged"] is False
 if not torch.cuda.is_available():
     try:
         InferenceEngine(cfg, params, EngineConfig())

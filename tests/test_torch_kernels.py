@@ -1,13 +1,14 @@
 """The port's attention kernels against the JAX package's.
 
 On the CPU: each plain PyTorch version (`paged_decode_attention_ref`,
-`flash_attention_ref`) is held against the Pallas kernel in interpret
-mode and against the JAX reference, on the cases of
-`tests/test_kernels.py`; the device-routing wrappers send CPU tensors to
+`flash_attention_ref`, `decode_attention_ref`, `int8_matmul_ref`) is
+held against the Pallas kernel in interpret mode and against the JAX
+reference, on the cases of `tests/test_kernels.py`; the device-routing wrappers send CPU tensors to
 the plain versions and launch nothing.  Inputs are made with numpy from
 a seed and handed to both packages.  Tolerances: f32 2e-5 (the same
 online softmax in another summation order), bf16 2e-2 (as
-tests/test_kernels.py).  The kernels themselves are held against these
+tests/test_kernels.py); int8 products f32 1e-4, bf16 5e-2 (the bf16
+rounding of x and of the output).  The kernels themselves are held against these
 plain versions on the card by tests/test_torch_cuda.py.
 """
 import jax.numpy as jnp
@@ -17,9 +18,14 @@ import torch
 
 from repro.kernels import paged_attention as jax_pa
 from repro.kernels import ref as jax_ref
+from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.int8_matmul import int8_matmul as jax_int8
+from repro.serving.quantization import quantize_array as jax_quantize
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import decode_attention_ref
 from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.int8_matmul import int8_matmul_ref
 from repro_torch.kernels.paged_attention import paged_decode_attention_ref
 
 torch.set_num_threads(2)
@@ -167,6 +173,65 @@ def test_flash_ref_noncausal():
     _close(got, want, F32_TOL)
 
 
+# ------------------- decode attention ------------------------------ #
+DECODE_CASES = [
+    # B, K, G, S, hd, window, prefix, block_k, pos (None: from a seed)
+    (2, 2, 4, 512, 64, 0, 0, 128, None),     # tests/test_kernels.py
+    (4, 8, 8, 256, 128, 0, 0, 128, None),
+    (2, 1, 4, 512, 64, 128, 0, 128, None),
+    (1, 4, 2, 1024, 64, 0, 0, 256, None),
+    (3, 2, 8, 256, 32, 0, 0, 64, None),
+    (4, 2, 2, 512, 64, 0, 0, 64, [0, 63, 200, 511]),   # ragged positions
+    (3, 2, 4, 256, 64, 48, 16, 64, [5, 100, 255]),     # window + prefix
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_ref_matches_jax(case):
+    B, K, G, S, hd, win, pre, bk, pos = case
+    q, kc, vc = _arrays(31, (B, K, G, hd), (B, K, S, hd), (B, K, S, hd))
+    if pos is None:
+        pos = np.random.default_rng(32).integers(max(win, 1), S, B)
+    pos = np.asarray(pos, np.int32)
+    args = [_jax(q, jnp.float32), _jax(kc, jnp.float32),
+            _jax(vc, jnp.float32), jnp.asarray(pos)]
+    want_kernel = jax_decode(*args, window=win, prefix=pre, block_k=bk,
+                             interpret=True)
+    want_ref = jax_ref.decode_attention_ref(*args, window=win, prefix=pre)
+    got = decode_attention_ref(
+        _torch(q, torch.float32), _torch(kc, torch.float32),
+        _torch(vc, torch.float32), torch.from_numpy(pos), window=win,
+        prefix=pre)
+    _close(got, want_kernel, F32_TOL)
+    _close(got, want_ref, F32_TOL)
+
+
+# ------------------- int8 matmul ----------------------------------- #
+INT8_CASES = [
+    # M, K, N, dtype (tests/test_kernels.py)
+    (128, 256, 128, "f32"),
+    (256, 512, 256, "bf16"),
+    (128, 128, 384, "f32"),
+]
+_INT8_TOL = {"f32": 1e-4, "bf16": 5e-2}
+
+
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_ref_matches_jax(case):
+    M, K, N, dt = case
+    jdt, tdt, _ = _DT[dt]
+    x, w = _arrays(41, (M, K), (K, N))
+    qd = jax_quantize(jnp.asarray(w * 0.1), 8)
+    jx = _jax(x, jdt)
+    want_kernel = jax_int8(jx, qd["__q__"], qd["scale"], interpret=True)
+    want_ref = jax_ref.int8_matmul_ref(jx, qd["__q__"], qd["scale"])
+    got = int8_matmul_ref(_torch(x, tdt), torch.from_numpy(
+        np.array(qd["__q__"])), torch.from_numpy(np.array(qd["scale"])))
+    assert got.dtype == tdt
+    _close(_f32(got), want_kernel.astype(jnp.float32), _INT8_TOL[dt])
+    _close(_f32(got), want_ref.astype(jnp.float32), _INT8_TOL[dt])
+
+
 # ------------------- device routing -------------------------------- #
 def test_cpu_tensors_route_to_plain_versions():
     """CPU tensors take the plain versions, bit for bit, and launch no
@@ -183,5 +248,15 @@ def test_cpu_tensors_route_to_plain_versions():
                   _arrays(6, (1, 4, 40, 32), (1, 2, 40, 32), (1, 2, 40, 32)))
     assert torch.equal(ops.flash_attention(fq, fk, fv),
                        flash_attention_ref(fq, fk, fv))
-    assert ops.paged_decode_attention.launches == 0
-    assert ops.flash_attention.launches == 0
+    q, kc = (_torch(a, torch.float32) for a in
+             _arrays(7, (2, 2, 3, 16), (2, 40, 2, 16)))
+    pos = torch.tensor([3, 39], dtype=torch.int32)
+    view = kc.permute(0, 2, 1, 3)        # the engine's (B, S, K, hd) cache
+    assert torch.equal(ops.decode_attention(q, view, view, pos),
+                       decode_attention_ref(q, view, view, pos))
+    x, w = (_torch(a, torch.float32) for a in _arrays(8, (5, 37), (61, 37)))
+    wq = torch.randint(-127, 128, (61, 37), dtype=torch.int8)
+    sc = torch.rand(37, 1) + 0.5
+    assert torch.equal(ops.int8_matmul(x, wq.t(), sc),
+                       int8_matmul_ref(x, wq.t(), sc))
+    assert all(fn.launches == 0 for fn in ops.WRAPPERS)

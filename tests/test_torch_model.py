@@ -1,6 +1,8 @@
 """The port's dense model against the JAX package's, on the reduced OLMo-1B
 in f32 with the JAX-initialised params carried across by `from_jax`:
-params, layers, bucketed prefill and one paged decode step.  Tolerances:
+params, layers, bucketed prefill, one decode step against a contiguous
+cache and one through the page table, and the page gather / scatter /
+slot writes of the KV cache.  Tolerances:
 layers 1e-6 (same f32 arithmetic), logits 1e-4 (matmuls and attention
 summed in another order), bf16 layers 1 ulp of bf16 (2**-7 relative)."""
 import jax
@@ -12,11 +14,13 @@ import torch
 from repro.configs import ARCHS
 from repro.models import layers as jax_layers
 from repro.models import transformer as jax_tf
+from repro.serving import kv_cache as jax_kv
 from repro_torch import params as params_lib
 from repro_torch.configs import ARCHS as TORCH_ARCHS
 from repro_torch.models import build
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tf
+from repro_torch.serving import kv_cache as kv
 
 torch.set_num_threads(2)
 
@@ -217,3 +221,65 @@ def test_paged_write_all_rows_dropped(cfg):
     assert torch.equal(pool[:6], before[:6])
     assert torch.equal(pool[6, 1], new[0])
     assert torch.equal(pool[6, 2], new[1])
+
+
+def test_decode_step_matches_jax(cfg, jparams, tparams):
+    """One decode step against a contiguous (L, B, S, K, hd) cache, in
+    place; row 2 sits at pos == S, whose write JAX clamps to S - 1."""
+    rng = np.random.default_rng(4)
+    S = 24
+    shape = (cfg.n_layers, 3, S, cfg.n_kv_heads, cfg.head_dim)
+    kc = rng.standard_normal(shape).astype(np.float32)
+    vc = rng.standard_normal(shape).astype(np.float32)
+    token = np.asarray([5, 17, 200], np.int32)
+    pos = np.asarray([0, 13, S], np.int32)
+    want_logits, want_cache = jax_tf.decode_step(
+        jparams, cfg, {"k": jnp.asarray(kc), "v": jnp.asarray(vc)},
+        jnp.asarray(token), jnp.asarray(pos))
+    cache = {"k": torch.from_numpy(kc.copy()),
+             "v": torch.from_numpy(vc.copy())}
+    logits, out = tf.decode_step(tparams, cfg, cache,
+                                 torch.from_numpy(token).long(),
+                                 torch.from_numpy(pos))
+    assert out["k"] is cache["k"]                  # written in place
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
+                               atol=1e-4, rtol=1e-4)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache[name].numpy(),
+                                   np.asarray(want_cache[name]),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_gather_scatter_write_slots_match_jax():
+    """Same pool and tables in both packages: the gathered views agree on
+    every row that is not a sentinel row (the port reads its scratch page
+    there, JAX zeros; both lie past pos and are masked), the scattered
+    pools agree exactly on the real pages, and slot writes agree."""
+    rng = np.random.default_rng(5)
+    L, P, ps, K, hd = 2, 6, 4, 2, 8
+    pool = rng.standard_normal((L, P, ps, K, hd)).astype(np.float32)
+    table = np.asarray([[3, 0, P], [5, P, P], [P, P, P]], np.int32)
+    jpool = {"k": jnp.asarray(pool)}
+    want = np.asarray(jax_kv.gather_pages(jpool, jnp.asarray(table))["k"])
+    scratch = rng.standard_normal((L, 1, ps, K, hd)).astype(np.float32)
+    tpool = {"k": torch.from_numpy(np.concatenate([pool, scratch], 1))}
+    got = kv.gather_pages(tpool, torch.from_numpy(table))["k"].numpy()
+    real = np.repeat(table < P, ps, axis=1)         # (n_slots, pps * ps)
+    np.testing.assert_array_equal(got[:, real], want[:, real])
+
+    view = rng.standard_normal(want.shape).astype(np.float32)
+    want_pool = np.asarray(jax_kv.scatter_pages(
+        jpool, {"k": jnp.asarray(view)}, jnp.asarray(table))["k"])
+    kv.scatter_pages(tpool, {"k": torch.from_numpy(view)},
+                     torch.from_numpy(table))
+    np.testing.assert_array_equal(tpool["k"][:, :P].numpy(), want_pool)
+
+    strips = rng.standard_normal((L, 3, 16, K, hd)).astype(np.float32)
+    rows = rng.standard_normal((L, 2, 16, K, hd)).astype(np.float32)
+    slots = np.asarray([2, 3], np.int32)             # 3 >= n_slots: dropped
+    want_strips = np.asarray(jax_kv.write_slots(
+        {"k": jnp.asarray(strips)}, {"k": jnp.asarray(rows)},
+        jnp.asarray(slots))["k"])
+    tstrips = {"k": torch.from_numpy(strips.copy())}
+    kv.write_slots(tstrips, {"k": torch.from_numpy(rows)}, slots)
+    np.testing.assert_array_equal(tstrips["k"].numpy(), want_strips)

@@ -2,9 +2,10 @@
 
     python3 tools/profile_serve.py
 
-Runs chip_smoke.py's serve_bf16 workload (the full OLMo-1B in bf16,
-12 seeded requests) three times on one engine: a cold run (first use:
-kernel libraries loaded, cuBLAS initialised, pinned buffers allocated),
+Runs chip_smoke.py's serve_bf16 workload (the full OLMo-1B in bf16, the
+paged-attention mode, 12 seeded requests) three times on one engine: a
+cold run (first use: kernel libraries loaded, cuBLAS initialised, pinned
+buffers allocated),
 a warm run timed on the host clock, and a warm run under
 torch.profiler.  Prints one JSON line per run; the profiled one carries
 the device busy time (sum of kernel times; one stream, so kernels do not
@@ -64,7 +65,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = chip_smoke.card_line()
     ops.build()
-    _, ecfg, eng, requests = chip_smoke.serve_setup(dev)
+    _, ecfg, eng, requests, _ = chip_smoke.serve_setup(
+        dev, paged_attention=True)
     for tag in ("cold", "warm"):
         before = eng.perf_stats()
         step_ms, wall = chip_smoke.drive(eng, requests())
