@@ -14,11 +14,15 @@ JSON line:
 3. kernel_checks — each hand-written kernel against its plain PyTorch
               version on the card, at the OLMo-1B decode / prefill /
               projection / head shapes and at GQA, window + prefix,
-              head_dim 16, strided-cache and ragged cases.  Tolerances:
-              f32 1e-4 (another summation order than the plain version),
-              bf16 2e-2 (as tests/test_kernels.py); the int8 products are
-              held against the plain dequantize-then-multiply, so they too
-              differ only in the order of summation.
+              head_dim 16, strided-cache and ragged cases, each flash and
+              int8 launch also held to its route (bf16 flash and bf16
+              int8 with M > 16 on aligned rows: "tensor_core"; f32 flash
+              "cuda_core"; M <= 16 "skinny"; the rest "cuda_core_tile").
+              Tolerances: f32 1e-4 (another summation order than the
+              plain version), bf16 2e-2 (as tests/test_kernels.py); the
+              int8 products are held against the plain
+              dequantize-then-multiply, so they too differ only in the
+              order of summation (int8 is exact in bf16).
 4. parity_f32 — a 2-layer full-width OLMo-1B in f32 serves 4 greedy
               requests through the engine in each decode mode (paged
               attention, gather, contiguous) and in the gather mode with
@@ -32,7 +36,8 @@ JSON line:
               read just after; every request must finish with its exact
               budget, every page must be returned, and the launch counts
               must equal n_layers x decode_block x decode dispatches
-              (paged decode) and n_layers x prefill dispatches (flash).
+              (paged decode) and n_layers x prefill dispatches (flash),
+              every flash launch on the "tensor_core" route.
 6. serve_int8 — the other main path: the same model, engine sizes and
               requests under quantize="int8" in the JAX engine's default
               decode mode (gather), counters reset just before and read
@@ -42,7 +47,11 @@ JSON line:
               (flash), (7 n_layers + 1) x model calls (int8 matmul: wq,
               wk, wv, wo, gate, up, down per layer plus the tied head, in
               each prefill and each decode step), and int8 weights under
-              0.65 x the bf16 model's bytes.
+              0.65 x the bf16 model's bytes.  By route: every flash launch
+              "tensor_core"; every int8 launch with M > 16 (a prefill
+              projection of rows x bucket > 16) "tensor_core", the rest
+              (decode, the head) "skinny", counted from each prefill
+              dispatch's (rows, bucket).
 7. kernels  — per kernel: its launches on the path that runs it, its
               error against the plain version, its time (CUDA events,
               median of 30 runs after warm-up, each from a cold L2)
@@ -52,7 +61,9 @@ JSON line:
               timed at the serves' decode shape; flash at serve_bf16's
               widest prefill (rows x bucket); the int8 matmul at decode
               M = 8 for 2048 -> 8192 (its entry), the tied head and
-              serve_int8's widest prefill M (its "shapes").
+              serve_int8's widest prefill M at all three projection
+              shapes (its "shapes"), each with its route and its ratio to
+              the library call ("vs_library").
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -127,6 +138,30 @@ def check_close(name, got, want, tol) -> float:
 
 def tol_of(dtype) -> float:
     return 1e-4 if dtype == torch.float32 else 2e-2
+
+
+def on_route(wrapper, route, call):
+    """call(), which must launch `wrapper`'s kernel once, on `route`
+    (read from the wrapper's launches_by_route)."""
+    before = dict(wrapper.launches_by_route)
+    out = call()
+    moved = {r: n - before[r] for r, n in wrapper.launches_by_route.items()
+             if n != before[r]}
+    if moved != {route: 1}:
+        raise AssertionError(f"{wrapper.__name__}: launches by route "
+                             f"{moved}, want {{{route!r}: 1}}")
+    return out
+
+
+def flash_route(dtype) -> str:
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def int8_route(dtype, M, bf16_route) -> str:
+    """f32 x never takes the tensor cores (it would be TF32)."""
+    if dtype == torch.bfloat16:
+        return bf16_route
+    return "skinny" if M <= 16 else "cuda_core_tile"
 
 
 # --------------------------------------------------------------------- #
@@ -237,21 +272,26 @@ def kernel_checks(dev, ops, refs, q_lib):
         ]
         for name, kw, win, pre in fcases:
             q, k, v = flash_case(dev, dtype, seed=len(rows), **kw)
-            got = ops.flash_attention(q, k, v, causal=True, window=win,
-                                      prefix=pre)
+            got = on_route(ops.flash_attention, flash_route(dtype),
+                           lambda: ops.flash_attention(
+                               q, k, v, causal=True, window=win,
+                               prefix=pre))
             torch.cuda.synchronize()
             want = flash_ref(q, k, v, causal=True, window=win, prefix=pre)
             err = check_close(f"flash_attention/{name}", got, want,
                               tol_of(dtype))
             rows.append({"kernel": "flash_attention", "case": name,
-                         "dtype": str(dtype), "max_abs_err": err})
+                         "dtype": str(dtype), "route": flash_route(dtype),
+                         "max_abs_err": err})
         q, k, v = flash_case(dev, dtype, B=1, H=4, K=2, S=128, hd=64, seed=99)
-        got = ops.flash_attention(q, k, v, causal=False)
+        got = on_route(ops.flash_attention, flash_route(dtype),
+                       lambda: ops.flash_attention(q, k, v, causal=False))
         torch.cuda.synchronize()
         err = check_close("flash_attention/noncausal", got,
                           flash_ref(q, k, v, causal=False), tol_of(dtype))
         rows.append({"kernel": "flash_attention", "case": "noncausal",
-                     "dtype": str(dtype), "max_abs_err": err})
+                     "dtype": str(dtype), "route": flash_route(dtype),
+                     "max_abs_err": err})
         dcases = [
             ("olmo_decode_strided", dict(B=8, K=16, G=1, S=1024, hd=128,
                                          pos=olmo_pos, strided=True), 0, 0),
@@ -280,23 +320,50 @@ def kernel_checks(dev, ops, refs, q_lib):
                               tol_of(dtype))
             rows.append({"kernel": "decode_attention", "case": name,
                          "dtype": str(dtype), "max_abs_err": err})
-        icases = [(f"m{m}_{k}x{n}", dict(M=m, K=k, N=n, head=False))
+        # (name, shape, the route of bf16 x)
+        icases = [(f"m{m}_{k}x{n}", dict(M=m, K=k, N=n, head=False),
+                   "skinny" if m <= 16 else "tensor_core")
                   for m in (8, 4096)
                   for k, n in ((2048, 2048), (2048, 8192), (8192, 2048))]
         icases += [
-            ("head_m8_2048x50304", dict(M=8, K=2048, N=50304, head=True)),
-            ("ragged_3x100x77", dict(M=3, K=100, N=77, head=False)),
-            ("ragged_70x100x77", dict(M=70, K=100, N=77, head=False)),
-            ("head_ragged_5x37x61", dict(M=5, K=37, N=61, head=True)),
+            ("head_m8_2048x50304", dict(M=8, K=2048, N=50304, head=True),
+             "skinny"),
+            ("ragged_3x100x77", dict(M=3, K=100, N=77, head=False),
+             "skinny"),
+            # K % 8 != 0 and N % 16 != 0: unaligned rows
+            ("ragged_70x100x77", dict(M=70, K=100, N=77, head=False),
+             "cuda_core_tile"),
+            ("head_ragged_5x37x61", dict(M=5, K=37, N=61, head=True),
+             "skinny"),
         ]
-        for name, kw in icases:
+        for name, kw, bf16_route in icases:
             x, wq, sc = int8_case(dev, dtype, q_lib, seed=len(rows), **kw)
-            got = ops.int8_matmul(x, wq, sc)
+            route = int8_route(dtype, kw["M"], bf16_route)
+            got = on_route(ops.int8_matmul, route,
+                           lambda: ops.int8_matmul(x, wq, sc))
             torch.cuda.synchronize()
             err = check_close(f"int8_matmul/{name}", got,
                               refs["int8_matmul"](x, wq, sc), tol_of(dtype))
             rows.append({"kernel": "int8_matmul", "case": name,
-                         "dtype": str(dtype), "max_abs_err": err})
+                         "dtype": str(dtype), "route": route,
+                         "max_abs_err": err})
+    # the tensor-core route's edges, bf16 only (seeds of their own, so
+    # that the cases above keep theirs): the smallest tile-route M, and
+    # ragged M, K, N with 16-byte rows
+    for i, (name, kw) in enumerate((
+            ("m17_2048x2048", dict(M=17, K=2048, N=2048, head=False)),
+            ("ragged_4100x2056x8208", dict(M=4100, K=2056, N=8208,
+                                           head=False)))):
+        x, wq, sc = int8_case(dev, torch.bfloat16, q_lib, seed=1000 + i,
+                              **kw)
+        got = on_route(ops.int8_matmul, "tensor_core",
+                       lambda: ops.int8_matmul(x, wq, sc))
+        torch.cuda.synchronize()
+        err = check_close(f"int8_matmul/{name}", got,
+                          refs["int8_matmul"](x, wq, sc), 2e-2)
+        rows.append({"kernel": "int8_matmul", "case": name,
+                     "dtype": str(torch.bfloat16), "route": "tensor_core",
+                     "max_abs_err": err})
     return rows
 
 
@@ -360,8 +427,10 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
     flash_ref = refs["flash_attention"]
     (B, S), H = prefill_shape, 16
     q, k, v = flash_case(dev, dt, B=B, H=H, K=16, S=S, hd=128, seed=8)
-    err = check_close("flash_attention/timed", ops.flash_attention(q, k, v),
-                      flash_ref(q, k, v), tol_of(dt))
+    got = on_route(ops.flash_attention, "tensor_core",
+                   lambda: ops.flash_attention(q, k, v))
+    err = check_close("flash_attention/timed", got, flash_ref(q, k, v),
+                      tol_of(dt))
     pairs = B * S * (S + 1) // 2             # visible causal (q, k) pairs
     nbytes = 4 * q.numel() * q.element_size()
     b_ms, b_by = bound(nbytes, 4 * H * 128 * pairs, BF16_FLOPS)
@@ -373,19 +442,25 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
         "bound_ms": b_ms, "bound_by": b_by,
         # a yardstick only: the port never calls it
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True))}
+            q, k, v, is_causal=True)), "kernel_route": "tensor_core"}
+    out["flash_attention"]["vs_library"] = (
+        out["flash_attention"]["ms"] / out["flash_attention"]["library_ms"])
 
     mm_ref = refs["int8_matmul"]
     shapes = []
-    for label, M, Kd, N, head in (
-            ("decode", 8, 2048, 8192, False),
-            ("head", 8, 2048, 50304, True),
-            ("prefill", int8_m, 2048, 8192, False)):
+    for label, M, Kd, N, head, route in (
+            ("decode", 8, 2048, 8192, False, "skinny"),
+            ("head", 8, 2048, 50304, True, "skinny"),
+            # serve_int8's widest prefill: wq/wk/wv/wo, gate/up, down
+            ("prefill_attn", int8_m, 2048, 2048, False, "tensor_core"),
+            ("prefill", int8_m, 2048, 8192, False, "tensor_core"),
+            ("prefill_down", int8_m, 8192, 2048, False, "tensor_core")):
         x, wq, sc = int8_case(dev, dt, q_lib, M=M, K=Kd, N=N, head=head,
                               seed=10)
-        err = check_close(f"int8_matmul/timed_{label}",
-                          ops.int8_matmul(x, wq, sc), mm_ref(x, wq, sc),
-                          tol_of(dt))
+        got = on_route(ops.int8_matmul, route,
+                       lambda: ops.int8_matmul(x, wq, sc))
+        err = check_close(f"int8_matmul/timed_{label}", got,
+                          mm_ref(x, wq, sc), tol_of(dt))
         # bytes: int8 weights, x, out (bf16) and the scale, each once;
         # operations at the bf16 tensor-core peak, the rate the card has
         # for this product
@@ -395,7 +470,7 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
         shapes.append({
             "label": label, "shape": f"M={M} K={Kd} N={N} bf16"
             + (" (tied head: embed_q.t(), per-K scale)" if head else ""),
-            "max_abs_err": err,
+            "kernel_route": route, "max_abs_err": err,
             "ms": time_ms(lambda: ops.int8_matmul(x, wq, sc)),
             "plain_ms": time_ms(lambda: mm_ref(x, wq, sc), reps=10),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -403,6 +478,8 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
             # dequantized beforehand, twice the weight bytes
             "library_ms": time_ms(lambda: torch.matmul(x, w16))})
         del w16
+    for sh in shapes:
+        sh["vs_library"] = sh["ms"] / sh["library_ms"]
     out["int8_matmul"] = {**shapes[0], "shapes": shapes}
     return out
 
@@ -548,15 +625,47 @@ def expected_launches(cfg, ecfg, st):
                             if ecfg.quantize == "int8" else 0)}
 
 
+def expected_routes(cfg, ecfg, st, dispatch_shapes):
+    """The flash and int8 launches of a bf16 serve by route.  Flash: all
+    on the tensor cores.  int8: in a prefill dispatch of (rows, bucket)
+    the 7 n_layers projections have M = rows x bucket, on the tensor
+    cores when M > 16, and the tied head M = rows; every decode step has
+    M = n_slots; M <= 16 is skinny."""
+    flash = {"tensor_core": cfg.n_layers * st["prefill_dispatches"],
+             "cuda_core": 0}
+    int8 = {"skinny": 0, "tensor_core": 0, "cuda_core_tile": 0}
+    if ecfg.quantize == "int8":
+        def route(m, wide):
+            return "skinny" if m <= 16 else wide
+        n = cfg.n_layers
+        for rows, bucket in dispatch_shapes:
+            int8[route(rows * bucket, "tensor_core")] += 7 * n
+            int8[route(rows, "cuda_core_tile")] += 1     # the tied head
+        steps = ecfg.decode_block * st["decode_dispatches"]
+        int8[route(ecfg.n_slots, "tensor_core")] += 7 * n * steps
+        int8[route(ecfg.n_slots, "cuda_core_tile")] += steps
+    return {"flash_attention": flash, "int8_matmul": int8}
+
+
 def serve(phase, dev, ops, card, **engine_kw):
     cfg, ecfg, eng, requests, dense_bytes = serve_setup(dev, **engine_kw)
     reqs = requests()
+    # each prefill dispatch's (rows, bucket), for the expected routes
+    dispatch_shapes = []
+    admit = eng._prefill_admit
+
+    def recording_admit(toks, *args):
+        dispatch_shapes.append(tuple(toks.shape))
+        return admit(toks, *args)
+    eng._prefill_admit = recording_admit
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     # the path: counters at 0 just before, read just after
     ops.reset_launches()
     step_ms, wall = drive(eng, reqs)
     launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    by_route = {fn.__name__: dict(fn.launches_by_route)
+                for fn in (ops.flash_attention, ops.int8_matmul)}
     st = eng.perf_stats()
     budgets = [r.sampling.max_tokens for r in reqs]
     lens = [len(r.output) for r in reqs]
@@ -569,6 +678,14 @@ def serve(phase, dev, ops, card, **engine_kw):
     want = expected_launches(cfg, ecfg, st)
     if launches != want:
         raise AssertionError(f"{phase} launches {launches}, want {want}")
+    if len(dispatch_shapes) != st["prefill_dispatches"]:
+        raise AssertionError(f"{phase}: {len(dispatch_shapes)} prefill "
+                             f"shapes for {st['prefill_dispatches']} "
+                             "dispatches")
+    want = expected_routes(cfg, ecfg, st, dispatch_shapes)
+    if by_route != want:
+        raise AssertionError(f"{phase} launches by route {by_route}, "
+                             f"want {want}")
     mem = eng.memory_report()
     if ecfg.quantize == "int8" and mem["param_bytes"] >= 0.65 * dense_bytes:
         raise AssertionError(f"{phase}: int8 weights {mem['param_bytes']} B"
@@ -593,8 +710,9 @@ def serve(phase, dev, ops, card, **engine_kw):
           "logical_bytes_moved": st["logical_bytes_moved"],
           "param_bytes": mem["param_bytes"], "bf16_param_bytes": dense_bytes,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-          "launches": launches, "card": card})
-    return launches, [tuple(s) for s in st["prefill_shapes"]]
+          "launches": launches, "launches_by_route": by_route,
+          "card": card})
+    return launches, by_route, [tuple(s) for s in st["prefill_shapes"]]
 
 
 # --------------------------------------------------------------------- #
@@ -641,10 +759,10 @@ def main() -> int:
     emit({"phase": "kernel_checks", "cases": rows})
 
     parity_f32(dev, ops)
-    bf16_launches, bf16_shapes = serve("serve_bf16", dev, ops, card,
-                                       paged_attention=True)
-    int8_launches, int8_shapes = serve("serve_int8", dev, ops, card,
-                                       quantize="int8")
+    bf16_launches, bf16_routes, bf16_shapes = serve(
+        "serve_bf16", dev, ops, card, paged_attention=True)
+    int8_launches, int8_routes, int8_shapes = serve(
+        "serve_int8", dev, ops, card, quantize="int8")
     # the prefill whose attention did the most work: rows x bucket^2; the
     # widest int8 product: rows x bucket
     widest = max(bf16_shapes, key=lambda s: s[0] * s[1] ** 2)
@@ -665,6 +783,7 @@ def main() -> int:
             "src/repro/kernels/int8_matmul.py:58", "serve_int8"),
     }
     path_launches = {"serve_bf16": bf16_launches, "serve_int8": int8_launches}
+    path_routes = {"serve_bf16": bf16_routes, "serve_int8": int8_routes}
     kernels = []
     for name, (source, replaces, path) in meta.items():
         t = timings[name]
@@ -678,6 +797,8 @@ def main() -> int:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"], "shape": t["shape"],
+                        **({"launches_by_route": path_routes[path][name]}
+                           if name in path_routes[path] else {}),
                         **({"shapes": t["shapes"]} if "shapes" in t else {}),
                         "card": card})
     emit({"kernels": kernels})

@@ -1,29 +1,48 @@
-// Dequantizing int8 matmul for Hopper (sm_90a), CUDA C++ on CUDA cores,
-// f32 accumulation: out (M, N) = x (M, K) @ (w_q (K, N) * scale), out in
-// x's dtype.
+// Dequantizing int8 matmul for Hopper (sm_90a), CUDA C++, f32
+// accumulation: out (M, N) = x (M, K) @ (w_q (K, N) * scale), out in x's
+// dtype.
 //
 // Replaces: src/repro/kernels/int8_matmul.py, _int8_mm_kernel (launched by
 // int8_matmul through pl.pallas_call).  The weights stay int8 in device
-// memory; each int8 value is widened to f32 in registers (skinny kernels)
-// or in shared memory (tile kernel) and never written back.  The scale is
-// either per output channel, (1, N), applied once to the f32 sum as the
-// Pallas kernel does, or per input channel, (K, 1), applied to x as it is
-// read: the tied LM head's embedding scale is per d, its K dimension.
+// memory; each int8 value is widened (exactly) in registers or shared
+// memory and never written back.  The scale is either per output
+// channel, (1, N), applied once to the f32 sum as the Pallas kernel does,
+// or per input channel, (K, 1), applied to x as it is read: the tied LM
+// head's embedding scale is per d, its K dimension.
 //
 // Layouts.  x (M, K) row-major f32 or bf16; w_q any (K, N) strided view
 // with one unit stride: "KN" (stride_n == 1, every linear layer) or "NK"
 // (stride_k == 1, the tied head's embed_q.t()).  M, N, K are any sizes:
-// the ragged edges are masked, and 16-byte loads fall back to byte loads
-// where a row is not 16-byte aligned.
+// the ragged edges are masked.
 //
-// What bounds it.  In decode M = n_slots (8 in the serve), so each weight
-// byte feeds 2 * M flops: the kernel is bound by the bytes of w_q
-// (K * N) over 3.35 TB/s.  The skinny kernels (M <= 16) stream w_q once
-// with 16-byte loads per lane and keep up to 8 rows of x in registers.
-// In prefill M = rows x bucket (up to 4096 in the serve) and the product
-// is bound by operations; the tile kernel is a plain 64 x 64 x 32 f32
-// CUDA-core tiling (4 x 4 outputs per thread), far below the tensor
-// cores' rate: wgmma and TMA are later work.
+// Routes, chosen by the caller (kernels/ops.py, int8_matmul_route) from
+// dtype, layout, scale, M and alignment, never from a failure:
+//   0 skinny          M <= 16: decode and the tied head.  Bound by the
+//                     bytes of w_q (each weight byte feeds 2 M flops):
+//                     w_q is streamed once with 16-byte loads per lane,
+//                     kept packed in registers, up to 8 rows of x in
+//                     registers.
+//   1 tensor_core     bf16 x, M > 16, KN, per-N scale, 16-byte rows: the
+//                     prefill projections.  Bound by operations (989
+//                     TFLOP/s bf16 on the tensor cores; int8 values are
+//                     exact in bf16, so a bf16 x bf16 product with f32
+//                     accumulation differs from the plain version only in
+//                     the order of summation).  A 128 x 128 output tile
+//                     per CTA: one producer thread keeps a 4-stage ring
+//                     of TMA loads in flight (the x tile with 128-byte
+//                     swizzle, the raw int8 tile), the two consumer
+//                     warpgroups widen each int8 tile to bf16 into the
+//                     swizzled N-major layout the wgmma B descriptor
+//                     reads, then each runs wgmma m64n128k16 on its 64
+//                     rows, the widening of the next tile overlapping the
+//                     tensor cores' work on this one.  TMA's zero fill
+//                     covers the ragged edges of M, N and K.
+//   2 cuda_core_tile  everything else with M > 16 (f32 x, the per-K-scale
+//                     NK head view, unaligned rows): a 64 x 64 x 32 f32
+//                     CUDA-core tiling, kept for f32 exactness (f32 on
+//                     the tensor cores would be TF32).
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
@@ -231,7 +250,7 @@ __global__ void __launch_bounds__(kThreads) skinny_nk(
     }
 }
 
-// ---- tile: M > 16 --------------------------------------------------- //
+// ---- cuda_core_tile: M > 16, f32 x or NK or unaligned --------------- //
 // 64 x 64 output tile per CTA, K in steps of 32 through shared memory:
 // x transposed to xs[k][m], w_q widened to ws[k][n] (times the per-K
 // scale, when it has one).  Thread (ty, tx) owns rows ty*4.. and columns
@@ -310,6 +329,293 @@ __global__ void __launch_bounds__(kThreads) tile_mm(
   }
 }
 
+// ---- tensor_core: bf16 x, KN, per-N scale -------------------------- //
+// CTA tile 128 x 128, K in steps of 64 through a ring of kStages stages.
+// Per stage, from a 1024-byte aligned base:
+//   A    x tile, 128 rows (m) x 64 bf16 (k): 128-byte rows, TMA's 128-byte
+//        swizzle (16-byte chunk c of row r at chunk c ^ (r % 8));
+//   RAW  int8 tile, 64 rows (k) x 128 bytes (n), as TMA lands it;
+//   B    the widened tile, two 64-column atoms (n), each 64 rows (k) x
+//        128 bytes with the same swizzle: the N-major layout of wgmma's
+//        B operand (LBO = the atom stride, SBO = 8 rows = 1024 bytes).
+// Threads 0-255 are the consumer warpgroups (rows 0-63 and 64-127 of the
+// tile); thread 256 is the producer, the rest of its warpgroup idles.
+constexpr int kTcBM = 128, kTcBN = 128, kTcBK = 64, kTcStages = 4;
+constexpr int kTcThreads = 384;
+constexpr uint32_t kTcA = kTcBM * kTcBK * 2;           // 16384
+constexpr uint32_t kTcRaw = kTcBK * kTcBN;             // 8192
+constexpr uint32_t kTcAtom = kTcBK * 128;              // 8192
+constexpr uint32_t kTcStage = kTcA + kTcRaw + 2 * kTcAtom;
+constexpr size_t kTcSmem = (size_t)kTcStages * kTcStage + 1024 + 64;
+
+// A shared-memory matrix descriptor with 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 128 f32, this warpgroup's fragment) += A . B, one k16 step:
+// A (64 x 16 bf16, K-major) and B (16 x 128 bf16, N-major: imm-trans-b
+// = 1) read from shared memory through their descriptors.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// One TMA tile load into shared memory, completing on the mbarrier `bar`;
+// c0 is the innermost coordinate.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// 16 int8 values (a 16-byte chunk) to 16 bf16, exactly: each byte b,
+// sign-flipped to b + 128, becomes the low byte of the f32 2^23 + b + 128,
+// from which 2^23 + 128 is subtracted.
+__device__ __forceinline__ void widen16(const uint4& raw, uint4& lo,
+                                        uint4& hi) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t u = w[i] ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + e)) -
+             8388736.f;
+    o[2 * i] = repro::pack_bf16x2(f[0], f[1]);
+    o[2 * i + 1] = repro::pack_bf16x2(f[2], f[3]);
+  }
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1) tc_mm(
+    const __grid_constant__ CUtensorMap tm_x,
+    const __grid_constant__ CUtensorMap tm_w,
+    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M,
+    int N, int K) {
+  using namespace repro;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_addr(smem_raw);
+  const uint32_t base = (raw_base + 1023u) & ~1023u;
+  const uint32_t bars = base + kTcStages * kTcStage;   // full[s], empty[s]
+  uint8_t* const gbase = smem_raw + (base - raw_base);
+  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
+  const int nk = (K + kTcBK - 1) / kTcBK;
+  const int t = threadIdx.x;
+
+  if (t == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(bars + 8 * s, 1);                    // the producer + tx
+      mbar_init(bars + 8 * (kTcStages + s), 2);      // one per consumer WG
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (t >= 256) {                                    // producer
+    if (t == 256) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kTcStages;
+        if (i >= kTcStages)
+          mbar_wait(bars + 8 * (kTcStages + s), (i / kTcStages - 1) & 1);
+        const uint32_t st = base + s * kTcStage;
+        mbar_arrive_expect_tx(bars + 8 * s, kTcA + kTcRaw);
+        tma_load_2d(st, &tm_x, bars + 8 * s, i * kTcBK, m0);
+        tma_load_2d(st + kTcA, &tm_w, bars + 8 * s, n0, i * kTcBK);
+      }
+    }
+    return;
+  }
+
+  const int wg = t / 128;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kTcStages;
+    const uint32_t st = base + s * kTcStage;
+    mbar_wait(bars + 8 * s, (i / kTcStages) & 1);
+    // widen RAW -> B: 512 16-byte chunks of int8, two per thread.  Threads
+    // of the second atom store their two halves in the other order, so
+    // that 8 neighbouring threads hit 8 different bank groups.
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int idx = t + 256 * j;
+      const int r = idx / 8, c16 = idx % 8;
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          gbase + s * kTcStage + kTcA + r * 128 + c16 * 16);
+      uint4 lo, hi;
+      widen16(raw, lo, hi);
+      const bool swap = c16 & 4;
+      const int cc = (c16 % 4) * 2;
+      uint8_t* row = gbase + s * kTcStage + kTcA + kTcRaw +
+                     (c16 / 4) * kTcAtom + r * 128;
+      *reinterpret_cast<uint4*>(row + (((cc + swap) ^ (r & 7)) << 4)) =
+          swap ? hi : lo;
+      *reinterpret_cast<uint4*>(row + (((cc + !swap) ^ (r & 7)) << 4)) =
+          swap ? lo : hi;
+    }
+    fence_proxy_async();
+    named_bar_sync(1, 256);
+
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk)
+      wgmma_m64n128k16(
+          acc, desc_b128(st + wg * 64 * 128 + kk * 32, 16, 1024),
+          desc_b128(st + kTcA + kTcRaw + kk * 16 * 128, kTcAtom, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the previous step's products are done: release its stage
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc(acc);
+    if (i > 0 && t % 128 == 0)
+      mbar_arrive(bars + 8 * (kTcStages + (i - 1) % kTcStages));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+
+  // epilogue: the accumulator fragment of wgmma m64nN: value 4j + 2h + e
+  // of lane l in warp w is row 16w + l/4 + 8h, column 8j + 2(l%4) + e.
+  const int w = (t % 128) / 32, l = t % 32;
+  const bool pair = (N % 2) == 0;
+#pragma unroll
+  for (int j = 0; j < kTcBN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * (l % 4);
+    if (n >= N) continue;
+    const float s0 = scale[n], s1 = n + 1 < N ? scale[n + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wg * 64 + 16 * w + l / 4 + 8 * h;
+      if (m >= M) continue;
+      __nv_bfloat16* o = out + (size_t)m * N + n;
+      const float v0 = acc[4 * j + 2 * h] * s0;
+      const float v1 = acc[4 * j + 2 * h + 1] * s1;
+      if (pair && n + 1 < N) {
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        o[0] = __float2bfloat16(v0);
+        if (n + 1 < N) o[1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The two tensor maps (built per call: the pointers change) and the launch.
+// Needs K % 8 == 0, w_row % 16 == 0 and 16-byte aligned x and w_q.
+int launch_tc(const __nv_bfloat16* x, const int8_t* w, const float* scale,
+              __nv_bfloat16* out, int M, int N, int K, long long w_row,
+              cudaStream_t stream) {
+  if (K % 8 || w_row % 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_x, tm_w;
+  const cuuint32_t ones[2] = {1, 1};
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+    const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+    const cuuint32_t box[2] = {kTcBK, kTcBM};
+    if (encode(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+               const_cast<__nv_bfloat16*>(x), dims, strides, box, ones,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+    const cuuint64_t strides[1] = {(cuuint64_t)w_row};
+    const cuuint32_t box[2] = {kTcBN, kTcBK};
+    if (encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+               const_cast<int8_t*>(w), dims, strides, box, ones,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      tc_mm, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
+  tc_mm<<<grid, kTcThreads, kTcSmem, stream>>>(tm_x, tm_w, scale, out, M, N,
+                                               K);
+  return (int)cudaGetLastError();
+}
+
 constexpr int kSkinnyMaxM = 16;
 
 template <typename T, int MC>
@@ -330,13 +636,16 @@ void launch_skinny(const T* x, const int8_t* w, const float* scale, T* out,
   }
 }
 
+enum Route { kSkinny = 0, kTensorCore = 1, kCudaCoreTile = 2 };
+
 template <typename T>
 int launch(const void* xp, const int8_t* w, const float* scale, void* op,
            int M, int N, int K, bool kn, long long w_row, bool scale_per_k,
-           bool vec, bool xvec, cudaStream_t stream) {
+           bool vec, bool xvec, int route, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xp);
   T* out = static_cast<T*>(op);
-  if (M <= kSkinnyMaxM) {
+  if (route == kSkinny) {
+    if (M > kSkinnyMaxM) return (int)cudaErrorInvalidValue;
     if (M == 1)
       launch_skinny<T, 1>(x, w, scale, out, M, N, K, kn, w_row, scale_per_k,
                           vec, xvec, stream);
@@ -349,7 +658,7 @@ int launch(const void* xp, const int8_t* w, const float* scale, void* op,
     else
       launch_skinny<T, 8>(x, w, scale, out, M, N, K, kn, w_row, scale_per_k,
                           vec, xvec, stream);
-  } else {
+  } else if (route == kCudaCoreTile) {
     const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
     if (kn)
       tile_mm<T, true><<<grid, kThreads, 0, stream>>>(
@@ -357,6 +666,8 @@ int launch(const void* xp, const int8_t* w, const float* scale, void* op,
     else
       tile_mm<T, false><<<grid, kThreads, 0, stream>>>(
           x, w, scale, out, M, N, K, w_row, scale_per_k, vec);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -368,11 +679,14 @@ extern "C" {
 // x (M, K) row-major; w_q int8 with element strides (swk, swn) over
 // (K, N), one of them 1; scale f32, N values (scale_per_k == 0) or K
 // values (scale_per_k == 1), contiguous; out (M, N) row-major in x's
-// dtype.  dtype: 0 = f32, 1 = bf16.  Returns the cudaError_t of the
-// launch (0 on success).
+// dtype.  dtype: 0 = f32, 1 = bf16.  route: 0 skinny (M <= 16), 1
+// tensor_core (bf16, KN, per-N scale, K % 8 == 0, 16-byte aligned rows),
+// 2 cuda_core_tile; a route whose conditions do not hold is refused.
+// Returns the cudaError_t of the launch (0 on success).
 int int8_matmul(const void* x, const void* w_q, const float* scale,
                 void* out, int M, int N, int K, long long swk,
-                long long swn, int scale_per_k, int dtype, void* stream) {
+                long long swn, int scale_per_k, int dtype, int route,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;
   if (K == 0) return (int)cudaErrorInvalidValue;
@@ -382,6 +696,11 @@ int int8_matmul(const void* x, const void* w_q, const float* scale,
   else if (swk == 1) { kn = false; w_row = swn; }
   else return (int)cudaErrorInvalidValue;
   const int8_t* w = static_cast<const int8_t*>(w_q);
+  if (route == kTensorCore) {
+    if (dtype != 1 || !kn || scale_per_k) return (int)cudaErrorInvalidValue;
+    return launch_tc(static_cast<const __nv_bfloat16*>(x), w, scale,
+                     static_cast<__nv_bfloat16*>(out), M, N, K, w_row, s);
+  }
   const bool vec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                    w_row % 16 == 0;
   const bool xvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -389,10 +708,10 @@ int int8_matmul(const void* x, const void* w_q, const float* scale,
                     K % 8 == 0;
   if (dtype == 0)
     return launch<float>(x, w, scale, out, M, N, K, kn, w_row,
-                         scale_per_k != 0, vec, xvec, s);
+                         scale_per_k != 0, vec, xvec, route, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, w, scale, out, M, N, K, kn, w_row,
-                                 scale_per_k != 0, vec, xvec, s);
+                                 scale_per_k != 0, vec, xvec, route, s);
   return (int)cudaErrorInvalidValue;
 }
 

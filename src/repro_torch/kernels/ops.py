@@ -4,7 +4,12 @@ Each wrapper takes the JAX package's layouts.  A CPU tensor goes to the
 kernel's plain PyTorch version; a CUDA tensor launches the hand-written
 kernel or raises — there is no fallback.  Each wrapper counts its
 launches in a plain integer attribute, `<wrapper>.launches`, which
-`chip_smoke.py` reads to show that the main path ran the kernels.
+`chip_smoke.py` reads to show that the main path ran the kernels.  The
+two wrappers with more than one kernel (`flash_attention`,
+`int8_matmul`) pick it in a pure function of dtype, layout, scale, M and
+alignment (`flash_attention_route`, `int8_matmul_route`), never from a
+failure, and also count each launch by route in a plain dict,
+`<wrapper>.launches_by_route`.
 
 Build: at first use on the card, every `csrc/*.cu` is compiled by `nvcc`
 for sm_90a into its own shared library with a plain C interface (all
@@ -108,10 +113,10 @@ def _lib(name: str) -> ctypes.CDLL:
             f = ctypes.c_float
             fn.argtypes = {
                 "paged_decode_attention": [p] * 6 + [i] * 10 + [f, p],
-                "flash_attention": [p] * 4 + [i] * 10 + [f, p],
+                "flash_attention": [p] * 4 + [i] * 11 + [f] + [ll] * 9 + [p],
                 "decode_attention": ([p] * 5 + [i] * 5 + [ll] * 3
                                      + [i] * 3 + [f, p]),
-                "int8_matmul": [p] * 4 + [i] * 3 + [ll] * 2 + [i] * 2 + [p],
+                "int8_matmul": [p] * 4 + [i] * 3 + [ll] * 2 + [i] * 3 + [p],
             }[name]
             fn.restype = i
             lib.error_string.argtypes = [i]
@@ -133,6 +138,16 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is "
                              "not contiguous")
+
+
+def _check_rows(name: str, *tensors: torch.Tensor) -> None:
+    """Strided views the kernels take in place: the last dim contiguous,
+    every other stride a whole number of 16-byte rows."""
+    for t in tensors:
+        row = 16 // t.element_size()
+        if t.stride(-1) != 1 or any(st % row for st in t.stride()[:-1]):
+            raise ValueError(f"{name}: strides {t.stride()} need the last "
+                             "dim contiguous and 16-byte rows")
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
@@ -200,18 +215,33 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 paged_decode_attention.launches = 0
 
 
+FLASH_ROUTES = ("tensor_core", "cuda_core")
+
+
+def flash_attention_route(dtype: torch.dtype) -> str:
+    """The flash kernel for this dtype: bf16 runs on the tensor cores
+    (mma.sync), f32 on the CUDA cores (f32 on the tensor cores would be
+    TF32, a numerics change)."""
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     prefix: int = 0) -> torch.Tensor:
     """q (B, H, Sq, hd); k, v (B, K, Skv, hd) with H % K == 0.  Returns
-    (B, H, Sq, hd).  Sq and Skv may be any length."""
+    (B, H, Sq, hd).  Sq and Skv may be any length.
+
+    On the card q, k and v may be strided views (the last dim
+    contiguous, 16-byte rows, k and v with the same strides), which takes
+    the (B, H, S, hd) views of (B, S, H, hd) tensors in place; the output
+    is the (B, H, Sq, hd) view of a (B, Sq, H, hd) buffer."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    prefix=prefix)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     name = "flash_attention"
-    _check_cuda(name, q, k, v)
+    _check_device(name, q, k, v)
     b, h, sq, hd = q.shape
     nkv, skv = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -220,21 +250,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
     if tuple(k.shape) != (b, nkv, skv, hd) or v.shape != k.shape \
-            or nkv == 0 or h % nkv:
+            or nkv == 0 or h % nkv or skv == 0:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
+    _check_rows(name, q, k, v)
+    if k.stride() != v.stride():
+        raise ValueError(f"{name}: k strides {k.stride()} and v strides "
+                         f"{v.stride()} differ")
     if not isinstance(window, int) or not isinstance(prefix, int):
         raise TypeError(f"{name}: window and prefix must be static ints")
-    out = torch.empty_like(q)
+    out = torch.empty((b, sq, h, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
     _check_aligned(name, q, k, v, out)
+    route = flash_attention_route(q.dtype)
     _run(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          out.data_ptr(), b, h, nkv, sq, skv, hd, int(causal), window, prefix,
-         _DTYPES[q.dtype], hd ** -0.5)
+         _DTYPES[q.dtype], FLASH_ROUTES.index(route), hd ** -0.5,
+         *q.stride()[:3], *k.stride()[:3], *out.stride()[:3])
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(FLASH_ROUTES, 0)
+
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
@@ -265,13 +305,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"{name}: caches {tuple(k_cache.shape)}/"
                          f"{tuple(v_cache.shape)} do not match q "
                          f"{tuple(q.shape)}")
+    _check_rows(name, k_cache)
     strides = k_cache.stride()
-    row = 16 // q.element_size()
-    if v_cache.stride() != strides or strides[3] != 1 \
-            or any(st % row for st in strides[:3]):
+    if v_cache.stride() != strides:
         raise ValueError(f"{name}: cache strides {strides}/"
-                         f"{v_cache.stride()} must match, with the last dim "
-                         "contiguous and 16-byte rows")
+                         f"{v_cache.stride()} must match")
     if pos.dtype != torch.int32 or tuple(pos.shape) != (b,):
         raise ValueError(f"{name}: pos must be (B,) int32 for B = {b}")
     if not isinstance(window, int) or not isinstance(prefix, int):
@@ -286,6 +324,31 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+INT8_ROUTES = ("skinny", "tensor_core", "cuda_core_tile")
+SKINNY_MAX_M = 16
+
+
+def int8_matmul_route(x: torch.Tensor, w_q: torch.Tensor,
+                      scale: torch.Tensor) -> str:
+    """The int8 kernel for these operands: "skinny" for M <= 16 (decode,
+    the tied head); "tensor_core" for bf16 x with M > 16 on a (K, N)
+    weight with unit stride along N, a per-N scale and 16-byte aligned
+    rows (K % 8 == 0, the weight's row stride % 16 == 0, both pointers
+    16-byte aligned) — every prefill projection; "cuda_core_tile" for the
+    rest (f32 x, the per-K-scale (K, N) view of the tied head, unaligned
+    rows)."""
+    m, k = x.shape
+    swk, swn = w_q.stride()
+    if m <= SKINNY_MAX_M:
+        return "skinny"
+    if x.dtype == torch.bfloat16 and swn == 1 \
+            and tuple(scale.shape) == (1, w_q.shape[1]) and k % 8 == 0 \
+            and swk % 16 == 0 and x.data_ptr() % 16 == 0 \
+            and w_q.data_ptr() % 16 == 0:
+        return "tensor_core"
+    return "cuda_core_tile"
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -324,13 +387,17 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     if k == 0:
         raise ValueError(f"{name}: K = 0")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    route = int8_matmul_route(x, w_q, scale)
     _run(name, x.device, x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-         out.data_ptr(), m, n, k, swk, swn, per_k, _DTYPES[x.dtype])
+         out.data_ptr(), m, n, k, swk, swn, per_k, _DTYPES[x.dtype],
+         INT8_ROUTES.index(route))
     int8_matmul.launches += 1
+    int8_matmul.launches_by_route[route] += 1
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.launches_by_route = dict.fromkeys(INT8_ROUTES, 0)
 
 WRAPPERS = (paged_decode_attention, flash_attention, decode_attention,
             int8_matmul)
@@ -339,3 +406,5 @@ WRAPPERS = (paged_decode_attention, flash_attention, decode_attention,
 def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+        for route in getattr(fn, "launches_by_route", ()):
+            fn.launches_by_route[route] = 0

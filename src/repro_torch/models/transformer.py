@@ -124,10 +124,11 @@ def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
     if impl == "full":
         out = attn_lib.full_attention(q, k, v, causal=True)
     else:
-        # the flash kernel takes heads-major (B, H, S, hd)
+        # the flash kernel takes the heads-major (B, H, S, hd) views in
+        # place and writes a (B, S, H, hd) buffer: no layout copies
         out = kernel_ops.flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=True).transpose(1, 2)
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True).transpose(1, 2)
     return out, (k, v)
 
 

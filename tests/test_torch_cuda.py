@@ -8,7 +8,10 @@ with the card:
 Tolerances: f32 1e-4 (another summation order than the plain version),
 bf16 2e-2 (as tests/test_kernels.py).  The int8 products are held
 against the plain dequantize-then-multiply, so they too differ only in
-the order of summation.
+the order of summation (int8 values are exact in bf16, so the
+tensor-core route's bf16 x bf16 product with f32 sums is too).  Every
+flash and int8 launch is also held to its route through the wrapper's
+`launches_by_route`.
 """
 import numpy as np
 import pytest
@@ -79,31 +82,61 @@ def test_paged_kernel_matches_plain(cuda, case, dt):
 
 
 FLASH = [
-    # B, H, K, S, hd, window, prefix, causal
-    (2, 4, 2, 128, 64, 0, 0, True),
-    (1, 4, 2, 128, 64, 48, 16, True),    # window + prefix
-    (1, 6, 2, 192, 64, 0, 0, True),      # 6 heads
-    (2, 4, 4, 100, 16, 0, 0, True),      # ragged length, hd 16
-    (1, 8, 2, 72, 128, 0, 0, True),
-    (1, 4, 2, 128, 64, 0, 0, False),     # non-causal
-    (1, 16, 16, 1024, 128, 0, 0, True),  # OLMo-1B prefill bucket
+    # B, H, K, Sq, Skv, hd, window, prefix, causal
+    (2, 4, 2, 128, 128, 64, 0, 0, True),
+    (1, 4, 2, 128, 128, 64, 48, 16, True),    # window + prefix
+    (1, 6, 2, 192, 192, 64, 0, 0, True),      # 6 heads
+    (2, 4, 4, 100, 100, 16, 0, 0, True),      # ragged length, hd 16
+    (1, 8, 2, 72, 72, 128, 0, 0, True),
+    (1, 4, 2, 128, 128, 64, 0, 0, False),     # non-causal
+    (1, 16, 16, 1024, 1024, 128, 0, 0, True),  # OLMo-1B prefill bucket
+    (1, 4, 2, 128, 256, 64, 0, 0, True),      # Sq < Skv, both from 0
+    (2, 4, 2, 200, 200, 32, 40, 0, True),     # hd 32, window, ragged
+    (1, 4, 4, 300, 300, 128, 64, 8, True),    # window + prefix, hd 128
 ]
+FLASH_ROUTE = {"f32": "cuda_core", "bf16": "tensor_core"}
+
+
+def _flash_checked(q, k, v, dt, **kw):
+    """One flash launch, asserting it took the dtype's route."""
+    route = FLASH_ROUTE[dt]
+    before = ops.flash_attention.launches
+    by_route = ops.flash_attention.launches_by_route[route]
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert ops.flash_attention.launches_by_route[route] == by_route + 1
+    return got
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("case", FLASH)
 def test_flash_kernel_matches_plain(cuda, case, dt):
-    B, H, K, S, hd, win, pre, causal = case
+    """bf16 on the tensor-core route, f32 on the CUDA-core route.  The
+    tensor-core route rounds P to bf16 before P.V: inside bf16's 2e-2."""
+    B, H, K, Sq, Skv, hd, win, pre, causal = case
     dtype, tol = DTYPES[dt]
-    q, k, v = _tensors(3, cuda, dtype, (B, H, S, hd), (B, K, S, hd),
-                       (B, K, S, hd))
-    before = ops.flash_attention.launches
-    got = ops.flash_attention(q, k, v, causal=causal, window=win, prefix=pre)
-    torch.cuda.synchronize()
-    assert ops.flash_attention.launches == before + 1
+    q, k, v = _tensors(3, cuda, dtype, (B, H, Sq, hd), (B, K, Skv, hd),
+                       (B, K, Skv, hd))
+    got = _flash_checked(q, k, v, dt, causal=causal, window=win, prefix=pre)
     _close(got, flash_attention_ref(q, k, v, causal=causal, window=win,
                                     prefix=pre), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_kernel_takes_model_layout_views(cuda, dt):
+    """The (B, H, S, hd) views of the model's (B, S, H, hd) tensors, read
+    in place; the output is the view of a (B, S, H, hd) buffer."""
+    dtype, tol = DTYPES[dt]
+    q, k, v = _tensors(4, cuda, dtype, (2, 300, 8, 64), (2, 300, 2, 64),
+                       (2, 300, 2, 64))
+    qv, kv, vv = (t.transpose(1, 2) for t in (q, k, v))
+    got = _flash_checked(qv, kv, vv, dt, causal=True)
+    assert got.transpose(1, 2).is_contiguous()
+    _close(got, flash_attention_ref(qv.contiguous(), kv.contiguous(),
+                                    vv.contiguous()), tol)
 
 
 DECODE = [
@@ -147,21 +180,23 @@ def test_decode_kernel_matches_plain(cuda, case, dt, strided):
 
 
 INT8 = [
-    # M, K, N, weight layout
-    (128, 256, 128, "kn"),               # INT8_CASES of test_kernels.py
-    (256, 512, 256, "kn"),
-    (128, 128, 384, "kn"),
-    (8, 2048, 2048, "kn"),               # OLMo-1B decode projections
-    (8, 2048, 8192, "kn"),
-    (8, 8192, 2048, "kn"),
-    (1, 2048, 8192, "kn"),
-    (3, 100, 77, "kn"),                  # ragged M, K, N
-    (13, 33, 200, "kn"),
-    (70, 100, 77, "kn"),
-    (8, 2048, 50304, "head"),            # the tied head's route
-    (2, 2048, 50304, "head"),
-    (40, 96, 200, "head"),
-    (5, 37, 61, "head"),
+    # M, K, N, weight layout, route of bf16 x (f32 x: skinny for M <= 16,
+    # else cuda_core_tile)
+    (128, 256, 128, "kn", "tensor_core"),    # INT8_CASES of test_kernels.py
+    (256, 512, 256, "kn", "tensor_core"),
+    (128, 128, 384, "kn", "tensor_core"),
+    (8, 2048, 2048, "kn", "skinny"),         # OLMo-1B decode projections
+    (8, 2048, 8192, "kn", "skinny"),
+    (8, 8192, 2048, "kn", "skinny"),
+    (1, 2048, 8192, "kn", "skinny"),
+    (3, 100, 77, "kn", "skinny"),            # ragged M, K, N
+    (13, 33, 200, "kn", "skinny"),
+    (70, 100, 77, "kn", "cuda_core_tile"),   # K % 8, N % 16: unaligned rows
+    (17, 2048, 2048, "kn", "tensor_core"),   # the smallest tile-route M
+    (8, 2048, 50304, "head", "skinny"),      # the tied head's route
+    (2, 2048, 50304, "head", "skinny"),
+    (40, 96, 200, "head", "cuda_core_tile"),
+    (5, 37, 61, "head", "skinny"),
 ]
 
 
@@ -170,9 +205,12 @@ INT8 = [
 @pytest.mark.parametrize("case", INT8)
 def test_int8_kernel_matches_plain(cuda, case, dt):
     """The head route is the model's: the embedding (V, d) quantized per
-    d, passed as the strided (d, V) view with its (d, 1) scale."""
-    M, K, N, layout = case
+    d, passed as the strided (d, V) view with its (d, 1) scale.  Each
+    launch must take its route."""
+    M, K, N, layout, bf16_route = case
     dtype, tol = DTYPES[dt]
+    route = bf16_route if dt == "bf16" else (
+        "skinny" if M <= 16 else "cuda_core_tile")
     x, w = _tensors(8, cuda, torch.float32, (M, K), (K, N) if layout == "kn"
                     else (N, K))
     qd = quantize_array(w * 0.1, 8)
@@ -180,12 +218,58 @@ def test_int8_kernel_matches_plain(cuda, case, dt):
     if layout == "head":
         wq, sc = wq.t(), sc.t().contiguous()
     x = x.to(dtype)
+    assert ops.int8_matmul_route(x, wq, sc) == route
     before = ops.int8_matmul.launches
+    by_route = ops.int8_matmul.launches_by_route[route]
     got = ops.int8_matmul(x, wq, sc)
     torch.cuda.synchronize()
     assert ops.int8_matmul.launches == before + 1
+    assert ops.int8_matmul.launches_by_route[route] == by_route + 1
     assert got.dtype == dtype and got.shape == (M, N)
     _close(got, int8_matmul_ref(x, wq, sc), tol)
+
+
+INT8_PREFILL = [
+    # M, K, N: OLMo-1B's prefill projections at the widest prefill, and
+    # ragged M, K, N with aligned rows; bf16 x, the tensor-core route's
+    # only dtype
+    (4096, 2048, 2048), (4096, 2048, 8192), (4096, 8192, 2048),
+    (4100, 2056, 8208),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_PREFILL)
+def test_int8_tensor_core_prefill_shapes(cuda, case):
+    M, K, N = case
+    x, w = _tensors(9, cuda, torch.float32, (M, K), (K, N))
+    qd = quantize_array(w * 0.1, 8)
+    wq, sc = qd["__q__"], qd["scale"]
+    x = x.to(torch.bfloat16)
+    assert ops.int8_matmul_route(x, wq, sc) == "tensor_core"
+    by_route = ops.int8_matmul.launches_by_route["tensor_core"]
+    got = ops.int8_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    assert ops.int8_matmul.launches_by_route["tensor_core"] == by_route + 1
+    _close(got, int8_matmul_ref(x, wq, sc), DTYPES["bf16"][1])
+
+
+@pytest.mark.cuda
+def test_int8_tensor_core_single_tile(cuda):
+    """One 64 x 128 x 64 tile against the exact product: integer x and
+    unit scales make every partial sum an integer below 2^24, so the
+    bf16 x bf16 -> f32 product is exact and any swizzle or descriptor
+    fault shows as a wrong entry."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.integers(-8, 9, (64, 64)).astype(np.float32))
+    wq = torch.from_numpy(rng.integers(-127, 128, (64, 128)).astype(np.int8))
+    want = (x @ wq.float()).to(torch.bfloat16)
+    x, wq = x.to(cuda, torch.bfloat16), wq.to(cuda)
+    sc = torch.ones(1, 128, device=cuda)
+    assert ops.int8_matmul_route(x, wq, sc) == "tensor_core"
+    got = ops.int8_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
@@ -198,6 +282,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                        (1, 2, 8, 16))
     with pytest.raises(TypeError):
         ops.flash_attention(q, k, v)
+    q, k = _tensors(4, cuda, torch.bfloat16, (1, 2, 8, 16), (1, 2, 8, 16))
+    v = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16,
+                    device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="strides"):
+        ops.flash_attention(q, k, v)     # k and v strides differ
     kc = torch.zeros(2, 4, 16, 32, device=cuda)[:, :, :, :16]   # rows of 64 B
     q = torch.zeros(2, 4, 1, 16, device=cuda)
     pos = torch.zeros(2, dtype=torch.int32, device=cuda)
@@ -210,3 +299,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.int8_matmul(x, w, torch.ones(1, 8, device=cuda))
     with pytest.raises(TypeError):
         ops.int8_matmul(x, w.float(), torch.ones(1, 6, device=cuda))
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_a_route_whose_conditions_fail(cuda):
+    """The C entries check the route they are given: f32 x on the int8
+    tensor-core route, and f32 on the flash tensor-core route, are
+    refused with an error the wrapper raises, not run."""
+    x = torch.zeros(32, 64, device=cuda)
+    w = torch.zeros(64, 128, dtype=torch.int8, device=cuda)
+    sc = torch.ones(1, 128, device=cuda)
+    out = torch.empty(32, 128, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops._run("int8_matmul", cuda, x.data_ptr(), w.data_ptr(),
+                 sc.data_ptr(), out.data_ptr(), 32, 128, 64, 128, 1, 0, 0,
+                 ops.INT8_ROUTES.index("tensor_core"))
+    q = torch.zeros(1, 2, 8, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops._run("flash_attention", cuda, q.data_ptr(), q.data_ptr(),
+                 q.data_ptr(), q.data_ptr(), 1, 2, 2, 8, 8, 16, 1, 0, 0, 0,
+                 ops.FLASH_ROUTES.index("tensor_core"), 0.25,
+                 *q.stride()[:3], *q.stride()[:3], *q.stride()[:3])

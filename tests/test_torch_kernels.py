@@ -10,6 +10,12 @@ online softmax in another summation order), bf16 2e-2 (as
 tests/test_kernels.py); int8 products f32 1e-4, bf16 5e-2 (the bf16
 rounding of x and of the output).  The kernels themselves are held against these
 plain versions on the card by tests/test_torch_cuda.py.
+
+The route functions of the two wrappers with more than one kernel
+(`flash_attention_route`, `int8_matmul_route`) are held to each branch
+here, and plain emulations of the tensor-core kernels' arithmetic (bf16
+operands, f32 sums; flash's P rounded to bf16 before P.V) against the
+JAX reference at bf16's 2e-2.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -260,3 +266,170 @@ def test_cpu_tensors_route_to_plain_versions():
     assert torch.equal(ops.int8_matmul(x, wq.t(), sc),
                        int8_matmul_ref(x, wq.t(), sc))
     assert all(fn.launches == 0 for fn in ops.WRAPPERS)
+
+
+# ------------------- routes of the two-kernel wrappers ------------- #
+def test_int8_route_selection():
+    """Each branch of the pure route function, on CPU tensors (the
+    function reads dtype, shape, strides, scale shape and pointers)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    w = torch.zeros(64, 128, dtype=torch.int8)
+    per_n = torch.ones(1, 128)
+    x = torch.zeros(17, 64, dtype=bf16)
+    route = ops.int8_matmul_route
+    assert route(x[:16], w, per_n) == "skinny"
+    assert route(x[:1], w, per_n) == "skinny"
+    assert route(x, w, per_n) == "tensor_core"
+    assert route(torch.zeros(4096, 64, dtype=bf16), w, per_n) \
+        == "tensor_core"
+    assert route(x.float(), w, per_n) == "cuda_core_tile"      # f32 x
+    head = torch.zeros(128, 64, dtype=torch.int8).t()           # NK view
+    assert route(x, head, torch.ones(64, 1)) == "cuda_core_tile"
+    assert route(x, w, torch.ones(64, 1)) == "cuda_core_tile"   # per-K scale
+    x100 = torch.zeros(17, 100, dtype=bf16)                     # K % 8
+    assert route(x100, torch.zeros(100, 128, dtype=torch.int8), per_n) \
+        == "cuda_core_tile"
+    narrow = torch.zeros(64, 136, dtype=torch.int8)[:, :120]    # row % 16
+    assert route(x, narrow, torch.ones(1, 120)) == "cuda_core_tile"
+    shifted = torch.zeros(17 * 64 + 1, dtype=bf16)[1:].view(17, 64)
+    assert shifted.data_ptr() % 16                               # x pointer
+    assert route(shifted, w, per_n) == "cuda_core_tile"
+    w_off = torch.zeros(64 * 128 + 8, dtype=torch.int8)[8:].view(64, 128)
+    assert route(x, w_off, per_n) == "cuda_core_tile"           # w pointer
+    assert route(torch.zeros(17, 64, dtype=f32), w, per_n) == "cuda_core_tile"
+
+
+def test_flash_route_selection():
+    assert ops.flash_attention_route(torch.bfloat16) == "tensor_core"
+    assert ops.flash_attention_route(torch.float32) == "cuda_core"
+
+
+def test_reset_launches_zeroes_the_route_counters():
+    ops.int8_matmul.launches_by_route["tensor_core"] = 3
+    ops.flash_attention.launches_by_route["cuda_core"] = 2
+    ops.reset_launches()
+    assert set(ops.int8_matmul.launches_by_route) == set(ops.INT8_ROUTES)
+    assert set(ops.flash_attention.launches_by_route) \
+        == set(ops.FLASH_ROUTES)
+    assert not any(ops.int8_matmul.launches_by_route.values())
+    assert not any(ops.flash_attention.launches_by_route.values())
+
+
+# ------------------- the tensor-core kernels' numerics ------------- #
+def _int8_tc_emulation(x, w_q, scale):
+    """The int8 tensor-core route's arithmetic: bf16 x times the int8
+    weight widened to bf16 (exact), f32 sums, the per-N scale applied
+    once to the sum, one rounding to bf16."""
+    w16 = w_q.to(torch.bfloat16)
+    assert torch.equal(w16.float(), w_q.float())     # widening is exact
+    return ((x.float() @ w16.float()) * scale).to(torch.bfloat16)
+
+
+INT8_TC_CASES = [
+    # M, K, N: INT8_CASES in bf16, the smallest tile M, ragged aligned
+    (128, 256, 128), (256, 512, 256), (128, 128, 384), (17, 512, 256),
+    (130, 264, 272),
+]
+
+
+@pytest.mark.parametrize("case", INT8_TC_CASES)
+def test_int8_tensor_core_numerics_match_jax(case):
+    """bf16 tolerance 2e-2 (as tests/test_kernels.py): the emulation and
+    the JAX reference differ in where the scale meets the sum (after it
+    here, on the weight there) and in the order of the f32 sums."""
+    M, K, N = case
+    x, w = _arrays(42, (M, K), (K, N))
+    qd = jax_quantize(jnp.asarray(w * 0.1), 8)
+    jx = _jax(x, jnp.bfloat16)
+    want = jax_ref.int8_matmul_ref(jx, qd["__q__"], qd["scale"])
+    got = _int8_tc_emulation(_torch(x, torch.bfloat16),
+                             torch.from_numpy(np.array(qd["__q__"])),
+                             torch.from_numpy(np.array(qd["scale"])))
+    _close(_f32(got), want.astype(jnp.float32), BF16_TOL)
+
+
+def _flash_tc_emulation(q, k, v, *, causal, window, prefix, bq=64, bk=64):
+    """The flash tensor-core route's arithmetic in plain torch: bf16 q, k,
+    v; scores in f32, in log2 units; masked scores -1e30; the online
+    softmax over 64-row kv tiles in the kernel's order, with its tile
+    skip; P rounded to bf16 before P.V (f32 sums, l from the unrounded
+    P); one division by l at the end."""
+    b, h, sq, hd = q.shape
+    nkv, skv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(h // nkv, 1)
+    vf = v.float().repeat_interleave(h // nkv, 1)
+    qf = q.float()
+    sc = hd ** -0.5 * 1.4426950408889634
+    out = torch.zeros(b, h, sq, hd)
+    for q0 in range(0, sq, bq):
+        qp = torch.arange(q0, min(q0 + bq, sq))
+        m = torch.full((b, h, len(qp)), -1e30)
+        lsum = torch.zeros(b, h, len(qp))
+        o = torch.zeros(b, h, len(qp), hd)
+        kv_end = min(skv, q0 + bq) if causal else skv
+        for k0 in range(0, kv_end, bk):
+            if causal and window > 0:
+                reach = k0 + bk - 1 > q0 - window
+                if not reach and not (prefix > 0 and k0 < prefix):
+                    continue
+            kp = torch.arange(k0, min(k0 + bk, skv))
+            s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, qp],
+                             kf[:, :, kp]) * sc
+            if causal:
+                ok = kp[None, :] <= qp[:, None]
+                if window > 0:
+                    ok = ok & ((kp[None, :] > qp[:, None] - window)
+                               | ((kp < prefix)[None, :] if prefix > 0
+                                  else False))
+                s = torch.where(ok, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            lsum = lsum * corr + p.sum(-1)
+            o = o * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+                vf[:, :, kp])
+            m = m_new
+        out[:, :, qp] = o / lsum.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+FLASH_TC_CASES = [
+    # B, H, K, Sq, Skv, hd, window, prefix: tests/test_kernels.py's
+    # FLASH_CASES in bf16, and the ragged and window-edge tiles
+    (2, 4, 2, 128, 128, 64, 0, 0),
+    (1, 8, 4, 256, 256, 128, 0, 0),
+    (2, 4, 1, 128, 256, 64, 64, 0),
+    (1, 4, 2, 128, 128, 64, 48, 16),
+    (1, 2, 2, 64, 64, 32, 0, 0),
+    (1, 6, 2, 192, 192, 64, 0, 0),
+    (2, 4, 4, 100, 100, 16, 0, 0),
+    (1, 4, 2, 300, 300, 32, 40, 8),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_TC_CASES)
+def test_flash_tensor_core_numerics_match_jax(case):
+    """bf16 tolerance 2e-2 (as tests/test_kernels.py): besides the order
+    of the sums, the emulation rounds P to bf16 before P.V, a relative
+    error of at most 2^-9 per weight, far inside it."""
+    B, H, K, Sq, Skv, hd, win, pre = case
+    q, k, v = _arrays(23, (B, H, Sq, hd), (B, K, Skv, hd), (B, K, Skv, hd))
+    jq, jk, jv = (_jax(a, jnp.bfloat16) for a in (q, k, v))
+    want = jax_ref.flash_attention_ref(jq, jk, jv, causal=True, window=win,
+                                       prefix=pre)
+    got = _flash_tc_emulation(*(_torch(a, torch.bfloat16) for a in (q, k, v)),
+                              causal=True, window=win, prefix=pre)
+    _close(_f32(got), want.astype(jnp.float32), BF16_TOL)
+
+
+def test_flash_cpu_takes_model_layout_views():
+    """The (B, H, S, hd) views of (B, S, H, hd) tensors, as prefill now
+    passes them, give what contiguous copies give."""
+    q, k, v = (_torch(a, torch.float32) for a in
+               _arrays(24, (2, 40, 4, 32), (2, 40, 2, 32), (2, 40, 2, 32)))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    got = ops.flash_attention(*views, window=16, prefix=4)
+    want = flash_attention_ref(*(t.contiguous() for t in views), window=16,
+                               prefix=4)
+    _close(got, want, F32_TOL)

@@ -1,20 +1,24 @@
-"""Where the time goes on the port's main path, on one CUDA device.
+"""Where the time goes on the port's main paths, on one CUDA device.
 
-    python3 tools/profile_serve.py
+    python3 tools/profile_serve.py           # serve_bf16
+    python3 tools/profile_serve.py --int8    # serve_int8
 
-Runs chip_smoke.py's serve_bf16 workload (the full OLMo-1B in bf16, the
-paged-attention mode, 12 seeded requests) three times on one engine: a
+Runs one of chip_smoke.py's serve workloads (the full OLMo-1B, 12 seeded
+requests): serve_bf16 (bf16, the paged-attention mode) or, with --int8,
+serve_int8 (int8 weights, the gather mode), three times on one engine: a
 cold run (first use: kernel libraries loaded, cuBLAS initialised, pinned
 buffers allocated),
 a warm run timed on the host clock, and a warm run under
 torch.profiler.  Prints one JSON line per run; the profiled one carries
 the device busy time (sum of kernel times; one stream, so kernels do not
 overlap), the device idle share of the profiled wall time, the device
-time per kernel family and the top kernels, and the CUDA kernel launches
-per decode step.  Exits non-zero without a CUDA device.
+time per kernel family (each of the port's kernels by route, cuBLAS,
+and the rest) and the top kernels, and the CUDA kernel launches per
+decode step.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -27,8 +31,15 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (adds src/ to the path)
 
+# (substring of the kernel's name, family); the first match wins, so a
+# name that holds another (paged_decode_kernel, decode_kernel) comes first
 FAMILIES = (("paged_decode_kernel", "paged_decode_attention"),
-            ("flash_kernel", "flash_attention"),
+            ("decode_kernel", "decode_attention"),
+            ("flash_tc", "flash_attention (tensor_core)"),
+            ("flash_kernel", "flash_attention (cuda_core)"),
+            ("tc_mm", "int8_matmul (tensor_core)"),
+            ("skinny_", "int8_matmul (skinny)"),
+            ("tile_mm", "int8_matmul (cuda_core_tile)"),
             ("gemm", "matmul"), ("cutlass", "matmul"), ("sm90", "matmul"),
             ("nvjet", "matmul"))
 
@@ -55,6 +66,10 @@ def run_line(tag, eng, step_ms, wall, before):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--int8", action="store_true",
+                    help="profile serve_int8 instead of serve_bf16")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
@@ -65,13 +80,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = chip_smoke.card_line()
     ops.build()
-    _, ecfg, eng, requests, _ = chip_smoke.serve_setup(
-        dev, paged_attention=True)
+    serve = "serve_int8" if args.int8 else "serve_bf16"
+    engine_kw = (dict(quantize="int8") if args.int8
+                 else dict(paged_attention=True))
+    _, ecfg, eng, requests, _ = chip_smoke.serve_setup(dev, **engine_kw)
     for tag in ("cold", "warm"):
         before = eng.perf_stats()
         step_ms, wall = chip_smoke.drive(eng, requests())
         chip_smoke.emit({**run_line(tag, eng, step_ms, wall, before),
-                         "card": card})
+                         "serve": serve, "card": card})
     before = eng.perf_stats()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -105,7 +122,7 @@ def main() -> int:
                         for us, c, n in kernels[:12]],
         "kernel_launches": launches,
         "decode_steps": decode_steps,
-        "card": card})
+        "serve": serve, "card": card})
     return 0
 
 
