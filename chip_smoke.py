@@ -14,15 +14,23 @@ JSON line:
 3. kernel_checks — each hand-written kernel against its plain PyTorch
               version on the card, at the OLMo-1B decode / prefill /
               projection / head shapes and at GQA, window + prefix,
-              head_dim 16, strided-cache and ragged cases, each flash and
-              int8 launch also held to its route (bf16 flash and bf16
-              int8 with M > 16 on aligned rows: "tensor_core"; f32 flash
-              "cuda_core"; M <= 16 "skinny"; the rest "cuda_core_tile").
+              head_dim 16, strided-cache, ragged and split-boundary cases
+              (decode attention's chunks: pos 0, pos on a chunk edge, S
+              not a multiple of the chunk, a window that skips whole
+              chunks, G > 8), each flash and int8 launch also held to its
+              route (bf16 flash and bf16 int8 with M > 16 on aligned
+              rows: "tensor_core"; bf16 int8 with M <= 16 on aligned rows
+              "skinny_tc"; f32 flash "cuda_core"; f32 or unaligned int8
+              with M <= 16 "skinny"; the rest "cuda_core_tile"), and the
+              two kernels that split work across CTAs (decode attention,
+              skinny_tc) held to bit-identical output over two launches.
               Tolerances: f32 1e-4 (another summation order than the
               plain version), bf16 2e-2 (as tests/test_kernels.py); the
               int8 products are held against the plain
               dequantize-then-multiply, so they too differ only in the
-              order of summation (int8 is exact in bf16).
+              order of summation (int8 is exact in bf16; skinny_tc's
+              head carries x times its per-K scale as a bf16 hi/lo pair,
+              to ~2^-17).
 4. parity_f32 — a 2-layer full-width OLMo-1B in f32 serves 4 greedy
               requests through the engine in each decode mode (paged
               attention, gather, contiguous) and in the gather mode with
@@ -50,8 +58,8 @@ JSON line:
               0.65 x the bf16 model's bytes.  By route: every flash launch
               "tensor_core"; every int8 launch with M > 16 (a prefill
               projection of rows x bucket > 16) "tensor_core", the rest
-              (decode, the head) "skinny", counted from each prefill
-              dispatch's (rows, bucket).
+              (decode, the head) "skinny_tc", none "skinny", counted from
+              each prefill dispatch's (rows, bucket).
 7. kernels  — per kernel: its launches on the path that runs it, its
               error against the plain version, its time (CUDA events,
               median of 30 runs after warm-up, each from a cold L2)
@@ -60,16 +68,18 @@ JSON line:
               same function where there is one.  Both decode kernels are
               timed at the serves' decode shape; flash at serve_bf16's
               widest prefill (rows x bucket); the int8 matmul at decode
-              M = 8 for 2048 -> 8192 (its entry), the tied head and
-              serve_int8's widest prefill M at all three projection
-              shapes (its "shapes"), each with its route and its ratio to
-              the library call ("vs_library").
+              M = 8 for 2048 -> 8192 (its entry), 2048 -> 2048 and
+              8192 -> 2048, the tied head, and serve_int8's widest
+              prefill M at all three projection shapes (its "shapes"),
+              each with its route and its ratio to the library call
+              ("vs_library").
 
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -86,6 +96,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 REPS = 30
+SLEEP_CYCLES = 400_000      # ~0.2 ms at the H100's 1.98 GHz boost clock
 
 
 def emit(obj) -> None:
@@ -106,7 +117,11 @@ _l2_flush = []
 def time_ms(fn, reps: int = REPS) -> float:
     """Median of `reps` CUDA-event timings of fn() after 3 warm-up calls,
     each from a cold L2: a 256 MiB buffer (five times the H100's 50 MB
-    L2) is written before every timed call, outside its events."""
+    L2) is written before every timed call, outside its events.  A 0.2 ms
+    device-side wait (torch.cuda._sleep) then holds the stream before the
+    start event, so that fn()'s host work (the wrapper's checks, its
+    allocations, the ctypes call) is done before the start event fires:
+    the events time the device work fn() enqueues, not the host's."""
     if not _l2_flush:
         _l2_flush.append(torch.empty(256 << 20, dtype=torch.uint8,
                                      device="cuda"))
@@ -118,6 +133,7 @@ def time_ms(fn, reps: int = REPS) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         _l2_flush[0].zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
@@ -310,6 +326,20 @@ def kernel_checks(dev, ops, refs, q_lib):
                              strided=False), 0, 0),
             ("strided_gqa", dict(B=4, K=4, G=4, S=200, hd=64,
                                  pos=[0, 50, 150, 199], strided=True), 0, 0),
+        ] + [   # split boundaries: at these B * K, chunks of 64 rows
+            ("split_pos0", dict(B=2, K=2, G=1, S=1000, hd=128, pos=[0, 0],
+                                strided=True), 0, 0),
+            ("split_chunk_edges", dict(B=4, K=2, G=2, S=1000, hd=64,
+                                       pos=[63, 64, 127, 999],
+                                       strided=True), 0, 0),
+            ("split_window_skips", dict(B=3, K=2, G=4, S=1000, hd=64,
+                                        pos=[99, 640, 999], strided=True),
+             100, 0),
+            ("split_window_prefix", dict(B=3, K=2, G=4, S=1000, hd=64,
+                                         pos=[150, 640, 999],
+                                         strided=True), 100, 16),
+            ("split_g12", dict(B=2, K=2, G=12, S=1000, hd=32,
+                               pos=[500, 999], strided=True), 0, 0),
         ]
         for name, kw, win, pre in dcases:
             args = decode_case(dev, dtype, seed=len(rows), **kw)
@@ -320,14 +350,27 @@ def kernel_checks(dev, ops, refs, q_lib):
                               tol_of(dtype))
             rows.append({"kernel": "decode_attention", "case": name,
                          "dtype": str(dtype), "max_abs_err": err})
+            if name == "olmo_decode_strided" or name.startswith("split_"):
+                again = ops.decode_attention(*args, window=win, prefix=pre)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"decode_attention/{name}: two "
+                                         "launches differ")
         # (name, shape, the route of bf16 x)
         icases = [(f"m{m}_{k}x{n}", dict(M=m, K=k, N=n, head=False),
-                   "skinny" if m <= 16 else "tensor_core")
+                   "skinny_tc" if m <= 16 else "tensor_core")
                   for m in (8, 4096)
                   for k, n in ((2048, 2048), (2048, 8192), (8192, 2048))]
         icases += [
             ("head_m8_2048x50304", dict(M=8, K=2048, N=50304, head=True),
-             "skinny"),
+             "skinny_tc"),
+            ("m16_8192x2048", dict(M=16, K=8192, N=2048, head=False),
+             "skinny_tc"),
+            # ragged M, K, N on 16-byte rows
+            ("ragged_13x136x208", dict(M=13, K=136, N=208, head=False),
+             "skinny_tc"),
+            ("head_ragged_5x272x61", dict(M=5, K=272, N=61, head=True),
+             "skinny_tc"),
+            # K % 8 != 0: unaligned rows
             ("ragged_3x100x77", dict(M=3, K=100, N=77, head=False),
              "skinny"),
             # K % 8 != 0 and N % 16 != 0: unaligned rows
@@ -347,6 +390,10 @@ def kernel_checks(dev, ops, refs, q_lib):
             rows.append({"kernel": "int8_matmul", "case": name,
                          "dtype": str(dtype), "route": route,
                          "max_abs_err": err})
+            if route == "skinny_tc" and not torch.equal(
+                    got, ops.int8_matmul(x, wq, sc)):
+                raise AssertionError(f"int8_matmul/{name}: two launches "
+                                     "differ")
     # the tensor-core route's edges, bf16 only (seeds of their own, so
     # that the cases above keep theirs): the smallest tile-route M, and
     # ragged M, K, N with 16-byte rows
@@ -449,8 +496,11 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
     mm_ref = refs["int8_matmul"]
     shapes = []
     for label, M, Kd, N, head, route in (
-            ("decode", 8, 2048, 8192, False, "skinny"),
-            ("head", 8, 2048, 50304, True, "skinny"),
+            # decode at M = n_slots: gate/up, wq/wk/wv/wo, down; the head
+            ("decode", 8, 2048, 8192, False, "skinny_tc"),
+            ("decode_attn", 8, 2048, 2048, False, "skinny_tc"),
+            ("decode_down", 8, 8192, 2048, False, "skinny_tc"),
+            ("head", 8, 2048, 50304, True, "skinny_tc"),
             # serve_int8's widest prefill: wq/wk/wv/wo, gate/up, down
             ("prefill_attn", int8_m, 2048, 2048, False, "tensor_core"),
             ("prefill", int8_m, 2048, 8192, False, "tensor_core"),
@@ -630,13 +680,15 @@ def expected_routes(cfg, ecfg, st, dispatch_shapes):
     on the tensor cores.  int8: in a prefill dispatch of (rows, bucket)
     the 7 n_layers projections have M = rows x bucket, on the tensor
     cores when M > 16, and the tied head M = rows; every decode step has
-    M = n_slots; M <= 16 is skinny."""
+    M = n_slots; M <= 16 (bf16 x, aligned rows) is skinny_tc, and nothing
+    is left on the CUDA-core skinny kernels."""
     flash = {"tensor_core": cfg.n_layers * st["prefill_dispatches"],
              "cuda_core": 0}
-    int8 = {"skinny": 0, "tensor_core": 0, "cuda_core_tile": 0}
+    int8 = {"skinny": 0, "tensor_core": 0, "cuda_core_tile": 0,
+            "skinny_tc": 0}
     if ecfg.quantize == "int8":
         def route(m, wide):
-            return "skinny" if m <= 16 else wide
+            return "skinny_tc" if m <= 16 else wide
         n = cfg.n_layers
         for rows, bucket in dispatch_shapes:
             int8[route(rows * bucket, "tensor_core")] += 7 * n
@@ -658,6 +710,9 @@ def serve(phase, dev, ops, card, **engine_kw):
         dispatch_shapes.append(tuple(toks.shape))
         return admit(toks, *args)
     eng._prefill_admit = recording_admit
+    # the earlier phases' tensors that only the cycle collector frees would
+    # otherwise count in this serve's peak
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     # the path: counters at 0 just before, read just after

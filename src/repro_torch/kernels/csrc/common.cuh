@@ -17,15 +17,17 @@ template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
 template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
 
-// One 16-byte load of Vec<T>::N elements, widened to f32.
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+// A 16-byte load kept packed (4 registers) and its widening to f32:
+// loading several rows packed and widening each just before use keeps
+// more rows in flight for the registers of fewer widened ones.
+__device__ __forceinline__ uint4 load_raw(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
 }
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&out)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack_vec(const uint4& raw, float (&out)[4]) {
+  out[0] = __uint_as_float(raw.x); out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z); out[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack_vec(const uint4& raw, float (&out)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -33,6 +35,15 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+// One 16-byte load of Vec<T>::N elements, widened to f32.
+__device__ __forceinline__ void load_vec(const float* p, float (&out)[4]) {
+  unpack_vec(load_raw(p), out);
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&out)[8]) {
+  unpack_vec(load_raw(p), out);
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -85,16 +96,20 @@ __device__ __forceinline__ void online_row(const float (&qv)[GC][VEC],
   }
 }
 
-// Merge the CTA's NPART group states (the usual log-sum-exp rescale) and
-// store the first `ng` query rows: row g at out + g * HD.  `part` is the
-// calling group's index, d0 its lanes' first element along hd.  Every
-// thread of the CTA must call it.
+// ---- partials across CTAs (split-sequence decode, split-K) ---------- //
+
+// Merge the CTA's NPART group states (the usual log-sum-exp rescale) of
+// the first `ng` query rows and either store them normalised (`out`
+// non-null: row g at out + g * HD) or, for a split kernel, keep the
+// un-normalised f32 partial: (m, l) at pml[2g], pml[2g + 1] and the
+// weighted sum at pacc[g * HD + d].  `part` is the calling group's
+// index, d0 its lanes' first element along hd.  Every thread of the CTA
+// must call it.
 template <typename T, int GC, int VEC, int HD, int NPART, int NTHREADS>
-__device__ __forceinline__ void merge_store(int part, bool group_leader,
-                                            int d0, const float (&m)[GC],
-                                            const float (&l)[GC],
-                                            const float (&acc)[GC][VEC],
-                                            T* __restrict__ out, int ng) {
+__device__ __forceinline__ void merge_partial(
+    int part, bool group_leader, int d0, const float (&m)[GC],
+    const float (&l)[GC], const float (&acc)[GC][VEC], T* __restrict__ out,
+    float* __restrict__ pml, float* __restrict__ pacc, int ng) {
   __shared__ float sm_m[NPART][GC];
   __shared__ float sm_l[NPART][GC];
   __shared__ float sm_acc[NPART][GC][HD];
@@ -114,6 +129,79 @@ __device__ __forceinline__ void merge_store(int part, bool group_leader,
       const float w = expf(sm_m[p][g] - mx);
       den = fmaf(sm_l[p][g], w, den);
       num = fmaf(sm_acc[p][g][d], w, num);
+    }
+    if (out != nullptr) {
+      out[(size_t)g * HD + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
+    } else {
+      pacc[g * HD + d] = num;
+      if (d == 0) { pml[2 * g] = mx; pml[2 * g + 1] = den; }
+    }
+  }
+}
+
+// merge_partial with the normalised store (the paged kernel's merge).
+template <typename T, int GC, int VEC, int HD, int NPART, int NTHREADS>
+__device__ __forceinline__ void merge_store(int part, bool group_leader,
+                                            int d0, const float (&m)[GC],
+                                            const float (&l)[GC],
+                                            const float (&acc)[GC][VEC],
+                                            T* __restrict__ out, int ng) {
+  merge_partial<T, GC, VEC, HD, NPART, NTHREADS>(
+      part, group_leader, d0, m, l, acc, out, nullptr, nullptr, ng);
+}
+
+// The CTAs of one group (the splits of a (row, kv head), the K splits of
+// an output tile) each store a partial and call this; it returns true in
+// the CTA that arrives last, which then merges every partial in a fixed
+// order.  The ticket decides only who merges, never the order of a sum,
+// so the result is bit-identical from launch to launch.  The last CTA
+// resets the counter, so the kernel leaves every counter at 0 for the
+// next launch (counters start zeroed: the wrapper allocates them once
+// per stream with torch.zeros).  Every thread of the CTA must call it.
+__device__ __forceinline__ bool last_to_arrive(unsigned* counter,
+                                               unsigned n) {
+  __shared__ bool last;
+  __threadfence();           // this thread's partial, device-wide, first
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1u) == n - 1;
+    if (last) atomicExch(counter, 0u);
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// JAX's sequence-sharded combine (repro/kernels/ops.py, the shard_fn of
+// decode_attention_sharded) over the first n_split splits whose bit is set
+// in `mask`, in split order: the max of their m, then l and the weighted
+// sums scaled by exp(m_s - max) and summed; out = num / max(l, 1e-30).
+// Split s of row g keeps (m, l) at pml + s * sml + 2g and its sum at
+// pacc + s * sacc + g * HD, written by other CTAs of this launch: read
+// through L2 (ld.global.cg), never a stale L1 line.  The split loops are
+// unrolled with predicated loads, so a thread's loads are in flight
+// together rather than one L2 round trip after another.  Every thread
+// must call it.
+template <typename T, int HD, int NTHREADS>
+__device__ __forceinline__ void merge_splits(uint32_t mask, int n_split,
+                                             const float* pml,
+                                             const float* pacc, int sml,
+                                             int sacc, T* __restrict__ out,
+                                             int ng) {
+  for (int idx = threadIdx.x; idx < ng * HD; idx += NTHREADS) {
+    const int g = idx / HD, d = idx % HD;
+    float mx = kNegInf;
+#pragma unroll 8
+    for (int s = 0; s < n_split; ++s)
+      if ((mask >> s) & 1u) mx = fmaxf(mx, __ldcg(pml + s * sml + 2 * g));
+    float den = 0.f, num = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < n_split; ++s) {
+      if ((mask >> s) & 1u) {
+        const float w = expf(__ldcg(pml + s * sml + 2 * g) - mx);
+        den = fmaf(__ldcg(pml + s * sml + 2 * g + 1), w, den);
+        num = fmaf(__ldcg(pacc + s * sacc + g * HD + d), w, num);
+      }
     }
     out[(size_t)g * HD + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
   }

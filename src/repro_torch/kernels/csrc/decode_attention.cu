@@ -1,5 +1,5 @@
 // Decode attention over a contiguous cache for Hopper (sm_90a), CUDA C++,
-// f32 accumulation.
+// f32 accumulation, the sequence split across CTAs (flash-decoding).
 //
 // Replaces: src/repro/kernels/decode_attention.py, _decode_kernel
 // (launched by decode_attention through pl.pallas_call).  One new query
@@ -12,21 +12,41 @@
 // far below the card's ~295 flops per byte, so the least time is
 // 2 * sum_b (pos_b + 1) * K * hd * sizeof(T) over 3.35 TB/s.
 //
-// Design.  The same CTA as the paged kernel (paged_decode_attention.cu):
-// one CTA per (row, kv head) loops over its cache, 4 warps, a group of
-// hd/VEC lanes per key row with 16-byte loads along hd, the group's own
-// online-softmax state in registers (common.cuh online_row), and a
-// log-sum-exp merge in shared memory at the end (common.cuh merge_store).
-// The two differ only in how a row's KV is addressed: here the cache is
-// cut into blocks of RPW * UNROLL rows dealt round-robin to the warps, and
-// row t of (b, kh) sits at b * sb + kh * sk + t * ss elements, strides
-// the wrapper passes, so a (B, S, K, hd) cache is read in place through
-// its (B, K, S, hd) permuted view with no copy.  The Pallas kernel's
-// `S % block_k == 0` does not carry over: blocks past min(pos, S-1) are
-// never visited and the ragged last block is masked row by row.  Blocks
-// wholly outside the window (and the prefix) are skipped as in
-// _decode_kernel.  G above 8 runs in chunks of 8 query rows, one launch
-// each.
+// Design.  One CTA per (row, kv head) (the TPU grid's sequential kv axis
+// turned into a loop) gave 128 CTAs of 4 warps at the OLMo-1B decode
+// shape: one per SM, too few 16-byte loads in flight to pull an SM's share
+// of the card's bandwidth.  So the positions 0..min(pos, S-1) are cut into
+// chunks of `chunk` rows and the grid is (B * K, n_split): one CTA per
+// chunk.  The wrapper picks n_split and chunk from B, K, S and the SM count
+// alone (ops.decode_attention_splits), never from pos, so nothing is read
+// back to the host.  Inside a chunk the CTA works as before: 4 warps, a
+// group of hd/VEC lanes per key row with 16-byte loads along hd, the
+// group's own online-softmax state in registers (common.cuh online_row),
+// a log-sum-exp merge of the groups in shared memory.  UNROLL rows per
+// group are loaded before any is used, packed (common.cuh load_raw: 4
+// registers a row, widened just before use), 8 of them when G <= 2, so a
+// warp keeps 16 rows of K and of V in flight (8 before).
+//
+// The splits meet as in JAX's sequence-sharded combine (ops.py,
+// _lse_partials and decode_attention_sharded): each CTA stores its f32
+// partial (m, l, acc[hd]) per query row in a workspace the wrapper
+// allocates; the last CTA of a (row, kv head) to finish, found through a
+// counter the kernel leaves at 0 (common.cuh last_to_arrive), merges them
+// in split order (merge_splits), so two launches give bit-identical
+// results.  One launch and no second merge kernel: the serve's decode is
+// bound by host launches (PERF.md section 5), and the merge reads a few
+// KB.  Chunk 0 always runs; a later chunk runs only if it begins at or
+// before min(pos, S-1) and reaches the window or the prefix (the Pallas
+// kernel's block skip at chunk granularity).  A chunk that does not run
+// stores nothing and the merge skips it: its empty partial (m = -1e30,
+// l = 0) would weigh exactly 0, so leaving it out changes no bit.  A row
+// that only one chunk serves is written directly by that CTA, with the
+// same arithmetic as the merge of one partial.  Within a chunk, blocks
+// wholly outside the window and prefix are skipped as before.  The cache
+// is read in place through strides (row t of (b, kh) at b * sb + kh * sk
+// + t * ss elements), so a (B, S, K, hd) cache is taken through its
+// (B, K, S, hd) permuted view with no copy.  G above 8 runs in chunks of
+// 8 query rows, one launch each on the same workspace and counters.
 #include "common.cuh"
 
 namespace {
@@ -36,23 +56,29 @@ using repro::Vec;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxChunk = 8;
+constexpr int kMaxChunk = 8;    // query rows per launch
+constexpr int kMaxSplits = 32;  // bits of the running-chunk mask
 
 template <typename T, int HD, int GC>
-__global__ void __launch_bounds__(kThreads) decode_kernel(
+__global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ pos_arr,
-    T* __restrict__ out, int n_kv, int G, int S, long long sb, long long sk,
-    long long ss, int window, int prefix, float sm_scale, int g0) {
+    T* __restrict__ out, float* __restrict__ ws,
+    unsigned* __restrict__ tickets, int n_kv, int G, int S, long long sb,
+    long long sk, long long ss, int window, int prefix, float sm_scale,
+    int g0, int chunk) {
   constexpr int VEC = Vec<T>::N;
   constexpr int LPR = HD / VEC;       // lanes per key row
   constexpr int RPW = 32 / LPR;       // rows per warp pass
   constexpr int NPART = kWarps * RPW; // partial states per CTA
-  constexpr int UNROLL = GC >= 8 ? 2 : 4;
+  constexpr int UNROLL = GC >= 8 ? 2 : GC >= 4 ? 4 : 8;
   constexpr int BLK = RPW * UNROLL;   // rows per block, one warp each
 
-  const int b = blockIdx.x / n_kv;
-  const int kh = blockIdx.x % n_kv;
+  const int bk = blockIdx.x;
+  const int b = bk / n_kv;
+  const int kh = bk % n_kv;
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int grp = lane / LPR;
@@ -60,6 +86,23 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   const int pos = pos_arr[b];
   const int last = min(pos, S - 1);   // the last row that can be visible
   const int ng = min(GC, G - g0);
+
+  // the chunks that run: 0, and each that begins at or before `last` and
+  // reaches the window (or the prefix); the same mask in every CTA
+  uint32_t mask = 1u;
+  for (int c = 1; c < n_split; ++c) {
+    const int c0 = c * chunk;
+    bool run = c0 <= last;
+    if (window > 0) {
+      bool reach = c0 + chunk - 1 > pos - window;
+      if (prefix > 0) reach = reach || c0 < prefix;
+      run = run && reach;
+    }
+    if (run) mask |= 1u << c;
+  }
+  if (!((mask >> split) & 1u)) return;
+  const int c_begin = split * chunk;
+  const int c_end = min(c_begin + chunk, last + 1);   // exclusive
 
   float qv[GC][VEC];
   float m[GC], l[GC], acc[GC][VEC];
@@ -79,55 +122,76 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
 
   const T* kb = k + b * sb + kh * sk + d0;
   const T* vb = v + b * sb + kh * sk + d0;
-  for (int start = warp * BLK; start <= last; start += kWarps * BLK) {
+  for (int start = c_begin + warp * BLK; start < c_end;
+       start += kWarps * BLK) {
     if (window > 0) {   // the Pallas kernel's block skip; warp-uniform
       bool reach = start + BLK - 1 > pos - window;
       if (prefix > 0) reach = reach || start < prefix;
       if (!reach) continue;
     }
-    float kr[UNROLL][VEC], vr[UNROLL][VEC];
+    uint4 kr[UNROLL], vr[UNROLL];   // packed: 4 registers a row
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int t = start + u * RPW + grp;
-      if (t <= last) {
-        repro::load_vec(kb + t * ss, kr[u]);
-        repro::load_vec(vb + t * ss, vr[u]);
+      if (t < c_end) {
+        kr[u] = repro::load_raw(kb + t * ss);
+        vr[u] = repro::load_raw(vb + t * ss);
       } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) { kr[u][e] = 0.f; vr[u][e] = 0.f; }
+        kr[u] = make_uint4(0u, 0u, 0u, 0u);
+        vr[u] = kr[u];
       }
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int t = start + u * RPW + grp;
-      bool valid = t <= last;
+      bool valid = t < c_end;
       if (window > 0)
         valid = valid && (t > pos - window || (prefix > 0 && t < prefix));
-      repro::online_row<GC, VEC, LPR>(qv, kr[u], vr[u], valid, m, l, acc);
+      float kf[VEC], vf[VEC];
+      repro::unpack_vec(kr[u], kf);
+      repro::unpack_vec(vr[u], vf);
+      repro::online_row<GC, VEC, LPR>(qv, kf, vf, valid, m, l, acc);
     }
   }
 
-  repro::merge_store<T, GC, VEC, HD, NPART, kThreads>(
-      warp * RPW + grp, lane % LPR == 0, d0, m, l, acc,
-      out + ((size_t)(b * n_kv + kh) * G + g0) * HD, ng);
+  T* o = out + ((size_t)bk * G + g0) * HD;
+  const int n_run = __popc(mask);
+  if (n_run == 1) {   // the only chunk of its row: straight to out
+    repro::merge_partial<T, GC, VEC, HD, NPART, kThreads>(
+        warp * RPW + grp, lane % LPR == 0, d0, m, l, acc, o, nullptr,
+        nullptr, ng);
+    return;
+  }
+  // workspace: (m, l) of [B*K][n_split][kMaxChunk], then the sums of
+  // [B*K][n_split][kMaxChunk][HD], f32
+  float* ml = ws + (size_t)bk * n_split * kMaxChunk * 2;
+  float* sums = ws + (size_t)gridDim.x * n_split * kMaxChunk * 2 +
+                (size_t)bk * n_split * kMaxChunk * HD;
+  repro::merge_partial<T, GC, VEC, HD, NPART, kThreads>(
+      warp * RPW + grp, lane % LPR == 0, d0, m, l, acc, nullptr,
+      ml + split * kMaxChunk * 2, sums + (size_t)split * kMaxChunk * HD, ng);
+  if (!repro::last_to_arrive(tickets + bk, (unsigned)n_run)) return;
+  repro::merge_splits<T, HD, kThreads>(mask, n_split, ml, sums,
+                                       kMaxChunk * 2, kMaxChunk * HD, o, ng);
 }
 
 template <typename T, int HD>
 void launch_hd(const void* q, const void* k, const void* v, const int* pos,
-               void* out, int B, int K, int G, int S, long long sb,
-               long long sk, long long ss, int window, int prefix,
-               float sm_scale, cudaStream_t stream) {
+               void* out, float* ws, unsigned* tickets, int B, int K, int G,
+               int S, long long sb, long long sk, long long ss, int window,
+               int prefix, float sm_scale, int n_split, int chunk,
+               cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
-  const dim3 grid(B * K), block(kThreads);
+  const dim3 grid(B * K, n_split), block(kThreads);
   for (int g0 = 0; g0 < G; g0 += kMaxChunk) {
     const int n = G - g0 < kMaxChunk ? G - g0 : kMaxChunk;
 #define REPRO_LAUNCH(GC)                                                    \
-  decode_kernel<T, HD, GC><<<grid, block, 0, stream>>>(                     \
-      qt, kt, vt, pos, ot, K, G, S, sb, sk, ss, window, prefix, sm_scale,   \
-      g0)
+  decode_split_kernel<T, HD, GC><<<grid, block, 0, stream>>>(               \
+      qt, kt, vt, pos, ot, ws, tickets, K, G, S, sb, sk, ss, window,        \
+      prefix, sm_scale, g0, chunk)
     if (n == 1) REPRO_LAUNCH(1);
     else if (n == 2) REPRO_LAUNCH(2);
     else if (n <= 4) REPRO_LAUNCH(4);
@@ -139,18 +203,18 @@ void launch_hd(const void* q, const void* k, const void* v, const int* pos,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* pos,
-           void* out, int B, int K, int G, int hd, int S, long long sb,
-           long long sk, long long ss, int window, int prefix,
-           float sm_scale, cudaStream_t stream) {
+           void* out, float* ws, unsigned* tickets, int B, int K, int G,
+           int hd, int S, long long sb, long long sk, long long ss,
+           int window, int prefix, float sm_scale, int n_split, int chunk,
+           cudaStream_t stream) {
   switch (hd) {
-    case 16: launch_hd<T, 16>(q, k, v, pos, out, B, K, G, S, sb, sk, ss,
-                              window, prefix, sm_scale, stream); break;
-    case 32: launch_hd<T, 32>(q, k, v, pos, out, B, K, G, S, sb, sk, ss,
-                              window, prefix, sm_scale, stream); break;
-    case 64: launch_hd<T, 64>(q, k, v, pos, out, B, K, G, S, sb, sk, ss,
-                              window, prefix, sm_scale, stream); break;
-    case 128: launch_hd<T, 128>(q, k, v, pos, out, B, K, G, S, sb, sk, ss,
-                                window, prefix, sm_scale, stream); break;
+#define REPRO_HD(HD)                                                        \
+  case HD:                                                                  \
+    launch_hd<T, HD>(q, k, v, pos, out, ws, tickets, B, K, G, S, sb, sk,    \
+                     ss, window, prefix, sm_scale, n_split, chunk, stream); \
+    break;
+    REPRO_HD(16) REPRO_HD(32) REPRO_HD(64) REPRO_HD(128)
+#undef REPRO_HD
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -163,21 +227,34 @@ extern "C" {
 // q (B, K, G, hd) contiguous; k_cache, v_cache (B, K, S, hd) with element
 // strides sb, sk, ss over (B, K, S) and the last dim contiguous, the same
 // for both; pos (B,) int32; out (B, K, G, hd) contiguous.  Pointers and
-// rows 16-byte aligned.  dtype: 0 = f32, 1 = bf16.  Returns the
-// cudaError_t of the launch (0 on success).
+// rows 16-byte aligned.  dtype: 0 = f32, 1 = bf16.  The sequence runs in
+// n_split chunks of `chunk` rows (1 <= n_split <= 32, every chunk holding
+// at least one of the S rows); with n_split > 1, ws holds
+// B * K * n_split * 8 * (hd + 2) floats and tickets B * K zeroed counters
+// (left zeroed).  Returns the cudaError_t of the launch (0 on success).
 int decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                     const int* pos, void* out, int B, int K, int G, int hd,
-                     int S, long long sb, long long sk, long long ss,
-                     int window, int prefix, int dtype, float sm_scale,
+                     const int* pos, void* out, void* ws, void* tickets,
+                     int B, int K, int G, int hd, int S, long long sb,
+                     long long sk, long long ss, int window, int prefix,
+                     int dtype, int n_split, int chunk, float sm_scale,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || K == 0 || G == 0) return 0;
+  if (n_split < 1 || n_split > kMaxSplits || chunk < 1 ||
+      (long long)chunk * n_split < S ||
+      (long long)chunk * (n_split - 1) >= S ||
+      (n_split > 1 && (ws == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  float* w = static_cast<float*>(ws);
+  unsigned* tk = static_cast<unsigned*>(tickets);
   if (dtype == 0)
-    return launch<float>(q, k_cache, v_cache, pos, out, B, K, G, hd, S, sb,
-                         sk, ss, window, prefix, sm_scale, s);
+    return launch<float>(q, k_cache, v_cache, pos, out, w, tk, B, K, G, hd,
+                         S, sb, sk, ss, window, prefix, sm_scale, n_split,
+                         chunk, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_cache, v_cache, pos, out, B, K, G, hd,
-                                 S, sb, sk, ss, window, prefix, sm_scale, s);
+    return launch<__nv_bfloat16>(q, k_cache, v_cache, pos, out, w, tk, B, K,
+                                 G, hd, S, sb, sk, ss, window, prefix,
+                                 sm_scale, n_split, chunk, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,11 +17,21 @@
 //
 // Routes, chosen by the caller (kernels/ops.py, int8_matmul_route) from
 // dtype, layout, scale, M and alignment, never from a failure:
-//   0 skinny          M <= 16: decode and the tied head.  Bound by the
-//                     bytes of w_q (each weight byte feeds 2 M flops):
+//   0 skinny          M <= 16 with f32 x or unaligned rows.  Bound by
+//                     the bytes of w_q (each weight byte feeds 2 M flops)
+//                     in principle, by the CUDA cores' int-to-float
+//                     conversion and M FMAs per weight byte in practice:
 //                     w_q is streamed once with 16-byte loads per lane,
 //                     kept packed in registers, up to 8 rows of x in
-//                     registers.
+//                     registers.  f32 stays here: on the tensor cores it
+//                     would be TF32.
+//   3 skinny_tc       bf16 x, M <= 16, K % 8 == 0, 16-byte aligned rows
+//                     (KN or NK, per-N or 16-byte aligned per-K scale):
+//                     decode and the tied head of a bf16 model.  The
+//                     same bytes on the
+//                     tensor cores (mma.sync with A and B swapped, the
+//                     weight as A), K split across CTAs for small N; see
+//                     skinny_tc below.
 //   1 tensor_core     bf16 x, M > 16, KN, per-N scale, 16-byte rows: the
 //                     prefill projections.  Bound by operations (989
 //                     TFLOP/s bf16 on the tensor cores; int8 values are
@@ -248,6 +258,348 @@ __global__ void __launch_bounds__(kThreads) skinny_nk(
         out[(size_t)(m0 + m) * N + n] =
             from_f32<T>(scale_per_k ? s : s * scale[n]);
     }
+}
+
+// ---- skinny_tc: bf16 x, M <= 16, on the tensor cores ---------------- //
+// mma.sync m16n8k16 with A and B swapped: the weight is A, 16 output
+// columns a tile (MMA rows), and x is B, its <= 8 rows the MMA's n = 8
+// (two B tiles for M up to 16).  Nothing passes through shared memory on
+// the way in.  The sum over k does not care in which order each k16 step
+// lists its 16 k, so every lane's 16-byte load is mapped straight onto its
+// own fragment registers (x's fragment takes the same k order):
+//   KN (w rows along N): a step is 16 k.  Lane (g = lane/4, t = lane%4)
+//     loads columns 16g..16g+15 of rows k = 4t..4t+3: 128 contiguous bytes
+//     per row across the 8 lanes of one t.  Tile i's MMA row r is column
+//     16 (r % 8) + 2i + r / 8, its logical k 2t, 2t+1, 2t+8, 2t+9 are rows
+//     4t..4t+3, so x's fragment is x[g][4t..4t+3], one 8-byte load.  Each
+//     bf16 pair of the A fragment joins bytes of two loads (two k).
+//   NK (w rows along K, the tied head's embed_q.t()): a step is 64 k.
+//     Lane (g, t) loads k 16t..16t+15 of columns g and g+8 of each of 4
+//     tiles; k16 step j takes bytes 4j..4j+3 as its logical k 2t, 2t+1,
+//     2t+8, 2t+9, and x's fragment is x[g][16t+4j..16t+4j+3].
+// Each int8 is widened exactly (the byte permute of widen16, one
+// subtraction) and paired into bf16x2 registers; sums are f32.  The per-N
+// scale multiplies the f32 sum once at the end.  A per-K scale (the tied
+// head's, one per d) cannot, so it is folded into x: x * s in f32, split
+// into two bf16 terms, hi = bf16(x s) and lo = bf16(x s - hi), each
+// multiplied by the exact bf16 weight on the tensor cores (one more MMA
+// per tile and step, the same weight fragment).  hi alone, one rounding
+// of x s to bf16, strays from the plain f32 product by up to 2^-9 of
+// each term, ~0.03 in an output near 0 at K = 2048: past the 2e-2
+// tolerance the route is held to.  hi + lo carries x s to ~2^-17, so the
+// route differs from the plain version only in the order of its f32
+// sums (tests/test_torch_kernels.py emulates the split).
+//
+// Pipeline: each warp keeps a ring of RING steps of raw loads in its
+// registers (KN 4 x 2 KB, NK 2 x 4 KB of weight per warp, each step's x
+// values and scales beside it), issuing step s + RING as soon as step s
+// is widened, so 8 KB of weight is in flight per warp and 32-128 KB per
+// SM, and no step waits on a load issued when it starts.  A CTA of
+// kStWarps warps owns COLS columns and a range of `per` steps, dealt
+// round-robin to its warps; their sums meet in shared memory in warp
+// order.  Small N cannot fill 132 SMs with column tiles
+// alone (2048 -> 2048: 16 tiles of 128), so K is split over gridDim.y
+// CTAs too (ops.int8_skinny_tc_splits: at least 2 x the SM count of
+// CTAs); each stores an f32 partial, and the last to finish (common.cuh
+// last_to_arrive) sums them in split order: deterministic, one launch.
+//
+// Bound: the bytes of w_q, each read once (K N bytes; x, the scale and
+// the output are a few KB), over 3.35 TB/s.  Per weight byte the kernel
+// spends ~2.5 instructions widening it and 2 M / 256 of an MMA, where the
+// CUDA-core skinny kernels spent a conversion and M FMAs.
+constexpr int kStWarps = 4;
+constexpr int kStThreads = 32 * kStWarps;
+
+// Value e of the sign-flipped word u (u = word ^ 0x80808080), exactly, as
+// an f32: 2^23 + (b + 128) - (2^23 + 128).
+__device__ __forceinline__ float i8f(uint32_t u, int e) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + e)) -
+         8388736.f;
+}
+
+// Word j of a 16-byte run (j is a constant once unrolled).
+__device__ __forceinline__ uint32_t word(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// x * s for four bf16 of x (two bf16x2 words) and their four per-K
+// scales, in f32, as the pair hi = bf16(x s), lo = bf16(x s - hi).
+__device__ __forceinline__ void split_xs(const uint2& raw, const float4& s,
+                                         uint2& hi, uint2& lo) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float f[4] = {a.x * s.x, a.y * s.y, b.x * s.z, b.y * s.w};
+  hi.x = repro::pack_bf16x2(f[0], f[1]);
+  hi.y = repro::pack_bf16x2(f[2], f[3]);
+  const __nv_bfloat162* r = reinterpret_cast<const __nv_bfloat162*>(&hi);
+  const float2 ra = __bfloat1622float2(r[0]), rb = __bfloat1622float2(r[1]);
+  lo.x = repro::pack_bf16x2(f[0] - ra.x, f[1] - ra.y);
+  lo.y = repro::pack_bf16x2(f[2] - rb.x, f[3] - rb.y);
+}
+
+// KN: a step is 16 k, 8 tiles of 16 columns, 4 weight loads a lane and
+// 4 x values per x row; NK: a step is 64 k, 4 tiles, 8 weight loads and
+// 16 x values per x row.
+template <bool KN> struct StShape;
+template <> struct StShape<true> {
+  static constexpr int COLS = 128, STEP_K = 16, LOADS = 4, RING = 4, NT = 8;
+  static constexpr int XQ = 1;   // 4-value x quads per x row and step
+};
+template <> struct StShape<false> {
+  static constexpr int COLS = 64, STEP_K = 64, LOADS = 8, RING = 2, NT = 4;
+  static constexpr int XQ = 4;
+};
+
+// One step's operands as they arrive: the raw int8 weight, the lane's x
+// values (bf16, raw) and, with a per-K scale, their scales.
+template <bool KN, int MT, bool PER_K> struct StSlot {
+  uint4 w[StShape<KN>::LOADS];
+  uint2 x[MT][StShape<KN>::XQ];
+  float4 s[PER_K ? StShape<KN>::XQ : 1];
+};
+
+template <bool KN, int MT, bool PER_K>
+__global__ void __launch_bounds__(kStThreads) skinny_tc(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ ws, unsigned* __restrict__ tickets, int M, int N,
+    int K, long long w_row, int per) {
+  using S = StShape<KN>;
+  using Slot = StSlot<KN, MT, PER_K>;
+  constexpr int COLS = S::COLS, STEP_K = S::STEP_K, LOADS = S::LOADS;
+  constexpr int RING = S::RING, NT = S::NT, XQ = S::XQ;
+  __shared__ float red[MT * 8][COLS + 4];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * COLS;
+  const int n_steps = (K + STEP_K - 1) / STEP_K;
+  const int s_lo = blockIdx.y * per;
+  const int s_hi = min(s_lo + per, n_steps);
+
+  // step s's operands, all issued at once (zeros past K, N, M and s_hi):
+  // x and the scale ride in the ring with the weight, so no step waits on
+  // a load issued when it starts
+  auto load_step = [&](int s, Slot& r) {
+#pragma unroll
+    for (int j = 0; j < LOADS; ++j) r.w[j] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < XQ; ++q) r.x[mt][q] = make_uint2(0u, 0u);
+    if constexpr (PER_K)
+#pragma unroll
+      for (int q = 0; q < XQ; ++q) r.s[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s >= s_hi) return;
+    // this lane's first k of the step: KN rows 4t..4t+3, NK 16t..16t+15
+    const int k = s * STEP_K + (KN ? 4 * t : 16 * t);
+    if constexpr (KN) {
+      const int n = n0 + 16 * g;
+#pragma unroll
+      for (int j = 0; j < LOADS; ++j)
+        if (k + j < K)
+          r.w[j] = load_raw16(w + (size_t)(k + j) * w_row + n, true, N - n);
+    } else {
+#pragma unroll
+      for (int j = 0; j < LOADS; ++j) {
+        const int n = n0 + 16 * (j / 2) + g + 8 * (j % 2);
+        if (n < N && k < K)
+          r.w[j] = load_raw16(w + (size_t)n * w_row + k, true, K - k);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < XQ; ++q) {
+      if (k + 4 * q >= K) continue;   // K % 8 == 0: quads in or out
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int m = g + 8 * mt;
+        if (m < M)
+          r.x[mt][q] = *reinterpret_cast<const uint2*>(
+              x + (size_t)m * K + k + 4 * q);
+      }
+      if constexpr (PER_K)
+        r.s[q] = *reinterpret_cast<const float4*>(scale + k + 4 * q);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][i][c] = 0.f;
+
+  // one step's MMAs
+  auto mma_step = [&](const Slot& r) {
+    uint2 xb[MT][XQ], xl[MT][XQ];   // B fragments: x (or hi, lo of x s)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < XQ; ++q) {
+        if constexpr (PER_K) split_xs(r.x[mt][q], r.s[q], xb[mt][q],
+                                      xl[mt][q]);
+        else xb[mt][q] = r.x[mt][q];
+      }
+    if constexpr (KN) {
+      uint32_t u[4][4];   // [k row j][word q], sign-flipped
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) u[j][q] = word(r.w[j], q) ^ 0x80808080u;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const int q = i / 2, p = i % 2;
+        const uint32_t a[4] = {
+            repro::pack_bf16x2(i8f(u[0][q], 2 * p), i8f(u[1][q], 2 * p)),
+            repro::pack_bf16x2(i8f(u[0][q], 2 * p + 1),
+                               i8f(u[1][q], 2 * p + 1)),
+            repro::pack_bf16x2(i8f(u[2][q], 2 * p), i8f(u[3][q], 2 * p)),
+            repro::pack_bf16x2(i8f(u[2][q], 2 * p + 1),
+                               i8f(u[3][q], 2 * p + 1))};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          repro::mma_bf16_16816(acc[mt][i], a, xb[mt][0].x, xb[mt][0].y);
+          if constexpr (PER_K)
+            repro::mma_bf16_16816(acc[mt][i], a, xl[mt][0].x, xl[mt][0].y);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {       // k16 step j of the 64
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          const uint32_t ug = word(r.w[2 * i], j) ^ 0x80808080u;
+          const uint32_t u8 = word(r.w[2 * i + 1], j) ^ 0x80808080u;
+          const uint32_t a[4] = {
+              repro::pack_bf16x2(i8f(ug, 0), i8f(ug, 1)),
+              repro::pack_bf16x2(i8f(u8, 0), i8f(u8, 1)),
+              repro::pack_bf16x2(i8f(ug, 2), i8f(ug, 3)),
+              repro::pack_bf16x2(i8f(u8, 2), i8f(u8, 3))};
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            repro::mma_bf16_16816(acc[mt][i], a, xb[mt][j].x, xb[mt][j].y);
+            if constexpr (PER_K)
+              repro::mma_bf16_16816(acc[mt][i], a, xl[mt][j].x,
+                                    xl[mt][j].y);
+          }
+        }
+      }
+    }
+  };
+
+  // this warp's steps: s_lo + warp, s_lo + warp + 4, ...; a ring of RING
+  // steps of raw loads in flight
+  Slot ring[RING];
+  constexpr int W = kStWarps;
+  const int first = s_lo + warp;
+#pragma unroll
+  for (int u = 0; u < RING; ++u) load_step(first + W * u, ring[u]);
+  for (int s = first; s < s_hi; s += W * RING) {
+#pragma unroll
+    for (int u = 0; u < RING; ++u) {
+      const int su = s + W * u;
+      if (su < s_hi) {
+        mma_step(ring[u]);
+        load_step(su + W * RING, ring[u]);
+      }
+    }
+  }
+
+  // the warps' sums meet in shared memory, added in warp order; the
+  // accumulator fragment: c0, c1 are MMA row g, c2, c3 row g + 8, at
+  // columns (x rows) 2t, 2t + 1
+  for (int wi = 0; wi < W; ++wi) {
+    if (warp == wi) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int m = 8 * mt + 2 * t + (c & 1);
+            const int col = KN ? 16 * g + 2 * i + (c >> 1)
+                               : 16 * i + g + 8 * (c >> 1);
+            red[m][col] =
+                wi == 0 ? acc[mt][i][c] : red[m][col] + acc[mt][i][c];
+          }
+    }
+    __syncthreads();
+  }
+
+  const int rows = min(M, MT * 8);
+  const int n_ks = gridDim.y;
+  // partials of this column tile: [n_ks][rows][COLS] f32
+  float* part = n_ks > 1 ? ws + (size_t)blockIdx.x * n_ks * rows * COLS
+                         : nullptr;
+  for (int idx = threadIdx.x; idx < rows * COLS; idx += kStThreads) {
+    const int m = idx / COLS, col = idx % COLS, n = n0 + col;
+    const float sum = red[m][col];
+    if (n_ks == 1) {
+      if (n < N)
+        out[(size_t)m * N + n] =
+            __float2bfloat16(PER_K ? sum : sum * scale[n]);
+    } else {
+      part[(size_t)blockIdx.y * rows * COLS + idx] = sum;
+    }
+  }
+  if (n_ks == 1) return;
+  if (!repro::last_to_arrive(tickets + blockIdx.x, (unsigned)n_ks)) return;
+  // the partials' sum in split order, 4 columns a thread (16-byte loads
+  // through L2), the split loop unrolled so that its loads overlap
+  const float4* p4 = reinterpret_cast<const float4*>(part);
+  const int n4 = rows * COLS / 4;
+  for (int i = threadIdx.x; i < n4; i += kStThreads) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int s = 0; s < n_ks; ++s) {
+      const float4 v = __ldcg(p4 + (size_t)s * n4 + i);
+      sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+    }
+    const int m = 4 * i / COLS, n = n0 + 4 * i % COLS;
+    const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n + e < N)
+        out[(size_t)m * N + n + e] =
+            __float2bfloat16(PER_K ? v[e] : v[e] * scale[n + e]);
+  }
+}
+
+// Needs M <= 16, K % 8 == 0, 16-byte aligned x, w_q and weight rows, a
+// 16-byte aligned per-K scale (read four floats at a time), and a split
+// of the k steps that leaves no CTA empty.
+int launch_skinny_tc(const __nv_bfloat16* x, const int8_t* w,
+                     const float* scale, __nv_bfloat16* out, float* ws,
+                     unsigned* tickets, int M, int N, int K, bool kn,
+                     long long w_row, bool scale_per_k, int n_ks, int per,
+                     cudaStream_t stream) {
+  const int cols = kn ? StShape<true>::COLS : StShape<false>::COLS;
+  const int step_k = kn ? StShape<true>::STEP_K : StShape<false>::STEP_K;
+  const int n_steps = (K + step_k - 1) / step_k;
+  if (M > 16 || K % 8 || w_row % 16 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      (scale_per_k && reinterpret_cast<uintptr_t>(scale) % 16) ||
+      n_ks < 1 || per < 1 || (long long)n_ks * per < n_steps ||
+      (long long)(n_ks - 1) * per >= n_steps ||
+      (n_ks > 1 && (ws == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + cols - 1) / cols, n_ks);
+#define REPRO_LAUNCH(KN, MT, PER_K)                                         \
+  skinny_tc<KN, MT, PER_K><<<grid, kStThreads, 0, stream>>>(                \
+      x, w, scale, out, ws, tickets, M, N, K, w_row, per)
+#define REPRO_LAUNCH_M(KN, PER_K)                                           \
+  if (M <= 8) REPRO_LAUNCH(KN, 1, PER_K); else REPRO_LAUNCH(KN, 2, PER_K)
+  if (kn) {
+    if (scale_per_k) { REPRO_LAUNCH_M(true, true); }
+    else { REPRO_LAUNCH_M(true, false); }
+  } else {
+    if (scale_per_k) { REPRO_LAUNCH_M(false, true); }
+    else { REPRO_LAUNCH_M(false, false); }
+  }
+#undef REPRO_LAUNCH_M
+#undef REPRO_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 // ---- cuda_core_tile: M > 16, f32 x or NK or unaligned --------------- //
@@ -636,7 +988,8 @@ void launch_skinny(const T* x, const int8_t* w, const float* scale, T* out,
   }
 }
 
-enum Route { kSkinny = 0, kTensorCore = 1, kCudaCoreTile = 2 };
+enum Route { kSkinny = 0, kTensorCore = 1, kCudaCoreTile = 2,
+             kSkinnyTc = 3 };
 
 template <typename T>
 int launch(const void* xp, const int8_t* w, const float* scale, void* op,
@@ -681,12 +1034,18 @@ extern "C" {
 // values (scale_per_k == 1), contiguous; out (M, N) row-major in x's
 // dtype.  dtype: 0 = f32, 1 = bf16.  route: 0 skinny (M <= 16), 1
 // tensor_core (bf16, KN, per-N scale, K % 8 == 0, 16-byte aligned rows),
-// 2 cuda_core_tile; a route whose conditions do not hold is refused.
-// Returns the cudaError_t of the launch (0 on success).
+// 2 cuda_core_tile, 3 skinny_tc (bf16, M <= 16, K % 8 == 0, 16-byte
+// aligned rows and per-K scale); a route whose conditions do not hold is
+// refused.
+// skinny_tc only: its k steps (16 k for KN, 64 for NK) run in n_ks
+// splits of `per` steps, with, for n_ks > 1, ws holding ceil(N / cols)
+// * n_ks * M * cols floats (cols 128 for KN, 64 for NK) and tickets
+// ceil(N / cols) zeroed counters (left zeroed).  Returns the cudaError_t
+// of the launch (0 on success).
 int int8_matmul(const void* x, const void* w_q, const float* scale,
-                void* out, int M, int N, int K, long long swk,
-                long long swn, int scale_per_k, int dtype, int route,
-                void* stream) {
+                void* out, void* ws, void* tickets, int M, int N, int K,
+                long long swk, long long swn, int scale_per_k, int dtype,
+                int route, int n_ks, int per, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;
   if (K == 0) return (int)cudaErrorInvalidValue;
@@ -700,6 +1059,14 @@ int int8_matmul(const void* x, const void* w_q, const float* scale,
     if (dtype != 1 || !kn || scale_per_k) return (int)cudaErrorInvalidValue;
     return launch_tc(static_cast<const __nv_bfloat16*>(x), w, scale,
                      static_cast<__nv_bfloat16*>(out), M, N, K, w_row, s);
+  }
+  if (route == kSkinnyTc) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return launch_skinny_tc(static_cast<const __nv_bfloat16*>(x), w, scale,
+                            static_cast<__nv_bfloat16*>(out),
+                            static_cast<float*>(ws),
+                            static_cast<unsigned*>(tickets), M, N, K, kn,
+                            w_row, scale_per_k != 0, n_ks, per, s);
   }
   const bool vec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                    w_row % 16 == 0;

@@ -11,16 +11,28 @@ alignment (`flash_attention_route`, `int8_matmul_route`), never from a
 failure, and also count each launch by route in a plain dict,
 `<wrapper>.launches_by_route`.
 
+Two kernels split their work across CTAs (decode attention its
+sequence, the int8 `skinny_tc` route its K) and merge the f32 partials
+in the CTA that finishes last: their wrappers allocate the partials with
+`torch.empty` per call and pick the split in a pure function of the
+shapes and the SM count (`decode_attention_splits`,
+`int8_skinny_tc_splits`).  Both find the last CTA through counters that
+the kernels leave at 0, and both write their f32 partials into a buffer
+that is kept between calls: one pair of buffers per (device, stream),
+`_split_buffers`.
+
 Build: at first use on the card, every `csrc/*.cu` is compiled by `nvcc`
 for sm_90a into its own shared library with a plain C interface (all
 sources at once, one process each), under `build/kernels/<hash>/` at the
 root of the checkout, keyed by a hash of the sources and flags.  The
 libraries are bound with ctypes; pointers and the stream are passed as
-Python ints from `data_ptr()` and `torch.cuda.current_stream()`.
+Python ints, from `data_ptr()` and from the current stream's handle,
+cached per stream (`_stream`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -114,9 +126,10 @@ def _lib(name: str) -> ctypes.CDLL:
             fn.argtypes = {
                 "paged_decode_attention": [p] * 6 + [i] * 10 + [f, p],
                 "flash_attention": [p] * 4 + [i] * 11 + [f] + [ll] * 9 + [p],
-                "decode_attention": ([p] * 5 + [i] * 5 + [ll] * 3
-                                     + [i] * 3 + [f, p]),
-                "int8_matmul": [p] * 4 + [i] * 3 + [ll] * 2 + [i] * 3 + [p],
+                "decode_attention": ([p] * 7 + [i] * 5 + [ll] * 3
+                                     + [i] * 5 + [f, p]),
+                "int8_matmul": ([p] * 6 + [i] * 3 + [ll] * 2 + [i] * 5
+                                + [p]),
             }[name]
             fn.restype = i
             lib.error_string.argtypes = [i]
@@ -156,14 +169,65 @@ def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensor not 16-byte aligned")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_raw_streams: Dict[tuple, int] = {}
+
+
+def _stream(device: torch.device) -> tuple:
+    """(key, handle) of `device`'s current stream: torch's stream id, and
+    the cudaStream_t as an int, cached by that id.  torch's ids name fixed
+    streams (its pools' and the default stream), so the cache stays true;
+    building a torch.cuda.Stream object on every launch would cost the
+    host microseconds a call."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (index, torch._C._cuda_getCurrentStream(index)[0])
+    handle = _raw_streams.get(key)
+    if handle is None:
+        handle = torch.cuda.current_stream(device).cuda_stream
+        _raw_streams[key] = handle
+    return key, handle
+
+
+_split_bufs: Dict[tuple, list] = {}
+
+
+def _split_buffers(device: torch.device, n_tickets: int,
+                   n_ws: int) -> tuple:
+    """(counters, partials) for the kernels that split work across CTAs:
+    at least `n_tickets` int32 counters, zeroed once at allocation (the
+    kernels find the last CTA of a group through them and leave them at
+    0), and at least `n_ws` f32 partials, which every launch writes before
+    it reads them.  One pair per (device, current stream), kept between
+    calls: launches on one stream run in order, so each finds the pair
+    free; a launch on another stream gets a pair of its own, so no
+    counter or partial is ever shared by launches that may overlap."""
+    bufs = _split_bufs.setdefault(_stream(device)[0], [None, None])
+    if bufs[0] is None or bufs[0].numel() < n_tickets:
+        bufs[0] = torch.zeros(max(n_tickets, 4096), dtype=torch.int32,
+                              device=device)
+    if bufs[1] is None or bufs[1].numel() < n_ws:
+        bufs[1] = torch.empty(max(n_ws, 1 << 20), dtype=torch.float32,
+                              device=device)
+    return bufs[0], bufs[1]
+
+
 def _run(name: str, device: torch.device, *args) -> None:
-    lib = _lib(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
+    fn = getattr(_lib(name), name)
+    stream = _stream(device)[1]
+    if torch.cuda.current_device() == device.index:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.error_string(err).decode()} ({err})")
+                           f"{_lib(name).error_string(err).decode()} "
+                           f"({err})")
 
 
 # --------------------------------------------------------------------- #
@@ -276,6 +340,27 @@ flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(FLASH_ROUTES, 0)
 
 
+DECODE_MIN_CHUNK = 64      # rows: the smallest chunk worth a CTA
+DECODE_MAX_SPLITS = 32     # the kernel's mask of running chunks
+DECODE_CTAS_PER_SM = 4     # the grid the split aims for
+
+
+@functools.lru_cache(maxsize=None)
+def decode_attention_splits(b: int, nkv: int, s: int,
+                            n_sm: int) -> tuple:
+    """(n_split, chunk) of the decode kernel's sequence split: chunks of
+    `chunk` rows (a multiple of DECODE_MIN_CHUNK), each a CTA, enough of
+    them that B * K * n_split reaches DECODE_CTAS_PER_SM CTAs per SM where
+    S allows, at most DECODE_MAX_SPLITS.  A function of the shapes and the
+    SM count alone, never of `pos`: the wrapper reads nothing back from the
+    card.  Every chunk holds at least one of the S rows."""
+    want = -(-DECODE_CTAS_PER_SM * n_sm // (b * nkv))
+    n = max(1, min(want, -(-s // DECODE_MIN_CHUNK), DECODE_MAX_SPLITS))
+    chunk = -(-s // n)
+    chunk = -(-chunk // DECODE_MIN_CHUNK) * DECODE_MIN_CHUNK
+    return -(-s // chunk), chunk
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
                      window: int = 0, prefix: int = 0) -> torch.Tensor:
@@ -316,9 +401,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise TypeError(f"{name}: window and prefix must be static ints")
     out = torch.empty_like(q)
     _check_aligned(name, q, k_cache, v_cache, out)
+    n_split, chunk = decode_attention_splits(b, nkv, s,
+                                             _sm_count(q.device.index))
+    ws = tickets = None
+    if n_split > 1:   # per split and query row (chunks of 8): m, l, acc
+        tickets, ws = _split_buffers(q.device, b * nkv,
+                                     b * nkv * n_split * 8 * (hd + 2))
     _run(name, q.device, q.data_ptr(), k_cache.data_ptr(),
-         v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), b, nkv, g, hd,
-         s, *strides[:3], window, prefix, _DTYPES[q.dtype], hd ** -0.5)
+         v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(),
+         ws.data_ptr() if ws is not None else None,
+         tickets.data_ptr() if tickets is not None else None, b, nkv, g, hd,
+         s, *strides[:3], window, prefix, _DTYPES[q.dtype], n_split, chunk,
+         hd ** -0.5)
     decode_attention.launches += 1
     return out
 
@@ -326,22 +420,31 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 decode_attention.launches = 0
 
 
-INT8_ROUTES = ("skinny", "tensor_core", "cuda_core_tile")
+INT8_ROUTES = ("skinny", "tensor_core", "cuda_core_tile", "skinny_tc")
 SKINNY_MAX_M = 16
 
 
 def int8_matmul_route(x: torch.Tensor, w_q: torch.Tensor,
                       scale: torch.Tensor) -> str:
-    """The int8 kernel for these operands: "skinny" for M <= 16 (decode,
-    the tied head); "tensor_core" for bf16 x with M > 16 on a (K, N)
-    weight with unit stride along N, a per-N scale and 16-byte aligned
-    rows (K % 8 == 0, the weight's row stride % 16 == 0, both pointers
-    16-byte aligned) — every prefill projection; "cuda_core_tile" for the
-    rest (f32 x, the per-K-scale (K, N) view of the tied head, unaligned
-    rows)."""
+    """The int8 kernel for these operands.  M <= 16 (decode, the tied
+    head): "skinny_tc" for bf16 x on 16-byte aligned rows (K % 8 == 0,
+    the weight's non-unit stride % 16 == 0, both pointers 16-byte
+    aligned), KN or NK, either scale (a per-K one 16-byte aligned); "skinny" for f32 x (on the tensor
+    cores it would be TF32) or unaligned rows.  M > 16: "tensor_core" for
+    bf16 x on a (K, N) weight with unit stride along N, a per-N scale and
+    16-byte aligned rows — every prefill projection; "cuda_core_tile" for
+    the rest (f32 x, the per-K-scale (K, N) view of the tied head,
+    unaligned rows)."""
     m, k = x.shape
     swk, swn = w_q.stride()
     if m <= SKINNY_MAX_M:
+        row = swk if swn == 1 else swn
+        per_k = tuple(scale.shape) == (k, 1)   # read 4 floats at a time
+        if x.dtype == torch.bfloat16 and 1 in (swk, swn) and k % 8 == 0 \
+                and row % 16 == 0 and x.data_ptr() % 16 == 0 \
+                and w_q.data_ptr() % 16 == 0 \
+                and not (per_k and scale.data_ptr() % 16):
+            return "skinny_tc"
         return "skinny"
     if x.dtype == torch.bfloat16 and swn == 1 \
             and tuple(scale.shape) == (1, w_q.shape[1]) and k % 8 == 0 \
@@ -349,6 +452,28 @@ def int8_matmul_route(x: torch.Tensor, w_q: torch.Tensor,
             and w_q.data_ptr() % 16 == 0:
         return "tensor_core"
     return "cuda_core_tile"
+
+
+SKINNY_TC_TILE = {True: (128, 16), False: (64, 64)}   # KN/NK: cols, k a step
+SKINNY_TC_CTAS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=None)
+def int8_skinny_tc_splits(k: int, n: int, kn: bool, n_sm: int) -> tuple:
+    """(n_ks, per): the skinny_tc kernel's split of its k steps (16 k for
+    a KN weight, 64 for NK) into n_ks CTAs of `per` steps per column
+    tile: the longest `per` for which tiles x n_ks reaches
+    SKINNY_TC_CTAS_PER_SM CTAs per SM, where K allows.  More splits cost
+    more f32 partials and a longer merge, fewer leave SMs idle (PERF.md
+    section 6).  No split is empty."""
+    cols, step_k = SKINNY_TC_TILE[kn]
+    tiles = -(-n // cols)
+    steps = -(-k // step_k)
+    target = SKINNY_TC_CTAS_PER_SM * n_sm
+    per = -(-steps // max(1, min(steps, -(-target // tiles))))
+    while per > 1 and tiles * -(-steps // per) < target:
+        per -= 1
+    return -(-steps // per), per
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -388,9 +513,20 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"{name}: K = 0")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     route = int8_matmul_route(x, w_q, scale)
+    n_ks, per, ws, tickets = 1, 1, None, None
+    if route == "skinny_tc":
+        kn = swn == 1
+        n_ks, per = int8_skinny_tc_splits(k, n, kn,
+                                          _sm_count(x.device.index))
+        if n_ks > 1:   # f32 partials per column tile and split
+            cols = SKINNY_TC_TILE[kn][0]
+            tiles = -(-n // cols)
+            tickets, ws = _split_buffers(x.device, tiles,
+                                         tiles * n_ks * m * cols)
     _run(name, x.device, x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-         out.data_ptr(), m, n, k, swk, swn, per_k, _DTYPES[x.dtype],
-         INT8_ROUTES.index(route))
+         out.data_ptr(), ws.data_ptr() if ws is not None else None,
+         tickets.data_ptr() if tickets is not None else None, m, n, k, swk,
+         swn, per_k, _DTYPES[x.dtype], INT8_ROUTES.index(route), n_ks, per)
     int8_matmul.launches += 1
     int8_matmul.launches_by_route[route] += 1
     return out

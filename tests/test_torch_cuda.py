@@ -9,9 +9,12 @@ Tolerances: f32 1e-4 (another summation order than the plain version),
 bf16 2e-2 (as tests/test_kernels.py).  The int8 products are held
 against the plain dequantize-then-multiply, so they too differ only in
 the order of summation (int8 values are exact in bf16, so the
-tensor-core route's bf16 x bf16 product with f32 sums is too).  Every
-flash and int8 launch is also held to its route through the wrapper's
-`launches_by_route`.
+tensor-core route's bf16 x bf16 product with f32 sums is too, and the
+skinny_tc route's head, which carries x times its per-K scale as a bf16
+hi/lo pair, to ~2^-17).  Every flash and int8 launch is also held to its
+route through the wrapper's `launches_by_route`.  The two kernels that
+split their work across CTAs (decode attention's sequence, skinny_tc's
+K) merge in a fixed order: two launches give bit-identical outputs.
 """
 import numpy as np
 import pytest
@@ -151,7 +154,14 @@ DECODE = [
     (3, 2, 8, 40, 16, 0, 0, [0, 17, 39]),          # hd 16, G 8
     (2, 2, 12, 64, 32, 0, 0, [10, 63]),            # G > 8 in chunks
     (8, 16, 1, 1024, 128, 0, 0, [0, 5, 300, 511, 700, 900, 1000, 1023]),
+    # split boundaries: at these B * K the sequence runs in chunks of 64
+    (2, 2, 1, 1000, 128, 0, 0, [0, 0]),            # pos 0: one chunk runs
+    (4, 2, 2, 1000, 64, 0, 0, [63, 64, 127, 999]),  # chunk edges, S % 64
+    (3, 2, 4, 1000, 64, 100, 0, [99, 640, 999]),   # window skips chunks
+    (3, 2, 4, 1000, 64, 100, 16, [150, 640, 999]),  # ... and a prefix
+    (2, 2, 12, 1000, 32, 0, 0, [500, 999]),        # G > 8, split
 ]
+SPLIT = DECODE[-5:]
 
 
 @pytest.mark.cuda
@@ -172,6 +182,9 @@ def test_decode_kernel_matches_plain(cuda, case, dt, strided):
     else:
         kc, vc = _tensors(7, cuda, dtype, (B, K, S, hd), (B, K, S, hd))
     args = (q, kc, vc, torch.tensor(pos, dtype=torch.int32, device=cuda))
+    if case in SPLIT:   # the cases mean chunks of 64 rows
+        n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert ops.decode_attention_splits(B, K, S, n_sm)[1] == 64
     before = ops.decode_attention.launches
     got = ops.decode_attention(*args, window=win, prefix=pre)
     torch.cuda.synchronize()
@@ -181,23 +194,46 @@ def test_decode_kernel_matches_plain(cuda, case, dt, strided):
 
 INT8 = [
     # M, K, N, weight layout, route of bf16 x (f32 x: skinny for M <= 16,
-    # else cuda_core_tile)
+    # else cuda_core_tile); "kn_pad" is a (K, N) view of a weight with
+    # 16-byte rows wider than N
     (128, 256, 128, "kn", "tensor_core"),    # INT8_CASES of test_kernels.py
     (256, 512, 256, "kn", "tensor_core"),
     (128, 128, 384, "kn", "tensor_core"),
-    (8, 2048, 2048, "kn", "skinny"),         # OLMo-1B decode projections
-    (8, 2048, 8192, "kn", "skinny"),
-    (8, 8192, 2048, "kn", "skinny"),
-    (1, 2048, 8192, "kn", "skinny"),
-    (3, 100, 77, "kn", "skinny"),            # ragged M, K, N
+    (8, 2048, 2048, "kn", "skinny_tc"),      # OLMo-1B decode projections
+    (8, 2048, 8192, "kn", "skinny_tc"),
+    (8, 8192, 2048, "kn", "skinny_tc"),
+    (1, 2048, 8192, "kn", "skinny_tc"),
+    (16, 8192, 2048, "kn", "skinny_tc"),     # two x tiles, split K
+    (3, 100, 77, "kn", "skinny"),            # ragged M, K, N; unaligned
     (13, 33, 200, "kn", "skinny"),
+    (13, 136, 208, "kn", "skinny_tc"),       # ragged M, K, N; aligned
+    (9, 264, 77, "kn_pad", "skinny_tc"),
     (70, 100, 77, "kn", "cuda_core_tile"),   # K % 8, N % 16: unaligned rows
     (17, 2048, 2048, "kn", "tensor_core"),   # the smallest tile-route M
-    (8, 2048, 50304, "head", "skinny"),      # the tied head's route
-    (2, 2048, 50304, "head", "skinny"),
+    (8, 2048, 50304, "head", "skinny_tc"),   # the tied head's route
+    (2, 2048, 50304, "head", "skinny_tc"),
+    (5, 272, 61, "head", "skinny_tc"),       # ragged, aligned
     (40, 96, 200, "head", "cuda_core_tile"),
     (5, 37, 61, "head", "skinny"),
 ]
+
+
+def _int8_operands(dev, seed, M, K, N, layout):
+    """x (f32) and the int8 weight with its scale: quantized per output
+    channel, or for the head the (d, V) view of a (V, d) embedding
+    quantized per d with its (d, 1) scale."""
+    x, w = _tensors(seed, dev, torch.float32, (M, K),
+                    (N, K) if layout == "head" else (K, N))
+    qd = quantize_array(w * 0.1, 8)
+    wq, sc = qd["__q__"], qd["scale"]
+    if layout == "head":
+        wq, sc = wq.t(), sc.t().contiguous()
+    elif layout == "kn_pad":
+        wide = torch.zeros(K, -(-N // 16) * 16 + 16, dtype=torch.int8,
+                           device=dev)
+        wide[:, :N] = wq
+        wq = wide[:, :N]
+    return x, wq, sc
 
 
 @pytest.mark.cuda
@@ -211,12 +247,7 @@ def test_int8_kernel_matches_plain(cuda, case, dt):
     dtype, tol = DTYPES[dt]
     route = bf16_route if dt == "bf16" else (
         "skinny" if M <= 16 else "cuda_core_tile")
-    x, w = _tensors(8, cuda, torch.float32, (M, K), (K, N) if layout == "kn"
-                    else (N, K))
-    qd = quantize_array(w * 0.1, 8)
-    wq, sc = qd["__q__"], qd["scale"]
-    if layout == "head":
-        wq, sc = wq.t(), sc.t().contiguous()
+    x, wq, sc = _int8_operands(cuda, 8, M, K, N, layout)
     x = x.to(dtype)
     assert ops.int8_matmul_route(x, wq, sc) == route
     before = ops.int8_matmul.launches
@@ -273,6 +304,134 @@ def test_int8_tensor_core_single_tile(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["kn", "head"])
+@pytest.mark.parametrize("M", [8, 16])
+def test_int8_skinny_tc_single_tile(cuda, layout, M):
+    """The swapped layout (the weight as the MMA's A, x as B) against the
+    exact product: integer x and unit scales make every partial sum an
+    integer below 2^24, so the bf16 x bf16 -> f32 product and the split-K
+    sums are exact and any fragment-mapping fault shows as a wrong entry.
+    K = 512 gives the KN route 32 k steps in several splits."""
+    rng = np.random.default_rng(12)
+    K, N = 512, 128
+    x = torch.from_numpy(rng.integers(-8, 9, (M, K)).astype(np.float32))
+    wq = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    want = (x @ wq.float()).to(torch.bfloat16)
+    x = x.to(cuda, torch.bfloat16)
+    if layout == "kn":
+        wq, sc = wq.to(cuda), torch.ones(1, N, device=cuda)
+    else:   # the head's (d, V) view of a (V, d) weight, per-K scale
+        wq = wq.t().contiguous().to(cuda).t()
+        sc = torch.ones(K, 1, device=cuda)
+    assert ops.int8_matmul_route(x, wq, sc) == "skinny_tc"
+    got = ops.int8_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (8, 2048, 2048, "kn"), (8, 8192, 2048, "kn"), (8, 2048, 50304, "head"),
+    (13, 136, 208, "kn")])
+def test_int8_skinny_tc_bit_identical_launches(cuda, case):
+    """Split-K partials merge in split order: two launches, same bits."""
+    x, wq, sc = _int8_operands(cuda, 13, *case)
+    x = x.to(torch.bfloat16)
+    assert ops.int8_matmul_route(x, wq, sc) == "skinny_tc"
+    a = ops.int8_matmul(x, wq, sc)
+    b = ops.int8_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def on_one_route(wrapper, route, call):
+    before = dict(wrapper.launches_by_route)
+    out = call()
+    torch.cuda.synchronize()
+    moved = {r: n - before[r] for r, n in wrapper.launches_by_route.items()
+             if n != before[r]}
+    assert moved == {route: 1}
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["head", "kn"])
+def test_int8_unaligned_per_k_scale_stays_skinny(cuda, layout):
+    """skinny_tc reads a per-K scale four floats at a time, so a per-K
+    scale off a 16-byte boundary routes to skinny (and the C entry refuses
+    it on skinny_tc): no misaligned read, the same product."""
+    x, wq, sc = _int8_operands(cuda, 14, 8, 2048, 512, "head")
+    if layout == "kn":
+        wq = wq.contiguous()
+    x = x.to(torch.bfloat16)
+    shifted = torch.empty(sc.numel() + 1, device=cuda)[1:].view(-1, 1)
+    shifted.copy_(sc)
+    assert shifted.data_ptr() % 16
+    assert ops.int8_matmul_route(x, wq, shifted) == "skinny"
+    got = on_one_route(ops.int8_matmul, "skinny",
+                       lambda: ops.int8_matmul(x, wq, shifted))
+    _close(got, int8_matmul_ref(x, wq, sc), 2e-2)
+    out = torch.empty(8, 512, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops._run("int8_matmul", cuda, x.data_ptr(), wq.data_ptr(),
+                 shifted.data_ptr(), out.data_ptr(), None, None, 8, 512,
+                 2048, *wq.stride(), 1, 1,
+                 ops.INT8_ROUTES.index("skinny_tc"), 1, 128)
+
+
+@pytest.mark.cuda
+def test_split_kernels_on_two_streams(cuda):
+    """Each stream gets its own counters and partials: the split kernels
+    launched on two streams at once give, launch for launch, the bits of
+    a launch on one stream alone."""
+    B, K, G, S, hd, win, pre, pos = DECODE[9]
+    q, = _tensors(6, cuda, torch.bfloat16, (B, K, G, hd))
+    kc, vc = (c.permute(0, 2, 1, 3) for c in
+              _tensors(7, cuda, torch.bfloat16, (B, S, K, hd), (B, S, K, hd)))
+    dargs = (q, kc, vc, torch.tensor(pos, dtype=torch.int32, device=cuda))
+    x, wq, sc = _int8_operands(cuda, 13, 8, 8192, 2048, "kn")
+    x = x.to(torch.bfloat16)
+    want_d = ops.decode_attention(*dargs, window=win, prefix=pre)
+    want_m = ops.int8_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    got = {0: [], 1: []}
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[i].append((ops.decode_attention(*dargs, window=win,
+                                                    prefix=pre),
+                               ops.int8_matmul(x, wq, sc)))
+    torch.cuda.synchronize()
+    ptrs = set()
+    for st in streams:
+        with torch.cuda.stream(st):
+            ptrs.add(ops._split_buffers(q.device, 1, 1)[0].data_ptr())
+    assert len(ptrs) == 2
+    for outs in got.values():
+        for d, m in outs:
+            assert torch.equal(d, want_d) and torch.equal(m, want_m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [DECODE[9], DECODE[11], DECODE[14]])
+def test_decode_kernel_bit_identical_launches(cuda, case):
+    """The splits of a row merge in split order: two launches, same bits
+    (the OLMo-1B decode shape, chunk edges, G > 8)."""
+    B, K, G, S, hd, win, pre, pos = case
+    q, = _tensors(6, cuda, torch.bfloat16, (B, K, G, hd))
+    kc, vc = (c.permute(0, 2, 1, 3) for c in
+              _tensors(7, cuda, torch.bfloat16, (B, S, K, hd), (B, S, K, hd)))
+    args = (q, kc, vc, torch.tensor(pos, dtype=torch.int32, device=cuda))
+    a = ops.decode_attention(*args, window=win, prefix=pre)
+    b = ops.decode_attention(*args, window=win, prefix=pre)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q, k, v = _tensors(4, cuda, torch.float32, (1, 2, 8, 24), (1, 2, 8, 24),
                        (1, 2, 8, 24))
@@ -304,16 +463,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 @pytest.mark.cuda
 def test_kernels_refuse_a_route_whose_conditions_fail(cuda):
     """The C entries check the route they are given: f32 x on the int8
-    tensor-core route, and f32 on the flash tensor-core route, are
-    refused with an error the wrapper raises, not run."""
+    tensor-core routes (tensor_core, skinny_tc), and f32 on the flash
+    tensor-core route, are refused with an error the wrapper raises, not
+    run."""
     x = torch.zeros(32, 64, device=cuda)
     w = torch.zeros(64, 128, dtype=torch.int8, device=cuda)
     sc = torch.ones(1, 128, device=cuda)
     out = torch.empty(32, 128, device=cuda)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        ops._run("int8_matmul", cuda, x.data_ptr(), w.data_ptr(),
-                 sc.data_ptr(), out.data_ptr(), 32, 128, 64, 128, 1, 0, 0,
-                 ops.INT8_ROUTES.index("tensor_core"))
+    for m, route in ((32, "tensor_core"), (8, "skinny_tc")):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._run("int8_matmul", cuda, x.data_ptr(), w.data_ptr(),
+                     sc.data_ptr(), out.data_ptr(), None, None, m, 128, 64,
+                     128, 1, 0, 0, ops.INT8_ROUTES.index(route), 1, 4)
     q = torch.zeros(1, 2, 8, 16, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         ops._run("flash_attention", cuda, q.data_ptr(), q.data_ptr(),

@@ -14,14 +14,20 @@ plain versions on the card by tests/test_torch_cuda.py.
 The route functions of the two wrappers with more than one kernel
 (`flash_attention_route`, `int8_matmul_route`) are held to each branch
 here, and plain emulations of the tensor-core kernels' arithmetic (bf16
-operands, f32 sums; flash's P rounded to bf16 before P.V) against the
-JAX reference at bf16's 2e-2.
+operands, f32 sums; flash's P rounded to bf16 before P.V; skinny_tc's
+per-K scale folded into x as a bf16 hi/lo pair) against the JAX reference
+at bf16's 2e-2, skinny_tc's at 5e-2.  The split decode kernel's
+composition (per-chunk LSE partials merged in chunk order) is held
+against JAX's `_lse_partials`, its reference and its Pallas kernel at
+1e-4, and the pure split functions of both split kernels to their
+contracts.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jax_ops
 from repro.kernels import paged_attention as jax_pa
 from repro.kernels import ref as jax_ref
 from repro.kernels.decode_attention import decode_attention as jax_decode
@@ -29,7 +35,9 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.int8_matmul import int8_matmul as jax_int8
 from repro.serving.quantization import quantize_array as jax_quantize
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import decode_attention_ref
+from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                  lse_partials_ref,
+                                                  split_decode_ref)
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.int8_matmul import int8_matmul_ref
 from repro_torch.kernels.paged_attention import paged_decode_attention_ref
@@ -212,6 +220,95 @@ def test_decode_ref_matches_jax(case):
     _close(got, want_ref, F32_TOL)
 
 
+def _decode_inputs(case):
+    B, K, G, S, hd, win, pre, bk, pos = case
+    q, kc, vc = _arrays(31, (B, K, G, hd), (B, K, S, hd), (B, K, S, hd))
+    if pos is None:
+        pos = np.random.default_rng(32).integers(max(win, 1), S, B)
+    return q, kc, vc, np.asarray(pos, np.int32)
+
+
+SPLIT_TOL = 1e-4
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_lse_partials_ref_matches_jax(case):
+    """Chunks of 32 rows that begin at 0, at a row's pos (cut there), past
+    it (wholly masked for that row) and, with a window, wholly before the
+    window and past the prefix."""
+    B, K, G, S, hd, win, pre, bk, _ = case
+    q, kc, vc, pos = _decode_inputs(case)
+    C = 32
+    p0 = int(pos[0])
+    offsets = {0, min(p0, S - C), min(p0 + 1, S - C)}
+    masked = None
+    if win > 0:
+        b = int(np.argmax(pos))
+        assert pre + C - 1 <= int(pos[b]) - win
+        masked = (pre, b)
+        offsets.add(pre)
+    for off in sorted(offsets):
+        want = jax_ops._lse_partials(
+            _jax(q, jnp.float32), _jax(kc[:, :, off:off + C], jnp.float32),
+            _jax(vc[:, :, off:off + C], jnp.float32), jnp.asarray(pos), off,
+            window=win, prefix=pre)
+        got = lse_partials_ref(
+            _torch(q, torch.float32),
+            _torch(kc[:, :, off:off + C], torch.float32),
+            _torch(vc[:, :, off:off + C], torch.float32),
+            torch.from_numpy(pos), off, window=win, prefix=pre)
+        for g_, w_ in zip(got, want):
+            _close(g_, w_, SPLIT_TOL)
+        if masked is not None and off == masked[0]:
+            assert bool((got[0][masked[1]] == -1e30).all())
+    if p0 + 1 <= S - C:           # the chunk past pos[0] holds nothing
+        m, _, _ = lse_partials_ref(
+            _torch(q, torch.float32),
+            _torch(kc[:, :, p0 + 1:p0 + 1 + C], torch.float32),
+            _torch(vc[:, :, p0 + 1:p0 + 1 + C], torch.float32),
+            torch.from_numpy(pos), p0 + 1, window=win, prefix=pre)
+        assert bool((m[0] == -1e30).all())
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_split_decode_composition_matches_jax(case):
+    """The kernel's split-and-merge at the wrapper's chunking for this
+    shape on an H100's 132 SMs and at the smallest chunk, against the
+    JAX reference and its Pallas kernel in interpret mode (f32)."""
+    B, K, G, S, hd, win, pre, bk, _ = case
+    q, kc, vc, pos = _decode_inputs(case)
+    args = [_jax(q, jnp.float32), _jax(kc, jnp.float32),
+            _jax(vc, jnp.float32), jnp.asarray(pos)]
+    want_kernel = jax_decode(*args, window=win, prefix=pre, block_k=bk,
+                             interpret=True)
+    want_ref = jax_ref.decode_attention_ref(*args, window=win, prefix=pre)
+    _, chunk = ops.decode_attention_splits(B, K, S, 132)
+    for c in sorted({chunk, ops.DECODE_MIN_CHUNK}):
+        got = split_decode_ref(
+            _torch(q, torch.float32), _torch(kc, torch.float32),
+            _torch(vc, torch.float32), torch.from_numpy(pos), chunk=c,
+            window=win, prefix=pre)
+        _close(got, want_kernel, SPLIT_TOL)
+        _close(got, want_ref, SPLIT_TOL)
+
+
+def test_decode_attention_splits():
+    """At least 2 waves of CTAs on 132 SMs at the OLMo-1B decode shape
+    (B=8, K=16, S=1024), one split when S fits one chunk, and never a
+    chunk without rows."""
+    n, c = ops.decode_attention_splits(8, 16, 1024, 132)
+    assert 8 * 16 * n >= 2 * 132
+    assert ops.decode_attention_splits(8, 16, 64, 132) == (1, 64)
+    assert ops.decode_attention_splits(1, 1, 40, 132) == (1, 64)
+    for b, k, s, n_sm in [(b, k, s, n_sm) for b in (1, 3, 8, 64)
+                          for k in (1, 2, 16) for s in range(1, 3000, 37)
+                          for n_sm in (1, 132)]:
+        n, c = ops.decode_attention_splits(b, k, s, n_sm)
+        assert 1 <= n <= ops.DECODE_MAX_SPLITS and c % ops.DECODE_MIN_CHUNK \
+            == 0
+        assert (n - 1) * c < s <= n * c, (b, k, s, n_sm, n, c)
+
+
 # ------------------- int8 matmul ----------------------------------- #
 INT8_CASES = [
     # M, K, N, dtype (tests/test_kernels.py)
@@ -277,8 +374,8 @@ def test_int8_route_selection():
     per_n = torch.ones(1, 128)
     x = torch.zeros(17, 64, dtype=bf16)
     route = ops.int8_matmul_route
-    assert route(x[:16], w, per_n) == "skinny"
-    assert route(x[:1], w, per_n) == "skinny"
+    assert route(x[:16], w, per_n) == "skinny_tc"
+    assert route(x[:1], w, per_n) == "skinny_tc"
     assert route(x, w, per_n) == "tensor_core"
     assert route(torch.zeros(4096, 64, dtype=bf16), w, per_n) \
         == "tensor_core"
@@ -297,6 +394,62 @@ def test_int8_route_selection():
     w_off = torch.zeros(64 * 128 + 8, dtype=torch.int8)[8:].view(64, 128)
     assert route(x, w_off, per_n) == "cuda_core_tile"           # w pointer
     assert route(torch.zeros(17, 64, dtype=f32), w, per_n) == "cuda_core_tile"
+
+
+def test_int8_skinny_route_selection():
+    """M <= 16: bf16 x on aligned KN and NK operands (either scale) takes
+    the tensor cores; f32 x or unaligned rows stay on "skinny"."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    route = ops.int8_matmul_route
+    x = torch.zeros(8, 64, dtype=bf16)
+    kn = torch.zeros(64, 128, dtype=torch.int8)
+    nk = torch.zeros(128, 64, dtype=torch.int8).t()    # embed_q.t()
+    per_n, per_k = torch.ones(1, 128), torch.ones(64, 1)
+    assert route(x, kn, per_n) == "skinny_tc"
+    assert route(x, kn, per_k) == "skinny_tc"
+    assert route(x, nk, per_k) == "skinny_tc"           # the tied head
+    assert route(x[:1], nk, per_k) == "skinny_tc"
+    assert route(torch.zeros(16, 64, dtype=bf16), kn, per_n) == "skinny_tc"
+    assert route(x.float(), kn, per_n) == "skinny"      # f32 x
+    assert route(x.float(), nk, per_k) == "skinny"
+    x100 = torch.zeros(8, 100, dtype=bf16)              # K % 8
+    assert route(x100, torch.zeros(100, 128, dtype=torch.int8), per_n) \
+        == "skinny"
+    narrow = torch.zeros(64, 136, dtype=torch.int8)[:, :120]   # row % 16
+    assert route(x, narrow, torch.ones(1, 120)) == "skinny"
+    nk_odd = torch.zeros(128, 72, dtype=torch.int8)[:, :64].t()
+    assert route(x, nk_odd, per_k) == "skinny"          # NK row % 16
+    shifted = torch.zeros(8 * 64 + 1, dtype=bf16)[1:].view(8, 64)
+    assert route(shifted, kn, per_n) == "skinny"        # x pointer
+    w_off = torch.zeros(64 * 128 + 8, dtype=torch.int8)[8:].view(64, 128)
+    assert route(x, w_off, per_n) == "skinny"           # w pointer
+    padded = torch.zeros(64, 144, dtype=torch.int8)[:, :77]    # ragged N
+    assert route(x, padded, torch.ones(1, 77)) == "skinny_tc"
+    shifted_k = torch.ones(64 + 1)[1:].view(64, 1)      # per-K scale,
+    assert shifted_k.data_ptr() % 16                    # read 4 at a time
+    assert route(x, nk, shifted_k) == "skinny"
+    assert route(x, kn, shifted_k) == "skinny"
+    shifted_n = torch.ones(128 + 1)[1:].view(1, 128)    # per-N: read 1
+    assert route(x, kn, shifted_n) == "skinny_tc"
+    assert route(torch.zeros(8, 64, dtype=f32), kn, per_n) == "skinny"
+
+
+def test_int8_skinny_tc_splits():
+    """At least 2 CTAs per SM of 132 at every OLMo-1B decode shape (M = 8:
+    2048 -> 2048, 2048 -> 8192, 8192 -> 2048, the tied head), and no
+    empty split anywhere."""
+    for k, n, kn in ((2048, 2048, True), (2048, 8192, True),
+                     (8192, 2048, True), (2048, 50304, False)):
+        n_ks, per = ops.int8_skinny_tc_splits(k, n, kn, 132)
+        cols, _ = ops.SKINNY_TC_TILE[kn]
+        assert -(-n // cols) * n_ks >= 2 * 132, (k, n, n_ks)
+    for k in range(8, 9000, 136):
+        for n in (1, 77, 2048, 50304):
+            for kn in (True, False):
+                n_ks, per = ops.int8_skinny_tc_splits(k, n, kn, 132)
+                steps = -(-k // ops.SKINNY_TC_TILE[kn][1])
+                assert n_ks >= 1 and per >= 1
+                assert (n_ks - 1) * per < steps <= n_ks * per
 
 
 def test_flash_route_selection():
@@ -323,6 +476,55 @@ def _int8_tc_emulation(x, w_q, scale):
     w16 = w_q.to(torch.bfloat16)
     assert torch.equal(w16.float(), w_q.float())     # widening is exact
     return ((x.float() @ w16.float()) * scale).to(torch.bfloat16)
+
+
+def _skinny_tc_emulation(x, w_q, scale):
+    """The skinny_tc route's arithmetic: the int8 weight widened to bf16
+    (exact), f32 sums; a per-N scale applied once to the sum; a per-K
+    scale (the tied head's) folded into x in f32 and split into two bf16
+    terms, hi = bf16(x s) and lo = bf16(x s - hi), each multiplied by the
+    weight; one rounding of the output to bf16."""
+    if scale.shape[0] == 1:
+        return _int8_tc_emulation(x, w_q, scale)
+    xs = x.float() * scale.t()
+    hi = xs.to(torch.bfloat16).float()
+    lo = (xs - hi).to(torch.bfloat16).float()
+    w = w_q.float()
+    return (hi @ w + lo @ w).to(torch.bfloat16)
+
+
+SKINNY_TC_CASES = [
+    # M, K, N, layout: the OLMo-1B decode projections (M = n_slots = 8),
+    # the tied head, ragged M, K, N
+    (8, 2048, 2048, "kn"), (8, 2048, 8192, "kn"), (8, 8192, 2048, "kn"),
+    (8, 2048, 50304, "head"), (13, 136, 208, "kn"), (5, 272, 61, "head"),
+]
+
+
+@pytest.mark.parametrize("case", SKINNY_TC_CASES)
+def test_skinny_tc_numerics_match_jax(case):
+    """bf16 tolerance 5e-2 (as the int8 references above): besides the
+    order of the f32 sums, the head's x * s is carried as two bf16 terms
+    (~2^-17 of it lost).  The head
+    case quantizes the embedding per d, as the model does, and hands JAX
+    the (d, V) view's weight and its (d, 1) scale."""
+    M, K, N, layout = case
+    rng = np.random.default_rng(43)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    wq = rng.integers(-127, 128, (K, N) if layout == "kn" else (N, K),
+                      dtype=np.int8)
+    if layout == "kn":
+        sc = (rng.random((1, N)) * 0.002 + 0.0005).astype(np.float32)
+        wq_t = torch.from_numpy(wq)
+    else:
+        sc = (rng.random((K, 1)) * 0.002 + 0.0005).astype(np.float32)
+        wq_t = torch.from_numpy(wq).t()
+        wq = np.ascontiguousarray(wq.T)
+    jx = _jax(x, jnp.bfloat16)
+    want = jax_ref.int8_matmul_ref(jx, jnp.asarray(wq), jnp.asarray(sc))
+    got = _skinny_tc_emulation(_torch(x, torch.bfloat16), wq_t,
+                               torch.from_numpy(sc))
+    _close(_f32(got), want.astype(jnp.float32), _INT8_TOL["bf16"])
 
 
 INT8_TC_CASES = [

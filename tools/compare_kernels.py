@@ -1,0 +1,215 @@
+"""Time the int8 serve's decode kernels of one checkout on fixed
+yardsticks, on one CUDA device, so that two checkouts can be compared.
+
+    python3 tools/compare_kernels.py [--src ROOT] [--label NAME]
+
+Imports `repro_torch` from ROOT/src (default: this checkout) and nothing
+else of a checkout, so each checkout runs in a process of its own: to
+compare a commit with its parent on one card, unpack the parent with
+`git archive` into a gitignored directory and run, in one command,
+parent, change, change, parent.
+
+Cases, at the OLMo-1B bf16 decode shapes: decode_attention (B=8 K=16
+G=1 S=1024 hd=128, the (B, S, K, hd) cache view, ragged pos up to 1023)
+beside one SDPA call with the ragged mask, and int8_matmul at M = 8
+(2048 -> 2048, 2048 -> 8192, 8192 -> 2048, the tied head 2048 -> 50304)
+beside one torch.matmul on the weight dequantized beforehand.  For each
+call it reports
+
+- event_ms: CUDA events around the call, each from a cold L2 (a 256 MiB
+  buffer written before the start event), median of 30.  The wrapper's
+  host work (checks, allocations, the ctypes call) counts where it
+  outlasts the flush.
+- waited_ms: the same with a 0.2 ms device-side wait
+  (torch.cuda._sleep) before the start event, which holds the start
+  until the host has enqueued the call: the device work alone.
+  chip_smoke.py times kernels so.
+- host_us: the host's time per call, median of 10 batches of 20 calls
+  issued without a sync: what the call costs a host-bound serve.
+- kernel_us: the profiler's device time per launch of each kernel the
+  call runs (torch.profiler, 30 cold-L2 calls), a check on both timings
+  that no host time can enter.
+
+It also prints a sha256 of paged_decode_attention's output at its timed
+shape (B=8 K=16 G=1 hd=128 ps=16 pps=64 bf16), which two checkouts with
+the same paged kernel share bit for bit.  One JSON line per case, each
+with the card's name and power limit; exits non-zero without a CUDA
+device.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPS = 30
+SLEEP_CYCLES = 400_000      # ~0.2 ms at the H100's 1.98 GHz boost clock
+_flush = []
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cold() -> None:
+    if not _flush:
+        _flush.append(torch.empty(256 << 20, dtype=torch.uint8,
+                                  device="cuda"))
+    _flush[0].zero_()
+
+
+def event_ms(fn, wait: bool) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        cold()
+        if wait:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def host_us(fn) -> float:
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        per_call.append((time.perf_counter() - t0) / 20)
+        torch.cuda.synchronize()
+    return float(np.median(per_call)) * 1e6
+
+
+def kernel_us(fn) -> dict:
+    """Device time per launch of each kernel fn() runs, the flush's own
+    fill left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            cold()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or "FillFunctor" in evt.key:
+            continue
+        out[evt.key[:80]] = {"launches": evt.count,
+                             "us": evt.self_device_time_total / evt.count}
+    return out
+
+
+def measure(fn) -> dict:
+    return {"event_ms": event_ms(fn, wait=False),
+            "waited_ms": event_ms(fn, wait=True),
+            "host_us": host_us(fn), "kernel_us": kernel_us(fn)}
+
+
+def tensor(rng, dev, dtype, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]),
+                    help="root of the checkout whose src/ is imported")
+    ap.add_argument("--label", default="this checkout")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.src).resolve() / "src"))
+    from repro_torch.kernels import ops
+    from repro_torch.serving import quantization as q_lib
+    dev = torch.device("cuda", 0)
+    ops.build()
+    head = {"label": args.label, "src": args.src, "card": card_line(),
+            "torch": torch.__version__}
+    bf16 = torch.bfloat16
+
+    rng = np.random.default_rng(1)
+    pos = rng.integers(1, 1024, 8)
+    pos[0], pos[-1] = 0, 1023
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+
+    # paged decode attention: its output's bits
+    rng = np.random.default_rng(7)
+    n_pages = 8 * 64 + 3
+    table = np.full((8, 64), n_pages, np.int32)
+    perm = iter(rng.permutation(n_pages))
+    for i, pi in enumerate(pos):
+        for j in range(pi // 16 + 1):
+            table[i, j] = next(perm)
+    pq = tensor(rng, dev, bf16, 8, 16, 1, 128)
+    pools = [tensor(rng, dev, bf16, n_pages, 16, 16, 128) for _ in range(2)]
+    got = ops.paged_decode_attention(pq, *pools,
+                                     torch.from_numpy(table).to(dev), p)
+    emit({**head, "kernel": "paged_decode_attention", "sha256":
+          hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes())
+          .hexdigest()})
+
+    rng = np.random.default_rng(9)
+    q = tensor(rng, dev, bf16, 8, 16, 1, 128)
+    k, v = (tensor(rng, dev, bf16, 8, 1024, 16, 128).permute(0, 2, 1, 3)
+            for _ in range(2))
+    mask = (torch.arange(1024, device=dev)[None, :]
+            <= p[:, None].long())[:, None, None, :]
+    F = torch.nn.functional
+    emit({**head, "kernel": "decode_attention",
+          "shape": "B=8 K=16 G=1 S=1024 hd=128 bf16, (B, S, K, hd) view",
+          "wrapper": measure(lambda: ops.decode_attention(q, k, v, p)),
+          "library": measure(lambda: F.scaled_dot_product_attention(
+              q, k, v, attn_mask=mask))})
+
+    for label, K, N, tied in (("decode_attn", 2048, 2048, False),
+                              ("decode", 2048, 8192, False),
+                              ("decode_down", 8192, 2048, False),
+                              ("head", 2048, 50304, True)):
+        rng = np.random.default_rng(10)
+        w = tensor(rng, dev, torch.float32, *((N, K) if tied else (K, N)))
+        qd = q_lib.quantize_array(w * 0.1, 8)
+        wq, sc = qd["__q__"], qd["scale"]
+        if tied:
+            wq, sc = wq.t(), sc.t()
+        x = tensor(rng, dev, bf16, 8, K)
+        w16 = (wq.float() * sc).to(bf16)
+        emit({**head, "kernel": "int8_matmul", "label": label,
+              "shape": f"M=8 K={K} N={N} bf16",
+              "route": ops.int8_matmul_route(x, wq, sc),
+              "wrapper": measure(lambda: ops.int8_matmul(x, wq, sc)),
+              "library": measure(lambda: torch.matmul(x, w16))})
+        del w16
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,12 +32,13 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (adds src/ to the path)
 
 # (substring of the kernel's name, family); the first match wins, so a
-# name that holds another (paged_decode_kernel, decode_kernel) comes first
+# name that holds another (skinny_tc, skinny_) comes first
 FAMILIES = (("paged_decode_kernel", "paged_decode_attention"),
-            ("decode_kernel", "decode_attention"),
+            ("decode_split_kernel", "decode_attention (split)"),
             ("flash_tc", "flash_attention (tensor_core)"),
             ("flash_kernel", "flash_attention (cuda_core)"),
             ("tc_mm", "int8_matmul (tensor_core)"),
+            ("skinny_tc", "int8_matmul (skinny_tc)"),
             ("skinny_", "int8_matmul (skinny)"),
             ("tile_mm", "int8_matmul (cuda_core_tile)"),
             ("gemm", "matmul"), ("cutlass", "matmul"), ("sm90", "matmul"),

@@ -1,0 +1,111 @@
+"""Time the two split kernels at the OLMo-1B decode shapes over their
+split counts, on one CUDA device.
+
+    python3 tools/sweep_splits.py
+
+decode_attention (B=8 K=16 G=1 S=1024 hd=128 bf16, the (B, S, K, hd)
+cache view, ragged pos up to 1023) over its chunk sizes, and the
+int8_matmul skinny_tc route (M = 8, bf16: 2048 -> 2048, 2048 -> 8192,
+8192 -> 2048 and the tied head) over its K splits.  Each configuration is
+launched through the kernel's C entry with the split the wrapper would
+not pick, held to the wrapper's output (bf16 2e-2), and timed as
+chip_smoke.py times kernels (CUDA events, cold L2, median of 30).  The
+wrapper's own choice (ops.decode_attention_splits,
+ops.int8_skinny_tc_splits) is marked.  Prints one JSON line per kernel
+and shape; exits non-zero without a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (adds src/ to the path)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("sweep_splits: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import ops
+    from repro_torch.serving import quantization as q_lib
+    dev = torch.device("cuda", 0)
+    card = chip_smoke.card_line()
+    n_sm = ops._sm_count(0)
+    ops.build()
+
+    def close(got, want):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+    pos = chip_smoke.olmo_decode_pos(np.random.default_rng(1), 8, 1024)
+    q, k, v, p = chip_smoke.decode_case(dev, torch.bfloat16, B=8, K=16, G=1,
+                                        S=1024, hd=128, pos=pos, seed=9,
+                                        strided=True)
+    want = ops.decode_attention(q, k, v, p)
+    out = torch.empty_like(q)
+    chosen = ops.decode_attention_splits(8, 16, 1024, n_sm)
+    times = {}
+    for chunk in (64, 128, 192, 256, 512, 1024):
+        n = -(-1024 // chunk)
+        tickets, ws = ops._split_buffers(dev, 8 * 16, 8 * 16 * n * 8 * 130)
+
+        def call(n=n, chunk=chunk, ws=ws, tickets=tickets):
+            ops._run("decode_attention", dev, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), p.data_ptr(), out.data_ptr(),
+                     ws.data_ptr(), tickets.data_ptr(), 8, 16, 1, 128, 1024,
+                     *k.stride()[:3], 0, 0, 1, n, chunk, 128 ** -0.5)
+        call()
+        close(out, want)
+        times[f"{n}x{chunk}"] = chip_smoke.time_ms(call)
+    chip_smoke.emit({"kernel": "decode_attention", "shape": "B=8 K=16 G=1 "
+                     "S=1024 hd=128 bf16", "ms_by_splits_x_chunk": times,
+                     "wrapper_choice": f"{chosen[0]}x{chosen[1]}",
+                     "card": card})
+
+    for label, M, K, N, head in (("decode_attn", 8, 2048, 2048, False),
+                                 ("decode", 8, 2048, 8192, False),
+                                 ("decode_down", 8, 8192, 2048, False),
+                                 ("head", 8, 2048, 50304, True)):
+        x, wq, sc = chip_smoke.int8_case(dev, torch.bfloat16, q_lib, M=M,
+                                         K=K, N=N, head=head, seed=10)
+        swk, swn = wq.stride()
+        kn = swn == 1
+        cols, step_k = ops.SKINNY_TC_TILE[kn]
+        tiles, steps = -(-N // cols), -(-K // step_k)
+        want = ops.int8_matmul(x, wq, sc)
+        out = torch.empty_like(want)
+        chosen = ops.int8_skinny_tc_splits(K, N, kn, n_sm)
+        times = {}
+        for split in sorted({1, 2, 4, 8, 16, 24, 32, chosen[0]}):
+            if split > steps:
+                continue
+            per = -(-steps // split)
+            n_ks = -(-steps // per)
+            tickets, ws = ops._split_buffers(dev, tiles,
+                                             tiles * n_ks * M * cols)
+
+            def call(n_ks=n_ks, per=per, ws=ws, tickets=tickets):
+                ops._run("int8_matmul", dev, x.data_ptr(), wq.data_ptr(),
+                         sc.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                         tickets.data_ptr(), M, N, K, swk, swn, int(head), 1,
+                         ops.INT8_ROUTES.index("skinny_tc"), n_ks, per)
+            call()
+            close(out, want)
+            times[f"{n_ks}x{per}"] = chip_smoke.time_ms(call)
+        chip_smoke.emit({"kernel": "int8_matmul (skinny_tc)", "label": label,
+                         "shape": f"M={M} K={K} N={N} bf16",
+                         "ms_by_splits_x_steps": times,
+                         "wrapper_choice": f"{chosen[0]}x{chosen[1]}",
+                         "card": card})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
