@@ -17,13 +17,17 @@ JSON line:
               head_dim 16, strided-cache, ragged and split-boundary cases
               (decode attention's chunks: pos 0, pos on a chunk edge, S
               not a multiple of the chunk, a window that skips whole
-              chunks, G > 8), each flash and int8 launch also held to its
+              chunks, G > 8; the paged kernel's chunks of pages: pos 0,
+              pos on a chunk edge, sentinel holes, shared pages, a window
+              across chunks, with a prefix, G = 16, head_dim 16), each
+              flash and int8 launch also held to its
               route (bf16 flash and bf16 int8 with M > 16 on aligned
               rows: "tensor_core"; bf16 int8 with M <= 16 on aligned rows
               "skinny_tc"; f32 flash "cuda_core"; f32 or unaligned int8
               with M <= 16 "skinny"; the rest "cuda_core_tile"), and the
-              two kernels that split work across CTAs (decode attention,
-              skinny_tc) held to bit-identical output over two launches.
+              three kernels that split work across CTAs (decode
+              attention, paged decode attention, skinny_tc) held to
+              bit-identical output over two launches.
               Tolerances: f32 1e-4 (another summation order than the
               plain version), bf16 2e-2 (as tests/test_kernels.py); the
               int8 products are held against the plain
@@ -66,7 +70,8 @@ JSON line:
               beside the plain version's, the least time the card could
               take (bound), and one PyTorch library call computing the
               same function where there is one.  Both decode kernels are
-              timed at the serves' decode shape; flash at serve_bf16's
+              timed at the serves' decode shape (the paged kernel with
+              its split: chunks and pages per chunk); flash at serve_bf16's
               widest prefill (rows x bucket); the int8 matmul at decode
               M = 8 for 2048 -> 8192 (its entry), 2048 -> 2048 and
               8192 -> 2048, the tied head, and serve_int8's widest
@@ -183,16 +188,23 @@ def int8_route(dtype, M, bf16_route) -> str:
 # --------------------------------------------------------------------- #
 # kernel cases
 
-def paged_case(dev, dtype, *, B, K, G, hd, ps, pps, pos, seed):
+def paged_case(dev, dtype, *, B, K, G, hd, ps, pps, pos, seed,
+               kind="plain"):
     """Pools, a sentinel-padded table covering each slot's pos with
-    scattered pages, and grouped queries, from a numpy seed."""
+    scattered pages, and grouped queries, from a numpy seed.  `kind`
+    "holes" leaves every third mapped column at the sentinel; "shared"
+    maps slot 1's first half onto slot 0's pages."""
     rng = np.random.default_rng(seed)
     n_pages = B * pps + 3
     table = np.full((B, pps), n_pages, np.int32)
     perm = iter(rng.permutation(n_pages))
     for i, p in enumerate(pos):
         for j in range(p // ps + 1):
-            table[i, j] = next(perm)
+            if not (kind == "holes" and j % 3 == 1):
+                table[i, j] = next(perm)
+    if kind == "shared":
+        half = (pos[1] // ps + 1) // 2
+        table[1, :half] = table[0, :half]
 
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
@@ -269,6 +281,26 @@ def kernel_checks(dev, ops, refs, q_lib):
                                    pos=[5, 70, 127]), 32, 4),
             ("hd16_g8", dict(B=3, K=2, G=8, hd=16, ps=8, pps=6,
                              pos=[7, 19, 40]), 0, 0),
+        ] + [   # split edges: at these B * K the table runs in chunks
+            ("split_chunk_edges", dict(B=4, K=2, G=2, hd=64, ps=8, pps=32,
+                                       pos=[63, 64, 127, 255]), 0, 0),
+            ("split_pos0", dict(B=2, K=2, G=1, hd=128, ps=8, pps=32,
+                                pos=[0, 0]), 0, 0),
+            ("split_sentinel_holes", dict(B=2, K=2, G=4, hd=32, ps=8,
+                                          pps=32, pos=[200, 255],
+                                          kind="holes"), 0, 0),
+            ("split_shared_pages", dict(B=2, K=2, G=2, hd=64, ps=8, pps=32,
+                                        pos=[150, 150], kind="shared"),
+             0, 0),
+            ("split_window_crosses", dict(B=3, K=2, G=4, hd=64, ps=8,
+                                          pps=32, pos=[99, 140, 255]),
+             100, 0),
+            ("split_window_prefix", dict(B=3, K=2, G=4, hd=64, ps=8, pps=32,
+                                         pos=[150, 200, 255]), 100, 16),
+            ("split_g16", dict(B=2, K=2, G=16, hd=32, ps=8, pps=32,
+                               pos=[100, 255]), 0, 0),
+            ("split_hd16_g8", dict(B=2, K=2, G=8, hd=16, ps=8, pps=32,
+                                   pos=[17, 255]), 0, 0),
         ]
         for name, kw, win, pre in cases:
             args = paged_case(dev, dtype, seed=len(rows), **kw)
@@ -278,7 +310,16 @@ def kernel_checks(dev, ops, refs, q_lib):
             err = check_close(f"paged_decode_attention/{name}", got, want,
                               tol_of(dtype))
             rows.append({"kernel": "paged_decode_attention", "case": name,
-                         "dtype": str(dtype), "max_abs_err": err})
+                         "dtype": str(dtype), "max_abs_err": err,
+                         "splits": ops.paged_decode_attention_splits(
+                             kw["B"], kw["K"], kw["pps"], kw["ps"],
+                             ops._sm_count(dev.index))})
+            if name == "olmo_decode" or name.startswith("split_"):
+                again = ops.paged_decode_attention(*args, window=win,
+                                                   prefix=pre)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"paged_decode_attention/{name}: "
+                                         "two launches differ")
         fcases = [
             ("olmo_prefill", dict(B=1, H=16, K=16, S=1024, hd=128), 0, 0),
             ("gqa_h8_k2", dict(B=2, H=8, K=2, S=256, hd=64), 0, 0),
@@ -444,8 +485,11 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
                       ops.paged_decode_attention(*args), paged_ref(*args),
                       tol_of(dt))
     b_ms, b_by = bound(kv_bytes + args[3].numel() * 4, kv_flops, BF16_FLOPS)
+    n_split, ppc = ops.paged_decode_attention_splits(8, 16, 64, 16,
+                                                     ops._sm_count(dev.index))
     out["paged_decode_attention"] = {
         "shape": "B=8 K=16 G=1 hd=128 ps=16 pps=64 bf16, pos up to 1023",
+        "splits": {"n_split": n_split, "pages_per_chunk": ppc},
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.paged_decode_attention(*args)),
         "plain_ms": time_ms(lambda: paged_ref(*args), reps=10),
@@ -855,6 +899,7 @@ def main() -> int:
                         **({"launches_by_route": path_routes[path][name]}
                            if name in path_routes[path] else {}),
                         **({"shapes": t["shapes"]} if "shapes" in t else {}),
+                        **({"splits": t["splits"]} if "splits" in t else {}),
                         "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)

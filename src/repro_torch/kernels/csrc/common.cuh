@@ -96,6 +96,88 @@ __device__ __forceinline__ void online_row(const float (&qv)[GC][VEC],
   }
 }
 
+// The group's query rows, scaled by sm_scale, and an empty state: q_row
+// points at query row 0 of the (slot, kv head), the lane's d0 included;
+// rows from ng on stay zero.
+template <typename T, int GC, int VEC, int HD>
+__device__ __forceinline__ void load_query(const T* q_row, int ng,
+                                           float sm_scale,
+                                           float (&qv)[GC][VEC],
+                                           float (&m)[GC], float (&l)[GC],
+                                           float (&acc)[GC][VEC]) {
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) { qv[g][e] = 0.f; acc[g][e] = 0.f; }
+    if (g < ng) {
+      load_vec(q_row + (size_t)g * HD, qv[g]);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qv[g][e] *= sm_scale;
+    }
+  }
+}
+
+// Fold one block of key/value rows into the group's state: rows r =
+// u * RPW + grp (u < UNROLL) at kb, vb + r * stride elements, read only
+// for r < n_rows.  All 2 * UNROLL loads are issued packed before the first
+// is used, so that many 16-byte loads a lane are in flight.  Row r sits at
+// kv_pos0 + r; with a window it is visible only inside the window or the
+// prefix.  Every lane of the warp must call it.
+template <int GC, int VEC, int LPR, int RPW, int UNROLL, typename T>
+__device__ __forceinline__ void fold_block(
+    const T* kb, const T* vb, long long stride, int n_rows, int kv_pos0,
+    int pos, int window, int prefix, int grp, const float (&qv)[GC][VEC],
+    float (&m)[GC], float (&l)[GC], float (&acc)[GC][VEC]) {
+  uint4 kr[UNROLL], vr[UNROLL];   // packed: 4 registers a row
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int r = u * RPW + grp;
+    if (r < n_rows) {
+      kr[u] = load_raw(kb + r * stride);
+      vr[u] = load_raw(vb + r * stride);
+    } else {
+      kr[u] = make_uint4(0u, 0u, 0u, 0u);
+      vr[u] = kr[u];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int r = u * RPW + grp;
+    bool valid = r < n_rows;
+    if (window > 0) {
+      const int t = kv_pos0 + r;
+      valid = valid && (t > pos - window || (prefix > 0 && t < prefix));
+    }
+    float kf[VEC], vf[VEC];
+    unpack_vec(kr[u], kf);
+    unpack_vec(vr[u], vf);
+    online_row<GC, VEC, LPR>(qv, kf, vf, valid, m, l, acc);
+  }
+}
+
+// The chunks of a split decode that run, as a bit mask: chunk 0 always;
+// chunk c (rows c * chunk onwards) if it begins at or before `last` and
+// reaches the window (or the prefix).  A function of pos alone, so every
+// CTA of a (row, kv head) finds the same mask.
+__device__ __forceinline__ uint32_t running_chunks(int n_split, int chunk,
+                                                   int last, int pos,
+                                                   int window, int prefix) {
+  uint32_t mask = 1u;
+  for (int c = 1; c < n_split; ++c) {
+    const int c0 = c * chunk;
+    bool run = c0 <= last;
+    if (window > 0) {
+      bool reach = c0 + chunk - 1 > pos - window;
+      if (prefix > 0) reach = reach || c0 < prefix;
+      run = run && reach;
+    }
+    if (run) mask |= 1u << c;
+  }
+  return mask;
+}
+
 // ---- partials across CTAs (split-sequence decode, split-K) ---------- //
 
 // Merge the CTA's NPART group states (the usual log-sum-exp rescale) of
@@ -137,17 +219,6 @@ __device__ __forceinline__ void merge_partial(
       if (d == 0) { pml[2 * g] = mx; pml[2 * g + 1] = den; }
     }
   }
-}
-
-// merge_partial with the normalised store (the paged kernel's merge).
-template <typename T, int GC, int VEC, int HD, int NPART, int NTHREADS>
-__device__ __forceinline__ void merge_store(int part, bool group_leader,
-                                            int d0, const float (&m)[GC],
-                                            const float (&l)[GC],
-                                            const float (&acc)[GC][VEC],
-                                            T* __restrict__ out, int ng) {
-  merge_partial<T, GC, VEC, HD, NPART, NTHREADS>(
-      part, group_leader, d0, m, l, acc, out, nullptr, nullptr, ng);
 }
 
 // The CTAs of one group (the splits of a (row, kv head), the K splits of
@@ -205,6 +276,39 @@ __device__ __forceinline__ void merge_splits(uint32_t mask, int n_split,
     }
     out[(size_t)g * HD + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
   }
+}
+
+// The end of a split decode CTA, chunk `split` of n_split of the (row, kv
+// head) bk of n_bk, whose running chunks are `mask`: the CTA merges its
+// groups' states (merge_partial) and, if it is the only chunk that runs,
+// stores the normalised rows at o, with the same arithmetic as the merge
+// of one partial.  Otherwise it stores its f32 partial in ws, laid out as
+// (m, l) of [n_bk][n_split][MAXG] and then the sums of
+// [n_bk][n_split][MAXG][HD], and the last CTA to arrive (a counter per bk
+// in `tickets`, left at 0) merges the running chunks in chunk order
+// (merge_splits).  Every thread of the CTA must call it.
+template <typename T, int GC, int VEC, int HD, int NPART, int NTHREADS,
+          int MAXG>
+__device__ __forceinline__ void finish_split(
+    uint32_t mask, int bk, int n_bk, int split, int n_split, int part,
+    bool group_leader, int d0, const float (&m)[GC], const float (&l)[GC],
+    const float (&acc)[GC][VEC], T* __restrict__ o, float* __restrict__ ws,
+    unsigned* __restrict__ tickets, int ng) {
+  const int n_run = __popc(mask);
+  if (n_run == 1) {
+    merge_partial<T, GC, VEC, HD, NPART, NTHREADS>(
+        part, group_leader, d0, m, l, acc, o, nullptr, nullptr, ng);
+    return;
+  }
+  float* ml = ws + (size_t)bk * n_split * MAXG * 2;
+  float* sums = ws + (size_t)n_bk * n_split * MAXG * 2 +
+                (size_t)bk * n_split * MAXG * HD;
+  merge_partial<T, GC, VEC, HD, NPART, NTHREADS>(
+      part, group_leader, d0, m, l, acc, nullptr, ml + split * MAXG * 2,
+      sums + (size_t)split * MAXG * HD, ng);
+  if (!last_to_arrive(tickets + bk, (unsigned)n_run)) return;
+  merge_splits<T, HD, NTHREADS>(mask, n_split, ml, sums, MAXG * 2,
+                                MAXG * HD, o, ng);
 }
 
 // ---- Hopper PTX building blocks (tensor-core kernels) ---------------- //

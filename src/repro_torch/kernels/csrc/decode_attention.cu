@@ -21,11 +21,12 @@
 // alone (ops.decode_attention_splits), never from pos, so nothing is read
 // back to the host.  Inside a chunk the CTA works as before: 4 warps, a
 // group of hd/VEC lanes per key row with 16-byte loads along hd, the
-// group's own online-softmax state in registers (common.cuh online_row),
-// a log-sum-exp merge of the groups in shared memory.  UNROLL rows per
-// group are loaded before any is used, packed (common.cuh load_raw: 4
-// registers a row, widened just before use), 8 of them when G <= 2, so a
-// warp keeps 16 rows of K and of V in flight (8 before).
+// group's own online-softmax state in registers, a log-sum-exp merge of
+// the groups in shared memory.  UNROLL rows per group are loaded before
+// any is used, packed (4 registers a row, widened just before use), 8 of
+// them when G <= 2, so a warp keeps 16 rows of K and of V in flight
+// (common.cuh fold_block, shared with the paged kernel, as are the
+// running-chunk mask and the merge below: running_chunks, finish_split).
 //
 // The splits meet as in JAX's sequence-sharded combine (ops.py,
 // _lse_partials and decode_attention_sharded): each CTA stores its f32
@@ -59,8 +60,11 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxChunk = 8;    // query rows per launch
 constexpr int kMaxSplits = 32;  // bits of the running-chunk mask
 
+// (kThreads, 1): without a floor of blocks ptxas capped some G = 2..4
+// variants at 96 or 128 registers and spilled; the served G = 1
+// variants keep their registers and 4 CTAs an SM either way.
 template <typename T, int HD, int GC>
-__global__ void __launch_bounds__(kThreads) decode_split_kernel(
+__global__ void __launch_bounds__(kThreads, 1) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ pos_arr,
     T* __restrict__ out, float* __restrict__ ws,
@@ -87,38 +91,17 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   const int last = min(pos, S - 1);   // the last row that can be visible
   const int ng = min(GC, G - g0);
 
-  // the chunks that run: 0, and each that begins at or before `last` and
-  // reaches the window (or the prefix); the same mask in every CTA
-  uint32_t mask = 1u;
-  for (int c = 1; c < n_split; ++c) {
-    const int c0 = c * chunk;
-    bool run = c0 <= last;
-    if (window > 0) {
-      bool reach = c0 + chunk - 1 > pos - window;
-      if (prefix > 0) reach = reach || c0 < prefix;
-      run = run && reach;
-    }
-    if (run) mask |= 1u << c;
-  }
+  // the chunks that run; the same mask in every CTA
+  const uint32_t mask =
+      repro::running_chunks(n_split, chunk, last, pos, window, prefix);
   if (!((mask >> split) & 1u)) return;
   const int c_begin = split * chunk;
   const int c_end = min(c_begin + chunk, last + 1);   // exclusive
 
   float qv[GC][VEC];
   float m[GC], l[GC], acc[GC][VEC];
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) { qv[g][e] = 0.f; acc[g][e] = 0.f; }
-    if (g < ng) {
-      const T* qp = q + ((size_t)(b * n_kv + kh) * G + g0 + g) * HD + d0;
-      repro::load_vec(qp, qv[g]);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) qv[g][e] *= sm_scale;
-    }
-  }
+  repro::load_query<T, GC, VEC, HD>(q + ((size_t)bk * G + g0) * HD + d0, ng,
+                                    sm_scale, qv, m, l, acc);
 
   const T* kb = k + b * sb + kh * sk + d0;
   const T* vb = v + b * sb + kh * sk + d0;
@@ -129,50 +112,14 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
       if (prefix > 0) reach = reach || start < prefix;
       if (!reach) continue;
     }
-    uint4 kr[UNROLL], vr[UNROLL];   // packed: 4 registers a row
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int t = start + u * RPW + grp;
-      if (t < c_end) {
-        kr[u] = repro::load_raw(kb + t * ss);
-        vr[u] = repro::load_raw(vb + t * ss);
-      } else {
-        kr[u] = make_uint4(0u, 0u, 0u, 0u);
-        vr[u] = kr[u];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int t = start + u * RPW + grp;
-      bool valid = t < c_end;
-      if (window > 0)
-        valid = valid && (t > pos - window || (prefix > 0 && t < prefix));
-      float kf[VEC], vf[VEC];
-      repro::unpack_vec(kr[u], kf);
-      repro::unpack_vec(vr[u], vf);
-      repro::online_row<GC, VEC, LPR>(qv, kf, vf, valid, m, l, acc);
-    }
+    repro::fold_block<GC, VEC, LPR, RPW, UNROLL>(
+        kb + start * ss, vb + start * ss, ss, c_end - start, start, pos,
+        window, prefix, grp, qv, m, l, acc);
   }
 
-  T* o = out + ((size_t)bk * G + g0) * HD;
-  const int n_run = __popc(mask);
-  if (n_run == 1) {   // the only chunk of its row: straight to out
-    repro::merge_partial<T, GC, VEC, HD, NPART, kThreads>(
-        warp * RPW + grp, lane % LPR == 0, d0, m, l, acc, o, nullptr,
-        nullptr, ng);
-    return;
-  }
-  // workspace: (m, l) of [B*K][n_split][kMaxChunk], then the sums of
-  // [B*K][n_split][kMaxChunk][HD], f32
-  float* ml = ws + (size_t)bk * n_split * kMaxChunk * 2;
-  float* sums = ws + (size_t)gridDim.x * n_split * kMaxChunk * 2 +
-                (size_t)bk * n_split * kMaxChunk * HD;
-  repro::merge_partial<T, GC, VEC, HD, NPART, kThreads>(
-      warp * RPW + grp, lane % LPR == 0, d0, m, l, acc, nullptr,
-      ml + split * kMaxChunk * 2, sums + (size_t)split * kMaxChunk * HD, ng);
-  if (!repro::last_to_arrive(tickets + bk, (unsigned)n_run)) return;
-  repro::merge_splits<T, HD, kThreads>(mask, n_split, ml, sums,
-                                       kMaxChunk * 2, kMaxChunk * HD, o, ng);
+  repro::finish_split<T, GC, VEC, HD, NPART, kThreads, kMaxChunk>(
+      mask, bk, gridDim.x, split, n_split, warp * RPW + grp, lane % LPR == 0,
+      d0, m, l, acc, out + ((size_t)bk * G + g0) * HD, ws, tickets, ng);
 }
 
 template <typename T, int HD>

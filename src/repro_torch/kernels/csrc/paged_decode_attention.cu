@@ -1,4 +1,6 @@
-// Paged decode attention for Hopper (sm_90a), CUDA C++, f32 accumulation.
+// Paged decode attention for Hopper (sm_90a), CUDA C++, f32 accumulation,
+// each slot's pages split across CTAs (flash-decoding over chunks of
+// pages).
 //
 // Replaces: src/repro/kernels/paged_attention.py, _paged_decode_kernel
 // (launched by paged_decode_attention through pl.pallas_call).  One new
@@ -13,132 +15,161 @@
 // 2 * sum_b (pos_b + 1) * K * hd * sizeof(T) over 3.35 TB/s.
 //
 // Design.  The TPU grid walks the page axis sequentially ("arbitrary")
-// with (m, l, acc) in VMEM scratch; here one CTA per (slot, kv head) loops
-// over the pages itself and reads each page id from the table (no scalar
-// prefetch).  Pages are dealt round-robin to the CTA's 4 warps.  Inside a
-// warp, a group of hd/VEC lanes owns one token row: each lane loads 16
-// bytes of the key and of the value along hd (neighbouring lanes on
-// neighbouring addresses; a page row of one kv head is K*hd elements from
-// the next), the group reduces the q.k partial sums with shuffles, and
-// keeps its own online-softmax state (m, l, acc) for the G query rows in
-// registers.  UNROLL rows per group are loaded before any is used, so
-// several 16-byte loads per lane are in flight.  At the end the CTA merges
-// the per-group states through shared memory with the usual log-sum-exp
-// rescale.  G above 8 runs in chunks of 8 query rows, one launch each.
-// No tensor cores: G is 1..8 rows, far below a wgmma tile, and the kernel
-// is bound by the bytes it reads.
+// with (m, l, acc) in VMEM scratch.  One CTA per (slot, kv head) looping
+// over all of the slot's pages gave 128 CTAs of 4 warps at the OLMo-1B
+// decode shape: one per SM, too few 16-byte loads in flight to pull an
+// SM's share of the card's bandwidth (9.2x the byte bound).  So the
+// table's columns are cut into chunks of `ppc` pages and the grid is
+// (B * K, n_split), one CTA per chunk; the wrapper picks n_split and ppc
+// from B, K, the table's width, the page size and the SM count alone
+// (ops.paged_decode_attention_splits), never from pos or the table, so
+// nothing is read back to the host.
+//
+// Inside a chunk: the CTA reads the chunk's page ids once, up front, in
+// one coalesced load (lane i of warp w holds column w + 4i), issued beside
+// the load of pos, and hands them out with shuffles, so no K/V load waits
+// behind a dependent table load page after page.  The 4 warps take the
+// chunk's pages round-robin; a group of hd/VEC lanes owns a token row,
+// 16-byte loads along hd (a page row of one kv head is K*hd elements from
+// the next), its own online-softmax state in registers (common.cuh
+// fold_block / online_row), and a page's rows are loaded packed before any
+// is used, 8 rows a group when G <= 2, so a warp keeps a whole page of K
+// and V (16 rows at hd 128, bf16) in flight.  Rows past pos are not read.
+//
+// The chunks meet as in JAX's sequence-sharded combine (ops.py,
+// _lse_partials and decode_attention_sharded), the same code as the
+// contiguous decode kernel (common.cuh finish_split): each CTA stores its
+// f32 partial (m, l, acc[hd]) per query row in a workspace the wrapper
+// allocates; the last CTA of a (slot, kv head) to finish, found through a
+// counter the kernel leaves at 0, merges them in chunk order, so two
+// launches give bit-identical results.  A slot that one chunk serves is
+// written directly.  Chunk 0 always runs; a later chunk runs only if its
+// first row c * ppc * ps is at or before pos and it reaches the window or
+// the prefix (common.cuh running_chunks), the same mask in every CTA.  A
+// chunk that does not run stores nothing and the merge skips it.  A
+// running chunk whose pages are all sentinels (or all outside the window)
+// stores the empty partial m = -1e30, l = 0, acc = 0: in the merge its
+// weight is exp(-1e30 - max) = 0 exactly beside any chunk with a visible
+// row, so it changes no bit.  G above 8 runs in chunks of 8 query rows,
+// one launch each on the same workspace and counters.  No tensor cores: G
+// is 1..8 rows, far below an MMA tile, and the kernel is bound by the
+// bytes it reads.
 
 #include "common.cuh"
 
 namespace {
 
-using repro::kNegInf;
 using repro::Vec;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxChunk = 8;
+constexpr int kMaxChunk = 8;    // query rows per launch
+constexpr int kMaxSplits = 32;  // bits of the running-chunk mask
 
+// (kThreads, 1): without a floor of blocks ptxas capped some G = 2..4
+// variants at 96 or 128 registers and spilled; the served G = 1
+// variants keep their registers and 4 CTAs an SM either way.
 template <typename T, int HD, int GC>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+__global__ void __launch_bounds__(kThreads, 1) paged_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const int* __restrict__ page_table,
-    const int* __restrict__ pos_arr, T* __restrict__ out, int n_kv, int G,
+    const int* __restrict__ pos_arr, T* __restrict__ out,
+    float* __restrict__ ws, unsigned* __restrict__ tickets, int n_kv, int G,
     int n_pages, int ps, int pps, int window, int prefix, float sm_scale,
-    int g0) {
+    int g0, int ppc) {
   constexpr int VEC = Vec<T>::N;
   constexpr int LPR = HD / VEC;       // lanes per token row
   constexpr int RPW = 32 / LPR;       // rows per warp pass
   constexpr int NPART = kWarps * RPW; // partial states per CTA
-  constexpr int UNROLL = GC >= 8 ? 2 : 4;
+  constexpr int UNROLL = GC >= 8 ? 2 : GC >= 4 ? 4 : 8;
+  constexpr int BLK = RPW * UNROLL;   // rows per block, one warp each
+  constexpr int kCols = kWarps * 32;  // table columns per coalesced load
 
-  const int b = blockIdx.x / n_kv;
-  const int kh = blockIdx.x % n_kv;
+  const int bk = blockIdx.x;
+  const int b = bk / n_kv;
+  const int kh = bk % n_kv;
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int grp = lane / LPR;
   const int d0 = (lane % LPR) * VEC;
-  const int pos = pos_arr[b];
   const int ng = min(GC, G - g0);
+  const int j0 = split * ppc;                 // the chunk's first column
+  const int n_cols = min(ppc, pps - j0);
+  const int* cols = page_table + (size_t)b * pps + j0;
+
+  // the chunk's page ids, read beside pos: lane i of warp w holds column
+  // w + kWarps * i (of the first kCols; a longer chunk reads on below)
+  int my_page = n_pages;
+  if (warp + kWarps * lane < n_cols) my_page = cols[warp + kWarps * lane];
+  const int pos = pos_arr[b];
+
+  const uint32_t mask =
+      repro::running_chunks(n_split, ppc * ps, pos, pos, window, prefix);
+  if (!((mask >> split) & 1u)) return;
 
   float qv[GC][VEC];
   float m[GC], l[GC], acc[GC][VEC];
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) { qv[g][e] = 0.f; acc[g][e] = 0.f; }
-    if (g < ng) {
-      const T* qp = q + ((size_t)(b * n_kv + kh) * G + g0 + g) * HD + d0;
-      repro::load_vec(qp, qv[g]);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) qv[g][e] *= sm_scale;
-    }
-  }
+  repro::load_query<T, GC, VEC, HD>(q + ((size_t)bk * G + g0) * HD + d0, ng,
+                                    sm_scale, qv, m, l, acc);
 
-  const size_t row_stride = (size_t)n_kv * HD;
-  for (int j = warp; j < pps; j += kWarps) {
-    const int page = page_table[(size_t)b * pps + j];
-    const int start = j * ps;
-    // the same `run` predicate as the Pallas kernel; uniform over a warp
-    bool run = page >= 0 && page < n_pages && start <= pos;
-    if (window > 0) {
-      bool reach = start + ps - 1 > pos - window;
-      if (prefix > 0) reach = reach || start < prefix;
-      run = run && reach;
+  const long long row_stride = (long long)n_kv * HD;
+  const T* kb = k_pool + (size_t)kh * HD + d0;
+  const T* vb = v_pool + (size_t)kh * HD + d0;
+  for (int c0 = 0; c0 < n_cols; c0 += kCols) {
+    if (c0 > 0) {
+      const int j = c0 + warp + kWarps * lane;
+      my_page = j < n_cols ? cols[j] : n_pages;
     }
-    if (!run) continue;
-    const size_t base = (size_t)page * ps * row_stride + (size_t)kh * HD + d0;
-    for (int t0 = 0; t0 < ps; t0 += RPW * UNROLL) {
-      float kr[UNROLL][VEC], vr[UNROLL][VEC];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int t = t0 + u * RPW + grp;
-        if (t < ps) {
-          repro::load_vec(k_pool + base + (size_t)t * row_stride, kr[u]);
-          repro::load_vec(v_pool + base + (size_t)t * row_stride, vr[u]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) { kr[u][e] = 0.f; vr[u][e] = 0.f; }
-        }
+    // the warp's pages of these kCols columns, in order; warp-uniform
+    for (int i = 0; i < 32; ++i) {
+      const int j = c0 + warp + kWarps * i;
+      if (j >= n_cols) break;
+      const int page = __shfl_sync(0xffffffffu, my_page, i);
+      const int start = (j0 + j) * ps;
+      if (start > pos) break;              // the later pages hold no row
+      // the Pallas kernel's `run` predicate: a mapped page in reach
+      bool run = page >= 0 && page < n_pages;
+      if (window > 0) {
+        bool reach = start + ps - 1 > pos - window;
+        if (prefix > 0) reach = reach || start < prefix;
+        run = run && reach;
       }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int t = t0 + u * RPW + grp;
-        const int kv_pos = start + t;
-        bool valid = t < ps && kv_pos <= pos;
-        if (window > 0) {
-          valid = valid && (kv_pos > pos - window ||
-                            (prefix > 0 && kv_pos < prefix));
-        }
-        repro::online_row<GC, VEC, LPR>(qv, kr[u], vr[u], valid, m, l, acc);
+      if (!run) continue;
+      const int rows = min(ps, pos + 1 - start);   // rows up to pos
+      const long long first = (long long)page * ps * row_stride;
+      for (int t0 = 0; t0 < rows; t0 += BLK) {
+        repro::fold_block<GC, VEC, LPR, RPW, UNROLL>(
+            kb + first + t0 * row_stride, vb + first + t0 * row_stride,
+            row_stride, rows - t0, start + t0, pos, window, prefix, grp, qv,
+            m, l, acc);
       }
     }
   }
 
-  // merge the CTA's NPART partial states
-  repro::merge_store<T, GC, VEC, HD, NPART, kThreads>(
-      warp * RPW + grp, lane % LPR == 0, d0, m, l, acc,
-      out + ((size_t)(b * n_kv + kh) * G + g0) * HD, ng);
+  repro::finish_split<T, GC, VEC, HD, NPART, kThreads, kMaxChunk>(
+      mask, bk, gridDim.x, split, n_split, warp * RPW + grp, lane % LPR == 0,
+      d0, m, l, acc, out + ((size_t)bk * G + g0) * HD, ws, tickets, ng);
 }
 
 template <typename T, int HD>
 void launch_hd(const void* q, const void* kp, const void* vp,
-               const int* table, const int* pos, void* out, int B, int K,
-               int G, int P, int ps, int pps, int window, int prefix,
-               float sm_scale, cudaStream_t stream) {
+               const int* table, const int* pos, void* out, float* ws,
+               unsigned* tickets, int B, int K, int G, int P, int ps,
+               int pps, int window, int prefix, float sm_scale, int n_split,
+               int ppc, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(kp);
+  const T* vt = static_cast<const T*>(vp);
+  T* ot = static_cast<T*>(out);
+  const dim3 grid(B * K, n_split), block(kThreads);
   for (int g0 = 0; g0 < G; g0 += kMaxChunk) {
     const int n = G - g0 < kMaxChunk ? G - g0 : kMaxChunk;
-    const dim3 grid(B * K), block(kThreads);
-    const T* qt = static_cast<const T*>(q);
-    const T* kt = static_cast<const T*>(kp);
-    const T* vt = static_cast<const T*>(vp);
-    T* ot = static_cast<T*>(out);
 #define REPRO_LAUNCH(GC)                                                    \
   paged_decode_kernel<T, HD, GC><<<grid, block, 0, stream>>>(               \
-      qt, kt, vt, table, pos, ot, K, G, P, ps, pps, window, prefix,         \
-      sm_scale, g0)
+      qt, kt, vt, table, pos, ot, ws, tickets, K, G, P, ps, pps, window,    \
+      prefix, sm_scale, g0, ppc)
     if (n == 1) REPRO_LAUNCH(1);
     else if (n == 2) REPRO_LAUNCH(2);
     else if (n <= 4) REPRO_LAUNCH(4);
@@ -150,18 +181,19 @@ void launch_hd(const void* q, const void* kp, const void* vp,
 
 template <typename T>
 int launch(const void* q, const void* kp, const void* vp, const int* table,
-           const int* pos, void* out, int B, int K, int G, int hd, int P,
-           int ps, int pps, int window, int prefix, float sm_scale,
+           const int* pos, void* out, float* ws, unsigned* tickets, int B,
+           int K, int G, int hd, int P, int ps, int pps, int window,
+           int prefix, float sm_scale, int n_split, int ppc,
            cudaStream_t stream) {
   switch (hd) {
-    case 16: launch_hd<T, 16>(q, kp, vp, table, pos, out, B, K, G, P, ps,
-                              pps, window, prefix, sm_scale, stream); break;
-    case 32: launch_hd<T, 32>(q, kp, vp, table, pos, out, B, K, G, P, ps,
-                              pps, window, prefix, sm_scale, stream); break;
-    case 64: launch_hd<T, 64>(q, kp, vp, table, pos, out, B, K, G, P, ps,
-                              pps, window, prefix, sm_scale, stream); break;
-    case 128: launch_hd<T, 128>(q, kp, vp, table, pos, out, B, K, G, P, ps,
-                                pps, window, prefix, sm_scale, stream); break;
+#define REPRO_HD(HD)                                                        \
+  case HD:                                                                  \
+    launch_hd<T, HD>(q, kp, vp, table, pos, out, ws, tickets, B, K, G, P,   \
+                     ps, pps, window, prefix, sm_scale, n_split, ppc,       \
+                     stream);                                               \
+    break;
+    REPRO_HD(16) REPRO_HD(32) REPRO_HD(64) REPRO_HD(128)
+#undef REPRO_HD
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -173,23 +205,36 @@ extern "C" {
 
 // q (B, K, G, hd); k_pool, v_pool (P, ps, K, hd); page_table (B, pps)
 // int32 with sentinel P; pos (B,) int32; out (B, K, G, hd).  All
-// contiguous, 16-byte aligned.  dtype: 0 = f32, 1 = bf16.  Returns the
-// cudaError_t of the launch (0 on success).
+// contiguous, 16-byte aligned.  dtype: 0 = f32, 1 = bf16.  The table's
+// columns run in n_split chunks of ppc pages (1 <= n_split <= 32, every
+// chunk holding at least one of the pps columns); with n_split > 1, ws
+// holds B * K * n_split * 8 * (hd + 2) floats and tickets B * K zeroed
+// counters (left zeroed).  Returns the cudaError_t of the launch (0 on
+// success).
 int paged_decode_attention(const void* q, const void* k_pool,
                            const void* v_pool, const int* page_table,
-                           const int* pos, void* out, int B, int K, int G,
-                           int hd, int P, int ps, int pps, int window,
-                           int prefix, int dtype, float sm_scale,
+                           const int* pos, void* out, void* ws,
+                           void* tickets, int B, int K, int G, int hd, int P,
+                           int ps, int pps, int window, int prefix,
+                           int dtype, int n_split, int ppc, float sm_scale,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || K == 0 || G == 0) return 0;
+  if (n_split < 1 || n_split > kMaxSplits || ppc < 1 || ps < 1 ||
+      (long long)ppc * n_split < pps ||
+      (long long)ppc * (n_split - 1) >= pps ||
+      (n_split > 1 && (ws == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  float* w = static_cast<float*>(ws);
+  unsigned* tk = static_cast<unsigned*>(tickets);
   if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, page_table, pos, out, B, K, G,
-                         hd, P, ps, pps, window, prefix, sm_scale, s);
+    return launch<float>(q, k_pool, v_pool, page_table, pos, out, w, tk, B,
+                         K, G, hd, P, ps, pps, window, prefix, sm_scale,
+                         n_split, ppc, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, page_table, pos, out, B,
-                                 K, G, hd, P, ps, pps, window, prefix,
-                                 sm_scale, s);
+    return launch<__nv_bfloat16>(q, k_pool, v_pool, page_table, pos, out, w,
+                                 tk, B, K, G, hd, P, ps, pps, window, prefix,
+                                 sm_scale, n_split, ppc, s);
   return (int)cudaErrorInvalidValue;
 }
 

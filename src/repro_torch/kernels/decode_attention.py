@@ -11,9 +11,10 @@ held against on the card.
 The kernel splits each row's positions into chunks, one CTA each, and
 merges the chunks' partials by a log-sum-exp rule.  `lse_partials_ref`
 (the port's copy of the JAX package's `_lse_partials`) and
-`split_decode_ref` (the chunks' partials merged in split order, as JAX's
-sequence-sharded combine merges its shards) spell that composition out
-in plain PyTorch for the tests; nothing on the card path calls them.
+`split_decode_ref` (the chunks' partials merged in split order by
+`merge_lse_ref`, as JAX's sequence-sharded combine merges its shards)
+spell that composition out in plain PyTorch for the tests; nothing on
+the card path calls them.
 
 Layouts (the JAX package's): q (B, K, G, hd) grouped queries; caches
 (B, K, S, hd); pos (B,) int32, the index of the current token.  Returns
@@ -65,19 +66,10 @@ def lse_partials_ref(q: torch.Tensor, k_chunk: torch.Tensor,
     return m, p.sum(-1), torch.einsum("bkgs,bksd->bkgd", p, v_chunk.float())
 
 
-def split_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: torch.Tensor, *,
-                     chunk: int, window: int = 0,
-                     prefix: int = 0) -> torch.Tensor:
-    """The split kernel's arithmetic: the partials of each chunk of
-    `chunk` rows, merged in chunk order by the rule of JAX's
+def merge_lse_ref(parts: list, dtype: torch.dtype) -> torch.Tensor:
+    """Merge f32 partials (m, l, num), in list order, by the rule of JAX's
     sequence-sharded combine: m_g = max m, corr = exp(m - m_g),
-    out = sum(num corr) / max(sum(l corr), 1e-30)."""
-    s = k_cache.shape[2]
-    parts = [lse_partials_ref(q, k_cache[:, :, c0:c0 + chunk],
-                              v_cache[:, :, c0:c0 + chunk], pos, c0,
-                              window=window, prefix=prefix)
-             for c0 in range(0, s, chunk)]
+    out = sum(num corr) / max(sum(l corr), 1e-30), cast to `dtype`."""
     m_g = torch.stack([m for m, _, _ in parts]).amax(0)
     l_g = torch.zeros_like(m_g)
     num_g = torch.zeros_like(parts[0][2])
@@ -85,4 +77,18 @@ def split_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
         corr = torch.exp(m - m_g)
         l_g = l_g + l * corr
         num_g = num_g + num * corr[..., None]
-    return (num_g / l_g.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return (num_g / l_g.clamp_min(1e-30)[..., None]).to(dtype)
+
+
+def split_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     chunk: int, window: int = 0,
+                     prefix: int = 0) -> torch.Tensor:
+    """The split kernel's arithmetic: the partials of each chunk of
+    `chunk` rows, merged in chunk order (merge_lse_ref)."""
+    s = k_cache.shape[2]
+    parts = [lse_partials_ref(q, k_cache[:, :, c0:c0 + chunk],
+                              v_cache[:, :, c0:c0 + chunk], pos, c0,
+                              window=window, prefix=prefix)
+             for c0 in range(0, s, chunk)]
+    return merge_lse_ref(parts, q.dtype)

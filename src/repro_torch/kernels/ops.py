@@ -11,15 +11,15 @@ alignment (`flash_attention_route`, `int8_matmul_route`), never from a
 failure, and also count each launch by route in a plain dict,
 `<wrapper>.launches_by_route`.
 
-Two kernels split their work across CTAs (decode attention its
-sequence, the int8 `skinny_tc` route its K) and merge the f32 partials
-in the CTA that finishes last: their wrappers allocate the partials with
-`torch.empty` per call and pick the split in a pure function of the
+Three kernels split their work across CTAs (decode attention its
+sequence, paged decode attention its page table's columns, the int8
+`skinny_tc` route its K) and merge the f32 partials in the CTA that
+finishes last.  Their wrappers pick the split in a pure function of the
 shapes and the SM count (`decode_attention_splits`,
-`int8_skinny_tc_splits`).  Both find the last CTA through counters that
-the kernels leave at 0, and both write their f32 partials into a buffer
-that is kept between calls: one pair of buffers per (device, stream),
-`_split_buffers`.
+`paged_decode_attention_splits`, `int8_skinny_tc_splits`).  All three
+find the last CTA through counters that the kernels leave at 0, and
+write their f32 partials into a buffer that is kept between calls: one
+pair of buffers per (device, stream), `_split_buffers`.
 
 Build: at first use on the card, every `csrc/*.cu` is compiled by `nvcc`
 for sm_90a into its own shared library with a plain C interface (all
@@ -124,7 +124,7 @@ def _lib(name: str) -> ctypes.CDLL:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             f = ctypes.c_float
             fn.argtypes = {
-                "paged_decode_attention": [p] * 6 + [i] * 10 + [f, p],
+                "paged_decode_attention": [p] * 8 + [i] * 12 + [f, p],
                 "flash_attention": [p] * 4 + [i] * 11 + [f] + [ll] * 9 + [p],
                 "decode_attention": ([p] * 7 + [i] * 5 + [ll] * 3
                                      + [i] * 5 + [f, p]),
@@ -233,17 +233,39 @@ def _run(name: str, device: torch.device, *args) -> None:
 # --------------------------------------------------------------------- #
 # wrappers
 
-def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
-                           v_pool: torch.Tensor, page_table: torch.Tensor,
-                           pos: torch.Tensor, *, window: int = 0,
-                           prefix: int = 0) -> torch.Tensor:
-    """q (B, K, G, hd); pools (P, ps, K, hd); page_table (B, pps) int32
-    with sentinel == P; pos (B,) int32.  Returns (B, K, G, hd)."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_ref(q, k_pool, v_pool, page_table, pos,
-                                          window=window, prefix=prefix)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
+PAGED_MIN_ROWS = 64        # rows (pages x page size) worth a CTA
+PAGED_MAX_SPLITS = 32      # the kernel's mask of running chunks
+PAGED_CTAS_PER_SM = 4      # CTAs an SM holds at once (128 threads, ~125
+                           # registers each): the grid aims for one wave
+
+
+@functools.lru_cache(maxsize=None)
+def paged_decode_attention_splits(b: int, nkv: int, pps: int, ps: int,
+                                  n_sm: int) -> tuple:
+    """(n_split, ppc) of the paged kernel's split of the page table's pps
+    columns: chunks of `ppc` pages, each a CTA, each at least
+    PAGED_MIN_ROWS rows where the table allows, as many as one wave of
+    PAGED_CTAS_PER_SM CTAs per SM holds (B * K * n_split at most that),
+    at most PAGED_MAX_SPLITS.  At the OLMo-1B decode shape that is 4
+    chunks of 16 pages, the fastest of tools/sweep_splits.py's sweep: a
+    fifth chunk starts a second wave, a third fewer leave slots idle
+    (PERF.md section 6).  A function of the shapes and the SM count
+    alone, never of `pos` or the table: the wrapper reads nothing back
+    from the card.  Every chunk holds at least one column."""
+    wave = PAGED_CTAS_PER_SM * n_sm // (b * nkv)
+    min_ppc = -(-PAGED_MIN_ROWS // ps)
+    n = max(1, min(wave, -(-pps // min_ppc), PAGED_MAX_SPLITS))
+    ppc = -(-pps // n)
+    return -(-pps // ppc), ppc
+
+
+def _paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
+                  v_pool: torch.Tensor, page_table: torch.Tensor,
+                  pos: torch.Tensor, window: int, prefix: int,
+                  splits: tuple | None = None) -> torch.Tensor:
+    """The paged kernel's launch on CUDA tensors, split as `splits`
+    (n_split, ppc), by default the wrapper's rule; counts nothing.  The
+    sweep and the card tests take other splits through it."""
     name = "paged_decode_attention"
     _check_cuda(name, q, k_pool, v_pool, page_table, pos)
     b, nkv, g, hd = q.shape
@@ -261,17 +283,43 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(q.shape)}")
     if page_table.dtype != torch.int32 or pos.dtype != torch.int32 \
             or page_table.dim() != 2 or page_table.shape[0] != b \
-            or tuple(pos.shape) != (b,):
-        raise ValueError(f"{name}: page_table (B, pps) and pos (B,) must be "
-                         "int32 for B = q.shape[0]")
+            or page_table.shape[1] < 1 or tuple(pos.shape) != (b,):
+        raise ValueError(f"{name}: page_table (B, pps >= 1) and pos (B,) "
+                         "must be int32 for B = q.shape[0]")
     if not isinstance(window, int) or not isinstance(prefix, int):
         raise TypeError(f"{name}: window and prefix must be static ints")
     out = torch.empty_like(q)
     _check_aligned(name, q, k_pool, v_pool, out)
+    pps = page_table.shape[1]
+    n_split, ppc = splits or paged_decode_attention_splits(
+        b, nkv, pps, ps, _sm_count(q.device.index))
+    ws = tickets = None
+    if n_split > 1:   # per split and query row (chunks of 8): m, l, acc
+        tickets, ws = _split_buffers(q.device, b * nkv,
+                                     b * nkv * n_split * 8 * (hd + 2))
     _run(name, q.device, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-         page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, nkv, g,
-         hd, n_pages, ps, page_table.shape[1], window, prefix,
-         _DTYPES[q.dtype], hd ** -0.5)
+         page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+         ws.data_ptr() if ws is not None else None,
+         tickets.data_ptr() if tickets is not None else None, b, nkv, g, hd,
+         n_pages, ps, pps, window, prefix, _DTYPES[q.dtype], n_split, ppc,
+         hd ** -0.5)
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           pos: torch.Tensor, *, window: int = 0,
+                           prefix: int = 0) -> torch.Tensor:
+    """q (B, K, G, hd); pools (P, ps, K, hd); page_table (B, pps) int32
+    with sentinel == P; pos (B,) int32.  Returns (B, K, G, hd).  On the
+    card the table's columns run in chunks of pages, one CTA each
+    (`paged_decode_attention_splits`)."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, page_table, pos,
+                                          window=window, prefix=prefix)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
+    out = _paged_decode(q, k_pool, v_pool, page_table, pos, window, prefix)
     paged_decode_attention.launches += 1
     return out
 

@@ -8,6 +8,13 @@ f32 as `repro.kernels.paged_attention.paged_decode_attention_ref`.  It is
 the CPU path of the wrapper and the oracle the kernel is held against on
 the card.
 
+The kernel splits the page table's columns into chunks of pages, one
+CTA each, and merges the chunks' f32 partials in chunk order.
+`paged_lse_partials_ref` and `split_paged_ref` spell that composition
+out in plain PyTorch for the tests (the paged counterparts of
+`decode_attention.lse_partials_ref` and `split_decode_ref`, merged by the
+same `merge_lse_ref`); nothing on the card path calls them.
+
 Layouts (the JAX package's): q (B, K, G, hd) grouped queries; pools
 (P, ps, K, hd) physical pages of one layer; page_table (B, pps) int32
 with sentinel == P for unmapped entries; pos (B,) int32, the index of the
@@ -16,6 +23,8 @@ current token.  Returns (B, K, G, hd).
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.decode_attention import merge_lse_ref
 
 NEG_INF = -1e30
 
@@ -57,3 +66,51 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
         acc = acc * corr + torch.einsum("bkgs,bskd->bkgd", p, vp)
         m = m_new
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def paged_lse_partials_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, cols: torch.Tensor,
+                           pos: torch.Tensor, col0: int, *, window: int = 0,
+                           prefix: int = 0) -> tuple:
+    """Attention of q over the pages of `cols` (B, n), the table's
+    columns col0 onwards, with explicit f32 partials: m, l (B, K, G) and
+    the unnormalised sum num (B, K, G, hd).  Sentinel columns read as
+    zeros and are masked, as are rows past pos and, with a window, rows
+    outside it and the prefix."""
+    b, nkv, g, hd = q.shape
+    n_pages, ps = k_pool.shape[0], k_pool.shape[1]
+    n = cols.shape[1]
+    ids = cols.long()
+    mapped = ids < n_pages                                   # (B, n)
+    safe = torch.where(mapped, ids, torch.zeros_like(ids))
+    fill = mapped[:, :, None, None, None]
+    kp = torch.where(fill, k_pool[safe].float(), 0.0).reshape(
+        b, n * ps, nkv, hd)
+    vp = torch.where(fill, v_pool[safe].float(), 0.0).reshape(
+        b, n * ps, nkv, hd)
+    scores = torch.einsum("bkgd,bskd->bkgs", q.float() * hd ** -0.5, kp)
+    kv_pos = col0 * ps + torch.arange(n * ps, device=q.device)
+    valid = (kv_pos[None, :] <= pos.long()[:, None]) \
+        & mapped.repeat_interleave(ps, dim=1)
+    if window > 0:
+        vis = kv_pos[None, :] > (pos.long() - window)[:, None]
+        if prefix > 0:
+            vis = vis | (kv_pos < prefix)[None, :]
+        valid = valid & vis
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    m = scores.amax(-1)
+    p = torch.exp(scores - m[..., None])
+    return m, p.sum(-1), torch.einsum("bkgs,bskd->bkgd", p, vp)
+
+
+def split_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, page_table: torch.Tensor,
+                    pos: torch.Tensor, *, ppc: int, window: int = 0,
+                    prefix: int = 0) -> torch.Tensor:
+    """The split kernel's arithmetic: the partials of each chunk of `ppc`
+    table columns, merged in chunk order (merge_lse_ref)."""
+    parts = [paged_lse_partials_ref(q, k_pool, v_pool,
+                                    page_table[:, c0:c0 + ppc], pos, c0,
+                                    window=window, prefix=prefix)
+             for c0 in range(0, page_table.shape[1], ppc)]
+    return merge_lse_ref(parts, q.dtype)

@@ -12,9 +12,10 @@ the order of summation (int8 values are exact in bf16, so the
 tensor-core route's bf16 x bf16 product with f32 sums is too, and the
 skinny_tc route's head, which carries x times its per-K scale as a bf16
 hi/lo pair, to ~2^-17).  Every flash and int8 launch is also held to its
-route through the wrapper's `launches_by_route`.  The two kernels that
-split their work across CTAs (decode attention's sequence, skinny_tc's
-K) merge in a fixed order: two launches give bit-identical outputs.
+route through the wrapper's `launches_by_route`.  The three kernels that
+split their work across CTAs (decode attention's sequence, paged decode
+attention's page-table columns, skinny_tc's K) merge in a fixed order:
+two launches give bit-identical outputs, on one stream and on two.
 """
 import numpy as np
 import pytest
@@ -82,6 +83,81 @@ def test_paged_kernel_matches_plain(cuda, case, dt):
     assert ops.paged_decode_attention.launches == before + 1
     _close(got, paged_decode_attention_ref(*args, window=win, prefix=pre),
            tol)
+
+
+# the split's edges: at these B * K and tables the wrapper cuts the table
+# into more than one chunk (asserted), and each case also runs at other
+# chunkings through ops._paged_decode
+PAGED_SPLIT = [
+    # B, K, G, n_pages, pps, ps, hd, window, prefix, pos, table
+    (4, 2, 2, 140, 32, 8, 64, 0, 0, [63, 64, 127, 255], "plain"),  # edges
+    (2, 2, 1, 70, 32, 8, 128, 0, 0, [0, 0], "plain"),        # pos 0
+    (2, 2, 4, 70, 32, 8, 32, 0, 0, [200, 255], "holes"),      # sentinels
+    (2, 2, 2, 70, 32, 8, 64, 0, 0, [150, 150], "shared"),     # shared pages
+    (3, 2, 4, 100, 32, 8, 64, 100, 0, [99, 140, 255], "plain"),   # window
+    (3, 2, 4, 100, 32, 8, 64, 100, 16, [150, 200, 255], "plain"),  # + prefix
+    (2, 2, 16, 70, 32, 8, 32, 0, 0, [100, 255], "plain"),     # G 16: 2 runs
+    (2, 2, 8, 70, 32, 8, 16, 0, 0, [17, 255], "plain"),       # hd 16, G 8
+    (2, 2, 1, 70, 16, 12, 128, 0, 0, [100, 191], "plain"),    # ps 12
+]
+
+
+def _paged_inputs(dev, dtype, case, seed):
+    """q, pools, table and pos on the card.  Each slot maps the columns up
+    to its pos; "holes" leaves every third of them at the sentinel,
+    "shared" maps slot 1's first half onto slot 0's pages."""
+    B, K, G, n_pages, pps, ps, hd, win, pre, pos, kind = case
+    rng = np.random.default_rng(seed)
+    table = np.full((B, pps), n_pages, np.int32)
+    free = iter(rng.permutation(n_pages))
+    for i, p in enumerate(pos):
+        for j in range(p // ps + 1):
+            if not (kind == "holes" and j % 3 == 1):
+                table[i, j] = next(free)
+    if kind == "shared":
+        half = (pos[1] // ps + 1) // 2
+        table[1, :half] = table[0, :half]
+    q, kp, vp = _tensors(seed + 1, dev, dtype, (B, K, G, hd),
+                         (n_pages, ps, K, hd), (n_pages, ps, K, hd))
+    return (q, kp, vp, torch.from_numpy(table).to(dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", PAGED_SPLIT)
+def test_paged_kernel_split_edges(cuda, case, dt):
+    """The wrapper's split, then one page a chunk
+    where the table allows it, chunks of 3 and 7 pages (short last
+    chunks) and one chunk."""
+    B, K, G, n_pages, pps, ps, hd, win, pre = case[:9]
+    dtype, tol = DTYPES[dt]
+    args = _paged_inputs(cuda, dtype, case, 3)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ops.paged_decode_attention_splits(B, K, pps, ps, n_sm)[0] > 1
+    want = paged_decode_attention_ref(*args, window=win, prefix=pre)
+    before = ops.paged_decode_attention.launches
+    got = ops.paged_decode_attention(*args, window=win, prefix=pre)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches == before + 1
+    _close(got, want, tol)
+    for ppc in (1, 3, 7, pps):
+        n = -(-pps // ppc)
+        if n <= ops.PAGED_MAX_SPLITS:
+            _close(ops._paged_decode(*args, win, pre, splits=(n, ppc)), want,
+                   tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_paged_kernel_long_chunk(cuda, dt):
+    """One chunk of 300 pages: the CTA reads its page ids 128 columns at
+    a time."""
+    dtype, tol = DTYPES[dt]
+    case = (2, 2, 1, 700, 300, 2, 64, 0, 0, [599, 350], "plain")
+    args = _paged_inputs(cuda, dtype, case, 4)
+    _close(ops._paged_decode(*args, 0, 0, splits=(1, 300)),
+           paged_decode_attention_ref(*args), tol)
 
 
 FLASH = [
@@ -391,8 +467,11 @@ def test_split_kernels_on_two_streams(cuda):
     dargs = (q, kc, vc, torch.tensor(pos, dtype=torch.int32, device=cuda))
     x, wq, sc = _int8_operands(cuda, 13, 8, 8192, 2048, "kn")
     x = x.to(torch.bfloat16)
+    pcase = PAGED_SPLIT[0]
+    pargs = _paged_inputs(cuda, torch.bfloat16, pcase, 5)
     want_d = ops.decode_attention(*dargs, window=win, prefix=pre)
     want_m = ops.int8_matmul(x, wq, sc)
+    want_p = ops.paged_decode_attention(*pargs)
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(cuda) for _ in range(2)]
     got = {0: [], 1: []}
@@ -403,7 +482,8 @@ def test_split_kernels_on_two_streams(cuda):
             with torch.cuda.stream(st):
                 got[i].append((ops.decode_attention(*dargs, window=win,
                                                     prefix=pre),
-                               ops.int8_matmul(x, wq, sc)))
+                               ops.int8_matmul(x, wq, sc),
+                               ops.paged_decode_attention(*pargs)))
     torch.cuda.synchronize()
     ptrs = set()
     for st in streams:
@@ -411,8 +491,9 @@ def test_split_kernels_on_two_streams(cuda):
             ptrs.add(ops._split_buffers(q.device, 1, 1)[0].data_ptr())
     assert len(ptrs) == 2
     for outs in got.values():
-        for d, m in outs:
+        for d, m, pa in outs:
             assert torch.equal(d, want_d) and torch.equal(m, want_m)
+            assert torch.equal(pa, want_p)
 
 
 @pytest.mark.cuda
@@ -427,6 +508,23 @@ def test_decode_kernel_bit_identical_launches(cuda, case):
     args = (q, kc, vc, torch.tensor(pos, dtype=torch.int32, device=cuda))
     a = ops.decode_attention(*args, window=win, prefix=pre)
     b = ops.decode_attention(*args, window=win, prefix=pre)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [PAGED[6], PAGED_SPLIT[0], PAGED_SPLIT[2],
+                                  PAGED_SPLIT[6]])
+def test_paged_kernel_bit_identical_launches(cuda, case):
+    """The chunks of a slot merge in chunk order: two launches, same bits
+    (the OLMo-1B decode shape, chunk edges, sentinel holes, G > 8)."""
+    if len(case) == 9:   # a PAGED case: pos as test_paged_kernel_matches_plain
+        B, ps, pps = case[0], case[5], case[4]
+        case = case + ([0, ps * 2 + 3, ps * pps - 1][:B], "plain")
+    args = _paged_inputs(cuda, torch.bfloat16, case, 5)
+    win, pre = case[7], case[8]
+    a = ops.paged_decode_attention(*args, window=win, prefix=pre)
+    b = ops.paged_decode_attention(*args, window=win, prefix=pre)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
 
@@ -452,6 +550,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ops.decode_attention(q, kc, kc, pos)     # 16-byte rows: accepted
     with pytest.raises(ValueError, match="strides"):
         ops.decode_attention(q, kc.transpose(2, 3)[:, :, :16], kc, pos)
+    q, kp, vp, table, pos = _paged_inputs(cuda, torch.float32,
+                                          PAGED_SPLIT[1], 6)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.paged_decode_attention(q[..., :24].contiguous(),
+                                   kp[..., :24].contiguous(),
+                                   vp[..., :24].contiguous(), table, pos)
+    with pytest.raises(TypeError):
+        ops.paged_decode_attention(q.half(), kp.half(), vp.half(), table,
+                                   pos)
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_decode_attention(q, kp, vp, table.long(), pos)
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_decode_attention(q, kp, vp, table[:, :0], pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.paged_decode_attention(q, kp, vp, table.t().contiguous().t(),
+                                   pos)
+    with pytest.raises(RuntimeError, match="launch failed"):   # 33 chunks
+        ops._paged_decode(q, kp, vp, table, pos, 0, 0, splits=(33, 1))
     x = torch.zeros(4, 8, device=cuda)
     w = torch.zeros(8, 6, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="scale"):

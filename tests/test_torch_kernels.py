@@ -40,11 +40,14 @@ from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   split_decode_ref)
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.int8_matmul import int8_matmul_ref
-from repro_torch.kernels.paged_attention import paged_decode_attention_ref
+from repro_torch.kernels.paged_attention import (paged_decode_attention_ref,
+                                                 paged_lse_partials_ref,
+                                                 split_paged_ref)
 
 torch.set_num_threads(2)
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
+SPLIT_TOL = 1e-4     # an LSE merge of chunk partials (f32)
 
 
 def _arrays(seed, *shapes):
@@ -147,6 +150,110 @@ def test_paged_ref_bf16_matches_jax():
     _close(_f32(got), want.astype(jnp.float32), BF16_TOL)
 
 
+SPLIT_PAGED_CASES = [
+    # B, K, G, n_pages, pps, ps, hd, window, prefix, pos, holes: the
+    # PAGED_CASES (pos as _paged_case makes it), then the kernel's edges
+    *[c[:7] + (c[7], 0, None, False) for c in PAGED_CASES],
+    (3, 2, 4, 40, 8, 8, 64, 16, 4, [5, 30, 63], False),    # window + prefix
+    (3, 2, 2, 40, 12, 4, 32, 10, 0, [3, 27, 47], False),   # window crosses
+    (2, 2, 2, 24, 6, 4, 32, 0, 0, [23, 15], True),         # sentinel holes
+    (3, 2, 1, 24, 6, 4, 64, 0, 0, [0, 8, 15], False),      # chunk edges
+    (2, 1, 3, 16, 4, 8, 16, 0, 0, [0, 0], False),          # pos 0
+]
+
+
+def _split_paged_case(case, seed):
+    """Pools, a table mapping each slot's pages up to pos (with `holes`,
+    every third column of a slot left at the sentinel inside its mapped
+    range) and queries, as numpy."""
+    B, K, G, n_pages, pps, ps, hd, win, pre, pos, holes = case
+    if pos is None:
+        return (*_paged_case(seed, B, K, G, n_pages, pps, ps, hd), win, pre)
+    rng = np.random.default_rng(seed)
+    pos = np.asarray(pos, np.int32)
+    table = np.full((B, pps), n_pages, np.int32)
+    free = iter(rng.permutation(n_pages))
+    for i, p in enumerate(pos):
+        for j in range(p // ps + 1):
+            if not (holes and j % 3 == 1):
+                table[i, j] = next(free)
+    kp, vp, q = _arrays(seed + 1, (n_pages, ps, K, hd), (n_pages, ps, K, hd),
+                        (B, K, G, hd))
+    return q, kp, vp, table, pos, win, pre
+
+
+def _split_paged_check(q, kp, vp, table, pos, win, pre, ppcs):
+    """split_paged_ref at each chunking in `ppcs` against the JAX
+    reference and its Pallas kernel in interpret mode (f32)."""
+    args = [_jax(q, jnp.float32), _jax(kp, jnp.float32),
+            _jax(vp, jnp.float32), jnp.asarray(table), jnp.asarray(pos)]
+    want_kernel = jax_pa.paged_decode_attention(*args, window=win,
+                                                prefix=pre, interpret=True)
+    want_ref = jax_pa.paged_decode_attention_ref(*args, window=win,
+                                                 prefix=pre)
+    for ppc in ppcs:
+        got = split_paged_ref(
+            _torch(q, torch.float32), _torch(kp, torch.float32),
+            _torch(vp, torch.float32), torch.from_numpy(table),
+            torch.from_numpy(pos), ppc=ppc, window=win, prefix=pre)
+        _close(got, want_kernel, SPLIT_TOL)
+        _close(got, want_ref, SPLIT_TOL)
+
+
+@pytest.mark.parametrize("case", SPLIT_PAGED_CASES)
+def test_split_paged_composition_matches_jax(case):
+    """The paged kernel's split-and-merge at the wrapper's chunking for
+    this shape on an H100's 132 SMs, at one page per chunk and at a
+    chunking whose last chunk is short."""
+    q, kp, vp, table, pos, win, pre = _split_paged_case(case, 13)
+    B, K, _, _, pps, ps = case[:6]
+    _, ppc = ops.paged_decode_attention_splits(B, K, pps, ps, 132)
+    _split_paged_check(q, kp, vp, table, pos, win, pre, sorted({ppc, 1, 3}))
+
+
+def test_split_paged_shared_pages():
+    """Two slots mapping the same physical prefix page, each chunk of one
+    page and of two."""
+    B, K, G, n_pages, ps, hd = 2, 2, 2, 16, 8, 32
+    kp, vp, q1 = _arrays(5, (n_pages, ps, K, hd), (n_pages, ps, K, hd),
+                         (1, K, G, hd))
+    q = np.tile(q1, (B, 1, 1, 1))
+    table = np.asarray([[3, 5, 16, 16], [3, 7, 16, 16]], np.int32)
+    pos = np.asarray([ps * 2 - 1, ps * 2 - 1], np.int32)
+    _split_paged_check(q, kp, vp, table, pos, 0, 0, [1, 2, 4])
+
+
+def test_paged_lse_partials_of_empty_chunks():
+    """A chunk past pos and a chunk of sentinels hold no visible row:
+    their m is -1e30, so they weigh 0 in the merge."""
+    q, kp, vp, table, pos, _, _ = _split_paged_case(SPLIT_PAGED_CASES[-3],
+                                                    13)
+    tq, tk, tv = (_torch(a, torch.float32) for a in (q, kp, vp))
+    ttab, tpos = torch.from_numpy(table), torch.from_numpy(pos)
+    m, _, _ = paged_lse_partials_ref(tq, tk, tv, ttab[:, 4:5], tpos, 4)
+    assert bool((m[1] == -1e30).all())       # slot 1: pos 15, rows 16-19
+    m, _, _ = paged_lse_partials_ref(tq, tk, tv, ttab[:, 1:2], tpos, 1)
+    assert bool((m == -1e30).all())          # column 1 is a hole in both
+
+
+def test_paged_decode_attention_splits():
+    """At least 2 CTAs per SM on 132 SMs at the OLMo-1B decode shape
+    (B=8, K=16, 64 pages of 16), one split when the table fits one chunk,
+    and never a chunk without a column."""
+    n, ppc = ops.paged_decode_attention_splits(8, 16, 64, 16, 132)
+    assert 8 * 16 * n >= 2 * 132 and n > 1
+    assert ops.paged_decode_attention_splits(8, 16, 4, 16, 132) == (1, 4)
+    assert ops.paged_decode_attention_splits(1, 1, 1, 8, 132) == (1, 1)
+    for b, k, pps, ps, n_sm in [(b, k, pps, ps, n_sm) for b in (1, 3, 8, 64)
+                                for k in (1, 2, 16)
+                                for pps in range(1, 300, 13)
+                                for ps in (1, 8, 16, 64)
+                                for n_sm in (1, 132)]:
+        n, ppc = ops.paged_decode_attention_splits(b, k, pps, ps, n_sm)
+        assert 1 <= n <= ops.PAGED_MAX_SPLITS and ppc >= 1
+        assert (n - 1) * ppc < pps <= n * ppc, (b, k, pps, ps, n_sm, n, ppc)
+
+
 # ------------------- flash attention ------------------------------- #
 FLASH_CASES = [
     # B, H, K, Sq, Skv, hd, win, prefix, dtype (small rows of test_kernels)
@@ -227,8 +334,6 @@ def _decode_inputs(case):
         pos = np.random.default_rng(32).integers(max(win, 1), S, B)
     return q, kc, vc, np.asarray(pos, np.int32)
 
-
-SPLIT_TOL = 1e-4
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)

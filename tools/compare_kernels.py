@@ -1,5 +1,5 @@
-"""Time the int8 serve's decode kernels of one checkout on fixed
-yardsticks, on one CUDA device, so that two checkouts can be compared.
+"""Time the serves' decode kernels of one checkout on fixed yardsticks,
+on one CUDA device, so that two checkouts can be compared.
 
     python3 tools/compare_kernels.py [--src ROOT] [--label NAME]
 
@@ -9,12 +9,14 @@ compare a commit with its parent on one card, unpack the parent with
 `git archive` into a gitignored directory and run, in one command,
 parent, change, change, parent.
 
-Cases, at the OLMo-1B bf16 decode shapes: decode_attention (B=8 K=16
-G=1 S=1024 hd=128, the (B, S, K, hd) cache view, ragged pos up to 1023)
-beside one SDPA call with the ragged mask, and int8_matmul at M = 8
-(2048 -> 2048, 2048 -> 8192, 8192 -> 2048, the tied head 2048 -> 50304)
-beside one torch.matmul on the weight dequantized beforehand.  For each
-call it reports
+Cases, at the OLMo-1B bf16 decode shapes: paged_decode_attention (B=8
+K=16 G=1 hd=128, pages of 16, a table of 64 columns, ragged pos up to
+1023; no single PyTorch call computes it), decode_attention (B=8 K=16
+G=1 S=1024 hd=128, the (B, S, K, hd) cache view, the same pos) beside
+one SDPA call with the ragged mask, and int8_matmul at M = 8 (2048 ->
+2048, 2048 -> 8192, 8192 -> 2048, the tied head 2048 -> 50304) beside
+one torch.matmul on the weight dequantized beforehand.  For each call it
+reports
 
 - event_ms: CUDA events around the call, each from a cold L2 (a 256 MiB
   buffer written before the start event), median of 30.  The wrapper's
@@ -30,11 +32,10 @@ call it reports
   call runs (torch.profiler, 30 cold-L2 calls), a check on both timings
   that no host time can enter.
 
-It also prints a sha256 of paged_decode_attention's output at its timed
-shape (B=8 K=16 G=1 hd=128 ps=16 pps=64 bf16), which two checkouts with
-the same paged kernel share bit for bit.  One JSON line per case, each
-with the card's name and power limit; exits non-zero without a CUDA
-device.
+It also prints a sha256 of decode_attention's output at its timed shape,
+which two checkouts with the same decode kernel share bit for bit.  One
+JSON line per case, each with the card's name and power limit; exits
+non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -161,7 +162,6 @@ def main() -> int:
     pos[0], pos[-1] = 0, 1023
     p = torch.tensor(pos, dtype=torch.int32, device=dev)
 
-    # paged decode attention: its output's bits
     rng = np.random.default_rng(7)
     n_pages = 8 * 64 + 3
     table = np.full((8, 64), n_pages, np.int32)
@@ -171,11 +171,11 @@ def main() -> int:
             table[i, j] = next(perm)
     pq = tensor(rng, dev, bf16, 8, 16, 1, 128)
     pools = [tensor(rng, dev, bf16, n_pages, 16, 16, 128) for _ in range(2)]
-    got = ops.paged_decode_attention(pq, *pools,
-                                     torch.from_numpy(table).to(dev), p)
-    emit({**head, "kernel": "paged_decode_attention", "sha256":
-          hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes())
-          .hexdigest()})
+    ptable = torch.from_numpy(table).to(dev)
+    emit({**head, "kernel": "paged_decode_attention",
+          "shape": "B=8 K=16 G=1 hd=128 ps=16 pps=64 bf16",
+          "wrapper": measure(lambda: ops.paged_decode_attention(
+              pq, *pools, ptable, p))})
 
     rng = np.random.default_rng(9)
     q = tensor(rng, dev, bf16, 8, 16, 1, 128)
@@ -184,8 +184,11 @@ def main() -> int:
     mask = (torch.arange(1024, device=dev)[None, :]
             <= p[:, None].long())[:, None, None, :]
     F = torch.nn.functional
+    got = ops.decode_attention(q, k, v, p)
     emit({**head, "kernel": "decode_attention",
           "shape": "B=8 K=16 G=1 S=1024 hd=128 bf16, (B, S, K, hd) view",
+          "sha256": hashlib.sha256(
+              got.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
           "wrapper": measure(lambda: ops.decode_attention(q, k, v, p)),
           "library": measure(lambda: F.scaled_dot_product_attention(
               q, k, v, attn_mask=mask))})

@@ -1,18 +1,23 @@
-"""Time the two split kernels at the OLMo-1B decode shapes over their
+"""Time the three split kernels at the OLMo-1B decode shapes over their
 split counts, on one CUDA device.
 
     python3 tools/sweep_splits.py
 
+paged_decode_attention (B=8 K=16 G=1 hd=128 bf16, pages of 16, a table
+of 64 columns, ragged pos up to 1023) over its pages per chunk,
 decode_attention (B=8 K=16 G=1 S=1024 hd=128 bf16, the (B, S, K, hd)
-cache view, ragged pos up to 1023) over its chunk sizes, and the
-int8_matmul skinny_tc route (M = 8, bf16: 2048 -> 2048, 2048 -> 8192,
-8192 -> 2048 and the tied head) over its K splits.  Each configuration is
-launched through the kernel's C entry with the split the wrapper would
-not pick, held to the wrapper's output (bf16 2e-2), and timed as
-chip_smoke.py times kernels (CUDA events, cold L2, median of 30).  The
-wrapper's own choice (ops.decode_attention_splits,
-ops.int8_skinny_tc_splits) is marked.  Prints one JSON line per kernel
-and shape; exits non-zero without a CUDA device.
+cache view, the same pos) over its chunk sizes, and the int8_matmul
+skinny_tc route (M = 8, bf16: 2048 -> 2048, 2048 -> 8192, 8192 -> 2048
+and the tied head) over its K splits.  Each configuration is launched
+with the split given (the paged kernel through ops._paged_decode, the
+others through their C entries), held to the wrapper's output (bf16
+2e-2), and timed as chip_smoke.py times kernels (CUDA events, cold L2,
+a 0.2 ms device-side wait, median of 30).  The wrapper's own choice
+(ops.paged_decode_attention_splits, ops.decode_attention_splits,
+ops.int8_skinny_tc_splits) is marked.  A paged chunking that needs more
+chunks than the kernel's 32-bit running-chunk mask holds is listed as
+not launchable.  Prints one JSON line per kernel and shape, each with
+the card's name and power limit; exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -45,6 +50,27 @@ def main() -> int:
                                    rtol=2e-2)
 
     pos = chip_smoke.olmo_decode_pos(np.random.default_rng(1), 8, 1024)
+    pargs = chip_smoke.paged_case(dev, torch.bfloat16, B=8, K=16, G=1,
+                                  hd=128, ps=16, pps=64, pos=pos, seed=7)
+    want = ops.paged_decode_attention(*pargs)
+    chosen = ops.paged_decode_attention_splits(8, 16, 64, 16, n_sm)
+    times = {}
+    for ppc in sorted({1, 2, 4, 6, 8, 11, 13, 16, 22, 32, 64, chosen[1]}):
+        n = -(-64 // ppc)
+        if n > ops.PAGED_MAX_SPLITS:
+            times[f"{n}x{ppc}"] = f"not launchable: {n} chunks"
+            continue
+
+        def call(n=n, ppc=ppc):
+            return ops._paged_decode(*pargs, 0, 0, splits=(n, ppc))
+        close(call(), want)
+        times[f"{n}x{ppc}"] = chip_smoke.time_ms(call)
+    chip_smoke.emit({"kernel": "paged_decode_attention", "shape": "B=8 K=16 "
+                     "G=1 hd=128 ps=16 pps=64 bf16, pos up to 1023",
+                     "ms_by_splits_x_pages": times,
+                     "wrapper_choice": f"{chosen[0]}x{chosen[1]}",
+                     "card": card})
+
     q, k, v, p = chip_smoke.decode_case(dev, torch.bfloat16, B=8, K=16, G=1,
                                         S=1024, hd=128, pos=pos, seed=9,
                                         strided=True)
