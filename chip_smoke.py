@@ -38,9 +38,17 @@ JSON line:
 4. parity_f32 — a 2-layer full-width OLMo-1B in f32 serves 4 greedy
               requests through the engine in each decode mode (paged
               attention, gather, contiguous) and in the gather mode with
-              int8 weights; its tokens must equal a plain greedy
-              recompute on the card (full forward, plain attention, no
-              cache, every step; for int8 on the dequantized weights).
+              int8 weights; then, on the dense weights, the prefix cache
+              in the paged-attention and gather modes (prompts sharing a
+              256-token prefix, one at a time, then a partial hit: >= 2
+              suffix admissions), the host swap tier (prompts of 230-250
+              tokens on 32 pages for 4 slots of 32, 64 host pages: >= 1
+              swap-out, as many swap-ins) and speculative decoding
+              (paged attention, repetitive prompts: >= 1 verify).  Each run's tokens must
+              equal a plain greedy recompute on the card (full forward,
+              plain attention, no cache, every step; for int8 on the
+              dequantized weights), and each must launch exactly its
+              mode's kernels.
 5. serve_bf16 — a main path: the full OLMo-1B (16 layers, bf16, seeded
               random weights) serves 12 requests through
               InferenceEngine.submit/step in the paged-attention mode,
@@ -64,9 +72,31 @@ JSON line:
               projection of rows x bucket > 16) "tensor_core", the rest
               (decode, the head) "skinny_tc", none "skinny", counted from
               each prefill dispatch's (rows, bucket).
-7. kernels  — per kernel: its launches on the path that runs it, its
-              error against the plain version, its time (CUDA events,
-              median of 30 runs after warm-up, each from a cold L2)
+7. serve_prefix_swap — the same model with paged attention, the prefix
+              cache and a 256-page (512 MiB) pinned host tier on a pool
+              of 192 pages: two waves of requests sharing a 512-token
+              system prefix (see the function).  Exact budgets, >= 6
+              suffix admissions, >= 1 swap-out and as many swap-ins, no
+              host page held at the end and no device page after the
+              cache's flush; launches n_layers x decode_block x decode
+              dispatches (paged decode) and n_layers x full prefill
+              dispatches (flash; a suffix admission attends in plain
+              PyTorch).  It prints the prefill dispatch tokens, the hit
+              rate, the swaps, wave 2's p50 TTFT, the host ms per swap-out
+              and per swap-in, each admission's ms, and one row's full
+              prefill against its suffix admission.
+8. serve_spec — the same model with paged attention and speculation: 12
+              requests, 10 greedy on prompts repeating a random motif,
+              2 sampled.  Exact budgets, >= 1 verify, paged launches
+              n_layers x decode_block x (decode - verify dispatches).  It
+              prints tokens per verify (all slots), accepted drafts per
+              slot and verify, dispatches per token, and
+              how many greedy rows agree with the same traffic with
+              speculation off (bf16: informational).
+9. kernels  — per kernel: its launches on the path that runs it (and on
+              every serve), its error against the plain version, its
+              time (CUDA events, median of 30 runs after warm-up, each
+              from a cold L2)
               beside the plain version's, the least time the card could
               take (bound), and one PyTorch library call computing the
               same function where there is one.  Both decode kernels are
@@ -77,7 +107,10 @@ JSON line:
               8192 -> 2048, the tied head, and serve_int8's widest
               prefill M at all three projection shapes (its "shapes"),
               each with its route and its ratio to the library call
-              ("vs_library").
+              ("vs_library").  Before the line: c5_f32_tile_error (the
+              f32 CUDA-core int8 tile and f32 cuBLAS against f64 at
+              M = 4096) and plain_timings (the verify's plain paged
+              attention at the serves' verify shape).
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -578,6 +611,69 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
     return out
 
 
+def c5_f32_tile_error(dev, ops, q_lib):
+    """ROADMAP C5: the f32 int8 product on the CUDA-core tile route and
+    f32 cuBLAS (the dequantized weight, TF32 off), each against an f64
+    product, at M = 4096 for 2048 -> 8192 and 8192 -> 2048: max |err|,
+    max |err| over sum |x||w| (the scale f32 sums err at), and the entries
+    beyond atol = rtol = 1e-4 of the f64 product and of each other."""
+    rows = []
+    for label, M, K, N in (("2048x8192", 4096, 2048, 8192),
+                           ("8192x2048", 4096, 8192, 2048)):
+        x, wq, sc = int8_case(dev, torch.float32, q_lib, M=M, K=K, N=N,
+                              head=False, seed=20)
+        tile = on_route(ops.int8_matmul, "cuda_core_tile",
+                        lambda: ops.int8_matmul(x, wq, sc))
+        w64 = wq.double() * sc.double()
+        cublas = torch.matmul(x, w64.float())
+        truth = x.double() @ w64
+        scale = x.double().abs() @ w64.abs()
+        row = {"shape": f"M={M} K={K} N={N} f32", "label": label}
+        for name, got in (("tile", tile), ("cublas", cublas)):
+            err = (got.double() - truth).abs()
+            row[name] = {
+                "max_abs_err": float(err.max()),
+                "max_err_over_scale": float((err / scale.clamp_min(1e-30))
+                                            .max()),
+                "beyond_1e-4_of_f64": int((err > 1e-4 + 1e-4
+                                           * truth.abs()).sum())}
+        d = (tile.double() - cublas.double()).abs()
+        row["tile_vs_cublas_beyond_1e-4"] = int(
+            (d > 1e-4 + 1e-4 * cublas.double().abs()).sum())
+        row["tile_is_outlier"] = (row["tile"]["max_abs_err"]
+                                  > 2 * row["cublas"]["max_abs_err"])
+        rows.append(row)
+        del x, wq, sc, tile, cublas, truth, scale, w64
+    emit({"phase": "c5_f32_tile_error", "cases": rows})
+    return rows
+
+
+def plain_timings(dev, ops):
+    """The speculative verify's attention, plain PyTorch on the card (no
+    kernel; JAX runs it as jnp on every backend), timed at the verify
+    shape of the serves: B = 8 slots, Q = spec_draft + 1 = 5, H = 16,
+    hd = 128, pages of 16, 64 a slot, bf16, positions up to 1018."""
+    pos = olmo_decode_pos(np.random.default_rng(6), 8, 1020)
+    _, kp, vp, table, _ = paged_case(dev, torch.bfloat16, B=8, K=16, G=1,
+                                     hd=128, ps=16, pps=64,
+                                     pos=[x + 4 for x in pos], seed=11)
+    q = torch.randn(8, 5, 16, 128, device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev).manual_seed(12))
+    q_pos = (torch.tensor(pos, device=dev)[:, None]
+             + torch.arange(5, device=dev)).to(torch.int32)
+    n_kv = sum(x + 5 for x in pos)           # (slot, position) pairs read
+    nbytes = 2 * n_kv * 16 * 128 * 2 + 2 * q.numel() * 2 + table.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * 5 * n_kv * 16 * 128, BF16_FLOPS)
+    ms = time_ms(lambda: ops.paged_suffix_attention(q, kp, vp, table, q_pos),
+                 reps=10)
+    out = {"paged_suffix_attention": {
+        "shape": "B=8 Q=5 H=16 K=16 hd=128 ps=16 pps=64 bf16, positions up "
+                 "to 1023", "route": "plain PyTorch",
+        "ms": ms, "bound_ms": b_ms, "bound_by": b_by}}
+    emit({"phase": "plain_timings", **out})
+    return out
+
+
 # --------------------------------------------------------------------- #
 # engine phases
 
@@ -595,76 +691,134 @@ def greedy_recompute(tf, params, cfg, prompt, n):
     return out
 
 
-def parity_f32(dev, ops):
+def parity_f32(dev, ops, cfg=None):
     """The 2-layer f32 model in each decode mode, and int8 in the gather
     mode, against the plain greedy recompute (dense, or on the
-    dequantized int8 weights)."""
+    dequantized int8 weights); then the hierarchical KV memory and
+    speculation on the dense weights: the prefix cache in the
+    paged-attention and gather modes (prompts sharing a 256-token prefix,
+    one at a time, then a partial hit), the host swap tier on an
+    oversubscribed pool, and speculative decoding on repetitive prompts.
+    `cfg` replaces the model (a CPU rehearsal)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build
     from repro_torch.models import transformer as tf
     from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
                                      SamplingParams)
     from repro_torch.serving import quantization as q_lib
-    cfg = dataclasses.replace(ARCHS["olmo-1b"], n_layers=2, dtype="f32")
+    cfg = cfg or dataclasses.replace(ARCHS["olmo-1b"], n_layers=2,
+                                     dtype="f32")
     gen = torch.Generator(device=dev).manual_seed(1)
     params = build(cfg, dev).init(gen)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab, n).tolist()
                for n in (1, 17, 100, 300)]
+    shared = rng.integers(0, cfg.vocab, 256).tolist()
+    prefix_prompts = [shared + rng.integers(0, cfg.vocab, n).tolist()
+                      for n in (20, 37)]
+    prefix_prompts.append(shared[:100] + rng.integers(0, cfg.vocab,
+                                                      9).tolist())
+    # two of these fill the 32-page pool: the second one's growth preempts
+    swap_prompts = [rng.integers(0, cfg.vocab, n).tolist()
+                    for n in (240, 250, 230, 245)]
+    motifs = [rng.integers(0, cfg.vocab, n).tolist() for n in (3, 5, 8, 6)]
+    spec_prompts = [(m * (n // len(m) + 1))[:n]
+                    for m, n in zip(motifs, (30, 64, 130, 200))]
     dense = [greedy_recompute(tf, params, cfg, p, 16) for p in prompts]
+    want_prefix = [greedy_recompute(tf, params, cfg, p, 16)
+                   for p in prefix_prompts]
+    want_swap = [greedy_recompute(tf, params, cfg, p, 16)
+                 for p in swap_prompts]
+    want_spec = [greedy_recompute(tf, params, cfg, p, 16)
+                 for p in spec_prompts]
     deq = q_lib.dequant_tree(q_lib.quantize_tree(params, 8))
     int8 = [greedy_recompute(tf, deq, cfg, p, 16) for p in prompts]
     del deq
-    runs = (("paged_attention", dict(paged_attention=True), dense,
-             {"paged_decode_attention", "flash_attention"}),
-            ("gather", {}, dense, {"decode_attention", "flash_attention"}),
-            ("contiguous", dict(paged=False), dense,
-             {"decode_attention", "flash_attention"}),
-            ("gather_int8", dict(quantize="int8"), int8,
-             {"decode_attention", "flash_attention", "int8_matmul"}))
+    paged, gather = ({"paged_decode_attention", "flash_attention"},
+                     {"decode_attention", "flash_attention"})
+    # (mode, engine kwargs, prompts, wants, kernels, serial, check)
+    runs = (("paged_attention", dict(paged_attention=True), prompts, dense,
+             paged, False, None),
+            ("gather", {}, prompts, dense, gather, False, None),
+            ("contiguous", dict(paged=False), prompts, dense, gather, False,
+             None),
+            ("gather_int8", dict(quantize="int8"), prompts, int8,
+             gather | {"int8_matmul"}, False, None),
+            ("prefix_cache_paged", dict(paged_attention=True,
+                                        prefix_cache=True),
+             prefix_prompts, want_prefix, paged, True,
+             lambda st: st["suffix_prefills"] >= 2),
+            ("prefix_cache_gather", dict(prefix_cache=True), prefix_prompts,
+             want_prefix, gather, True,
+             lambda st: st["suffix_prefills"] >= 2),
+            ("swap", dict(kv_pages=32, host_kv_pages=64), swap_prompts,
+             want_swap, gather, False,
+             lambda st: st["swap_outs"] >= 1
+             and st["swap_ins"] == st["swap_outs"]),
+            ("speculative", dict(paged_attention=True, speculative=True),
+             spec_prompts, want_spec, {"flash_attention"}, False,
+             lambda st: st["spec_dispatches"] >= 1))
     lines, mismatches = [], []
-    for mode, kw, wants, kernels in runs:
+    for mode, kw, ps, wants, kernels, serial, check in runs:
         eng = InferenceEngine(cfg, params, EngineConfig(
             n_slots=4, max_len=512, decode_block=4, **kw), device=dev)
         reqs = [Request(model=cfg.name, prompt=p,
                         sampling=SamplingParams(max_tokens=16))
-                for p in prompts]
+                for p in ps]
         ops.reset_launches()
         for r in reqs:
             assert eng.submit(r)
+            if serial:              # each later prompt sees the cache
+                eng.run_until_done()
         eng.run_until_done()
         launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
         ran = {name for name, n in launched.items() if n}
         if ran != kernels:
             raise AssertionError(f"parity_f32 {mode}: kernels {launched}, "
                                  f"want exactly {sorted(kernels)}")
+        st = eng.perf_stats()
+        if check is not None and not check(st):
+            raise AssertionError(f"parity_f32 {mode}: counters {st}")
+        eng.flush_prefix_cache()
+        if eng.pool.pages_in_use or (eng.host_pool is not None
+                                     and eng.host_pool.in_use):
+            raise AssertionError(f"parity_f32 {mode}: pages not returned")
         bad = [{"mode": mode, "prompt_len": len(p), "got": r.output,
-                "want": w} for r, p, w in zip(reqs, prompts, wants)
+                "want": w} for r, p, w in zip(reqs, ps, wants)
                if r.output != w]
         mismatches += bad
-        lines.append({"mode": mode, "launches": launched, "match": not bad})
+        lines.append({"mode": mode, "launches": launched, "match": not bad,
+                      **{k: st[k] for k in (
+                          "suffix_prefills", "swap_outs", "swap_ins",
+                          "spec_dispatches", "spec_emitted", "preemptions")
+                         if st[k]}})
         del eng
     emit({"phase": "parity_f32", "layers": cfg.n_layers, "d_model":
           cfg.d_model, "prompt_lens": [len(p) for p in prompts],
+          "prefix_prompt_lens": [len(p) for p in prefix_prompts],
+          "swap_prompt_lens": [len(p) for p in swap_prompts],
+          "spec_prompt_lens": [len(p) for p in spec_prompts],
           "tokens_each": 16, "runs": lines, "match": not mismatches})
     if mismatches:
         raise AssertionError(f"parity_f32 mismatches: {mismatches}")
 
 
-def serve_setup(dev, **engine_kw):
+def serve_setup(dev, cfg=None, params=None, **engine_kw):
     """The main paths' model, engine and 12 seeded requests: the full
     OLMo-1B in bf16 with random weights from a seed; prompt lengths in
     16..896, budgets in 1..64; 10 greedy and 2 sampled requests.
-    `engine_kw` picks the decode mode and quantization.  Also returns
-    the bf16 weights' bytes."""
+    `engine_kw` picks the decode mode and quantization; `cfg` replaces the
+    model (a CPU rehearsal) and `params` its weights.  Also returns the
+    weights' bytes."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build
     from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
                                      SamplingParams)
     from repro_torch.serving.quantization import tree_bytes
-    cfg = ARCHS["olmo-1b"]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = build(cfg, dev).init(gen)
+    cfg = cfg or ARCHS["olmo-1b"]
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = build(cfg, dev).init(gen)
     dense_bytes = tree_bytes(params)
     ecfg = EngineConfig(n_slots=8, max_len=1024, page_size=16,
                         decode_block=8, **engine_kw)
@@ -708,9 +862,13 @@ def expected_launches(cfg, ecfg, st):
     """Each kernel's launches for a serve with these stats: one attention
     kernel per layer per model call, and under int8 one int8 matmul per
     linear (wq, wk, wv, wo, gate, up, down) per layer plus the tied head
-    per model call (a prefill dispatch or a decode step)."""
+    per model call (a full prefill dispatch or a fused decode step).  A
+    suffix admission and a speculative verify attend in plain PyTorch and
+    launch no attention kernel."""
     n = cfg.n_layers
-    steps = ecfg.decode_block * st["decode_dispatches"]
+    # a speculative verify is a decode dispatch that runs no decode kernel
+    steps = ecfg.decode_block * (st["decode_dispatches"]
+                                 - st["spec_dispatches"])
     paged = st["paged_attention"]
     return {"paged_decode_attention": n * steps if paged else 0,
             "flash_attention": n * st["prefill_dispatches"],
@@ -766,17 +924,9 @@ def serve(phase, dev, ops, card, **engine_kw):
     by_route = {fn.__name__: dict(fn.launches_by_route)
                 for fn in (ops.flash_attention, ops.int8_matmul)}
     st = eng.perf_stats()
-    budgets = [r.sampling.max_tokens for r in reqs]
-    lens = [len(r.output) for r in reqs]
-    if lens != budgets or any(r.error for r in reqs):
-        raise AssertionError(f"{phase} budgets {budgets} got {lens}")
-    if any(not 0 <= t < cfg.vocab for r in reqs for t in r.output):
-        raise AssertionError(f"{phase}: token outside the vocabulary")
+    check_serve(phase, cfg, ecfg, eng, reqs, launches)
     if eng.pool.pages_in_use != 0:
         raise AssertionError(f"{eng.pool.pages_in_use} pages not returned")
-    want = expected_launches(cfg, ecfg, st)
-    if launches != want:
-        raise AssertionError(f"{phase} launches {launches}, want {want}")
     if len(dispatch_shapes) != st["prefill_dispatches"]:
         raise AssertionError(f"{phase}: {len(dispatch_shapes)} prefill "
                              f"shapes for {st['prefill_dispatches']} "
@@ -795,7 +945,8 @@ def serve(phase, dev, ops, card, **engine_kw):
           "paged": st["paged"], "paged_attention": st["paged_attention"],
           "requests": len(reqs),
           "prompt_lens": [len(r.prompt) for r in reqs],
-          "budgets": budgets, "tokens": st["tokens"], "wall_s": wall,
+          "budgets": [r.sampling.max_tokens for r in reqs],
+          "tokens": st["tokens"], "wall_s": wall,
           "tok_per_s": st["tokens"] / wall,
           "p50_step_ms": float(np.median(step_ms)),
           "p50_ttft_ms": float(np.median(ttft)) * 1e3,
@@ -812,6 +963,228 @@ def serve(phase, dev, ops, card, **engine_kw):
           "launches": launches, "launches_by_route": by_route,
           "card": card})
     return launches, by_route, [tuple(s) for s in st["prefill_shapes"]]
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def timed(dev, fn, log):
+    """fn wrapped so each call's host milliseconds go into `log`, with the
+    stream drained before the call and after it: the call's own time,
+    its device work included, none of the work queued before it."""
+    def wrapper(*args, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync(dev)
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapper
+
+
+def check_serve(phase, cfg, ecfg, eng, reqs, launches):
+    """What every serve holds: exact budgets, tokens in the vocabulary,
+    the kernel launches its counters imply."""
+    budgets = [r.sampling.max_tokens for r in reqs]
+    lens = [len(r.output) for r in reqs]
+    if lens != budgets or any(r.error for r in reqs):
+        raise AssertionError(f"{phase} budgets {budgets} got {lens}")
+    if any(not 0 <= t < cfg.vocab for r in reqs for t in r.output):
+        raise AssertionError(f"{phase}: token outside the vocabulary")
+    want = expected_launches(cfg, ecfg, eng.perf_stats())
+    if launches != want:
+        raise AssertionError(f"{phase} launches {launches}, want {want}")
+
+
+def serve_prefix_swap(dev, ops, card, cfg=None, params=None, kv_pages=192):
+    """The prefix cache and the host swap tier on the full OLMo-1B (bf16,
+    paged attention) with a pool of 192 pages where 8 full slots would
+    need 512.  Wave 1: 4 greedy requests of tenant "a", each a shared
+    512-token system prefix plus a private tail of 16-256 tokens, drained.
+    Wave 2: 6 more of "a" on the same prefix (one sampled) and 2 of "b"
+    with private prompts of 64-512 tokens.  Budgets 16-64.  Counters at 0
+    just before wave 1, read after wave 2."""
+    from repro_torch.serving import Request, SamplingParams
+    from repro_torch.serving import engine as engine_mod
+    cfg, ecfg, eng, _, _ = serve_setup(
+        dev, cfg, params, paged_attention=True, prefix_cache=True,
+        host_kv_pages=256, kv_pages=kv_pages)
+    rng = np.random.default_rng(4)
+    system = rng.integers(0, cfg.vocab, 512).tolist()
+
+    def req(tenant, prompt, sampled=False):
+        return Request(model=cfg.name, tenant=tenant, prompt=prompt,
+                       sampling=SamplingParams(
+                           max_tokens=int(rng.integers(16, 65)),
+                           temperature=0.8 if sampled else 0.0,
+                           top_k=40 if sampled else 0))
+
+    def tail(lo, hi):
+        return rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1))
+                            ).tolist()
+    wave1 = [req("a", system + tail(16, 256)) for _ in range(4)]
+    wave2 = [req("a", system + tail(16, 256), sampled=(i == 3))
+             for i in range(6)] + [req("b", tail(64, 512)) for _ in range(2)]
+    swap_out_ms, swap_in_ms, admit_ms = [], [], {"suffix": [], "full": []}
+    engine_mod.swap_out_slot = timed(dev, engine_mod.swap_out_slot,
+                                     swap_out_ms)
+    engine_mod.swap_in_slot = timed(dev, engine_mod.swap_in_slot, swap_in_ms)
+    shapes = {"suffix": [], "full": []}
+
+    def recording(kind, fn):
+        inner = timed(dev, fn, admit_ms[kind])
+
+        def wrapper(toks, *args):
+            shapes[kind].append(tuple(toks.shape))
+            return inner(toks, *args)
+        return wrapper
+    eng._suffix_admit = recording("suffix", eng._suffix_admit)
+    eng._prefill_admit = recording("full", eng._prefill_admit)
+    try:
+        gc.collect()
+        sync(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        drive(eng, wave1)
+        drive(eng, wave2)
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    finally:
+        from repro_torch.serving import kv_hierarchy
+        engine_mod.swap_out_slot = kv_hierarchy.swap_out_slot
+        engine_mod.swap_in_slot = kv_hierarchy.swap_in_slot
+    st = eng.perf_stats()
+    reqs = wave1 + wave2
+    check_serve("serve_prefix_swap", cfg, ecfg, eng, reqs, launches)
+    seen = {k: st[k] for k in ("suffix_prefills", "swap_outs", "swap_ins",
+                               "preemptions", "prefill_dispatches",
+                               "prefix_cache")}
+    if st["suffix_prefills"] < 6:
+        raise AssertionError(f"serve_prefix_swap: want >= 6 suffix "
+                             f"prefills: {seen}")
+    if st["swap_outs"] < 1 or st["swap_ins"] != st["swap_outs"]:
+        raise AssertionError(f"serve_prefix_swap: want >= 1 swap-out and "
+                             f"as many swap-ins: {seen}")
+    # every parked request came back: the host tier holds only the
+    # cache's demoted blocks, and after the flush nothing at all
+    if st["swapped_requests"] or \
+            eng.host_pool.in_use != st["prefix_cache"]["host_pages"]:
+        raise AssertionError(f"serve_prefix_swap: {eng.host_pool.in_use} "
+                             f"host pages held: {seen}")
+    if eng.flush_prefix_cache()["remaining"] or eng.pool.pages_in_use \
+            or eng.host_pool.in_use:
+        raise AssertionError(f"{eng.pool.pages_in_use} device and "
+                             f"{eng.host_pool.in_use} host pages held after "
+                             "the cache flush")
+    # one request's prompt by full prefill (the cache flushed), then one
+    # sharing its 512-token prefix by suffix admission: the same engine,
+    # each timed alone, nothing else in flight
+    probe_ms = {}
+    for kind, prompt in (("full", system + tail(100, 100)),
+                         ("suffix", system + tail(100, 100))):
+        before = len(admit_ms[kind])
+        drive(eng, [Request(model=cfg.name, tenant="a", prompt=prompt,
+                            sampling=SamplingParams(max_tokens=1))])
+        probe_ms[kind] = {"ms": admit_ms[kind][before],
+                          "rows_x_bucket": shapes[kind][before]}
+    eng.flush_prefix_cache()
+    ttft2 = sorted(r.ttft for r in wave2)
+    emit({"phase": "serve_prefix_swap", "model": cfg.name,
+          "layers": cfg.n_layers, "kv_pages": ecfg.kv_pages,
+          "host_kv_pages": ecfg.host_kv_pages, "requests": len(reqs),
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "budgets": [r.sampling.max_tokens for r in reqs],
+          "tokens": st["tokens"], "wall_s": wall,
+          "tok_per_s": st["tokens"] / wall,
+          "prefill_dispatch_tokens": st["prefill_dispatch_tokens"],
+          "suffix_prefills": st["suffix_prefills"],
+          "cache_hit_rate": st["cache_hit_rate"],
+          "prefix_cache": st["prefix_cache"],
+          "swap_outs": st["swap_outs"], "swap_ins": st["swap_ins"],
+          "preemptions": st["preemptions"],
+          "wave2_p50_ttft_ms": float(np.median(ttft2)) * 1e3,
+          "host_ms_per_swap_out": float(np.mean(swap_out_ms)),
+          "host_ms_per_swap_in": float(np.mean(swap_in_ms)),
+          "swap_out_ms": swap_out_ms, "swap_in_ms": swap_in_ms,
+          "suffix_admit_ms": admit_ms["suffix"][:-1],
+          "suffix_shapes": shapes["suffix"][:-1],
+          "full_prefill_ms": admit_ms["full"][:-1],
+          "full_shapes": shapes["full"][:-1],
+          "probe_one_row": probe_ms,
+          "dispatches": st["dispatches"], "host_syncs": st["host_syncs"],
+          "prefill_dispatches": st["prefill_dispatches"],
+          "decode_dispatches": st["decode_dispatches"],
+          "launches": launches, "card": card})
+    return launches
+
+
+def serve_spec(dev, ops, card, cfg=None, params=None):
+    """Speculative decoding on the full OLMo-1B (bf16, paged attention):
+    12 requests, 10 greedy with prompts that repeat a random motif to
+    128-768 tokens and 2 sampled, budgets 16-64; counters at 0 just before,
+    read just after.  The same traffic then runs with speculation off on
+    the same weights, for how often the greedy rows agree (bf16 near-ties
+    may flip an argmax between the verify's and the decode kernel's
+    attention; identity is held in f32 by parity_f32)."""
+    from repro_torch.serving import Request, SamplingParams
+    out = {}
+    for on in (True, False):
+        cfg, ecfg, eng, _, _ = serve_setup(
+            dev, cfg, params, paged_attention=True, speculative=on)
+        params = eng.params
+        rng = np.random.default_rng(5)
+        reqs = []
+        for i in range(12):
+            motif = rng.integers(0, cfg.vocab, int(rng.integers(2, 17)))
+            n = int(rng.integers(128, 769))
+            sampled = i in (3, 8)
+            reqs.append(Request(
+                model=cfg.name, prompt=np.resize(motif, n).tolist(),
+                sampling=SamplingParams(
+                    max_tokens=int(rng.integers(16, 65)),
+                    temperature=0.8 if sampled else 0.0,
+                    top_k=40 if sampled else 0)))
+        gc.collect()
+        sync(dev)
+        ops.reset_launches()
+        step_ms, wall = drive(eng, reqs)
+        launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+        st = eng.perf_stats()
+        check_serve(f"serve_spec (speculative={on})", cfg, ecfg, eng, reqs,
+                    launches)
+        if eng.pool.pages_in_use:
+            raise AssertionError(f"{eng.pool.pages_in_use} pages held")
+        out[on] = (reqs, st, launches, wall, step_ms)
+        del eng
+    reqs, st, launches, wall, step_ms = out[True]
+    if st["spec_dispatches"] < 1:
+        raise AssertionError("serve_spec: no verify dispatch")
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature == 0]
+    agree = sum(reqs[i].output == out[False][0][i].output for i in greedy)
+    # a verify emits a slot's base token plus its accepted drafts
+    accepted = sum(st["spec_slot_accepted"])
+    off = out[False][1]
+    emit({"phase": "serve_spec", "model": cfg.name, "layers": cfg.n_layers,
+          "requests": len(reqs), "prompt_lens": [len(r.prompt) for r in reqs],
+          "budgets": [r.sampling.max_tokens for r in reqs],
+          "tokens": st["tokens"], "wall_s": wall,
+          "tok_per_s": st["tokens"] / wall,
+          "p50_step_ms": float(np.median(step_ms)),
+          "spec_dispatches": st["spec_dispatches"],
+          "spec_emitted": st["spec_emitted"],
+          "tokens_per_verify": st["spec_accepted_per_dispatch"],
+          "accepted_drafts_per_slot_verify": accepted / max(
+              st["spec_emitted"] - accepted, 1),
+          "dispatches_per_token": st["dispatches_per_token"],
+          "dispatches_per_token_spec_off": off["dispatches_per_token"],
+          "decode_dispatches": st["decode_dispatches"],
+          "decode_dispatches_spec_off": off["decode_dispatches"],
+          "wall_s_spec_off": out[False][3],
+          "greedy_rows_agreeing_with_spec_off": f"{agree}/{len(greedy)}",
+          "launches": launches, "card": card})
+    return launches
 
 
 # --------------------------------------------------------------------- #
@@ -862,11 +1235,17 @@ def main() -> int:
         "serve_bf16", dev, ops, card, paged_attention=True)
     int8_launches, int8_routes, int8_shapes = serve(
         "serve_int8", dev, ops, card, quantize="int8")
+    path_launches = {"serve_bf16": bf16_launches, "serve_int8": int8_launches,
+                     "serve_prefix_swap": serve_prefix_swap(dev, ops, card),
+                     "serve_spec": serve_spec(dev, ops, card)}
+    gc.collect()
     # the prefill whose attention did the most work: rows x bucket^2; the
     # widest int8 product: rows x bucket
     widest = max(bf16_shapes, key=lambda s: s[0] * s[1] ** 2)
     int8_m = max(r * b for r, b in int8_shapes)
     timings = kernel_timings(dev, ops, refs, q_lib, widest, int8_m)
+    c5_f32_tile_error(dev, ops, q_lib)
+    plain_timings(dev, ops)
     meta = {
         "paged_decode_attention": (
             "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -881,7 +1260,6 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/int8_matmul.cu",
             "src/repro/kernels/int8_matmul.py:58", "serve_int8"),
     }
-    path_launches = {"serve_bf16": bf16_launches, "serve_int8": int8_launches}
     path_routes = {"serve_bf16": bf16_routes, "serve_int8": int8_routes}
     kernels = []
     for name, (source, replaces, path) in meta.items():
@@ -896,6 +1274,8 @@ def main() -> int:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"], "shape": t["shape"],
+                        "launches_by_path": {ph: ln[name] for ph, ln
+                                             in path_launches.items()},
                         **({"launches_by_route": path_routes[path][name]}
                            if name in path_routes[path] else {}),
                         **({"shapes": t["shapes"]} if "shapes" in t else {}),

@@ -46,7 +46,8 @@ import torch
 from repro_torch.kernels.decode_attention import decode_attention_ref
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.int8_matmul import int8_matmul_ref
-from repro_torch.kernels.paged_attention import paged_decode_attention_ref
+from repro_torch.kernels.paged_attention import (paged_decode_attention_ref,
+                                                 paged_suffix_attention_ref)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -325,6 +326,16 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_suffix_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           q_pos: torch.Tensor) -> torch.Tensor:
+    """Multi-query paged attention for the speculative verify (plain
+    causal): q (B, Q, H, hd), q_pos (B, Q).  Plain PyTorch on every
+    device, as JAX runs its jnp reference on every backend: the verify
+    is Q = spec_draft + 1 rows a slot.  No kernel, so nothing counts."""
+    return paged_suffix_attention_ref(q, k_pool, v_pool, page_table, q_pos)
 
 
 FLASH_ROUTES = ("tensor_core", "cuda_core")

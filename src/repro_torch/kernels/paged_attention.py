@@ -15,6 +15,10 @@ out in plain PyTorch for the tests (the paged counterparts of
 `decode_attention.lse_partials_ref` and `split_decode_ref`, merged by the
 same `merge_lse_ref`); nothing on the card path calls them.
 
+`paged_suffix_attention_ref` is the speculative verify's multi-query
+paged attention: plain PyTorch on every device, as its JAX counterpart is
+jnp on every backend (it is not a Pallas kernel).
+
 Layouts (the JAX package's): q (B, K, G, hd) grouped queries; pools
 (P, ps, K, hd) physical pages of one layer; page_table (B, pps) int32
 with sentinel == P for unmapped entries; pos (B,) int32, the index of the
@@ -114,3 +118,38 @@ def split_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                     window=window, prefix=prefix)
              for c0 in range(0, page_table.shape[1], ppc)]
     return merge_lse_ref(parts, q.dtype)
+
+
+def paged_suffix_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               page_table: torch.Tensor,
+                               q_pos: torch.Tensor) -> torch.Tensor:
+    """Multi-query paged attention: Q tokens per slot at absolute
+    positions `q_pos` (B, Q), causal by position, through the page table.
+    q (B, Q, H, hd); pools (P, ps, K, hd); page_table (B, pps) with
+    sentinel == P.  Returns (B, Q, H, hd).  The counterpart of
+    `repro.kernels.paged_attention.paged_suffix_attention_ref`: all of a
+    row's pages gathered at once instead of page by page, sentinel pages
+    read as zeros and masked (`ids < P`), as are rows past each query's
+    position (`kv_pos <= q_pos`); one softmax over them all."""
+    b, qn, h, hd = q.shape
+    n_pages, ps, nkv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    pps = page_table.shape[1]
+    ids = page_table.long()
+    mapped = ids < n_pages                                   # (B, pps)
+    safe = torch.where(mapped, ids, torch.zeros_like(ids))
+    fill = mapped[:, :, None, None, None]
+    kp = torch.where(fill, k_pool[safe].float(), 0.0).reshape(
+        b, pps * ps, nkv, hd)
+    vp = torch.where(fill, v_pool[safe].float(), 0.0).reshape(
+        b, pps * ps, nkv, hd)
+    qf = (q.float() * hd ** -0.5).reshape(b, qn, nkv, h // nkv, hd)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qf, kp)
+    kv_pos = torch.arange(pps * ps, device=q.device)
+    mask = (kv_pos[None, None, :] <= q_pos.long()[:, :, None]) \
+        & mapped.repeat_interleave(ps, dim=1)[:, None, :]    # (B, Q, S)
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    # softmax, not exp(s - max) / sum: torch's CPU exp has been seen ~1e-4
+    # off on its first call in a loaded process (ROADMAP C9)
+    out = torch.einsum("bqkgs,bskd->bqkgd", torch.softmax(s, dim=-1), vp)
+    return out.reshape(b, qn, h, hd).to(q.dtype)

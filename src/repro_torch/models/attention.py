@@ -1,9 +1,12 @@
 """Attention cores in plain PyTorch: the visibility mask, the GQA fold,
-the reference full attention and the reference decode attention.  The
-model's attention goes through `kernels.ops` (the hand-written kernels
-on the card); `full_attention` and `decode_attention` are the plain
-counterparts of `repro.models.attention`'s and the oracles of the flash
-and decode kernels' plain versions.
+the reference full attention, the suffix attention and the reference
+decode attention.  The model's attention goes through `kernels.ops` (the
+hand-written kernels on the card); `full_attention` and
+`decode_attention` are the plain counterparts of
+`repro.models.attention`'s and the oracles of the flash and decode
+kernels' plain versions.  `suffix_attention` is the prefix-cache
+admission's attention, plain PyTorch on every device as it is jnp on
+every backend in JAX.
 """
 from __future__ import annotations
 
@@ -52,6 +55,30 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    return out.reshape(b, qlen, h, hd).to(q.dtype)
+
+
+def suffix_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, q_pos: torch.Tensor
+                     ) -> torch.Tensor:
+    """Q new tokens per row at per-row absolute positions `q_pos` (B, Q)
+    against caches (B, S, K, hd) that are dense from position 0 and hold
+    the new tokens' KV already; q (B, Q, H, hd).  Causal by absolute
+    position, with `full_attention`'s op sequence (f32 scores divided
+    after the product, `where` to NEG_INF, softmax), so a cached-prefix
+    suffix pass stays aligned with a full prefill.  Cache rows past a
+    query's position are masked with `where`: they may hold anything."""
+    b, qlen, h, hd = q.shape
+    s, nkv = k_cache.shape[1], k_cache.shape[2]
+    qf = _gqa_fold(q, nkv).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf,
+                          k_cache.float()) / (hd ** 0.5)
+    m = torch.arange(s, device=q.device)[None, None, :] \
+        <= q_pos.long()[:, :, None]                              # (B,Q,S)
+    scores = torch.where(m[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v_cache.float())
     return out.reshape(b, qlen, h, hd).to(q.dtype)
 
 

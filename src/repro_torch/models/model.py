@@ -24,12 +24,25 @@ class Model:
     def prefill(self, params, tokens, lengths):
         return tf.prefill(params, self.cfg, tokens, lengths=lengths)
 
+    def prefill_suffix(self, params, cache, tokens, offsets, lengths):
+        """Extend per-row cache views with suffix tokens at per-row
+        offsets (the prefix-cache admission)."""
+        return tf.prefill_suffix(params, self.cfg, cache, tokens, offsets,
+                                 lengths)
+
     def decode(self, params, cache, token, pos):
         return tf.decode_step(params, self.cfg, cache, token, pos)
 
     def decode_paged(self, params, cache, token, pos, page_table,
                      write_table):
         return tf.decode_step_paged(params, self.cfg, cache, token, pos,
+                                    page_table, write_table)
+
+    def verify_paged(self, params, cache, tokens, pos, page_table,
+                     write_table):
+        """The speculative verify: Q tokens a row in one paged forward,
+        causal by absolute position."""
+        return tf.spec_verify_paged(params, self.cfg, cache, tokens, pos,
                                     page_table, write_table)
 
 

@@ -1,6 +1,7 @@
-"""Dense causal decoder: full-sequence forward, bucketed prefill, and one
-decode step against a contiguous cache or straight against the paged KV
-pool.
+"""Dense causal decoder: full-sequence forward, bucketed prefill, the
+prefix-cache suffix prefill, one decode step against a contiguous cache
+or straight against the paged KV pool, and the speculative verify
+against the paged pool.
 
 The counterpart of the dense causal subset of `repro.models.transformer`,
 with the same stacked `(L, ...)` params (see `repro_torch.params`) and
@@ -10,7 +11,9 @@ this loops over them in Python.  Prefill attention runs the flash kernel
 over a contiguous cache (`decode_step`, `kernels.ops.decode_attention`)
 or the paged decode kernel through the page table (`decode_step_paged`,
 `kernels.ops.paged_decode_attention`).  On CPU tensors every kernel
-takes its plain version.
+takes its plain version.  The suffix prefill (`prefill_suffix`) and the
+speculative verify (`spec_verify_paged`) attend in plain PyTorch on
+every device, as JAX's are jnp on every backend.
 
 Under quantize="int8" the params come from
 `serving.quantization.int8_operands`: each matmul weight is a dict leaf
@@ -190,6 +193,64 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     return _logits(params, cfg, last), cache, pos
 
 
+def _land_suffix(cache: torch.Tensor, new: torch.Tensor,
+                 offsets: torch.Tensor) -> None:
+    """Write a suffix block new (B, S_new, K, hd) into cache (B, S, K, hd)
+    at each row's positions offsets[b] + j, in place; positions past S
+    drop, as JAX's per-row mode="drop" scatter.  Done as a gather: each
+    cache position takes the one suffix token aimed at it (or keeps its
+    value), so no two writes ever meet."""
+    b, s = cache.shape[:2]
+    j = torch.arange(s, device=cache.device)[None, :] \
+        - offsets.long()[:, None]                               # (B, S)
+    hit = (j >= 0) & (j < new.shape[1])
+    src = new.gather(1, j.clamp(0, new.shape[1] - 1)[:, :, None, None]
+                     .expand(-1, -1, *new.shape[2:]))
+    cache.copy_(torch.where(hit[:, :, None, None], src.to(cache.dtype),
+                            cache))
+
+
+def prefill_suffix(params: Params, cfg: ArchConfig, cache: Cache,
+                   tokens: torch.Tensor, offsets: torch.Tensor,
+                   lengths: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
+    """Extend per-row caches with a batch of suffix tokens in one pass —
+    the prefix-cache admission.  Rows arrive with `offsets` (B,) cache
+    positions valid already (the shared cached prefix), `tokens` (B, S)
+    right-padded suffix ids and `lengths` (B,) valid suffix counts
+    (>= 1); cache {"k", "v": (L, B, S_view, K, hd)} is the rows' logical
+    views, written in place at positions offsets + j (past S_view they
+    drop; padding lands past `pos`, where every later read masks it).
+    Attention is `attention.suffix_attention`, causal by absolute
+    position, in plain PyTorch as in JAX.  Returns (last_logits (B, V),
+    cache, pos (B,) = offsets + lengths - 1)."""
+    require_dense_causal(cfg)
+    b, s = tokens.shape
+    offsets = offsets.to(tokens.device)
+    lengths = lengths.to(tokens.device)
+    q_pos = offsets.long()[:, None] + torch.arange(s, device=tokens.device)
+    cos, sin = L.rope_cos_sin(q_pos, cfg.head_dim, cfg.rope_theta)
+    h = _embed(params, tokens)                                  # (B,S,D)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        kc, vc = cache["k"][i], cache["v"][i]                   # (B,S',K,hd)
+        x = L.norm(h, lp.get("ln1"), cfg.norm)
+        q = L.apply_rope(_project(x, lp["attn"]["wq"]), cos, sin)
+        k_new = L.apply_rope(_project(x, lp["attn"]["wk"]), cos, sin)
+        v_new = _project(x, lp["attn"]["wv"])
+        _land_suffix(kc, k_new, offsets)
+        _land_suffix(vc, v_new, offsets)
+        a_out = attn_lib.suffix_attention(q, kc, vc, q_pos)
+        h = h + _out_project(a_out, lp["attn"]["wo"])
+        x = L.norm(h, lp.get("ln2"), cfg.norm)
+        h = h + _ffn(lp, x)
+    h = L.norm(h, params.get("final_norm"), cfg.norm)
+    last_idx = (lengths.long() - 1).clamp(0, s - 1)
+    last = h[torch.arange(b, device=h.device), last_idx]        # (B, D)
+    pos = (offsets + lengths - 1).to(torch.int32)
+    return _logits(params, cfg, last), cache, pos
+
+
 # --------------------------------------------------------------------- #
 # decode
 
@@ -236,22 +297,24 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
 
 def _paged_write(pool: torch.Tensor, new_kv: torch.Tensor,
                  write_table: torch.Tensor, w_pos: torch.Tensor) -> None:
-    """Write one token's KV per row into the page pool through the write
-    table, in place.  pool (n_pages + 1, ps, K, hd), its last page the
-    scratch page; new_kv (B, K, hd); w_pos (B,).
+    """Write KV per row into the page pool through the write table, in
+    place.  pool (n_pages + 1, ps, K, hd), its last page the scratch
+    page; new_kv (B, ..., K, hd) at absolute positions w_pos (B, ...): one
+    token a row in decode, Q in the speculative verify.
 
-    Rows whose position is unmapped or cache-shared (the sentinel n_pages
-    in the write table) or past the table drop, as JAX's mode="drop"
-    scatter does: torch has no dropping scatter and a boolean mask would
-    sync with the host, so they write into the scratch page, which no
-    read ever reaches."""
+    Positions that are unmapped or cache-shared (the sentinel n_pages in
+    the write table) or past the table drop, as JAX's mode="drop" scatter
+    does: torch has no dropping scatter and a boolean mask would sync
+    with the host, so they write into the scratch page, which no read
+    ever reaches."""
     scratch, ps = pool.shape[0] - 1, pool.shape[1]
-    pps = write_table.shape[1]
+    b, pps = write_table.shape
     flat = pool.view(-1, *pool.shape[2:])
     w_pos = w_pos.long()
     slot_page = w_pos // ps
-    pid = write_table.gather(1, slot_page.clamp(max=pps - 1)[:, None])[:, 0]
-    pid = torch.where(slot_page < pps, pid.long(), scratch)
+    pid = write_table.gather(1, slot_page.clamp(max=pps - 1).reshape(b, -1))
+    pid = torch.where(slot_page < pps, pid.reshape(slot_page.shape).long(),
+                      scratch)
     flat[pid * ps + w_pos % ps] = new_kv.to(pool.dtype)
 
 
@@ -291,3 +354,39 @@ def decode_step_paged(params: Params, cfg: ArchConfig, cache: Cache,
         h = h + _ffn(lp, x)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
     return _logits(params, cfg, h)[:, 0], cache
+
+
+def spec_verify_paged(params: Params, cfg: ArchConfig, cache: Cache,
+                      tokens: torch.Tensor, pos: torch.Tensor,
+                      page_table: torch.Tensor, write_table: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """The speculative verify: Q = 1 + n_draft tokens a row in one forward
+    against the paged pool, causal by absolute position — the multi-token
+    form of `decode_step_paged`.  tokens (B, Q): the last accepted token
+    and the draft chain; pos (B,): the position of tokens[:, 0].  KV of
+    every fed position is written through the write table in place
+    (rejected drafts leave KV past the accepted position, masked by
+    causality and overwritten when decoding resumes there); attention is
+    `kernels.ops.paged_suffix_attention`, plain PyTorch on every device as
+    in JAX.  Returns (logits (B, Q, V), cache)."""
+    require_dense_causal(cfg)
+    b, qn = tokens.shape
+    q_pos = pos.long()[:, None] + torch.arange(qn, device=tokens.device)
+    cos, sin = L.rope_cos_sin(q_pos, cfg.head_dim, cfg.rope_theta)
+    h = _embed(params, tokens)                                  # (B,Q,D)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        kc, vc = cache["k"][i], cache["v"][i]                   # (P,ps,K,hd)
+        x = L.norm(h, lp.get("ln1"), cfg.norm)
+        q = L.apply_rope(_project(x, lp["attn"]["wq"]), cos, sin)
+        k_new = L.apply_rope(_project(x, lp["attn"]["wk"]), cos, sin)
+        v_new = _project(x, lp["attn"]["wv"])
+        _paged_write(kc, k_new, write_table, q_pos)
+        _paged_write(vc, v_new, write_table, q_pos)
+        a_out = kernel_ops.paged_suffix_attention(q, kc[:-1], vc[:-1],
+                                                  page_table, q_pos)
+        h = h + _out_project(a_out, lp["attn"]["wo"])
+        x = L.norm(h, lp.get("ln2"), cfg.norm)
+        h = h + _ffn(lp, x)
+    h = L.norm(h, params.get("final_norm"), cfg.norm)
+    return _logits(params, cfg, h), cache

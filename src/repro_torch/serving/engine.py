@@ -44,6 +44,25 @@ the two-level DWRR scheduler, page tables grow at decode-block
 boundaries, and on exhaustion the engine preempts the lowest-deficit
 tenant's slot, which later resumes by recomputing its context (prompt +
 tokens so far) without re-emitting a token.
+
+The hierarchical KV memory of `serving.kv_hierarchy`, as in JAX:
+
+* **prefix cache** (`prefix_cache=True`): finished requests donate their
+  page-aligned blocks; an admission that matches a cached prefix maps
+  the shared pages read-only into its table and runs only its suffix
+  (`_admit_suffix`: the rows' views gathered through their tables, the
+  suffix forward in plain PyTorch, the views scattered back through the
+  write tables, one dispatch and one host sync).
+* **host swap tier** (`host_kv_pages > 0`): a preempted slot's private
+  pages move to pinned host memory (one gather, one `.cpu()`), and its
+  resume uploads them and restores the slot state with no prefill.
+
+**Speculative decoding** (`speculative=True`, with paged attention): an
+all-greedy batch takes one verify dispatch instead of the fused block:
+the slot's bigram table proposes `spec_draft` tokens, one paged forward
+scores them, and the longest greedy-matching prefix plus the verifier's
+own next token are emitted, with one host sync.  A batch with a sampled
+row takes the fused path.
 """
 from __future__ import annotations
 
@@ -60,11 +79,15 @@ from repro_torch.device import (DeviceLike, generator_for, resolve_device,
 from repro_torch.models import build
 from repro_torch.params import Params
 from repro_torch.serving import quantization as q_lib
+from repro_torch.serving import spec_decode as spec_lib
 from repro_torch.serving.kv_cache import (PagedKVPool, cache_bytes,
                                           gather_pages, new_pools,
                                           scatter_pages,
                                           scatter_prefill_rows, split_paged,
                                           to_device, write_slots)
+from repro_torch.serving.kv_hierarchy import (HostPagePool, PrefixCache,
+                                              drop_handle, swap_in_slot,
+                                              swap_out_slot)
 from repro_torch.serving.request import (CODE_ENGINE_FAILED,
                                          CODE_INVALID_REQUEST, Request,
                                          RequestState)
@@ -85,11 +108,17 @@ class EngineConfig:
     page_size: int = 16           # KV tokens per physical page
     kv_pages: int = 0             # page budget; 0 => n_slots full strips
     paged: bool = True            # False => contiguous per-slot strips
-    prefix_cache: bool = False    # not ported yet (ROADMAP.md A4)
-    host_kv_pages: int = 0        # not ported yet (ROADMAP.md A4)
+    # hierarchical KV memory (kv_hierarchy): both tiers default off
+    prefix_cache: bool = False    # cross-request prefix page reuse
+    prefix_cache_pages: int = 0   # device pages the cache may pin; 0 => no cap
+    host_kv_pages: int = 0        # host-DRAM swap-tier pages; 0 => off
+    prefix_share_tenants: bool = False  # share prefix blocks across tenants
+    # paged attention + on-device speculative decoding
     paged_attention: bool = False  # attend through the page table (no
     #                                per-dispatch gather/scatter copy)
-    speculative: bool = False     # not ported yet (ROADMAP.md A4)
+    speculative: bool = False     # n-gram propose + batched greedy verify
+    spec_draft: int = 4           # draft tokens proposed per verify
+    spec_table: int = 512         # proposer hash-table buckets (pow2)
 
 
 class EngineFailure(RuntimeError):
@@ -101,17 +130,6 @@ def _next_pow2(n: int) -> int:
     while p < n:
         p <<= 1
     return p
-
-
-def _unsupported(ecfg: EngineConfig) -> List[str]:
-    out = []
-    if ecfg.prefix_cache:
-        out.append("prefix_cache")
-    if ecfg.host_kv_pages:
-        out.append("host_kv_pages")
-    if ecfg.speculative:
-        out.append("speculative")
-    return out
 
 
 def _to(params: Params, device: torch.device) -> Params:
@@ -129,11 +147,6 @@ class InferenceEngine:
                  scheduler: Optional[Scheduler] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        missing = _unsupported(engine_cfg)
-        if missing:
-            raise NotImplementedError(
-                f"engine features not ported yet (ROADMAP.md A4): "
-                f"{', '.join(missing)}")
         if engine_cfg.quantize not in ("", "int8", "int4"):
             raise ValueError(f"quantize={engine_cfg.quantize!r}: "
                              "'', 'int8' or 'int4'")
@@ -154,6 +167,16 @@ class InferenceEngine:
         # page-aware admission: the scheduler charges each queued request
         # its projected page cost against the engine's free page budget
         self.scheduler.pages_for = self._pages_for
+        # prefix reuse needs page-aligned bucketed prefill over a plain
+        # causal decoder: every model the port builds is one, so the
+        # paged pool is the condition (JAX also checks the model family)
+        self._prefix_ok = self._paged
+        # speculation needs the paged-attention verify and the same
+        # predicate as the prefix cache
+        self._spec_ok = (engine_cfg.speculative and self._paged_attn
+                         and self._prefix_ok)
+
+        self._swapped: Dict[int, Any] = {}   # request_id -> SwapHandle
         # weights at rest: as given, or quantized (what memory_report
         # counts); int8 also builds its kernel operands here, once
         self.params = _to(params, self.device)
@@ -174,6 +197,16 @@ class InferenceEngine:
             self.cache = {name: torch.zeros(shape, dtype=dt,
                                             device=self.device)
                           for name in ("k", "v")}
+        self.host_pool = (HostPagePool(engine_cfg.host_kv_pages,
+                                       split_paged(self.cache)[0],
+                                       pin=self.device.type == "cuda")
+                          if engine_cfg.host_kv_pages > 0 and self._paged
+                          else None)
+        self.prefix_cache = (
+            PrefixCache(self.pool, host=self.host_pool,
+                        max_device_pages=engine_cfg.prefix_cache_pages,
+                        share_tenants=engine_cfg.prefix_share_tenants)
+            if engine_cfg.prefix_cache and self._prefix_ok else None)
         self.slot_req: Dict[int, Request] = {}
         # persistent per-slot device state, written in place on admission,
         # release and cancel, and by the fused decode
@@ -187,6 +220,11 @@ class InferenceEngine:
         self.top_ks = torch.zeros(ns, **i32)
         self.top_ps = torch.ones(ns, dtype=torch.float32, device=dev)
         self.eos_ids = torch.full((ns,), -1, **i32)
+        # the speculative proposer: a bigram table per slot and the token
+        # before last_tok (the chain seed), wiped on admission and
+        # release so a reused slot never proposes from another stream
+        self.spec_table, self.spec_prev = spec_lib.init_tables(
+            ns, engine_cfg.spec_table, dev)
         # logical KV bytes one fused dispatch moves: the gather mode
         # copies every slot's logical view out and back (2x view); the
         # paged-attention mode only writes K new tokens' KV in place
@@ -199,30 +237,55 @@ class InferenceEngine:
                 self._view_bytes += (per_tok * ns * self.pool.pages_per_slot
                                      * self.pool.page_size)
                 self._write_token_bytes += per_tok * ns
+        # decode-boundary page growth also covers a verify's D + 1 writes
+        self._growth = (max(engine_cfg.decode_block,
+                            engine_cfg.spec_draft + 1) if self._spec_ok
+                        else engine_cfg.decode_block)
         # metrics
         self.total_tokens = 0
         self.total_steps = 0
         self.step_ewma_s = 0.0
         self.dispatches = 0       # device programs issued
-        self.prefill_dispatches = 0   # of which bucketed prefills
-        self.decode_dispatches = 0    # of which fused K-step decodes
+        self.prefill_dispatches = 0   # of which full (flash) prefills
+        self.decode_dispatches = 0    # of which decodes: fused or verify
         self.host_syncs = 0       # blocking device->host transfers
         self.prefill_traces = 0   # distinct prefill programs (pad_n, bucket)
         self.decode_traces = 0    # distinct decode programs (modes)
+        self.suffix_traces = 0    # distinct suffix programs (pad_n, bucket)
         self.preemptions = 0      # slots evicted on page exhaustion
         self.prefill_dispatch_tokens = 0   # rows x bucket actually forwarded
+        self.suffix_prefills = 0  # rows admitted through a cached prefix
+        self.swap_outs = 0        # slots parked in the host tier
+        self.swap_ins = 0         # slots restored with no prefill
         self.logical_bytes_moved = 0       # KV bytes copied/written
+        self.spec_traces = 0      # distinct verify programs (one)
+        self.spec_dispatches = 0  # verify dispatches issued
+        self.spec_emitted = 0     # tokens the verifies emitted
+        self.spec_slot_accepted = np.zeros((ns,), np.int64)  # drafts/slot
         self._prefill_programs: Set[Tuple[int, int]] = set()
+        self._suffix_programs: Set[Tuple[int, int]] = set()
         self._decode_programs: Set[str] = set()
 
     def _pages_for(self, req: Request) -> int:
         """Projected page cost of admitting `req` now: its full context
         (prompt + tokens already generated) plus one position of decode
-        headroom; a contiguous strip always costs `max_len`."""
+        headroom, net of the prefix-cache pages it would map for free
+        and, for a swap-parked request, of the shared pages its handle
+        still holds on the device; a contiguous strip always costs
+        `max_len`."""
         if not self._paged:
             return self.pool.pages_per_slot
+        handle = self._swapped.get(req.request_id)
+        if handle is not None:
+            return max(len(handle.host), 1)
         eff = len(req.prompt) + len(req.output)
-        return self.pool.pages_for_tokens(min(eff + 1, self.ecfg.max_len))
+        need = self.pool.pages_for_tokens(min(eff + 1, self.ecfg.max_len))
+        if self.prefix_cache is not None:
+            cached = self.prefix_cache.peek(
+                req.tenant, list(req.prompt) + list(req.output),
+                eff - 1) // self.pool.page_size
+            need = max(need - cached, 1)
+        return need
 
     def _bucket_of(self, prompt_len: int) -> int:
         """Power-of-two padded length bucket, capped at max_len."""
@@ -259,23 +322,34 @@ class InferenceEngine:
         at the next dispatch boundary.  Returns "queued" when it never held
         a slot, "active" when it did, False when unknown."""
         if self.scheduler.cancel(request_id):
+            handle = self._swapped.pop(request_id, None)
+            if handle is not None:       # parked in the host swap tier
+                drop_handle(self.pool, self.host_pool, handle)
+            if self.prefix_cache is not None:
+                self.prefix_cache.unbind(request_id)
             return "queued"
         for slot, req in list(self.slot_req.items()):
             if req.request_id == request_id:
                 del self.slot_req[slot]
+                if self.prefix_cache is not None:
+                    self.prefix_cache.unbind(request_id)
                 self.pool.release(slot)
                 self._release_device_slot(slot)
                 return "active"
         return False
 
     def _release_device_slot(self, slot: int):
-        """Zero the slot's device state so the next fused dispatch can't
-        decode or sample it with stale values."""
+        """Zero the slot's device state so the next dispatch can't decode
+        or sample it with stale values, and wipe its proposer row and
+        chain seed so no draft of this request reaches the slot's next
+        one."""
         self.last_tok[slot] = 0
         self.pos[slot] = 0
         self.active[slot] = False
         self.remaining[slot] = 0
         self.temps[slot] = 0.0
+        self.spec_table[slot] = -1
+        self.spec_prev[slot] = -1
         self.dispatches += 1
 
     # ------------------------------------------------------------- #
@@ -302,7 +376,7 @@ class InferenceEngine:
             return 0
         debt = 0
         for slot in self.slot_req:
-            target = min(self.pool.lengths[slot] + self.ecfg.decode_block,
+            target = min(self.pool.lengths[slot] + self._growth,
                          self.ecfg.max_len)
             debt += max(self.pool.pages_for_tokens(target)
                         - len(self.pool.slot_pages[slot]), 0)
@@ -310,17 +384,83 @@ class InferenceEngine:
 
     def _admit(self):
         budget = len(self.pool.free_pages) - self._decode_page_debt()
+        if self.prefix_cache is not None:
+            # LRU cache pages are reclaimable on demand: they count into
+            # the admission budget, so the cache never blocks admission
+            budget += self.prefix_cache.evictable_device_pages()
         group = self.scheduler.next_prefill_bucket(
             len(self.pool.free_slots), self._bucket_of,
             free_pages=max(budget, 0))
-        if group:
-            self._admit_prefill(group)
+        want = 1
+        while not group and not self.slot_req and self.scheduler.depth \
+                and self.prefix_cache is not None:
+            # idle with work queued: the budget counts only what the cache
+            # can hand back at once, and no running slot will free a page,
+            # so the cache gives back pages (LRU, twice as many each round)
+            # until the head fits, and at last everything unpinned (the
+            # JAX engine waits forever here; ROADMAP C8)
+            if not self.prefix_cache.reclaim(want, self._demote_target()) \
+                    and not self.prefix_cache.flush()["flushed"]:
+                break
+            want *= 2
+            group = self.scheduler.next_prefill_bucket(
+                len(self.pool.free_slots), self._bucket_of,
+                free_pages=len(self.pool.free_pages)
+                + self.prefix_cache.evictable_device_pages())
+        if not group:
+            return
+        # partition: swap-parked resumes restore with no prefill, prefix-
+        # cache hits prefill only their suffix, the rest take the full
+        # bucketed prefill (up to three dispatches when mixed)
+        swaps = [r for r in group if r.request_id in self._swapped]
+        fresh = [r for r in group if r.request_id not in self._swapped]
+        if swaps:
+            self._admit_swapped(swaps)
+        hits, plain = [], fresh
+        if self.prefix_cache is not None and fresh:
+            hits, plain = [], []
+            paged, _ = split_paged(self.cache)
+            for req in fresh:
+                toks = list(req.prompt) + list(req.output)
+                entries, matched, promoted = self.prefix_cache.match(
+                    req.tenant, toks, len(toks) - 1, paged=paged)
+                if promoted:                    # host-tier promotion
+                    self.dispatches += 1
+                if entries:
+                    # pin at once: a later reclaim (another row's
+                    # shortfall, a promotion) must not evict these before
+                    # the suffix admission maps their pages
+                    self.prefix_cache.bind(req.request_id, entries)
+                    hits.append((req, entries, matched))
+                else:
+                    plain.append(req)
+        if hits:
+            self._admit_suffix(hits)
+        if plain:
+            self._admit_prefill(plain)
+
+    def _reclaim_shortfall(self, want: int):
+        """Feed the free list from LRU refcount-0 cache pages before an
+        allocation would fail (demoting them to the host tier when one is
+        attached)."""
+        short = want - len(self.pool.free_pages)
+        if short > 0 and self.prefix_cache is not None:
+            self.prefix_cache.reclaim(short, self._demote_target())
+
+    def _demote_target(self) -> Optional[Dict]:
+        """The pools evicted cache blocks are demoted from (to the host
+        tier), or None to drop them when there is no host tier."""
+        return split_paged(self.cache)[0] if self.host_pool else None
 
     def _admit_prefill(self, group: List[Request]):
         admitted: List[Tuple[int, Request]] = []
         for req in group:
+            eff = len(req.prompt) + len(req.output)
+            self._reclaim_shortfall(
+                self.pool.pages_for_tokens(eff) if self._paged
+                else self.pool.pages_per_slot)
             slot = self.pool.alloc(
-                req.request_id, len(req.prompt) + len(req.output),
+                req.request_id, eff,
                 reserve_tokens=0 if self._paged else self.ecfg.max_len)
             if slot is None:                    # defensive; the admission
                 self.scheduler.requeue(req)     # budget above bounds the
@@ -340,23 +480,13 @@ class InferenceEngine:
         row_pages = np.full((pad_n, n_row_pages), self.pool.n_pages,
                             np.int32)              # sentinel => dropped
         slots = np.zeros((n,), np.int64)
-        r_i32 = np.zeros((3, pad_n), np.int32)     # top_k, eos, budget
-        r_f32 = np.zeros((2, pad_n), np.float32)   # temperature, top_p
-        r_f32[1] = 1.0
-        r_i32[1] = -1
-        r_i32[2] = 1
+        r_i32, r_f32 = self._row_params(pad_n, admitted)
         for i, (slot, req) in enumerate(admitted):
             prompt = list(req.prompt) + list(req.output)   # resume ctx
             toks[i, :len(prompt)] = prompt
             lengths[i] = len(prompt)
             slots[i] = slot
             row_pages[i] = self.pool.row_pages(slot, n_row_pages)
-            s = req.sampling
-            r_f32[0, i] = s.temperature
-            r_f32[1, i] = s.top_p if s.top_p < 1.0 else ecfg.top_p
-            r_i32[0, i] = s.top_k if s.top_k > 0 else ecfg.top_k
-            r_i32[1, i] = s.eos_id
-            r_i32[2, i] = s.max_tokens - len(req.output)
         first, done0 = self._prefill_admit(toks, lengths, row_pages, slots,
                                            r_i32, r_f32)
         self.dispatches += 1
@@ -365,6 +495,29 @@ class InferenceEngine:
         host = torch.stack([first, done0.to(torch.int32)]).cpu().numpy()
         self.host_syncs += 1
         self._post_admit(admitted, host[0], host[1])
+
+    def _row_params(self, pad_n: int, admitted: List[Tuple[int, Request]]
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-row admission params of a padded batch: r_i32 rows top_k,
+        eos, budget and the chain seed (the context's last token, which
+        precedes the first sampled one); r_f32 rows temperature, top_p.
+        Padded rows: greedy, no eos, budget 1, no seed."""
+        ecfg = self.ecfg
+        r_i32 = np.zeros((4, pad_n), np.int32)
+        r_f32 = np.zeros((2, pad_n), np.float32)
+        r_f32[1] = 1.0
+        r_i32[1] = -1
+        r_i32[2] = 1
+        r_i32[3] = -1
+        for i, (_, req) in enumerate(admitted):
+            s = req.sampling
+            r_f32[0, i] = s.temperature
+            r_f32[1, i] = s.top_p if s.top_p < 1.0 else ecfg.top_p
+            r_i32[0, i] = s.top_k if s.top_k > 0 else ecfg.top_k
+            r_i32[1, i] = s.eos_id
+            r_i32[2, i] = s.max_tokens - len(req.output)
+            r_i32[3, i] = (list(req.prompt) + list(req.output))[-1]
+        return r_i32, r_f32
 
     def _prefill_admit(self, toks, lengths, row_pages, slots, r_i32, r_f32):
         """The admission program: forward, the rows' KV into their pages
@@ -380,16 +533,24 @@ class InferenceEngine:
             self.prefill_traces += 1
         dev = self.device
         tokens = to_device(toks, dev)
-        ri = to_device(r_i32, dev)
-        rf = to_device(r_f32, dev)
-        r_topk, r_eos, r_budget = ri[0], ri[1], ri[2]
-        r_temps, r_topp = rf[0], rf[1]
         logits, rows, pos1 = self.model.prefill(
             self._run_params(), tokens, lengths=to_device(lengths, dev))
         if self._paged:
             scatter_prefill_rows(self.cache, rows, row_pages)
         else:
             write_slots(self.cache, rows, slots)
+        return self._admit_rows(logits, pos1, slots, r_i32, r_f32)
+
+    def _admit_rows(self, logits, pos1, slots, r_i32, r_f32):
+        """The tail both admission programs share: sample each row's first
+        token and write the admitted rows' slot state (sampling params,
+        budget, a fresh proposer row seeded with the context's last
+        token).  Returns (first, done0) of the padded batch."""
+        dev = self.device
+        ri = to_device(r_i32, dev)
+        rf = to_device(r_f32, dev)
+        r_topk, r_eos, r_budget, r_prev = ri[0], ri[1], ri[2], ri[3]
+        r_temps, r_topp = rf[0], rf[1]
         first = sample_batched(logits, self._gen, r_temps, r_topk, r_topp)
         done0 = ((r_budget <= 1) | ((r_eos >= 0) & (first == r_eos))
                  # prompt fills the cache: no room to decode further
@@ -404,6 +565,8 @@ class InferenceEngine:
         self.top_ks[idx] = r_topk[:n]
         self.top_ps[idx] = r_topp[:n]
         self.eos_ids[idx] = r_eos[:n]
+        self.spec_table[idx] = -1
+        self.spec_prev[idx] = r_prev[:n]
         return first, done0
 
     def _post_admit(self, admitted: List[Tuple[int, Request]],
@@ -421,7 +584,159 @@ class InferenceEngine:
                 self.slot_req[slot] = req
 
     def _finish_slot(self, slot: int, req: Request):
+        """Free a finishing slot, donating its page-aligned blocks to the
+        prefix cache first (the cache `retain`s them, so the release
+        leaves the cache holding the last reference)."""
+        if self.prefix_cache is not None:
+            if not req.error and not req.cancelled:
+                n = self.pool.lengths[slot]
+                toks = (list(req.prompt) + list(req.output))[:n]
+                self.prefix_cache.insert(req.tenant, toks, n,
+                                         self.pool.slot_pages[slot])
+            self.prefix_cache.unbind(req.request_id)
         self.pool.release(slot)
+
+    # ---- prefix-cache hits: suffix-only bucketed prefill ---------- #
+    def _admit_suffix(self, hits):
+        pps = self.pool.pages_per_slot
+        admitted: List[Tuple[int, Request]] = []
+        matched_of: Dict[int, int] = {}
+        for req, entries, matched in hits:
+            eff = len(req.prompt) + len(req.output)
+            shared = [e.page for e in entries]
+            self._reclaim_shortfall(
+                self.pool.pages_for_tokens(eff) - len(shared))
+            slot = self.pool.alloc(req.request_id, eff,
+                                   shared_pages=shared)
+            if slot is None:            # entries were pinned at match
+                self.prefix_cache.unbind(req.request_id)
+                self.scheduler.requeue(req)
+                continue
+            req.state = RequestState.PREFILLING
+            admitted.append((slot, req))
+            matched_of[slot] = matched
+        if not admitted:
+            return
+        bucket = self._bucket_of(max(
+            (len(r.prompt) + len(r.output)) - matched_of[s]
+            for s, r in admitted))
+        n = len(admitted)
+        pad_n = _next_pow2(n)
+        toks = np.zeros((pad_n, bucket), np.int64)
+        offsets = np.zeros((pad_n,), np.int32)
+        lengths = np.ones((pad_n,), np.int32)
+        slots = np.zeros((n,), np.int64)
+        read_tables = np.full((pad_n, pps), self.pool.n_pages, np.int32)
+        write_tables = np.full((pad_n, pps), self.pool.n_pages, np.int32)
+        r_i32, r_f32 = self._row_params(pad_n, admitted)
+        for i, (slot, req) in enumerate(admitted):
+            prompt = list(req.prompt) + list(req.output)
+            matched = matched_of[slot]
+            suffix = prompt[matched:]
+            toks[i, :len(suffix)] = suffix
+            offsets[i] = matched
+            lengths[i] = len(suffix)
+            slots[i] = slot
+            read_tables[i] = self.pool.row_pages(slot, pps)
+            write_tables[i] = read_tables[i]
+            # shared prefix blocks are read-only: writes there drop
+            write_tables[i, :matched // self.pool.page_size] = \
+                self.pool.n_pages
+        first, done0 = self._suffix_admit(toks, offsets, lengths, slots,
+                                          read_tables, write_tables,
+                                          r_i32, r_f32)
+        self.dispatches += 1
+        # admission gathers and scatters one logical view a padded row
+        self.logical_bytes_moved += \
+            2 * (self._view_bytes // self.ecfg.n_slots) * pad_n
+        self.prefill_dispatch_tokens += pad_n * bucket
+        self.suffix_prefills += n
+        host = torch.stack([first, done0.to(torch.int32)]).cpu().numpy()
+        self.host_syncs += 1
+        self._post_admit(admitted, host[0], host[1])
+
+    def _suffix_admit(self, toks, offsets, lengths, slots, read_tables,
+                      write_tables, r_i32, r_f32):
+        """The suffix admission program: each row's logical view gathered
+        through its full table (shared prefix and private pages), the
+        suffix-only forward, the views scattered back through the write
+        tables (shared pages masked to the sentinel, so their writes land
+        in the scratch page), then `_admit_rows`.  Padded rows read and
+        write only the scratch page."""
+        if toks.shape not in self._suffix_programs:
+            self._suffix_programs.add(toks.shape)
+            self.suffix_traces += 1
+        dev = self.device
+        pool_p, _ = split_paged(self.cache)
+        view = gather_pages(pool_p, to_device(read_tables, dev))
+        logits, view, pos1 = self.model.prefill_suffix(
+            self._run_params(), view, to_device(toks, dev),
+            to_device(offsets, dev), to_device(lengths, dev))
+        scatter_pages(pool_p, view, to_device(write_tables, dev))
+        return self._admit_rows(logits, pos1, slots, r_i32, r_f32)
+
+    # ---- swap-parked resumes: restore with no prefill ------------- #
+    def _admit_swapped(self, swaps: List[Request]):
+        paged, _ = split_paged(self.cache)
+        restored: List[Tuple[int, Request]] = []
+        for req in swaps:
+            handle = self._swapped[req.request_id]
+            self._reclaim_shortfall(len(handle.host))
+            res = swap_in_slot(self.pool, self.host_pool, paged, handle)
+            if res is None:
+                # slots or pages short right now: fall back to the
+                # recompute resume so progress never livelocks on swap
+                del self._swapped[req.request_id]
+                drop_handle(self.pool, self.host_pool, handle)
+                self.scheduler.requeue(req)
+                continue
+            slot, uploaded = res
+            if uploaded:
+                self.dispatches += 1        # the swap-in scatter
+            del self._swapped[req.request_id]
+            self.swap_ins += 1
+            restored.append((slot, req))
+        if not restored:
+            return
+        ecfg = self.ecfg
+        n = len(restored)
+        slots = np.zeros((n,), np.int64)
+        # rows: last token, pos, budget, top_k, eos, chain seed
+        r_i32 = np.zeros((6, n), np.int32)
+        r_f32 = np.zeros((2, n), np.float32)   # temperature, top_p
+        for i, (slot, req) in enumerate(restored):
+            s = req.sampling
+            slots[i] = slot
+            r_i32[:, i] = (req.output[-1], self.pool.lengths[slot],
+                           s.max_tokens - len(req.output),
+                           s.top_k if s.top_k > 0 else ecfg.top_k,
+                           s.eos_id,
+                           req.output[-2] if len(req.output) >= 2
+                           else list(req.prompt)[-1])
+            r_f32[:, i] = (s.temperature,
+                           s.top_p if s.top_p < 1.0 else ecfg.top_p)
+            req.state = RequestState.DECODING
+            self.slot_req[slot] = req
+        self._restore_slots(slots, r_i32, r_f32)
+        self.dispatches += 1
+
+    def _restore_slots(self, slots, r_i32, r_f32):
+        """Swap-in resume: rebuild the slots' decode state known on the
+        host at park time — no model forward.  Queued on the device."""
+        dev = self.device
+        idx = to_device(slots, dev)
+        ri = to_device(r_i32, dev)
+        rf = to_device(r_f32, dev)
+        self.last_tok[idx] = ri[0]
+        self.pos[idx] = ri[1]
+        self.active[idx] = True
+        self.remaining[idx] = ri[2]
+        self.temps[idx] = rf[0]
+        self.top_ks[idx] = ri[3]
+        self.top_ps[idx] = rf[1]
+        self.eos_ids[idx] = ri[4]
+        self.spec_table[idx] = -1
+        self.spec_prev[idx] = ri[5]
 
     def _decode_mode(self) -> str:
         """The cheapest decode program the current batch permits: the host
@@ -448,11 +763,27 @@ class InferenceEngine:
                                    len(kv[1].output), -kv[0]))[0]
 
     def _preempt(self, slot: int):
-        """Evict `slot`: refund its pages and requeue the request at the
-        front of its tenant queue; it resumes by recomputing prompt +
-        tokens so far, keeping every token it emitted."""
+        """Evict `slot`: park its private pages in the host swap tier when
+        one is attached (O(pages) moved, no prefill on resume), else
+        refund its pages for the recompute resume (prompt + tokens so
+        far).  Either way the request keeps every token it emitted and
+        re-enters the front of its tenant queue."""
         req = self.slot_req.pop(slot)
-        self.pool.release(slot)
+        swapped = False
+        if self.host_pool is not None:
+            paged, _ = split_paged(self.cache)
+            handle = swap_out_slot(self.pool, self.host_pool, paged, slot)
+            if handle is not None:
+                self._swapped[req.request_id] = handle
+                self.swap_outs += 1
+                self.dispatches += 1    # the page gather
+                self.host_syncs += 1    # one .cpu() moves the blocks
+                swapped = True
+        if not swapped:
+            if self.prefix_cache is not None:
+                # the recompute resume matches and binds again at admission
+                self.prefix_cache.unbind(req.request_id)
+            self.pool.release(slot)
         self.pool.preemptions += 1
         self.preemptions += 1
         self._release_device_slot(slot)
@@ -460,16 +791,25 @@ class InferenceEngine:
 
     def _ensure_decode_pages(self):
         """Grow every active slot's pages to cover the next fused block,
-        preempting lowest-deficit slots until the growth fits."""
+        preempting lowest-deficit slots until the growth fits.  A lone
+        slot that cannot grow takes pages back from the prefix cache
+        instead: preempting it would park it and restore it into the same
+        shortage forever (the JAX engine does; ROADMAP C8)."""
         if not self._paged:
             return
-        k = self.ecfg.decode_block
+        k = self._growth
         for slot in sorted(self.slot_req):
             if slot not in self.slot_req:      # evicted by a prior pass
                 continue
             target = min(self.pool.lengths[slot] + k, self.ecfg.max_len)
             while slot in self.slot_req \
                     and not self.pool.grow(slot, target):
+                if len(self.slot_req) == 1 and self.prefix_cache is not None \
+                        and self.prefix_cache.evictable_device_pages():
+                    self._reclaim_shortfall(
+                        self.pool.pages_for_tokens(target)
+                        - len(self.pool.slot_pages[slot]))
+                    continue
                 victim = self._pick_victim()
                 if victim is None:
                     break
@@ -481,14 +821,23 @@ class InferenceEngine:
         if not self.slot_req:
             return 0
         mode = self._decode_mode()
-        toks, emits, dones = self._fused_decode(mode)
-        if self._paged_attn:
-            # page-table-direct: only the block's new KV is written
+        spec = self._spec_ok and mode == "greedy"
+        if spec:
+            # one verify proposes and checks D drafts and emits up to
+            # D + 1 tokens a slot, with the fused path's single host sync
+            toks, emits, dones = self._spec_decode()
+            self.spec_dispatches += 1
             self.logical_bytes_moved += \
-                self.ecfg.decode_block * self._write_token_bytes
-        elif self._paged:
-            # gather + scatter move every slot's full logical view
-            self.logical_bytes_moved += 2 * self._view_bytes
+                (self.ecfg.spec_draft + 1) * self._write_token_bytes
+        else:
+            toks, emits, dones = self._fused_decode(mode)
+            if self._paged_attn:
+                # page-table-direct: only the block's new KV is written
+                self.logical_bytes_moved += \
+                    self.ecfg.decode_block * self._write_token_bytes
+            elif self._paged:
+                # gather + scatter move every slot's full logical view
+                self.logical_bytes_moved += 2 * self._view_bytes
         self.dispatches += 1
         self.decode_dispatches += 1
         host = torch.stack([toks, emits.to(torch.int32),
@@ -506,11 +855,57 @@ class InferenceEngine:
             self.pool.advance(slot, len(block))
             emitted += len(block)
             self.total_tokens += len(block)
+            if spec:
+                self.spec_emitted += len(block)
+                # tokens beyond the first came from accepted drafts
+                self.spec_slot_accepted[slot] += max(len(block) - 1, 0)
             if done_h[:, slot].any():
                 req.finish()
                 del self.slot_req[slot]
                 self._finish_slot(slot, req)
         return emitted
+
+    def _spec_decode(self):
+        """One speculative step, greedy only: propose `spec_draft` tokens
+        from each slot's bigram table, verify [last_tok, drafts] in one
+        paged forward, and emit the longest prefix of drafts equal to the
+        verifier's argmax plus the verifier's own next token — the tokens
+        sequential greedy decoding emits.  Missing proposals (-1) go in as
+        token 0 and are never accepted.  Nothing here waits on the
+        device.  Returns (D + 1, n_slots) token, emit and done tensors."""
+        self.spec_traces = 1          # one program, whatever the batch
+        d = self.ecfg.spec_draft
+        drafts = spec_lib.propose(self.spec_table, self.spec_prev,
+                                  self.last_tok, d)
+        x = torch.cat([self.last_tok[:, None], drafts.clamp_min(0)], dim=1)
+        logits, _ = self.model.verify_paged(
+            self._run_params(), self.cache, x, self.pos,
+            self.pool.page_table(), self.pool.write_table())
+        greedy = logits.argmax(-1).to(torch.int32)              # (B, D+1)
+        n_acc = spec_lib.accept_length(drafts, greedy[:, :d])
+        last, prev, pos = self.last_tok, self.spec_prev, self.pos
+        active, remaining = self.active, self.remaining
+        eos = self.eos_ids
+        toks, emits, dones = [], [], []
+        for i in range(d + 1):
+            emit = active & (i <= n_acc)
+            tok = torch.where(emit, greedy[:, i], last)
+            remaining = torch.where(emit, remaining - 1, remaining)
+            pos = pos + emit.to(torch.int32)
+            done = emit & (((eos >= 0) & (tok == eos)) | (remaining <= 0)
+                           | (pos >= self._pos_limit))
+            # the table learns each emitted transition on the device
+            spec_lib.record(self.spec_table, prev, last, tok, emit)
+            prev = torch.where(emit, last, prev)
+            last = tok
+            active = active & ~done
+            toks.append(tok)
+            emits.append(emit)
+            dones.append(done)
+        # rebound, not copied into: `emits[0]` reads the old `active`
+        self.last_tok, self.spec_prev, self.pos = last, prev, pos
+        self.active, self.remaining = active, remaining
+        return torch.stack(toks), torch.stack(emits), torch.stack(dones)
 
     def _fused_decode(self, mode: str):
         """`decode_block` decode+sample steps queued back to back; no
@@ -587,12 +982,23 @@ class InferenceEngine:
             steps += 1
         return steps
 
-    # ------------------------------------------------------------- #
+    # ---- hierarchical KV memory: admin / autoscaler surface ------- #
+    def flush_prefix_cache(self) -> Dict[str, int]:
+        """Drop every unpinned prefix-cache entry of both tiers."""
+        if self.prefix_cache is None:
+            return {"flushed": 0, "remaining": 0}
+        return self.prefix_cache.flush()
+
     def page_pressure(self) -> float:
-        """Fraction of the device page budget committed to live work."""
+        """Fraction of the device page budget committed to live work:
+        cache pages the engine could reclaim on demand are netted out, so
+        a warm but evictable prefix cache never reads as pressure."""
         if not self._paged or self.pool.n_pages == 0:
             return 0.0
-        return self.pool.pages_in_use / self.pool.n_pages
+        in_use = self.pool.pages_in_use
+        if self.prefix_cache is not None:
+            in_use -= self.prefix_cache.evictable_device_pages()
+        return max(in_use, 0) / self.pool.n_pages
 
     def memory_report(self) -> Dict[str, int]:
         return {"param_bytes": q_lib.tree_bytes(self.params),
@@ -616,15 +1022,36 @@ class InferenceEngine:
             "decode_block": self.ecfg.decode_block,
             "paged": self._paged,
             "paged_attention": self._paged_attn,
+            "speculative": self._spec_ok,
             "logical_bytes_moved": self.logical_bytes_moved,
             "logical_bytes_moved_per_token": self.logical_bytes_moved / t,
+            "spec_traces": self.spec_traces,
+            "spec_dispatches": self.spec_dispatches,
+            "spec_emitted": self.spec_emitted,
+            "spec_accepted_per_dispatch": (
+                self.spec_emitted / self.spec_dispatches
+                if self.spec_dispatches else 0.0),
+            "spec_slot_accepted": self.spec_slot_accepted.tolist(),
             "preemptions": self.preemptions,
             "queue_enqueued": self.scheduler.enqueued_total,
             "queue_dequeued": self.scheduler.dequeued_total,
             "queue_requeued": self.scheduler.requeued_total,
             "queue_rejected": self.scheduler.rejected,
             "pending_pages": self.scheduler.pending_pages,
+            "suffix_traces": self.suffix_traces,
+            "suffix_prefills": self.suffix_prefills,
             "prefill_dispatch_tokens": self.prefill_dispatch_tokens,
+            "swap_outs": self.swap_outs,
+            "swap_ins": self.swap_ins,
+            "swapped_requests": len(self._swapped),
+            "cache_hit_rate": (self.prefix_cache.hit_rate()
+                               if self.prefix_cache is not None else 0.0),
+            "host_pages": (self.host_pool.n_pages
+                           if self.host_pool is not None else 0),
+            "host_pages_in_use": (self.host_pool.in_use
+                                  if self.host_pool is not None else 0),
         }
+        if self.prefix_cache is not None:
+            stats["prefix_cache"] = self.prefix_cache.stats()
         stats.update(self.pool.page_stats())
         return stats

@@ -1,22 +1,35 @@
-"""Paged KV memory: the host page allocator and the device-side writes.
+"""Paged KV memory: the host page allocator and the device-side page moves.
 
 `PagedKVPool` is the host bookkeeping of `repro.serving.kv_cache`'s pool:
 a free list of physical page ids, per-slot page lists and token lengths,
-and a `(n_slots, pages_per_slot)` int32 page table mirrored on the
-device (a torch tensor, re-uploaded only after host mutations).  Unused
-entries hold the sentinel `n_pages`.  Slots may be oversubscribed against
-the page budget; the engine admits page-aware and preempts on exhaustion.
+per-page reference counts, and a `(n_slots, pages_per_slot)` int32 page
+table mirrored on the device (a torch tensor, re-uploaded only after host
+mutations).  Unused entries hold the sentinel `n_pages`.  Slots may be
+oversubscribed against the page budget; the engine admits page-aware and
+preempts on exhaustion.
+
+Pages are refcounted, as in JAX: the prefix cache
+(`serving.kv_hierarchy.PrefixCache`) `retain`s the pages of finished
+requests and maps them into several slots' tables at once
+(`alloc(shared_pages=...)`).  Shared pages (refs > 1) are read-only:
+`write_table()`, a second cached device tensor beside `page_table()`,
+holds the sentinel in their place.
 
 The physical cache is a dict of flat pools, `{"k", "v": (L, n_pages + 1,
 page_size, K, hd)}`: page `n_pages`, the sentinel's id, is a scratch page
-that takes the writes JAX drops and that attention never reads.
+that takes the writes JAX drops and that attention never reads.  So a
+write through `write_table()` aimed at a shared page lands in scratch,
+and a read through a sentinel entry reads scratch garbage where JAX reads
+zeros: every read that a sentinel may reach is masked with `where`, never
+weighted by a zero.  The page movers (`copy_pages`, `take_pages`,
+`put_pages`) refuse the scratch id.
+
 `scatter_prefill_rows` lands freshly prefilled rows in their pages;
-`gather_pages` / `scatter_pages` copy every slot's logical view out of
-the pool and back (the gather decode mode); `write_slots` lands rows in
-the contiguous per-slot strips (`paged=False`).  Page sharing between
-slots (the prefix cache) and the host swap tier are not ported yet
-(ROADMAP.md A4), so every page has one owner and the write table equals
-the page table.
+`gather_pages` / `scatter_pages` copy logical views out of the pool and
+back (the gather decode mode, and the prefix-cache suffix admission);
+`write_slots` lands rows in the contiguous per-slot strips
+(`paged=False`); `take_pages` / `put_pages` move pages to and from the
+host swap tier.
 """
 from __future__ import annotations
 
@@ -26,20 +39,28 @@ import numpy as np
 import torch
 
 
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> device tensor without waiting on the device: a pinned
-    staging copy and an asynchronous upload on the card (the pinned block
-    is held until the copy has run), a plain copy on the CPU."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+def to_device(arr, device: torch.device) -> torch.Tensor:
+    """Host array or CPU tensor -> device tensor without waiting on the
+    device: a pinned staging copy (or the tensor itself when it is pinned
+    already) and an asynchronous upload on the card, a plain copy on the
+    CPU.  The staging block comes from torch's caching host allocator,
+    which records the upload's event and hands the block out again only
+    after the copy has run."""
+    t = arr if isinstance(arr, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(arr))
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
+        t = t.contiguous()
+        if not t.is_pinned():
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
     return t.clone()
 
 
 class PagedKVPool:
-    """Page-granular KV allocator with a device-resident page table.
-    `n_pages` defaults to the contiguous-equivalent budget
-    (`n_slots * pages_per_slot`); fewer pages oversubscribe the slots."""
+    """Page-granular, refcounted KV allocator with a device-resident page
+    table.  `n_pages` defaults to the contiguous-equivalent budget
+    (`n_slots * pages_per_slot`); fewer pages oversubscribe the slots.  A
+    page returns to the free list when its last reference drops."""
 
     def __init__(self, n_slots: int, max_len: int, page_size: int = 16,
                  n_pages: int = 0, device: torch.device = torch.device("cpu")):
@@ -60,35 +81,108 @@ class PagedKVPool:
         self.slot_pages: Dict[int, List[int]] = {}
         self.lengths: Dict[int, int] = {}     # cache tokens written/held
         self.owners: Dict[int, int] = {}      # slot -> request_id
+        self.refs: Dict[int, int] = {}        # page -> reference count
         self.preemptions = 0                  # engine-driven evictions
         self.grow_failures = 0                # page-exhaustion events
         # host mirror of the device page table; sentinel == self.n_pages
         self._table = np.full((n_slots, self.pages_per_slot), self.n_pages,
                               np.int32)
         self._table_dev: Optional[torch.Tensor] = None
+        self._wtable_dev: Optional[torch.Tensor] = None
 
     # ---- allocation ---------------------------------------------- #
     def pages_for_tokens(self, n_tokens: int) -> int:
         return max(-(-n_tokens // self.page_size), 1)
 
+    def _claim(self, n: int) -> Optional[List[int]]:
+        """Pop `n` fresh pages (refcount 1 each); None when short."""
+        if n > len(self.free_pages):
+            return None
+        pages = [self.free_pages.pop() for _ in range(n)]
+        for p in pages:
+            self.refs[p] = 1
+        return pages
+
     def alloc(self, request_id: int, n_tokens: int,
-              reserve_tokens: int = 0) -> Optional[int]:
+              reserve_tokens: int = 0, shared_pages=()) -> Optional[int]:
         """Claim a slot plus pages covering `n_tokens` positions
         (`reserve_tokens`, when larger, widens the claim: the contiguous
-        mode reserves the full `max_len` strip up front).  All-or-nothing:
-        None (claiming nothing) when slots or pages run out."""
+        mode reserves the full `max_len` strip up front).  `shared_pages`
+        (a prefix-cache hit) are allocated pages mapped read-only at the
+        front of the slot's table: their refcounts go up and only the
+        rest is claimed fresh.  All-or-nothing: None (claiming nothing)
+        when slots or pages run out."""
         total = self.pages_for_tokens(max(n_tokens, reserve_tokens))
-        if not self.free_slots or n_tokens > self.max_len \
-                or total > len(self.free_pages):
+        fresh = total - len(shared_pages)
+        if not self.free_slots or n_tokens > self.max_len or fresh < 0 \
+                or fresh > len(self.free_pages):
             return None
         slot = self.free_slots.pop()
-        pages = [self.free_pages.pop() for _ in range(total)]
+        pages = list(shared_pages)
+        for p in pages:
+            self.refs[p] = self.refs.get(p, 0) + 1
+        pages.extend(self._claim(fresh))
         self.slot_pages[slot] = pages
         self.lengths[slot] = n_tokens
         self.owners[slot] = request_id
         self._table[slot, :total] = pages
-        self._table_dev = None
+        self._mark_dirty()
         return slot
+
+    def alloc_pages(self, n: int) -> Optional[List[int]]:
+        """Claim `n` pages that no slot maps (a COW fork, a host-tier
+        promotion, a swap-in); the caller owns one reference to each."""
+        return self._claim(n)
+
+    def attach(self, request_id: int, pages: List[int],
+               n_tokens: int) -> Optional[int]:
+        """Map an existing page list into a fresh slot (swap-in restore).
+        The caller's references move to the slot: no refcount changes, no
+        page is claimed.  None when every slot is busy (the caller keeps
+        its references)."""
+        if not self.free_slots or len(pages) > self.pages_per_slot:
+            return None
+        slot = self.free_slots.pop()
+        self.slot_pages[slot] = list(pages)
+        self.lengths[slot] = n_tokens
+        self.owners[slot] = request_id
+        self._table[slot, :len(pages)] = pages
+        self._mark_dirty()
+        return slot
+
+    def detach(self, slot: int) -> List[int]:
+        """Unmap `slot` without dropping its page references (swap-out):
+        the caller now owns one reference to each returned page and must
+        `free_page` or `attach` them."""
+        if slot not in self.lengths:
+            return []
+        del self.lengths[slot]
+        del self.owners[slot]
+        pages = self.slot_pages.pop(slot)
+        self._table[slot, :] = self.n_pages
+        self._mark_dirty()
+        self.free_slots.append(slot)
+        return pages
+
+    def retain(self, page: int):
+        """One more reference to an allocated page (prefix-cache insert)."""
+        if page not in self.refs:
+            raise ValueError(f"retain of unallocated page {page}")
+        self.refs[page] += 1
+        self._wtable_dev = None
+
+    def free_page(self, page: int):
+        """Drop one reference; the page returns to the free list with its
+        last reference."""
+        r = self.refs.get(page)
+        if r is None:
+            raise ValueError(f"free of unallocated page {page}")
+        if r > 1:
+            self.refs[page] = r - 1
+            self._wtable_dev = None
+        else:
+            del self.refs[page]
+            self.free_pages.append(page)
 
     def grow(self, slot: int, upto_tokens: int) -> bool:
         """Extend `slot`'s pages to cover `upto_tokens` positions.
@@ -101,14 +195,36 @@ class PagedKVPool:
                    self.pages_per_slot) - len(have)
         if need <= 0:
             return True
-        if need > len(self.free_pages):
+        new = self._claim(need)
+        if new is None:
             self.grow_failures += 1
             return False
-        new = [self.free_pages.pop() for _ in range(need)]
         self._table[slot, len(have):len(have) + need] = new
         have.extend(new)
-        self._table_dev = None
+        self._mark_dirty()
         return True
+
+    def cow_page(self, slot: int, i: int) -> Optional[tuple]:
+        """Copy-on-write fork: when page `i` of `slot` is shared, replace
+        it with a fresh private page and return `(old, new)` for the
+        caller to copy (`copy_pages`); the slot's reference moves to the
+        new page.  None when the page is private already or the pool is
+        out of pages."""
+        pages = self.slot_pages.get(slot)
+        if pages is None or i >= len(pages):
+            return None
+        old = pages[i]
+        if self.refs.get(old, 1) <= 1:
+            return None
+        claimed = self._claim(1)
+        if claimed is None:
+            return None
+        new = claimed[0]
+        self.free_page(old)        # drop the slot's shared reference
+        pages[i] = new
+        self._table[slot, i] = new
+        self._mark_dirty()
+        return old, new
 
     def advance(self, slot: int, n: int = 1):
         self.lengths[slot] = min(self.lengths[slot] + n, self.max_len)
@@ -118,12 +234,17 @@ class PagedKVPool:
             return
         del self.lengths[slot]
         del self.owners[slot]
-        self.free_pages.extend(reversed(self.slot_pages.pop(slot)))
+        for p in reversed(self.slot_pages.pop(slot)):
+            self.free_page(p)
         self._table[slot, :] = self.n_pages
-        self._table_dev = None
+        self._mark_dirty()
         self.free_slots.append(slot)
 
     # ---- device view --------------------------------------------- #
+    def _mark_dirty(self):
+        self._table_dev = None
+        self._wtable_dev = None
+
     def page_table(self) -> torch.Tensor:
         """The `(n_slots, pages_per_slot)` int32 device page table, uploaded
         again only after host mutations (asynchronously)."""
@@ -132,10 +253,20 @@ class PagedKVPool:
         return self._table_dev
 
     def write_table(self) -> torch.Tensor:
-        """The table decode writes go through.  It masks cache-shared pages
-        to the sentinel in the JAX engine; with no page sharing in this
-        port yet it is the page table itself."""
-        return self.page_table()
+        """The page table with every shared entry (refs > 1) masked to the
+        sentinel: reads go through `page_table()`, writes through this
+        one, so a write aimed at a cache-shared page lands in the scratch
+        page instead of under another reader.  With no sharing it is
+        `page_table()` itself (no second upload)."""
+        if self._wtable_dev is None:
+            shared = [p for p, r in self.refs.items() if r > 1]
+            if not shared:
+                self._wtable_dev = self.page_table()
+            else:
+                wt = self._table.copy()
+                wt[np.isin(wt, np.asarray(shared, np.int32))] = self.n_pages
+                self._wtable_dev = to_device(wt, self.device)
+        return self._wtable_dev
 
     def row_pages(self, slot: int, n_pages_row: int) -> np.ndarray:
         """Physical page ids backing `slot`, sentinel-padded to
@@ -147,6 +278,10 @@ class PagedKVPool:
         return out
 
     # ---- metrics -------------------------------------------------- #
+    @property
+    def n_active(self) -> int:
+        return self.n_slots - len(self.free_slots)
+
     @property
     def pages_in_use(self) -> int:
         return self.n_pages - len(self.free_pages)
@@ -276,3 +411,54 @@ def write_slots(cache: Dict, rows: Dict, slots) -> None:
 
 def cache_bytes(cache: Dict) -> int:
     return sum(x.numel() * x.element_size() for x in cache.values())
+
+
+# --------------------------------------------------------------------- #
+# Page movement: COW forks and the host swap tier.  Page ids are host
+# lists; the scratch page (id n_pages, the last of each leaf) is never a
+# source or a destination.
+
+def _page_index(paged: Dict, page_ids) -> torch.Tensor:
+    ids = np.asarray(list(page_ids), np.int64)
+    scratch = next(iter(paged.values())).shape[1] - 1
+    if ids.size and (ids.min() < 0 or ids.max() >= scratch):
+        raise ValueError(f"page ids {ids.tolist()} outside [0, {scratch})")
+    return to_device(ids, next(iter(paged.values())).device)
+
+
+def copy_pages(paged: Dict, src_ids, dst_ids) -> Dict:
+    """Device-side page copy (the COW fork's data move), in place: pages
+    `src_ids` are duplicated into `dst_ids`, leaf by leaf.  No host sync.
+    Returns `paged`."""
+    if len(src_ids) != len(dst_ids):
+        raise ValueError("copy_pages: src and dst differ in length")
+    if not len(src_ids):
+        return paged
+    src, dst = _page_index(paged, src_ids), _page_index(paged, dst_ids)
+    for leaf in paged.values():
+        leaf.index_copy_(1, dst, leaf.index_select(1, src))
+    return paged
+
+
+def take_pages(paged: Dict, page_ids) -> Dict[str, torch.Tensor]:
+    """Swap-out data move: one gather of the pages on the device per
+    leaf, then one `.cpu()` for the whole block set — the swap-out's
+    single host sync.  Returns `{leaf: (L, n, page_size, ...)}` CPU
+    tensors."""
+    idx = _page_index(paged, page_ids)
+    names = list(paged)
+    blocks = torch.stack([paged[k].index_select(1, idx) for k in names])
+    host = blocks.cpu()
+    return {k: host[i] for i, k in enumerate(names)}
+
+
+def put_pages(paged: Dict, page_ids, host_blocks: Dict) -> Dict:
+    """Swap-in data move, in place: each leaf's host blocks (L, n,
+    page_size, ...) are uploaded without blocking (from pinned memory on
+    the card, `to_device`) and `index_copy_`'d into pages `page_ids`.
+    No host sync.  Returns `paged`."""
+    idx = _page_index(paged, page_ids)
+    for k, leaf in paged.items():
+        blk = to_device(host_blocks[k], leaf.device)
+        leaf.index_copy_(1, idx, blk.to(leaf.dtype))
+    return paged

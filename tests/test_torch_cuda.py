@@ -597,3 +597,94 @@ def test_kernels_refuse_a_route_whose_conditions_fail(cuda):
                  q.data_ptr(), q.data_ptr(), 1, 2, 2, 8, 8, 16, 1, 0, 0, 0,
                  ops.FLASH_ROUTES.index("tensor_core"), 0.25,
                  *q.stride()[:3], *q.stride()[:3], *q.stride()[:3])
+
+
+# --------------------------------------------------------------------- #
+# the hierarchical KV memory and speculation on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_take_put_pages_round_trip_through_pinned_memory(cuda, dt):
+    """Swap-out (`take_pages`) and swap-in (`put_pages`) through the
+    pinned host tier: the pages come back bit for bit into other pages,
+    the swap-out synchronises with the host exactly once (one `.cpu()`)
+    and the swap-in never."""
+    import warnings
+    from repro_torch.serving.kv_cache import put_pages, take_pages
+    from repro_torch.serving.kv_hierarchy import HostPagePool
+    dtype, _ = DTYPES[dt]
+    paged = dict(zip(("k", "v"), _tensors(20, cuda, dtype, (3, 13, 16, 2, 64),
+                                          (3, 13, 16, 2, 64))))
+    before = {k: v.clone() for k, v in paged.items()}
+    host = HostPagePool(8, paged, pin=True)
+
+    def syncs(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return out, sum("synchroniz" in str(w.message) for w in caught)
+    blocks, n_out = syncs(lambda: take_pages(paged, [1, 4, 7]))
+    assert n_out == 1
+    ids = host.put(blocks, 3)
+    assert all(s.is_pinned() for s in host._slab.values())
+    staged = host.get(ids)
+    assert all(s.is_pinned() for s in staged.values())
+    _, n_in = syncs(lambda: put_pages(paged, [9, 10, 11], staged))
+    assert n_in == 0
+    torch.cuda.synchronize()
+    for k in paged:
+        assert torch.equal(paged[k][:, 9:12], before[k][:, [1, 4, 7]])
+        assert torch.equal(paged[k][:, :9], before[k][:, :9])
+
+
+ENGINE_FEATURES = {
+    "prefix_cache_paged": dict(paged_attention=True, prefix_cache=True),
+    "prefix_cache_gather": dict(prefix_cache=True),
+    "swap": dict(n_slots=6, kv_pages=18, host_kv_pages=64),
+    "speculative": dict(paged_attention=True, speculative=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", sorted(ENGINE_FEATURES))
+def test_engine_features_match_the_cpu(cuda, feature):
+    """The prefix cache (paged attention and gather), the host swap tier
+    and speculative decoding on the card give the greedy tokens of the
+    same engine on the CPU (reduced OLMo-1B, f32, the same weights)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                     SamplingParams)
+    cfg = ARCHS["olmo-1b"].reduced(dtype="f32")
+    params = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    shared = list(range(1, 25))
+    prompts = ([shared + [30, 31], shared + [40, 41, 42], shared[:12] + [7]]
+               if feature.startswith("prefix") else
+               [list(range(1, 3 + i)) for i in range(6)])
+    kw = dict(n_slots=4, max_len=48, page_size=8, decode_block=4)
+    kw.update(ENGINE_FEATURES[feature])
+    outs, stats = {}, {}
+    for dev in ("cpu", cuda):
+        eng = InferenceEngine(cfg, params, EngineConfig(**kw), device=dev)
+        reqs = [Request(model="m", prompt=p,
+                        sampling=SamplingParams(max_tokens=20))
+                for p in prompts]
+        for r in reqs:
+            assert eng.submit(r)
+            if feature.startswith("prefix"):    # each sees the cache
+                eng.run_until_done()
+        eng.run_until_done()
+        outs[str(dev)] = [r.output for r in reqs]
+        st = eng.perf_stats()
+        stats[str(dev)] = {k: st[k] for k in (
+            "suffix_prefills", "swap_outs", "swap_ins", "spec_dispatches",
+            "dispatches", "host_syncs")}
+    assert outs[str(cuda)] == outs["cpu"]
+    assert stats[str(cuda)] == stats["cpu"]
+    assert any(stats["cpu"][k] for k in ("suffix_prefills", "swap_outs",
+                                         "spec_dispatches"))

@@ -4,6 +4,7 @@ params, on the CPU through the kernels' plain versions: greedy tokens,
 dispatch / host-sync / prefill-program counters, exact budgets, EOS,
 cancel, preemption and sampling support."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,6 +18,7 @@ from repro_torch import params as params_lib
 from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
                                  RequestState, SamplingParams)
 from repro_torch.serving.sampler import sample_batched
+from repro.serving.sampler import sample_batched as jax_sample_batched
 
 torch.set_num_threads(2)
 
@@ -199,11 +201,29 @@ def test_sample_batched_support_and_greedy_rows():
     assert len(seen[3]) >= 4
 
 
-def test_out_of_slice_engine_features_raise(cfg, tparams):
-    for kw in (dict(prefix_cache=True), dict(speculative=True),
-               dict(host_kv_pages=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-            _engine(cfg, tparams, **kw)
+GATES = [dict(), dict(prefix_cache=True), dict(host_kv_pages=8),
+         dict(speculative=True), dict(speculative=True, paged_attention=False),
+         dict(prefix_cache=True, paged=False, host_kv_pages=8),
+         dict(speculative=True, paged=False),
+         dict(prefix_cache=True, host_kv_pages=8, speculative=True)]
+
+
+@pytest.mark.parametrize("kw", GATES, ids=lambda kw: ",".join(
+    f"{k}={v}" for k, v in kw.items()) or "defaults")
+def test_feature_gating_matches_jax(cfg, jparams, tparams, kw):
+    """The prefix cache, the host tier and speculation switch on and off
+    as in the JAX engine: speculation needs paged attention (without it
+    the engine runs with speculation off), and neither the cache nor the
+    host tier exists on contiguous strips."""
+    base = dict(n_slots=2, max_len=32, page_size=8, paged_attention=True)
+    jeng = JaxEngine(cfg, jparams, JaxEngineConfig(**{**base, **kw}))
+    eng = _engine(cfg, tparams, **{**base, **kw})
+
+    def gates(e):
+        return (e._prefix_ok, e._spec_ok, e._paged_attn, e._growth,
+                e.prefix_cache is None, e.host_pool is None,
+                e.perf_stats()["speculative"])
+    assert gates(eng) == gates(jeng)
 
 
 def test_engine_needs_cuda_unless_told(cfg, tparams):
@@ -211,3 +231,78 @@ def test_engine_needs_cuda_unless_told(cfg, tparams):
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(cfg, tparams, EngineConfig())
+
+
+# the sampler against JAX's: rows of (logits, temperature, top_k, top_p),
+# with ties at the top-k threshold and at the top-p cut-off
+SAMPLER_ROWS = [
+    ([3.0, 2.0, 2.0, 2.0, 1.0, 0.0, -1.0, -2.0], 1.0, 2, 1.0),   # k-th tied
+    ([3.0, 2.0, 2.0, 2.0, 1.0, 0.0, -1.0, -2.0], 0.7, 4, 1.0),
+    ([2.0, 2.0, 1.0, 1.0, 0.0, 0.0, -1.0, -1.0], 1.0, 0, 0.5),   # p cut tie
+    ([2.0, 1.5, 1.0, 0.5, 0.0, -0.5, -1.0, -1.5], 1.3, 0, 0.8),
+    ([2.0, 1.5, 1.0, 0.5, 0.0, -0.5, -1.0, -1.5], 1.0, 5, 0.9),  # both
+    ([1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0], 1.0, 3, 1.0),     # all tied
+    ([0.5, 0.4, 0.3, 0.2, 0.1, 0.0, -0.1, -0.2], 2.0, 0, 1.0),   # temp only
+    ([4.0, 1.0, 3.0, 0.0, 2.0, -1.0, 1.0, 0.5], 0.0, 3, 0.5),    # greedy
+]
+SAMPLER_DRAWS = 4000
+
+
+def _expected_support(logits, temp, top_k, top_p):
+    """The distribution both samplers define, in float64: logits over the
+    temperature, everything below the k-th largest value masked, then
+    everything below the value at which the sorted cumulative mass first
+    reaches top_p."""
+    lg = np.asarray(logits, np.float64)
+    if temp <= 0:
+        out = np.zeros_like(lg)
+        out[int(np.argmax(lg))] = 1.0
+        return out
+    lg = lg / temp
+    keep = np.ones(lg.shape, bool)
+    if top_k > 0:
+        keep &= lg >= np.sort(lg)[::-1][top_k - 1]
+    if top_p < 1.0:
+        srt = np.sort(np.where(keep, lg, -np.inf))[::-1]
+        p = np.exp(srt - srt[0])
+        cum = np.cumsum(p / p.sum())
+        keep &= lg >= srt[min(int((cum < top_p).sum()), len(lg) - 1)]
+    p = np.where(keep, np.exp(lg - lg.max()), 0.0)
+    return p / p.sum()
+
+
+def test_sampler_support_and_frequencies_match_jax():
+    """ROADMAP C6: per row, the port's sampler and JAX's draw from the
+    same support (the float64 definition's, ties at the threshold kept),
+    and each one's empirical frequencies pass a chi-square test against
+    that distribution (p > 1e-6: the statistic below the chi-square
+    quantile for the row's degrees of freedom)."""
+    # chi-square 1 - 1e-6 quantiles by degrees of freedom 1..7
+    crit = [23.93, 27.63, 30.66, 33.38, 35.89, 38.26, 40.52]
+    v = len(SAMPLER_ROWS[0][0])
+    logits = np.asarray([r[0] for r in SAMPLER_ROWS] * SAMPLER_DRAWS,
+                        np.float32)
+    temps, ks, ps = (np.asarray([r[i] for r in SAMPLER_ROWS] * SAMPLER_DRAWS,
+                                dt) for i, dt in
+                     ((1, np.float32), (2, np.int32), (3, np.float32)))
+    got_t = sample_batched(torch.from_numpy(logits),
+                           torch.Generator().manual_seed(0),
+                           torch.from_numpy(temps), torch.from_numpy(ks),
+                           torch.from_numpy(ps)).numpy()
+    got_j = np.asarray(jax_sample_batched(
+        jnp.asarray(logits), jax.random.PRNGKey(0), jnp.asarray(temps),
+        jnp.asarray(ks), jnp.asarray(ps)))
+    n_rows = len(SAMPLER_ROWS)
+    for i, row in enumerate(SAMPLER_ROWS):
+        want = _expected_support(*row)
+        support = set(np.nonzero(want)[0].tolist())
+        for name, got in (("torch", got_t), ("jax", got_j)):
+            draws = got[i::n_rows]
+            assert set(draws.tolist()) == support, (name, i)
+            if len(support) < 2:
+                continue
+            idx = sorted(support)
+            counts = np.bincount(draws, minlength=v)[idx]
+            expect = want[idx] * SAMPLER_DRAWS
+            chi2 = float(((counts - expect) ** 2 / expect).sum())
+            assert chi2 < crit[len(idx) - 2], (name, i, chi2)

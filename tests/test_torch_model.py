@@ -5,6 +5,8 @@ cache and one through the page table, and the page gather / scatter /
 slot writes of the KV cache.  Tolerances:
 layers 1e-6 (same f32 arithmetic), logits 1e-4 (matmuls and attention
 summed in another order), bf16 layers 1 ulp of bf16 (2**-7 relative)."""
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,6 +55,18 @@ def test_configs_copy_equals_reference():
     for name, c in ARCHS.items():
         assert repr(TORCH_ARCHS[name]) == repr(c)
         assert repr(TORCH_ARCHS[name].reduced()) == repr(c.reduced())
+
+
+@pytest.mark.parametrize("name", ["scheduler.py", "request.py"])
+def test_serving_copies_equal_reference(name):
+    """ROADMAP C7: the port's copies of serving/scheduler.py and
+    serving/request.py equal the reference's but for their imports, which
+    name repro_torch where the reference names repro."""
+    root = Path(__file__).resolve().parents[1] / "src"
+    ref = (root / "repro" / "serving" / name).read_text()
+    port = (root / "repro_torch" / "serving" / name).read_text()
+    assert "from repro_torch." in port
+    assert port.replace("from repro_torch.", "from repro.") == ref
 
 
 def test_from_jax_bf16_round_trip(param_store):
