@@ -44,11 +44,18 @@ JSON line:
               suffix admissions), the host swap tier (prompts of 230-250
               tokens on 32 pages for 4 slots of 32, 64 host pages: >= 1
               swap-out, as many swap-ins) and speculative decoding
-              (paged attention, repetitive prompts: >= 1 verify).  Each run's tokens must
+              (paged attention, repetitive prompts: >= 1 verify); then
+              through the control plane (the paper's testbed, the SDAI
+              controller, the Gateway; two replicas on two nodes sharing
+              one weight tree): the 4 greedy requests through the
+              serving runtime's pump threads, and, hand-pumped, one whose
+              node is crashed after 2 streamed tokens, migrated to the
+              other replica.  Each run's tokens must
               equal a plain greedy recompute on the card (full forward,
               plain attention, no cache, every step; for int8 on the
               dequantized weights), and each must launch exactly its
-              mode's kernels.
+              mode's kernels (the Gateway's: flash and decode attention,
+              node.deploy's default gather mode).
 5. serve_bf16 — a main path: the full OLMo-1B (16 layers, bf16, seeded
               random weights) serves 12 requests through
               InferenceEngine.submit/step in the paged-attention mode,
@@ -93,7 +100,27 @@ JSON line:
               slot and verify, dispatches per token, and
               how many greedy rows agree with the same traffic with
               speculation off (bf16: informational).
-9. kernels  — per kernel: its launches on the path that runs it (and on
+9. serve_gateway — the full OLMo-1B (bf16, one seeded weight tree for
+              every replica) served through the control plane: the
+              paper's testbed, ModelDemand(n_slots=8, max_len=1024,
+              allow_quant=False, min_replicas=2) placed by VRAM into the
+              nodes' nominal memory (four replicas, each a real engine on
+              the card with its own KV pool), the Gateway's runtime (one
+              pump thread per node), serve_bf16's 12 requests from two
+              tenants submitted at once and consumed through stream(),
+              and one node crashed once some stream with room left is
+              past its first token.  Exact budgets, every stream's tokens
+              contiguous and equal to its response, >= 1 migration, >= 2
+              serving nodes, every surviving engine's pages returned,
+              launches summed over the engines (the crashed one's steps
+              included) n_layers x decode_block x decode dispatches
+              (decode attention) and n_layers x prefill dispatches (flash,
+              all "tensor_core"), and every runtime thread joined by
+              stop(drain=True).  It prints wall time, tok/s, p50 TTFT at
+              the Gateway, requests per node, the migrations and the
+              migrated streams' added TTFT, peak device bytes and the
+              nodes' nominal accounting.
+10. kernels — per kernel: its launches on the path that runs it (and on
               every serve), its error against the plain version, its
               time (CUDA events, median of 30 runs after warm-up, each
               from a cold L2)
@@ -793,6 +820,10 @@ def parity_f32(dev, ops, cfg=None):
                           "spec_dispatches", "spec_emitted", "preemptions")
                          if st[k]}})
         del eng
+    gw_lines, gw_bad = parity_gateway(dev, ops, cfg, params, prompts, dense,
+                                      gather)
+    lines += gw_lines
+    mismatches += gw_bad
     emit({"phase": "parity_f32", "layers": cfg.n_layers, "d_model":
           cfg.d_model, "prompt_lens": [len(p) for p in prompts],
           "prefix_prompt_lens": [len(p) for p in prefix_prompts],
@@ -801,6 +832,102 @@ def parity_f32(dev, ops, cfg=None):
           "tokens_each": 16, "runs": lines, "match": not mismatches})
     if mismatches:
         raise AssertionError(f"parity_f32 mismatches: {mismatches}")
+
+
+def gateway_stack(dev, cfg, params, **demand):
+    """The port's control plane over the paper's testbed: every node's
+    engines on `dev`, all sharing one parameter tree through the
+    param_store (engines do not copy weights already on the device), and
+    `cfg` deployed through VRAM-aware placement with real engines (the
+    threshold raised above its parameters).  Returns (fleet, controller,
+    gateway); every deployed instance must hold an engine on `dev`."""
+    from repro_torch.api import Gateway
+    from repro_torch.cluster import paper_testbed
+    from repro_torch.core import (ControllerConfig, ModelCatalog,
+                                  ModelDemand, SDAIController)
+    fleet = paper_testbed(param_store=lambda c: params, device=dev)
+    catalog = ModelCatalog()
+    catalog.register(cfg)
+    ctrl = SDAIController(fleet, catalog, ControllerConfig(
+        real_param_threshold=cfg.num_params() + 1))
+    ctrl.discover()
+    plan = ctrl.deploy([ModelDemand(cfg, **demand)])
+    insts = [i for n in fleet.nodes.values() for i in n.instances.values()]
+    if plan.unplaced or len(insts) != len(plan.assignments) or any(
+            i.engine is None or i.engine.device.type != dev.type
+            for i in insts):
+        devs = [i.engine and i.engine.device for i in insts]
+        raise AssertionError(f"gateway deploy: {plan}, engines on {devs}")
+    return fleet, ctrl, Gateway(ctrl)
+
+
+def parity_gateway(dev, ops, cfg, params, prompts, dense, kernels):
+    """The f32 model through the control plane: the paper's testbed, the
+    SDAI controller and the Gateway, two replicas on two nodes.  Four
+    greedy requests through the serving runtime's pump threads; then,
+    hand-pumped, one request whose node is crashed once 2 of its tokens
+    have streamed, which must migrate to the other replica (re-admitted
+    as prompt + journal by a full prefill).  Both runs' tokens must equal
+    the plain recompute `dense`, and each run must launch exactly
+    `kernels` (node.deploy's default: the gather decode mode)."""
+    from repro_torch.serving import SamplingParams
+    fleet, ctrl, gw = gateway_stack(dev, cfg, params, min_replicas=2,
+                                    max_replicas=2, n_slots=4, max_len=512,
+                                    allow_quant=False)
+    lines, bad = [], []
+
+    def run(mode, call):
+        ops.reset_launches()
+        got, extra = call()
+        launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+        if {n for n, k in launched.items() if k} != kernels:
+            raise AssertionError(f"parity_f32 {mode}: kernels {launched}, "
+                                 f"want exactly {sorted(kernels)}")
+        miss = [{"mode": mode, "prompt_len": len(p), "got": g, "want": w}
+                for p, g, w in got if g != w]
+        bad.extend(miss)
+        lines.append({"mode": mode, "launches": launched, "match": not miss,
+                      **extra})
+
+    def live():
+        gw.start()
+        hs = [gw.submit(cfg.name, p, SamplingParams(max_tokens=16))
+              for p in prompts]
+        resps = [h.result(timeout_s=300) for h in hs]
+        if not gw.stop(drain=True, timeout_s=120):
+            raise AssertionError("parity_f32 gateway: runtime threads alive")
+        if not all(r.ok for r in resps):
+            raise AssertionError(f"parity_f32 gateway: {resps}")
+        return ([(p, list(r.tokens), w) for p, r, w in
+                 zip(prompts, resps, dense)],
+                {"nodes": sorted({r.node for r in resps})})
+
+    def migration():
+        h = gw.submit(cfg.name, prompts[2], SamplingParams(max_tokens=16))
+        it = h.stream(timeout_s=300)
+        seen = [next(it), next(it)]          # hand-pumped: 2 tokens out
+        victim = h.internal.node
+        fleet.fail_node(victim)
+        rest = list(it)
+        r = h.response
+        toks = [e.token for e in seen + rest if e.type.value == "token"]
+        if not r.ok or r.node == victim or gw.stats.migrations < 1 \
+                or toks != list(r.tokens):
+            raise AssertionError(f"parity_f32 gateway_migration: {r}, "
+                                 f"migrations {gw.stats.migrations}")
+        moved = [e.data for e in ctrl.bus.events
+                 if e.kind == "request_migrated"]
+        return ([(prompts[2], list(r.tokens), dense[2])],
+                {"from_node": victim, "to_node": r.node,
+                 "tokens_resumed": moved[-1]["tokens_resumed"]})
+
+    run("gateway", live)
+    run("gateway_migration", migration)
+    for node in fleet.nodes.values():
+        for inst in node.instances.values():
+            if node.alive and inst.engine.pool.pages_in_use:
+                raise AssertionError("parity_f32 gateway: pages held")
+    return lines, bad
 
 
 def serve_setup(dev, cfg=None, params=None, **engine_kw):
@@ -812,8 +939,7 @@ def serve_setup(dev, cfg=None, params=None, **engine_kw):
     weights' bytes."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build
-    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
-                                     SamplingParams)
+    from repro_torch.serving import EngineConfig, InferenceEngine
     from repro_torch.serving.quantization import tree_bytes
     cfg = cfg or ARCHS["olmo-1b"]
     if params is None:
@@ -823,23 +949,27 @@ def serve_setup(dev, cfg=None, params=None, **engine_kw):
     ecfg = EngineConfig(n_slots=8, max_len=1024, page_size=16,
                         decode_block=8, **engine_kw)
     eng = InferenceEngine(cfg, params, ecfg, device=dev)
+    return cfg, ecfg, eng, lambda: serve_requests(cfg), dense_bytes
 
-    def requests():
-        rng = np.random.default_rng(3)
-        reqs = []
-        for i in range(12):
-            n = int(rng.integers(16, 897))
-            budget = int(rng.integers(1, 65))
-            sampled = i in (4, 9)
-            sp = SamplingParams(max_tokens=budget,
-                                temperature=0.8 if sampled else 0.0,
-                                top_k=40 if sampled else 0,
-                                top_p=0.95 if sampled else 1.0)
-            reqs.append(Request(model=cfg.name,
-                                prompt=rng.integers(0, cfg.vocab, n).tolist(),
-                                sampling=sp))
-        return reqs
-    return cfg, ecfg, eng, requests, dense_bytes
+
+def serve_requests(cfg):
+    """The main paths' 12 seeded requests: prompt lengths in 16..896,
+    budgets in 1..64; 10 greedy and 2 sampled."""
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.default_rng(3)
+    reqs = []
+    for i in range(12):
+        n = int(rng.integers(16, 897))
+        budget = int(rng.integers(1, 65))
+        sampled = i in (4, 9)
+        sp = SamplingParams(max_tokens=budget,
+                            temperature=0.8 if sampled else 0.0,
+                            top_k=40 if sampled else 0,
+                            top_p=0.95 if sampled else 1.0)
+        reqs.append(Request(model=cfg.name,
+                            prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                            sampling=sp))
+    return reqs
 
 
 def drive(eng, reqs):
@@ -1187,6 +1317,196 @@ def serve_spec(dev, ops, card, cfg=None, params=None):
     return launches
 
 
+def serve_gateway(dev, ops, card, cfg=None, params=None):
+    """The full OLMo-1B (bf16, random weights from a seed, one tree shared
+    by every replica) served through the control plane on the paper's
+    testbed: `ModelDemand(n_slots=8, max_len=1024, allow_quant=False,
+    min_replicas=2)` placed into the nodes' nominal memory, a real engine
+    for every replica on the card, the serving runtime's pump threads
+    (one per node) stepping them.  serve_bf16's 12 requests come from two
+    tenants, all submitted at once through Gateway.submit, each consumed
+    through stream() by a thread of its own; once some stream with room
+    left in its budget is past its first token, its node is crashed.
+    Exact budgets, >= 1 migration, >= 2 serving nodes, every surviving
+    engine's pages returned, the launch counts implied by every engine's
+    stats (the crashed one's steps and any replica the controller placed
+    while serving included), every flash launch on the tensor cores, and
+    every runtime thread joined by stop(drain=True)."""
+    import threading
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = cfg or ARCHS["olmo-1b"]
+    if params is None:
+        params = build(cfg, dev).init(
+            torch.Generator(device=dev).manual_seed(0))
+    fleet, ctrl, gw = gateway_stack(dev, cfg, params, min_replicas=2,
+                                    n_slots=8, max_len=1024,
+                                    allow_quant=False)
+    insts = [(n, i) for n in fleet.nodes.values()
+             for i in n.instances.values()]
+    block = insts[0][1].engine.ecfg.decode_block
+    # each deployed engine's steps, (node, start, end), from its pump
+    # thread: where the wall clock goes between the engines
+    steps = []
+    for node, inst in insts:
+        def timed_step(step=inst.engine.step, nid=node.node_id):
+            t = time.perf_counter()
+            out = step()
+            steps.append((nid, t, time.perf_counter()))
+            return out
+        inst.engine.step = timed_step
+    reqs = serve_requests(cfg)
+    gc.collect()
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    rt = gw.start()
+    threads = rt.threads()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    handles, submitted = [], []
+    for i, r in enumerate(reqs):
+        submitted.append(time.perf_counter())
+        handles.append(gw.submit(cfg.name, r.prompt, r.sampling,
+                                 tenant="ab"[i % 2]))
+    arrivals = [[] for _ in handles]
+
+    def consume(i):
+        for ev in handles[i].stream(timeout_s=600):
+            if ev.type.value == "token":
+                arrivals[i].append((time.perf_counter(), ev.index, ev.token))
+    consumers = [threading.Thread(target=consume, args=(i,))
+                 for i in range(len(handles))]
+    for t in consumers:
+        t.start()
+    victim, crash_at, deadline = None, None, time.monotonic() + 300
+    while victim is None and time.monotonic() < deadline:
+        for h in handles:
+            n = len(h.internal.output)
+            if 0 < n and n + 2 * block <= \
+                    h.request.sampling.max_tokens and not h.done:
+                victim = h.internal.node
+                break
+        else:
+            time.sleep(0.002)
+    if victim is None:
+        raise AssertionError("serve_gateway: no stream to crash mid-way")
+    crash_at = time.perf_counter()
+    fleet.fail_node(victim)
+    for t in consumers:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    joined = gw.stop(drain=True, timeout_s=120)
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    by_route = dict(ops.flash_attention.launches_by_route)
+    if any(t.is_alive() for t in consumers) or not joined \
+            or any(t.is_alive() for t in threads):
+        raise AssertionError("serve_gateway: a thread did not join")
+    # the controller may have placed replicas while serving (autoscale on
+    # queue pressure, or reallocation below min_replicas); a crashed
+    # node keeps its instances, so the union holds every engine that ran
+    deployed = len(insts)
+    insts += [(n, i) for n in fleet.nodes.values()
+              for i in n.instances.values()
+              if all(i is not j for _, j in insts)]
+    resps = [h.response for h in handles]
+    budgets = [r.sampling.max_tokens for r in reqs]
+    lens = [len(r.tokens) if r else None for r in resps]
+    if lens != budgets or not all(r.ok for r in resps):
+        raise AssertionError(f"serve_gateway budgets {budgets} got {lens}: "
+                             f"{[r.error for r in resps if not r.ok]}")
+    for a, r in zip(arrivals, resps):
+        if [(i, t) for _, i, t in a] != list(enumerate(r.tokens)):
+            raise AssertionError("serve_gateway: a stream lost or "
+                                 "duplicated a token")
+    if any(not 0 <= t < cfg.vocab for r in resps for t in r.tokens):
+        raise AssertionError("serve_gateway: token outside the vocabulary")
+    served = sorted({r.node for r in resps})
+    if gw.stats.migrations < 1 or len(served) < 2:
+        raise AssertionError(f"serve_gateway: migrations "
+                             f"{gw.stats.migrations}, nodes {served}")
+    want = dict.fromkeys(launches, 0)
+    for node, inst in insts:
+        st = inst.engine.perf_stats()
+        for k, v in expected_launches(cfg, inst.engine.ecfg, st).items():
+            want[k] += v
+        if node.alive and inst.engine.pool.pages_in_use:
+            raise AssertionError(f"serve_gateway: {node.node_id} holds "
+                                 f"{inst.engine.pool.pages_in_use} pages")
+    if launches != want or by_route != {
+            "tensor_core": want["flash_attention"], "cuda_core": 0}:
+        raise AssertionError(f"serve_gateway launches {launches} by route "
+                             f"{by_route}, want {want}")
+    moved = [e.data for e in ctrl.bus.events if e.kind == "request_migrated"]
+    added = []
+    for m in moved:
+        i = next(k for k, h in enumerate(handles)
+                 if h.internal.request_id == m["request_id"])
+        after = [t for t, idx, _ in arrivals[i]
+                 if idx >= m["tokens_resumed"]]
+        if after:
+            added.append((min(after) - crash_at) * 1e3)
+    # TTFT at the Gateway: submit to the first token event of the stream
+    ttft = sorted(a[0][0] - t for a, t in zip(arrivals, submitted))
+    tokens = sum(budgets)
+    per_node = {nid: sum(r.node == nid for r in resps) for nid in served}
+    busy = {}
+    for nid, a, b in steps:
+        busy[nid] = busy.get(nid, 0.0) + b - a
+    # the same requests on one engine of the replicas' configuration,
+    # driven directly (no Gateway, no threads): the control plane's share
+    from repro_torch.serving import InferenceEngine
+    ecfg = insts[0][1].engine.ecfg
+    gc.collect()
+    direct = InferenceEngine(cfg, params, ecfg, device=dev)
+    dreqs = serve_requests(cfg)
+    d_step_ms, d_wall = drive(direct, dreqs)
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature == 0]
+    agree = sum(list(resps[i].tokens) == dreqs[i].output for i in greedy)
+    emit({"phase": "serve_gateway", "model": cfg.name,
+          "layers": cfg.n_layers, "params": cfg.num_params(),
+          "replicas": [(n.node_id, n.klass.name) for n, _ in
+                       insts[:deployed]],
+          "replicas_placed_while_serving": [
+              (n.node_id, n.klass.name) for n, _ in insts[deployed:]],
+          "controller_events": [e.kind for e in ctrl.bus.events
+                                if e.kind in ("autoscaled_up", "node_dead",
+                                              "reallocated",
+                                              "instance_deployed")],
+          "requests": len(reqs), "budgets": budgets,
+          "prompt_lens": [len(r.prompt) for r in reqs],
+          "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+          "p50_ttft_ms": float(np.median(ttft)) * 1e3,
+          "requests_per_node": per_node, "crashed": victim,
+          "migrations": gw.stats.migrations,
+          "stream_retries": gw.stats.stream_retries,
+          "migrated_added_ttft_ms": added,
+          "prefill_dispatches": sum(i.engine.prefill_dispatches
+                                    for _, i in insts),
+          "decode_dispatches": sum(i.engine.decode_dispatches
+                                   for _, i in insts),
+          "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                             if dev.type == "cuda" else None),
+          "nominal_hbm_used_bytes": {n.node_id: n.hbm_used
+                                     for n in fleet.nodes.values()
+                                     if n.instances},
+          "engine_steps": len(steps),
+          "p50_engine_step_ms": float(np.median(
+              [(b - a) * 1e3 for _, a, b in steps])),
+          "engine_busy_s_by_node": busy,
+          "engines_stepping_on_average": sum(busy.values()) / wall,
+          "direct_one_engine": {
+              "decode_block": ecfg.decode_block, "wall_s": d_wall,
+              "tok_per_s": tokens / d_wall,
+              "p50_step_ms": float(np.median(d_step_ms)),
+              "p50_ttft_ms": float(np.median(
+                  [r.ttft for r in dreqs])) * 1e3,
+              "greedy_rows_agreeing": f"{agree}/{len(greedy)}"},
+          "launches": launches, "launches_by_route": by_route,
+          "card": card})
+    return launches
+
+
 # --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1237,7 +1557,8 @@ def main() -> int:
         "serve_int8", dev, ops, card, quantize="int8")
     path_launches = {"serve_bf16": bf16_launches, "serve_int8": int8_launches,
                      "serve_prefix_swap": serve_prefix_swap(dev, ops, card),
-                     "serve_spec": serve_spec(dev, ops, card)}
+                     "serve_spec": serve_spec(dev, ops, card),
+                     "serve_gateway": serve_gateway(dev, ops, card)}
     gc.collect()
     # the prefill whose attention did the most work: rows x bucket^2; the
     # widest int8 product: rows x bucket

@@ -9,7 +9,9 @@ two wrappers with more than one kernel (`flash_attention`,
 `int8_matmul`) pick it in a pure function of dtype, layout, scale, M and
 alignment (`flash_attention_route`, `int8_matmul_route`), never from a
 failure, and also count each launch by route in a plain dict,
-`<wrapper>.launches_by_route`.
+`<wrapper>.launches_by_route`.  Every count goes through `_count`, under
+one lock: the serving runtime launches from one pump thread per node,
+and an unlocked `+= 1` can lose an update.
 
 Three kernels split their work across CTAs (decode attention its
 sequence, paged decode attention its page table's columns, the int8
@@ -39,7 +41,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -217,6 +219,18 @@ def _split_buffers(device: torch.device, n_tickets: int,
     return bufs[0], bufs[1]
 
 
+_count_lock = threading.Lock()
+
+
+def _count(wrapper, route: Optional[str] = None) -> None:
+    """One launch of `wrapper` (on `route`), counted exactly whatever the
+    threads launching."""
+    with _count_lock:
+        wrapper.launches += 1
+        if route is not None:
+            wrapper.launches_by_route[route] += 1
+
+
 def _run(name: str, device: torch.device, *args) -> None:
     fn = getattr(_lib(name), name)
     stream = _stream(device)[1]
@@ -321,7 +335,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
     out = _paged_decode(q, k_pool, v_pool, page_table, pos, window, prefix)
-    paged_decode_attention.launches += 1
+    _count(paged_decode_attention)
     return out
 
 
@@ -390,8 +404,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          out.data_ptr(), b, h, nkv, sq, skv, hd, int(causal), window, prefix,
          _DTYPES[q.dtype], FLASH_ROUTES.index(route), hd ** -0.5,
          *q.stride()[:3], *k.stride()[:3], *out.stride()[:3])
-    flash_attention.launches += 1
-    flash_attention.launches_by_route[route] += 1
+    _count(flash_attention, route)
     return out
 
 
@@ -472,7 +485,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
          tickets.data_ptr() if tickets is not None else None, b, nkv, g, hd,
          s, *strides[:3], window, prefix, _DTYPES[q.dtype], n_split, chunk,
          hd ** -0.5)
-    decode_attention.launches += 1
+    _count(decode_attention)
     return out
 
 
@@ -586,8 +599,7 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
          out.data_ptr(), ws.data_ptr() if ws is not None else None,
          tickets.data_ptr() if tickets is not None else None, m, n, k, swk,
          swn, per_k, _DTYPES[x.dtype], INT8_ROUTES.index(route), n_ks, per)
-    int8_matmul.launches += 1
-    int8_matmul.launches_by_route[route] += 1
+    _count(int8_matmul, route)
     return out
 
 
@@ -599,7 +611,8 @@ WRAPPERS = (paged_decode_attention, flash_attention, decode_attention,
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0
-        for route in getattr(fn, "launches_by_route", ()):
-            fn.launches_by_route[route] = 0
+    with _count_lock:
+        for fn in WRAPPERS:
+            fn.launches = 0
+            for route in getattr(fn, "launches_by_route", ()):
+                fn.launches_by_route[route] = 0

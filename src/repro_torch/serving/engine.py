@@ -352,6 +352,19 @@ class InferenceEngine:
         self.spec_prev[slot] = -1
         self.dispatches += 1
 
+    @property
+    def alive(self) -> bool:
+        return not self._dead
+
+    @property
+    def n_active(self) -> int:
+        return self.pool.n_active
+
+    @property
+    def load(self) -> float:
+        """Active slots + queue pressure, for least-loaded routing."""
+        return self.pool.n_active + self.scheduler.depth
+
     # ------------------------------------------------------------- #
     def step(self) -> int:
         """One engine iteration: admit one prefill bucket, then one fused

@@ -688,3 +688,127 @@ def test_engine_features_match_the_cpu(cuda, feature):
     assert stats[str(cuda)] == stats["cpu"]
     assert any(stats["cpu"][k] for k in ("suffix_prefills", "swap_outs",
                                          "spec_dispatches"))
+
+
+@pytest.mark.cuda
+def test_gateway_runtime_crash_migrates_on_the_card(cuda):
+    """A two-node stack on the card (reduced OLMo-1B, f32, one weight tree
+    shared by both engines) behind the controller and the Gateway with its
+    pump threads: 6 greedy requests, one node crashed while a stream with
+    room left is past its first token.  Every request gets exactly its
+    budget with the tokens of the same stack on the CPU, one migration at
+    least, and the kernels launched from the pump threads count exactly
+    what the engines' stats imply (the replica the controller re-places
+    on the survivor included)."""
+    import time
+
+    from repro_torch.api import Gateway
+    from repro_torch.cluster import BackendNode, Fleet
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import ModelCatalog, ModelDemand, SDAIController
+    from repro_torch.models import build
+    from repro_torch.serving import SamplingParams
+    cfg = ARCHS["olmo-1b"].reduced(dtype="f32")
+    host = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    budgets = [24, 9, 30, 17, 5, 28]
+    prompts = [list(range(1, 3 + i)) for i in range(6)]
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    def serve(dev, crash):
+        params = to(host, dev)
+        fleet = Fleet([BackendNode(f"n{i}", "rx6800-16gb",
+                                   param_store=lambda c: params, device=dev)
+                       for i in range(2)])
+        catalog = ModelCatalog()
+        catalog.register(cfg)
+        ctrl = SDAIController(fleet, catalog)
+        ctrl.discover()
+        ctrl.deploy([ModelDemand(cfg, min_replicas=2, max_replicas=2,
+                                 n_slots=4, max_len=64)])
+        engines = [i.engine for n in fleet.nodes.values()
+                   for i in n.instances.values()]
+        assert len(engines) == 2
+        assert all(e.device.type == torch.device(dev).type for e in engines)
+        gw = Gateway(ctrl)
+        gw.start()
+        ops.reset_launches()
+        hs = [gw.submit(cfg.name, p, SamplingParams(max_tokens=n))
+              for p, n in zip(prompts, budgets)]
+        if crash:
+            deadline = time.monotonic() + 120
+            victim = None
+            while victim is None and time.monotonic() < deadline:
+                for h in hs:
+                    n = len(h.internal.output)
+                    if 0 < n <= h.request.sampling.max_tokens - 8 \
+                            and not h.done:
+                        victim = h.internal.node
+                        break
+                else:
+                    time.sleep(0.001)
+            assert victim is not None
+            fleet.fail_node(victim)
+        resps = [h.result(timeout_s=300) for h in hs]
+        threads = gw.runtime.threads()
+        assert gw.stop(drain=True, timeout_s=60) is True
+        assert not any(t.is_alive() for t in threads)
+        launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+        # the controller re-places a lost replica on the survivor (below
+        # min_replicas); the crashed node keeps its instances
+        engines += [i.engine for n in fleet.nodes.values()
+                    for i in n.instances.values()
+                    if all(i.engine is not e for e in engines)]
+        want = {"flash_attention": 0, "decode_attention": 0}
+        for e in engines:
+            st = e.perf_stats()
+            want["flash_attention"] += cfg.n_layers * st["prefill_dispatches"]
+            want["decode_attention"] += (cfg.n_layers * e.ecfg.decode_block
+                                         * st["decode_dispatches"])
+        return resps, launches, want, gw.stats.migrations
+
+    ref, _, _, _ = serve("cpu", crash=False)
+    resps, launches, want, migrations = serve(cuda, crash=True)
+    assert [len(r.tokens) for r in resps] == budgets
+    assert all(r.ok for r in resps)
+    assert [r.tokens for r in resps] == [r.tokens for r in ref]
+    assert migrations >= 1
+    assert launches["flash_attention"] == want["flash_attention"] > 0
+    assert launches["decode_attention"] == want["decode_attention"] > 0
+    assert launches["paged_decode_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_launch_counts_exact_from_pump_like_threads(cuda):
+    """Eight threads launch the decode kernel on the card at once (all on
+    the default stream, as the serving runtime's pump threads do): the
+    counter loses no launch, and every output equals the plain version."""
+    import threading
+    q, k, v = _tensors(3, cuda, torch.bfloat16, (4, 2, 1, 64),
+                       (4, 2, 256, 64), (4, 2, 256, 64))
+    pos = torch.tensor([255, 100, 7, 0], dtype=torch.int32, device=cuda)
+    want = decode_attention_ref(q, k, v, pos)
+    ops.reset_launches()
+    n_threads, n_each, bad = 8, 200, []
+    start = threading.Barrier(n_threads)
+
+    def work():
+        start.wait()
+        for _ in range(n_each):
+            out = ops.decode_attention(q, k, v, pos)
+            if not torch.allclose(out.float(), want.float(), atol=2e-2,
+                                  rtol=2e-2):
+                bad.append(out)
+    threads = [threading.Thread(target=work) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    torch.cuda.synchronize()
+    assert not bad
+    assert ops.decode_attention.launches == n_threads * n_each
+    ops.reset_launches()

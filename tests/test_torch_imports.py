@@ -1,5 +1,6 @@
-"""The port stands alone: importing it loads no JAX and nothing of the JAX
-package, and its entry points need a card unless told to use the CPU."""
+"""The port stands alone: importing it (the control plane too) loads no JAX
+and nothing of the JAX package, and its entry points, a real deploy of
+the control plane among them, need a card unless told to use the CPU."""
 import os
 import subprocess
 import sys
@@ -12,6 +13,8 @@ import sys
 import repro_torch, repro_torch.serving, repro_torch.kernels.ops
 import repro_torch.serving.quantization
 import repro_torch.models, repro_torch.params, repro_torch.configs
+import repro_torch.api, repro_torch.cluster, repro_torch.core
+import repro_torch.roofline
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -35,6 +38,20 @@ if not torch.cuda.is_available():
         assert "CUDA" in str(e)
     else:
         raise AssertionError("engine ran without CUDA and without 'cpu'")
+    # the control plane's real deploy: nodes built with no device mean
+    # the card, as every entry point does
+    from repro_torch.cluster import paper_testbed
+    from repro_torch.core import ModelCatalog, ModelDemand, SDAIController
+    cat = ModelCatalog()
+    cat.register(cfg)
+    ctrl = SDAIController(paper_testbed(param_store=lambda c: params), cat)
+    ctrl.discover()
+    try:
+        ctrl.deploy([ModelDemand(cfg, n_slots=2, max_len=32)])
+    except RuntimeError as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("a real deploy ran without CUDA and 'cpu'")
 print("ok")
 """
 
