@@ -50,7 +50,10 @@ JSON line:
               one weight tree): the 4 greedy requests through the
               serving runtime's pump threads, and, hand-pumped, one whose
               node is crashed after 2 streamed tokens, migrated to the
-              other replica.  Each run's tokens must
+              other replica; then over HTTP, on llama3.2-1b cut to 2
+              layers at full width in f32 (G = 4, head_dim 64, RMS-norm
+              scales from a seed): 4 greedy completions with token-id
+              prompts, two streamed.  Each run's tokens must
               equal a plain greedy recompute on the card (full forward,
               plain attention, no cache, every step; for int8 on the
               dequantized weights), and each must launch exactly its
@@ -120,7 +123,33 @@ JSON line:
               the Gateway, requests per node, the migrations and the
               migrated streams' added TTFT, peak device bytes and the
               nodes' nominal accounting.
-10. kernels — per kernel: its launches on the path that runs it (and on
+10. serve_http — the launcher's own `build_service` (python -m
+              repro_torch.api.http) in-process with its defaults: the
+              paper's full llama3.2-1b (G = 4, head_dim 64) and
+              qwen3-1.7b (G = 2, head_dim 128), bf16, seeded weights,
+              two real replicas each on the paper's testbed, behind the
+              OpenAI-compatible HTTP service.  16 requests from three
+              tenants on three keep-alive clients (chat and token-id
+              completions, greedy and sampled, streamed and not), a
+              cancelled stream (499), a prompt past the context (400),
+              a tenant past its bucket (429); the same greedy requests
+              in-process through Gateway.generate_batch (the wire tax);
+              server.stop() with a stream in flight.  Exact budgets,
+              streams contiguous and equal to their usage, caller_pumps
+              0, >= 2 nodes for each model, every page returned, launches
+              summed over the engines exactly what their stats imply (all
+              flash "tensor_core"), every thread joined (see the
+              function).  It prints tok/s, p50 / p95 TTFT over the wire
+              and in-process, the latency the wire adds to a
+              non-streamed request (the client's less the Gateway's),
+              requests per model and node, the drain's
+              seconds, peak device bytes and the greedy rows equal on
+              both sides (bf16: informational).
+11. launcher — `python -m repro_torch.api.http --port 0` as a process
+              of its own: /healthz and /v1/models list both models, one
+              streamed chat ends in `data: [DONE]`, and SIGINT makes it
+              print "draining..." and exit 0 within 60 s.
+12. kernels — per kernel: its launches on the path that runs it (and on
               every serve), its error against the plain version, its
               time (CUDA events, median of 30 runs after warm-up, each
               from a cold L2)
@@ -134,7 +163,10 @@ JSON line:
               8192 -> 2048, the tied head, and serve_int8's widest
               prefill M at all three projection shapes (its "shapes"),
               each with its route and its ratio to the library call
-              ("vs_library").  Before the line: c5_f32_tile_error (the
+              ("vs_library"); flash and decode attention also at
+              serve_http's two grouped-query shapes (their "shapes",
+              with SDPA's enable_gqa as the yardstick).  Before the
+              line: c5_f32_tile_error (the
               f32 CUDA-core int8 tile and f32 cuBLAS against f64 at
               M = 4096) and plain_timings (the verify's plain paged
               attention at the serves' verify shape).
@@ -638,6 +670,74 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
     return out
 
 
+SERVED_GQA = {
+    # model: (n_heads, n_kv_heads, head_dim), the zoo configs serve_http
+    # serves
+    "llama3.2-1b": (32, 8, 64),
+    "qwen3-1.7b": (16, 8, 128),
+}
+
+
+def gqa_timings(dev, ops, refs):
+    """Flash and decode attention at serve_http's grouped-query shapes,
+    bf16, each held against its plain version first: decode over 8 slots
+    of S = 1024 with every position valid (pos 1023), in the engine's
+    (B, S, K, hd) cache view; flash over a causal prefill of 4 rows of
+    1024.  The library yardstick is one SDPA call with enable_gqa (the
+    port never calls it).  Returns {kernel: [rows]}."""
+    F = torch.nn.functional
+    dt, out = torch.bfloat16, {"decode_attention": [],
+                               "flash_attention": []}
+    for model, (H, K, hd) in SERVED_GQA.items():
+        G, B, S = H // K, 8, 1024
+        q, k, v, p = decode_case(dev, dt, B=B, K=K, G=G, S=S, hd=hd,
+                                 pos=[S - 1] * B, seed=13, strided=True)
+        ref = refs["decode_attention"]
+        err = check_close(f"decode_attention/{model}", ops.decode_attention(
+            q, k, v, p), ref(q, k, v, p), tol_of(dt))
+        n_kv = B * S
+        b_ms, b_by = bound(2 * n_kv * K * hd * 2 + 2 * q.numel() * 2 + B * 4,
+                           4 * n_kv * K * G * hd, BF16_FLOPS)
+        qh = q.reshape(B, H, 1, hd)       # head k * G + g reads kv head k
+        out["decode_attention"].append({
+            "label": model, "shape": f"B={B} K={K} G={G} S={S} hd={hd} "
+            "bf16, (B, S, K, hd) cache view, pos 1023",
+            "splits": dict(zip(("n_split", "chunk"),
+                               ops.decode_attention_splits(
+                                   B, K, S, ops._sm_count(dev.index)))),
+            "max_abs_err": err,
+            "ms": time_ms(lambda: ops.decode_attention(q, k, v, p)),
+            "plain_ms": time_ms(lambda: ref(q, k, v, p), reps=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qh, k, v, enable_gqa=True))})
+        B = 4
+        q, k, v = flash_case(dev, dt, B=B, H=H, K=K, S=S, hd=hd, seed=14)
+        ref = refs["flash_attention"]
+        got = on_route(ops.flash_attention, "tensor_core",
+                       lambda: ops.flash_attention(q, k, v))
+        err = check_close(f"flash_attention/{model}", got, ref(q, k, v),
+                          tol_of(dt))
+        pairs = B * S * (S + 1) // 2
+        b_ms, b_by = bound(2 * (q.numel() + k.numel() + v.numel()
+                                + q.numel()), 4 * H * hd * pairs,
+                           BF16_FLOPS)
+        out["flash_attention"].append({
+            "label": model, "shape": f"B={B} H={H} K={K} S={S} hd={hd} "
+            "bf16 causal", "kernel_route": "tensor_core",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: ops.flash_attention(q, k, v)),
+            "plain_ms": time_ms(lambda: ref(q, k, v), reps=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))})
+        del q, k, v
+    for rows in out.values():
+        for r in rows:
+            r["vs_library"] = r["ms"] / r["library_ms"]
+    return out
+
+
 def c5_f32_tile_error(dev, ops, q_lib):
     """ROADMAP C5: the f32 int8 product on the CUDA-core tile route and
     f32 cuBLAS (the dequantized weight, TF32 off), each against an f64
@@ -718,15 +818,17 @@ def greedy_recompute(tf, params, cfg, prompt, n):
     return out
 
 
-def parity_f32(dev, ops, cfg=None):
+def parity_f32(dev, ops, cfg=None, http_cfg=None):
     """The 2-layer f32 model in each decode mode, and int8 in the gather
     mode, against the plain greedy recompute (dense, or on the
     dequantized int8 weights); then the hierarchical KV memory and
     speculation on the dense weights: the prefix cache in the
     paged-attention and gather modes (prompts sharing a 256-token prefix,
     one at a time, then a partial hit), the host swap tier on an
-    oversubscribed pool, and speculative decoding on repetitive prompts.
-    `cfg` replaces the model (a CPU rehearsal)."""
+    oversubscribed pool, and speculative decoding on repetitive prompts;
+    then the control plane's runs (parity_gateway) and the HTTP run
+    (parity_http).  `cfg` and `http_cfg` replace the models (a CPU
+    rehearsal)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build
     from repro_torch.models import transformer as tf
@@ -824,6 +926,11 @@ def parity_f32(dev, ops, cfg=None):
                                       gather)
     lines += gw_lines
     mismatches += gw_bad
+    del params
+    gc.collect()
+    http_line, http_bad = parity_http(dev, ops, http_cfg)
+    lines.append(http_line)
+    mismatches += http_bad
     emit({"phase": "parity_f32", "layers": cfg.n_layers, "d_model":
           cfg.d_model, "prompt_lens": [len(p) for p in prompts],
           "prefix_prompt_lens": [len(p) for p in prefix_prompts],
@@ -928,6 +1035,96 @@ def parity_gateway(dev, ops, cfg, params, prompts, dense, kernels):
             if node.alive and inst.engine.pool.pages_in_use:
                 raise AssertionError("parity_f32 gateway: pages held")
     return lines, bad
+
+
+def seed_norms(params, rng):
+    """Draw every RMS-norm scale from `rng` (the init leaves them 0, and
+    `1 + scale` then never weighs anything)."""
+    for tree, key in ((params["layers"], "ln1"), (params["layers"], "ln2"),
+                      (params, "final_norm")):
+        t = tree[key]
+        tree[key] = torch.from_numpy(rng.normal(
+            0.0, 0.5, tuple(t.shape)).astype(np.float32)).to(t.device,
+                                                             t.dtype)
+
+
+def parity_http(dev, ops, cfg=None):
+    """The paper's llama3.2-1b cut to 2 layers, at full width and in f32
+    (G = 4, head_dim 64), its RMS-norm scales drawn from a seed, served
+    over HTTP: the paper's testbed, two replicas on two nodes behind
+    GatewayHTTPServer.  Four greedy /v1/completions with token-id
+    prompts, two streamed and two not, from four keep-alive clients at
+    once.  Their token ids must equal the plain greedy recompute, and the
+    engines must launch exactly flash n_layers x prefill dispatches and
+    decode attention n_layers x decode_block x decode dispatches
+    (node.deploy's gather mode), summed over them.  `cfg` replaces the
+    model (a CPU rehearsal).  Returns (line, mismatches)."""
+    import threading
+    from repro_torch.api.http import GatewayHTTPServer, HTTPClient, HTTPConfig
+    from repro_torch.configs import ZOO
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tf
+    cfg = cfg or dataclasses.replace(ZOO["llama3.2-1b"], n_layers=2,
+                                     dtype="f32")
+    params = build(cfg, dev).init(torch.Generator(device=dev).manual_seed(3))
+    seed_norms(params, np.random.default_rng(8))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in (1, 17, 100, 300)]
+    want = [greedy_recompute(tf, params, cfg, p, 16) for p in prompts]
+    fleet, ctrl, gw = gateway_stack(dev, cfg, params, min_replicas=2,
+                                    max_replicas=2, n_slots=4, max_len=512,
+                                    allow_quant=False)
+    server = GatewayHTTPServer(gw, HTTPConfig(port=0)).start()
+    ops.reset_launches()
+    got, errors = [None] * len(prompts), []
+
+    def ask(i):
+        c = HTTPClient(server.url())
+        try:
+            if i % 2:
+                got[i] = [ch["choices"][0]["token"] for ch in c.complete(
+                    cfg.name, prompts[i], max_tokens=16, stream=True,
+                    timeout_s=300)
+                    if ch["choices"][0].get("token") is not None]
+            else:
+                got[i] = c.complete(cfg.name, prompts[i], max_tokens=16,
+                                    timeout_s=300)["choices"][0]["token_ids"]
+        except Exception as e:          # reported on the main thread
+            errors.append(repr(e))
+        finally:
+            c.close()
+    clients = [threading.Thread(target=ask, args=(i,))
+               for i in range(len(prompts))]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(timeout=600)
+    stopped = server.stop(timeout_s=120)
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    if errors or not stopped or any(t.is_alive() for t in clients):
+        raise AssertionError(f"parity_f32 http: {errors}, stopped {stopped}")
+    expect = dict.fromkeys(launches, 0)
+    nodes = []
+    for node in fleet.nodes.values():
+        for inst in node.instances.values():
+            eng = inst.engine
+            for k, v in expected_launches(cfg, eng.ecfg,
+                                          eng.perf_stats()).items():
+                expect[k] += v
+            if eng.pool.pages_in_use:
+                raise AssertionError("parity_f32 http: pages held")
+            nodes.append(node.node_id)
+    if launches != expect or not launches["decode_attention"] \
+            or not launches["flash_attention"]:
+        raise AssertionError(f"parity_f32 http: launches {launches}, want "
+                             f"{expect}")
+    bad = [{"mode": "http", "prompt_len": len(p), "got": g, "want": w}
+           for p, g, w in zip(prompts, got, want) if g != w]
+    return ({"mode": "http", "model": cfg.name, "layers": cfg.n_layers,
+             "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim":
+             cfg.head_dim, "nodes": nodes, "streamed": [1, 3],
+             "launches": launches, "match": not bad}, bad)
 
 
 def serve_setup(dev, cfg=None, params=None, **engine_kw):
@@ -1507,6 +1704,449 @@ def serve_gateway(dev, ops, card, cfg=None, params=None):
     return launches
 
 
+def http_requests(cfgs, models, max_len):
+    """serve_http's traffic, from a seed: 16 requests alternating between
+    the two models, 8 on /v1/chat/completions (a system turn and a user
+    turn, rendered by the model's template to 150-700 byte-tokens) and 8
+    on /v1/completions (token-id prompts of 16-512), budgets 16-64, 12
+    greedy and 4 sampled, half streamed; tenants "acme" and "lab" take 7
+    each, of both models, and "capped" 2.  Then three error paths:
+    "acme" streams one more completion and cancels it after its 4th
+    token, "lab" sends a prompt one token past the context (400), and
+    "capped" a third request, past its bucket of 2 (429)."""
+    from repro_torch.api.http import ChatMessage, render_prompt
+    rng = np.random.default_rng(4)
+    letters = list("abcdefghijklmnopqrstuvwxyz    ")
+    specs = []
+    for i in range(16):
+        model = models[i % 2]
+        cfg = cfgs[model]
+        s = {"i": i, "model": model, "budget": int(rng.integers(16, 65)),
+             "stream": (i // 4) % 2 == 0, "sampled": i in (5, 6, 9, 14),
+             "tenant": (("acme", "lab")[(i + i // 2) % 2] if i < 14
+                        else "capped"),
+             "expect": "ok"}
+        if (i // 2) % 2 == 0:
+            n = int(rng.integers(80, 500))
+            cut = int(rng.integers(20, 80))
+            text = "".join(rng.choice(letters, n))
+            s["kind"] = "chat"
+            s["messages"] = [ChatMessage("system", text[:cut]),
+                             ChatMessage("user", text[cut:])]
+            s["prompt"] = list(render_prompt(model, s["messages"], cfg))
+            if not 150 <= len(s["prompt"]) <= 700:
+                raise AssertionError(f"chat prompt of {len(s['prompt'])}")
+        else:
+            s["kind"] = "completion"
+            s["prompt"] = rng.integers(
+                0, cfg.vocab, int(rng.integers(16, 513))).tolist()
+        specs.append(s)
+    extra = [("acme", "cancel", 64, 200), ("lab", "too_long", 16,
+                                           max_len + 1),
+             ("capped", "rate_limited", 16, 32)]
+    for k, (tenant, expect, budget, n) in enumerate(extra):
+        model = models[k % 2]
+        specs.append({"i": 16 + k, "model": model, "kind": "completion",
+                      "prompt": rng.integers(0, cfgs[model].vocab,
+                                             n).tolist(),
+                      "budget": budget, "stream": expect == "cancel",
+                      "sampled": False, "tenant": tenant, "expect": expect})
+    return specs
+
+
+def http_call(client, s, canceller, timeout_s):
+    """One request of serve_http over `client`'s keep-alive connection;
+    a stream expected to be cancelled is, through `canceller`, once its
+    4th token is in.  Returns what came back."""
+    from repro_torch.api.http import HTTPClientError
+    from repro_torch.api.types import ErrorCode
+    kw = dict(max_tokens=s["budget"], stream=s["stream"],
+              timeout_s=timeout_s)
+    if s["sampled"]:
+        kw.update(temperature=0.8, top_k=40, top_p=0.95)
+    call, arg = ((client.chat, s["messages"]) if s["kind"] == "chat"
+                 else (client.complete, s["prompt"]))
+    t0 = time.perf_counter()
+    try:
+        if not s["stream"]:
+            out = call(s["model"], arg, **kw)
+            ch = out["choices"][0]
+            return {"tokens": ch["token_ids"],
+                    "indices": list(range(len(ch["token_ids"]))),
+                    "usage": out["usage"], "finish": ch["finish_reason"],
+                    "node": out["metadata"]["node"],
+                    "total_s": time.perf_counter() - t0,
+                    "gateway_latency_s": out["metadata"]["latency_s"]}
+        rec = {"tokens": [], "indices": [], "usage": None, "finish": None,
+               "first_s": None, "error": None}
+        for chunk in call(s["model"], arg, **kw):
+            if "error" in chunk:
+                rec["error"] = chunk["error"]
+                continue
+            c0 = chunk["choices"][0]
+            d = c0.get("delta", c0)
+            if d.get("token") is not None:
+                if rec["first_s"] is None:
+                    rec["first_s"] = time.perf_counter() - t0
+                rec["tokens"].append(d["token"])
+                rec["indices"].append(d["token_index"])
+                if s["expect"] == "cancel" and len(rec["tokens"]) == 4:
+                    rid = int(chunk["id"].rsplit("-", 1)[1])
+                    rec["cancelled"] = canceller.cancel(rid)
+            if c0.get("finish_reason"):
+                rec["finish"] = c0["finish_reason"]
+            if "usage" in chunk:
+                rec["usage"] = chunk["usage"]
+        rec["total_s"] = time.perf_counter() - t0
+        return rec
+    except HTTPClientError as e:
+        return {"status": e.status,
+                "code": e.code.value if isinstance(e.code, ErrorCode)
+                else None}
+
+
+def check_http(specs, outs, cfgs):
+    """serve_http's per-request checks: exact budgets, contiguous stream
+    indices equal to usage, the error paths' statuses."""
+    for s, o in zip(specs, outs):
+        where = f"serve_http request {s['i']} ({s['tenant']}, {s['kind']})"
+        if o is None:
+            raise AssertionError(f"{where}: no answer")
+        if s["expect"] == "too_long":
+            if (o.get("status"), o.get("code")) != (400, "invalid_request"):
+                raise AssertionError(f"{where}: {o}")
+            continue
+        if s["expect"] == "rate_limited":
+            if (o.get("status"), o.get("code")) != (429, "rate_limited"):
+                raise AssertionError(f"{where}: {o}")
+            continue
+        n = len(o.get("tokens", ()))
+        if o.get("indices") != list(range(n)):
+            raise AssertionError(f"{where}: token indices {o.get('indices')}")
+        if any(not 0 <= t < cfgs[s["model"]].vocab for t in o["tokens"]):
+            raise AssertionError(f"{where}: token outside the vocabulary")
+        if s["expect"] == "cancel":
+            err = o.get("error") or {}
+            if not o.get("cancelled") or err.get("code") != 499 \
+                    or not 4 <= n < s["budget"]:
+                raise AssertionError(f"{where}: {o}")
+            continue
+        want_usage = {"prompt_tokens": len(s["prompt"]),
+                      "completion_tokens": s["budget"],
+                      "total_tokens": len(s["prompt"]) + s["budget"]}
+        if n != s["budget"] or o["usage"] != want_usage \
+                or o["finish"] != "length" or o.get("error"):
+            raise AssertionError(f"{where}: {n} tokens of {s['budget']}, "
+                                 f"usage {o['usage']}, {o.get('error')}")
+
+
+def pct(xs, q):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def serve_http(dev, ops, card, argv=None, timeout_s=600):
+    """The launcher's own `build_service` in-process, with its defaults:
+    the full llama3.2-1b and qwen3-1.7b (bf16, seeded weights, one tree
+    per model) at two replicas each, placed by VRAM on the paper's
+    testbed, every replica a real engine on the card in node.deploy's
+    gather mode.  `http_requests`' traffic over three keep-alive
+    HTTPClients, one per tenant, at once; the capped tenant's bucket is
+    set over the admin API.  Then the wire tax: the same greedy requests
+    through Gateway.generate_batch in-process.  Then server.stop() with
+    one 64-token stream in flight, which must drain.  Holds: every budget
+    exact and every stream's token indices contiguous and equal to its
+    usage; the cancel (499), too-long (400) and rate-limit (429) paths;
+    caller_pumps 0; traffic on >= 2 nodes for each model over the
+    phase (the router keeps light traffic on the class its perf model
+    prefers, so the 12 requests at once of the in-process leg may be
+    what reaches the second); every page
+    returned; the kernels' launches exactly what the engines' stats
+    imply, every flash launch on the tensor cores; every runtime,
+    handler and client thread joined.  `argv` replaces the launcher's
+    arguments (a CPU rehearsal)."""
+    import threading
+    from repro_torch.api import GenerationRequest
+    from repro_torch.api.http import HTTPClient
+    from repro_torch.api.http.__main__ import build_service
+    from repro_torch.serving import SamplingParams
+    gc.collect()
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_build = time.perf_counter()
+    server, ctrl = build_service(["--port", "0"] if argv is None else argv)
+    sync(dev)
+    build_s = time.perf_counter() - t_build
+    fleet, gw = ctrl.fleet, server.gateway
+    insts = [(n, i) for n in fleet.nodes.values()
+             for i in n.instances.values()]
+    models = sorted({i.model_name for _, i in insts})
+    cfgs = {m: ctrl.catalog.get(m) for m in models}
+    placed = {m: sorted(n.node_id for n, i in insts if i.model_name == m)
+              for m in models}
+    if len(models) != 2 or any(len(v) != 2 for v in placed.values()) \
+            or any(i.engine.device.type != dev.type for _, i in insts):
+        raise AssertionError(f"serve_http placement {placed}")
+    max_len = insts[0][1].max_len
+    specs = http_requests(cfgs, models, max_len)
+    server.start()
+    runtime_threads = gw.runtime.threads()
+    url = server.url()
+    admin = HTTPClient(url)
+    admin.set_tenant_quota("capped", requests_per_s=0.01, burst_requests=2)
+    admin.close()
+    routed0 = dict(ctrl.frontend.stats.per_replica)
+    ops.reset_launches()
+    outs = [None] * len(specs)
+
+    errors = []
+
+    def tenant_run(tenant):
+        client, canceller = HTTPClient(url, tenant=tenant), HTTPClient(url)
+        try:
+            for k, s in enumerate(specs):
+                if s["tenant"] == tenant:
+                    outs[k] = http_call(client, s, canceller, timeout_s)
+        except Exception as e:          # reported on the main thread
+            errors.append((tenant, repr(e)))
+        finally:
+            client.close()
+            canceller.close()
+    clients = [threading.Thread(target=tenant_run, args=(t,))
+               for t in ("acme", "lab", "capped")]
+    t0 = time.perf_counter()
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(timeout=timeout_s + 60)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in clients):
+        raise AssertionError(f"serve_http: client threads {errors}")
+    check_http(specs, outs, cfgs)
+    main16 = [(s, o) for s, o in zip(specs, outs) if s["expect"] == "ok"]
+    tokens = sum(len(o["tokens"]) for _, o in main16)
+
+    def routed_since(base):
+        """Requests routed since `base`, by model and node."""
+        out = {m: {} for m in models}
+        for n, i in insts:
+            key = f"{n.node_id}/{i.instance_id}"
+            got = ctrl.frontend.stats.per_replica.get(key, 0) \
+                - base.get(key, 0)
+            if got:
+                out[i.model_name][n.node_id] = \
+                    out[i.model_name].get(n.node_id, 0) + got
+        return out
+    wire_by_model = routed_since(routed0)
+    routed1 = dict(ctrl.frontend.stats.per_replica)
+    # the wire tax: the same greedy requests in-process, all at once
+    greedy = [(s, o) for s, o in main16 if not s["sampled"]]
+    resps = gw.generate_batch([GenerationRequest(
+        model=s["model"], prompt=tuple(s["prompt"]),
+        sampling=SamplingParams(max_tokens=s["budget"]))
+        for s, _ in greedy], timeout_s=timeout_s)
+    if [len(r.tokens) if r.ok else None for r in resps] != \
+            [s["budget"] for s, _ in greedy]:
+        raise AssertionError(f"serve_http in-process: {resps}")
+    inproc_by_model = routed_since(routed1)
+    spread = {m: set(wire_by_model[m]) | set(inproc_by_model[m])
+              for m in models}
+    if any(len(v) < 2 for v in spread.values()):
+        raise AssertionError(f"serve_http: requests by model and node, "
+                             f"over the wire {wire_by_model}, in-process "
+                             f"{inproc_by_model}")
+    agree = sum(list(r.tokens) == o["tokens"]
+                for (_, o), r in zip(greedy, resps))
+    # shutdown with a stream in flight: stop() must let it finish
+    drain = {"frames": []}
+    first = threading.Event()
+
+    def last_stream():
+        c = HTTPClient(url)
+        try:
+            for ch in c.complete(models[0], specs[2]["prompt"],
+                                 max_tokens=64, stream=True,
+                                 timeout_s=timeout_s):
+                drain["frames"].append(ch)
+                if ch["choices"][0].get("token") is not None:
+                    first.set()
+        except Exception as e:          # reported on the main thread
+            drain["error"] = repr(e)
+        finally:
+            first.set()
+            c.close()
+    tail = threading.Thread(target=last_stream)
+    tail.start()
+    first.wait(timeout_s)
+    handler_threads = list(server._pool._threads) + [server._accept_thread]
+    caller_pumps = gw.stats.caller_pumps
+    d0 = time.perf_counter()
+    stopped = server.stop(timeout_s=120)
+    drain_s = time.perf_counter() - d0
+    tail.join(timeout=60)
+    for th in handler_threads:
+        th.join(timeout=30)
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    by_route = dict(ops.flash_attention.launches_by_route)
+    alive = [th.name for th in runtime_threads + handler_threads + [tail]
+             if th.is_alive()]
+    if not stopped or alive or "error" in drain:
+        raise AssertionError(f"serve_http stop: {stopped}, alive {alive}, "
+                             f"{drain.get('error')}")
+    toks = [f for f in drain["frames"]
+            if f["choices"][0].get("token") is not None]
+    if len(toks) != 64 or drain["frames"][-1]["choices"][0][
+            "finish_reason"] != "length":
+        raise AssertionError(f"serve_http: the drained stream got "
+                             f"{len(toks)} of 64 tokens")
+    if caller_pumps:
+        raise AssertionError(f"serve_http: {caller_pumps} caller pumps")
+    insts += [(n, i) for n in fleet.nodes.values()
+              for i in n.instances.values()
+              if all(i is not j for _, j in insts)]
+    want = dict.fromkeys(launches, 0)
+    for node, inst in insts:
+        eng = inst.engine
+        for k, v in expected_launches(inst.cfg, eng.ecfg,
+                                      eng.perf_stats()).items():
+            want[k] += v
+        if eng.pool.pages_in_use:
+            raise AssertionError(f"serve_http: {node.node_id} holds "
+                                 f"{eng.pool.pages_in_use} pages")
+    if launches != want or by_route != {
+            "tensor_core": want["flash_attention"], "cuda_core": 0} \
+            or not launches["flash_attention"] \
+            or not launches["decode_attention"]:
+        raise AssertionError(f"serve_http launches {launches} by route "
+                             f"{by_route}, want {want}")
+    wire_ttft = [o["first_s"] * 1e3 for _, o in main16 if "first_s" in o]
+    # what the wire adds to a request at the same load: the client's
+    # latency less the Gateway's own (submit to finish), non-streamed
+    wire_extra = [(o["total_s"] - o["gateway_latency_s"]) * 1e3
+                  for _, o in main16 if "gateway_latency_s" in o]
+    inproc_ttft = [r.ttft * 1e3 for r in resps]
+    emit({"phase": "serve_http", "models": {
+              m: {"layers": cfgs[m].n_layers, "params": cfgs[m].num_params(),
+                  "heads": [cfgs[m].n_heads, cfgs[m].n_kv_heads],
+                  "head_dim": cfgs[m].head_dim, "nodes": placed[m]}
+              for m in models},
+          "build_s": build_s, "requests": len(main16),
+          "budgets": [s["budget"] for s, _ in main16],
+          "prompt_lens": [len(s["prompt"]) for s, _ in main16],
+          "kinds": [s["kind"] for s, _ in main16],
+          "streamed": sum(s["stream"] for s, _ in main16),
+          "sampled": sum(s["sampled"] for s, _ in main16),
+          "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+          "wire_ttft_ms": {"p50": pct(wire_ttft, 50),
+                           "p95": pct(wire_ttft, 95), "n": len(wire_ttft)},
+          "wire_added_latency_ms": {"p50": pct(wire_extra, 50),
+                                    "p95": pct(wire_extra, 95),
+                                    "n": len(wire_extra)},
+          "in_process_ttft_ms": {"p50": pct(inproc_ttft, 50),
+                                 "p95": pct(inproc_ttft, 95),
+                                 "n": len(inproc_ttft)},
+          "requests_by_model_and_node": {"wire": wire_by_model,
+                                         "in_process": inproc_by_model},
+          "cancelled_after_tokens": len(outs[16]["tokens"]),
+          "greedy_rows_equal_wire_and_in_process":
+              f"{agree}/{len(greedy)}",
+          "drain_s": drain_s, "default_drain_budget_s": 10.0,
+          "caller_pumps": caller_pumps,
+          "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                             if dev.type == "cuda" else None),
+          "weight_bytes": {m: cfgs[m].param_bytes() for m in models},
+          "prefill_dispatches": sum(i.engine.prefill_dispatches
+                                    for _, i in insts),
+          "decode_dispatches": sum(i.engine.decode_dispatches
+                                   for _, i in insts),
+          "launches": launches, "launches_by_route": by_route,
+          "card": card})
+    return launches
+
+
+def launcher_run(card, argv=(), start_timeout_s=300, exit_timeout_s=60):
+    """`python -m repro_torch.api.http --port 0` as a process of its own
+    (the default models at full width on the card): read the URL it
+    prints; GET /healthz and /v1/models must list both models, and one
+    streamed chat completion must end in `data: [DONE]`; then SIGINT: it
+    must print "draining..." and exit 0 within `exit_timeout_s`.  The
+    process is killed if it outlives this function.  `argv` adds
+    arguments (a CPU rehearsal)."""
+    import http.client
+    import os
+    import signal
+    import threading
+    from urllib.parse import urlparse
+    from repro_torch.api.http import HTTPClient
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.api.http", "--port", "0",
+         *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines, urls, ready = [], [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if line.startswith("serving ") and " on http://" in line:
+                urls.append(line.split(" on ", 1)[1].split()[0])
+                ready.set()
+        ready.set()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not ready.wait(start_timeout_s) or not urls:
+            raise AssertionError(f"launcher did not start: {lines[-20:]}")
+        start_s = time.perf_counter() - t0
+        c = HTTPClient(urls[0])
+        health, models = c.healthz(), c.models()
+        c.close()
+        if sorted(health["models"]) != sorted(models) or len(models) != 2:
+            raise AssertionError(f"launcher: {health}, models {models}")
+        u = urlparse(urls[0])
+        conn = http.client.HTTPConnection(u.hostname, u.port, timeout=300)
+        conn.request("POST", "/v1/chat/completions", json.dumps({
+            "model": models[0], "max_tokens": 8, "stream": True,
+            "messages": [{"role": "user", "content": "hello"}]}),
+            {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.startswith(b"data:"):
+                data.append(line[len(b"data:"):].strip())
+                if data[-1] == b"[DONE]":
+                    break
+        conn.close()
+        tokens = sum(1 for d in data[:-1] if json.loads(d)["choices"][0]
+                     ["delta"].get("token") is not None)
+        if resp.status != 200 or not data or data[-1] != b"[DONE]" \
+                or tokens != 8:
+            raise AssertionError(f"launcher stream: {resp.status}, "
+                                 f"{data[-3:]}")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(exit_timeout_s)
+        exit_s = time.perf_counter() - t1
+        reader.join(timeout=10)
+        if rc != 0 or "draining..." not in lines:
+            raise AssertionError(f"launcher exit {rc}: {lines[-20:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    emit({"phase": "launcher", "argv": ["--port", "0", *argv],
+          "start_s": start_s, "models": models, "stream_tokens": tokens,
+          "exit_code": rc, "sigint_to_exit_s": exit_s,
+          "exit_limit_s": exit_timeout_s, "card": card})
+
+
 # --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1560,11 +2200,17 @@ def main() -> int:
                      "serve_spec": serve_spec(dev, ops, card),
                      "serve_gateway": serve_gateway(dev, ops, card)}
     gc.collect()
+    path_launches["serve_http"] = serve_http(dev, ops, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher_run(card)
     # the prefill whose attention did the most work: rows x bucket^2; the
     # widest int8 product: rows x bucket
     widest = max(bf16_shapes, key=lambda s: s[0] * s[1] ** 2)
     int8_m = max(r * b for r, b in int8_shapes)
     timings = kernel_timings(dev, ops, refs, q_lib, widest, int8_m)
+    for name, rows in gqa_timings(dev, ops, refs).items():
+        timings[name]["shapes"] = rows
     c5_f32_tile_error(dev, ops, q_lib)
     plain_timings(dev, ops)
     meta = {
@@ -1588,6 +2234,9 @@ def main() -> int:
         launches = path_launches[path][name]
         if launches == 0:
             raise AssertionError(f"{name} never ran on {path}")
+        if name in ("flash_attention", "decode_attention") \
+                and not path_launches["serve_http"][name]:
+            raise AssertionError(f"{name} never ran on serve_http")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "path": path, "max_abs_err": t["max_abs_err"],

@@ -11,7 +11,7 @@
     snap = gw.admin.snapshot()                            # typed admin
     gw.stop()                                             # drain + join
 
-(The reference's HTTP surface, `repro.api.http`, is not ported yet.)
+Over the network: `repro_torch.api.http` (``python -m repro_torch.api.http``).
 """
 from repro_torch.api.admin import (AdminAPI, DeployResult, FleetSnapshot,
                                    InstanceSnapshot, ModelSnapshot,

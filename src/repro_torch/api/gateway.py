@@ -26,10 +26,10 @@ in K-token quanta (`EngineConfig.decode_block`); `cancel()` takes effect at
 the next dispatch boundary.
 
 This file differs from `repro.api.gateway` in one place: with the runtime
-started, `result()` waits on the handle's condition until the request is
-done.  The reference returns from its wait whenever a token event is
-queued, and `result()` never consumes those events, so after the first
-token its caller spins holding the interpreter lock.  The reference's
+started, `result()` and `generate_batch()` wait on the handle's condition
+until the request is done.  The reference returns from its wait whenever
+a token event is queued, and neither caller consumes those events, so
+after the first token the caller spins holding the interpreter lock.  The reference's
 engine steps in a few long calls that release the lock; the port's step
 is many short torch calls, each of which must win the lock back
 from the spinning caller, which slowed a CPU step of the reduced model
@@ -532,7 +532,7 @@ class Gateway:
                         if not lh.done:
                             lh._timeout()
                     break
-                h._wait_for_progress(deadline)
+                h._wait_for_progress(deadline, until_done=True)
         return [h.response for h in handles]
 
     def stream(self, model: Union[str, GenerationRequest],

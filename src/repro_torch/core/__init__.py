@@ -1,7 +1,7 @@
 """The paper's primary contribution: the Software-Defined AI (SDAI) control
 plane — controller, VRAM-aware placement, HAProxy-style frontend, health
-monitoring.  (The reference's configuration wizard and deprecated
-`Client` shim are not ported yet.)"""
+monitoring, configuration wizard, unified client."""
+from repro_torch.core.client import Client
 from repro_torch.core.controller import (AutoscaleConfig, ControllerConfig,
                                          ModelLoad, SDAIController)
 from repro_torch.core.events import Event, EventBus
@@ -15,6 +15,8 @@ from repro_torch.core.placement import (Assignment, ModelDemand,
 from repro_torch.core.registry import (ModelCatalog, NodeRegistry,
                                        ReplicaInfo, ReplicaKey,
                                        ReplicaRegistry)
+from repro_torch.core.wizard import (ConfigWizard, WizardConfig,
+                                     WizardModelChoice, WizardSelection)
 
 __all__ = ["SDAIController", "ControllerConfig", "AutoscaleConfig",
            "ModelLoad", "ModelDemand",
@@ -23,4 +25,5 @@ __all__ = ["SDAIController", "ControllerConfig", "AutoscaleConfig",
            "FrontendConfig", "TenantLimiter", "TenantQuota", "TenantUsage",
            "HealthMonitor", "HealthConfig", "NodeHealth",
            "ModelCatalog", "NodeRegistry", "ReplicaRegistry", "ReplicaKey",
-           "ReplicaInfo", "EventBus", "Event"]
+           "ReplicaInfo", "ConfigWizard", "WizardConfig", "WizardSelection",
+           "WizardModelChoice", "Client", "EventBus", "Event"]

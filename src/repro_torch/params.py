@@ -19,13 +19,14 @@ across with `from_jax`.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.device import (DeviceLike, generator_for, resolve_device,
+                                torch_dtype)
 
 Params = Dict[str, Any]
 
@@ -101,6 +102,32 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         params["lm_head"] = _trunc_normal((d, cfg.vocab), 0.02, dt,
                                           generator, dev)
     return params
+
+
+def seeded_store(device: DeviceLike = None,
+                 names: Optional[Iterable[str]] = None
+                 ) -> Callable[[ArchConfig], Optional[Params]]:
+    """A `param_store` for the control plane's nodes: seeded weights on
+    `device` ("cuda" unless given), drawn once per model and shared by
+    every replica, for the models in `names` (default: every model the
+    port runs).  Any other model gets None, and a node deploys its
+    replicas in accounted mode (exact bytes, synthetic tokens, no
+    engine)."""
+    dev = resolve_device(device)
+    names = None if names is None else set(names)
+    trees: Dict[str, Params] = {}
+
+    def store(cfg: ArchConfig) -> Optional[Params]:
+        if names is not None and cfg.name not in names:
+            return None
+        if cfg.name not in trees:
+            try:
+                require_dense_causal(cfg)
+            except NotImplementedError:
+                return None
+            trees[cfg.name] = init_params(cfg, generator_for(dev, 0), dev)
+        return trees[cfg.name]
+    return store
 
 
 # --------------------------------------------------------------------- #

@@ -1,16 +1,18 @@
 """The port's control plane against the JAX package's, module by module.
 
-The eleven modules the port copies verbatim equal the reference's but for
-their imports.  The five that differ say why, and are held by behaviour:
+The sixteen modules the port copies verbatim equal the reference's but for
+their imports.  The seven that differ say why, and are held by behaviour:
 the hardware table keeps, node for node of the paper's testbed, the
 reference's memory and legacy flag, so VRAM-aware placement gives the
 same plans; the cost-optimal solver, the perf model and the roofline
 agree when both packages are given the same capability vectors.  (The
-gateway's one change, `result()` waiting without a spin, is held by
-tests/test_torch_gateway.py and the ported runtime tests.)  Then the
-engine surface the control plane reads (`alive`, `n_active`, `load`) and
-the host tier's `fail_puts` hook, each against the JAX engine's, and the
-kernel wrappers' launch counters under concurrent threads."""
+gateway's one change, `result()` and `generate_batch()` waiting without a
+spin, is held by tests/test_torch_gateway.py and the ported runtime
+tests; the wire server's TCP_NODELAY and the launcher by
+tests/test_torch_http.py.)  Then the engine surface the control plane
+reads (`alive`, `n_active`, `load`) and the host tier's `fail_puts`
+hook, each against the JAX engine's, and the kernel wrappers' launch
+counters under concurrent threads."""
 import dataclasses
 import sys
 import threading
@@ -50,9 +52,12 @@ ROOT = Path(__file__).resolve().parents[1] / "src"
 VERBATIM = ["core/events.py", "core/registry.py", "core/health.py",
             "core/perfmodel.py", "cluster/faults.py", "core/placement.py",
             "core/frontend.py", "core/controller.py", "api/types.py",
-            "api/admin.py", "api/runtime.py"]
+            "api/admin.py", "api/runtime.py", "core/wizard.py",
+            "core/client.py", "api/http/chat.py", "api/http/schemas.py",
+            "api/http/client.py"]
 DIFFERS = ["cluster/hardware.py", "cluster/node.py", "cluster/fleet.py",
-           "roofline/analysis.py", "api/gateway.py"]
+           "roofline/analysis.py", "api/gateway.py", "api/http/server.py",
+           "api/http/__main__.py"]
 MODELS = ["llama3.2-1b", "deepseek-r1-7b", "qwen3-8b"]
 
 

@@ -812,3 +812,105 @@ def test_launch_counts_exact_from_pump_like_threads(cuda):
     assert not bad
     assert ops.decode_attention.launches == n_threads * n_each
     ops.reset_launches()
+
+
+SERVED_GQA = [
+    # model, H, K, hd of the full zoo configs (flash at B = 4, decode at 8)
+    ("llama3.2-1b", 32, 8, 64),
+    ("qwen3-1.7b", 16, 8, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SERVED_GQA, ids=[c[0] for c in SERVED_GQA])
+def test_flash_kernel_at_the_served_gqa_shapes(cuda, case):
+    """A causal bf16 prefill of 4 rows of 1024 at the zoo models' heads
+    (G = 4, hd 64; G = 2, hd 128), through the model's strided views."""
+    _, H, K, hd = case
+    q, k, v = _tensors(15, cuda, torch.bfloat16, (4, 1024, H, hd),
+                       (4, 1024, K, hd), (4, 1024, K, hd))
+    qv, kv, vv = (t.transpose(1, 2) for t in (q, k, v))
+    got = _flash_checked(qv, kv, vv, "bf16", causal=True)
+    _close(got, flash_attention_ref(qv.contiguous(), kv.contiguous(),
+                                    vv.contiguous()), DTYPES["bf16"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SERVED_GQA, ids=[c[0] for c in SERVED_GQA])
+def test_decode_kernel_at_the_served_gqa_shapes(cuda, case):
+    """8 slots over a (B, S, K, hd) cache of 1024 at the zoo models'
+    heads, ragged positions from a seed with one slot at 0 and one at
+    1023."""
+    _, H, K, hd = case
+    B, S = 8, 1024
+    pos = np.random.default_rng(16).integers(1, S, B)
+    pos[0], pos[-1] = 0, S - 1
+    q, = _tensors(17, cuda, torch.bfloat16, (B, K, H // K, hd))
+    kc, vc = (c.permute(0, 2, 1, 3) for c in _tensors(
+        18, cuda, torch.bfloat16, (B, S, K, hd), (B, S, K, hd)))
+    args = (q, kc, vc, torch.tensor(pos.tolist(), dtype=torch.int32,
+                                    device=cuda))
+    before = ops.decode_attention.launches
+    got = ops.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    _close(got, decode_attention_ref(*args), DTYPES["bf16"][1])
+
+
+@pytest.mark.cuda
+def test_http_greedy_request_on_a_full_width_llama(cuda):
+    """The paper's llama3.2-1b at full width cut to 2 layers, in f32, its
+    RMS-norm scales drawn from a seed, on two replicas of the paper's
+    testbed behind the HTTP service: one greedy completion, streamed,
+    equals the plain greedy recompute on the card and launches flash and
+    decode attention."""
+    import dataclasses
+
+    from repro_torch.api import Gateway
+    from repro_torch.api.http import GatewayHTTPServer, HTTPClient, HTTPConfig
+    from repro_torch.cluster import paper_testbed
+    from repro_torch.configs import ZOO
+    from repro_torch.core import (ControllerConfig, ModelCatalog,
+                                  ModelDemand, SDAIController)
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(ZOO["llama3.2-1b"], n_layers=2, dtype="f32")
+    params = build(cfg, cuda).init(torch.Generator(device=cuda)
+                                   .manual_seed(0))
+    rng = np.random.default_rng(19)
+    for tree, key in ((params["layers"], "ln1"), (params["layers"], "ln2"),
+                      (params, "final_norm")):
+        tree[key] = torch.from_numpy(rng.normal(0.0, 0.5, tuple(
+            tree[key].shape)).astype(np.float32)).to(cuda)
+    prompt = rng.integers(0, cfg.vocab, 37).tolist()
+    toks, want = list(prompt), []
+    for _ in range(12):
+        logits = tf.forward(params, cfg, torch.tensor([toks], device=cuda),
+                            impl="full")[0, -1]
+        want.append(int(logits.argmax()))
+        toks.append(want[-1])
+    catalog = ModelCatalog()
+    catalog.register(cfg)
+    ctrl = SDAIController(paper_testbed(param_store=lambda c: params,
+                                        device=cuda), catalog,
+                          ControllerConfig(
+                              real_param_threshold=cfg.num_params() + 1))
+    ctrl.discover()
+    plan = ctrl.deploy([ModelDemand(cfg, min_replicas=2, max_replicas=2,
+                                    n_slots=2, max_len=128,
+                                    allow_quant=False)])
+    assert not plan.unplaced and len(plan.assignments) == 2
+    server = GatewayHTTPServer(Gateway(ctrl), HTTPConfig(port=0)).start()
+    c = HTTPClient(server.url())
+    try:
+        ops.reset_launches()
+        got = [ch["choices"][0]["token"]
+               for ch in c.complete(cfg.name, prompt, max_tokens=12,
+                                    stream=True, timeout_s=300)
+               if ch["choices"][0].get("token") is not None]
+    finally:
+        c.close()
+        assert server.stop(timeout_s=60)
+    assert got == want
+    assert ops.flash_attention.launches > 0
+    assert ops.decode_attention.launches > 0

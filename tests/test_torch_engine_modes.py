@@ -1,16 +1,19 @@
 """The port's engine in the JAX engine's other decode modes and under
 weight quantization, against the JAX engine, on the reduced OLMo-1B in
-f32 with the same (carried-across) params, on the CPU through the
+f32 and on a reduced llama3.2-1b in f32 with grouped-query attention
+(G = 4) and RMS-norm scales drawn from a seed, each with the same
+(carried-across) params, on the CPU through the
 kernels' plain versions: the gather mode (the default), contiguous
 strips (`paged=False`), and the gather mode with int8 and with int4
 weights.  Greedy tokens and the dispatch / host-sync / program / KV-byte
 counters must equal JAX's at K = 1, 4, 8."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.configs import ARCHS
+from repro.configs import ARCHS, ZOO
 from repro.serving import EngineConfig as JaxEngineConfig
 from repro.serving import InferenceEngine as JaxEngine
 from repro.serving import Request as JaxRequest
@@ -29,15 +32,36 @@ COUNTERS = ("dispatches", "host_syncs", "prefill_traces", "decode_traces",
 BASE = dict(n_slots=4, max_len=64, page_size=8)
 
 
-@pytest.fixture(scope="module")
-def cfg():
+CONFIGS = {
     # its own name: param_store caches by name
-    return ARCHS["olmo-1b"].reduced(dtype="f32", name="olmo-1b-reduced-f32")
+    "olmo": ARCHS["olmo-1b"].reduced(dtype="f32",
+                                     name="olmo-1b-reduced-f32"),
+    "llama-g4": ZOO["llama3.2-1b"].reduced(dtype="f32", n_kv_heads=1,
+                                           name="llama3.2-1b-g4-f32"),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def cfg(request):
+    return CONFIGS[request.param]
 
 
 @pytest.fixture(scope="module")
 def jparams(cfg, param_store):
-    return param_store(cfg)
+    """The shared `param_store` fixture's JAX params, with every RMS-norm
+    scale drawn from a numpy seed (the init leaves them 0, so `1 + scale`
+    would be 1)."""
+    params = dict(param_store(cfg))
+    if cfg.norm == "rms":
+        rng = np.random.default_rng(5)
+        layers = dict(params["layers"])
+        for name in ("ln1", "ln2"):
+            layers[name] = jnp.asarray(
+                rng.normal(0.0, 0.5, layers[name].shape), jnp.float32)
+        params["layers"] = layers
+        params["final_norm"] = jnp.asarray(
+            rng.normal(0.0, 0.5, params["final_norm"].shape), jnp.float32)
+    return params
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,8 @@ token lies in its step's top-k under a plain forward of the same
 weights.  Which node serves a request may differ: the port's card
 classes have other FLOP/s and bandwidths than the reference's, and the
 frontend weighs them."""
+import time
+
 import jax
 import numpy as np
 import pytest
@@ -296,3 +298,33 @@ def test_runtime_result_waits_without_spinning(stores):
     assert resp.ok and len(resp.tokens) == 40
     # one wake per token, one per 50 ms timeout of a ~second-long run
     assert calls <= 40 + 200, calls
+
+
+def test_runtime_generate_batch_waits_without_spinning(stores, monkeypatch):
+    """`generate_batch()` waits as `result()` does: per token and per wait
+    timeout of the handle it waits on (the reference's returns from each
+    wait while a token event is queued, and the batch never consumes
+    them)."""
+    side = PORT_SIDE
+    fleet, ctrl, _ = _testbed(side, stores["port"])
+    gw = side[0].Gateway(ctrl)
+    handle_cls = port_api.GenerationHandle
+    calls = 0
+    wait = handle_cls._wait_for_progress
+
+    def counted(self, *args, **kw):
+        nonlocal calls
+        calls += 1
+        return wait(self, *args, **kw)
+    monkeypatch.setattr(handle_cls, "_wait_for_progress", counted)
+    gw.start()
+    try:
+        t0 = time.monotonic()
+        resps = gw.generate_batch([port_api.GenerationRequest(
+            model=MODEL, prompt=tuple(p), sampling=SamplingParams(
+                max_tokens=40)) for p in PROMPTS[:3]], timeout_s=120)
+        wall = time.monotonic() - t0
+    finally:
+        assert gw.stop(timeout_s=60) is True
+    assert [len(r.tokens) for r in resps] == [40] * 3
+    assert calls <= 3 * 40 + wall / 0.05 + 10, (calls, wall)

@@ -15,6 +15,9 @@ import repro_torch.serving.quantization
 import repro_torch.models, repro_torch.params, repro_torch.configs
 import repro_torch.api, repro_torch.cluster, repro_torch.core
 import repro_torch.roofline
+import repro_torch.api.http, repro_torch.api.http.client
+import repro_torch.api.http.__main__, repro_torch.core.wizard
+import repro_torch.examples
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

@@ -82,6 +82,10 @@ def test_runtime_drives_fleet_without_caller_pumps(gw):
         assert resp.ok and len(resp.tokens) == 4
     # pump threads did all the work: the callers never advanced the fleet
     assert gw.stats.caller_pumps == 0
+    # a pump thread publishes its stats when the pump call that finished
+    # these requests returns, after their handles woke: join the threads
+    # before reading them
+    assert gw.stop(timeout_s=10.0) is True
     assert rt.stats.tokens_pumped > 0
 
 
