@@ -27,7 +27,14 @@ JSON line:
               with M <= 16 "skinny"; the rest "cuda_core_tile"), and the
               three kernels that split work across CTAs (decode
               attention, paged decode attention, skinny_tc) held to
-              bit-identical output over two launches.
+              bit-identical output over two launches.  Then head_dim 256
+              at gemma's shapes (gemma3-1b: G = 4 over 1 KV head, window
+              512; gemma3-4b: G = 2, window 1024, 256 prefix tokens): the
+              three attention kernels with pos 0, pos on a chunk edge and
+              a window that skips whole chunks, the split kernels twice
+              bit for bit, and the int8 matmul at gemma3-1b's gelu
+              shapes (K 1152, N 6912 / 1024 / 256, down 6912 -> 1152,
+              the tied head 1152 -> 262144).
               Tolerances: f32 1e-4 (another summation order than the
               plain version), bf16 2e-2 (as tests/test_kernels.py); the
               int8 products are held against the plain
@@ -53,12 +60,18 @@ JSON line:
               other replica; then over HTTP, on llama3.2-1b cut to 2
               layers at full width in f32 (G = 4, head_dim 64, RMS-norm
               scales from a seed): 4 greedy completions with token-id
-              prompts, two streamed.  Each run's tokens must
+              prompts, two streamed; then gemma3-1b and gemma3-4b cut to
+              2 layers at full width in f32 (parity_gemma: prompts of
+              600-900 tokens past gemma3-1b's window of 512, in the
+              paged-attention and gather modes; gemma3-4b in the gather
+              mode with its 256 prefix tokens).  Each run's tokens must
               equal a plain greedy recompute on the card (full forward,
               plain attention, no cache, every step; for int8 on the
               dequantized weights), and each must launch exactly its
               mode's kernels (the Gateway's: flash and decode attention,
-              node.deploy's default gather mode).
+              node.deploy's default gather mode); the recompute applies
+              the window and feeds a vision model zero prefix
+              embeddings, as the engine does.
 5. serve_bf16 — a main path: the full OLMo-1B (16 layers, bf16, seeded
               random weights) serves 12 requests through
               InferenceEngine.submit/step in the paged-attention mode,
@@ -123,10 +136,21 @@ JSON line:
               the Gateway, requests per node, the migrations and the
               migrated streams' added TTFT, peak device bytes and the
               nodes' nominal accounting.
-10. serve_http — the launcher's own `build_service` (python -m
+10. serve_gemma — the paper's gemma3-1b at full width and depth (26
+              layers, hd 256, window 512, G = 4, gelu, vocab 262144),
+              bf16, seeded weights, paged attention, under serve_bf16's
+              EngineConfig and requests; then gemma3-4b (34 layers, hd
+              256, window 1024, G = 2, 256 vision prefix tokens) in the
+              gather mode, prompts capped so that prompt + 256 + budget
+              <= 1024.  Held as serve_bf16 is; each serve also prints
+              what placement charges such an instance (instance_bytes,
+              with the engine's page budget and with none) beside the
+              engine's memory_report.
+11. serve_http — the launcher's own `build_service` (python -m
               repro_torch.api.http) in-process with its defaults: the
               paper's full llama3.2-1b (G = 4, head_dim 64) and
-              qwen3-1.7b (G = 2, head_dim 128), bf16, seeded weights,
+              gemma3-1b (G = 4, head_dim 256, window 512), bf16, seeded
+              weights,
               two real replicas each on the paper's testbed, behind the
               OpenAI-compatible HTTP service.  16 requests from three
               tenants on three keep-alive clients (chat and token-id
@@ -145,11 +169,11 @@ JSON line:
               requests per model and node, the drain's
               seconds, peak device bytes and the greedy rows equal on
               both sides (bf16: informational).
-11. launcher — `python -m repro_torch.api.http --port 0` as a process
+12. launcher — `python -m repro_torch.api.http --port 0` as a process
               of its own: /healthz and /v1/models list both models, one
               streamed chat ends in `data: [DONE]`, and SIGINT makes it
               print "draining..." and exit 0 within 60 s.
-12. kernels — per kernel: its launches on the path that runs it (and on
+13. kernels — per kernel: its launches on the path that runs it (and on
               every serve), its error against the plain version, its
               time (CUDA events, median of 30 runs after warm-up, each
               from a cold L2)
@@ -163,9 +187,12 @@ JSON line:
               8192 -> 2048, the tied head, and serve_int8's widest
               prefill M at all three projection shapes (its "shapes"),
               each with its route and its ratio to the library call
-              ("vs_library"); flash and decode attention also at
-              serve_http's two grouped-query shapes (their "shapes",
-              with SDPA's enable_gqa as the yardstick).  Before the
+              ("vs_library"); the three attention kernels also at the
+              zoo's grouped-query shapes (SERVED_GQA: llama3.2-1b,
+              qwen3-1.7b, gemma3-1b, gemma3-4b; their "shapes", with
+              SDPA's enable_gqa as the yardstick, under the window's
+              boolean mask for the gemmas, whose rows carry their
+              launches on serve_gemma).  Before the
               line: c5_f32_tile_error (the
               f32 CUDA-core int8 tile and f32 cuBLAS against f64 at
               M = 4096) and plain_timings (the verify's plain paged
@@ -356,6 +383,11 @@ def olmo_decode_pos(rng, B, max_len):
     return [int(p) for p in pos]
 
 
+# gemma's decode positions: pos 0, either side of a chunk edge (chunks of
+# 64 rows at B * K = 8), either side of the window of 512, the cache end
+GEMMA_POS = [0, 63, 64, 511, 512, 700, 1000, 1023]
+
+
 def kernel_checks(dev, ops, refs, q_lib):
     """Every kernel against its plain version; returns the rows."""
     paged_ref, flash_ref = refs["paged_decode_attention"], \
@@ -393,6 +425,16 @@ def kernel_checks(dev, ops, refs, q_lib):
                                pos=[100, 255]), 0, 0),
             ("split_hd16_g8", dict(B=2, K=2, G=8, hd=16, ps=8, pps=32,
                                    pos=[17, 255]), 0, 0),
+        ] + [   # hd 256 at gemma's shapes (SERVED_GQA), split as served
+            ("split_gemma3-1b", dict(B=8, K=1, G=4, hd=256, ps=16, pps=64,
+                                     pos=GEMMA_POS), 512, 0),
+            ("split_gemma3-4b", dict(B=8, K=4, G=2, hd=256, ps=16, pps=64,
+                                     pos=GEMMA_POS), 1024, 256),
+            ("split_gemma3-4b_window_bites", dict(
+                B=4, K=4, G=2, hd=256, ps=16, pps=100,
+                pos=[0, 300, 1599, 1100]), 1024, 256),
+            ("split_hd256_holes", dict(B=2, K=1, G=4, hd=256, ps=8, pps=32,
+                                       pos=[200, 255], kind="holes"), 0, 0),
         ]
         for name, kw, win, pre in cases:
             args = paged_case(dev, dtype, seed=len(rows), **kw)
@@ -418,6 +460,11 @@ def kernel_checks(dev, ops, refs, q_lib):
             ("window_prefix", dict(B=1, H=4, K=2, S=256, hd=64), 48, 16),
             ("hd16_ragged", dict(B=2, H=4, K=4, S=200, hd=16), 0, 0),
             ("ragged_1000", dict(B=1, H=16, K=16, S=1000, hd=128), 0, 0),
+            ("gemma3-1b_prefill", dict(B=1, H=4, K=1, S=1024, hd=256), 512,
+             0),
+            ("gemma3-4b_prefill", dict(B=1, H=8, K=4, S=1280, hd=256), 1024,
+             256),
+            ("hd256_ragged", dict(B=2, H=4, K=2, S=300, hd=256), 40, 8),
         ]
         for name, kw, win, pre in fcases:
             q, k, v = flash_case(dev, dtype, seed=len(rows), **kw)
@@ -473,6 +520,13 @@ def kernel_checks(dev, ops, refs, q_lib):
                                          strided=True), 100, 16),
             ("split_g12", dict(B=2, K=2, G=12, S=1000, hd=32,
                                pos=[500, 999], strided=True), 0, 0),
+            ("split_gemma3-1b", dict(B=8, K=1, G=4, S=1024, hd=256,
+                                     pos=GEMMA_POS, strided=True), 512, 0),
+            ("split_gemma3-4b", dict(B=8, K=4, G=2, S=1024, hd=256,
+                                     pos=GEMMA_POS, strided=True), 1024, 256),
+            ("split_gemma3-4b_window_bites", dict(
+                B=4, K=4, G=2, S=1400, hd=256, pos=[0, 300, 1399, 1100],
+                strided=True), 1024, 256),
         ]
         for name, kw, win, pre in dcases:
             args = decode_case(dev, dtype, seed=len(rows), **kw)
@@ -512,6 +566,16 @@ def kernel_checks(dev, ops, refs, q_lib):
             ("head_ragged_5x37x61", dict(M=5, K=37, N=61, head=True),
              "skinny"),
         ]
+        # gemma3-1b's gelu shapes: wq 1152 -> 1024, wk / wv -> 256, wi
+        # -> 6912, wo 1024 -> 1152, down 6912 -> 1152, the tied head
+        icases += [(f"gemma3-1b_m{m}_{k}x{n}", dict(M=m, K=k, N=n,
+                                                    head=False),
+                    "skinny_tc" if m <= 16 else "tensor_core")
+                   for m in (8, 4096)
+                   for k, n in ((1152, 1024), (1152, 256), (1152, 6912),
+                                (1024, 1152), (6912, 1152))]
+        icases.append(("gemma3-1b_head_m8_1152x262144",
+                       dict(M=8, K=1152, N=262144, head=True), "skinny_tc"))
         for name, kw, bf16_route in icases:
             x, wq, sc = int8_case(dev, dtype, q_lib, seed=len(rows), **kw)
             route = int8_route(dtype, kw["M"], bf16_route)
@@ -671,70 +735,114 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
 
 
 SERVED_GQA = {
-    # model: (n_heads, n_kv_heads, head_dim), the zoo configs serve_http
-    # serves
-    "llama3.2-1b": (32, 8, 64),
-    "qwen3-1.7b": (16, 8, 128),
+    # model: (n_heads, n_kv_heads, head_dim, window, prefix) of the paper's
+    # zoo configs (configs/paper_zoo.py) the launcher serves: llama3.2-1b
+    # and gemma3-1b by default, the others by name
+    "llama3.2-1b": (32, 8, 64, 0, 0),
+    "qwen3-1.7b": (16, 8, 128, 0, 0),
+    "gemma3-1b": (4, 1, 256, 512, 0),
+    "gemma3-4b": (8, 4, 256, 1024, 256),
 }
+GEMMA = ("gemma3-1b", "gemma3-4b")
+
+
+def window_mask(sq, skv, window, prefix, dev):
+    """(Sq, Skv) boolean visibility of a causal prefill from position 0
+    with a window and an always-visible prefix (models/attention.py
+    _mask)."""
+    qp = torch.arange(sq, device=dev)[:, None]
+    kp = torch.arange(skv, device=dev)[None, :]
+    return (kp <= qp) & ((kp > qp - window) | (kp < prefix))
 
 
 def gqa_timings(dev, ops, refs):
-    """Flash and decode attention at serve_http's grouped-query shapes,
-    bf16, each held against its plain version first: decode over 8 slots
-    of S = 1024 with every position valid (pos 1023), in the engine's
-    (B, S, K, hd) cache view; flash over a causal prefill of 4 rows of
-    1024.  The library yardstick is one SDPA call with enable_gqa (the
-    port never calls it).  Returns {kernel: [rows]}."""
+    """The three attention kernels at SERVED_GQA's shapes, bf16, each held
+    against its plain version first: decode over 8 slots of S = 1024 with
+    every position valid (pos 1023), in the engine's (B, S, K, hd) cache
+    view and in pages of 16; flash over a causal prefill of 4 rows of
+    1024 (2 rows of 256 + 1024 with gemma3-4b's prefix).  Bounds count
+    only the rows and (query, key) pairs a window leaves visible.  The
+    library yardstick is one SDPA call with enable_gqa (with the
+    window's boolean mask where there is one; the port never calls it);
+    the paged kernel has none.  Returns {kernel: [rows]}."""
     F = torch.nn.functional
-    dt, out = torch.bfloat16, {"decode_attention": [],
-                               "flash_attention": []}
-    for model, (H, K, hd) in SERVED_GQA.items():
+    dt = torch.bfloat16
+    out = {"paged_decode_attention": [], "decode_attention": [],
+           "flash_attention": []}
+    for model, (H, K, hd, win, pre) in SERVED_GQA.items():
         G, B, S = H // K, 8, 1024
+        kw = dict(window=win, prefix=pre)
+        tag = f" window={win} prefix={pre}" if win else ""
+        pos = [S - 1] * B
+        vis = sum(p + 1 if not win else
+                  min(p + 1, win) + min(pre, max(p + 1 - win, 0))
+                  for p in pos)              # visible (slot, row) pairs
+        b_ms, b_by = bound(2 * vis * K * hd * 2 + 2 * B * H * hd * 2 + B * 4,
+                           4 * vis * K * G * hd, BF16_FLOPS)
+        args = paged_case(dev, dt, B=B, K=K, G=G, hd=hd, ps=16, pps=64,
+                          pos=pos, seed=31)
+        ref = refs["paged_decode_attention"]
+        err = check_close(f"paged_decode_attention/{model}",
+                          ops.paged_decode_attention(*args, **kw),
+                          ref(*args, **kw), tol_of(dt))
+        out["paged_decode_attention"].append({
+            "label": model, "shape": f"B={B} K={K} G={G} hd={hd} ps=16 "
+            f"pps=64{tag} bf16, pos 1023",
+            "splits": dict(zip(("n_split", "pages_per_chunk"),
+                               ops.paged_decode_attention_splits(
+                                   B, K, 64, 16, ops._sm_count(dev.index)))),
+            "max_abs_err": err,
+            "ms": time_ms(lambda: ops.paged_decode_attention(*args, **kw)),
+            "plain_ms": time_ms(lambda: ref(*args, **kw), reps=10),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
         q, k, v, p = decode_case(dev, dt, B=B, K=K, G=G, S=S, hd=hd,
-                                 pos=[S - 1] * B, seed=13, strided=True)
+                                 pos=pos, seed=13, strided=True)
         ref = refs["decode_attention"]
         err = check_close(f"decode_attention/{model}", ops.decode_attention(
-            q, k, v, p), ref(q, k, v, p), tol_of(dt))
-        n_kv = B * S
-        b_ms, b_by = bound(2 * n_kv * K * hd * 2 + 2 * q.numel() * 2 + B * 4,
-                           4 * n_kv * K * G * hd, BF16_FLOPS)
+            q, k, v, p, **kw), ref(q, k, v, p, **kw), tol_of(dt))
         qh = q.reshape(B, H, 1, hd)       # head k * G + g reads kv head k
+        mask = (window_mask(S, S, win, pre, dev)[S - 1][None, None, None]
+                if win else None)
         out["decode_attention"].append({
-            "label": model, "shape": f"B={B} K={K} G={G} S={S} hd={hd} "
+            "label": model, "shape": f"B={B} K={K} G={G} S={S} hd={hd}{tag} "
             "bf16, (B, S, K, hd) cache view, pos 1023",
             "splits": dict(zip(("n_split", "chunk"),
                                ops.decode_attention_splits(
                                    B, K, S, ops._sm_count(dev.index)))),
             "max_abs_err": err,
-            "ms": time_ms(lambda: ops.decode_attention(q, k, v, p)),
-            "plain_ms": time_ms(lambda: ref(q, k, v, p), reps=10),
+            "ms": time_ms(lambda: ops.decode_attention(q, k, v, p, **kw)),
+            "plain_ms": time_ms(lambda: ref(q, k, v, p, **kw), reps=10),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qh, k, v, enable_gqa=True))})
-        B = 4
+                qh, k, v, attn_mask=mask, enable_gqa=True))})
+        del q, k, v, args
+        B, S = (4, 1024) if pre == 0 else (2, pre + 1024)
         q, k, v = flash_case(dev, dt, B=B, H=H, K=K, S=S, hd=hd, seed=14)
         ref = refs["flash_attention"]
         got = on_route(ops.flash_attention, "tensor_core",
-                       lambda: ops.flash_attention(q, k, v))
-        err = check_close(f"flash_attention/{model}", got, ref(q, k, v),
+                       lambda: ops.flash_attention(q, k, v, **kw))
+        err = check_close(f"flash_attention/{model}", got, ref(q, k, v, **kw),
                           tol_of(dt))
-        pairs = B * S * (S + 1) // 2
+        mask = window_mask(S, S, win, pre, dev) if win else None
+        pairs = B * (int(mask.sum()) if win else S * (S + 1) // 2)
         b_ms, b_by = bound(2 * (q.numel() + k.numel() + v.numel()
                                 + q.numel()), 4 * H * hd * pairs,
                            BF16_FLOPS)
         out["flash_attention"].append({
-            "label": model, "shape": f"B={B} H={H} K={K} S={S} hd={hd} "
+            "label": model, "shape": f"B={B} H={H} K={K} S={S} hd={hd}{tag} "
             "bf16 causal", "kernel_route": "tensor_core",
             "max_abs_err": err,
-            "ms": time_ms(lambda: ops.flash_attention(q, k, v)),
-            "plain_ms": time_ms(lambda: ref(q, k, v), reps=10),
+            "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+            "plain_ms": time_ms(lambda: ref(q, k, v, **kw), reps=10),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))})
+                q, k, v, attn_mask=mask, is_causal=not win,
+                enable_gqa=True))})
         del q, k, v
     for rows in out.values():
         for r in rows:
-            r["vs_library"] = r["ms"] / r["library_ms"]
+            r["vs_library"] = (r["ms"] / r["library_ms"]
+                               if r["library_ms"] else None)
     return out
 
 
@@ -805,20 +913,24 @@ def plain_timings(dev, ops):
 # engine phases
 
 def greedy_recompute(tf, params, cfg, prompt, n):
-    """Plain greedy decode: a full forward with plain attention and no
-    cache at every step."""
+    """Plain greedy decode: a full forward with plain attention (the
+    config's window) and no cache at every step; a vision model gets the
+    zero prefix embeddings the engine feeds it."""
     toks = list(prompt)
     out = []
+    dev = params["embed"].device
+    prefix = tf.zero_prefix_embeds(cfg, 1, dev)
     for _ in range(n):
-        ids = torch.tensor([toks], device=params["embed"].device)
-        logits = tf.forward(params, cfg, ids, impl="full")[0, -1]
+        ids = torch.tensor([toks], device=dev)
+        logits = tf.forward(params, cfg, ids, impl="full",
+                            prefix_embeds=prefix)[0, -1]
         nxt = int(logits.argmax())
         out.append(nxt)
         toks.append(nxt)
     return out
 
 
-def parity_f32(dev, ops, cfg=None, http_cfg=None):
+def parity_f32(dev, ops, cfg=None, http_cfg=None, gemma_cfgs=None):
     """The 2-layer f32 model in each decode mode, and int8 in the gather
     mode, against the plain greedy recompute (dense, or on the
     dequantized int8 weights); then the hierarchical KV memory and
@@ -826,9 +938,9 @@ def parity_f32(dev, ops, cfg=None, http_cfg=None):
     paged-attention and gather modes (prompts sharing a 256-token prefix,
     one at a time, then a partial hit), the host swap tier on an
     oversubscribed pool, and speculative decoding on repetitive prompts;
-    then the control plane's runs (parity_gateway) and the HTTP run
-    (parity_http).  `cfg` and `http_cfg` replace the models (a CPU
-    rehearsal)."""
+    then the control plane's runs (parity_gateway), the HTTP run
+    (parity_http) and the gemma runs (parity_gemma).  `cfg`, `http_cfg`
+    and `gemma_cfgs` replace the models (a CPU rehearsal)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build
     from repro_torch.models import transformer as tf
@@ -931,6 +1043,10 @@ def parity_f32(dev, ops, cfg=None, http_cfg=None):
     http_line, http_bad = parity_http(dev, ops, http_cfg)
     lines.append(http_line)
     mismatches += http_bad
+    gc.collect()
+    gemma_lines, gemma_bad = parity_gemma(dev, ops, gemma_cfgs)
+    lines += gemma_lines
+    mismatches += gemma_bad
     emit({"phase": "parity_f32", "layers": cfg.n_layers, "d_model":
           cfg.d_model, "prompt_lens": [len(p) for p in prompts],
           "prefix_prompt_lens": [len(p) for p in prefix_prompts],
@@ -939,6 +1055,76 @@ def parity_f32(dev, ops, cfg=None, http_cfg=None):
           "tokens_each": 16, "runs": lines, "match": not mismatches})
     if mismatches:
         raise AssertionError(f"parity_f32 mismatches: {mismatches}")
+
+
+def parity_gemma(dev, ops, cfgs=None):
+    """The paper's gemma3-1b and gemma3-4b cut to 2 layers, at full width
+    (head_dim 256, the gelu FFN) and in f32, their RMS-norm scales from a
+    seed: gemma3-1b (window 512, G = 4) serves 4 greedy prompts of
+    600-900 tokens, so that the window bites, in the paged-attention and
+    gather modes; gemma3-4b (window 1024, G = 2, 256 vision prefix
+    tokens fed zeros) 4 of 600-740 (prompt + prefix + budget <= max_len
+    1024) in the gather mode.  Each run's tokens must equal the plain
+    greedy recompute (full forward, plain windowed attention, the zero
+    prefix, no cache), and each must launch exactly its mode's kernels.
+    Returns (lines, mismatches)."""
+    from repro_torch.configs import ZOO
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                     SamplingParams)
+    cfgs = cfgs or {name: dataclasses.replace(ZOO[name], n_layers=2,
+                                              dtype="f32")
+                    for name in GEMMA}
+    kernels = {"paged_attention": {"paged_decode_attention",
+                                   "flash_attention"},
+               "gather": {"decode_attention", "flash_attention"}}
+    lines, mismatches = [], []
+    for i, (name, cfg) in enumerate(cfgs.items()):
+        params = build(cfg, dev).init(
+            torch.Generator(device=dev).manual_seed(5 + i))
+        rng = np.random.default_rng(6 + i)
+        seed_norms(params, rng)
+        hi = 900 if cfg.n_prefix_tokens == 0 else \
+            1024 - cfg.n_prefix_tokens - 16 - 16
+        prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+                   for n in np.linspace(600, hi, 4).astype(int)]
+        wants = [greedy_recompute(tf, params, cfg, p, 16) for p in prompts]
+        modes = ("paged_attention", "gather") if cfg.n_prefix_tokens == 0 \
+            else ("gather",)
+        for mode in modes:
+            eng = InferenceEngine(cfg, params, EngineConfig(
+                n_slots=4, max_len=1024, decode_block=4,
+                paged_attention=mode == "paged_attention"), device=dev)
+            reqs = [Request(model=cfg.name, prompt=p,
+                            sampling=SamplingParams(max_tokens=16))
+                    for p in prompts]
+            ops.reset_launches()
+            for r in reqs:
+                assert eng.submit(r)
+            eng.run_until_done()
+            launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+            if {k for k, n in launched.items() if n} != kernels[mode]:
+                raise AssertionError(f"parity_gemma {name} {mode}: kernels "
+                                     f"{launched}, want exactly "
+                                     f"{sorted(kernels[mode])}")
+            if eng.pool.pages_in_use:
+                raise AssertionError(f"parity_gemma {name} {mode}: pages "
+                                     "not returned")
+            bad = [{"mode": f"{name}/{mode}", "prompt_len": len(p),
+                    "got": r.output, "want": w}
+                   for r, p, w in zip(reqs, prompts, wants)
+                   if r.output != w]
+            mismatches += bad
+            lines.append({"mode": f"{name}/{mode}", "window":
+                          cfg.swa_window, "prefix": cfg.n_prefix_tokens,
+                          "head_dim": cfg.head_dim,
+                          "prompt_lens": [len(p) for p in prompts],
+                          "launches": launched, "match": not bad})
+            del eng
+        del params
+        gc.collect()
+    return lines, mismatches
 
 
 def gateway_stack(dev, cfg, params, **demand):
@@ -1127,13 +1313,13 @@ def parity_http(dev, ops, cfg=None):
              "launches": launches, "match": not bad}, bad)
 
 
-def serve_setup(dev, cfg=None, params=None, **engine_kw):
+def serve_setup(dev, cfg=None, params=None, max_prompt=896, **engine_kw):
     """The main paths' model, engine and 12 seeded requests: the full
     OLMo-1B in bf16 with random weights from a seed; prompt lengths in
-    16..896, budgets in 1..64; 10 greedy and 2 sampled requests.
+    16..max_prompt, budgets in 1..64; 10 greedy and 2 sampled requests.
     `engine_kw` picks the decode mode and quantization; `cfg` replaces the
-    model (a CPU rehearsal) and `params` its weights.  Also returns the
-    weights' bytes."""
+    model (another zoo model, or a CPU rehearsal) and `params` its
+    weights.  Also returns the weights' bytes."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build
     from repro_torch.serving import EngineConfig, InferenceEngine
@@ -1146,17 +1332,18 @@ def serve_setup(dev, cfg=None, params=None, **engine_kw):
     ecfg = EngineConfig(n_slots=8, max_len=1024, page_size=16,
                         decode_block=8, **engine_kw)
     eng = InferenceEngine(cfg, params, ecfg, device=dev)
-    return cfg, ecfg, eng, lambda: serve_requests(cfg), dense_bytes
+    return (cfg, ecfg, eng, lambda: serve_requests(cfg, max_prompt),
+            dense_bytes)
 
 
-def serve_requests(cfg):
-    """The main paths' 12 seeded requests: prompt lengths in 16..896,
-    budgets in 1..64; 10 greedy and 2 sampled."""
+def serve_requests(cfg, max_prompt=896):
+    """The main paths' 12 seeded requests: prompt lengths in
+    16..max_prompt, budgets in 1..64; 10 greedy and 2 sampled."""
     from repro_torch.serving import Request, SamplingParams
     rng = np.random.default_rng(3)
     reqs = []
     for i in range(12):
-        n = int(rng.integers(16, 897))
+        n = int(rng.integers(16, max_prompt + 1))
         budget = int(rng.integers(1, 65))
         sampled = i in (4, 9)
         sp = SamplingParams(max_tokens=budget,
@@ -1228,8 +1415,13 @@ def expected_routes(cfg, ecfg, st, dispatch_shapes):
     return {"flash_attention": flash, "int8_matmul": int8}
 
 
-def serve(phase, dev, ops, card, **engine_kw):
-    cfg, ecfg, eng, requests, dense_bytes = serve_setup(dev, **engine_kw)
+def serve(phase, dev, ops, card, cfg=None, max_prompt=896, **engine_kw):
+    """One serve of serve_setup's model and requests (`cfg`: another zoo
+    model), its launches counted from 0 just before and read just after,
+    held by check_serve, its routes and its pages.  Returns (launches,
+    launches by route, prefill shapes)."""
+    cfg, ecfg, eng, requests, dense_bytes = serve_setup(
+        dev, cfg=cfg, max_prompt=max_prompt, **engine_kw)
     reqs = requests()
     # each prefill dispatch's (rows, bucket), for the expected routes
     dispatch_shapes = []
@@ -1263,12 +1455,23 @@ def serve(phase, dev, ops, card, **engine_kw):
         raise AssertionError(f"{phase} launches by route {by_route}, "
                              f"want {want}")
     mem = eng.memory_report()
+    # what placement charges an instance of this engine (cluster/node.py),
+    # with the engine's page budget and with none, beside what it holds
+    from repro_torch.cluster.node import instance_bytes
+    charged = {"paged": instance_bytes(cfg, ecfg.quantize, ecfg.n_slots,
+                                       ecfg.max_len, ecfg.page_size,
+                                       eng.pool.n_pages),
+               "dense": instance_bytes(cfg, ecfg.quantize, ecfg.n_slots,
+                                       ecfg.max_len)}
     if ecfg.quantize == "int8" and mem["param_bytes"] >= 0.65 * dense_bytes:
         raise AssertionError(f"{phase}: int8 weights {mem['param_bytes']} B"
                              f", bf16 {dense_bytes} B")
     ttft = sorted(r.ttft for r in reqs)
     emit({"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
-          "params": cfg.num_params(), "quantize": ecfg.quantize,
+          "params": cfg.num_params(), "head_dim": cfg.head_dim,
+          "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "window": cfg.swa_window, "prefix_tokens": cfg.n_prefix_tokens,
+          "quantize": ecfg.quantize,
           "paged": st["paged"], "paged_attention": st["paged_attention"],
           "requests": len(reqs),
           "prompt_lens": [len(r.prompt) for r in reqs],
@@ -1286,10 +1489,37 @@ def serve(phase, dev, ops, card, **engine_kw):
           "decode_traces": st["decode_traces"],
           "logical_bytes_moved": st["logical_bytes_moved"],
           "param_bytes": mem["param_bytes"], "bf16_param_bytes": dense_bytes,
+          "cache_bytes": mem["cache_bytes"], "instance_bytes": charged,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
           "launches": launches, "launches_by_route": by_route,
           "card": card})
     return launches, by_route, [tuple(s) for s in st["prefill_shapes"]]
+
+
+def serve_gemma(dev, ops, card):
+    """The paper's gemma3-1b at full width and depth (26 layers, hd 256,
+    window 512, G = 4, vocab 262144), bf16, seeded weights, in the
+    paged-attention mode under serve_bf16's EngineConfig and requests
+    (prompts 16-896: past the window); then gemma3-4b (34 layers, hd 256,
+    window 1024, G = 2, 256 vision prefix tokens fed zeros) in the gather
+    mode, its prompts capped at 704 so that prompt + 256 + budget <=
+    1024.  Each serve is held as serve_bf16 is (exact budgets, every page
+    returned, launches n_layers x model calls per attention kernel, every
+    flash launch "tensor_core").  Returns {model: launches}, each counted
+    from 0 just before its serve and read just after."""
+    from repro_torch.configs import ZOO
+    out = {}
+    for name, kw, max_prompt in (
+            ("gemma3-1b", dict(paged_attention=True), 896),
+            ("gemma3-4b", {}, 1024 - ZOO["gemma3-4b"].n_prefix_tokens - 64)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches, _, _ = serve("serve_gemma", dev, ops, card, cfg=ZOO[name],
+                               max_prompt=max_prompt, **kw)
+        out[name] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def sync(dev) -> None:
@@ -1846,7 +2076,7 @@ def pct(xs, q):
 
 def serve_http(dev, ops, card, argv=None, timeout_s=600):
     """The launcher's own `build_service` in-process, with its defaults:
-    the full llama3.2-1b and qwen3-1.7b (bf16, seeded weights, one tree
+    the full llama3.2-1b and gemma3-1b (bf16, seeded weights, one tree
     per model) at two replicas each, placed by VRAM on the paper's
     testbed, every replica a real engine on the card in node.deploy's
     gather mode.  `http_requests`' traffic over three keep-alive
@@ -2200,6 +2430,10 @@ def main() -> int:
                      "serve_spec": serve_spec(dev, ops, card),
                      "serve_gateway": serve_gateway(dev, ops, card)}
     gc.collect()
+    gemma = serve_gemma(dev, ops, card)
+    path_launches["serve_gemma"] = {
+        name: sum(ln[name] for ln in gemma.values())
+        for name in next(iter(gemma.values()))}
     path_launches["serve_http"] = serve_http(dev, ops, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2210,7 +2444,10 @@ def main() -> int:
     int8_m = max(r * b for r, b in int8_shapes)
     timings = kernel_timings(dev, ops, refs, q_lib, widest, int8_m)
     for name, rows in gqa_timings(dev, ops, refs).items():
-        timings[name]["shapes"] = rows
+        for r in rows:     # a gemma's launches on its serve in serve_gemma
+            if r["label"] in gemma:
+                r["launches"] = gemma[r["label"]][name]
+        timings[name].setdefault("shapes", []).extend(rows)
     c5_f32_tile_error(dev, ops, q_lib)
     plain_timings(dev, ops)
     meta = {
@@ -2237,6 +2474,8 @@ def main() -> int:
         if name in ("flash_attention", "decode_attention") \
                 and not path_launches["serve_http"][name]:
             raise AssertionError(f"{name} never ran on serve_http")
+        if name != "int8_matmul" and not path_launches["serve_gemma"][name]:
+            raise AssertionError(f"{name} never ran on serve_gemma")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "path": path, "max_abs_err": t["max_abs_err"],

@@ -14,10 +14,8 @@ This file differs from `repro.api.http.__main__` in these places:
   ``--device cpu --reduced`` is the reference's only mode: reduced
   configs, renamed to the paper's model ids so that chat templates and
   clients address them as such.
-- The default models are llama3.2-1b and qwen3-1.7b: the reference's
-  gemma3-1b needs the sliding window and the gelu FFN (ROADMAP.md A7).
-  A zoo model the port refuses exits 2 with the reason, as an unknown
-  name does.
+- A zoo model the port refuses (the embedding models; ROADMAP.md A7)
+  exits 2 with the reason, as an unknown name does.
 - `ControllerConfig(real_param_threshold=)` lies above the largest
   served model's parameters, so every replica is a real engine (the
   default threshold deploys a full-width model in accounted mode, with
@@ -62,7 +60,7 @@ def build_service(argv: Optional[List[str]] = None
     p = argparse.ArgumentParser(prog="python -m repro_torch.api.http")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
-    p.add_argument("--models", default="llama3.2-1b,qwen3-1.7b",
+    p.add_argument("--models", default="llama3.2-1b,gemma3-1b",
                    help="comma-separated zoo names")
     p.add_argument("--replicas", type=int, default=2)
     p.add_argument("--device", default="cuda",

@@ -11,9 +11,8 @@ stdlib client (the old `repro_torch.core.Client` shim is deprecated).
     python -m repro_torch.examples.quickstart --device cpu --reduced
 
 The JAX package's quickstart serves reduced llama3.2-1b and gemma3-1b;
-this one serves llama3.2-1b and qwen3-1.7b (the port does not run
-gemma3-1b's sliding window and gelu FFN yet, ROADMAP.md A7), at full
-width on the card, every replica a real engine.
+this one serves the same two at full width on the card, every replica a
+real engine.
 """
 import argparse
 
@@ -36,22 +35,23 @@ def main(argv=None):
     fleet = paper_testbed(param_store=store, device=dev)
     catalog = ModelCatalog()
     llama = zoo_cfg("llama3.2-1b", args.reduced)
-    qwen = zoo_cfg("qwen3-1.7b", args.reduced)
+    gemma = zoo_cfg("gemma3-1b", args.reduced)
     catalog.register(llama)
-    catalog.register(qwen)
+    catalog.register(gemma)
 
     # every replica a real engine: the threshold lies above both models
     ctrl = SDAIController(fleet, catalog, ControllerConfig(
-        real_param_threshold=qwen.num_params() + 1))
+        real_param_threshold=max(llama.num_params(),
+                                 gemma.num_params()) + 1))
     print("discovered nodes:", ctrl.discover())
 
     # max_len fits a chat-templated prompt (the llama3 header format
     # alone costs ~120 byte-tokens) plus decode budget
     plan = ctrl.deploy([
         ModelDemand(llama, min_replicas=2, n_slots=2, max_len=192),
-        ModelDemand(qwen, min_replicas=2, n_slots=2, max_len=192),
+        ModelDemand(gemma, min_replicas=2, n_slots=2, max_len=192),
     ])
-    engines_on(fleet, dev, [llama.name, qwen.name])
+    engines_on(fleet, dev, [llama.name, gemma.name])
     print(f"deployed {len(plan.assignments)} instances on {dev}, "
           f"fleet VRAM utilization {ctrl.fleet_utilization():.1%}")
 
@@ -66,7 +66,7 @@ def main(argv=None):
           f"finish={resp.finish_reason})")
 
     # async + streaming: tokens arrive as engine decode steps produce them
-    handle = gw.submit("qwen3-1.7b", prompt=[5, 6, 7],
+    handle = gw.submit("gemma3-1b", prompt=[5, 6, 7],
                        sampling=SamplingParams(max_tokens=8))
     toks = []
     for ev in handle.stream():
@@ -88,11 +88,11 @@ def main(argv=None):
     print(f"  chat   {out['model']:14s} -> {choice['token_ids']}  "
           f"(finish={choice['finish_reason']}, "
           f"via {out['metadata']['node']})")
-    deltas = sum(1 for c in client.chat("qwen3-1.7b", ["stream please"],
+    deltas = sum(1 for c in client.chat("gemma3-1b", ["stream please"],
                                         max_tokens=8, stream=True)
                  if c["choices"][0].get("delta", {}).get("token")
                  is not None)
-    print(f"  stream qwen3-1.7b     -> {deltas} SSE token deltas")
+    print(f"  stream gemma3-1b      -> {deltas} SSE token deltas")
     client.close()
     server.stop()
 

@@ -13,10 +13,10 @@ Demonstrates every architectural claim at once:
     python -m repro_torch.examples.serve_testbed --device cpu --reduced
 
 Two models are live, real engines on the device (llama3.2-1b and
-qwen3-1.7b, full width on the card); the rest of the paper's Table-1 zoo
+gemma3-1b, full width on the card); the rest of the paper's Table-1 zoo
 is deployed in accounted mode (exact bytes, analytic latency, synthetic
-tokens), as in the JAX package's example, whose live pair is reduced
-llama3.2-1b and gemma3-1b.
+tokens), as in the JAX package's example, whose live pair is the same
+two, reduced.
 """
 import argparse
 import random
@@ -31,7 +31,7 @@ from repro_torch.examples import device_args, engines_on, zoo_cfg
 from repro_torch.params import seeded_store
 from repro_torch.serving import SamplingParams
 
-LIVE = ("llama3.2-1b", "qwen3-1.7b")
+LIVE = ("llama3.2-1b", "gemma3-1b")
 
 
 def main(argv=None):

@@ -61,25 +61,49 @@ from_f32<__nv_bfloat16>(float x) {
 }
 
 // ---- decode attention: one query token against rows of keys/values ---- //
-// A group of LPR lanes owns one key/value row, each lane VEC elements of
-// it along hd; the group keeps its own online-softmax state (m, l, acc)
-// for GC query rows in registers.
+// A group of LPR lanes owns one key/value row, each lane EPL elements of
+// it along hd (NV 16-byte vectors, side by side from d0 = (lane % LPR) *
+// EPL); the group keeps its own online-softmax state (m, l, acc) for GC
+// query rows in registers.  A row takes at most a warp: at hd 256 in f32
+// (64 vectors a row) each of the 32 lanes holds two vectors.
+template <typename T, int HD>
+struct RowLayout {
+  static constexpr int VEC = Vec<T>::N;
+  static constexpr int LPR = HD / VEC < 32 ? HD / VEC : 32;  // lanes a row
+  static constexpr int NV = HD / (VEC * LPR);      // vectors a lane
+  static constexpr int EPL = VEC * NV;             // elements a lane
+  static constexpr int RPW = 32 / LPR;             // rows a warp pass
+  static_assert(LPR * EPL == HD, "hd must be a whole number of vectors");
+};
+
+// EPL elements at p as EPL / Vec<T>::N 16-byte loads, widened to f32.
+template <typename T, int EPL>
+__device__ __forceinline__ void load_elems(const T* p, float (&out)[EPL]) {
+  constexpr int N = Vec<T>::N;
+#pragma unroll
+  for (int j = 0; j < EPL / N; ++j) {
+    float v[N];
+    load_vec(p + j * N, v);
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[j * N + e] = v[e];
+  }
+}
 
 // Fold one key/value row into the group's state.  Every lane of the warp
 // must call it (the q.k partial sums are reduced with shuffles); `valid`
 // is the row's mask bit.
-template <int GC, int VEC, int LPR>
-__device__ __forceinline__ void online_row(const float (&qv)[GC][VEC],
-                                           const float (&kr)[VEC],
-                                           const float (&vr)[VEC],
+template <int GC, int EPL, int LPR>
+__device__ __forceinline__ void online_row(const float (&qv)[GC][EPL],
+                                           const float (&kr)[EPL],
+                                           const float (&vr)[EPL],
                                            bool valid, float (&m)[GC],
                                            float (&l)[GC],
-                                           float (&acc)[GC][VEC]) {
+                                           float (&acc)[GC][EPL]) {
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
     float s = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) s = fmaf(qv[g][e], kr[e], s);
+    for (int e = 0; e < EPL; ++e) s = fmaf(qv[g][e], kr[e], s);
 #pragma unroll
     for (int off = LPR / 2; off > 0; off >>= 1)
       s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -89,7 +113,7 @@ __device__ __forceinline__ void online_row(const float (&qv)[GC][VEC],
       const float p = expf(s - m_new);
       l[g] = l[g] * corr + p;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
+      for (int e = 0; e < EPL; ++e)
         acc[g][e] = fmaf(p, vr[e], acc[g][e] * corr);
       m[g] = m_new;
     }
@@ -99,47 +123,52 @@ __device__ __forceinline__ void online_row(const float (&qv)[GC][VEC],
 // The group's query rows, scaled by sm_scale, and an empty state: q_row
 // points at query row 0 of the (slot, kv head), the lane's d0 included;
 // rows from ng on stay zero.
-template <typename T, int GC, int VEC, int HD>
+template <typename T, int GC, int EPL, int HD>
 __device__ __forceinline__ void load_query(const T* q_row, int ng,
                                            float sm_scale,
-                                           float (&qv)[GC][VEC],
+                                           float (&qv)[GC][EPL],
                                            float (&m)[GC], float (&l)[GC],
-                                           float (&acc)[GC][VEC]) {
+                                           float (&acc)[GC][EPL]) {
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) { qv[g][e] = 0.f; acc[g][e] = 0.f; }
+    for (int e = 0; e < EPL; ++e) { qv[g][e] = 0.f; acc[g][e] = 0.f; }
     if (g < ng) {
-      load_vec(q_row + (size_t)g * HD, qv[g]);
+      load_elems<T, EPL>(q_row + (size_t)g * HD, qv[g]);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) qv[g][e] *= sm_scale;
+      for (int e = 0; e < EPL; ++e) qv[g][e] *= sm_scale;
     }
   }
 }
 
 // Fold one block of key/value rows into the group's state: rows r =
 // u * RPW + grp (u < UNROLL) at kb, vb + r * stride elements, read only
-// for r < n_rows.  All 2 * UNROLL loads are issued packed before the first
-// is used, so that many 16-byte loads a lane are in flight.  Row r sits at
-// kv_pos0 + r; with a window it is visible only inside the window or the
-// prefix.  Every lane of the warp must call it.
-template <int GC, int VEC, int LPR, int RPW, int UNROLL, typename T>
+// for r < n_rows.  All 2 * UNROLL * NV loads are issued packed before the
+// first is used, so that many 16-byte loads a lane are in flight.  Row r
+// sits at kv_pos0 + r; with a window it is visible only inside the window
+// or the prefix.  Every lane of the warp must call it.
+template <int GC, int EPL, int LPR, int RPW, int UNROLL, typename T>
 __device__ __forceinline__ void fold_block(
     const T* kb, const T* vb, long long stride, int n_rows, int kv_pos0,
-    int pos, int window, int prefix, int grp, const float (&qv)[GC][VEC],
-    float (&m)[GC], float (&l)[GC], float (&acc)[GC][VEC]) {
-  uint4 kr[UNROLL], vr[UNROLL];   // packed: 4 registers a row
+    int pos, int window, int prefix, int grp, const float (&qv)[GC][EPL],
+    float (&m)[GC], float (&l)[GC], float (&acc)[GC][EPL]) {
+  constexpr int N = Vec<T>::N;
+  constexpr int NV = EPL / N;
+  uint4 kr[UNROLL][NV], vr[UNROLL][NV];   // packed: 4 registers a vector
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
     const int r = u * RPW + grp;
-    if (r < n_rows) {
-      kr[u] = load_raw(kb + r * stride);
-      vr[u] = load_raw(vb + r * stride);
-    } else {
-      kr[u] = make_uint4(0u, 0u, 0u, 0u);
-      vr[u] = kr[u];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if (r < n_rows) {
+        kr[u][j] = load_raw(kb + r * stride + j * N);
+        vr[u][j] = load_raw(vb + r * stride + j * N);
+      } else {
+        kr[u][j] = make_uint4(0u, 0u, 0u, 0u);
+        vr[u][j] = kr[u][j];
+      }
     }
   }
 #pragma unroll
@@ -150,10 +179,19 @@ __device__ __forceinline__ void fold_block(
       const int t = kv_pos0 + r;
       valid = valid && (t > pos - window || (prefix > 0 && t < prefix));
     }
-    float kf[VEC], vf[VEC];
-    unpack_vec(kr[u], kf);
-    unpack_vec(vr[u], vf);
-    online_row<GC, VEC, LPR>(qv, kf, vf, valid, m, l, acc);
+    float kf[EPL], vf[EPL];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float kt[N], vt[N];
+      unpack_vec(kr[u][j], kt);
+      unpack_vec(vr[u][j], vt);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        kf[j * N + e] = kt[e];
+        vf[j * N + e] = vt[e];
+      }
+    }
+    online_row<GC, EPL, LPR>(qv, kf, vf, valid, m, l, acc);
   }
 }
 
@@ -187,10 +225,10 @@ __device__ __forceinline__ uint32_t running_chunks(int n_split, int chunk,
 // weighted sum at pacc[g * HD + d].  `part` is the calling group's
 // index, d0 its lanes' first element along hd.  Every thread of the CTA
 // must call it.
-template <typename T, int GC, int VEC, int HD, int NPART, int NTHREADS>
+template <typename T, int GC, int EPL, int HD, int NPART, int NTHREADS>
 __device__ __forceinline__ void merge_partial(
     int part, bool group_leader, int d0, const float (&m)[GC],
-    const float (&l)[GC], const float (&acc)[GC][VEC], T* __restrict__ out,
+    const float (&l)[GC], const float (&acc)[GC][EPL], T* __restrict__ out,
     float* __restrict__ pml, float* __restrict__ pacc, int ng) {
   __shared__ float sm_m[NPART][GC];
   __shared__ float sm_l[NPART][GC];
@@ -199,7 +237,7 @@ __device__ __forceinline__ void merge_partial(
   for (int g = 0; g < GC; ++g) {
     if (group_leader) { sm_m[part][g] = m[g]; sm_l[part][g] = l[g]; }
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) sm_acc[part][g][d0 + e] = acc[g][e];
+    for (int e = 0; e < EPL; ++e) sm_acc[part][g][d0 + e] = acc[g][e];
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < ng * HD; idx += NTHREADS) {
@@ -287,23 +325,23 @@ __device__ __forceinline__ void merge_splits(uint32_t mask, int n_split,
 // [n_bk][n_split][MAXG][HD], and the last CTA to arrive (a counter per bk
 // in `tickets`, left at 0) merges the running chunks in chunk order
 // (merge_splits).  Every thread of the CTA must call it.
-template <typename T, int GC, int VEC, int HD, int NPART, int NTHREADS,
+template <typename T, int GC, int EPL, int HD, int NPART, int NTHREADS,
           int MAXG>
 __device__ __forceinline__ void finish_split(
     uint32_t mask, int bk, int n_bk, int split, int n_split, int part,
     bool group_leader, int d0, const float (&m)[GC], const float (&l)[GC],
-    const float (&acc)[GC][VEC], T* __restrict__ o, float* __restrict__ ws,
+    const float (&acc)[GC][EPL], T* __restrict__ o, float* __restrict__ ws,
     unsigned* __restrict__ tickets, int ng) {
   const int n_run = __popc(mask);
   if (n_run == 1) {
-    merge_partial<T, GC, VEC, HD, NPART, NTHREADS>(
+    merge_partial<T, GC, EPL, HD, NPART, NTHREADS>(
         part, group_leader, d0, m, l, acc, o, nullptr, nullptr, ng);
     return;
   }
   float* ml = ws + (size_t)bk * n_split * MAXG * 2;
   float* sums = ws + (size_t)n_bk * n_split * MAXG * 2 +
                 (size_t)bk * n_split * MAXG * HD;
-  merge_partial<T, GC, VEC, HD, NPART, NTHREADS>(
+  merge_partial<T, GC, EPL, HD, NPART, NTHREADS>(
       part, group_leader, d0, m, l, acc, nullptr, ml + split * MAXG * 2,
       sums + (size_t)split * MAXG * HD, ng);
   if (!last_to_arrive(tickets + bk, (unsigned)n_run)) return;

@@ -20,7 +20,8 @@
 // chunk.  The wrapper picks n_split and chunk from B, K, S and the SM count
 // alone (ops.decode_attention_splits), never from pos, so nothing is read
 // back to the host.  Inside a chunk the CTA works as before: 4 warps, a
-// group of hd/VEC lanes per key row with 16-byte loads along hd, the
+// group of min(hd / VEC, 32) lanes per key row with 16-byte loads along
+// hd (at hd 256 in f32 a lane loads two vectors a row), the
 // group's own online-softmax state in registers, a log-sum-exp merge of
 // the groups in shared memory.  UNROLL rows per group are loaded before
 // any is used, packed (4 registers a row, widened just before use), 8 of
@@ -53,7 +54,6 @@
 namespace {
 
 using repro::kNegInf;
-using repro::Vec;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -71,11 +71,15 @@ __global__ void __launch_bounds__(kThreads, 1) decode_split_kernel(
     unsigned* __restrict__ tickets, int n_kv, int G, int S, long long sb,
     long long sk, long long ss, int window, int prefix, float sm_scale,
     int g0, int chunk) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int LPR = HD / VEC;       // lanes per key row
-  constexpr int RPW = 32 / LPR;       // rows per warp pass
+  using RL = repro::RowLayout<T, HD>;
+  constexpr int EPL = RL::EPL;        // elements a lane (one or two vectors)
+  constexpr int LPR = RL::LPR;        // lanes per key row
+  constexpr int RPW = RL::RPW;        // rows per warp pass
   constexpr int NPART = kWarps * RPW; // partial states per CTA
-  constexpr int UNROLL = GC >= 8 ? 2 : GC >= 4 ? 4 : 8;
+  // rows a group loads before using any: as many 16-byte loads in flight
+  // whether a row is one vector a lane or two
+  constexpr int UNROLL_V = GC >= 8 ? 2 : GC >= 4 ? 4 : 8;
+  constexpr int UNROLL = UNROLL_V / RL::NV > 0 ? UNROLL_V / RL::NV : 1;
   constexpr int BLK = RPW * UNROLL;   // rows per block, one warp each
 
   const int bk = blockIdx.x;
@@ -86,7 +90,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_split_kernel(
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int grp = lane / LPR;
-  const int d0 = (lane % LPR) * VEC;
+  const int d0 = (lane % LPR) * EPL;
   const int pos = pos_arr[b];
   const int last = min(pos, S - 1);   // the last row that can be visible
   const int ng = min(GC, G - g0);
@@ -98,9 +102,9 @@ __global__ void __launch_bounds__(kThreads, 1) decode_split_kernel(
   const int c_begin = split * chunk;
   const int c_end = min(c_begin + chunk, last + 1);   // exclusive
 
-  float qv[GC][VEC];
-  float m[GC], l[GC], acc[GC][VEC];
-  repro::load_query<T, GC, VEC, HD>(q + ((size_t)bk * G + g0) * HD + d0, ng,
+  float qv[GC][EPL];
+  float m[GC], l[GC], acc[GC][EPL];
+  repro::load_query<T, GC, EPL, HD>(q + ((size_t)bk * G + g0) * HD + d0, ng,
                                     sm_scale, qv, m, l, acc);
 
   const T* kb = k + b * sb + kh * sk + d0;
@@ -112,12 +116,12 @@ __global__ void __launch_bounds__(kThreads, 1) decode_split_kernel(
       if (prefix > 0) reach = reach || start < prefix;
       if (!reach) continue;
     }
-    repro::fold_block<GC, VEC, LPR, RPW, UNROLL>(
+    repro::fold_block<GC, EPL, LPR, RPW, UNROLL>(
         kb + start * ss, vb + start * ss, ss, c_end - start, start, pos,
         window, prefix, grp, qv, m, l, acc);
   }
 
-  repro::finish_split<T, GC, VEC, HD, NPART, kThreads, kMaxChunk>(
+  repro::finish_split<T, GC, EPL, HD, NPART, kThreads, kMaxChunk>(
       mask, bk, gridDim.x, split, n_split, warp * RPW + grp, lane % LPR == 0,
       d0, m, l, acc, out + ((size_t)bk * G + g0) * HD, ws, tickets, ng);
 }
@@ -160,7 +164,7 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
     launch_hd<T, HD>(q, k, v, pos, out, ws, tickets, B, K, G, S, sb, sk,    \
                      ss, window, prefix, sm_scale, n_split, chunk, stream); \
     break;
-    REPRO_HD(16) REPRO_HD(32) REPRO_HD(64) REPRO_HD(128)
+    REPRO_HD(16) REPRO_HD(32) REPRO_HD(64) REPRO_HD(128) REPRO_HD(256)
 #undef REPRO_HD
     default: return (int)cudaErrorInvalidValue;
   }

@@ -38,7 +38,13 @@
 //   flight while this one computes.  64 KB of shared memory per CTA let
 //   3 CTAs (12 warps) share an SM where the registers allow (hd <= 64;
 //   hd 128 runs 2 without spilling), to hide the latency of each warp's
-//   product-softmax-product chain.
+//   product-softmax-product chain.  At hd 256 a warp's output alone is
+//   32 n8 tiles, 128 f32 registers a thread, and its Q fragments 64 more:
+//   held together they pass ptxas' 255.  So at hd 256 Q stays in a
+//   shared tile of its own and each k16 step reloads its fragment there
+//   (one ldmatrix beside the step's four for K), and the kv tiles are 32
+//   rows (the score tile's 16 registers instead of 32): 96 KB of shared
+//   memory, two CTAs an SM.
 //   S = Q.K^T takes K rows as the column-major B operand (ldmatrix, at
 //   offsets stepped by XOR, one register per operand); the online
 //   softmax stays in registers, reduced across the 4 lanes of a quad
@@ -101,8 +107,17 @@ __device__ __forceinline__ void stage(float* dst, int pitch, const T* src,
   }
 }
 
+// CTAs per SM the f32 route's registers are sized for: its shared memory
+// holds 2 at hd <= 128 and 1 at hd 256 (214 KB), where the 4 x 16 output
+// block would not fit 128 registers.
+template <int HD>
+constexpr int flash_min_blocks() {
+  return HD >= 256 ? 1 : 2;
+}
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2) flash_kernel(
+__global__ void __launch_bounds__(kThreads, flash_min_blocks<HD>())
+    flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int H, int n_kv, int Sq,
     int Skv, int causal, int window, int prefix, float sm_scale,
@@ -256,15 +271,29 @@ constexpr int kTcBQ = 64;                    // query rows per CTA
 constexpr int kTcThreads = kTcBQ / 16 * 32;  // a warp per 16 query rows
 
 // CTAs per SM (64 KB of shared memory each): 3, at most 168 registers a
-// thread; hd 128's fragments take more (ptxas spills at 168), so 2.
+// thread; hd 128's fragments take more (ptxas spills at 168), so 2; hd
+// 256 (96 KB) 2, at most 255 registers.
 template <int HD>
 constexpr int tc_min_blocks() {
   return HD >= 128 ? 2 : 3;
 }
 
+// kv rows per tile, and whether Q stays in a shared tile of its own (its
+// fragments reloaded each k16 step) rather than in registers: see the
+// header, hd 256.
 template <int HD>
-constexpr size_t tc_smem_bytes() {        // K[0], V[0], K[1], V[1]
-  return (size_t)4 * kBK * HD * sizeof(__nv_bfloat16);
+__host__ __device__ constexpr int tc_bk() {
+  return HD >= 256 ? 32 : kBK;
+}
+template <int HD>
+__host__ __device__ constexpr bool tc_q_shared() {
+  return HD >= 256;
+}
+
+template <int HD>
+constexpr size_t tc_smem_bytes() {        // K[0], V[0], K[1], V[1] (, Q)
+  return ((size_t)4 * tc_bk<HD>() + (tc_q_shared<HD>() ? kTcBQ : 0)) * HD *
+         sizeof(__nv_bfloat16);
 }
 
 // Element offset of 16-byte chunk c of row r in a swizzled [rows][HD]
@@ -280,20 +309,21 @@ __device__ __forceinline__ int swz(int r, int c) {
   }
 }
 
-// A thread's share of a tile copy: chunk c of rows r0, r0 + STEP, ...;
-// STEP is a multiple of the swizzle's period in rows, so the swizzled
-// column is the same for all of them.
+// A thread's share of a tile copy: chunk c of rows r0, r0 + STEP, ...
+// Where STEP is a multiple of the swizzle's period in rows (8), the
+// swizzled column is the same for all of them; at hd 256 (STEP 4) each
+// row's is computed.
 template <int HD>
 struct TileLoader {
   static constexpr int C = HD / 8;              // 16-byte chunks per row
   static constexpr int STEP = kTcThreads / C;   // rows per pass
-  int r0;
+  int r0, c;
   uint32_t dst0;                                // byte offset in a tile
   int src0;                                     // element offset in a row
 
   __device__ __forceinline__ TileLoader() {
     r0 = threadIdx.x / C;
-    const int c = threadIdx.x % C;
+    c = threadIdx.x % C;
     dst0 = 2 * swz<HD>(r0, c);
     src0 = c * 8;
   }
@@ -308,9 +338,10 @@ struct TileLoader {
 #pragma unroll
     for (int j = 0; j < (ROWS + STEP - 1) / STEP; ++j) {
       const int r = r0 + j * STEP;
+      const uint32_t at = STEP % 8 == 0 ? dst0 + j * STEP * HD * 2
+                                        : 2 * swz<HD>(r, c);
       if (ROWS % STEP == 0 || r < ROWS)
-        repro::cp_async16(dst + dst0 + j * STEP * HD * 2,
-                          r < n_valid ? p + j * STEP * row : src,
+        repro::cp_async16(dst + at, r < n_valid ? p + j * STEP * row : src,
                           r < n_valid ? 16 : 0);
     }
   }
@@ -323,11 +354,15 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<HD>()) flash_tc(
     int H, int n_kv, int Sq, int Skv, int causal, int window, int prefix,
     float sm_scale, Strides st) {
   using namespace repro;
+  constexpr int BK = tc_bk<HD>();          // kv rows per tile
+  constexpr bool QS = tc_q_shared<HD>();   // Q in its own shared tile
   constexpr int NKS = HD / 16;             // k16 steps of Q.K^T
   constexpr int NDT = HD / 8;              // n8 tiles of the output
-  constexpr int TILE = kBK * HD;           // elements per tile
+  constexpr int NST = BK / 8;              // n8 tiles of the score tile
+  constexpr int TILE = BK * HD;            // elements per tile
   extern __shared__ __align__(16) __nv_bfloat16 tsm[];
-  const uint32_t sK = smem_addr(tsm);     // K[0], V[0], K[1], V[1]
+  const uint32_t sK = smem_addr(tsm);     // K[0], V[0], K[1], V[1] (, Q)
+  const uint32_t sQ = sK + 8u * TILE;     // used when QS
   const TileLoader<HD> loader;
 
   // heaviest query tiles (most kv tiles under the causal mask) first
@@ -351,13 +386,13 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<HD>()) flash_tc(
   const __nv_bfloat16* vb = v + b * st.kb + kvh * st.kh;
 
   const int kv_end = causal ? min(Skv, q0 + kTcBQ) : Skv;
-  const int n_tiles = (kv_end + kBK - 1) / kBK;
+  const int n_tiles = (kv_end + BK - 1) / BK;
   // the kv tiles the Pallas kernel visits: up to the causal frontier,
   // minus those wholly left of the window that hold no prefix position
   auto visited = [&](int t) {
     if (!(causal && window > 0)) return true;
-    const int k0 = t * kBK;
-    return k0 + kBK - 1 > q0 - window || (prefix > 0 && k0 < prefix);
+    const int k0 = t * BK;
+    return k0 + BK - 1 > q0 - window || (prefix > 0 && k0 < prefix);
   };
   auto next_tile = [&](int t) {
     do { ++t; } while (t < n_tiles && !visited(t));
@@ -368,16 +403,17 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<HD>()) flash_tc(
   auto kbuf = [&](int buf) { return sK + 4u * TILE * buf; };
   auto vbuf = [&](int buf) { return sK + 4u * TILE * buf + 2u * TILE; };
   auto load_kv = [&](int tile, int buf) {
-    const long long off = (long long)tile * kBK * st.ks;
-    loader.template load<kBK>(kbuf(buf), kb + off, st.ks, Skv - tile * kBK);
-    loader.template load<kBK>(vbuf(buf), vb + off, st.ks, Skv - tile * kBK);
+    const long long off = (long long)tile * BK * st.ks;
+    loader.template load<BK>(kbuf(buf), kb + off, st.ks, Skv - tile * BK);
+    loader.template load<BK>(vbuf(buf), vb + off, st.ks, Skv - tile * BK);
   };
 
   // Q (at most two tiles) passes through K[1] and V[1], free until the
-  // first prefetch
-  static_assert(kTcBQ <= 2 * kBK, "Q must fit in K[1] and V[1]");
+  // first prefetch, or stays in its own tile (QS)
+  static_assert(QS || kTcBQ <= 2 * BK, "Q must fit in K[1] and V[1]");
+  const uint32_t q_tile = QS ? sQ : kbuf(1);
   int t = next_tile(-1);
-  loader.template load<kTcBQ>(kbuf(1), q + b * st.qb + h * st.qh + q0 * st.qs,
+  loader.template load<kTcBQ>(q_tile, q + b * st.qb + h * st.qh + q0 * st.qs,
                               st.qs, Sq - q0);
   if (t < n_tiles) load_kv(t, 0);
   cp_async_commit();
@@ -385,13 +421,15 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<HD>()) flash_tc(
   __syncthreads();
 
   // Q fragments (A operand, 16 rows x HD): matrix mi = rows +8 (mi % 2),
-  // chunk +1 (mi / 2)
-  uint32_t qf[NKS][4];
+  // chunk +1 (mi / 2); with QS one k16 step's at a time, in the loop
+  const uint32_t q_warp = q_tile + warp * 16 * HD * 2;
+  uint32_t qf[QS ? 1 : NKS][4];
+  if constexpr (!QS) {
 #pragma unroll
-  for (int ks = 0; ks < NKS; ++ks)
-    ldmatrix_x4(kbuf(1) + warp * 16 * HD * 2 + (v_lane ^ (32 * ks)),
-                qf[ks]);
-  __syncthreads();   // every warp holds its Q: buffer 1 takes a tile
+    for (int ks = 0; ks < NKS; ++ks)
+      ldmatrix_x4(q_warp + (v_lane ^ (32 * ks)), qf[ks]);
+    __syncthreads();   // every warp holds its Q: buffer 1 takes a tile
+  }
 
   float o[NDT][4];
 #pragma unroll
@@ -407,38 +445,40 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<HD>()) flash_tc(
     const int tn = next_tile(t);
     if (tn < n_tiles) load_kv(tn, buf ^ 1);   // in flight meanwhile
     cp_async_commit();
-    const int k0 = t * kBK;
+    const int k0 = t * BK;
 
-    // S = Q.K^T: 16 rows x 64 kv per warp, 8 n8 tiles
-    float s[8][4];
+    // S = Q.K^T: 16 rows x BK kv per warp, NST n8 tiles
+    float s[NST][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NST; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < NKS; ++ks) {
+      if constexpr (QS) ldmatrix_x4(q_warp + (v_lane ^ (32 * ks)), qf[0]);
+      const uint32_t(&a)[4] = qf[QS ? 0 : ks];
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < BK / 16; ++np) {
         uint32_t r[4];   // matrix mi: kv rows +8 (mi / 2), chunk +1 (mi % 2)
         ldmatrix_x4(kbuf(buf) + np * 16 * HD * 2 + (k_lane ^ (32 * ks)), r);
-        mma_bf16_16816(s[2 * np], qf[ks], r[0], r[1]);
-        mma_bf16_16816(s[2 * np + 1], qf[ks], r[2], r[3]);
+        mma_bf16_16816(s[2 * np], a, r[0], r[1]);
+        mma_bf16_16816(s[2 * np + 1], a, r[2], r[3]);
       }
     }
 
     // fragment value e of n8 tile nt: row g + 8 (e / 2), col 8 nt +
     // 2 c4 + e % 2
     const bool edge =
-        k0 + kBK > Skv ||
-        (causal && (k0 + kBK - 1 > q0 ||
+        k0 + BK > Skv ||
+        (causal && (k0 + BK - 1 > q0 ||
                     (window > 0 && k0 <= q0 + kTcBQ - 1 - window)));
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < NST; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] *= sc;
     if (edge) {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < NST; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qp = q0 + warp * 16 + g + 8 * (e / 2);
@@ -458,7 +498,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<HD>()) flash_tc(
     for (int hh = 0; hh < 2; ++hh) {
       float mx = kNegInf;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < NST; ++nt)
         mx = fmaxf(mx, fmaxf(s[nt][2 * hh], s[nt][2 * hh + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -467,7 +507,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<HD>()) flash_tc(
       m_run[hh] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < NST; ++nt)
 #pragma unroll
         for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
           const float p = exp2f(s[nt][e] - m_new);
@@ -484,7 +524,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<HD>()) flash_tc(
 
     // O += P.V: P (bf16) from the score fragments, V through ldmatrix.trans
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
                              pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
                              pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
@@ -585,6 +625,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     case 64: return launch_hd<64>(q, k, v, out, B, H, K, Sq, Skv, causal,
                                   window, prefix, sm_scale, st, tc, s);
     case 128: return launch_hd<128>(q, k, v, out, B, H, K, Sq, Skv, causal,
+                                    window, prefix, sm_scale, st, tc, s);
+    case 256: return launch_hd<256>(q, k, v, out, B, H, K, Sq, Skv, causal,
                                     window, prefix, sm_scale, st, tc, s);
     default: return (int)cudaErrorInvalidValue;
   }

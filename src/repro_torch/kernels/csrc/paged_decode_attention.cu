@@ -29,8 +29,9 @@
 // one coalesced load (lane i of warp w holds column w + 4i), issued beside
 // the load of pos, and hands them out with shuffles, so no K/V load waits
 // behind a dependent table load page after page.  The 4 warps take the
-// chunk's pages round-robin; a group of hd/VEC lanes owns a token row,
-// 16-byte loads along hd (a page row of one kv head is K*hd elements from
+// chunk's pages round-robin; a group of min(hd / VEC, 32) lanes owns a
+// token row (two vectors a lane at hd 256 in f32), 16-byte loads along
+// hd (a page row of one kv head is K*hd elements from
 // the next), its own online-softmax state in registers (common.cuh
 // fold_block / online_row), and a page's rows are loaded packed before any
 // is used, 8 rows a group when G <= 2, so a warp keeps a whole page of K
@@ -59,7 +60,6 @@
 
 namespace {
 
-using repro::Vec;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -77,11 +77,15 @@ __global__ void __launch_bounds__(kThreads, 1) paged_decode_kernel(
     float* __restrict__ ws, unsigned* __restrict__ tickets, int n_kv, int G,
     int n_pages, int ps, int pps, int window, int prefix, float sm_scale,
     int g0, int ppc) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int LPR = HD / VEC;       // lanes per token row
-  constexpr int RPW = 32 / LPR;       // rows per warp pass
+  using RL = repro::RowLayout<T, HD>;
+  constexpr int EPL = RL::EPL;        // elements a lane (one or two vectors)
+  constexpr int LPR = RL::LPR;        // lanes per token row
+  constexpr int RPW = RL::RPW;        // rows per warp pass
   constexpr int NPART = kWarps * RPW; // partial states per CTA
-  constexpr int UNROLL = GC >= 8 ? 2 : GC >= 4 ? 4 : 8;
+  // rows a group loads before using any: as many 16-byte loads in flight
+  // whether a row is one vector a lane or two
+  constexpr int UNROLL_V = GC >= 8 ? 2 : GC >= 4 ? 4 : 8;
+  constexpr int UNROLL = UNROLL_V / RL::NV > 0 ? UNROLL_V / RL::NV : 1;
   constexpr int BLK = RPW * UNROLL;   // rows per block, one warp each
   constexpr int kCols = kWarps * 32;  // table columns per coalesced load
 
@@ -93,7 +97,7 @@ __global__ void __launch_bounds__(kThreads, 1) paged_decode_kernel(
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int grp = lane / LPR;
-  const int d0 = (lane % LPR) * VEC;
+  const int d0 = (lane % LPR) * EPL;
   const int ng = min(GC, G - g0);
   const int j0 = split * ppc;                 // the chunk's first column
   const int n_cols = min(ppc, pps - j0);
@@ -109,9 +113,9 @@ __global__ void __launch_bounds__(kThreads, 1) paged_decode_kernel(
       repro::running_chunks(n_split, ppc * ps, pos, pos, window, prefix);
   if (!((mask >> split) & 1u)) return;
 
-  float qv[GC][VEC];
-  float m[GC], l[GC], acc[GC][VEC];
-  repro::load_query<T, GC, VEC, HD>(q + ((size_t)bk * G + g0) * HD + d0, ng,
+  float qv[GC][EPL];
+  float m[GC], l[GC], acc[GC][EPL];
+  repro::load_query<T, GC, EPL, HD>(q + ((size_t)bk * G + g0) * HD + d0, ng,
                                     sm_scale, qv, m, l, acc);
 
   const long long row_stride = (long long)n_kv * HD;
@@ -140,7 +144,7 @@ __global__ void __launch_bounds__(kThreads, 1) paged_decode_kernel(
       const int rows = min(ps, pos + 1 - start);   // rows up to pos
       const long long first = (long long)page * ps * row_stride;
       for (int t0 = 0; t0 < rows; t0 += BLK) {
-        repro::fold_block<GC, VEC, LPR, RPW, UNROLL>(
+        repro::fold_block<GC, EPL, LPR, RPW, UNROLL>(
             kb + first + t0 * row_stride, vb + first + t0 * row_stride,
             row_stride, rows - t0, start + t0, pos, window, prefix, grp, qv,
             m, l, acc);
@@ -148,7 +152,7 @@ __global__ void __launch_bounds__(kThreads, 1) paged_decode_kernel(
     }
   }
 
-  repro::finish_split<T, GC, VEC, HD, NPART, kThreads, kMaxChunk>(
+  repro::finish_split<T, GC, EPL, HD, NPART, kThreads, kMaxChunk>(
       mask, bk, gridDim.x, split, n_split, warp * RPW + grp, lane % LPR == 0,
       d0, m, l, acc, out + ((size_t)bk * G + g0) * HD, ws, tickets, ng);
 }
@@ -192,7 +196,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
                      ps, pps, window, prefix, sm_scale, n_split, ppc,       \
                      stream);                                               \
     break;
-    REPRO_HD(16) REPRO_HD(32) REPRO_HD(64) REPRO_HD(128)
+    REPRO_HD(16) REPRO_HD(32) REPRO_HD(64) REPRO_HD(128) REPRO_HD(256)
 #undef REPRO_HD
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,4 +1,5 @@
-"""Core layers: norms, RoPE, SwiGLU MLP — plain PyTorch, the JAX layouts.
+"""Core layers: norms, RoPE, the SwiGLU and gelu MLPs — plain PyTorch, the
+JAX layouts.
 
 Activations are `(batch, seq, d_model)`; attention heads stay explicit
 dims `(batch, seq, heads, head_dim)`.  Every function reproduces the
@@ -77,7 +78,17 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.float()).to(up.dtype) * up
 
 
-def mlp_apply(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor
-              ) -> torch.Tensor:
-    """Dense SwiGLU FFN.  x: (B, S, D); wi: (2, D, F); wo: (F, D)."""
-    return swiglu(x @ wi[0], x @ wi[1]) @ wo
+def gelu(h: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu` as the JAX FFN calls it: the tanh approximation (its
+    default, approximate=True; torch's default is the exact erf form), in
+    f32, cast back to the activation dtype."""
+    return F.gelu(h.float(), approximate="tanh").to(h.dtype)
+
+
+def mlp_apply(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+              act: str = "swiglu") -> torch.Tensor:
+    """Dense FFN.  x: (B, S, D); wi: (2, D, F) for swiglu, (D, F) for
+    gelu; wo: (F, D)."""
+    if act == "swiglu":
+        return swiglu(x @ wi[0], x @ wi[1]) @ wo
+    return gelu(x @ wi) @ wo

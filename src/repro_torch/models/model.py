@@ -1,6 +1,6 @@
 """Model facade: the interface the serving engine talks to, limited to
 what the engine calls.  The counterpart of `repro.models.model`, for the
-dense causal decoders the port covers."""
+dense causal decoders the port covers (`params.require_dense_causal`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,8 +21,11 @@ class Model:
     def init(self, generator: torch.Generator) -> params_lib.Params:
         return params_lib.init_params(self.cfg, generator, self.device)
 
-    def prefill(self, params, tokens, lengths):
-        return tf.prefill(params, self.cfg, tokens, lengths=lengths)
+    def prefill(self, params, tokens, lengths, prefix_embeds=None):
+        """Bucketed prefill; a vision model takes its prefix embeddings
+        ahead of the tokens."""
+        return tf.prefill(params, self.cfg, tokens, lengths=lengths,
+                          prefix_embeds=prefix_embeds)
 
     def prefill_suffix(self, params, cache, tokens, offsets, lengths):
         """Extend per-row cache views with suffix tokens at per-row

@@ -5,7 +5,11 @@ against the paged pool.
 
 The counterpart of the dense causal subset of `repro.models.transformer`,
 with the same stacked `(L, ...)` params (see `repro_torch.params`) and
-the same layouts at every public function.  Where JAX scans over layers,
+the same layouts at every public function: a SwiGLU or gelu FFN, a
+sliding window (`cfg.swa_window`, the same in every layer, as JAX's
+non-hymba path) and a vision frontend's prefix tokens (`prefix_embeds`
+(B, n_prefix_tokens, D) ahead of the prompt, exempt from the window but
+not from causality; RoPE positions count them).  Where JAX scans over layers,
 this loops over them in Python.  Prefill attention runs the flash kernel
 (`kernels.ops.flash_attention`); decode attention runs the decode kernel
 over a contiguous cache (`decode_step`, `kernels.ops.decode_attention`)
@@ -29,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import torch_dtype
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
@@ -105,17 +110,44 @@ def _out_project(a: torch.Tensor, wo) -> torch.Tensor:
                    _reshape(wo, h * hd, d))
 
 
-def _ffn(lp: Params, x: torch.Tensor) -> torch.Tensor:
+def _ffn(lp: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The dense FFN: SwiGLU (wi (2, d, f)) or gelu (wi (d, f))."""
     wi, wo = lp["mlp"]["wi"], lp["mlp"]["wo"]
     if not isinstance(wi, dict):
-        return L.mlp_apply(x, wi, wo)
-    return _matmul(L.swiglu(_matmul(x, _index(wi, 0)),
-                            _matmul(x, _index(wi, 1))), wo)
+        return L.mlp_apply(x, wi, wo, cfg.act)
+    if cfg.act == "swiglu":
+        return _matmul(L.swiglu(_matmul(x, _index(wi, 0)),
+                                _matmul(x, _index(wi, 1))), wo)
+    return _matmul(L.gelu(_matmul(x, wi)), wo)
+
+
+def zero_prefix_embeds(cfg: ArchConfig, batch: int,
+                       device: torch.device) -> Optional[torch.Tensor]:
+    """The prefix the engine feeds a vision model, as JAX's engine does
+    (`_extra_inputs`): zeros (B, n_prefix_tokens, D) in the model dtype;
+    None for a model without a frontend."""
+    if cfg.frontend != "vision":
+        return None
+    return torch.zeros((batch, cfg.n_prefix_tokens, cfg.d_model),
+                       dtype=torch_dtype(cfg.dtype), device=device)
+
+
+def _embed_inputs(params: Params, tokens: torch.Tensor,
+                  prefix_embeds: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, int]:
+    """(h (B, prefix + S, D), prefix): the prefix embeddings ahead of the
+    token embeddings."""
+    h = _embed(params, tokens)
+    if prefix_embeds is None:
+        return h, 0
+    return (torch.cat([prefix_embeds.to(h.dtype), h], dim=1),
+            prefix_embeds.shape[1])
 
 
 def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
-                     impl: str) -> Tuple[torch.Tensor, Tuple]:
-    """Causal self-attention over a full sequence from position 0.
+                     impl: str, prefix: int) -> Tuple[torch.Tensor, Tuple]:
+    """Causal self-attention over a full sequence from position 0, with
+    the config's window; the first `prefix` positions are exempt from it.
     Returns (out (B, S, H, hd), (k, v) each (B, S, K, hd))."""
     q = _project(x, lp["attn"]["wq"])
     k = _project(x, lp["attn"]["wk"])
@@ -124,73 +156,94 @@ def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
                               cfg.head_dim, cfg.rope_theta)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
+    window = cfg.swa_window
     if impl == "full":
-        out = attn_lib.full_attention(q, k, v, causal=True)
+        out = attn_lib.full_attention(q, k, v, causal=True, window=window,
+                                      prefix=prefix)
     else:
         # the flash kernel takes the heads-major (B, H, S, hd) views in
         # place and writes a (B, S, H, hd) buffer: no layout copies
         out = kernel_ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True).transpose(1, 2)
+            causal=True, window=window, prefix=prefix).transpose(1, 2)
     return out, (k, v)
 
 
 def _decoder_layer(lp: Params, cfg: ArchConfig, h: torch.Tensor, *,
-                   impl: str) -> Tuple[torch.Tensor, Tuple]:
+                   impl: str, prefix: int) -> Tuple[torch.Tensor, Tuple]:
     x = L.norm(h, lp.get("ln1"), cfg.norm)
-    a_out, kv = _attention_block(lp, cfg, x, impl=impl)
+    a_out, kv = _attention_block(lp, cfg, x, impl=impl, prefix=prefix)
     h = h + _out_project(a_out, lp["attn"]["wo"])
     x = L.norm(h, lp.get("ln2"), cfg.norm)
-    return h + _ffn(lp, x), kv
+    return h + _ffn(lp, cfg, x), kv
 
 
 def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-           impl: str) -> Tuple[torch.Tensor, Cache]:
-    """Embedding, every layer and the final norm.  Returns (h (B, S, D),
-    {"k", "v": (L, B, S, K, hd)})."""
+           impl: str, prefix_embeds: Optional[torch.Tensor]
+           ) -> Tuple[torch.Tensor, Cache, int]:
+    """Embedding (the prefix embeddings first), every layer and the final
+    norm.  Returns (h (B, P + S, D), {"k", "v": (L, B, P + S, K, hd)},
+    P), P the prefix length."""
     require_dense_causal(cfg)
     if impl not in ("flash", "full"):
         raise ValueError(f"impl must be 'flash' or 'full', not {impl!r}")
-    h = _embed(params, tokens)
+    h, prefix = _embed_inputs(params, tokens, prefix_embeds)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        h, (k, v) = _decoder_layer(_layer(params, i), cfg, h, impl=impl)
+        h, (k, v) = _decoder_layer(_layer(params, i), cfg, h, impl=impl,
+                                   prefix=prefix)
         ks.append(k)
         vs.append(v)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
-    return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return h, {"k": torch.stack(ks), "v": torch.stack(vs)}, prefix
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            impl: str = "flash") -> torch.Tensor:
-    """Full-sequence logits (B, S, V).  impl="flash" runs prefill's flash
+            impl: str = "flash",
+            prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence logits (B, P + S, V), P = prefix_embeds.shape[1] (0
+    without them), as JAX's forward.  impl="flash" runs prefill's flash
     attention; impl="full" the plain reference attention (the no-cache
-    recompute oracle)."""
-    h, _ = _trunk(params, cfg, tokens, impl=impl)
+    recompute oracle).  The engine feeds a vision model
+    `zero_prefix_embeds`; a recompute that stands for the engine passes
+    the same."""
+    h, _, _ = _trunk(params, cfg, tokens, impl=impl,
+                     prefix_embeds=prefix_embeds)
     return _logits(params, cfg, h)
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            lengths: Optional[torch.Tensor] = None
+            lengths: Optional[torch.Tensor] = None,
+            prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """Forward a right-padded batch through the flash attention kernel and
-    return (last_logits (B, V), cache {"k", "v": (L, B, S, K, hd)}, pos
-    (B,) int32).
+    return (last_logits (B, V), cache {"k", "v": (L, B, P + S, K, hd)},
+    pos (B,) int32), P the prefix embeddings' length (0 without them).
 
     lengths: (B,) valid token counts; each row's logits and `pos` come
-    from its own last real token (padded positions sit past `pos` and
-    are masked out of every later decode read).  Only the last hidden row
-    of each sequence meets the LM head — the same logits as JAX's
-    full-sequence head, without a (B, S, V) tensor.
+    from its own last real token, pos = P + lengths - 1 (padded positions
+    sit past `pos` and are masked out of every later decode read).  Only
+    the last hidden row of each sequence meets the LM head — the same
+    logits as JAX's full-sequence head, without a (B, S, V) tensor.
     """
-    h, cache = _trunk(params, cfg, tokens, impl="flash")
-    b, s = tokens.shape
+    h, cache, prefix = _trunk(params, cfg, tokens, impl="flash",
+                              prefix_embeds=prefix_embeds)
+    b, s_tot = h.shape[:2]
     if lengths is None:
-        pos = torch.full((b,), s - 1, dtype=torch.int32, device=h.device)
+        pos = torch.full((b,), s_tot - 1, dtype=torch.int32,
+                         device=h.device)
     else:
-        pos = (lengths.to(h.device) - 1).to(torch.int32)
+        pos = (prefix + lengths.to(h.device) - 1).to(torch.int32)
     last = h[torch.arange(b, device=h.device), pos.long()]      # (B, D)
     return _logits(params, cfg, last), cache, pos
+
+
+def _plain_causal_only(cfg: ArchConfig, name: str) -> None:
+    require_dense_causal(cfg)
+    if cfg.swa_window or cfg.n_prefix_tokens:
+        raise NotImplementedError(
+            f"{name} supports plain causal decoders only (no window, no "
+            f"prefix tokens)")
 
 
 def _land_suffix(cache: torch.Tensor, new: torch.Tensor,
@@ -223,8 +276,10 @@ def prefill_suffix(params: Params, cfg: ArchConfig, cache: Cache,
     drop; padding lands past `pos`, where every later read masks it).
     Attention is `attention.suffix_attention`, causal by absolute
     position, in plain PyTorch as in JAX.  Returns (last_logits (B, V),
-    cache, pos (B,) = offsets + lengths - 1)."""
-    require_dense_causal(cfg)
+    cache, pos (B,) = offsets + lengths - 1).  A window or prefix tokens
+    change visibility the pass does not rebuild: refused, as in JAX (the
+    engine turns the prefix cache off for them)."""
+    _plain_causal_only(cfg, "prefill_suffix")
     b, s = tokens.shape
     offsets = offsets.to(tokens.device)
     lengths = lengths.to(tokens.device)
@@ -243,7 +298,7 @@ def prefill_suffix(params: Params, cfg: ArchConfig, cache: Cache,
         a_out = attn_lib.suffix_attention(q, kc, vc, q_pos)
         h = h + _out_project(a_out, lp["attn"]["wo"])
         x = L.norm(h, lp.get("ln2"), cfg.norm)
-        h = h + _ffn(lp, x)
+        h = h + _ffn(lp, cfg, x)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
     last_idx = (lengths.long() - 1).clamp(0, s - 1)
     last = h[torch.arange(b, device=h.device), last_idx]        # (B, D)
@@ -266,8 +321,9 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     donating the cache — and `cache` is returned as is.  A write at
     pos >= S (a finished slot whose pos froze at max_len) lands at S - 1,
     as JAX's clamped dynamic_update_slice does.  Attention reads the
-    (B, K, S, hd) permuted view of each layer's cache in place.
-    Returns (logits (B, V), cache)."""
+    (B, K, S, hd) permuted view of each layer's cache in place, with the
+    config's window; the cache's first n_prefix_tokens positions are
+    exempt from it.  Returns (logits (B, V), cache)."""
     require_dense_causal(cfg)
     b = token.shape[0]
     nkv, hd = cfg.n_kv_heads, cfg.head_dim
@@ -285,12 +341,13 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
         kc[rows, w_pos] = k_new[:, 0].to(kc.dtype)
         vc[rows, w_pos] = v_new[:, 0].to(vc.dtype)
         qf = q[:, 0].reshape(b, nkv, q.shape[2] // nkv, hd)     # kv-major
-        a_out = kernel_ops.decode_attention(qf, kc.permute(0, 2, 1, 3),
-                                            vc.permute(0, 2, 1, 3), pos)
+        a_out = kernel_ops.decode_attention(
+            qf, kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3), pos,
+            window=cfg.swa_window, prefix=cfg.n_prefix_tokens)
         h = h + _out_project(a_out.reshape(b, 1, q.shape[2], hd),
                              lp["attn"]["wo"])
         x = L.norm(h, lp.get("ln2"), cfg.norm)
-        h = h + _ffn(lp, x)
+        h = h + _ffn(lp, cfg, x)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
     return _logits(params, cfg, h)[:, 0], cache
 
@@ -326,7 +383,8 @@ def decode_step_paged(params: Params, cfg: ArchConfig, cache: Cache,
     the position of the new token; page_table/write_table: (B, pps) int32,
     sentinel == n_pages; cache {"k", "v": (L, n_pages + 1, ps, K, hd)},
     whose last page is the scratch page that dropped writes land in.
-    Attention reads only the first n_pages.
+    Attention reads only the first n_pages, with the config's window and
+    prefix, as `decode_step`.
 
     The new KV is written into the pools in place — the counterpart of
     JAX donating the cache buffers — and `cache` is returned as is.
@@ -346,12 +404,13 @@ def decode_step_paged(params: Params, cfg: ArchConfig, cache: Cache,
         _paged_write(kc, k_new[:, 0], write_table, pos)
         _paged_write(vc, v_new[:, 0], write_table, pos)
         qf = q[:, 0].reshape(b, nkv, q.shape[2] // nkv, hd)     # kv-major
-        a_out = kernel_ops.paged_decode_attention(qf, kc[:-1], vc[:-1],
-                                                  page_table, pos)
+        a_out = kernel_ops.paged_decode_attention(
+            qf, kc[:-1], vc[:-1], page_table, pos, window=cfg.swa_window,
+            prefix=cfg.n_prefix_tokens)
         h = h + _out_project(a_out.reshape(b, 1, q.shape[2], hd),
                              lp["attn"]["wo"])
         x = L.norm(h, lp.get("ln2"), cfg.norm)
-        h = h + _ffn(lp, x)
+        h = h + _ffn(lp, cfg, x)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
     return _logits(params, cfg, h)[:, 0], cache
 
@@ -368,8 +427,9 @@ def spec_verify_paged(params: Params, cfg: ArchConfig, cache: Cache,
     (rejected drafts leave KV past the accepted position, masked by
     causality and overwritten when decoding resumes there); attention is
     `kernels.ops.paged_suffix_attention`, plain PyTorch on every device as
+    in JAX.  Plain causal decoders only (no window, no prefix tokens), as
     in JAX.  Returns (logits (B, Q, V), cache)."""
-    require_dense_causal(cfg)
+    _plain_causal_only(cfg, "spec_verify_paged")
     b, qn = tokens.shape
     q_pos = pos.long()[:, None] + torch.arange(qn, device=tokens.device)
     cos, sin = L.rope_cos_sin(q_pos, cfg.head_dim, cfg.rope_theta)
@@ -387,6 +447,6 @@ def spec_verify_paged(params: Params, cfg: ArchConfig, cache: Cache,
                                                   page_table, q_pos)
         h = h + _out_project(a_out, lp["attn"]["wo"])
         x = L.norm(h, lp.get("ln2"), cfg.norm)
-        h = h + _ffn(lp, x)
+        h = h + _ffn(lp, cfg, x)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
     return _logits(params, cfg, h), cache

@@ -6,6 +6,7 @@ dim, as a nested dict of tensors:
     embed (V, d)                         tied LM head when cfg.tie_embeddings
     layers.attn.wq (L, d, h, hd)   wk, wv (L, d, K, hd)   wo (L, h, hd, d)
     layers.mlp.wi  (L, 2, d, f)          index 0 = gate, 1 = up (swiglu)
+                   (L, d, f)             gelu
     layers.mlp.wo  (L, f, d)
     layers.ln1 / ln2 (L, d), final_norm (d,)      rms-norm configs only
     lm_head (d, V)                                untied configs only
@@ -32,20 +33,26 @@ Params = Dict[str, Any]
 
 
 def require_dense_causal(cfg: ArchConfig) -> None:
-    """The port's model covers dense causal decoders; other families are
-    queued in ROADMAP.md A7."""
+    """The port's model covers dense causal decoders: a SwiGLU or gelu
+    FFN, an optional sliding window (uniform over layers) and an optional
+    vision frontend's prefix tokens.  Other families are queued in
+    ROADMAP.md A7."""
     unsupported = []
+    if cfg.family == "embed":
+        unsupported.append("encoder-only embedding model")
     if cfg.block != "transformer":
         unsupported.append(f"block={cfg.block}")
     if cfg.moe is not None:
         unsupported.append("moe")
     if cfg.encdec is not None:
         unsupported.append("encoder-decoder")
-    if cfg.swa_window:
-        unsupported.append("sliding window")
-    if cfg.n_meta_tokens or cfg.n_prefix_tokens or cfg.frontend:
-        unsupported.append("prefix tokens")
-    if cfg.d_ff <= 0 or cfg.act != "swiglu":
+    if cfg.n_meta_tokens:
+        unsupported.append("meta tokens")
+    if cfg.frontend not in ("", "vision") \
+            or (cfg.n_prefix_tokens and cfg.frontend != "vision"):
+        unsupported.append(f"frontend={cfg.frontend!r} with "
+                           f"{cfg.n_prefix_tokens} prefix tokens")
+    if cfg.d_ff <= 0 or cfg.act not in ("swiglu", "gelu"):
         unsupported.append(f"ffn act={cfg.act} d_ff={cfg.d_ff}")
     if unsupported:
         raise NotImplementedError(
@@ -89,7 +96,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         "attn": {"wq": dense(d, n, d, h, hd), "wk": dense(d, n, d, kv, hd),
                  "wv": dense(d, n, d, kv, hd),
                  "wo": dense(h * hd, n, h, hd, d)},
-        "mlp": {"wi": dense(d, n, 2, d, f), "wo": dense(f, n, f, d)},
+        "mlp": {"wi": (dense(d, n, 2, d, f) if cfg.act == "swiglu"
+                       else dense(d, n, d, f)),
+                "wo": dense(f, n, f, d)},
     }
     params: Params = {
         "embed": _trunc_normal((cfg.vocab, d), 0.02, dt, generator, dev),

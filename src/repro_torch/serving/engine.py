@@ -33,6 +33,12 @@ layer and the tied head through the int8 matmul kernel;
 `quantize="int4"` dequantizes the whole packed tree per dispatch, as the
 JAX engine does for both.
 
+A vision model's prefix tokens (`n_prefix_tokens`, fed zero embeddings
+as in JAX) take cache positions ahead of every prompt: admission charges
+them, the bucket is capped at max_len less them, and a prompt that fits
+only without them is refused at submit.  A window or prefix tokens turn
+the prefix cache and speculation off, as in JAX.
+
 Where JAX donates buffers to a jitted call, this engine updates the page
 pools and the slot-state tensors in place.  Where JAX counts compiles
 (`prefill_traces`, `decode_traces`), this engine counts the distinct
@@ -77,6 +83,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import (DeviceLike, generator_for, resolve_device,
                                 torch_dtype)
 from repro_torch.models import build
+from repro_torch.models.transformer import zero_prefix_embeds
 from repro_torch.params import Params
 from repro_torch.serving import quantization as q_lib
 from repro_torch.serving import spec_decode as spec_lib
@@ -153,6 +160,8 @@ class InferenceEngine:
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.model = build(cfg, self.device)
+        # vision-prefix tokens occupy cache slots ahead of the prompt
+        self._prefix_tokens = cfg.n_meta_tokens + cfg.n_prefix_tokens
         self.scheduler = scheduler or Scheduler(SchedulerConfig())
         self._dead = False
         self._gen = generator_for(self.device, engine_cfg.seed)
@@ -168,9 +177,11 @@ class InferenceEngine:
         # its projected page cost against the engine's free page budget
         self.scheduler.pages_for = self._pages_for
         # prefix reuse needs page-aligned bucketed prefill over a plain
-        # causal decoder: every model the port builds is one, so the
-        # paged pool is the condition (JAX also checks the model family)
-        self._prefix_ok = self._paged
+        # causal decoder: windows and prefix tokens break block sharing
+        # (JAX's predicate; the families it also excludes, recurrent and
+        # enc-dec, are ones the port does not build)
+        self._prefix_ok = (self._paged and self._prefix_tokens == 0
+                           and cfg.swa_window == 0)
         # speculation needs the paged-attention verify and the same
         # predicate as the prefix cache
         self._spec_ok = (engine_cfg.speculative and self._paged_attn
@@ -268,8 +279,9 @@ class InferenceEngine:
 
     def _pages_for(self, req: Request) -> int:
         """Projected page cost of admitting `req` now: its full context
-        (prompt + tokens already generated) plus one position of decode
-        headroom, net of the prefix-cache pages it would map for free
+        (prompt + tokens already generated + prefix tokens) plus one
+        position of decode headroom, net of the prefix-cache pages it
+        would map for free
         and, for a swap-parked request, of the shared pages its handle
         still holds on the device; a contiguous strip always costs
         `max_len`."""
@@ -278,32 +290,35 @@ class InferenceEngine:
         handle = self._swapped.get(req.request_id)
         if handle is not None:
             return max(len(handle.host), 1)
-        eff = len(req.prompt) + len(req.output)
+        eff0 = len(req.prompt) + len(req.output)
+        eff = eff0 + self._prefix_tokens
         need = self.pool.pages_for_tokens(min(eff + 1, self.ecfg.max_len))
         if self.prefix_cache is not None:
             cached = self.prefix_cache.peek(
                 req.tenant, list(req.prompt) + list(req.output),
-                eff - 1) // self.pool.page_size
+                eff0 - 1) // self.pool.page_size
             need = max(need - cached, 1)
         return need
 
     def _bucket_of(self, prompt_len: int) -> int:
-        """Power-of-two padded length bucket, capped at max_len."""
+        """Power-of-two padded length bucket, capped so that bucket +
+        prefix tokens never outgrow max_len."""
         b = self.ecfg.prefill_bucket_min
         while b < prompt_len:
             b <<= 1
-        return min(b, self.ecfg.max_len)
+        return min(b, self.ecfg.max_len - self._prefix_tokens)
 
     # ------------------------------------------------------------- #
     def submit(self, req: Request) -> bool:
         if self._dead:
             req.finish(error="engine dead", code=CODE_ENGINE_FAILED)
             return False
-        if len(req.prompt) > self.ecfg.max_len:
+        if len(req.prompt) + self._prefix_tokens > self.ecfg.max_len:
             # malformed input, not a capacity problem: reject at submit
             req.finish(
-                error=(f"prompt length {len(req.prompt)} exceeds engine "
-                       f"max_len {self.ecfg.max_len}"),
+                error=(f"prompt length {len(req.prompt)} (+ "
+                       f"{self._prefix_tokens} prefix tokens) exceeds "
+                       f"engine max_len {self.ecfg.max_len}"),
                 code=CODE_INVALID_REQUEST)
             return False
         return self.scheduler.submit(req)
@@ -468,12 +483,12 @@ class InferenceEngine:
     def _admit_prefill(self, group: List[Request]):
         admitted: List[Tuple[int, Request]] = []
         for req in group:
-            eff = len(req.prompt) + len(req.output)
+            need = len(req.prompt) + len(req.output) + self._prefix_tokens
             self._reclaim_shortfall(
-                self.pool.pages_for_tokens(eff) if self._paged
+                self.pool.pages_for_tokens(need) if self._paged
                 else self.pool.pages_per_slot)
             slot = self.pool.alloc(
-                req.request_id, eff,
+                req.request_id, need,
                 reserve_tokens=0 if self._paged else self.ecfg.max_len)
             if slot is None:                    # defensive; the admission
                 self.scheduler.requeue(req)     # budget above bounds the
@@ -486,7 +501,8 @@ class InferenceEngine:
         n = len(admitted)
         bucket = self._bucket_of(max(len(r.prompt) + len(r.output)
                                      for _, r in admitted))
-        n_row_pages = self.pool.pages_for_tokens(bucket)
+        n_row_pages = self.pool.pages_for_tokens(bucket
+                                                 + self._prefix_tokens)
         pad_n = _next_pow2(n)
         toks = np.zeros((pad_n, bucket), np.int64)
         lengths = np.ones((pad_n,), np.int32)
@@ -546,8 +562,10 @@ class InferenceEngine:
             self.prefill_traces += 1
         dev = self.device
         tokens = to_device(toks, dev)
+        # a vision model's prefix: zero embeddings, as JAX's _extra_inputs
         logits, rows, pos1 = self.model.prefill(
-            self._run_params(), tokens, lengths=to_device(lengths, dev))
+            self._run_params(), tokens, lengths=to_device(lengths, dev),
+            prefix_embeds=zero_prefix_embeds(self.cfg, toks.shape[0], dev))
         if self._paged:
             scatter_prefill_rows(self.cache, rows, row_pages)
         else:

@@ -99,6 +99,13 @@ PAGED_SPLIT = [
     (2, 2, 16, 70, 32, 8, 32, 0, 0, [100, 255], "plain"),     # G 16: 2 runs
     (2, 2, 8, 70, 32, 8, 16, 0, 0, [17, 255], "plain"),       # hd 16, G 8
     (2, 2, 1, 70, 16, 12, 128, 0, 0, [100, 191], "plain"),    # ps 12
+    # hd 256, gemma3's heads: gemma3-1b (G 4 over 1 KV head, window 512;
+    # chunks of 64 rows: pos 0, chunk edges, whole chunks left of the
+    # window), gemma3-4b (G 2, window 1024, 256 prefix tokens), holes
+    (8, 1, 4, 600, 64, 16, 256, 512, 0, [0, 63, 64, 511, 512, 700, 1000,
+                                         1023], "plain"),
+    (4, 4, 2, 600, 100, 16, 256, 1024, 256, [0, 300, 1599, 1100], "plain"),
+    (2, 1, 4, 70, 32, 8, 256, 0, 0, [200, 255], "holes"),
 ]
 
 
@@ -172,6 +179,12 @@ FLASH = [
     (1, 4, 2, 128, 256, 64, 0, 0, True),      # Sq < Skv, both from 0
     (2, 4, 2, 200, 200, 32, 40, 0, True),     # hd 32, window, ragged
     (1, 4, 4, 300, 300, 128, 64, 8, True),    # window + prefix, hd 128
+    # hd 256 (the tensor-core route keeps Q in shared memory, kv tiles of
+    # 32 rows): gemma3-1b's bucket, gemma3-4b's 256 + 1024 with prefix
+    (1, 4, 1, 1024, 1024, 256, 512, 0, True),
+    (1, 8, 4, 1280, 1280, 256, 1024, 256, True),
+    (2, 4, 1, 100, 100, 256, 16, 4, True),    # ragged, small window
+    (1, 4, 2, 128, 160, 256, 0, 0, False),    # non-causal, Skv % 32
 ]
 FLASH_ROUTE = {"f32": "cuda_core", "bf16": "tensor_core"}
 
@@ -236,8 +249,13 @@ DECODE = [
     (3, 2, 4, 1000, 64, 100, 0, [99, 640, 999]),   # window skips chunks
     (3, 2, 4, 1000, 64, 100, 16, [150, 640, 999]),  # ... and a prefix
     (2, 2, 12, 1000, 32, 0, 0, [500, 999]),        # G > 8, split
+    # hd 256, gemma3's heads (two vectors a lane in f32): gemma3-1b in
+    # the gather mode, gemma3-4b with its prefix and a window that bites
+    (8, 1, 4, 1024, 256, 512, 0, [0, 63, 64, 511, 512, 700, 1000, 1023]),
+    (4, 4, 2, 1400, 256, 1024, 256, [0, 300, 1399, 1100]),
+    (2, 1, 4, 1000, 256, 100, 16, [0, 999]),
 ]
-SPLIT = DECODE[-5:]
+SPLIT = DECODE[10:15]
 
 
 @pytest.mark.cuda
@@ -497,10 +515,11 @@ def test_split_kernels_on_two_streams(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [DECODE[9], DECODE[11], DECODE[14]])
+@pytest.mark.parametrize("case", [DECODE[9], DECODE[11], DECODE[14],
+                                  DECODE[15], DECODE[16]])
 def test_decode_kernel_bit_identical_launches(cuda, case):
     """The splits of a row merge in split order: two launches, same bits
-    (the OLMo-1B decode shape, chunk edges, G > 8)."""
+    (the OLMo-1B decode shape, chunk edges, G > 8, gemma3's hd 256)."""
     B, K, G, S, hd, win, pre, pos = case
     q, = _tensors(6, cuda, torch.bfloat16, (B, K, G, hd))
     kc, vc = (c.permute(0, 2, 1, 3) for c in
@@ -514,10 +533,12 @@ def test_decode_kernel_bit_identical_launches(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [PAGED[6], PAGED_SPLIT[0], PAGED_SPLIT[2],
-                                  PAGED_SPLIT[6]])
+                                  PAGED_SPLIT[6], PAGED_SPLIT[9],
+                                  PAGED_SPLIT[10]])
 def test_paged_kernel_bit_identical_launches(cuda, case):
     """The chunks of a slot merge in chunk order: two launches, same bits
-    (the OLMo-1B decode shape, chunk edges, sentinel holes, G > 8)."""
+    (the OLMo-1B decode shape, chunk edges, sentinel holes, G > 8,
+    gemma3's hd 256)."""
     if len(case) == 9:   # a PAGED case: pos as test_paged_kernel_matches_plain
         B, ps, pps = case[0], case[5], case[4]
         case = case + ([0, ps * 2 + 3, ps * pps - 1][:B], "plain")
@@ -914,3 +935,45 @@ def test_http_greedy_request_on_a_full_width_llama(cuda):
     assert got == want
     assert ops.flash_attention.launches > 0
     assert ops.decode_attention.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paged_attention", "gather",
+                                  "contiguous"])
+@pytest.mark.parametrize("name", ["gemma3-1b", "gemma3-4b"])
+def test_gemma_engines_match_the_cpu(cuda, name, mode):
+    """The reduced gemma3-1b (window 16, G = 4) and gemma3-4b (window 16,
+    4 vision prefix tokens), with head_dim 256, in f32: the engine on the
+    card gives the greedy tokens and counters of the same engine on the
+    CPU, with prompts past the window."""
+    from repro_torch.configs import ZOO
+    from repro_torch.models import build
+    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                     SamplingParams)
+    cfg = ZOO[name].reduced(dtype="f32", head_dim=256)
+    params = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (20, 37, 9)]
+    kw = {"paged_attention": dict(paged_attention=True), "gather": {},
+          "contiguous": dict(paged=False)}[mode]
+    outs, stats = {}, {}
+    for dev in ("cpu", cuda):
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            n_slots=4, max_len=64, page_size=8, decode_block=4, **kw),
+            device=dev)
+        reqs = [Request(model="m", prompt=p,
+                        sampling=SamplingParams(max_tokens=14))
+                for p in prompts]
+        for r in reqs:
+            assert eng.submit(r)
+        ops.reset_launches()
+        eng.run_until_done()
+        outs[str(dev)] = [r.output for r in reqs]
+        st = eng.perf_stats()
+        stats[str(dev)] = {k: st[k] for k in ("dispatches", "host_syncs")}
+    assert outs[str(cuda)] == outs["cpu"]
+    assert stats[str(cuda)] == stats["cpu"]
+    assert ops.flash_attention.launches > 0
+    attn = (ops.paged_decode_attention if mode == "paged_attention"
+            else ops.decode_attention)
+    assert attn.launches > 0

@@ -823,6 +823,19 @@ def _exchange(port, method, path, body):
     return resp.status, frames
 
 
+def _wire_fields(out):
+    """A non-streamed response's wire fields (all but `id` and `created`);
+    SSE frames as they are."""
+    if not isinstance(out, dict):
+        return out
+    choice = out["choices"][0]
+    return {"token_ids": choice["token_ids"],
+            "text": choice.get("text", choice.get("message")),
+            "finish_reason": choice["finish_reason"],
+            "usage": out["usage"], "object": out["object"],
+            "model": out["model"]}
+
+
 def _serve_and_collect(server, requests, invalid):
     server.start()
     try:
@@ -830,15 +843,7 @@ def _serve_and_collect(server, requests, invalid):
         got = []
         for path, body in requests:
             status, out = _exchange(port, "POST", path, body)
-            if isinstance(out, dict):      # not streamed: the wire fields
-                choice = out["choices"][0]
-                out = {"token_ids": choice["token_ids"],
-                       "text": choice.get("text",
-                                          choice.get("message")),
-                       "finish_reason": choice["finish_reason"],
-                       "usage": out["usage"], "object": out["object"],
-                       "model": out["model"]}
-            got.append((status, out))
+            got.append((status, _wire_fields(out)))
         errors = [_exchange(port, *case) for case in invalid]
     finally:
         assert server.stop(timeout_s=30.0)
@@ -970,15 +975,15 @@ def test_launcher_serves_reduced_models_on_cpu():
     insts = [i for n in ctrl.fleet.nodes.values()
              for i in n.instances.values()]
     assert sorted(i.model_name for i in insts) == \
-        ["llama3.2-1b"] * 2 + ["qwen3-1.7b"] * 2
+        ["gemma3-1b"] * 2 + ["llama3.2-1b"] * 2
     assert all(i.engine is not None and i.engine.device.type == "cpu"
                for i in insts)
     server.start()
     c = HTTPClient(server.url())
     try:
         assert c.healthz()["status"] == "ok"
-        assert c.models() == ["llama3.2-1b", "qwen3-1.7b"]
-        for model in ("llama3.2-1b", "qwen3-1.7b"):
+        assert sorted(c.models()) == ["gemma3-1b", "llama3.2-1b"]
+        for model in ("llama3.2-1b", "gemma3-1b"):
             out = c.chat(model, ["hello"], max_tokens=5)
             assert len(out["choices"][0]["token_ids"]) == 5
             assert out["usage"]["completion_tokens"] == 5
@@ -988,8 +993,9 @@ def test_launcher_serves_reduced_models_on_cpu():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--models", "gemma3-1b"],
-    ["--models", "llama3.2-1b,gemma3-1b", "--device", "cpu", "--reduced"],
+    ["--models", "mxbai-embed-large"],
+    ["--models", "qwen3-1.7b,nomic-embed-text", "--device", "cpu",
+     "--reduced"],
     ["--models", "nomic-embed-text", "--device", "cpu", "--reduced"],
 ])
 def test_launcher_refuses_models_the_port_does_not_run(argv, capsys):
@@ -998,6 +1004,92 @@ def test_launcher_refuses_models_the_port_does_not_run(argv, capsys):
         build_service(argv)
     assert e.value.code == 2
     assert "ROADMAP.md A7" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("models", ["gemma3-4b", "qwen2.5vl-3b",
+                                    "qwen3-1.7b"])
+def test_launcher_serves_more_zoo_models_by_name(models):
+    """gemma3-4b and qwen2.5vl-3b (256 vision prefix tokens, the reduced
+    config's 4) and qwen3-1.7b, by name: a chat through each."""
+    from repro_torch.api.http.__main__ import build_service
+    server, ctrl = build_service(["--device", "cpu", "--reduced", "--port",
+                                  "0", "--models", models])
+    server.start()
+    c = HTTPClient(server.url())
+    try:
+        assert c.models() == [models]
+        out = c.chat(models, ["hello"], max_tokens=4)
+        assert out["usage"]["completion_tokens"] == 4
+    finally:
+        c.close()
+        assert server.stop(timeout_s=30.0)
+
+
+def test_launcher_gemma_wire_matches_jax_launcher(monkeypatch):
+    """The reference launcher's default second model, the reduced
+    gemma3-1b (gelu, window 16, G = 4), served by both launchers' own code
+    on the same argv: the JAX one (`repro.api.http.__main__.main`, run in
+    a thread until its sleep is interrupted) and the port's with
+    `--device cpu --reduced`, the port on the JAX launcher's params
+    carried across.  The same greedy requests over HTTP give the same
+    token ids, usage and SSE frames.  Both zoo entries are put in f32 for
+    the test, as every greedy parity test of the port runs (bf16
+    near-ties can flip an argmax across frameworks)."""
+    import queue
+
+    from repro.api.http import __main__ as jax_main
+    from repro_torch.api.http import __main__ as port_main
+    monkeypatch.setitem(jax_main.ZOO, "gemma3-1b", dataclasses.replace(
+        JAX_ZOO["gemma3-1b"], dtype="f32"))
+    monkeypatch.setitem(port_main.ZOO, "gemma3-1b", dataclasses.replace(
+        ZOO["gemma3-1b"], dtype="f32"))
+    monkeypatch.setattr(jax_main, "_params", {})    # no cached bf16 tree
+    started, stop = queue.Queue(), threading.Event()
+
+    class Recording(JaxHTTPServer):
+        def start(self):
+            out = super().start()
+            started.put(self)
+            return out
+
+    class Time:
+        @staticmethod
+        def sleep(_):
+            stop.wait()
+            raise KeyboardInterrupt
+
+    monkeypatch.setattr(jax_main, "GatewayHTTPServer", Recording)
+    monkeypatch.setattr(jax_main, "time", Time)
+    argv = ["--models", "gemma3-1b", "--port", "0"]
+    jcfg = dataclasses.replace(jax_main.ZOO["gemma3-1b"].reduced(),
+                               name="gemma3-1b")
+    tparams = params_lib.from_jax(
+        jax.tree.map(np.asarray, jax_main._param_store(jcfg)),
+        dataclasses.replace(ZOO["gemma3-1b"].reduced(dtype="f32"),
+                            name="gemma3-1b"), "cpu")
+    monkeypatch.setattr(port_main, "seeded_store",
+                        lambda dev: (lambda cfg: tparams))
+    reqs = _parity_requests("gemma3-1b", jcfg.vocab)
+    thread = threading.Thread(target=jax_main.main, args=(argv,))
+    thread.start()
+    try:
+        jsrv = started.get(timeout=300)
+        jgot = [_exchange(jsrv.port, "POST", path, body)
+                for path, body in reqs]
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive()
+    server, _ = port_main.build_service(argv + ["--device", "cpu",
+                                                "--reduced"])
+    pgot, _ = _serve_and_collect(server, reqs, [])
+    jgot = [(st, _wire_fields(out)) for st, out in jgot]
+    assert len(pgot) == len(jgot) == 10
+    for (js, jo), (ps, po) in zip(jgot, pgot):
+        assert ps == js == 200
+        assert po == jo
+    assert sum(o["usage"]["completion_tokens"] for _, o in pgot
+               if isinstance(o, dict)) == 8 + 12 + 5 + 6 + 7
 
 
 def test_launcher_refuses_unknown_model(capsys):

@@ -80,6 +80,7 @@ PAGED_CASES = [
     (2, 4, 2, 32, 8, 4, 32, 0),
     (4, 1, 8, 24, 4, 8, 128, 0),
     (3, 2, 4, 24, 6, 8, 64, 16),     # sliding window
+    (2, 1, 4, 24, 6, 8, 256, 16),    # hd 256 (gemma3), G 4, window
 ]
 
 
@@ -155,6 +156,7 @@ SPLIT_PAGED_CASES = [
     # PAGED_CASES (pos as _paged_case makes it), then the kernel's edges
     *[c[:7] + (c[7], 0, None, False) for c in PAGED_CASES],
     (3, 2, 4, 40, 8, 8, 64, 16, 4, [5, 30, 63], False),    # window + prefix
+    (2, 2, 2, 40, 8, 8, 256, 16, 4, [5, 63], False),       # hd 256 + prefix
     (3, 2, 2, 40, 12, 4, 32, 10, 0, [3, 27, 47], False),   # window crosses
     (2, 2, 2, 24, 6, 4, 32, 0, 0, [23, 15], True),         # sentinel holes
     (3, 2, 1, 24, 6, 4, 64, 0, 0, [0, 8, 15], False),      # chunk edges
@@ -261,6 +263,8 @@ FLASH_CASES = [
     (1, 4, 2, 128, 128, 64, 48, 16, "f32"),     # window + prefix
     (1, 2, 2, 64, 64, 32, 0, 0, "bf16"),
     (1, 6, 2, 192, 192, 64, 0, 0, "f32"),       # non-pow2 heads
+    (1, 4, 1, 128, 128, 256, 48, 16, "f32"),    # hd 256, window + prefix
+    (1, 4, 2, 128, 128, 256, 40, 8, "bf16"),
 ]
 _DT = {"f32": (jnp.float32, torch.float32, F32_TOL),
        "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
@@ -304,6 +308,7 @@ DECODE_CASES = [
     (3, 2, 8, 256, 32, 0, 0, 64, None),
     (4, 2, 2, 512, 64, 0, 0, 64, [0, 63, 200, 511]),   # ragged positions
     (3, 2, 4, 256, 64, 48, 16, 64, [5, 100, 255]),     # window + prefix
+    (2, 1, 4, 256, 256, 48, 16, 64, [5, 255]),         # hd 256, G 4
 ]
 
 
@@ -659,8 +664,8 @@ def _flash_tc_emulation(q, k, v, *, causal, window, prefix, bq=64, bk=64):
     """The flash tensor-core route's arithmetic in plain torch: bf16 q, k,
     v; scores in f32, in log2 units; masked scores -1e30; the online
     softmax over 64-row kv tiles in the kernel's order, with its tile
-    skip; P rounded to bf16 before P.V (f32 sums, l from the unrounded
-    P); one division by l at the end."""
+    skip (tiles of 32 rows at hd 256); P rounded to bf16 before P.V (f32
+    sums, l from the unrounded P); one division by l at the end."""
     b, h, sq, hd = q.shape
     nkv, skv = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(h // nkv, 1)
@@ -712,6 +717,8 @@ FLASH_TC_CASES = [
     (1, 6, 2, 192, 192, 64, 0, 0),
     (2, 4, 4, 100, 100, 16, 0, 0),
     (1, 4, 2, 300, 300, 32, 40, 8),
+    (1, 4, 1, 256, 256, 256, 48, 16),    # hd 256: kv tiles of 32 rows
+    (2, 4, 2, 100, 100, 256, 0, 0),
 ]
 
 
@@ -726,7 +733,8 @@ def test_flash_tensor_core_numerics_match_jax(case):
     want = jax_ref.flash_attention_ref(jq, jk, jv, causal=True, window=win,
                                        prefix=pre)
     got = _flash_tc_emulation(*(_torch(a, torch.bfloat16) for a in (q, k, v)),
-                              causal=True, window=win, prefix=pre)
+                              causal=True, window=win, prefix=pre,
+                              bk=32 if hd >= 256 else 64)
     _close(_f32(got), want.astype(jnp.float32), BF16_TOL)
 
 

@@ -103,3 +103,44 @@ def test_quantized_matmul_ref_and_tree_bytes_match_jax():
         atol=1e-5, rtol=1e-5)
     # JAX's leaf also holds a 0-d dtype marker (4 bytes for f32)
     assert tq.tree_bytes({"w": td}) == jq.tree_bytes({"w": jd}) - 4
+
+
+@pytest.mark.parametrize("dt", sorted(_DT))
+def test_gelu_tree_quantizes_as_jax(dt, param_store):
+    """The reduced gemma3-1b's JAX-initialised tree, whose gelu `mlp.wi` is
+    one (L, d, f) leaf: int8 and int4 leaf for leaf as JAX's, and the
+    int8 kernel operand of `wi` a (d, f) matrix per layer with a (1, f)
+    per-column scale."""
+    from repro.configs import ZOO as JAX_ZOO
+    from repro_torch.configs import ZOO
+    jcfg = JAX_ZOO["gemma3-1b"].reduced(dtype=dt)
+    cfg = ZOO["gemma3-1b"].reduced(dtype=dt)
+    jtree = param_store(jcfg)
+    ttree = params_lib.from_jax(jax.tree.map(np.asarray, jtree), cfg, "cpu")
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    assert tuple(ttree["layers"]["mlp"]["wi"].shape) == (L, d, f)
+    for bits in (8, 4):
+        want = jq.quantize_tree(jtree, bits=bits)
+        got = tq.quantize_tree(ttree, bits=bits)
+        wpaths = dict(jax.tree_util.tree_leaves_with_path(
+            want, is_leaf=jq.is_quantized_leaf))
+        n = 0
+        for path, w in wpaths.items():
+            g = got
+            for p in path:
+                g = g[p.key]
+            if jq.is_quantized_leaf(w):
+                np.testing.assert_array_equal(g["__q__"].numpy(),
+                                              np.asarray(w["__q__"]))
+                np.testing.assert_array_equal(g["scale"].numpy(),
+                                              np.asarray(w["scale"]))
+                n += 1
+        assert n >= 8
+        jd, td = jq.dequant_tree(want), tq.dequant_tree(got)
+        for a, b in zip(jax.tree.leaves(jd), jax.tree.leaves(
+                jax.tree.map(_np, td))):
+            np.testing.assert_array_equal(_jnp(a), b)
+    ops = tq.int8_operands(tq.quantize_tree(ttree, bits=8))
+    wi = ops["layers"]["mlp"]["wi"]
+    assert tuple(wi["__q__"].shape) == (L, d, f)
+    assert tuple(wi["col"].shape) == (1, f)

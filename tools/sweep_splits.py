@@ -2,6 +2,7 @@
 split counts, on one CUDA device.
 
     python3 tools/sweep_splits.py
+    python3 tools/sweep_splits.py --gemma
 
 paged_decode_attention (B=8 K=16 G=1 hd=128 bf16, pages of 16, a table
 of 64 columns, ragged pos up to 1023) over its pages per chunk,
@@ -18,6 +19,12 @@ ops.int8_skinny_tc_splits) is marked.  A paged chunking that needs more
 chunks than the kernel's 32-bit running-chunk mask holds is listed as
 not launchable.  Prints one JSON line per kernel and shape, each with
 the card's name and power limit; exits non-zero without a CUDA device.
+
+With --gemma it sweeps instead the two decode kernels at gemma3-1b's
+decode shape (B=8 K=1 G=4 hd=256 bf16, window 512, the same ragged pos;
+the paged kernel over a table of 64 columns of 16-row pages), where one
+KV head leaves 8 (slot, head) pairs and the window skips half of a
+slot's rows.
 """
 from __future__ import annotations
 
@@ -34,6 +41,66 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (adds src/ to the path)
 
 
+def close(got, want):
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def sweep_decode_kernels(dev, ops, card, n_sm, *, K, G, hd, window):
+    """The paged kernel over its pages per chunk and the decode kernel
+    over its chunk sizes, B = 8 at the OLMo-1B decode's ragged pos."""
+    B, S = 8, 1024
+    pos = chip_smoke.olmo_decode_pos(np.random.default_rng(1), B, S)
+    tag = f" window={window}" if window else ""
+    pargs = chip_smoke.paged_case(dev, torch.bfloat16, B=B, K=K, G=G, hd=hd,
+                                  ps=16, pps=64, pos=pos, seed=7)
+    want = ops.paged_decode_attention(*pargs, window=window)
+    chosen = ops.paged_decode_attention_splits(B, K, 64, 16, n_sm)
+    times = {}
+    for ppc in sorted({1, 2, 3, 4, 6, 8, 11, 13, 16, 22, 32, 64,
+                       chosen[1]}):
+        n = -(-64 // ppc)
+        if n > ops.PAGED_MAX_SPLITS:
+            times[f"{n}x{ppc}"] = f"not launchable: {n} chunks"
+            continue
+
+        def call(n=n, ppc=ppc):
+            return ops._paged_decode(*pargs, window, 0, splits=(n, ppc))
+        close(call(), want)
+        times[f"{n}x{ppc}"] = chip_smoke.time_ms(call)
+    chip_smoke.emit({"kernel": "paged_decode_attention", "shape": f"B={B} "
+                     f"K={K} G={G} hd={hd} ps=16 pps=64{tag} bf16, pos up "
+                     "to 1023", "ms_by_splits_x_pages": times,
+                     "wrapper_choice": f"{chosen[0]}x{chosen[1]}",
+                     "card": card})
+
+    q, k, v, p = chip_smoke.decode_case(dev, torch.bfloat16, B=B, K=K, G=G,
+                                        S=S, hd=hd, pos=pos, seed=9,
+                                        strided=True)
+    want = ops.decode_attention(q, k, v, p, window=window)
+    out = torch.empty_like(q)
+    chosen = ops.decode_attention_splits(B, K, S, n_sm)
+    times = {}
+    for chunk in (64, 128, 192, 256, 512, 1024):
+        n = -(-S // chunk)
+        tickets, ws = ops._split_buffers(dev, B * K,
+                                         B * K * n * 8 * (hd + 2))
+
+        def call(n=n, chunk=chunk, ws=ws, tickets=tickets):
+            ops._run("decode_attention", dev, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), p.data_ptr(), out.data_ptr(),
+                     ws.data_ptr(), tickets.data_ptr(), B, K, G, hd, S,
+                     *k.stride()[:3], window, 0, 1, n, chunk, hd ** -0.5)
+        call()
+        close(out, want)
+        times[f"{n}x{chunk}"] = chip_smoke.time_ms(call)
+    chip_smoke.emit({"kernel": "decode_attention", "shape": f"B={B} K={K} "
+                     f"G={G} S={S} hd={hd}{tag} bf16",
+                     "ms_by_splits_x_chunk": times,
+                     "wrapper_choice": f"{chosen[0]}x{chosen[1]}",
+                     "card": card})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("sweep_splits: no CUDA device", file=sys.stderr)
@@ -44,56 +111,11 @@ def main() -> int:
     card = chip_smoke.card_line()
     n_sm = ops._sm_count(0)
     ops.build()
-
-    def close(got, want):
-        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
-                                   rtol=2e-2)
-
-    pos = chip_smoke.olmo_decode_pos(np.random.default_rng(1), 8, 1024)
-    pargs = chip_smoke.paged_case(dev, torch.bfloat16, B=8, K=16, G=1,
-                                  hd=128, ps=16, pps=64, pos=pos, seed=7)
-    want = ops.paged_decode_attention(*pargs)
-    chosen = ops.paged_decode_attention_splits(8, 16, 64, 16, n_sm)
-    times = {}
-    for ppc in sorted({1, 2, 4, 6, 8, 11, 13, 16, 22, 32, 64, chosen[1]}):
-        n = -(-64 // ppc)
-        if n > ops.PAGED_MAX_SPLITS:
-            times[f"{n}x{ppc}"] = f"not launchable: {n} chunks"
-            continue
-
-        def call(n=n, ppc=ppc):
-            return ops._paged_decode(*pargs, 0, 0, splits=(n, ppc))
-        close(call(), want)
-        times[f"{n}x{ppc}"] = chip_smoke.time_ms(call)
-    chip_smoke.emit({"kernel": "paged_decode_attention", "shape": "B=8 K=16 "
-                     "G=1 hd=128 ps=16 pps=64 bf16, pos up to 1023",
-                     "ms_by_splits_x_pages": times,
-                     "wrapper_choice": f"{chosen[0]}x{chosen[1]}",
-                     "card": card})
-
-    q, k, v, p = chip_smoke.decode_case(dev, torch.bfloat16, B=8, K=16, G=1,
-                                        S=1024, hd=128, pos=pos, seed=9,
-                                        strided=True)
-    want = ops.decode_attention(q, k, v, p)
-    out = torch.empty_like(q)
-    chosen = ops.decode_attention_splits(8, 16, 1024, n_sm)
-    times = {}
-    for chunk in (64, 128, 192, 256, 512, 1024):
-        n = -(-1024 // chunk)
-        tickets, ws = ops._split_buffers(dev, 8 * 16, 8 * 16 * n * 8 * 130)
-
-        def call(n=n, chunk=chunk, ws=ws, tickets=tickets):
-            ops._run("decode_attention", dev, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), p.data_ptr(), out.data_ptr(),
-                     ws.data_ptr(), tickets.data_ptr(), 8, 16, 1, 128, 1024,
-                     *k.stride()[:3], 0, 0, 1, n, chunk, 128 ** -0.5)
-        call()
-        close(out, want)
-        times[f"{n}x{chunk}"] = chip_smoke.time_ms(call)
-    chip_smoke.emit({"kernel": "decode_attention", "shape": "B=8 K=16 G=1 "
-                     "S=1024 hd=128 bf16", "ms_by_splits_x_chunk": times,
-                     "wrapper_choice": f"{chosen[0]}x{chosen[1]}",
-                     "card": card})
+    if "--gemma" in sys.argv[1:]:
+        sweep_decode_kernels(dev, ops, card, n_sm, K=1, G=4, hd=256,
+                             window=512)
+        return 0
+    sweep_decode_kernels(dev, ops, card, n_sm, K=16, G=1, hd=128, window=0)
 
     for label, M, K, N, head in (("decode_attn", 8, 2048, 2048, False),
                                  ("decode", 8, 2048, 8192, False),
