@@ -34,7 +34,13 @@ JSON line:
               a window that skips whole chunks, the split kernels twice
               bit for bit, and the int8 matmul at gemma3-1b's gelu
               shapes (K 1152, N 6912 / 1024 / 256, down 6912 -> 1152,
-              the tied head 1152 -> 262144).
+              the tied head 1152 -> 262144).  Then the MoE models'
+              groups: G = 3 at hd 64 (granite) and G = 6 at hd 128
+              (mixtral, window 4096) in the three attention kernels
+              (pos 0 and either side of the chunk edges, the split
+              kernels twice bit for bit), and the int8 matmul at
+              granite's 1536 -> 1536 and 1536 -> 512 (M 8 and 4096) and
+              its tied head 1536 -> 49155.
               Tolerances: f32 1e-4 (another summation order than the
               plain version), bf16 2e-2 (as tests/test_kernels.py); the
               int8 products are held against the plain
@@ -72,6 +78,14 @@ JSON line:
               node.deploy's default gather mode); the recompute applies
               the window and feeds a vision model zero prefix
               embeddings, as the engine does.
+   parity_moe — granite-moe-3b-a800m cut to 2 layers at full width
+              (40 experts top-8, G = 3) in f32: 4 greedy requests in the
+              paged-attention and gather modes and in the gather mode
+              under int8, each held against a cached plain recompute
+              (prefill at the bucket the engine's admission used, then
+              one decode step a token, plain attention): a full forward
+              would route the prompt at another MoE capacity.  It
+              prints the (token, expert) pairs the admissions dropped.
 5. serve_bf16 — a main path: the full OLMo-1B (16 layers, bf16, seeded
               random weights) serves 12 requests through
               InferenceEngine.submit/step in the paged-attention mode,
@@ -169,6 +183,19 @@ JSON line:
               requests per model and node, the drain's
               seconds, peak device bytes and the greedy rows equal on
               both sides (bf16: informational).
+10b. serve_moe — the MoE FFN in every engine path: the paper's
+              granite-moe-3b-a800m at full width and depth (32 layers,
+              40 experts top-8, 3.30 B params, bf16, seeded weights)
+              under serve_bf16's engine and requests in the
+              paged-attention mode and under int8 in the gather mode
+              (experts int8 at rest, dequantized a layer at a time: the
+              int8 kernel runs (4 n_layers + 1) x model calls), then
+              through serve_prefix_swap and serve_spec; mixtral-8x22b
+              at full width cut to 2 of its 56 layers (8 experts top-2,
+              window 4096, 10.8 GB) in the gather mode.  Each leg is
+              held as its phase holds OLMo and prints tok/s, p50 step,
+              TTFT, peak device memory and the share of admission pairs
+              dropped.
 12. launcher — `python -m repro_torch.api.http --port 0` as a process
               of its own: /healthz and /v1/models list both models, one
               streamed chat ends in `data: [DONE]`, and SIGINT makes it
@@ -196,12 +223,19 @@ JSON line:
               line: c5_f32_tile_error (the
               f32 CUDA-core int8 tile and f32 cuBLAS against f64 at
               M = 4096) and plain_timings (the verify's plain paged
-              attention at the serves' verify shape).
+              attention at the serves' verify shape), and moe_timings
+              (the int8 products at granite's shapes, and one MoE FFN
+              layer against its dense-masked plain version and its
+              bound at granite's decode and widest prefill and
+              mixtral's decode).  The line asserts every kernel ran on
+              serve_moe; the attention kernels' rows at the MoE shapes
+              carry their serve_moe launches.
 
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -386,12 +420,14 @@ def olmo_decode_pos(rng, B, max_len):
 # gemma's decode positions: pos 0, either side of a chunk edge (chunks of
 # 64 rows at B * K = 8), either side of the window of 512, the cache end
 GEMMA_POS = [0, 63, 64, 511, 512, 700, 1000, 1023]
+# the MoE models' (B 8 x K 8: chunks of 128 rows, of 8 pages of 16): pos 0,
+# either side of two chunk edges, the cache end
+MOE_POS = [0, 127, 128, 255, 256, 700, 1000, 1023]
 
 
 def kernel_checks(dev, ops, refs, q_lib):
     """Every kernel against its plain version; returns the rows."""
-    paged_ref, flash_ref = refs["paged_decode_attention"], \
-        refs["flash_attention"]
+    flash_ref = refs["flash_attention"]
     rows = []
     rng = np.random.default_rng(0)
     for dtype in (torch.bfloat16, torch.float32):
@@ -436,24 +472,7 @@ def kernel_checks(dev, ops, refs, q_lib):
             ("split_hd256_holes", dict(B=2, K=1, G=4, hd=256, ps=8, pps=32,
                                        pos=[200, 255], kind="holes"), 0, 0),
         ]
-        for name, kw, win, pre in cases:
-            args = paged_case(dev, dtype, seed=len(rows), **kw)
-            got = ops.paged_decode_attention(*args, window=win, prefix=pre)
-            torch.cuda.synchronize()
-            want = paged_ref(*args, window=win, prefix=pre)
-            err = check_close(f"paged_decode_attention/{name}", got, want,
-                              tol_of(dtype))
-            rows.append({"kernel": "paged_decode_attention", "case": name,
-                         "dtype": str(dtype), "max_abs_err": err,
-                         "splits": ops.paged_decode_attention_splits(
-                             kw["B"], kw["K"], kw["pps"], kw["ps"],
-                             ops._sm_count(dev.index))})
-            if name == "olmo_decode" or name.startswith("split_"):
-                again = ops.paged_decode_attention(*args, window=win,
-                                                   prefix=pre)
-                if not torch.equal(got, again):
-                    raise AssertionError(f"paged_decode_attention/{name}: "
-                                         "two launches differ")
+        check_paged(dev, ops, refs, dtype, cases, rows)
         fcases = [
             ("olmo_prefill", dict(B=1, H=16, K=16, S=1024, hd=128), 0, 0),
             ("gqa_h8_k2", dict(B=2, H=8, K=2, S=256, hd=64), 0, 0),
@@ -466,19 +485,7 @@ def kernel_checks(dev, ops, refs, q_lib):
              256),
             ("hd256_ragged", dict(B=2, H=4, K=2, S=300, hd=256), 40, 8),
         ]
-        for name, kw, win, pre in fcases:
-            q, k, v = flash_case(dev, dtype, seed=len(rows), **kw)
-            got = on_route(ops.flash_attention, flash_route(dtype),
-                           lambda: ops.flash_attention(
-                               q, k, v, causal=True, window=win,
-                               prefix=pre))
-            torch.cuda.synchronize()
-            want = flash_ref(q, k, v, causal=True, window=win, prefix=pre)
-            err = check_close(f"flash_attention/{name}", got, want,
-                              tol_of(dtype))
-            rows.append({"kernel": "flash_attention", "case": name,
-                         "dtype": str(dtype), "route": flash_route(dtype),
-                         "max_abs_err": err})
+        check_flash(dev, ops, refs, dtype, fcases, rows)
         q, k, v = flash_case(dev, dtype, B=1, H=4, K=2, S=128, hd=64, seed=99)
         got = on_route(ops.flash_attention, flash_route(dtype),
                        lambda: ops.flash_attention(q, k, v, causal=False))
@@ -528,20 +535,7 @@ def kernel_checks(dev, ops, refs, q_lib):
                 B=4, K=4, G=2, S=1400, hd=256, pos=[0, 300, 1399, 1100],
                 strided=True), 1024, 256),
         ]
-        for name, kw, win, pre in dcases:
-            args = decode_case(dev, dtype, seed=len(rows), **kw)
-            got = ops.decode_attention(*args, window=win, prefix=pre)
-            torch.cuda.synchronize()
-            want = refs["decode_attention"](*args, window=win, prefix=pre)
-            err = check_close(f"decode_attention/{name}", got, want,
-                              tol_of(dtype))
-            rows.append({"kernel": "decode_attention", "case": name,
-                         "dtype": str(dtype), "max_abs_err": err})
-            if name == "olmo_decode_strided" or name.startswith("split_"):
-                again = ops.decode_attention(*args, window=win, prefix=pre)
-                if not torch.equal(got, again):
-                    raise AssertionError(f"decode_attention/{name}: two "
-                                         "launches differ")
+        check_decode(dev, ops, refs, dtype, dcases, rows)
         # (name, shape, the route of bf16 x)
         icases = [(f"m{m}_{k}x{n}", dict(M=m, K=k, N=n, head=False),
                    "skinny_tc" if m <= 16 else "tensor_core")
@@ -576,21 +570,7 @@ def kernel_checks(dev, ops, refs, q_lib):
                                 (1024, 1152), (6912, 1152))]
         icases.append(("gemma3-1b_head_m8_1152x262144",
                        dict(M=8, K=1152, N=262144, head=True), "skinny_tc"))
-        for name, kw, bf16_route in icases:
-            x, wq, sc = int8_case(dev, dtype, q_lib, seed=len(rows), **kw)
-            route = int8_route(dtype, kw["M"], bf16_route)
-            got = on_route(ops.int8_matmul, route,
-                           lambda: ops.int8_matmul(x, wq, sc))
-            torch.cuda.synchronize()
-            err = check_close(f"int8_matmul/{name}", got,
-                              refs["int8_matmul"](x, wq, sc), tol_of(dtype))
-            rows.append({"kernel": "int8_matmul", "case": name,
-                         "dtype": str(dtype), "route": route,
-                         "max_abs_err": err})
-            if route == "skinny_tc" and not torch.equal(
-                    got, ops.int8_matmul(x, wq, sc)):
-                raise AssertionError(f"int8_matmul/{name}: two launches "
-                                     "differ")
+        check_int8(dev, ops, refs, q_lib, dtype, icases, rows)
     # the tensor-core route's edges, bf16 only (seeds of their own, so
     # that the cases above keep theirs): the smallest tile-route M, and
     # ragged M, K, N with 16-byte rows
@@ -608,7 +588,118 @@ def kernel_checks(dev, ops, refs, q_lib):
         rows.append({"kernel": "int8_matmul", "case": name,
                      "dtype": str(torch.bfloat16), "route": "tensor_core",
                      "max_abs_err": err})
+    # the MoE models' shapes (seeds of their own, from 2000, so that the
+    # cases above keep theirs): granite's G = 3 at hd 64 and mixtral's
+    # G = 6 at hd 128 (window 4096) in the three attention kernels, pos
+    # 0 and either side of two chunk edges, the split kernels twice bit
+    # for bit; the int8 matmul at granite's attention projections (wq /
+    # wo 1536 -> 1536, wk / wv 1536 -> 512) at decode and prefill M and
+    # its tied head's odd N (the experts stay off the kernel)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_paged(dev, ops, refs, dtype, [
+            ("split_granite", dict(B=8, K=8, G=3, hd=64, ps=16, pps=64,
+                                   pos=MOE_POS), 0, 0),
+            ("split_mixtral", dict(B=8, K=8, G=6, hd=128, ps=16, pps=64,
+                                   pos=MOE_POS), 4096, 0)], rows, 2000)
+        check_flash(dev, ops, refs, dtype, [
+            ("granite_prefill", dict(B=4, H=24, K=8, S=1024, hd=64), 0, 0),
+            ("granite_ragged", dict(B=2, H=24, K=8, S=300, hd=64), 0, 0),
+            ("mixtral_prefill", dict(B=1, H=48, K=8, S=1024, hd=128), 4096,
+             0)], rows, 2000)
+        check_decode(dev, ops, refs, dtype, [
+            ("split_granite", dict(B=8, K=8, G=3, S=1024, hd=64,
+                                   pos=MOE_POS, strided=True), 0, 0),
+            ("split_mixtral", dict(B=8, K=8, G=6, S=1024, hd=128,
+                                   pos=MOE_POS, strided=True), 4096, 0)],
+            rows, 2000)
+        icases = [(f"granite_m{m}_{k}x{n}", dict(M=m, K=k, N=n, head=False),
+                   "skinny_tc" if m <= 16 else "tensor_core")
+                  for m in (8, 4096) for k, n in ((1536, 1536), (1536, 512))]
+        icases.append(("granite_head_m8_1536x49155",
+                       dict(M=8, K=1536, N=49155, head=True), "skinny_tc"))
+        check_int8(dev, ops, refs, q_lib, dtype, icases, rows, 2000)
     return rows
+
+
+def check_paged(dev, ops, refs, dtype, cases, rows, seed0=0):
+    """Each (name, shape, window, prefix) case of the paged kernel against
+    its plain version (seed seed0 + rows so far), appended to `rows`; the
+    OLMo case and the split_ cases launch twice, bit for bit."""
+    for name, kw, win, pre in cases:
+        args = paged_case(dev, dtype, seed=seed0 + len(rows), **kw)
+        got = ops.paged_decode_attention(*args, window=win, prefix=pre)
+        torch.cuda.synchronize()
+        want = refs["paged_decode_attention"](*args, window=win, prefix=pre)
+        err = check_close(f"paged_decode_attention/{name}", got, want,
+                          tol_of(dtype))
+        rows.append({"kernel": "paged_decode_attention", "case": name,
+                     "dtype": str(dtype), "max_abs_err": err,
+                     "splits": ops.paged_decode_attention_splits(
+                         kw["B"], kw["K"], kw["pps"], kw["ps"],
+                         ops._sm_count(dev.index))})
+        if name == "olmo_decode" or name.startswith("split_"):
+            again = ops.paged_decode_attention(*args, window=win, prefix=pre)
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_decode_attention/{name}: two "
+                                     "launches differ")
+
+
+def check_flash(dev, ops, refs, dtype, cases, rows, seed0=0):
+    """Each causal case of the flash kernel against its plain version, on
+    the dtype's route."""
+    for name, kw, win, pre in cases:
+        q, k, v = flash_case(dev, dtype, seed=seed0 + len(rows), **kw)
+        got = on_route(ops.flash_attention, flash_route(dtype),
+                       lambda: ops.flash_attention(
+                           q, k, v, causal=True, window=win, prefix=pre))
+        torch.cuda.synchronize()
+        want = refs["flash_attention"](q, k, v, causal=True, window=win,
+                                       prefix=pre)
+        err = check_close(f"flash_attention/{name}", got, want,
+                          tol_of(dtype))
+        rows.append({"kernel": "flash_attention", "case": name,
+                     "dtype": str(dtype), "route": flash_route(dtype),
+                     "max_abs_err": err})
+
+
+def check_decode(dev, ops, refs, dtype, cases, rows, seed0=0):
+    """Each case of the decode kernel against its plain version; the OLMo
+    case and the split_ cases launch twice, bit for bit."""
+    for name, kw, win, pre in cases:
+        args = decode_case(dev, dtype, seed=seed0 + len(rows), **kw)
+        got = ops.decode_attention(*args, window=win, prefix=pre)
+        torch.cuda.synchronize()
+        want = refs["decode_attention"](*args, window=win, prefix=pre)
+        err = check_close(f"decode_attention/{name}", got, want,
+                          tol_of(dtype))
+        rows.append({"kernel": "decode_attention", "case": name,
+                     "dtype": str(dtype), "max_abs_err": err})
+        if name == "olmo_decode_strided" or name.startswith("split_"):
+            again = ops.decode_attention(*args, window=win, prefix=pre)
+            if not torch.equal(got, again):
+                raise AssertionError(f"decode_attention/{name}: two "
+                                     "launches differ")
+
+
+def check_int8(dev, ops, refs, q_lib, dtype, cases, rows, seed0=0):
+    """Each (name, shape, route of bf16 x) case of the int8 matmul against
+    its plain version, on its route; skinny_tc twice, bit for bit."""
+    for name, kw, bf16_route in cases:
+        x, wq, sc = int8_case(dev, dtype, q_lib, seed=seed0 + len(rows),
+                              **kw)
+        route = int8_route(dtype, kw["M"], bf16_route)
+        got = on_route(ops.int8_matmul, route,
+                       lambda: ops.int8_matmul(x, wq, sc))
+        torch.cuda.synchronize()
+        err = check_close(f"int8_matmul/{name}", got,
+                          refs["int8_matmul"](x, wq, sc), tol_of(dtype))
+        rows.append({"kernel": "int8_matmul", "case": name,
+                     "dtype": str(dtype), "route": route,
+                     "max_abs_err": err})
+        if route == "skinny_tc" and not torch.equal(
+                got, ops.int8_matmul(x, wq, sc)):
+            raise AssertionError(f"int8_matmul/{name}: two launches "
+                                 "differ")
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -693,9 +784,7 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
     out["flash_attention"]["vs_library"] = (
         out["flash_attention"]["ms"] / out["flash_attention"]["library_ms"])
 
-    mm_ref = refs["int8_matmul"]
-    shapes = []
-    for label, M, Kd, N, head, route in (
+    shapes = [int8_timing(dev, ops, refs, q_lib, *case) for case in (
             # decode at M = n_slots: gate/up, wq/wk/wv/wo, down; the head
             ("decode", 8, 2048, 8192, False, "skinny_tc"),
             ("decode_attn", 8, 2048, 2048, False, "skinny_tc"),
@@ -704,44 +793,119 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
             # serve_int8's widest prefill: wq/wk/wv/wo, gate/up, down
             ("prefill_attn", int8_m, 2048, 2048, False, "tensor_core"),
             ("prefill", int8_m, 2048, 8192, False, "tensor_core"),
-            ("prefill_down", int8_m, 8192, 2048, False, "tensor_core")):
-        x, wq, sc = int8_case(dev, dt, q_lib, M=M, K=Kd, N=N, head=head,
-                              seed=10)
-        got = on_route(ops.int8_matmul, route,
-                       lambda: ops.int8_matmul(x, wq, sc))
-        err = check_close(f"int8_matmul/timed_{label}", got,
-                          mm_ref(x, wq, sc), tol_of(dt))
-        # bytes: int8 weights, x, out (bf16) and the scale, each once;
-        # operations at the bf16 tensor-core peak, the rate the card has
-        # for this product
-        nbytes = Kd * N + (M * Kd + M * N) * 2 + 4 * sc.numel()
-        b_ms, b_by = bound(nbytes, 2 * M * Kd * N, BF16_FLOPS)
-        w16 = (wq.float() * sc).to(dt)       # dequantized beforehand
-        shapes.append({
-            "label": label, "shape": f"M={M} K={Kd} N={N} bf16"
-            + (" (tied head: embed_q.t(), per-K scale)" if head else ""),
-            "kernel_route": route, "max_abs_err": err,
-            "ms": time_ms(lambda: ops.int8_matmul(x, wq, sc)),
-            "plain_ms": time_ms(lambda: mm_ref(x, wq, sc), reps=10),
-            "bound_ms": b_ms, "bound_by": b_by,
-            # a yardstick only: the same product on a bf16 weight
-            # dequantized beforehand, twice the weight bytes
-            "library_ms": time_ms(lambda: torch.matmul(x, w16))})
-        del w16
-    for sh in shapes:
-        sh["vs_library"] = sh["ms"] / sh["library_ms"]
+            ("prefill_down", int8_m, 8192, 2048, False, "tensor_core"))]
     out["int8_matmul"] = {**shapes[0], "shapes": shapes}
+    return out
+
+
+def int8_timing(dev, ops, refs, q_lib, label, M, Kd, N, head, route):
+    """One bf16 int8 product x (M, Kd) @ w (Kd, N) (the tied head's
+    layout when `head`) on `route`, held against its plain version, then
+    timed beside it and the library yardstick.  Returns its row."""
+    dt, mm_ref = torch.bfloat16, refs["int8_matmul"]
+    x, wq, sc = int8_case(dev, dt, q_lib, M=M, K=Kd, N=N, head=head,
+                          seed=10)
+    got = on_route(ops.int8_matmul, route,
+                   lambda: ops.int8_matmul(x, wq, sc))
+    err = check_close(f"int8_matmul/timed_{label}", got, mm_ref(x, wq, sc),
+                      tol_of(dt))
+    # bytes: int8 weights, x, out (bf16) and the scale, each once;
+    # operations at the bf16 tensor-core peak, the rate the card has for
+    # this product
+    nbytes = Kd * N + (M * Kd + M * N) * 2 + 4 * sc.numel()
+    b_ms, b_by = bound(nbytes, 2 * M * Kd * N, BF16_FLOPS)
+    w16 = (wq.float() * sc).to(dt)           # dequantized beforehand
+    row = {"label": label, "shape": f"M={M} K={Kd} N={N} bf16"
+           + (" (tied head: embed_q.t(), per-K scale)" if head else ""),
+           "kernel_route": route, "max_abs_err": err,
+           "ms": time_ms(lambda: ops.int8_matmul(x, wq, sc)),
+           "plain_ms": time_ms(lambda: mm_ref(x, wq, sc), reps=10),
+           "bound_ms": b_ms, "bound_by": b_by,
+           # a yardstick only: the same product on a bf16 weight
+           # dequantized beforehand, twice the weight bytes
+           "library_ms": time_ms(lambda: torch.matmul(x, w16))}
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    return row
+
+
+def moe_timings(dev, ops, refs, q_lib, int8_m, prefill_shape):
+    """The MoE paths' own rows, bf16: the int8 products at
+    granite-moe-3b-a800m's attention and head shapes (decode M = 8, and
+    serve_moe's widest int8 prefill M `int8_m`), and the MoE FFN of one
+    layer (`models.moe.moe_ffn`: router, sort-based dispatch, batched
+    expert einsums) beside its plain dense-masked version (`moe_ffn_ref`,
+    a loop over the experts) at granite's decode (8 slots, S = 1),
+    granite's widest prefill (`prefill_shape` rows x bucket) and
+    mixtral's decode.  The FFN's bound counts the router, the experts
+    this input routes to (each read once), x and y, and the kept pairs'
+    products (3 d f multiply-adds each); it has no library call."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import moe as moe_lib
+    int8 = [int8_timing(dev, ops, refs, q_lib, *case) for case in (
+        ("granite_decode_attn", 8, 1536, 1536, False, "skinny_tc"),
+        ("granite_decode_kv", 8, 1536, 512, False, "skinny_tc"),
+        ("granite_head", 8, 1536, 49155, True, "skinny_tc"),
+        ("granite_prefill_attn", int8_m, 1536, 1536, False, "tensor_core"),
+        ("granite_prefill_kv", int8_m, 1536, 512, False, "tensor_core"))]
+    ffn = []
+    for label, name, (b, s) in (("granite_decode", "granite-moe-3b-a800m",
+                                 (8, 1)),
+                                ("granite_prefill", "granite-moe-3b-a800m",
+                                 prefill_shape),
+                                ("mixtral_decode", "mixtral-8x22b", (8, 1))):
+        cfg = ARCHS[name]
+        e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+        g = torch.Generator(device=dev).manual_seed(40)
+
+        def rand(*shape, scale, dtype=torch.bfloat16):
+            return (torch.randn(shape, generator=g, device=dev) * scale
+                    ).to(dtype)
+        x = rand(b, s, d, scale=1.0)
+        router = rand(d, e, scale=d ** -0.5, dtype=torch.float32)
+        wi, wo = rand(e, 2, d, f, scale=d ** -0.5), rand(e, f, d,
+                                                         scale=f ** -0.5)
+        args = (x, router, wi, wo, cfg.moe, cfg.act)
+        with moe_lib.keep_masks() as log:
+            y, _ = moe_lib.moe_ffn(*args)
+        keep = log[0]
+        _, idx, _ = moe_lib.router_topk(x, router, cfg.moe)
+        kept = idx.reshape(b, -1)[keep]
+        touched = int(torch.unique(kept).numel())
+        # drop-free inputs only are the dense-masked oracle's
+        err = (check_close(f"moe_ffn/{label}", y,
+                           moe_lib.moe_ffn_ref(*args)[0], 2e-2)
+               if bool(keep.all()) else None)
+        nbytes = router.numel() * 4 + touched * 3 * d * f * 2 \
+            + 2 * x.numel() * 2
+        b_ms, b_by = bound(nbytes, 2 * 3 * d * f * int(keep.sum()),
+                           BF16_FLOPS)
+        ffn.append({
+            "label": label, "shape": f"B={b} S={s} d={d} E={e} "
+            f"top-{cfg.moe.top_k} f={f} bf16, capacity "
+            f"{moe_lib.capacity(s, cfg.moe)}", "experts_read": touched,
+            "pairs_kept": int(keep.sum()), "pairs": keep.numel(),
+            "max_abs_err": err,
+            "ms": time_ms(lambda: moe_lib.moe_ffn(*args)),
+            "plain_ms": time_ms(lambda: moe_lib.moe_ffn_ref(*args), reps=10),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        del x, wi, wo, args, y
+        torch.cuda.empty_cache()
+    out = {"int8_matmul": int8, "moe_ffn": ffn}
+    emit({"phase": "moe_timings", **out})
     return out
 
 
 SERVED_GQA = {
     # model: (n_heads, n_kv_heads, head_dim, window, prefix) of the paper's
     # zoo configs (configs/paper_zoo.py) the launcher serves: llama3.2-1b
-    # and gemma3-1b by default, the others by name
+    # and gemma3-1b by default, the others by name; then the MoE models
+    # serve_moe serves (configs/granite_moe_3b.py, mixtral_8x22b.py)
     "llama3.2-1b": (32, 8, 64, 0, 0),
     "qwen3-1.7b": (16, 8, 128, 0, 0),
     "gemma3-1b": (4, 1, 256, 512, 0),
     "gemma3-4b": (8, 4, 256, 1024, 256),
+    "granite-moe-3b-a800m": (24, 8, 64, 0, 0),
+    "mixtral-8x22b": (48, 8, 128, 4096, 0),
 }
 GEMMA = ("gemma3-1b", "gemma3-4b")
 
@@ -1313,6 +1477,194 @@ def parity_http(dev, ops, cfg=None):
              "launches": launches, "match": not bad}, bad)
 
 
+class DropMeter:
+    """The (token, expert) pairs a MoE engine's layers kept and dropped:
+    a context around a serve that collects every moe_ffn keep mask
+    (`models.moe.keep_masks`, on the device: nothing is read back while
+    it runs) and wraps the engine's two admission programs so that the
+    masks made inside one are counted over its admitted rows' real
+    tokens (position < the row's length; pads and padded rows are not
+    pairs of any request).  The masks of every other call (decode steps,
+    verifies) are counted over all their rows: a decode step never drops
+    (capacity top_k at S = 1)."""
+
+    def __init__(self, eng):
+        from repro_torch.models import moe as moe_lib
+        self._moe, self._k = moe_lib, eng.cfg.moe.top_k
+        self._admits = []               # (first mask, last mask, lengths)
+        self._log = None
+        for attr, at in (("_prefill_admit", 0), ("_suffix_admit", 1)):
+            setattr(eng, attr, self._wrap(getattr(eng, attr), at))
+
+    def _wrap(self, fn, at):
+        def wrapper(toks, *args):
+            lengths, slots = args[at], args[at + 2]
+            lo = len(self._log) if self._log is not None else 0
+            out = fn(toks, *args)
+            if self._log is not None:
+                self._admits.append((lo, len(self._log),
+                                     np.asarray(lengths[:len(slots)])))
+            return out
+        return wrapper
+
+    def __enter__(self):
+        self._ctx = self._moe.keep_masks()
+        self._log = self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._ctx.__exit__(*exc)
+
+    def report(self):
+        pairs = dropped = 0
+        inside = set()
+        for lo, hi, lengths in self._admits:
+            inside.update(range(lo, hi))
+            for keep in self._log[lo:hi]:
+                keep = keep.cpu()[:len(lengths)]
+                s = keep.shape[1] // self._k
+                real = (torch.arange(s)[None, :]
+                        < torch.from_numpy(lengths)[:, None].long())
+                real = real.repeat_interleave(self._k, dim=1)  # s-major
+                pairs += int(real.sum())
+                dropped += int((real & ~keep).sum())
+        other = [m for i, m in enumerate(self._log) if i not in inside]
+        return {"admission_pairs": pairs, "admission_dropped": dropped,
+                "dropped_share": dropped / max(pairs, 1),
+                "other_calls": len(other),
+                "other_dropped": int(sum(int((~m).sum()) for m in other))}
+
+
+@contextlib.contextmanager
+def plain_attention(ops):
+    """Inside: the model's flash and decode attention calls take the
+    plain PyTorch versions (`ops` is repro_torch.kernels.ops, whose
+    attributes the model reads at each call); the wrappers' counters do
+    not move."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    saved = ops.flash_attention, ops.decode_attention
+    ops.flash_attention, ops.decode_attention = (flash_attention_ref,
+                                                 decode_attention_ref)
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+
+
+def cached_recompute(tf, ops, params, cfg, prompt, bucket, n):
+    """Plain greedy decode through the cache, with plain attention: one
+    prefill of the prompt right-padded to `bucket` (the length the
+    engine's admission fed the model, so the MoE FFN gets the capacity
+    it got there), then one `decode_step` a token (capacity top_k, as the
+    engine's decode).  A full forward would route the prompt at another
+    capacity.  Returns n tokens."""
+    dev = params["embed"].device
+    toks = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+    toks[0, :len(prompt)] = torch.tensor(prompt, device=dev)
+    with plain_attention(ops):
+        logits, rows, pos = tf.prefill(
+            params, cfg, toks,
+            lengths=torch.tensor([len(prompt)], device=dev))
+        cache = {}
+        for name, kv in rows.items():
+            cache[name] = kv.new_zeros((kv.shape[0], 1, bucket + n)
+                                       + tuple(kv.shape[3:]))
+            cache[name][:, :, :bucket] = kv
+        out = [int(logits[0].argmax())]
+        for _ in range(n - 1):
+            pos = pos + 1
+            logits, cache = tf.decode_step(
+                params, cfg, cache, torch.tensor([out[-1]], device=dev,
+                                                 dtype=torch.int32), pos)
+            out.append(int(logits[0].argmax()))
+    return out
+
+
+def parity_moe(dev, ops, cfg=None):
+    """The paper's granite-moe-3b-a800m cut to 2 layers at full width (40
+    experts top-8, f 512, 24 heads over 8: G = 3, hd 64, vocab 49155
+    tied), f32, RMS-norm scales from a seed: 4 greedy requests in the
+    paged-attention mode, the gather mode, and the gather mode under
+    int8.  Each request's tokens must equal `cached_recompute` at the
+    bucket the engine's admission used (recorded; for int8 on the
+    dequantized weights), and each run must launch exactly its mode's
+    kernels.  Prints the (token, expert) pairs the admissions dropped.
+    `cfg` replaces the model (a CPU rehearsal).  Returns (lines,
+    mismatches)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                     SamplingParams)
+    from repro_torch.serving import quantization as q_lib
+    cfg = cfg or dataclasses.replace(ARCHS["granite-moe-3b-a800m"],
+                                     n_layers=2, dtype="f32")
+    params = build(cfg, dev).init(torch.Generator(device=dev).manual_seed(7))
+    rng = np.random.default_rng(8)
+    seed_norms(params, rng)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in (5, 17, 100, 300)]
+    deq = q_lib.dequant_tree(q_lib.quantize_tree(params, 8))
+    paged, gather = ({"paged_decode_attention", "flash_attention"},
+                     {"decode_attention", "flash_attention"})
+    runs = (("paged_attention", dict(paged_attention=True), params, paged),
+            ("gather", {}, params, gather),
+            ("gather_int8", dict(quantize="int8"), deq,
+             gather | {"int8_matmul"}))
+    lines, mismatches = [], []
+    for mode, kw, ref_params, kernels in runs:
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            n_slots=4, max_len=512, decode_block=4, **kw), device=dev)
+        buckets = {}                # prompt -> its admission's bucket
+        admit = eng._prefill_admit
+
+        def recording_admit(toks, lengths, *args, admit=admit,
+                            buckets=buckets):
+            for row, n in zip(toks, lengths):
+                buckets.setdefault(tuple(int(t) for t in row[:n]),
+                                   toks.shape[1])
+            return admit(toks, lengths, *args)
+        eng._prefill_admit = recording_admit
+        meter = DropMeter(eng)
+        reqs = [Request(model=cfg.name, prompt=p,
+                        sampling=SamplingParams(max_tokens=16))
+                for p in prompts]
+        ops.reset_launches()
+        with meter:
+            for r in reqs:
+                assert eng.submit(r)
+            eng.run_until_done()
+        launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+        if {k for k, n in launched.items() if n} != kernels:
+            raise AssertionError(f"parity_moe {mode}: kernels {launched}, "
+                                 f"want exactly {sorted(kernels)}")
+        st = eng.perf_stats()
+        if st["preemptions"] or eng.pool.pages_in_use:
+            raise AssertionError(f"parity_moe {mode}: {st['preemptions']} "
+                                 f"preemptions, {eng.pool.pages_in_use} "
+                                 "pages held")
+        used = [buckets[tuple(p)] for p in prompts]
+        wants = [cached_recompute(tf, ops, ref_params, cfg, p, b, 16)
+                 for p, b in zip(prompts, used)]
+        bad = [{"mode": f"moe/{mode}", "prompt_len": len(p), "got": r.output,
+                "want": w} for r, p, w in zip(reqs, prompts, wants)
+               if r.output != w]
+        mismatches += bad
+        lines.append({"mode": f"{cfg.name}/{mode}", "layers": cfg.n_layers,
+                      "prompt_lens": [len(p) for p in prompts],
+                      "buckets": used, **meter.report(),
+                      "launches": launched, "match": not bad})
+        del eng
+    emit({"phase": "parity_moe", "experts": [cfg.moe.num_experts,
+                                             cfg.moe.top_k],
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "d_model": cfg.d_model,
+          "tokens_each": 16, "runs": lines, "match": not mismatches})
+    if mismatches:
+        raise AssertionError(f"parity_moe mismatches: {mismatches}")
+    return lines
+
+
 def serve_setup(dev, cfg=None, params=None, max_prompt=896, **engine_kw):
     """The main paths' model, engine and 12 seeded requests: the full
     OLMo-1B in bf16 with random weights from a seed; prompt lengths in
@@ -1372,13 +1724,20 @@ def drive(eng, reqs):
     return step_ms, time.perf_counter() - t0
 
 
+def int8_linears(cfg) -> int:
+    """The int8 kernel's products a layer: wq, wk, wv, wo, and gate, up,
+    down of a dense FFN (a MoE model's experts are batched products off
+    the kernel, dequantized a layer at a time)."""
+    return 4 if cfg.moe else 7
+
+
 def expected_launches(cfg, ecfg, st):
     """Each kernel's launches for a serve with these stats: one attention
     kernel per layer per model call, and under int8 one int8 matmul per
-    linear (wq, wk, wv, wo, gate, up, down) per layer plus the tied head
-    per model call (a full prefill dispatch or a fused decode step).  A
-    suffix admission and a speculative verify attend in plain PyTorch and
-    launch no attention kernel."""
+    linear (`int8_linears` a layer) plus the tied head per model call (a
+    full prefill dispatch or a fused decode step).  A suffix admission
+    and a speculative verify attend in plain PyTorch and launch no
+    attention kernel."""
     n = cfg.n_layers
     # a speculative verify is a decode dispatch that runs no decode kernel
     steps = ecfg.decode_block * (st["decode_dispatches"]
@@ -1387,17 +1746,18 @@ def expected_launches(cfg, ecfg, st):
     return {"paged_decode_attention": n * steps if paged else 0,
             "flash_attention": n * st["prefill_dispatches"],
             "decode_attention": 0 if paged else n * steps,
-            "int8_matmul": ((7 * n + 1) * (st["prefill_dispatches"] + steps)
+            "int8_matmul": ((int8_linears(cfg) * n + 1)
+                            * (st["prefill_dispatches"] + steps)
                             if ecfg.quantize == "int8" else 0)}
 
 
 def expected_routes(cfg, ecfg, st, dispatch_shapes):
     """The flash and int8 launches of a bf16 serve by route.  Flash: all
     on the tensor cores.  int8: in a prefill dispatch of (rows, bucket)
-    the 7 n_layers projections have M = rows x bucket, on the tensor
-    cores when M > 16, and the tied head M = rows; every decode step has
-    M = n_slots; M <= 16 (bf16 x, aligned rows) is skinny_tc, and nothing
-    is left on the CUDA-core skinny kernels."""
+    the int8_linears x n_layers projections have M = rows x bucket, on
+    the tensor cores when M > 16, and the tied head M = rows; every
+    decode step has M = n_slots; M <= 16 (bf16 x, aligned rows) is
+    skinny_tc, and nothing is left on the CUDA-core skinny kernels."""
     flash = {"tensor_core": cfg.n_layers * st["prefill_dispatches"],
              "cuda_core": 0}
     int8 = {"skinny": 0, "tensor_core": 0, "cuda_core_tile": 0,
@@ -1405,23 +1765,26 @@ def expected_routes(cfg, ecfg, st, dispatch_shapes):
     if ecfg.quantize == "int8":
         def route(m, wide):
             return "skinny_tc" if m <= 16 else wide
-        n = cfg.n_layers
+        n = cfg.n_layers * int8_linears(cfg)
         for rows, bucket in dispatch_shapes:
-            int8[route(rows * bucket, "tensor_core")] += 7 * n
+            int8[route(rows * bucket, "tensor_core")] += n
             int8[route(rows, "cuda_core_tile")] += 1     # the tied head
         steps = ecfg.decode_block * st["decode_dispatches"]
-        int8[route(ecfg.n_slots, "tensor_core")] += 7 * n * steps
+        int8[route(ecfg.n_slots, "tensor_core")] += n * steps
         int8[route(ecfg.n_slots, "cuda_core_tile")] += steps
     return {"flash_attention": flash, "int8_matmul": int8}
 
 
-def serve(phase, dev, ops, card, cfg=None, max_prompt=896, **engine_kw):
+def serve(phase, dev, ops, card, cfg=None, max_prompt=896, params=None,
+          note=None, **engine_kw):
     """One serve of serve_setup's model and requests (`cfg`: another zoo
-    model), its launches counted from 0 just before and read just after,
-    held by check_serve, its routes and its pages.  Returns (launches,
-    launches by route, prefill shapes)."""
+    model, `params` its weights), its launches counted from 0 just before
+    and read just after, held by check_serve, its routes and its pages; a
+    MoE model's line also counts its dropped pairs (DropMeter).  `note`
+    goes into the line (a depth cut).  Returns (launches, launches by
+    route, prefill shapes)."""
     cfg, ecfg, eng, requests, dense_bytes = serve_setup(
-        dev, cfg=cfg, max_prompt=max_prompt, **engine_kw)
+        dev, cfg=cfg, params=params, max_prompt=max_prompt, **engine_kw)
     reqs = requests()
     # each prefill dispatch's (rows, bucket), for the expected routes
     dispatch_shapes = []
@@ -1436,9 +1799,11 @@ def serve(phase, dev, ops, card, cfg=None, max_prompt=896, **engine_kw):
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    meter = DropMeter(eng) if cfg.moe else None
     # the path: counters at 0 just before, read just after
     ops.reset_launches()
-    step_ms, wall = drive(eng, reqs)
+    with meter or contextlib.nullcontext():
+        step_ms, wall = drive(eng, reqs)
     launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
     by_route = {fn.__name__: dict(fn.launches_by_route)
                 for fn in (ops.flash_attention, ops.int8_matmul)}
@@ -1466,6 +1831,13 @@ def serve(phase, dev, ops, card, cfg=None, max_prompt=896, **engine_kw):
     if ecfg.quantize == "int8" and mem["param_bytes"] >= 0.65 * dense_bytes:
         raise AssertionError(f"{phase}: int8 weights {mem['param_bytes']} B"
                              f", bf16 {dense_bytes} B")
+    # and as the dispatches run them: the experts stay int8 (the kernel
+    # operands share every q; only scales and the router are copies)
+    from repro_torch.serving.quantization import tree_bytes
+    run_bytes = tree_bytes(eng._int8) if eng._int8 is not None else None
+    if run_bytes is not None and run_bytes >= 0.65 * dense_bytes:
+        raise AssertionError(f"{phase}: the int8 operands hold {run_bytes} "
+                             f"B, bf16 {dense_bytes} B")
     ttft = sorted(r.ttft for r in reqs)
     emit({"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
           "params": cfg.num_params(), "head_dim": cfg.head_dim,
@@ -1489,8 +1861,11 @@ def serve(phase, dev, ops, card, cfg=None, max_prompt=896, **engine_kw):
           "decode_traces": st["decode_traces"],
           "logical_bytes_moved": st["logical_bytes_moved"],
           "param_bytes": mem["param_bytes"], "bf16_param_bytes": dense_bytes,
+          "int8_operand_bytes": run_bytes,
           "cache_bytes": mem["cache_bytes"], "instance_bytes": charged,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+          **(meter.report() if meter else {}),
+          **({"note": note} if note else {}),
           "launches": launches, "launches_by_route": by_route,
           "card": card})
     return launches, by_route, [tuple(s) for s in st["prefill_shapes"]]
@@ -1520,6 +1895,59 @@ def serve_gemma(dev, ops, card):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+MIXTRAL_LAYERS = 2          # of mixtral-8x22b's 56: the depth cut
+
+
+def serve_moe(dev, ops, card, granite=None, mixtral=None):
+    """The MoE FFN in every engine path, launch counters at 0 just before
+    each leg and read just after: (a) the paper's granite-moe-3b-a800m at
+    full width and depth (32 layers, d 1536, 24 heads over 8, hd 64, 40
+    experts top-8, f 512, vocab 49155 tied; 3.30 B params, bf16, seeded
+    weights) under serve_bf16's engine and requests in the
+    paged-attention mode; (b) the same weights and requests under
+    quantize="int8" in the gather mode (the experts int8 at rest); (c)
+    granite through serve_prefix_swap and serve_spec (JAX keeps the
+    prefix cache and speculation on for it); (d) mixtral-8x22b at full
+    width (d 6144, 48 heads over 8, hd 128, 8 experts top-2, f 16384,
+    vocab 32768 untied, window 4096) cut to MIXTRAL_LAYERS of its 56
+    layers, bf16, gather mode.  Each leg holds exact budgets, every page
+    returned and its exact launches (serve / check_serve), and prints
+    tok/s, p50 step, TTFT, peak device memory and the share of
+    admission pairs dropped.  `granite` / `mixtral` replace the configs
+    (a CPU rehearsal).  Returns ({leg: launches}, {leg: (launches by
+    route, prefill shapes)} of the serve() legs)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    granite = granite or ARCHS["granite-moe-3b-a800m"]
+    mixtral = mixtral or dataclasses.replace(ARCHS["mixtral-8x22b"],
+                                             n_layers=MIXTRAL_LAYERS)
+    params = build(granite, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    legs, more = {}, {}
+    for leg, kw in (("granite_paged", dict(paged_attention=True)),
+                    ("granite_int8", dict(quantize="int8"))):
+        legs[leg], *more[leg] = serve("serve_moe", dev, ops, card,
+                                      cfg=granite, params=params, **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs["granite_prefix_swap"] = serve_prefix_swap(dev, ops, card,
+                                                    cfg=granite,
+                                                    params=params)
+    legs["granite_spec"] = serve_spec(dev, ops, card, cfg=granite,
+                                      params=params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = ARCHS["mixtral-8x22b"].n_layers
+    legs["mixtral"], *more["mixtral"] = serve(
+        "serve_moe", dev, ops, card, cfg=mixtral,
+        note=f"depth cut: {mixtral.n_layers} of {full} layers, full "
+             "width")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return legs, more
 
 
 def sync(dev) -> None:
@@ -1599,14 +2027,17 @@ def serve_prefix_swap(dev, ops, card, cfg=None, params=None, kv_pages=192):
         return wrapper
     eng._suffix_admit = recording("suffix", eng._suffix_admit)
     eng._prefill_admit = recording("full", eng._prefill_admit)
+    meter = DropMeter(eng) if cfg.moe else None
     try:
         gc.collect()
         sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launches()
         t0 = time.perf_counter()
-        drive(eng, wave1)
-        drive(eng, wave2)
+        with meter or contextlib.nullcontext():
+            step_ms = drive(eng, wave1)[0] + drive(eng, wave2)[0]
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
         launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
     finally:
         from repro_torch.serving import kv_hierarchy
@@ -1662,6 +2093,9 @@ def serve_prefix_swap(dev, ops, card, cfg=None, params=None, kv_pages=192):
           "swap_outs": st["swap_outs"], "swap_ins": st["swap_ins"],
           "preemptions": st["preemptions"],
           "wave2_p50_ttft_ms": float(np.median(ttft2)) * 1e3,
+          "p50_ttft_ms": float(np.median([r.ttft for r in reqs])) * 1e3,
+          "p50_step_ms": float(np.median(step_ms)), "peak_mem_bytes": peak,
+          **(meter.report() if meter else {}),
           "host_ms_per_swap_out": float(np.mean(swap_out_ms)),
           "host_ms_per_swap_in": float(np.mean(swap_in_ms)),
           "swap_out_ms": swap_out_ms, "swap_in_ms": swap_in_ms,
@@ -1703,19 +2137,24 @@ def serve_spec(dev, ops, card, cfg=None, params=None):
                     max_tokens=int(rng.integers(16, 65)),
                     temperature=0.8 if sampled else 0.0,
                     top_k=40 if sampled else 0)))
+        meter = DropMeter(eng) if cfg.moe else None
         gc.collect()
         sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launches()
-        step_ms, wall = drive(eng, reqs)
+        with meter or contextlib.nullcontext():
+            step_ms, wall = drive(eng, reqs)
         launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
         st = eng.perf_stats()
         check_serve(f"serve_spec (speculative={on})", cfg, ecfg, eng, reqs,
                     launches)
         if eng.pool.pages_in_use:
             raise AssertionError(f"{eng.pool.pages_in_use} pages held")
-        out[on] = (reqs, st, launches, wall, step_ms)
+        out[on] = (reqs, st, launches, wall, step_ms,
+                   torch.cuda.max_memory_allocated(dev),
+                   meter.report() if meter else {})
         del eng
-    reqs, st, launches, wall, step_ms = out[True]
+    reqs, st, launches, wall, step_ms, peak, drops = out[True]
     if st["spec_dispatches"] < 1:
         raise AssertionError("serve_spec: no verify dispatch")
     greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature == 0]
@@ -1729,6 +2168,8 @@ def serve_spec(dev, ops, card, cfg=None, params=None):
           "tokens": st["tokens"], "wall_s": wall,
           "tok_per_s": st["tokens"] / wall,
           "p50_step_ms": float(np.median(step_ms)),
+          "p50_ttft_ms": float(np.median([r.ttft for r in reqs])) * 1e3,
+          "peak_mem_bytes": peak, **drops,
           "spec_dispatches": st["spec_dispatches"],
           "spec_emitted": st["spec_emitted"],
           "tokens_per_verify": st["spec_accepted_per_dispatch"],
@@ -2421,6 +2862,7 @@ def main() -> int:
     emit({"phase": "kernel_checks", "cases": rows})
 
     parity_f32(dev, ops)
+    parity_moe(dev, ops)
     bf16_launches, bf16_routes, bf16_shapes = serve(
         "serve_bf16", dev, ops, card, paged_attention=True)
     int8_launches, int8_routes, int8_shapes = serve(
@@ -2434,6 +2876,10 @@ def main() -> int:
     path_launches["serve_gemma"] = {
         name: sum(ln[name] for ln in gemma.values())
         for name in next(iter(gemma.values()))}
+    moe_legs, moe_more = serve_moe(dev, ops, card)
+    path_launches["serve_moe"] = {
+        name: sum(ln[name] for ln in moe_legs.values())
+        for name in next(iter(moe_legs.values()))}
     path_launches["serve_http"] = serve_http(dev, ops, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2443,11 +2889,26 @@ def main() -> int:
     widest = max(bf16_shapes, key=lambda s: s[0] * s[1] ** 2)
     int8_m = max(r * b for r, b in int8_shapes)
     timings = kernel_timings(dev, ops, refs, q_lib, widest, int8_m)
+    # a MoE model's launches: summed over its serve_moe legs
+    moe_by_model = {"granite-moe-3b-a800m": [
+        ln for leg, ln in moe_legs.items() if leg.startswith("granite")],
+        "mixtral-8x22b": [moe_legs["mixtral"]]}
     for name, rows in gqa_timings(dev, ops, refs).items():
         for r in rows:     # a gemma's launches on its serve in serve_gemma
             if r["label"] in gemma:
                 r["launches"] = gemma[r["label"]][name]
+            elif r["label"] in moe_by_model:
+                r["launches"] = sum(ln[name]
+                                    for ln in moe_by_model[r["label"]])
         timings[name].setdefault("shapes", []).extend(rows)
+    moe_int8_routes = moe_more["granite_int8"][0]["int8_matmul"]
+    moe = moe_timings(
+        dev, ops, refs, q_lib,
+        max(r * b for r, b in moe_more["granite_int8"][1]),
+        max(moe_more["granite_paged"][1], key=lambda sh: sh[0] * sh[1]))
+    for r in moe["int8_matmul"]:    # the serve_moe int8 leg, by route
+        r["launches_on_route"] = moe_int8_routes[r["kernel_route"]]
+    timings["int8_matmul"]["shapes"].extend(moe["int8_matmul"])
     c5_f32_tile_error(dev, ops, q_lib)
     plain_timings(dev, ops)
     meta = {
@@ -2476,6 +2937,8 @@ def main() -> int:
             raise AssertionError(f"{name} never ran on serve_http")
         if name != "int8_matmul" and not path_launches["serve_gemma"][name]:
             raise AssertionError(f"{name} never ran on serve_gemma")
+        if not path_launches["serve_moe"][name]:
+            raise AssertionError(f"{name} never ran on serve_moe")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "path": path, "max_abs_err": t["max_abs_err"],

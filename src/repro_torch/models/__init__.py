@@ -1,4 +1,5 @@
-"""Dense causal decoder model: layers, attention, transformer, facade."""
+"""Causal decoder model (dense or MoE FFN): layers, attention, MoE,
+transformer, facade."""
 from repro_torch.models.model import Model, build
 
 __all__ = ["Model", "build"]

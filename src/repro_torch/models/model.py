@@ -1,6 +1,6 @@
 """Model facade: the interface the serving engine talks to, limited to
 what the engine calls.  The counterpart of `repro.models.model`, for the
-dense causal decoders the port covers (`params.require_dense_causal`)."""
+causal decoders the port covers (`params.require_causal_decoder`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -51,5 +51,5 @@ class Model:
 
 def build(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     """A model on `device` ("cuda" unless given)."""
-    params_lib.require_dense_causal(cfg)
+    params_lib.require_causal_decoder(cfg)
     return Model(cfg, resolve_device(device))

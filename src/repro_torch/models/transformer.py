@@ -1,11 +1,13 @@
-"""Dense causal decoder: full-sequence forward, bucketed prefill, the
+"""Causal decoder: full-sequence forward, bucketed prefill, the
 prefix-cache suffix prefill, one decode step against a contiguous cache
 or straight against the paged KV pool, and the speculative verify
 against the paged pool.
 
-The counterpart of the dense causal subset of `repro.models.transformer`,
-with the same stacked `(L, ...)` params (see `repro_torch.params`) and
-the same layouts at every public function: a SwiGLU or gelu FFN, a
+The counterpart of the causal decoder subset of
+`repro.models.transformer`, with the same stacked `(L, ...)` params (see
+`repro_torch.params`) and the same layouts at every public function: a
+SwiGLU or gelu FFN, dense or Mixture-of-Experts (`models.moe`, whose
+capacity comes from the sequence length each entry point feeds it), a
 sliding window (`cfg.swa_window`, the same in every layer, as JAX's
 non-hymba path) and a vision frontend's prefix tokens (`prefix_embeds`
 (B, n_prefix_tokens, D) ahead of the prompt, exempt from the window but
@@ -24,7 +26,10 @@ Under quantize="int8" the params come from
 `{"__q__": int8 q, "col": per-column f32 scale, ...}` and every linear
 layer, and the tied LM head, runs `kernels.ops.int8_matmul` on it.  The
 embedding lookup dequantizes only the gathered rows, which equals JAX's
-dequantize-then-take element for element.
+dequantize-then-take element for element.  The MoE experts' int8 leaves
+(no "col") are dequantized one layer at a time where the layer runs, to
+the values of JAX's per-step `dequant_tree`; their products stay
+batched einsums, as in JAX.
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ from repro_torch.device import torch_dtype
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
-from repro_torch.params import Params, require_dense_causal
+from repro_torch.models import moe as moe_lib
+from repro_torch.params import Params, require_causal_decoder
 
 Cache = Dict[str, torch.Tensor]
 
@@ -66,10 +72,20 @@ def _matmul(x: torch.Tensor, w) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
+def _dense(w) -> torch.Tensor:
+    """A weight as a dense tensor: an int8 leaf of one layer (its `q`
+    indexed along L, its scale still the stacked leaf's) dequantized to
+    what `quantization.dequantize_array` gives that layer."""
+    if not isinstance(w, dict):
+        return w
+    return (w["__q__"] * w["scale"][0]).to(w["dtype"])
+
+
 def _layer(params: Params, i: int) -> Params:
     lp = params["layers"]
+    ffn = "moe" if "moe" in lp else "mlp"
     out = {"attn": {k: _index(v, i) for k, v in lp["attn"].items()},
-           "mlp": {k: _index(v, i) for k, v in lp["mlp"].items()}}
+           ffn: {k: _index(v, i) for k, v in lp[ffn].items()}}
     for name in ("ln1", "ln2"):
         if name in lp:
             out[name] = lp[name][i]
@@ -111,7 +127,13 @@ def _out_project(a: torch.Tensor, wo) -> torch.Tensor:
 
 
 def _ffn(lp: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """The dense FFN: SwiGLU (wi (2, d, f)) or gelu (wi (d, f))."""
+    """The FFN: SwiGLU (wi (2, d, f)) or gelu (wi (d, f)), or the MoE
+    FFN over x's own sequence length (its aux loss dropped, as on JAX's
+    serving paths)."""
+    if cfg.moe is not None:
+        mp = lp["moe"]
+        return moe_lib.moe_ffn(x, mp["router"], _dense(mp["wi"]),
+                               _dense(mp["wo"]), cfg.moe, cfg.act)[0]
     wi, wo = lp["mlp"]["wi"], lp["mlp"]["wo"]
     if not isinstance(wi, dict):
         return L.mlp_apply(x, wi, wo, cfg.act)
@@ -184,7 +206,7 @@ def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     """Embedding (the prefix embeddings first), every layer and the final
     norm.  Returns (h (B, P + S, D), {"k", "v": (L, B, P + S, K, hd)},
     P), P the prefix length."""
-    require_dense_causal(cfg)
+    require_causal_decoder(cfg)
     if impl not in ("flash", "full"):
         raise ValueError(f"impl must be 'flash' or 'full', not {impl!r}")
     h, prefix = _embed_inputs(params, tokens, prefix_embeds)
@@ -239,7 +261,7 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 
 def _plain_causal_only(cfg: ArchConfig, name: str) -> None:
-    require_dense_causal(cfg)
+    require_causal_decoder(cfg)
     if cfg.swa_window or cfg.n_prefix_tokens:
         raise NotImplementedError(
             f"{name} supports plain causal decoders only (no window, no "
@@ -324,7 +346,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     (B, K, S, hd) permuted view of each layer's cache in place, with the
     config's window; the cache's first n_prefix_tokens positions are
     exempt from it.  Returns (logits (B, V), cache)."""
-    require_dense_causal(cfg)
+    require_causal_decoder(cfg)
     b = token.shape[0]
     nkv, hd = cfg.n_kv_heads, cfg.head_dim
     rows = torch.arange(b, device=token.device)
@@ -389,7 +411,7 @@ def decode_step_paged(params: Params, cfg: ArchConfig, cache: Cache,
     The new KV is written into the pools in place — the counterpart of
     JAX donating the cache buffers — and `cache` is returned as is.
     Returns (logits (B, V), cache)."""
-    require_dense_causal(cfg)
+    require_causal_decoder(cfg)
     b = token.shape[0]
     nkv, hd = cfg.n_kv_heads, cfg.head_dim
     h = _embed(params, token)[:, None]                          # (B,1,D)

@@ -1,4 +1,5 @@
-"""Parameters of the dense causal decoder: seeded init and JAX import.
+"""Parameters of the causal decoder (dense or MoE FFN): seeded init and
+JAX import.
 
 The layout is the JAX package's, stacked over layers with a leading `L`
 dim, as a nested dict of tensors:
@@ -8,6 +9,9 @@ dim, as a nested dict of tensors:
     layers.mlp.wi  (L, 2, d, f)          index 0 = gate, 1 = up (swiglu)
                    (L, d, f)             gelu
     layers.mlp.wo  (L, f, d)
+    layers.moe.router (L, d, E) f32      MoE configs, in place of mlp
+    layers.moe.wi  (L, E, 2, d, f) swiglu / (L, E, d, f) gelu
+    layers.moe.wo  (L, E, f, d)
     layers.ln1 / ln2 (L, d), final_norm (d,)      rms-norm configs only
     lm_head (d, V)                                untied configs only
 
@@ -32,18 +36,15 @@ from repro_torch.device import (DeviceLike, generator_for, resolve_device,
 Params = Dict[str, Any]
 
 
-def require_dense_causal(cfg: ArchConfig) -> None:
-    """The port's model covers dense causal decoders: a SwiGLU or gelu
-    FFN, an optional sliding window (uniform over layers) and an optional
-    vision frontend's prefix tokens.  Other families are queued in
-    ROADMAP.md A7."""
+def require_causal_decoder(cfg: ArchConfig) -> None:
+    """The port's model covers causal decoders: a SwiGLU or gelu FFN,
+    dense or Mixture-of-Experts, an optional sliding window (uniform over
+    layers) and an optional vision frontend's prefix tokens.  The
+    embedding family builds as such a decoder, as `repro.models.build`
+    builds it.  Other families are queued in ROADMAP.md A7."""
     unsupported = []
-    if cfg.family == "embed":
-        unsupported.append("encoder-only embedding model")
     if cfg.block != "transformer":
         unsupported.append(f"block={cfg.block}")
-    if cfg.moe is not None:
-        unsupported.append("moe")
     if cfg.encdec is not None:
         unsupported.append("encoder-decoder")
     if cfg.n_meta_tokens:
@@ -57,7 +58,7 @@ def require_dense_causal(cfg: ArchConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unsupported)} is not ported yet "
-            f"(ROADMAP.md A7); repro_torch runs dense causal decoders")
+            f"(ROADMAP.md A7); repro_torch runs causal decoders")
 
 
 # --------------------------------------------------------------------- #
@@ -69,19 +70,20 @@ _LO, _HI = -2.0, 2.0
 def _trunc_normal(shape, scale: float, dtype, gen: torch.Generator,
                   device: torch.device) -> torch.Tensor:
     """Standard normal truncated to [-2, 2] (as jax.random.truncated_normal),
-    times `scale`, by inverse CDF in f32."""
+    times `scale`, by inverse CDF in f32, in place in one f32 buffer (a
+    full-width expert leaf is billions of values)."""
     cdf = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))  # noqa: E731
     lo, hi = cdf(_LO), cdf(_HI)
     u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
-    x = torch.special.ndtri(lo + (hi - lo) * u).clamp_(_LO, _HI)
-    return (x * scale).to(dtype)
+    x = torch.special.ndtri(u.mul_(hi - lo).add_(lo), out=u)
+    return x.clamp_(_LO, _HI).mul_(scale).to(dtype)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Params:
     """Random params for `cfg` on `device` ("cuda" unless given), drawn
     from `generator`, which must live on that device."""
-    require_dense_causal(cfg)
+    require_causal_decoder(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
@@ -96,10 +98,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         "attn": {"wq": dense(d, n, d, h, hd), "wk": dense(d, n, d, kv, hd),
                  "wv": dense(d, n, d, kv, hd),
                  "wo": dense(h * hd, n, h, hd, d)},
-        "mlp": {"wi": (dense(d, n, 2, d, f) if cfg.act == "swiglu"
-                       else dense(d, n, d, f)),
-                "wo": dense(f, n, f, d)},
     }
+    if cfg.moe is not None:
+        e = cfg.moe.num_experts
+        layers["moe"] = {
+            "router": _trunc_normal((n, d, e), (1.0 / d) ** 0.5,
+                                    torch.float32, generator, dev),
+            "wi": (dense(d, n, e, 2, d, f) if cfg.act == "swiglu"
+                   else dense(d, n, e, d, f)),
+            "wo": dense(f, n, e, f, d)}
+    else:
+        layers["mlp"] = {"wi": (dense(d, n, 2, d, f) if cfg.act == "swiglu"
+                                else dense(d, n, d, f)),
+                         "wo": dense(f, n, f, d)}
     params: Params = {
         "embed": _trunc_normal((cfg.vocab, d), 0.02, dt, generator, dev),
         "layers": layers}
@@ -131,7 +142,7 @@ def seeded_store(device: DeviceLike = None,
             return None
         if cfg.name not in trees:
             try:
-                require_dense_causal(cfg)
+                require_causal_decoder(cfg)
             except NotImplementedError:
                 return None
             trees[cfg.name] = init_params(cfg, generator_for(dev, 0), dev)
@@ -156,7 +167,7 @@ def from_jax(tree: Params, cfg: ArchConfig, device: DeviceLike = None
     """Carry a JAX param pytree (leaves already `np.asarray`'d) across,
     leaf by leaf, keeping the stacked layout.  Takes numpy arrays only;
     it imports nothing of JAX."""
-    require_dense_causal(cfg)
+    require_causal_decoder(cfg)
     dev = resolve_device(device)
 
     def conv(node):

@@ -1,5 +1,5 @@
 """Continuous-batching inference engine on the card — the counterpart of
-`repro.serving.engine.InferenceEngine` for dense causal decoders.
+`repro.serving.engine.InferenceEngine` for causal decoders (dense or MoE).
 
 Each `step()` issues at most two dispatches, each ending in exactly one
 host sync:
@@ -37,7 +37,9 @@ A vision model's prefix tokens (`n_prefix_tokens`, fed zero embeddings
 as in JAX) take cache positions ahead of every prompt: admission charges
 them, the bucket is capped at max_len less them, and a prompt that fits
 only without them is refused at submit.  A window or prefix tokens turn
-the prefix cache and speculation off, as in JAX.
+the prefix cache and speculation off, as in JAX; a MoE FFN keeps both
+on (its capacity then follows each dispatch's own length: the bucket,
+the suffix bucket, 1 in decode, D + 1 in the verify).
 
 Where JAX donates buffers to a jitted call, this engine updates the page
 pools and the slot-state tensors in place.  Where JAX counts compiles

@@ -13,8 +13,9 @@ when it is even (else it stays unpacked int8, as in JAX).
 
 The engine serves int8 through the int8 matmul kernel: `int8_operands`
 prepares, once, the per-column scales the flattened projections need.
-int4 has no kernel: the whole tree is dequantized per dispatch through
-`dequant_tree`, as the JAX engine does.
+The MoE experts stay int8 at rest and the model dequantizes them a layer
+at a time where it runs them.  int4 has no kernel: the whole tree is
+dequantized per dispatch through `dequant_tree`, as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -96,12 +97,14 @@ def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor,
 # --------------------------------------------------------------------- #
 # the int8 kernel path
 
-# matmul weights of the dense decoder, by path; other quantized leaves
-# (stacked norm scales) are dequantized once by `int8_operands`
+# matmul weights of the decoder, by path; other quantized leaves (stacked
+# norm scales, the MoE router) are dequantized once by `int8_operands`
 _LINEARS = {("layers", "attn", "wq"), ("layers", "attn", "wk"),
             ("layers", "attn", "wv"), ("layers", "attn", "wo"),
             ("layers", "mlp", "wi"), ("layers", "mlp", "wo"),
             ("embed",), ("lm_head",)}
+# the MoE experts: batched products off the kernel, kept int8 at rest
+_EXPERTS = {("layers", "moe", "wi"), ("layers", "moe", "wo")}
 
 
 def _col_scale(path, leaf) -> torch.Tensor:
@@ -120,13 +123,16 @@ def int8_operands(params: Params) -> Params:
     """The tree the model runs under quantize="int8", built once: each
     int8 matmul leaf keeps its `q` (shared, not copied) and gains `col`,
     its scale laid out per column of the matrix the kernel multiplies
-    (wq/wk/wv's per-hd scale repeated over heads); any other quantized
-    leaf is dequantized here once, to the value JAX's per-step
-    `dequant_tree` gives it."""
+    (wq/wk/wv's per-hd scale repeated over heads); the MoE experts' int8
+    leaves stay as they are (the model dequantizes one layer at a time);
+    any other quantized leaf is dequantized here once, to the value JAX's
+    per-step `dequant_tree` gives it."""
     def walk(node, path):
         if is_quantized_leaf(node):
             if path in _LINEARS and node["bits"] == 8:
                 return {**node, "col": _col_scale(path, node)}
+            if path in _EXPERTS and node["bits"] == 8:
+                return node
             return dequantize_array(node)
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}

@@ -48,6 +48,10 @@ def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# decode positions of the MoE cases: pos 0, either side of the chunk
+# edges at 128 rows (B 8 x K 8: 8 chunks), the cache end
+MOE_POS = [0, 127, 128, 255, 256, 700, 1000, 1023]
+
 PAGED = [
     # B, K, G, n_pages, pps, ps, hd, window, prefix
     (3, 2, 4, 24, 6, 8, 64, 0, 0),
@@ -106,6 +110,12 @@ PAGED_SPLIT = [
                                          1023], "plain"),
     (4, 4, 2, 600, 100, 16, 256, 1024, 256, [0, 300, 1599, 1100], "plain"),
     (2, 1, 4, 70, 32, 8, 256, 0, 0, [200, 255], "holes"),
+    # the MoE models' odd and 6-wide groups at their served shapes (8
+    # chunks of 8 pages of 16: pos 0, either side of a chunk edge):
+    # granite (G 3 over 8 KV heads, hd 64), mixtral (G 6, hd 128, window
+    # 4096)
+    (8, 8, 3, 600, 64, 16, 64, 0, 0, MOE_POS, "plain"),
+    (8, 8, 6, 600, 64, 16, 128, 4096, 0, MOE_POS, "plain"),
 ]
 
 
@@ -185,6 +195,8 @@ FLASH = [
     (1, 8, 4, 1280, 1280, 256, 1024, 256, True),
     (2, 4, 1, 100, 100, 256, 16, 4, True),    # ragged, small window
     (1, 4, 2, 128, 160, 256, 0, 0, False),    # non-causal, Skv % 32
+    (2, 24, 8, 300, 300, 64, 0, 0, True),     # granite: G 3, ragged S
+    (1, 48, 8, 256, 256, 128, 4096, 0, True),  # mixtral: G 6, window
 ]
 FLASH_ROUTE = {"f32": "cuda_core", "bf16": "tensor_core"}
 
@@ -254,6 +266,9 @@ DECODE = [
     (8, 1, 4, 1024, 256, 512, 0, [0, 63, 64, 511, 512, 700, 1000, 1023]),
     (4, 4, 2, 1400, 256, 1024, 256, [0, 300, 1399, 1100]),
     (2, 1, 4, 1000, 256, 100, 16, [0, 999]),
+    # granite (G 3, hd 64) and mixtral (G 6, hd 128, window 4096)
+    (8, 8, 3, 1024, 64, 0, 0, MOE_POS),
+    (8, 8, 6, 1024, 128, 4096, 0, MOE_POS),
 ]
 SPLIT = DECODE[10:15]
 
@@ -309,6 +324,13 @@ INT8 = [
     (5, 272, 61, "head", "skinny_tc"),       # ragged, aligned
     (40, 96, 200, "head", "cuda_core_tile"),
     (5, 37, 61, "head", "skinny"),
+    # granite-moe-3b-a800m: decode (M = 8) and prefill (M > 16) wq / wo
+    # 1536 -> 1536 and wk / wv 1536 -> 512, the tied head's odd N
+    (8, 1536, 1536, "kn", "skinny_tc"),
+    (8, 1536, 512, "kn", "skinny_tc"),
+    (64, 1536, 1536, "kn", "tensor_core"),
+    (64, 1536, 512, "kn", "tensor_core"),
+    (8, 1536, 49155, "head", "skinny_tc"),
 ]
 
 
@@ -516,10 +538,12 @@ def test_split_kernels_on_two_streams(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [DECODE[9], DECODE[11], DECODE[14],
-                                  DECODE[15], DECODE[16]])
+                                  DECODE[15], DECODE[16], DECODE[18],
+                                  DECODE[19]])
 def test_decode_kernel_bit_identical_launches(cuda, case):
     """The splits of a row merge in split order: two launches, same bits
-    (the OLMo-1B decode shape, chunk edges, G > 8, gemma3's hd 256)."""
+    (the OLMo-1B decode shape, chunk edges, G > 8, gemma3's hd 256, the
+    MoE models' G 3 and G 6)."""
     B, K, G, S, hd, win, pre, pos = case
     q, = _tensors(6, cuda, torch.bfloat16, (B, K, G, hd))
     kc, vc = (c.permute(0, 2, 1, 3) for c in
@@ -534,11 +558,12 @@ def test_decode_kernel_bit_identical_launches(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [PAGED[6], PAGED_SPLIT[0], PAGED_SPLIT[2],
                                   PAGED_SPLIT[6], PAGED_SPLIT[9],
-                                  PAGED_SPLIT[10]])
+                                  PAGED_SPLIT[10], PAGED_SPLIT[12],
+                                  PAGED_SPLIT[13]])
 def test_paged_kernel_bit_identical_launches(cuda, case):
     """The chunks of a slot merge in chunk order: two launches, same bits
     (the OLMo-1B decode shape, chunk edges, sentinel holes, G > 8,
-    gemma3's hd 256)."""
+    gemma3's hd 256, the MoE models' G 3 and G 6)."""
     if len(case) == 9:   # a PAGED case: pos as test_paged_kernel_matches_plain
         B, ps, pps = case[0], case[5], case[4]
         case = case + ([0, ps * 2 + 3, ps * pps - 1][:B], "plain")

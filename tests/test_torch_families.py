@@ -388,3 +388,22 @@ def test_vision_prefix_charges_pages_as_jax(param_store):
     slot, = eng.slot_req
     assert eng.pool.lengths[slot] >= 12 + pcfg.n_prefix_tokens
     eng.run_until_done()
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_embedding_family_engine_matches_jax(param_store, k):
+    """nomic-embed-text (`family="embed"`, gelu, tied) builds and serves
+    as the causal decoder `repro.models.build` makes of it: the reduced
+    config's greedy tokens and counters equal JAX's."""
+    jcfg = JAX_ZOO["nomic-embed-text"].reduced(
+        dtype="f32", name="nomic-embed-text-reduced-f32")
+    pcfg = ZOO["nomic-embed-text"].reduced(
+        dtype="f32", name="nomic-embed-text-reduced-f32")
+    assert pcfg.family == "embed" and pcfg.act == "gelu"
+    jparams = _seeded_norms(param_store(jcfg))
+    tparams = params_lib.from_jax(jax.tree.map(np.asarray, jparams), pcfg,
+                                  "cpu")
+    jax_side, port_side = _both(jcfg, pcfg, jparams, tparams,
+                                decode_block=k)
+    assert port_side == jax_side
+    assert sum(len(t) for t in port_side[0]) == 34

@@ -3,6 +3,7 @@ split counts, on one CUDA device.
 
     python3 tools/sweep_splits.py
     python3 tools/sweep_splits.py --gemma
+    python3 tools/sweep_splits.py --moe
 
 paged_decode_attention (B=8 K=16 G=1 hd=128 bf16, pages of 16, a table
 of 64 columns, ragged pos up to 1023) over its pages per chunk,
@@ -25,6 +26,14 @@ decode shape (B=8 K=1 G=4 hd=256 bf16, window 512, the same ragged pos;
 the paged kernel over a table of 64 columns of 16-row pages), where one
 KV head leaves 8 (slot, head) pairs and the window skips half of a
 slot's rows.
+
+With --moe it sweeps the two decode kernels at the MoE models' groups,
+B=8 K=8 at the same ragged pos: granite-moe-3b-a800m's G=3 hd=64, and
+mixtral-8x22b's G=6 hd=128 with its window of 4096 and without one
+(the window skips nothing at S = 1024, so the two differ only by the
+kernel's window test), and G=4 and G=8 at hd=128 beside it (G = 6 runs
+the kernels' 8-row group variant, G = 4 the 4-row one); then skinny_tc at granite's M = 8 products (1536
+-> 1536, 1536 -> 512, the tied head 1536 -> 49155).
 """
 from __future__ import annotations
 
@@ -115,12 +124,29 @@ def main() -> int:
         sweep_decode_kernels(dev, ops, card, n_sm, K=1, G=4, hd=256,
                              window=512)
         return 0
+    if "--moe" in sys.argv[1:]:
+        for G, hd, window in ((3, 64, 0), (6, 128, 4096), (6, 128, 0),
+                              (4, 128, 0), (8, 128, 0)):
+            sweep_decode_kernels(dev, ops, card, n_sm, K=8, G=G, hd=hd,
+                                 window=window)
+        sweep_skinny_tc(dev, ops, q_lib, card, n_sm, (
+            ("granite_decode_attn", 8, 1536, 1536, False),
+            ("granite_decode_kv", 8, 1536, 512, False),
+            ("granite_head", 8, 1536, 49155, True)))
+        return 0
     sweep_decode_kernels(dev, ops, card, n_sm, K=16, G=1, hd=128, window=0)
+    sweep_skinny_tc(dev, ops, q_lib, card, n_sm, (
+        ("decode_attn", 8, 2048, 2048, False),
+        ("decode", 8, 2048, 8192, False),
+        ("decode_down", 8, 8192, 2048, False),
+        ("head", 8, 2048, 50304, True)))
+    return 0
 
-    for label, M, K, N, head in (("decode_attn", 8, 2048, 2048, False),
-                                 ("decode", 8, 2048, 8192, False),
-                                 ("decode_down", 8, 8192, 2048, False),
-                                 ("head", 8, 2048, 50304, True)):
+
+def sweep_skinny_tc(dev, ops, q_lib, card, n_sm, shapes):
+    """The int8 matmul's skinny_tc route over its K splits at each
+    (label, M, K, N, head) of `shapes`."""
+    for label, M, K, N, head in shapes:
         x, wq, sc = chip_smoke.int8_case(dev, torch.bfloat16, q_lib, M=M,
                                          K=K, N=N, head=head, seed=10)
         swk, swn = wq.stride()
@@ -152,7 +178,6 @@ def main() -> int:
                          "ms_by_splits_x_steps": times,
                          "wrapper_choice": f"{chosen[0]}x{chosen[1]}",
                          "card": card})
-    return 0
 
 
 if __name__ == "__main__":
