@@ -40,7 +40,17 @@ JSON line:
               (pos 0 and either side of the chunk edges, the split
               kernels twice bit for bit), and the int8 matmul at
               granite's 1536 -> 1536 and 1536 -> 512 (M 8 and 4096) and
-              its tied head 1536 -> 49155.
+              its tied head 1536 -> 49155.  Then hymba-1.5b's: G = 5 at
+              hd 64 over 5 KV heads with its 128 meta tokens as the
+              prefix, in both decode kernels at max_len 4096 (window 2048
+              and 0; pos 0, either side of a chunk edge and of window +
+              prefix; twice bit for bit) and in flash (H 25, S 128 +
+              2400, window 2048); the int8 matmul at its products (1600
+              -> 1600 / 320 / 3200 / 5504, 5504 -> 1600, the untied head
+              1600 -> 32001 on the CUDA-core routes) at M 8 and 1024.
+              Last, ROADMAP C5: the f32 int8 product at M = 4096, 8192 ->
+              2048 on four seeds against the f64 product within the f32
+              summation bound (K + 4) u sum |x||w|.
               Tolerances: f32 1e-4 (another summation order than the
               plain version), bf16 2e-2 (as tests/test_kernels.py); the
               int8 products are held against the plain
@@ -86,6 +96,16 @@ JSON line:
               one decode step a token, plain attention): a full forward
               would route the prompt at another MoE capacity.  It
               prints the (token, expert) pairs the admissions dropped.
+   parity_hymba — hymba-1.5b cut to 4 layers at full width (layer 0
+              global, 128 meta tokens, window 2048, G = 5) in f32, max_len
+              4096: prompts of 10, 700, 2300 and 3000 tokens in the
+              paged-attention and gather modes and in the gather mode
+              under int8, each held against greedy_recompute (a family
+              admitted at its exact length has a true recompute), each
+              admission holding rows of one length; then two requests
+              through the host swap tier (>= 1 swap-out) equal to the
+              same requests on a pool with room (the SSM state rides in
+              the swap handle).
 5. serve_bf16 — a main path: the full OLMo-1B (16 layers, bf16, seeded
               random weights) serves 12 requests through
               InferenceEngine.submit/step in the paged-attention mode,
@@ -196,6 +216,16 @@ JSON line:
               held as its phase holds OLMo and prints tok/s, p50 step,
               TTFT, peak device memory and the share of admission pairs
               dropped.
+10c. serve_hymba — the paper's hymba-1.5b at full width and depth (32
+              layers, 1.31 B params, bf16, seeded weights): serve_bf16's
+              engine and requests (prompts capped at 832, so that
+              prompt + 128 meta + budget <= 1024) in the paged-attention
+              mode, then under int8 in the gather mode, then at max_len
+              4096 in the paged-attention mode with 4 prompts of
+              2100-3500 tokens where the window masks.  Each leg is held
+              as serve_bf16 is, its routes exact (the untied head's
+              32001-byte rows on "skinny") and every prefill admission a
+              group of one exact length.
 12. launcher — `python -m repro_torch.api.http --port 0` as a process
               of its own: /healthz and /v1/models list both models, one
               streamed chat ends in `data: [DONE]`, and SIGINT makes it
@@ -227,9 +257,17 @@ JSON line:
               (the int8 products at granite's shapes, and one MoE FFN
               layer against its dense-masked plain version and its
               bound at granite's decode and widest prefill and
-              mixtral's decode).  The line asserts every kernel ran on
-              serve_moe; the attention kernels' rows at the MoE shapes
-              carry their serve_moe launches.
+              mixtral's decode), and hymba_timings (the int8 products at
+              hymba-1.5b's shapes, and its plain SSM branch: one layer's
+              decode step, one layer's selective scan over 2048 tokens).
+              The line asserts every kernel ran on serve_moe and on
+              serve_hymba; the attention kernels' rows at the MoE and
+              hymba shapes (hymba at S = 4096, flash at 128 + 2400)
+              carry their serve_moe / serve_hymba launches.
+              Each serve also holds placement's charge with the
+              engine's page budget (cluster/node.py instance_bytes)
+              equal to every byte the engine's memory_report counts
+              (ROADMAP C14).
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -423,6 +461,15 @@ GEMMA_POS = [0, 63, 64, 511, 512, 700, 1000, 1023]
 # the MoE models' (B 8 x K 8: chunks of 128 rows, of 8 pages of 16): pos 0,
 # either side of two chunk edges, the cache end
 MOE_POS = [0, 127, 128, 255, 256, 700, 1000, 1023]
+# hymba-1.5b's at max_len 4096 (B 8 x K 5: chunks of 320 rows, of 20 pages
+# of 16): pos 0, either side of a chunk edge, either side of the window of
+# 2048 past the 128 meta tokens, the cache end
+HYMBA_POS = [0, 319, 320, 2175, 2176, 2177, 3000, 4095]
+# hymba-1.5b's int8 products (K -> N): wq, wk / wv, w_in (u and z), gate /
+# up, down, and the untied head, whose row of 32001 bytes is not a whole
+# number of 16-byte vectors (the CUDA-core routes)
+HYMBA_INT8 = ((1600, 1600), (1600, 320), (1600, 3200), (1600, 5504),
+              (5504, 1600), (1600, 32001))
 
 
 def kernel_checks(dev, ops, refs, q_lib):
@@ -618,7 +665,63 @@ def kernel_checks(dev, ops, refs, q_lib):
         icases.append(("granite_head_m8_1536x49155",
                        dict(M=8, K=1536, N=49155, head=True), "skinny_tc"))
         check_int8(dev, ops, refs, q_lib, dtype, icases, rows, 2000)
+    # hymba-1.5b's shapes (seeds from 3000): G = 5 at hd 64 over 5 KV
+    # heads, 128 meta tokens exempt from a window of 2048 and the global
+    # layers' window 0, in the three attention kernels at max_len 4096
+    # (the split kernels twice bit for bit); the int8 matmul at its
+    # products, M 8 and 1024
+    for dtype in (torch.bfloat16, torch.float32):
+        check_paged(dev, ops, refs, dtype, [
+            (f"split_hymba_window{w}", dict(B=8, K=5, G=5, hd=64, ps=16,
+                                            pps=256, pos=HYMBA_POS), w, 128)
+            for w in (2048, 0)], rows, 3000)
+        check_flash(dev, ops, refs, dtype, [
+            ("hymba_prefill", dict(B=1, H=25, K=5, S=128 + 2400, hd=64),
+             2048, 128)], rows, 3000)
+        check_decode(dev, ops, refs, dtype, [
+            (f"split_hymba_window{w}", dict(B=8, K=5, G=5, S=4096, hd=64,
+                                            pos=HYMBA_POS, strided=True),
+             w, 128) for w in (2048, 0)], rows, 3000)
+        icases = [(f"hymba_m{m}_{k}x{n}", dict(M=m, K=k, N=n, head=False),
+                   ("skinny_tc" if m <= 16 else "tensor_core")
+                   if n % 16 == 0 else
+                   ("skinny" if m <= 16 else "cuda_core_tile"))
+                  for m in (8, 1024) for k, n in HYMBA_INT8]
+        check_int8(dev, ops, refs, q_lib, dtype, icases, rows, 3000)
+    c5_seeds(dev, ops, q_lib, rows)
     return rows
+
+
+C5_SEEDS = range(4000, 4004)
+
+
+def c5_seeds(dev, ops, q_lib, rows):
+    """ROADMAP C5: the f32 int8 product at M = 4096, 8192 -> 2048 (the
+    CUDA-core tile route) on several seeds, each held against the f64
+    product within what f32 summation can err by in any order, (K + 4) u
+    sum |x||w| per entry (u = 2^-24, with a 1% margin): a wrong tile or a
+    lost chunk errs by O(sum |x||w|) on any seed, the f32 sums meeting
+    by ~1e-6 of it.  The existing f32 case `int8_matmul/m4096_8192x2048`
+    is held against the f32 product as before."""
+    M, K, N = 4096, 8192, 2048
+    for seed in C5_SEEDS:
+        x, wq, sc = int8_case(dev, torch.float32, q_lib, M=M, K=K, N=N,
+                              head=False, seed=seed)
+        got = on_route(ops.int8_matmul, "cuda_core_tile",
+                       lambda: ops.int8_matmul(x, wq, sc))
+        w64 = wq.double() * sc.double()
+        err = (got.double() - x.double() @ w64).abs()
+        lim = 1.01 * (K + 4) * 2.0 ** -24 * (x.double().abs() @ w64.abs())
+        ratio = float((err / lim.clamp_min(1e-300)).max())
+        if not bool(torch.isfinite(got).all()) or ratio > 1.0:
+            raise AssertionError(f"int8_matmul/c5_seed{seed}: error "
+                                 f"{ratio:.3e} of the f32 summation bound")
+        rows.append({"kernel": "int8_matmul",
+                     "case": f"c5_m{M}_{K}x{N}_seed{seed}",
+                     "dtype": str(torch.float32), "route": "cuda_core_tile",
+                     "max_abs_err": float(err.max()),
+                     "max_err_over_bound": ratio})
+        del x, wq, sc, got, w64, err, lim
 
 
 def check_paged(dev, ops, refs, dtype, cases, rows, seed0=0):
@@ -906,7 +1009,13 @@ SERVED_GQA = {
     "gemma3-4b": (8, 4, 256, 1024, 256),
     "granite-moe-3b-a800m": (24, 8, 64, 0, 0),
     "mixtral-8x22b": (48, 8, 128, 4096, 0),
+    # configs/hymba_1_5b.py at serve_hymba's max_len 4096: its 128 meta
+    # tokens are the prefix, its windowed layers' 2048 the window
+    "hymba-1.5b": (25, 5, 64, 2048, 128),
 }
+# decode S and flash S past the prefix, where not 1024 (so that the
+# window bites)
+GQA_LENGTHS = {"hymba-1.5b": (4096, 2400)}
 GEMMA = ("gemma3-1b", "gemma3-4b")
 
 
@@ -934,7 +1043,8 @@ def gqa_timings(dev, ops, refs):
     out = {"paged_decode_attention": [], "decode_attention": [],
            "flash_attention": []}
     for model, (H, K, hd, win, pre) in SERVED_GQA.items():
-        G, B, S = H // K, 8, 1024
+        S, S_flash = GQA_LENGTHS.get(model, (1024, 1024))
+        G, B, pps = H // K, 8, S // 16
         kw = dict(window=win, prefix=pre)
         tag = f" window={win} prefix={pre}" if win else ""
         pos = [S - 1] * B
@@ -943,7 +1053,7 @@ def gqa_timings(dev, ops, refs):
                   for p in pos)              # visible (slot, row) pairs
         b_ms, b_by = bound(2 * vis * K * hd * 2 + 2 * B * H * hd * 2 + B * 4,
                            4 * vis * K * G * hd, BF16_FLOPS)
-        args = paged_case(dev, dt, B=B, K=K, G=G, hd=hd, ps=16, pps=64,
+        args = paged_case(dev, dt, B=B, K=K, G=G, hd=hd, ps=16, pps=pps,
                           pos=pos, seed=31)
         ref = refs["paged_decode_attention"]
         err = check_close(f"paged_decode_attention/{model}",
@@ -951,10 +1061,10 @@ def gqa_timings(dev, ops, refs):
                           ref(*args, **kw), tol_of(dt))
         out["paged_decode_attention"].append({
             "label": model, "shape": f"B={B} K={K} G={G} hd={hd} ps=16 "
-            f"pps=64{tag} bf16, pos 1023",
+            f"pps={pps}{tag} bf16, pos {S - 1}",
             "splits": dict(zip(("n_split", "pages_per_chunk"),
                                ops.paged_decode_attention_splits(
-                                   B, K, 64, 16, ops._sm_count(dev.index)))),
+                                   B, K, pps, 16, ops._sm_count(dev.index)))),
             "max_abs_err": err,
             "ms": time_ms(lambda: ops.paged_decode_attention(*args, **kw)),
             "plain_ms": time_ms(lambda: ref(*args, **kw), reps=10),
@@ -969,7 +1079,7 @@ def gqa_timings(dev, ops, refs):
                 if win else None)
         out["decode_attention"].append({
             "label": model, "shape": f"B={B} K={K} G={G} S={S} hd={hd}{tag} "
-            "bf16, (B, S, K, hd) cache view, pos 1023",
+            f"bf16, (B, S, K, hd) cache view, pos {S - 1}",
             "splits": dict(zip(("n_split", "chunk"),
                                ops.decode_attention_splits(
                                    B, K, S, ops._sm_count(dev.index)))),
@@ -980,7 +1090,7 @@ def gqa_timings(dev, ops, refs):
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 qh, k, v, attn_mask=mask, enable_gqa=True))})
         del q, k, v, args
-        B, S = (4, 1024) if pre == 0 else (2, pre + 1024)
+        B, S = (4, S_flash) if pre == 0 else (2, pre + S_flash)
         q, k, v = flash_case(dev, dt, B=B, H=H, K=K, S=S, hd=hd, seed=14)
         ref = refs["flash_attention"]
         got = on_route(ops.flash_attention, "tensor_core",
@@ -1389,9 +1499,12 @@ def parity_gateway(dev, ops, cfg, params, prompts, dense, kernels):
 
 def seed_norms(params, rng):
     """Draw every RMS-norm scale from `rng` (the init leaves them 0, and
-    `1 + scale` then never weighs anything)."""
-    for tree, key in ((params["layers"], "ln1"), (params["layers"], "ln2"),
-                      (params, "final_norm")):
+    `1 + scale` then never weighs anything); Hymba's branch norms too."""
+    lp = params["layers"]
+    for tree, key in ((lp, "ln1"), (lp, "ln2"), (params, "final_norm"),
+                      (lp, "branch_norm_attn"), (lp, "branch_norm_ssm")):
+        if key not in tree:
+            continue
         t = tree[key]
         tree[key] = torch.from_numpy(rng.normal(
             0.0, 0.5, tuple(t.shape)).astype(np.float32)).to(t.device,
@@ -1665,7 +1778,8 @@ def parity_moe(dev, ops, cfg=None):
     return lines
 
 
-def serve_setup(dev, cfg=None, params=None, max_prompt=896, **engine_kw):
+def serve_setup(dev, cfg=None, params=None, max_prompt=896, max_len=1024,
+                **engine_kw):
     """The main paths' model, engine and 12 seeded requests: the full
     OLMo-1B in bf16 with random weights from a seed; prompt lengths in
     16..max_prompt, budgets in 1..64; 10 greedy and 2 sampled requests.
@@ -1681,7 +1795,7 @@ def serve_setup(dev, cfg=None, params=None, max_prompt=896, **engine_kw):
         gen = torch.Generator(device=dev).manual_seed(0)
         params = build(cfg, dev).init(gen)
     dense_bytes = tree_bytes(params)
-    ecfg = EngineConfig(n_slots=8, max_len=1024, page_size=16,
+    ecfg = EngineConfig(n_slots=8, max_len=max_len, page_size=16,
                         decode_block=8, **engine_kw)
     eng = InferenceEngine(cfg, params, ecfg, device=dev)
     return (cfg, ecfg, eng, lambda: serve_requests(cfg, max_prompt),
@@ -1727,8 +1841,11 @@ def drive(eng, reqs):
 def int8_linears(cfg) -> int:
     """The int8 kernel's products a layer: wq, wk, wv, wo, and gate, up,
     down of a dense FFN (a MoE model's experts are batched products off
-    the kernel, dequantized a layer at a time)."""
-    return 4 if cfg.moe else 7
+    the kernel, dequantized a layer at a time); Hymba has w_in and
+    wo_comb in place of wo."""
+    if cfg.moe:
+        return 4
+    return 8 if cfg.block == "hymba" else 7
 
 
 def expected_launches(cfg, ecfg, st):
@@ -1755,44 +1872,56 @@ def expected_routes(cfg, ecfg, st, dispatch_shapes):
     """The flash and int8 launches of a bf16 serve by route.  Flash: all
     on the tensor cores.  int8: in a prefill dispatch of (rows, bucket)
     the int8_linears x n_layers projections have M = rows x bucket, on
-    the tensor cores when M > 16, and the tied head M = rows; every
-    decode step has M = n_slots; M <= 16 (bf16 x, aligned rows) is
-    skinny_tc, and nothing is left on the CUDA-core skinny kernels."""
+    the tensor cores when M > 16, and the head M = rows; every decode
+    step has M = n_slots; M <= 16 (bf16 x, aligned rows) is skinny_tc.
+    An untied head of N % 16 != 0 (hymba's 32001) has rows that are no
+    whole number of 16-byte vectors: M <= 16 on "skinny"."""
     flash = {"tensor_core": cfg.n_layers * st["prefill_dispatches"],
              "cuda_core": 0}
     int8 = {"skinny": 0, "tensor_core": 0, "cuda_core_tile": 0,
             "skinny_tc": 0}
     if ecfg.quantize == "int8":
-        def route(m, wide):
-            return "skinny_tc" if m <= 16 else wide
+        head_row = cfg.d_model if cfg.tie_embeddings else cfg.vocab
+
+        def route(m, wide, row=16):
+            if m > 16:
+                return wide
+            return "skinny_tc" if row % 16 == 0 else "skinny"
         n = cfg.n_layers * int8_linears(cfg)
         for rows, bucket in dispatch_shapes:
             int8[route(rows * bucket, "tensor_core")] += n
-            int8[route(rows, "cuda_core_tile")] += 1     # the tied head
+            int8[route(rows, "cuda_core_tile", head_row)] += 1   # the head
         steps = ecfg.decode_block * st["decode_dispatches"]
         int8[route(ecfg.n_slots, "tensor_core")] += n * steps
-        int8[route(ecfg.n_slots, "cuda_core_tile")] += steps
+        int8[route(ecfg.n_slots, "cuda_core_tile", head_row)] += steps
     return {"flash_attention": flash, "int8_matmul": int8}
 
 
 def serve(phase, dev, ops, card, cfg=None, max_prompt=896, params=None,
-          note=None, **engine_kw):
+          note=None, max_len=1024, requests=None, **engine_kw):
     """One serve of serve_setup's model and requests (`cfg`: another zoo
     model, `params` its weights), its launches counted from 0 just before
     and read just after, held by check_serve, its routes and its pages; a
     MoE model's line also counts its dropped pairs (DropMeter).  `note`
     goes into the line (a depth cut).  Returns (launches, launches by
     route, prefill shapes)."""
-    cfg, ecfg, eng, requests, dense_bytes = serve_setup(
-        dev, cfg=cfg, params=params, max_prompt=max_prompt, **engine_kw)
-    reqs = requests()
-    # each prefill dispatch's (rows, bucket), for the expected routes
+    cfg, ecfg, eng, make_requests, dense_bytes = serve_setup(
+        dev, cfg=cfg, params=params, max_prompt=max_prompt, max_len=max_len,
+        **engine_kw)
+    reqs = (requests or make_requests)()
+    # each prefill dispatch's (rows, bucket), for the expected routes; an
+    # exact-length family's admitted rows are each exactly the bucket long
     dispatch_shapes = []
     admit = eng._prefill_admit
 
-    def recording_admit(toks, *args):
+    def recording_admit(toks, lengths, row_pages, slots, *args):
         dispatch_shapes.append(tuple(toks.shape))
-        return admit(toks, *args)
+        if not eng._supports_bucket and any(
+                int(n) != toks.shape[1] for n in lengths[:len(slots)]):
+            raise AssertionError(f"{phase}: an exact-length admission of "
+                                 f"rows {lengths[:len(slots)].tolist()} "
+                                 f"in a bucket of {toks.shape[1]}")
+        return admit(toks, lengths, row_pages, slots, *args)
     eng._prefill_admit = recording_admit
     # the earlier phases' tensors that only the cycle collector frees would
     # otherwise count in this serve's peak
@@ -1821,13 +1950,17 @@ def serve(phase, dev, ops, card, cfg=None, max_prompt=896, params=None,
                              f"want {want}")
     mem = eng.memory_report()
     # what placement charges an instance of this engine (cluster/node.py),
-    # with the engine's page budget and with none, beside what it holds
+    # with the engine's page budget and with none, beside what it holds:
+    # with the budget, every byte (ROADMAP C14)
     from repro_torch.cluster.node import instance_bytes
     charged = {"paged": instance_bytes(cfg, ecfg.quantize, ecfg.n_slots,
                                        ecfg.max_len, ecfg.page_size,
                                        eng.pool.n_pages),
                "dense": instance_bytes(cfg, ecfg.quantize, ecfg.n_slots,
                                        ecfg.max_len)}
+    if charged["paged"] != sum(mem.values()):
+        raise AssertionError(f"{phase}: placement charges {charged['paged']}"
+                             f" B, the engine holds {mem}")
     if ecfg.quantize == "int8" and mem["param_bytes"] >= 0.65 * dense_bytes:
         raise AssertionError(f"{phase}: int8 weights {mem['param_bytes']} B"
                              f", bf16 {dense_bytes} B")
@@ -1843,6 +1976,7 @@ def serve(phase, dev, ops, card, cfg=None, max_prompt=896, params=None,
           "params": cfg.num_params(), "head_dim": cfg.head_dim,
           "heads": [cfg.n_heads, cfg.n_kv_heads],
           "window": cfg.swa_window, "prefix_tokens": cfg.n_prefix_tokens,
+          "meta_tokens": cfg.n_meta_tokens, "max_len": ecfg.max_len,
           "quantize": ecfg.quantize,
           "paged": st["paged"], "paged_attention": st["paged_attention"],
           "requests": len(reqs),
@@ -1862,7 +1996,8 @@ def serve(phase, dev, ops, card, cfg=None, max_prompt=896, params=None,
           "logical_bytes_moved": st["logical_bytes_moved"],
           "param_bytes": mem["param_bytes"], "bf16_param_bytes": dense_bytes,
           "int8_operand_bytes": run_bytes,
-          "cache_bytes": mem["cache_bytes"], "instance_bytes": charged,
+          "cache_bytes": mem["cache_bytes"],
+          "operand_bytes": mem["operand_bytes"], "instance_bytes": charged,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
           **(meter.report() if meter else {}),
           **({"note": note} if note else {}),
@@ -1948,6 +2083,254 @@ def serve_moe(dev, ops, card, granite=None, mixtral=None):
     gc.collect()
     torch.cuda.empty_cache()
     return legs, more
+
+
+HYMBA_PARITY_LAYERS = 4     # of hymba-1.5b's 32, as reduced() cuts them
+
+
+def hymba_cut(cfg, n_layers):
+    """hymba-1.5b at full width cut to its first n_layers, keeping the
+    global layers among them (reduced()'s cut: layer 0 of 0, 15, 31)."""
+    return dataclasses.replace(
+        cfg, n_layers=n_layers,
+        global_attn_layers=tuple(i for i in cfg.global_attn_layers
+                                 if i < n_layers))
+
+
+def parity_hymba(dev, ops, cfg=None, swap_cfg=None):
+    """The paper's hymba-1.5b at full width (d 1600, 25 heads over 5: G =
+    5, hd 64, 128 meta tokens, window 2048, ssm_state 16, vocab 32001
+    untied) cut to HYMBA_PARITY_LAYERS layers (layer 0 global), f32,
+    RMS-norm and branch-norm scales from a seed, max_len 4096: greedy
+    requests with prompts of 10, 700, 2300 and 3000 tokens (the last two
+    past the window and the meta tokens) in the paged-attention mode,
+    the gather mode and the gather mode under int8.  Each request's
+    tokens must equal `greedy_recompute` (a full forward, plain
+    attention, no cache, every step: for a family admitted at its exact
+    length, a true recompute; on the dequantized weights for int8), each
+    run launch exactly its mode's kernels, and each admission hold rows
+    of one length.  Then the swap tier: two requests on a 70-page pool
+    (max_len 1024) with a host tier, >= 1 swap-out, each request's
+    tokens equal to the same request's without page pressure (its SSM
+    state rides in the swap handle; ROADMAP C16).  `cfg` / `swap_cfg`
+    replace the model (a CPU rehearsal)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                     SamplingParams)
+    from repro_torch.serving import quantization as q_lib
+    cfg = cfg or dataclasses.replace(
+        hymba_cut(ARCHS["hymba-1.5b"], HYMBA_PARITY_LAYERS), dtype="f32")
+    params = build(cfg, dev).init(torch.Generator(device=dev).manual_seed(7))
+    rng = np.random.default_rng(8)
+    seed_norms(params, rng)
+    lens, budgets = (10, 700, 2300, 3000), (16, 12, 8, 10)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    deq = q_lib.dequant_tree(q_lib.quantize_tree(params, 8))
+    wants = {}
+
+    def want(weights, p, n):
+        key = (weights, tuple(p), n)
+        if key not in wants:
+            wants[key] = greedy_recompute(
+                tf, deq if weights == "int8" else params, cfg, p, n)
+        return wants[key]
+
+    paged, gather = ({"paged_decode_attention", "flash_attention"},
+                     {"decode_attention", "flash_attention"})
+    runs = (("paged_attention", dict(paged_attention=True), "dense", paged),
+            ("gather", {}, "dense", gather),
+            ("gather_int8", dict(quantize="int8"), "int8",
+             gather | {"int8_matmul"}))
+    lines, mismatches = [], []
+    for mode, kw, weights, kernels in runs:
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            n_slots=4, max_len=4096, decode_block=4, **kw), device=dev)
+        shapes = []
+        admit = eng._prefill_admit
+
+        def recording_admit(toks, lengths, row_pages, slots, *args,
+                            admit=admit, shapes=shapes):
+            shapes.append((tuple(toks.shape),
+                           sorted({int(n) for n in lengths[:len(slots)]})))
+            return admit(toks, lengths, row_pages, slots, *args)
+        eng._prefill_admit = recording_admit
+        reqs = [Request(model=cfg.name, prompt=p,
+                        sampling=SamplingParams(max_tokens=n))
+                for p, n in zip(prompts, budgets)]
+        ops.reset_launches()
+        for r in reqs:
+            assert eng.submit(r)
+        eng.run_until_done()
+        launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+        if {k for k, n in launched.items() if n} != kernels:
+            raise AssertionError(f"parity_hymba {mode}: kernels {launched}, "
+                                 f"want exactly {sorted(kernels)}")
+        if any(ls != [sh[1]] for sh, ls in shapes):
+            raise AssertionError(f"parity_hymba {mode}: admissions {shapes}"
+                                 " hold rows of another length")
+        st = eng.perf_stats()
+        if st["preemptions"] or eng.pool.pages_in_use:
+            raise AssertionError(f"parity_hymba {mode}: {st['preemptions']}"
+                                 f" preemptions, {eng.pool.pages_in_use} "
+                                 "pages held")
+        bad = [{"mode": f"hymba/{mode}", "prompt_len": len(p),
+                "got": r.output, "want": want(weights, p, n)}
+               for r, p, n in zip(reqs, prompts, budgets)
+               if r.output != want(weights, p, n)]
+        mismatches += bad
+        lines.append({"mode": f"{cfg.name}/{mode}", "layers": cfg.n_layers,
+                      "prompt_lens": list(lens), "admissions": shapes,
+                      "launches": launched, "match": not bad})
+        del eng
+    lines.append(hymba_swap_leg(dev, ops, swap_cfg or cfg, params))
+    if not lines[-1]["match"]:
+        mismatches.append(lines[-1])
+    emit({"phase": "parity_hymba", "heads": [cfg.n_heads, cfg.n_kv_heads],
+          "d_model": cfg.d_model, "meta_tokens": cfg.n_meta_tokens,
+          "window": cfg.swa_window, "global_layers": cfg.global_attn_layers,
+          "budgets": list(budgets), "runs": lines, "match": not mismatches})
+    if mismatches:
+        raise AssertionError(f"parity_hymba mismatches: {mismatches}")
+    return lines
+
+
+def hymba_swap_leg(dev, ops, cfg, params):
+    """Two greedy requests (prompts 400 and 410, 48 tokens each) on a
+    pool of 70 pages of 16 (max_len 1024, 2 slots, paged attention) with
+    64 host pages: the decode growth runs the pool dry and one slot is
+    swapped out, then back in.  Each request must get the tokens the
+    same request gets without page pressure.  Returns the run's line."""
+    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                     SamplingParams)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (400, 410)]
+    outs, stats = {}, {}
+    for leg, kw in (("swap", dict(kv_pages=70, host_kv_pages=64)),
+                    ("roomy", {})):
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            n_slots=2, max_len=1024, decode_block=4, paged_attention=True,
+            **kw), device=dev)
+        reqs = [Request(model=cfg.name, prompt=p,
+                        sampling=SamplingParams(max_tokens=48))
+                for p in prompts]
+        for r in reqs:
+            assert eng.submit(r)
+        eng.run_until_done()
+        st = eng.perf_stats()
+        if eng.pool.pages_in_use or st["host_pages_in_use"]:
+            raise AssertionError(f"parity_hymba swap {leg}: pages held")
+        outs[leg] = [r.output for r in reqs]
+        stats[leg] = {k: st[k] for k in ("swap_outs", "swap_ins",
+                                         "preemptions")}
+    if stats["swap"]["swap_outs"] < 1 \
+            or stats["swap"]["swap_ins"] != stats["swap"]["swap_outs"]:
+        raise AssertionError(f"parity_hymba swap: {stats}")
+    return {"mode": f"{cfg.name}/swap_tier", "prompt_lens": [400, 410],
+            **stats["swap"], "match": outs["swap"] == outs["roomy"]}
+
+
+def hymba_long_requests(cfg):
+    """serve_hymba's long leg: 4 greedy requests with prompts of
+    2100-3500 tokens (past the window of 2048 and the 128 meta tokens),
+    budgets 16-32."""
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.default_rng(4)
+    return [Request(model=cfg.name,
+                    prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                    sampling=SamplingParams(max_tokens=m))
+            for n, m in zip((2100, 2650, 3100, 3500), (16, 24, 32, 20))]
+
+
+def serve_hymba(dev, ops, card, cfg=None):
+    """The paper's hymba-1.5b at full width and depth (32 layers, d 1600,
+    25 heads over 5, hd 64, d_ff 5504, vocab 32001 untied, ssm_state 16,
+    128 meta tokens, window 2048 but in layers 0, 15 and 31; 1.31 B
+    params by the config's count), bf16, seeded weights, launch counters
+    at 0 just before each leg and read just after: (a) serve_bf16's
+    engine and requests in the paged-attention mode, prompts capped at
+    832 so that prompt + 128 + budget <= 1024; (b) the same under
+    quantize="int8" in the gather mode; (c) max_len 4096 in the
+    paged-attention mode with 4 prompts of 2100-3500 tokens, where the
+    window masks.  Each leg holds exact budgets, every page returned,
+    its exact launches and routes, one length a prefill admission
+    (serve / check_serve), and prints tok/s, p50 step, TTFT and peak
+    device memory.  `cfg` replaces the model (a CPU rehearsal).
+    Returns ({leg: launches}, {leg: (routes, prefill shapes)})."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = cfg or ARCHS["hymba-1.5b"]
+    params = build(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    legs, more = {}, {}
+    max_prompt = 1024 - cfg.n_meta_tokens - 64
+    for leg, kw in (("paged", dict(paged_attention=True)),
+                    ("int8", dict(quantize="int8")),
+                    ("long", dict(paged_attention=True, max_len=4096,
+                                  requests=lambda: hymba_long_requests(
+                                      cfg)))):
+        legs[leg], *more[leg] = serve("serve_hymba", dev, ops, card,
+                                      cfg=cfg, params=params,
+                                      max_prompt=max_prompt, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return legs, more
+
+
+def hymba_timings(dev, ops, refs, q_lib, int8_m):
+    """The int8 products at hymba-1.5b's shapes, bf16: decode M = 8 for
+    wq, wk / wv, w_in, gate / up, down and the untied head (its 32001-byte
+    rows on "skinny"), and w_in at serve_hymba's widest int8 prefill M
+    `int8_m`; then its SSM branch, plain PyTorch as JAX's is jnp (no TPU
+    kernel; ROADMAP B7): one layer's decode step over 8 slots and one
+    layer's selective scan over 2048 tokens, against the bound of the
+    bytes they must move (the state read and written, the inputs)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import build
+    int8 = [int8_timing(dev, ops, refs, q_lib, f"hymba_decode_{k}x{n}", 8,
+                        k, n, False, "skinny_tc" if n % 16 == 0
+                        else "skinny")
+            for k, n in HYMBA_INT8]
+    int8.append(int8_timing(dev, ops, refs, q_lib, "hymba_prefill_w_in",
+                            int8_m, 1600, 3200, False, "tensor_core"))
+    cfg = dataclasses.replace(ARCHS["hymba-1.5b"], n_layers=1)
+    lp = tf._layer(build(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(3)), 0)
+    inner, n_state = cfg.n_heads * cfg.head_dim, cfg.ssm_state
+    g = torch.Generator(device=dev).manual_seed(4)
+    ssm = []
+    x1 = torch.randn(8, cfg.d_model, generator=g, device=dev).bfloat16()
+    h = torch.randn(8, inner, n_state, generator=g, device=dev)
+    # the state in and out, f32; the branch's weights, bf16
+    w_bytes = sum(v.numel() * v.element_size() for v in lp["ssm"].values())
+    b_ms, b_by = bound(2 * h.numel() * 4 + w_bytes, 0, BF16_FLOPS)
+    ssm.append({"label": "hymba_ssm_step", "shape": f"B=8 d={cfg.d_model} "
+                f"inner={inner} N={n_state}, one layer", "route":
+                "plain PyTorch", "ms": time_ms(
+                    lambda: tf._hymba_ssm_step(lp["ssm"], x1, h)),
+                "bound_ms": b_ms, "bound_by": b_by})
+    S = 2048
+    u, dt = (torch.randn(1, S, inner, generator=g, device=dev) for _ in "ab")
+    dt = torch.nn.functional.softplus(dt - 4)
+    A = -torch.exp(lp["ssm"]["a_log"])
+    Bt, Ct = (torch.randn(1, S, n_state, generator=g, device=dev)
+              for _ in "ab")
+    h0 = torch.zeros(1, inner, n_state, device=dev)
+    b_ms, b_by = bound(4 * (3 * u.numel() + 2 * Bt.numel()), 0, BF16_FLOPS)
+    ssm.append({"label": "hymba_selective_scan", "shape":
+                f"B=1 S={S} inner={inner} N={n_state} f32, chunks of "
+                f"{ssm_lib.CHUNK}", "route": "plain PyTorch",
+                "ms": time_ms(lambda: ssm_lib.selective_scan(
+                    u, dt, A, Bt, Ct, h0), reps=10),
+                "bound_ms": b_ms, "bound_by": b_by})
+    out = {"int8_matmul": int8, "ssm": ssm}
+    emit({"phase": "hymba_timings", **out})
+    return out
 
 
 def sync(dev) -> None:
@@ -2863,6 +3246,7 @@ def main() -> int:
 
     parity_f32(dev, ops)
     parity_moe(dev, ops)
+    parity_hymba(dev, ops)
     bf16_launches, bf16_routes, bf16_shapes = serve(
         "serve_bf16", dev, ops, card, paged_attention=True)
     int8_launches, int8_routes, int8_shapes = serve(
@@ -2880,6 +3264,10 @@ def main() -> int:
     path_launches["serve_moe"] = {
         name: sum(ln[name] for ln in moe_legs.values())
         for name in next(iter(moe_legs.values()))}
+    hymba_legs, hymba_more = serve_hymba(dev, ops, card)
+    path_launches["serve_hymba"] = {
+        name: sum(ln[name] for ln in hymba_legs.values())
+        for name in next(iter(hymba_legs.values()))}
     path_launches["serve_http"] = serve_http(dev, ops, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2892,7 +3280,8 @@ def main() -> int:
     # a MoE model's launches: summed over its serve_moe legs
     moe_by_model = {"granite-moe-3b-a800m": [
         ln for leg, ln in moe_legs.items() if leg.startswith("granite")],
-        "mixtral-8x22b": [moe_legs["mixtral"]]}
+        "mixtral-8x22b": [moe_legs["mixtral"]],
+        "hymba-1.5b": list(hymba_legs.values())}
     for name, rows in gqa_timings(dev, ops, refs).items():
         for r in rows:     # a gemma's launches on its serve in serve_gemma
             if r["label"] in gemma:
@@ -2909,6 +3298,12 @@ def main() -> int:
     for r in moe["int8_matmul"]:    # the serve_moe int8 leg, by route
         r["launches_on_route"] = moe_int8_routes[r["kernel_route"]]
     timings["int8_matmul"]["shapes"].extend(moe["int8_matmul"])
+    hymba = hymba_timings(dev, ops, refs, q_lib,
+                          max(r * b for r, b in hymba_more["int8"][1]))
+    hymba_int8_routes = hymba_more["int8"][0]["int8_matmul"]
+    for r in hymba["int8_matmul"]:  # the serve_hymba int8 leg, by route
+        r["launches_on_route"] = hymba_int8_routes[r["kernel_route"]]
+    timings["int8_matmul"]["shapes"].extend(hymba["int8_matmul"])
     c5_f32_tile_error(dev, ops, q_lib)
     plain_timings(dev, ops)
     meta = {
@@ -2939,6 +3334,8 @@ def main() -> int:
             raise AssertionError(f"{name} never ran on serve_gemma")
         if not path_launches["serve_moe"][name]:
             raise AssertionError(f"{name} never ran on serve_moe")
+        if not path_launches["serve_hymba"][name]:
+            raise AssertionError(f"{name} never ran on serve_hymba")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "path": path, "max_abs_err": t["max_abs_err"],

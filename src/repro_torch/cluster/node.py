@@ -7,11 +7,22 @@ capability vector) so thousand-node fleets stay simulable on one host.  Each
 node also runs its own replica proxy (`NodeProxy` in core/frontend.py),
 mirroring the paper's per-node HAProxy.
 
-This file differs from `repro.cluster.node` in one place: `BackendNode`
+This file differs from `repro.cluster.node` in two places.  `BackendNode`
 takes the `device` its engines run on and passes it to `InferenceEngine`.
 `None` means the card, as at every entry point of the port (it raises
 where there is none); the CPU tests pass "cpu".  Every engine of a process
-runs on the current stream of that device.
+runs on the current stream of that device.  And `instance_bytes` charges
+what the port's engine allocates, which the reference's analytic count
+misses (ROADMAP.md C14): the weights as the engine holds them (the
+param tree's exact bytes, counted on the meta device: norms a config
+does not have, the f32 MoE router and Hymba's f32 SSM leaves and meta
+tokens, int8 scales; under int8 also the kernel operands'
+dequantized leaves and expanded scales, the MoE router in f32 among
+them), the scratch page each paged pool keeps at the sentinel's id, and
+Hymba's slot-resident SSM state in f32 (the config's `state_bytes`
+charges it at the model dtype).  The KV term is still the reference's
+`kv_pool_bytes`, so without a page budget a windowed model is still
+charged `min(max_len, window)` tokens a slot (C12).
 """
 from __future__ import annotations
 
@@ -59,10 +70,27 @@ def instance_bytes(cfg: ArchConfig, quantize: str, n_slots: int,
     the quantity placement charges — the paper's 'model capacity' panel
     (VRAM required per instance).  Cached: placement calls this per
     (bin x commit) across thousand-node fleets."""
-    wdt = {"": cfg.dtype, "int8": "int8", "int4": "int4"}[quantize]
-    w = cfg.param_bytes(wdt)
     kv = kv_pool_bytes(cfg, n_slots, max_len, page_size, kv_pages)
-    return int(w + kv)
+    if page_size:                       # the pools' scratch page
+        kv += page_size * cfg.kv_bytes_per_token()
+    if cfg.block == "hymba":            # ssm_h is f32 at any model dtype
+        kv += cfg.state_bytes(n_slots, "f32") - cfg.state_bytes(n_slots)
+    return int(weight_bytes(cfg, quantize) + kv)
+
+
+@functools.lru_cache(maxsize=256)
+def weight_bytes(cfg: ArchConfig, quantize: str) -> int:
+    """The device bytes of an engine's weights: the param tree at rest
+    (quantized as the engine quantizes it), built on the meta device, and
+    under int8 the kernel operands beside it."""
+    import torch
+    from repro_torch.params import init_params
+    from repro_torch.serving import quantization as q_lib
+    params = init_params(cfg, None, torch.device("meta"))
+    if quantize:
+        params = q_lib.quantize_tree(params, 8 if quantize == "int8" else 4)
+    extra = q_lib.operand_bytes(params) if quantize == "int8" else 0
+    return q_lib.tree_bytes(params) + extra
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
 """Model facade: the interface the serving engine talks to, limited to
 what the engine calls.  The counterpart of `repro.models.model`, for the
-causal decoders the port covers (`params.require_causal_decoder`)."""
+causal decoders and the Hymba hybrid the port covers
+(`params.require_causal_decoder`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,7 +24,9 @@ class Model:
 
     def prefill(self, params, tokens, lengths, prefix_embeds=None):
         """Bucketed prefill; a vision model takes its prefix embeddings
-        ahead of the tokens."""
+        ahead of the tokens.  `lengths` None: every row is exactly
+        `tokens.shape[1]` long (the exact-length prefill of a recurrent
+        family, whose state would absorb padding)."""
         return tf.prefill(params, self.cfg, tokens, lengths=lengths,
                           prefix_embeds=prefix_embeds)
 

@@ -8,11 +8,24 @@ The counterpart of the causal decoder subset of
 `repro_torch.params`) and the same layouts at every public function: a
 SwiGLU or gelu FFN, dense or Mixture-of-Experts (`models.moe`, whose
 capacity comes from the sequence length each entry point feeds it), a
-sliding window (`cfg.swa_window`, the same in every layer, as JAX's
-non-hymba path) and a vision frontend's prefix tokens (`prefix_embeds`
-(B, n_prefix_tokens, D) ahead of the prompt, exempt from the window but
-not from causality; RoPE positions count them).  Where JAX scans over layers,
-this loops over them in Python.  Prefill attention runs the flash kernel
+sliding window (`cfg.swa_window`) and a vision frontend's prefix tokens
+(`prefix_embeds` (B, n_prefix_tokens, D) ahead of the prompt, exempt from
+the window but not from causality; RoPE positions count them).  Where
+JAX scans over layers, this loops over them in Python, so each layer's
+window is a static int (`_window`): the config's in every layer, or,
+for Hymba, 0 in its `global_attn_layers` and the config's in the rest.
+
+Hymba (`block="hymba"`): the learned meta tokens go ahead of everything
+else (and count in the prefix the window exempts); each layer runs
+attention and the selective SSM (`models.ssm`) side by side on the same
+normed input, rms-norms each branch, mixes them with `beta * 0.5` and
+projects through `wo_comb`.  The cache gains the slot-resident
+`ssm_h` (L, B, inner, N) in f32, which the decode steps advance in
+place.  `prefill` collects each layer's final state in the pass that
+computes its output; JAX re-runs the stack with every layer windowed to
+collect them, which departs from its own forward once a prompt and its
+meta tokens outrun the window (ROADMAP.md C15).  A recurrent state
+absorbs padding, so Hymba rows are prefilled at their exact length.  Prefill attention runs the flash kernel
 (`kernels.ops.flash_attention`); decode attention runs the decode kernel
 over a contiguous cache (`decode_step`, `kernels.ops.decode_attention`)
 or the paged decode kernel through the page table (`decode_step_paged`,
@@ -43,6 +56,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.params import Params, require_causal_decoder
 
 Cache = Dict[str, torch.Tensor]
@@ -81,15 +95,33 @@ def _dense(w) -> torch.Tensor:
     return (w["__q__"] * w["scale"][0]).to(w["dtype"])
 
 
+_HYMBA_LEAVES = ("branch_norm_attn", "branch_norm_ssm", "beta", "wo_comb")
+
+
 def _layer(params: Params, i: int) -> Params:
     lp = params["layers"]
     ffn = "moe" if "moe" in lp else "mlp"
-    out = {"attn": {k: _index(v, i) for k, v in lp["attn"].items()},
-           ffn: {k: _index(v, i) for k, v in lp[ffn].items()}}
-    for name in ("ln1", "ln2"):
+    subs = ("attn", ffn) + (("ssm",) if "ssm" in lp else ())
+    out = {sub: {k: _index(v, i) for k, v in lp[sub].items()}
+           for sub in subs}
+    for name in ("ln1", "ln2") + _HYMBA_LEAVES:
         if name in lp:
-            out[name] = lp[name][i]
+            out[name] = _index(lp[name], i)
     return out
+
+
+def _window(cfg: ArchConfig, i: int) -> int:
+    """Layer i's attention window: 0 (global) in a Hymba model's
+    `global_attn_layers`, else the config's (0 without one)."""
+    if cfg.block == "hymba" and i in cfg.global_attn_layers:
+        return 0
+    return cfg.swa_window
+
+
+def _prefix_len(cfg: ArchConfig) -> int:
+    """Cache positions ahead of every prompt: meta and vision prefix
+    tokens, all exempt from the window."""
+    return cfg.n_meta_tokens + cfg.n_prefix_tokens
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -154,22 +186,30 @@ def zero_prefix_embeds(cfg: ArchConfig, batch: int,
                        dtype=torch_dtype(cfg.dtype), device=device)
 
 
-def _embed_inputs(params: Params, tokens: torch.Tensor,
+def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                   prefix_embeds: Optional[torch.Tensor]
                   ) -> Tuple[torch.Tensor, int]:
-    """(h (B, prefix + S, D), prefix): the prefix embeddings ahead of the
-    token embeddings."""
+    """(h (B, prefix + S, D), prefix): the meta tokens, then the prefix
+    embeddings, ahead of the token embeddings."""
     h = _embed(params, tokens)
-    if prefix_embeds is None:
+    parts, prefix = [h], 0
+    if prefix_embeds is not None:
+        parts.insert(0, prefix_embeds.to(h.dtype))
+        prefix += prefix_embeds.shape[1]
+    if cfg.n_meta_tokens:
+        meta = params["meta"].to(h.dtype)
+        parts.insert(0, meta[None].expand(h.shape[0], *meta.shape))
+        prefix += cfg.n_meta_tokens
+    if len(parts) == 1:
         return h, 0
-    return (torch.cat([prefix_embeds.to(h.dtype), h], dim=1),
-            prefix_embeds.shape[1])
+    return torch.cat(parts, dim=1), prefix
 
 
 def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
-                     impl: str, prefix: int) -> Tuple[torch.Tensor, Tuple]:
+                     impl: str, prefix: int, window: int
+                     ) -> Tuple[torch.Tensor, Tuple]:
     """Causal self-attention over a full sequence from position 0, with
-    the config's window; the first `prefix` positions are exempt from it.
+    the layer's window; the first `prefix` positions are exempt from it.
     Returns (out (B, S, H, hd), (k, v) each (B, S, K, hd))."""
     q = _project(x, lp["attn"]["wq"])
     k = _project(x, lp["attn"]["wk"])
@@ -178,7 +218,6 @@ def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
                               cfg.head_dim, cfg.rope_theta)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
-    window = cfg.swa_window
     if impl == "full":
         out = attn_lib.full_attention(q, k, v, causal=True, window=window,
                                       prefix=prefix)
@@ -191,40 +230,114 @@ def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
     return out, (k, v)
 
 
+# --------------------------------------------------------------------- #
+# Hymba's SSM branch
+
+def _ssm_inputs(sp: Params, x: torch.Tensor):
+    """The selective SSM's inputs from x (..., D): u and the gate z in
+    x's dtype, dt, A, B_t and C_t in f32, as JAX's `_hymba_ssm_seq`."""
+    w_in = sp["w_in"]
+    d, _, inner = (w_in["__q__"] if isinstance(w_in, dict) else w_in).shape
+    proj = _matmul(x, _reshape(w_in, d, 2 * inner))
+    u, z = proj[..., :inner], proj[..., inner:]
+    dt = torch.nn.functional.softplus(
+        (u.float() @ sp["w_dt_a"].float()) @ sp["w_dt_b"].float()
+        + sp["b_dt"])
+    a = -torch.exp(sp["a_log"])
+    b_t = (u @ sp["w_b"]).float()
+    c_t = (u @ sp["w_c"]).float()
+    return u, z, dt, a, b_t, c_t
+
+
+def _ssm_out(sp: Params, y: torch.Tensor, u: torch.Tensor, z: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The skip term and the gate, in f32, cast to the activations'."""
+    y = y + sp["d_skip"] * u.float()
+    return (y * torch.nn.functional.silu(z.float())).to(dtype)
+
+
+def _hymba_ssm_seq(sp: Params, cfg: ArchConfig, x: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None):
+    """The SSM branch over a full sequence x (B, S, D) from state h0
+    (zeros when None).  Returns (y (B, S, inner), h_final (B, inner, N)
+    f32)."""
+    u, z, dt, a, b_t, c_t = _ssm_inputs(sp, x)
+    if h0 is None:
+        h0 = torch.zeros((x.shape[0], u.shape[-1], cfg.ssm_state),
+                         dtype=torch.float32, device=x.device)
+    y, h_f = ssm_lib.selective_scan(u.float(), dt, a, b_t, c_t, h0)
+    return _ssm_out(sp, y, u, z, x.dtype), h_f
+
+
+def _hymba_ssm_step(sp: Params, x: torch.Tensor, h: torch.Tensor):
+    """One decode step of the SSM branch: x (B, D), h (B, inner, N) f32.
+    Returns (y (B, inner), h_new)."""
+    u, z, dt, a, b_t, c_t = _ssm_inputs(sp, x)
+    y, h_new = ssm_lib.selective_step(u.float(), dt, a, b_t, c_t, h)
+    return _ssm_out(sp, y, u, z, x.dtype), h_new
+
+
+def _hymba_mix(lp: Params, a_out: torch.Tensor, s_out: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Both branches (..., inner) rms-normed, mixed with beta * 0.5 in
+    f32 and projected through wo_comb: the layer's residual update."""
+    a_n = L.rms_norm(a_out, lp["branch_norm_attn"])
+    s_n = L.rms_norm(s_out, lp["branch_norm_ssm"])
+    beta = lp["beta"]
+    comb = (beta[0] * a_n.float() + beta[1] * s_n.float()) * 0.5
+    return _matmul(comb.to(dtype), lp["wo_comb"])
+
+
 def _decoder_layer(lp: Params, cfg: ArchConfig, h: torch.Tensor, *,
-                   impl: str, prefix: int) -> Tuple[torch.Tensor, Tuple]:
+                   impl: str, prefix: int, window: int):
+    """One layer over a full sequence.  Returns (h, (k, v), the SSM's
+    final state (Hymba) or None)."""
     x = L.norm(h, lp.get("ln1"), cfg.norm)
-    a_out, kv = _attention_block(lp, cfg, x, impl=impl, prefix=prefix)
-    h = h + _out_project(a_out, lp["attn"]["wo"])
+    a_out, kv = _attention_block(lp, cfg, x, impl=impl, prefix=prefix,
+                                 window=window)
+    h_f = None
+    if cfg.block == "hymba":
+        s_out, h_f = _hymba_ssm_seq(lp["ssm"], cfg, x)
+        h = h + _hymba_mix(lp, a_out.reshape(*a_out.shape[:2], -1), s_out,
+                           h.dtype)
+    else:
+        h = h + _out_project(a_out, lp["attn"]["wo"])
     x = L.norm(h, lp.get("ln2"), cfg.norm)
-    return h + _ffn(lp, cfg, x), kv
+    return h + _ffn(lp, cfg, x), kv, h_f
 
 
 def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
            impl: str, prefix_embeds: Optional[torch.Tensor]
            ) -> Tuple[torch.Tensor, Cache, int]:
-    """Embedding (the prefix embeddings first), every layer and the final
-    norm.  Returns (h (B, P + S, D), {"k", "v": (L, B, P + S, K, hd)},
-    P), P the prefix length."""
+    """Embedding (meta tokens, then the prefix embeddings, first), every
+    layer and the final norm.  Returns (h (B, P + S, D), {"k", "v": (L,
+    B, P + S, K, hd)} and, for Hymba, "ssm_h": (L, B, inner, N) f32 each
+    layer's final SSM state from this very pass, P), P the prefix
+    length."""
     require_causal_decoder(cfg)
     if impl not in ("flash", "full"):
         raise ValueError(f"impl must be 'flash' or 'full', not {impl!r}")
-    h, prefix = _embed_inputs(params, tokens, prefix_embeds)
-    ks, vs = [], []
+    h, prefix = _embed_inputs(params, cfg, tokens, prefix_embeds)
+    ks, vs, states = [], [], []
     for i in range(cfg.n_layers):
-        h, (k, v) = _decoder_layer(_layer(params, i), cfg, h, impl=impl,
-                                   prefix=prefix)
+        h, (k, v), h_f = _decoder_layer(_layer(params, i), cfg, h,
+                                        impl=impl, prefix=prefix,
+                                        window=_window(cfg, i))
         ks.append(k)
         vs.append(v)
+        states.append(h_f)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
-    return h, {"k": torch.stack(ks), "v": torch.stack(vs)}, prefix
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    if cfg.block == "hymba":
+        cache["ssm_h"] = torch.stack(states)
+    return h, cache, prefix
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             impl: str = "flash",
             prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence logits (B, P + S, V), P = prefix_embeds.shape[1] (0
-    without them), as JAX's forward.  impl="flash" runs prefill's flash
+    """Full-sequence logits (B, P + S, V), P the meta tokens and
+    prefix_embeds.shape[1] (0 without either), as JAX's forward.  impl="flash" runs prefill's flash
     attention; impl="full" the plain reference attention (the no-cache
     recompute oracle).  The engine feeds a vision model
     `zero_prefix_embeds`; a recompute that stands for the engine passes
@@ -240,13 +353,17 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """Forward a right-padded batch through the flash attention kernel and
     return (last_logits (B, V), cache {"k", "v": (L, B, P + S, K, hd)},
-    pos (B,) int32), P the prefix embeddings' length (0 without them).
+    pos (B,) int32), P the meta and prefix tokens (0 without them); a
+    Hymba cache also holds "ssm_h" (L, B, inner, N), collected in the same
+    pass.
 
     lengths: (B,) valid token counts; each row's logits and `pos` come
     from its own last real token, pos = P + lengths - 1 (padded positions
-    sit past `pos` and are masked out of every later decode read).  Only
-    the last hidden row of each sequence meets the LM head — the same
-    logits as JAX's full-sequence head, without a (B, S, V) tensor.
+    sit past `pos` and are masked out of every later decode read).  An
+    SSM state absorbs padding, so Hymba rows come at their exact length
+    and without `lengths`, as JAX's engine prefills them.  Only the last
+    hidden row of each sequence meets the LM head — the same logits as
+    JAX's full-sequence head, without a (B, S, V) tensor.
     """
     h, cache, prefix = _trunk(params, cfg, tokens, impl="flash",
                               prefix_embeds=prefix_embeds)
@@ -262,10 +379,10 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 def _plain_causal_only(cfg: ArchConfig, name: str) -> None:
     require_causal_decoder(cfg)
-    if cfg.swa_window or cfg.n_prefix_tokens:
+    if cfg.block != "transformer" or cfg.swa_window or _prefix_len(cfg):
         raise NotImplementedError(
-            f"{name} supports plain causal decoders only (no window, no "
-            f"prefix tokens)")
+            f"{name} supports plain causal decoders only (no recurrent "
+            f"state, no window, no meta or prefix tokens)")
 
 
 def _land_suffix(cache: torch.Tensor, new: torch.Tensor,
@@ -344,11 +461,14 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     pos >= S (a finished slot whose pos froze at max_len) lands at S - 1,
     as JAX's clamped dynamic_update_slice does.  Attention reads the
     (B, K, S, hd) permuted view of each layer's cache in place, with the
-    config's window; the cache's first n_prefix_tokens positions are
-    exempt from it.  Returns (logits (B, V), cache)."""
+    layer's window; the cache's first meta and prefix positions are
+    exempt from it.  A Hymba cache's "ssm_h" (L, B, inner, N) advances
+    in place, every row, as JAX's scan steps every slot.  Returns
+    (logits (B, V), cache)."""
     require_causal_decoder(cfg)
     b = token.shape[0]
     nkv, hd = cfg.n_kv_heads, cfg.head_dim
+    prefix = _prefix_len(cfg)
     rows = torch.arange(b, device=token.device)
     w_pos = pos.long().clamp(0, cache["k"].shape[2] - 1)
     h = _embed(params, token)[:, None]                          # (B,1,D)
@@ -365,13 +485,27 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
         qf = q[:, 0].reshape(b, nkv, q.shape[2] // nkv, hd)     # kv-major
         a_out = kernel_ops.decode_attention(
             qf, kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3), pos,
-            window=cfg.swa_window, prefix=cfg.n_prefix_tokens)
-        h = h + _out_project(a_out.reshape(b, 1, q.shape[2], hd),
-                             lp["attn"]["wo"])
+            window=_window(cfg, i), prefix=prefix)
+        h = h + _attn_update(lp, cfg, cache, i, x,
+                             a_out.reshape(b, 1, q.shape[2], hd))
         x = L.norm(h, lp.get("ln2"), cfg.norm)
         h = h + _ffn(lp, cfg, x)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
     return _logits(params, cfg, h)[:, 0], cache
+
+
+def _attn_update(lp: Params, cfg: ArchConfig, cache: Cache, i: int,
+                 x: torch.Tensor, a_out: torch.Tensor) -> torch.Tensor:
+    """A decode step's residual update from layer i's attention output
+    a_out (B, 1, H, hd): the output projection, or, for Hymba, the SSM
+    step on the layer's normed input x (B, 1, D) from cache["ssm_h"][i]
+    (advanced in place) mixed with it."""
+    if cfg.block != "hymba":
+        return _out_project(a_out, lp["attn"]["wo"])
+    s_out, cache["ssm_h"][i] = _hymba_ssm_step(lp["ssm"], x[:, 0],
+                                                cache["ssm_h"][i])
+    return _hymba_mix(lp, a_out.reshape(a_out.shape[0], 1, -1),
+                      s_out[:, None], x.dtype)
 
 
 def _paged_write(pool: torch.Tensor, new_kv: torch.Tensor,
@@ -404,9 +538,10 @@ def decode_step_paged(params: Params, cfg: ArchConfig, cache: Cache,
     """One decode step against the paged pool.  token/pos: (B,) int32, pos
     the position of the new token; page_table/write_table: (B, pps) int32,
     sentinel == n_pages; cache {"k", "v": (L, n_pages + 1, ps, K, hd)},
-    whose last page is the scratch page that dropped writes land in.
-    Attention reads only the first n_pages, with the config's window and
-    prefix, as `decode_step`.
+    whose last page is the scratch page that dropped writes land in, and
+    a Hymba model's slot-resident "ssm_h" (L, n_slots, inner, N).
+    Attention reads only the first n_pages, with the layer's window and
+    the prefix, as `decode_step`.
 
     The new KV is written into the pools in place — the counterpart of
     JAX donating the cache buffers — and `cache` is returned as is.
@@ -414,6 +549,7 @@ def decode_step_paged(params: Params, cfg: ArchConfig, cache: Cache,
     require_causal_decoder(cfg)
     b = token.shape[0]
     nkv, hd = cfg.n_kv_heads, cfg.head_dim
+    prefix = _prefix_len(cfg)
     h = _embed(params, token)[:, None]                          # (B,1,D)
     cos, sin = L.rope_cos_sin(pos[:, None], hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
@@ -427,10 +563,10 @@ def decode_step_paged(params: Params, cfg: ArchConfig, cache: Cache,
         _paged_write(vc, v_new[:, 0], write_table, pos)
         qf = q[:, 0].reshape(b, nkv, q.shape[2] // nkv, hd)     # kv-major
         a_out = kernel_ops.paged_decode_attention(
-            qf, kc[:-1], vc[:-1], page_table, pos, window=cfg.swa_window,
-            prefix=cfg.n_prefix_tokens)
-        h = h + _out_project(a_out.reshape(b, 1, q.shape[2], hd),
-                             lp["attn"]["wo"])
+            qf, kc[:-1], vc[:-1], page_table, pos, window=_window(cfg, i),
+            prefix=prefix)
+        h = h + _attn_update(lp, cfg, cache, i, x,
+                             a_out.reshape(b, 1, q.shape[2], hd))
         x = L.norm(h, lp.get("ln2"), cfg.norm)
         h = h + _ffn(lp, cfg, x)
     h = L.norm(h, params.get("final_norm"), cfg.norm)

@@ -1,5 +1,5 @@
-"""Parameters of the causal decoder (dense or MoE FFN): seeded init and
-JAX import.
+"""Parameters of the causal decoder (dense or MoE FFN, or Hymba's hybrid
+attention + SSM layer): seeded init and JAX import.
 
 The layout is the JAX package's, stacked over layers with a leading `L`
 dim, as a nested dict of tensors:
@@ -14,6 +14,17 @@ dim, as a nested dict of tensors:
     layers.moe.wo  (L, E, f, d)
     layers.ln1 / ln2 (L, d), final_norm (d,)      rms-norm configs only
     lm_head (d, V)                                untied configs only
+
+Hymba (`block="hymba"`, inner = n_heads * head_dim, r = max(8, inner //
+64), N = ssm_state) has no `attn.wo`; in its place:
+
+    meta (n_meta_tokens, d)                       ahead of every prompt
+    layers.ssm.w_in (L, d, 2, inner)              index 0 = u, 1 = gate z
+    layers.ssm.w_dt_a (L, inner, r)  w_dt_b (L, r, inner)
+    layers.ssm.b_dt (L, inner) f32 = -4   a_log (L, inner, N) f32 = log(1..N)
+    layers.ssm.w_b / w_c (L, inner, N)    d_skip (L, inner) f32 = 1
+    layers.branch_norm_attn / branch_norm_ssm (L, inner) = 0
+    layers.beta (L, 2) f32 = 1            layers.wo_comb (L, inner, d)
 
 `init_params` draws every leaf from the same distribution as the JAX
 init (truncated normal at +-2 sigma; 0.02 for embeddings, 1/sqrt(d_in)
@@ -38,17 +49,21 @@ Params = Dict[str, Any]
 
 def require_causal_decoder(cfg: ArchConfig) -> None:
     """The port's model covers causal decoders: a SwiGLU or gelu FFN,
-    dense or Mixture-of-Experts, an optional sliding window (uniform over
-    layers) and an optional vision frontend's prefix tokens.  The
-    embedding family builds as such a decoder, as `repro.models.build`
-    builds it.  Other families are queued in ROADMAP.md A7."""
+    dense or Mixture-of-Experts, an optional sliding window, an optional
+    vision frontend's prefix tokens, and Hymba's hybrid layer (attention
+    and a selective SSM side by side, meta tokens, per-layer global or
+    windowed attention).  The embedding family builds as such a decoder,
+    as `repro.models.build` builds it.  xLSTM and the encoder-decoder
+    are queued in ROADMAP.md A7."""
     unsupported = []
-    if cfg.block != "transformer":
+    if cfg.block not in ("transformer", "hymba"):
         unsupported.append(f"block={cfg.block}")
+    if cfg.block == "hymba" and cfg.ssm_state <= 0:
+        unsupported.append(f"hymba with ssm_state={cfg.ssm_state}")
     if cfg.encdec is not None:
         unsupported.append("encoder-decoder")
-    if cfg.n_meta_tokens:
-        unsupported.append("meta tokens")
+    if cfg.n_meta_tokens and cfg.block != "hymba":
+        unsupported.append("meta tokens outside hymba")
     if cfg.frontend not in ("", "vision") \
             or (cfg.n_prefix_tokens and cfg.frontend != "vision"):
         unsupported.append(f"frontend={cfg.frontend!r} with "
@@ -58,7 +73,8 @@ def require_causal_decoder(cfg: ArchConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unsupported)} is not ported yet "
-            f"(ROADMAP.md A7); repro_torch runs causal decoders")
+            f"(ROADMAP.md A7); repro_torch runs causal decoders and "
+            f"hymba")
 
 
 # --------------------------------------------------------------------- #
@@ -71,7 +87,10 @@ def _trunc_normal(shape, scale: float, dtype, gen: torch.Generator,
                   device: torch.device) -> torch.Tensor:
     """Standard normal truncated to [-2, 2] (as jax.random.truncated_normal),
     times `scale`, by inverse CDF in f32, in place in one f32 buffer (a
-    full-width expert leaf is billions of values)."""
+    full-width expert leaf is billions of values).  On the meta device,
+    the shape alone."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     cdf = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))  # noqa: E731
     lo, hi = cdf(_LO), cdf(_HI)
     u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
@@ -82,10 +101,12 @@ def _trunc_normal(shape, scale: float, dtype, gen: torch.Generator,
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Params:
     """Random params for `cfg` on `device` ("cuda" unless given), drawn
-    from `generator`, which must live on that device."""
+    from `generator`, which must live on that device.  On the meta device
+    (no generator) the tree's shapes and dtypes alone, which is how
+    placement counts an instance's bytes (`cluster.node`)."""
     require_causal_decoder(cfg)
     dev = resolve_device(device)
-    if generator.device.type != dev.type:
+    if dev.type != "meta" and generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     dt = torch_dtype(cfg.dtype)
     n, d, hd = cfg.n_layers, cfg.d_model, cfg.head_dim
@@ -96,9 +117,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
     layers: Params = {
         "attn": {"wq": dense(d, n, d, h, hd), "wk": dense(d, n, d, kv, hd),
-                 "wv": dense(d, n, d, kv, hd),
-                 "wo": dense(h * hd, n, h, hd, d)},
+                 "wv": dense(d, n, d, kv, hd)},
     }
+    if cfg.block != "hymba":
+        layers["attn"]["wo"] = dense(h * hd, n, h, hd, d)
     if cfg.moe is not None:
         e = cfg.moe.num_experts
         layers["moe"] = {
@@ -111,9 +133,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         layers["mlp"] = {"wi": (dense(d, n, 2, d, f) if cfg.act == "swiglu"
                                 else dense(d, n, d, f)),
                          "wo": dense(f, n, f, d)}
+    if cfg.block == "hymba":
+        layers.update(_hymba_layers(cfg, dense, dev))
     params: Params = {
         "embed": _trunc_normal((cfg.vocab, d), 0.02, dt, generator, dev),
         "layers": layers}
+    if cfg.n_meta_tokens:
+        params["meta"] = _trunc_normal((cfg.n_meta_tokens, d), 0.02, dt,
+                                       generator, dev)
     if cfg.norm == "rms":
         layers["ln1"] = torch.zeros((n, d), dtype=dt, device=dev)
         layers["ln2"] = torch.zeros((n, d), dtype=dt, device=dev)
@@ -122,6 +149,31 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         params["lm_head"] = _trunc_normal((d, cfg.vocab), 0.02, dt,
                                           generator, dev)
     return params
+
+
+def _hymba_layers(cfg: ArchConfig, dense, dev: torch.device) -> Params:
+    """Hymba's SSM branch, branch norms, mixing weights and output
+    projection, drawn and filled as `repro.models.transformer._layer_init`
+    does."""
+    n, d, ns = cfg.n_layers, cfg.d_model, cfg.ssm_state
+    inner = cfg.n_heads * cfg.head_dim
+    r = max(8, inner // 64)
+    dt = torch_dtype(cfg.dtype)
+    f32 = dict(dtype=torch.float32, device=dev)
+    a_log = torch.log(torch.arange(1, ns + 1, **f32))
+    return {
+        "ssm": {"w_in": dense(d, n, d, 2, inner),
+                "w_dt_a": dense(inner, n, inner, r),
+                "w_dt_b": dense(r, n, r, inner),
+                "b_dt": torch.full((n, inner), -4.0, **f32),
+                "a_log": a_log.expand(n, inner, ns).contiguous(),
+                "w_b": dense(inner, n, inner, ns),
+                "w_c": dense(inner, n, inner, ns),
+                "d_skip": torch.ones((n, inner), **f32)},
+        "branch_norm_attn": torch.zeros((n, inner), dtype=dt, device=dev),
+        "branch_norm_ssm": torch.zeros((n, inner), dtype=dt, device=dev),
+        "beta": torch.ones((n, 2), **f32),
+        "wo_comb": dense(inner, n, inner, d)}
 
 
 def seeded_store(device: DeviceLike = None,

@@ -1,5 +1,6 @@
 """Continuous-batching inference engine on the card — the counterpart of
-`repro.serving.engine.InferenceEngine` for causal decoders (dense or MoE).
+`repro.serving.engine.InferenceEngine` for causal decoders (dense or MoE)
+and the Hymba hybrid.
 
 Each `step()` issues at most two dispatches, each ending in exactly one
 host sync:
@@ -34,9 +35,20 @@ layer and the tied head through the int8 matmul kernel;
 JAX engine does for both.
 
 A vision model's prefix tokens (`n_prefix_tokens`, fed zero embeddings
-as in JAX) take cache positions ahead of every prompt: admission charges
-them, the bucket is capped at max_len less them, and a prompt that fits
-only without them is refused at submit.  A window or prefix tokens turn
+as in JAX) and Hymba's meta tokens take cache positions ahead of every
+prompt: admission charges them, the bucket is capped at max_len less
+them, and a prompt that fits only without them is refused at submit.
+
+Hymba, as in JAX: its SSM state would absorb padding, so a prompt's
+bucket is its exact length (an admission group holds rows of one
+length, prefilled without `lengths`), and the prefix cache and
+speculation stay off.  Its state `ssm_h` (L, n_slots, inner, N) f32 is
+slot-resident beside the paged pools (or the strips); admission writes
+the prefilled rows' states into their slots, the decode steps advance
+it in place, and a preempted request resumes by recompute (prefill over
+its prompt and output so far, at their exact length) or from the swap
+tier, whose handle carries the slot's state (ROADMAP.md C16: JAX's does
+not).  A window or prefix tokens turn
 the prefix cache and speculation off, as in JAX; a MoE FFN keeps both
 on (its capacity then follows each dispatch's own length: the bucket,
 the suffix bucket, 1 in decode, D + 1 in the verify).
@@ -147,6 +159,26 @@ def _to(params: Params, device: torch.device) -> Params:
     return params.to(device)
 
 
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _unshared_bytes(tree: Params, base: Params) -> int:
+    """Bytes of the storages in `tree` that no tensor of `base` uses."""
+    seen = {t.untyped_storage().data_ptr() for t in _tensors(base)}
+    total = 0
+    for t in _tensors(tree):
+        st = t.untyped_storage()
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            total += st.nbytes()
+    return total
+
+
 class InferenceEngine:
     """One model instance on one card (or on the CPU when `device="cpu"`
     is passed, through the kernels' plain versions)."""
@@ -162,8 +194,10 @@ class InferenceEngine:
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.model = build(cfg, self.device)
-        # vision-prefix tokens occupy cache slots ahead of the prompt
+        # meta / vision-prefix tokens occupy cache slots ahead of the prompt
         self._prefix_tokens = cfg.n_meta_tokens + cfg.n_prefix_tokens
+        # a recurrent state folds right-pads in: exact-length prefills
+        self._supports_bucket = cfg.block != "hymba"
         self.scheduler = scheduler or Scheduler(SchedulerConfig())
         self._dead = False
         self._gen = generator_for(self.device, engine_cfg.seed)
@@ -179,10 +213,11 @@ class InferenceEngine:
         # its projected page cost against the engine's free page budget
         self.scheduler.pages_for = self._pages_for
         # prefix reuse needs page-aligned bucketed prefill over a plain
-        # causal decoder: windows and prefix tokens break block sharing
-        # (JAX's predicate; the families it also excludes, recurrent and
-        # enc-dec, are ones the port does not build)
-        self._prefix_ok = (self._paged and self._prefix_tokens == 0
+        # causal decoder: recurrent state, windows and prefix tokens break
+        # block sharing (JAX's predicate; the enc-dec family it also
+        # excludes is one the port does not build)
+        self._prefix_ok = (self._paged and self._supports_bucket
+                           and self._prefix_tokens == 0
                            and cfg.swa_window == 0)
         # speculation needs the paged-attention verify and the same
         # predicate as the prefix cache
@@ -210,6 +245,12 @@ class InferenceEngine:
             self.cache = {name: torch.zeros(shape, dtype=dt,
                                             device=self.device)
                           for name in ("k", "v")}
+        if cfg.block == "hymba":
+            # slot-resident recurrent state, f32 as in JAX
+            self.cache["ssm_h"] = torch.zeros(
+                (cfg.n_layers, engine_cfg.n_slots,
+                 cfg.n_heads * cfg.head_dim, cfg.ssm_state),
+                dtype=torch.float32, device=self.device)
         self.host_pool = (HostPagePool(engine_cfg.host_kv_pages,
                                        split_paged(self.cache)[0],
                                        pin=self.device.type == "cuda")
@@ -304,7 +345,10 @@ class InferenceEngine:
 
     def _bucket_of(self, prompt_len: int) -> int:
         """Power-of-two padded length bucket, capped so that bucket +
-        prefix tokens never outgrow max_len."""
+        prefix tokens never outgrow max_len; the exact length for a
+        recurrent family, which cannot absorb pads."""
+        if not self._supports_bucket:
+            return prompt_len
         b = self.ecfg.prefill_bucket_min
         while b < prompt_len:
             b <<= 1
@@ -554,11 +598,12 @@ class InferenceEngine:
         """The admission program: forward, the rows' KV into their pages
         (or, contiguous, into the first `bucket` positions of their
         strips; positions past `pos` keep what was there, where JAX
-        zeroes them, and are masked), first-token sample and the
-        slot-state update, all queued on the device.  Padded batch rows
-        are dropped here on the host (`slots` holds only the admitted
-        rows), where JAX scatters them to slot == n_slots with
-        mode="drop"."""
+        zeroes them, and are masked), a recurrent state into its slots,
+        first-token sample and the slot-state update, all queued on the
+        device.  Padded batch rows are dropped here on the host (`slots`
+        holds only the admitted rows), where JAX scatters them to
+        slot == n_slots with mode="drop".  Exact-length rows (a
+        recurrent family) go in without `lengths`, as in JAX."""
         if toks.shape not in self._prefill_programs:
             self._prefill_programs.add(toks.shape)
             self.prefill_traces += 1
@@ -566,10 +611,16 @@ class InferenceEngine:
         tokens = to_device(toks, dev)
         # a vision model's prefix: zero embeddings, as JAX's _extra_inputs
         logits, rows, pos1 = self.model.prefill(
-            self._run_params(), tokens, lengths=to_device(lengths, dev),
+            self._run_params(), tokens,
+            lengths=(to_device(lengths, dev) if self._supports_bucket
+                     else None),
             prefix_embeds=zero_prefix_embeds(self.cfg, toks.shape[0], dev))
         if self._paged:
-            scatter_prefill_rows(self.cache, rows, row_pages)
+            pool_p, pool_r = split_paged(self.cache)
+            rows_p, rows_r = split_paged(rows)
+            scatter_prefill_rows(pool_p, rows_p, row_pages)
+            if pool_r:
+                write_slots(pool_r, rows_r, slots)
         else:
             write_slots(self.cache, rows, slots)
         return self._admit_rows(logits, pos1, slots, r_i32, r_f32)
@@ -710,12 +761,13 @@ class InferenceEngine:
 
     # ---- swap-parked resumes: restore with no prefill ------------- #
     def _admit_swapped(self, swaps: List[Request]):
-        paged, _ = split_paged(self.cache)
+        paged, resident = split_paged(self.cache)
         restored: List[Tuple[int, Request]] = []
         for req in swaps:
             handle = self._swapped[req.request_id]
             self._reclaim_shortfall(len(handle.host))
-            res = swap_in_slot(self.pool, self.host_pool, paged, handle)
+            res = swap_in_slot(self.pool, self.host_pool, paged, handle,
+                               resident)
             if res is None:
                 # slots or pages short right now: fall back to the
                 # recompute resume so progress never livelocks on swap
@@ -804,8 +856,9 @@ class InferenceEngine:
         req = self.slot_req.pop(slot)
         swapped = False
         if self.host_pool is not None:
-            paged, _ = split_paged(self.cache)
-            handle = swap_out_slot(self.pool, self.host_pool, paged, slot)
+            paged, resident = split_paged(self.cache)
+            handle = swap_out_slot(self.pool, self.host_pool, paged, slot,
+                                   resident)
             if handle is not None:
                 self._swapped[req.request_id] = handle
                 self.swap_outs += 1
@@ -952,9 +1005,10 @@ class InferenceEngine:
         write_table = self.pool.write_table()
         gather = self._paged and not self._paged_attn
         if gather:
-            # one gather per dispatch materializes every slot's view
-            pool_p, _ = split_paged(self.cache)
-            view = gather_pages(pool_p, page_table)
+            # one gather per dispatch materializes every slot's view; the
+            # slot-resident leaves are their own view, advanced in place
+            pool_p, pool_r = split_paged(self.cache)
+            view = {**gather_pages(pool_p, page_table), **pool_r}
         else:
             view = self.cache
         last_tok, pos = self.last_tok, self.pos
@@ -1034,7 +1088,15 @@ class InferenceEngine:
         return max(in_use, 0) / self.pool.n_pages
 
     def memory_report(self) -> Dict[str, int]:
+        """Device bytes the engine holds: the weights at rest, what the
+        int8 kernel operands add beside them (storage the at-rest tree
+        does not share: dequantized leaves, expanded scales), and the
+        cache (page pools with their scratch page, or strips, and any
+        slot-resident state).  Their sum is what placement charges
+        (`cluster.node.instance_bytes`)."""
         return {"param_bytes": q_lib.tree_bytes(self.params),
+                "operand_bytes": (_unshared_bytes(self._int8, self.params)
+                                  if self._int8 is not None else 0),
                 "cache_bytes": cache_bytes(self.cache)}
 
     def perf_stats(self) -> Dict[str, Any]:

@@ -12,7 +12,11 @@ tier — the counterpart of `repro.serving.kv_hierarchy`.
   leaf.  Swap-out gathers a victim's private pages on the device and
   lands them on the host with one `.cpu()`; swap-in uploads them without
   blocking and scatters them into fresh pages.  Preemption then moves
-  O(pages) instead of recomputing O(context).
+  O(pages) instead of recomputing O(context).  A slot-resident leaf (a
+  recurrent state, Hymba's `ssm_h`) has no pages: its slot's row rides
+  in the handle and is written into the new slot at swap-in.  JAX's
+  handle leaves it behind, so a swapped Hymba request resumes there on
+  whatever state its new slot holds (ROADMAP.md C16).
 
 The host-side bookkeeping (chained keys, LRU, reclaim, flush, demotion
 and promotion) is a close copy of the JAX module's.  Where JAX returns
@@ -32,7 +36,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.serving.kv_cache import PagedKVPool, put_pages, take_pages
+from repro_torch.serving.kv_cache import (PagedKVPool, put_pages, take_pages,
+                                          to_device)
 
 
 # --------------------------------------------------------------------- #
@@ -122,24 +127,42 @@ class SwapHandle:
     """What rebuilds a parked slot's KV without a model forward: which
     table indices keep live device pages (shared prefix blocks the handle
     holds references on) and which moved to the host tier.  The engine
-    rebuilds the decode state (last token, budget, position) host-side."""
+    rebuilds the decode state (last token, budget, position) host-side.
+    `resident` holds the slot's rows of the slot-resident leaves, on the
+    host."""
     request_id: int
     n_tokens: int                       # pool.lengths at detach
     kept: List[Tuple[int, int]]         # (table index, device page id)
     host: List[Tuple[int, int]]         # (table index, host page id)
+    resident: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)           # leaf -> (L, ...) host row
 
     @property
     def n_pages(self) -> int:
         return len(self.kept) + len(self.host)
 
 
+def _row_to_host(leaf: torch.Tensor, slot: int) -> torch.Tensor:
+    """leaf[:, slot] copied into host memory (pinned on the card) without
+    waiting: the swap-out's `.cpu()` that follows on the same stream
+    completes it."""
+    row = leaf[:, slot]
+    if leaf.device.type != "cuda":
+        return row.clone()
+    out = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
+    return out.copy_(row, non_blocking=True)
+
+
 def swap_out_slot(pool: PagedKVPool, host: HostPagePool, paged: Dict,
-                  slot: int) -> Optional[SwapHandle]:
+                  slot: int, resident: Optional[Dict] = None
+                  ) -> Optional[SwapHandle]:
     """Park `slot` off the device: detach its page-table row, keep device
     references on shared pages (refs > 1, the prefix-cache blocks other
     slots may read), and move the private pages to the host tier with one
-    gather and one `.cpu()`.  None, leaving the slot untouched, when the
-    host pool cannot hold the private pages (the caller falls back to
+    gather and one `.cpu()`; the slot's rows of the `resident` leaves
+    ((L, n_slots, ...) each) go to the host ahead of them, in the same
+    wait.  None, leaving the slot untouched, when the host pool cannot
+    hold the private pages (the caller falls back to
     recompute-preemption)."""
     pages = pool.slot_pages.get(slot)
     if pages is None:
@@ -150,6 +173,7 @@ def swap_out_slot(pool: PagedKVPool, host: HostPagePool, paged: Dict,
                if pool.refs.get(p, 1) == 1]
     if not host.can_hold(len(private)):
         return None
+    rows = {k: _row_to_host(v, slot) for k, v in (resident or {}).items()}
     pages = pool.detach(slot)           # the handle now owns every reference
     kept = [(i, p) for i, p in enumerate(pages) if pool.refs.get(p, 1) > 1]
     priv = [(i, p) for i, p in enumerate(pages) if pool.refs.get(p, 1) == 1]
@@ -159,17 +183,22 @@ def swap_out_slot(pool: PagedKVPool, host: HostPagePool, paged: Dict,
         host_ids = host.put(blocks, len(priv))
         for _, p in priv:
             pool.free_page(p)
+    elif rows and next(iter(rows.values())).is_pinned():
+        torch.cuda.current_stream().synchronize()   # no page to wait on
     return SwapHandle(request_id=request_id, n_tokens=n_tokens, kept=kept,
-                      host=[(i, h) for (i, _), h in zip(priv, host_ids)])
+                      host=[(i, h) for (i, _), h in zip(priv, host_ids)],
+                      resident=rows)
 
 
 def swap_in_slot(pool: PagedKVPool, host: HostPagePool, paged: Dict,
-                 handle: SwapHandle) -> Optional[Tuple[int, bool]]:
+                 handle: SwapHandle, resident: Optional[Dict] = None
+                 ) -> Optional[Tuple[int, bool]]:
     """Restore a parked slot: claim fresh device pages for the host-tier
-    blocks, upload and scatter them in (no host sync), and attach the full
-    page list to a fresh slot.  Returns `(slot, uploaded)`, `uploaded`
-    when any page moved, or None (the handle intact) when slots or pages
-    are short."""
+    blocks, upload and scatter them in (no host sync), attach the full
+    page list to a fresh slot and write the handle's resident rows into
+    that slot of the `resident` leaves.  Returns `(slot, uploaded)`,
+    `uploaded` when any page moved, or None (the handle intact) when
+    slots or pages are short."""
     if not pool.free_slots:
         return None
     fresh = pool.alloc_pages(len(handle.host))
@@ -193,6 +222,9 @@ def swap_in_slot(pool: PagedKVPool, host: HostPagePool, paged: Dict,
         for p in fresh:
             pool.free_page(p)
         return None
+    for k, row in handle.resident.items():
+        leaf = resident[k]
+        leaf[:, slot] = to_device(row, leaf.device)
     return slot, bool(handle.host)
 
 

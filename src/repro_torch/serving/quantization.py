@@ -97,12 +97,18 @@ def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor,
 # --------------------------------------------------------------------- #
 # the int8 kernel path
 
-# matmul weights of the decoder, by path; other quantized leaves (stacked
-# norm scales, the MoE router) are dequantized once by `int8_operands`
+# matmul weights of the decoder, by path (Hymba's SSM input projection and
+# its output projection too); other quantized leaves (stacked norm scales,
+# the MoE router, Hymba's meta tokens and its small SSM leaves) are
+# dequantized once by `int8_operands`
 _LINEARS = {("layers", "attn", "wq"), ("layers", "attn", "wk"),
             ("layers", "attn", "wv"), ("layers", "attn", "wo"),
             ("layers", "mlp", "wi"), ("layers", "mlp", "wo"),
+            ("layers", "ssm", "w_in"), ("layers", "wo_comb"),
             ("embed",), ("lm_head",)}
+# linears whose (L, d, G, n) leaf the model multiplies as (d, G * n): the
+# per-n scale repeats over G in the kernel's per-column scale
+_GROUPED = ("wq", "wk", "wv", "w_in")
 # the MoE experts: batched products off the kernel, kept int8 at rest
 _EXPERTS = {("layers", "moe", "wi"), ("layers", "moe", "wo")}
 
@@ -112,8 +118,9 @@ def _col_scale(path, leaf) -> torch.Tensor:
     the kernel for this leaf (the embedding's stays per d: (1, d))."""
     scale = leaf["scale"]
     q = leaf[_QKEY]
-    if path[-1] in ("wq", "wk", "wv"):
+    if path[-1] in _GROUPED:
         # (L, d, H, hd) -> (d, H*hd): the per-hd scale repeats over heads
+        # (w_in's per-inner scale over its two halves, u and z)
         return scale.reshape(1, 1, -1).expand(1, q.shape[2], -1) \
             .reshape(1, -1).contiguous()
     return scale.reshape(1, -1).contiguous()
@@ -138,3 +145,29 @@ def int8_operands(params: Params) -> Params:
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         return node
     return walk(params, ())
+
+
+def operand_bytes(params: Params) -> int:
+    """Device bytes `int8_operands(params)` allocates beside the int8
+    tree `params` itself: the leaves it dequantizes and the per-column
+    scales it expands (wq, wk, wv, w_in); the other operands share the
+    tree's storage (a grouped scale over one group is a view of it).  A
+    function of shapes and dtypes only, so it also
+    counts a tree built on the meta device (placement's count)."""
+    total = 0
+
+    def walk(node, path):
+        nonlocal total
+        if is_quantized_leaf(node):
+            if path in _LINEARS and node["bits"] == 8:
+                q = node[_QKEY]
+                if path[-1] in _GROUPED and q.shape[2] > 1:
+                    total += q.shape[2] * q.shape[3] * 4   # else a view
+            elif not (path in _EXPERTS and node["bits"] == 8):
+                total += node[_QKEY].numel() * torch.empty(
+                    (), dtype=node["dtype"]).element_size()
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+    walk(params, ())
+    return total

@@ -4,7 +4,8 @@ The sixteen modules the port copies verbatim equal the reference's but for
 their imports.  The seven that differ say why, and are held by behaviour:
 the hardware table keeps, node for node of the paper's testbed, the
 reference's memory and legacy flag, so VRAM-aware placement gives the
-same plans; the cost-optimal solver, the perf model and the roofline
+same plans (each assignment charged the bytes the port's engine
+allocates, ROADMAP.md C14); the cost-optimal solver, the perf model and the roofline
 agree when both packages are given the same capability vectors.  (The
 gateway's one change, `result()` and `generate_batch()` waiting without a
 spin, is held by tests/test_torch_gateway.py and the ported runtime
@@ -109,8 +110,22 @@ def test_scale_fleet_builds_the_reference_memory_layout():
 
 
 def _plan(plan):
-    return ([dataclasses.astuple(a) for a in plan.assignments],
-            list(plan.unplaced))
+    """A plan's decisions: every assignment but its bytes, which the
+    port charges as its engine allocates them (ROADMAP.md C14) and
+    `_held_to_port_bytes` checks."""
+    return ([dataclasses.astuple(dataclasses.replace(a, bytes=0))
+             for a in plan.assignments], list(plan.unplaced))
+
+
+def _held_to_port_bytes(plan, demands):
+    """Each of the port's assignments carries the port's charge."""
+    from repro_torch.cluster.node import instance_bytes
+    cfgs = {d.cfg.name: d.cfg for d in demands}
+    for a in plan.assignments:
+        assert a.bytes == instance_bytes(cfgs[a.model_name], a.quantize,
+                                         a.n_slots, a.max_len, a.page_size,
+                                         a.kv_pages)
+    return plan
 
 
 def _demands(mod, zoo, archs):
@@ -136,9 +151,11 @@ def test_vram_placement_plans_match_reference(fill):
     for k in range(1, 6):
         jd = _demands(jax_place, ZOO, ARCHS)[:k]
         pd = _demands(port_place, PORT_ZOO, PORT_ARCHS)[:k]
-        assert _plan(port_place.place(pn, pd, fill=fill)) == \
+        assert _plan(_held_to_port_bytes(
+            port_place.place(pn, pd, fill=fill), pd)) == \
             _plan(jax_place.place(jn, jd, fill=fill))
-        assert _plan(port_place.place_naive(pn, pd)) == \
+        assert _plan(_held_to_port_bytes(
+            port_place.place_naive(pn, pd), pd)) == \
             _plan(jax_place.place_naive(jn, jd))
 
 
@@ -161,8 +178,8 @@ def test_cost_optimal_placement_matches_reference():
     jd[0] = dataclasses.replace(jd[0], target_tokens_per_s=4000.0)
     pd[0] = dataclasses.replace(pd[0], target_tokens_per_s=4000.0)
     for fill in (True, False):
-        assert _plan(port_place.place_cost_optimal(
-            pn, pd, port_perf.PerfModel(), fill=fill)) == _plan(
+        assert _plan(_held_to_port_bytes(port_place.place_cost_optimal(
+            pn, pd, port_perf.PerfModel(), fill=fill), pd)) == _plan(
             jax_place.place_cost_optimal(jn, jd, jax_perf.PerfModel(),
                                          fill=fill))
 

@@ -51,6 +51,9 @@ def _close(got, want, tol):
 # decode positions of the MoE cases: pos 0, either side of the chunk
 # edges at 128 rows (B 8 x K 8: 8 chunks), the cache end
 MOE_POS = [0, 127, 128, 255, 256, 700, 1000, 1023]
+# hymba-1.5b at max_len 4096 (B 8 x K 5: chunks of 320 rows, of 20 pages):
+# pos 0, either side of a chunk edge and of window 2048 + 128 meta tokens
+HYMBA_POS = [0, 319, 320, 2175, 2176, 2177, 3000, 4095]
 
 PAGED = [
     # B, K, G, n_pages, pps, ps, hd, window, prefix
@@ -116,6 +119,10 @@ PAGED_SPLIT = [
     # 4096)
     (8, 8, 3, 600, 64, 16, 64, 0, 0, MOE_POS, "plain"),
     (8, 8, 6, 600, 64, 16, 128, 4096, 0, MOE_POS, "plain"),
+    # hymba-1.5b (G 5 over 5 KV heads, hd 64): its windowed layers (2048,
+    # 128 meta tokens exempt) and its global ones (window 0)
+    (8, 5, 5, 2100, 256, 16, 64, 2048, 128, HYMBA_POS, "plain"),
+    (8, 5, 5, 2100, 256, 16, 64, 0, 128, HYMBA_POS, "plain"),
 ]
 
 
@@ -197,6 +204,8 @@ FLASH = [
     (1, 4, 2, 128, 160, 256, 0, 0, False),    # non-causal, Skv % 32
     (2, 24, 8, 300, 300, 64, 0, 0, True),     # granite: G 3, ragged S
     (1, 48, 8, 256, 256, 128, 4096, 0, True),  # mixtral: G 6, window
+    # hymba-1.5b: G 5, 128 meta tokens + 2400, window 2048
+    (1, 25, 5, 2528, 2528, 64, 2048, 128, True),
 ]
 FLASH_ROUTE = {"f32": "cuda_core", "bf16": "tensor_core"}
 
@@ -269,6 +278,9 @@ DECODE = [
     # granite (G 3, hd 64) and mixtral (G 6, hd 128, window 4096)
     (8, 8, 3, 1024, 64, 0, 0, MOE_POS),
     (8, 8, 6, 1024, 128, 4096, 0, MOE_POS),
+    # hymba-1.5b (G 5, hd 64) at max_len 4096, windowed and global
+    (8, 5, 5, 4096, 64, 2048, 128, HYMBA_POS),
+    (8, 5, 5, 4096, 64, 0, 128, HYMBA_POS),
 ]
 SPLIT = DECODE[10:15]
 
@@ -331,6 +343,13 @@ INT8 = [
     (64, 1536, 1536, "kn", "tensor_core"),
     (64, 1536, 512, "kn", "tensor_core"),
     (8, 1536, 49155, "head", "skinny_tc"),
+    # hymba-1.5b: w_in 1600 -> 3200, down 5504 -> 1600, the untied head's
+    # 32001-byte rows (unaligned: skinny, cuda_core_tile)
+    (8, 1600, 3200, "kn", "skinny_tc"),
+    (8, 5504, 1600, "kn", "skinny_tc"),
+    (64, 1600, 3200, "kn", "tensor_core"),
+    (8, 1600, 32001, "kn", "skinny"),
+    (64, 1600, 32001, "kn", "cuda_core_tile"),
 ]
 
 
@@ -996,6 +1015,50 @@ def test_gemma_engines_match_the_cpu(cuda, name, mode):
         outs[str(dev)] = [r.output for r in reqs]
         st = eng.perf_stats()
         stats[str(dev)] = {k: st[k] for k in ("dispatches", "host_syncs")}
+    assert outs[str(cuda)] == outs["cpu"]
+    assert stats[str(cuda)] == stats["cpu"]
+    assert ops.flash_attention.launches > 0
+    attn = (ops.paged_decode_attention if mode == "paged_attention"
+            else ops.decode_attention)
+    assert attn.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paged_attention", "gather",
+                                  "contiguous", "int8"])
+@pytest.mark.parametrize("kv", [4, 2])
+def test_hymba_engines_match_the_cpu(cuda, kv, mode):
+    """The reduced hymba-1.5b (window 16 but in layer 0, 2 meta tokens,
+    G = 1 and G = 2) in f32: the engine on the card gives the greedy
+    tokens and counters of the same engine on the CPU, prompts past the
+    window, the SSM state carried slot by slot."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                     SamplingParams)
+    cfg = ARCHS["hymba-1.5b"].reduced(dtype="f32", n_kv_heads=kv)
+    params = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(26)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (20, 37, 9)]
+    kw = {"paged_attention": dict(paged_attention=True), "gather": {},
+          "contiguous": dict(paged=False),
+          "int8": dict(quantize="int8")}[mode]
+    outs, stats = {}, {}
+    for dev in ("cpu", cuda):
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            n_slots=4, max_len=64, page_size=8, decode_block=4, **kw),
+            device=dev)
+        reqs = [Request(model="m", prompt=p,
+                        sampling=SamplingParams(max_tokens=14))
+                for p in prompts]
+        for r in reqs:
+            assert eng.submit(r)
+        ops.reset_launches()
+        eng.run_until_done()
+        outs[str(dev)] = [r.output for r in reqs]
+        st = eng.perf_stats()
+        stats[str(dev)] = {k: st[k] for k in ("dispatches", "host_syncs",
+                                              "prefill_shapes")}
     assert outs[str(cuda)] == outs["cpu"]
     assert stats[str(cuda)] == stats["cpu"]
     assert ops.flash_attention.launches > 0

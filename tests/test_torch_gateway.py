@@ -96,12 +96,27 @@ def _greedy(side, gw, prompts=PROMPTS, budgets=BUDGETS, **kw):
     return [h.result(timeout_s=120) for h in handles]
 
 
+def _port_charge(cfg, quantize, n_slots, max_len, page_size, kv_pages):
+    """What the port's placement charges an instance: every byte its
+    engine allocates (ROADMAP.md C14), where the reference charges its
+    analytic count."""
+    from repro_torch.cluster.node import instance_bytes
+    return instance_bytes(cfg, quantize, n_slots, max_len, page_size,
+                          kv_pages)
+
+
 def test_deploy_plans_match_reference(stores):
+    """The same assignments in both packages, each charged its package's
+    bytes (the port's: `_port_charge`)."""
     plans = []
     for side, store in _sides(stores):
         fleet, ctrl, plan = _testbed(side, store)
+        if side is PORT_SIDE:
+            assert all(a.bytes == _port_charge(
+                _cfg(side), a.quantize, a.n_slots, a.max_len, a.page_size,
+                a.kv_pages) for a in plan.assignments)
         plans.append([(a.node_id, a.quantize, a.n_slots, a.max_len,
-                       a.page_size, a.kv_pages, a.bytes)
+                       a.page_size, a.kv_pages)
                       for a in plan.assignments])
         engines = [i.engine for n in fleet.nodes.values()
                    for i in n.instances.values()]
@@ -224,7 +239,19 @@ def test_swap_fail_window_matches_reference(stores):
     assert port_run[1] >= 1 and port_run[2:] == (0, 0, 0)
 
 
-def _snapshot_fields(snap):
+def _snapshot_fields(snap, cfg):
+    """The snapshot's deterministic fields; each node's used bytes and
+    each instance's bytes are held to the side's own charge (`cfg`'s
+    package: the port's charges what its engine allocates, ROADMAP.md
+    C14) and left out of the comparison."""
+    port = cfg.__class__.__module__.startswith("repro_torch")
+    for n in snap.nodes:
+        assert n.hbm_used == sum(i.bytes for i in n.instances)
+        for i in n.instances:
+            if port:
+                assert i.bytes == _port_charge(cfg, i.quantize, i.n_slots,
+                                               i.max_len, i.page_size,
+                                               i.kv_pages)
     return dict(
         connected=snap.connected, total=snap.total,
         routing={m: sorted(k.split("/")[0] for k in keys)
@@ -233,8 +260,8 @@ def _snapshot_fields(snap):
                 for m in snap.models],
         # (health is not here: it ages with the wall clock since the
         # last heartbeat, and no tick runs while hand-pumping)
-        nodes=[(n.node_id, n.alive, n.hbm_used, n.hbm_budget,
-                [(i.model, i.n_slots, i.max_len, i.bytes, i.page_size,
+        nodes=[(n.node_id, n.alive, n.hbm_budget,
+                [(i.model, i.n_slots, i.max_len, i.page_size,
                   i.kv_pages, i.pages_in_use, i.page_occupancy,
                   i.preemptions, i.alive) for i in n.instances])
                for n in snap.nodes])
@@ -245,9 +272,10 @@ def test_admin_snapshot_matches_reference(stores):
     for side, store in _sides(stores):
         fleet, ctrl, _ = _testbed(side, store)
         gw = side[0].Gateway(ctrl)
-        before = _snapshot_fields(gw.admin.snapshot())
+        before = _snapshot_fields(gw.admin.snapshot(), _cfg(side))
         _greedy(side, gw, PROMPTS[:3], BUDGETS[:3])
-        snaps.append((before, _snapshot_fields(gw.admin.snapshot())))
+        snaps.append((before, _snapshot_fields(gw.admin.snapshot(),
+                                               _cfg(side))))
     assert snaps[1] == snaps[0]
     assert snaps[1][0]["connected"] == snaps[1][0]["total"] == 6
 

@@ -994,18 +994,20 @@ def test_launcher_serves_reduced_models_on_cpu():
 
 @pytest.mark.parametrize("argv", [
     ["--models", "xlstm-125m"],
-    ["--models", "qwen3-1.7b,hymba-1.5b", "--device", "cpu", "--reduced"],
-    ["--models", "hymba-1.5b", "--device", "cpu", "--reduced"],
+    ["--models", "qwen3-1.7b,seamless-m4t-large-v2", "--device", "cpu",
+     "--reduced"],
+    ["--models", "seamless-m4t-large-v2", "--device", "cpu", "--reduced"],
 ])
 def test_launcher_refuses_models_the_port_does_not_run(argv, capsys,
                                                        monkeypatch):
     """Every model of the paper's zoo builds on the port (the embedding
     models as the causal decoders the reference serves them as), so two
-    families still queued in ROADMAP.md A7 stand in the zoo here."""
+    families still queued in ROADMAP.md A7, xLSTM and the
+    encoder-decoder, stand in the zoo here."""
     from repro_torch.api.http import __main__ as port_main
     from repro_torch.api.http.__main__ import build_service
     from repro_torch.configs import ARCHS as PORT_ARCHS
-    for name in ("xlstm-125m", "hymba-1.5b"):
+    for name in ("xlstm-125m", "seamless-m4t-large-v2"):
         monkeypatch.setitem(port_main.ZOO, name, PORT_ARCHS[name])
     with pytest.raises(SystemExit) as e:
         build_service(argv)
