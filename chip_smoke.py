@@ -48,6 +48,11 @@ JSON line:
               2400, window 2048); the int8 matmul at its products (1600
               -> 1600 / 320 / 3200 / 5504, 5504 -> 1600, the untied head
               1600 -> 32001 on the CUDA-core routes) at M 8 and 1024.
+              Then seamless-m4t-large-v2's decoder self-attention: G = 1
+              at hd 64 over 16 KV heads (B * K = 128) in both decode
+              kernels (pos 0, either side of two chunk edges, the cache
+              end; twice bit for bit) and its causal prefill in flash
+              (H 16, S 1024 and a ragged 300).
               Last, ROADMAP C5: the f32 int8 product at M = 4096, 8192 ->
               2048 on four seeds against the f64 product within the f32
               summation bound (K + 4) u sum |x||w|.
@@ -106,6 +111,28 @@ JSON line:
               through the host swap tier (>= 1 swap-out) equal to the
               same requests on a pool with room (the SSM state rides in
               the swap handle).
+   parity_xlstm — the paper's xlstm-125m at full width and depth (6
+              pairs of an mLSTM and an sLSTM block, d 768, vocab 50304
+              tied) in f32: prompts of 5, 300, 640 and 900 tokens at
+              decode_block 8 in the contiguous mode, through a
+              paged-attention config (which serves contiguous: nothing to
+              page, as in JAX) and under int8, each request's tokens
+              equal to greedy_recompute (xLSTM's full forward), one exact
+              length an admission, the launches exact (none; int8: 7 x 6
+              + 1 products a model call).
+   parity_encdec — seamless-m4t-large-v2 at full width cut to 2 encoder
+              and 2 decoder layers, f32, max_len 1024: prompts of 10-900
+              tokens in the paged-attention, gather and contiguous modes
+              and under int8, and a two-request swap leg, each equal to
+              greedy_recompute (the engine and the recompute feed the
+              encoder zero frames: the cross-attention adds exactly 0,
+              ROADMAP C17), launches exact (non-causal flash for the
+              encoder and the cross-attention, counted on their own; the
+              decode kernel for the cross-attention in every mode); then,
+              with random frames, the model's prefill (2 rows of 300 over
+              1024 frames) and 8 decode steps on the kernels against the
+              same calls on the plain versions within f32's 1e-4 (the
+              only run where the cross path carries values).
 5. serve_bf16 — a main path: the full OLMo-1B (16 layers, bf16, seeded
               random weights) serves 12 requests through
               InferenceEngine.submit/step in the paged-attention mode,
@@ -226,6 +253,27 @@ JSON line:
               as serve_bf16 is, its routes exact (the untied head's
               32001-byte rows on "skinny") and every prefill admission a
               group of one exact length.
+10d. serve_xlstm — the paper's xlstm-125m at full width and depth, bf16,
+              seeded weights, serve_bf16's engine and 12 requests in the
+              contiguous mode, then under int8 (a gather config, which
+              serves contiguous): exact budgets, one exact length an
+              admission, launches and routes exact (int8 only: 7 x 6 + 1
+              a model call), placement's charge equal to the engine's
+              bytes (the seven f32 state leaves).
+10e. serve_seamless — the paper's seamless-m4t-large-v2 at full width
+              and depth (24 + 24 layers, d 1024, gelu d_ff 8192, vocab
+              256206 untied, 1.63 B params), bf16, seeded weights,
+              serve_bf16's engine and requests in the paged-attention
+              mode, the gather mode and the gather mode under int8: the
+              cross K/V (805 MB) slot-resident; exact budgets and pages;
+              flash 24 causal and 48 non-causal launches a prefill
+              dispatch (counted on their own), the decode kernel 24 a
+              decode step for the cross-attention even in the paged leg,
+              the untied head's 256206-byte rows on "skinny"; the charge
+              equal to the engine's bytes, cross K/V included.  Then the
+              swap tier at full width (seamless_swap_leg: two requests on
+              64 pages, each swap moving the slot's 100.7 MB of cross
+              K/V beside its pages; the host ms of each swap).
 12. launcher — `python -m repro_torch.api.http --port 0` as a process
               of its own: /healthz and /v1/models list both models, one
               streamed chat ends in `data: [DONE]`, and SIGINT makes it
@@ -246,10 +294,11 @@ JSON line:
               each with its route and its ratio to the library call
               ("vs_library"); the three attention kernels also at the
               zoo's grouped-query shapes (SERVED_GQA: llama3.2-1b,
-              qwen3-1.7b, gemma3-1b, gemma3-4b; their "shapes", with
-              SDPA's enable_gqa as the yardstick, under the window's
-              boolean mask for the gemmas, whose rows carry their
-              launches on serve_gemma).  Before the
+              qwen3-1.7b, gemma3-1b, gemma3-4b, and the served MoE,
+              hymba and seamless shapes; their "shapes", with SDPA's
+              enable_gqa as the yardstick, under the window's boolean
+              mask where there is one; the gemmas' rows carry their
+              launches on serve_gemma, the others' on their serve).  Before the
               line: c5_f32_tile_error (the
               f32 CUDA-core int8 tile and f32 cuBLAS against f64 at
               M = 4096) and plain_timings (the verify's plain paged
@@ -259,11 +308,24 @@ JSON line:
               bound at granite's decode and widest prefill and
               mixtral's decode), and hymba_timings (the int8 products at
               hymba-1.5b's shapes, and its plain SSM branch: one layer's
-              decode step, one layer's selective scan over 2048 tokens).
+              decode step, one layer's selective scan over 2048 tokens),
+              xlstm_timings (the int8 products at xlstm-125m's shapes;
+              its plain cells: one pair's decode step over 8 slots, one
+              pair's chunkwise mLSTM and sLSTM scan over 896 tokens) and
+              the encoder-decoder's rows in the kernels' "shapes" (flash
+              non-causal at the encoder's B=4 H=16 S=1024 hd=64 and at
+              serve_seamless' widest cross prefill over 1024 frames, the
+              decode kernel at the cross shape B=8 K=16 S=1024 with every
+              position valid, each against unmasked SDPA; the int8
+              products at seamless's shapes, its head on "skinny").
+              The line also asserts every kernel ran on serve_seamless
+              (flash non-causal among its launches) and int8 on
+              serve_xlstm.
               The line asserts every kernel ran on serve_moe and on
-              serve_hymba; the attention kernels' rows at the MoE and
-              hymba shapes (hymba at S = 4096, flash at 128 + 2400)
-              carry their serve_moe / serve_hymba launches.
+              serve_hymba; the attention kernels' rows at the MoE,
+              hymba and seamless shapes (hymba at S = 4096, flash at 128
+              + 2400) carry their serve_moe / serve_hymba /
+              serve_seamless launches.
               Each serve also holds placement's charge with the
               engine's page budget (cluster/node.py instance_bytes)
               equal to every byte the engine's memory_report counts
@@ -291,6 +353,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks from NVIDIA's data sheet (dense, full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12           # outside the tensor cores
 REPS = 30
 SLEEP_CYCLES = 400_000      # ~0.2 ms at the H100's 1.98 GHz boost clock
 
@@ -470,6 +533,10 @@ HYMBA_POS = [0, 319, 320, 2175, 2176, 2177, 3000, 4095]
 # number of 16-byte vectors (the CUDA-core routes)
 HYMBA_INT8 = ((1600, 1600), (1600, 320), (1600, 3200), (1600, 5504),
               (5504, 1600), (1600, 32001))
+# seamless-m4t-large-v2's decoder self-attention at serve_seamless' max_len
+# 1024 (B 8 x K 16: chunks of 256 rows, of 16 pages of 16): pos 0, either
+# side of two chunk edges, the cache end
+SEAMLESS_POS = [0, 255, 256, 511, 512, 700, 1000, 1023]
 
 
 def kernel_checks(dev, ops, refs, q_lib):
@@ -688,6 +755,21 @@ def kernel_checks(dev, ops, refs, q_lib):
                    ("skinny" if m <= 16 else "cuda_core_tile"))
                   for m in (8, 1024) for k, n in HYMBA_INT8]
         check_int8(dev, ops, refs, q_lib, dtype, icases, rows, 3000)
+    # seamless-m4t-large-v2's decoder self-attention (seeds from 5000): G = 1
+    # at hd 64 over 16 KV heads, B * K = 128, with ragged positions in the
+    # split kernels (twice bit for bit), and its causal prefill in flash
+    for dtype in (torch.bfloat16, torch.float32):
+        check_paged(dev, ops, refs, dtype, [
+            ("split_seamless", dict(B=8, K=16, G=1, hd=64, ps=16, pps=64,
+                                    pos=SEAMLESS_POS), 0, 0)], rows, 5000)
+        check_flash(dev, ops, refs, dtype, [
+            ("seamless_prefill", dict(B=4, H=16, K=16, S=1024, hd=64), 0, 0),
+            ("seamless_ragged", dict(B=2, H=16, K=16, S=300, hd=64), 0, 0)],
+            rows, 5000)
+        check_decode(dev, ops, refs, dtype, [
+            ("split_seamless", dict(B=8, K=16, G=1, S=1024, hd=64,
+                                    pos=SEAMLESS_POS, strided=True), 0, 0)],
+            rows, 5000)
     c5_seeds(dev, ops, q_lib, rows)
     return rows
 
@@ -1012,6 +1094,8 @@ SERVED_GQA = {
     # configs/hymba_1_5b.py at serve_hymba's max_len 4096: its 128 meta
     # tokens are the prefix, its windowed layers' 2048 the window
     "hymba-1.5b": (25, 5, 64, 2048, 128),
+    # configs/seamless_m4t_large.py: its decoder self-attention
+    "seamless-m4t-large-v2": (16, 16, 64, 0, 0),
 }
 # decode S and flash S past the prefix, where not 1024 (so that the
 # window bites)
@@ -1186,18 +1270,26 @@ def plain_timings(dev, ops):
 # --------------------------------------------------------------------- #
 # engine phases
 
-def greedy_recompute(tf, params, cfg, prompt, n):
+def greedy_recompute(tf, params, cfg, prompt, n, src_len=1024):
     """Plain greedy decode: a full forward with plain attention (the
     config's window) and no cache at every step; a vision model gets the
-    zero prefix embeddings the engine feeds it."""
+    zero prefix embeddings the engine feeds it, an encoder-decoder the
+    zero frames (`src_len` of them, the engine's max_len).  xLSTM's full
+    forward (`models.xlstm.forward`: the parallel mLSTM, the sLSTM scan)
+    has no attention."""
+    from repro_torch.models import xlstm as xl
     toks = list(prompt)
     out = []
     dev = params["embed"].device
     prefix = tf.zero_prefix_embeds(cfg, 1, dev)
+    src = tf.zero_src_embeds(cfg, 1, src_len, dev)
     for _ in range(n):
         ids = torch.tensor([toks], device=dev)
-        logits = tf.forward(params, cfg, ids, impl="full",
-                            prefix_embeds=prefix)[0, -1]
+        if cfg.block == "xlstm":
+            logits = xl.forward(params, cfg, ids)[0, -1]
+        else:
+            logits = tf.forward(params, cfg, ids, impl="full",
+                                prefix_embeds=prefix, src_embeds=src)[0, -1]
         nxt = int(logits.argmax())
         out.append(nxt)
         toks.append(nxt)
@@ -1499,10 +1591,16 @@ def parity_gateway(dev, ops, cfg, params, prompts, dense, kernels):
 
 def seed_norms(params, rng):
     """Draw every RMS-norm scale from `rng` (the init leaves them 0, and
-    `1 + scale` then never weighs anything); Hymba's branch norms too."""
-    lp = params["layers"]
-    for tree, key in ((lp, "ln1"), (lp, "ln2"), (params, "final_norm"),
-                      (lp, "branch_norm_attn"), (lp, "branch_norm_ssm")):
+    `1 + scale` then never weighs anything); Hymba's branch norms, an
+    encoder-decoder's lnx and encoder norms, and xLSTM's blocks' ln and
+    group-norm gn too."""
+    lp, ep = params.get("layers", {}), params.get("enc_layers", {})
+    slots = [(lp, "ln1"), (lp, "ln2"), (params, "final_norm"),
+             (lp, "branch_norm_attn"), (lp, "branch_norm_ssm"), (lp, "lnx"),
+             (ep, "ln1"), (ep, "ln2")]
+    for blk in params.get("pairs", {}).values():
+        slots += [(blk, "ln"), (blk, "gn")]
+    for tree, key in slots:
         if key not in tree:
             continue
         t = tree[key]
@@ -1838,45 +1936,73 @@ def drive(eng, reqs):
     return step_ms, time.perf_counter() - t0
 
 
-def int8_linears(cfg) -> int:
-    """The int8 kernel's products a layer: wq, wk, wv, wo, and gate, up,
-    down of a dense FFN (a MoE model's experts are batched products off
-    the kernel, dequantized a layer at a time); Hymba has w_in and
-    wo_comb in place of wo."""
-    if cfg.moe:
-        return 4
-    return 8 if cfg.block == "hymba" else 7
+def int8_products(cfg, prefill: bool) -> int:
+    """The int8 kernel's products in one model call, the head excepted:
+    a layer's wq, wk, wv, wo and its FFN's (gate, up, down; gelu's wi,
+    wo), a MoE layer's four (its experts are batched products off the
+    kernel, dequantized a layer at a time), Hymba's w_in and wo_comb in
+    place of wo; an encoder-decoder's decoder layer adds its cross wq and
+    wo, and a prefill also each layer's cross wk and wv and the encoder's
+    layers; xLSTM's seven a pair (w_up, wq, wk, wv, w_down, ffn_wi,
+    ffn_wo)."""
+    if cfg.block == "xlstm":
+        return 7 * max(1, cfg.n_layers // 2)
+    ffn = 0 if cfg.moe else (3 if cfg.act == "swiglu" else 2)
+    total = (4 + ffn + (cfg.block == "hymba")) * cfg.n_layers
+    if cfg.is_encdec:
+        total += 2 * cfg.n_layers
+        if prefill:
+            total += 2 * cfg.n_layers + (4 + ffn) * cfg.encdec.enc_layers
+    return total
+
+
+def flash_per_prefill(cfg):
+    """(causal, non-causal) flash launches a prefill dispatch: one a
+    decoder layer; an encoder-decoder's encoder layers and cross
+    attentions are non-causal; xLSTM has no attention."""
+    if cfg.block == "xlstm":
+        return 0, 0
+    return cfg.n_layers, (cfg.encdec.enc_layers + cfg.n_layers
+                          if cfg.is_encdec else 0)
 
 
 def expected_launches(cfg, ecfg, st):
     """Each kernel's launches for a serve with these stats: one attention
-    kernel per layer per model call, and under int8 one int8 matmul per
-    linear (`int8_linears` a layer) plus the tied head per model call (a
-    full prefill dispatch or a fused decode step).  A suffix admission
-    and a speculative verify attend in plain PyTorch and launch no
-    attention kernel."""
-    n = cfg.n_layers
+    kernel per layer per model call (an encoder-decoder's prefill also
+    runs flash in its encoder and cross-attention, its decode the decode
+    kernel for the cross-attention in every mode), and under int8 one
+    int8 matmul per product (`int8_products`) plus the head per model
+    call (a full prefill dispatch or a fused decode step).  A suffix
+    admission and a speculative verify attend in plain PyTorch and
+    launch no attention kernel; xLSTM launches only the int8 kernel."""
+    n = 0 if cfg.block == "xlstm" else cfg.n_layers
     # a speculative verify is a decode dispatch that runs no decode kernel
     steps = ecfg.decode_block * (st["decode_dispatches"]
                                  - st["spec_dispatches"])
     paged = st["paged_attention"]
+    pre = st["prefill_dispatches"]
+    cross = n if cfg.is_encdec else 0
     return {"paged_decode_attention": n * steps if paged else 0,
-            "flash_attention": n * st["prefill_dispatches"],
-            "decode_attention": 0 if paged else n * steps,
-            "int8_matmul": ((int8_linears(cfg) * n + 1)
-                            * (st["prefill_dispatches"] + steps)
+            "flash_attention": sum(flash_per_prefill(cfg)) * pre,
+            "decode_attention": ((0 if paged else n) + cross) * steps,
+            "int8_matmul": ((int8_products(cfg, True) + 1) * pre
+                            + (int8_products(cfg, False) + 1) * steps
                             if ecfg.quantize == "int8" else 0)}
 
 
 def expected_routes(cfg, ecfg, st, dispatch_shapes):
-    """The flash and int8 launches of a bf16 serve by route.  Flash: all
-    on the tensor cores.  int8: in a prefill dispatch of (rows, bucket)
-    the int8_linears x n_layers projections have M = rows x bucket, on
-    the tensor cores when M > 16, and the head M = rows; every decode
-    step has M = n_slots; M <= 16 (bf16 x, aligned rows) is skinny_tc.
-    An untied head of N % 16 != 0 (hymba's 32001) has rows that are no
-    whole number of 16-byte vectors: M <= 16 on "skinny"."""
-    flash = {"tensor_core": cfg.n_layers * st["prefill_dispatches"],
+    """The flash and int8 launches of a bf16 serve by route, and the
+    flash launches that are non-causal.  Flash: all on the tensor cores.
+    int8: in a prefill dispatch of (rows, bucket) the decoder's
+    `int8_products` have M = rows x bucket, on the tensor cores when
+    M > 16 (an encoder-decoder's encoder and cross wk / wv take the rows'
+    max_len frames: M = rows x max_len), and the head M = rows; every
+    decode step has M = n_slots; M <= 16 (bf16 x, aligned rows) is
+    skinny_tc.  An untied head of N % 16 != 0 (hymba's 32001,
+    seamless's 256206) has rows that are no whole number of 16-byte
+    vectors: M <= 16 on "skinny"."""
+    causal, non_causal = flash_per_prefill(cfg)
+    flash = {"tensor_core": (causal + non_causal) * st["prefill_dispatches"],
              "cuda_core": 0}
     int8 = {"skinny": 0, "tensor_core": 0, "cuda_core_tile": 0,
             "skinny_tc": 0}
@@ -1887,14 +2013,17 @@ def expected_routes(cfg, ecfg, st, dispatch_shapes):
             if m > 16:
                 return wide
             return "skinny_tc" if row % 16 == 0 else "skinny"
-        n = cfg.n_layers * int8_linears(cfg)
+        n = int8_products(cfg, False)
+        frames = int8_products(cfg, True) - n
         for rows, bucket in dispatch_shapes:
             int8[route(rows * bucket, "tensor_core")] += n
+            int8[route(rows * ecfg.max_len, "tensor_core")] += frames
             int8[route(rows, "cuda_core_tile", head_row)] += 1   # the head
         steps = ecfg.decode_block * st["decode_dispatches"]
         int8[route(ecfg.n_slots, "tensor_core")] += n * steps
         int8[route(ecfg.n_slots, "cuda_core_tile", head_row)] += steps
-    return {"flash_attention": flash, "int8_matmul": int8}
+    return {"flash_attention": flash, "int8_matmul": int8,
+            "flash_non_causal": non_causal * st["prefill_dispatches"]}
 
 
 def serve(phase, dev, ops, card, cfg=None, max_prompt=896, params=None,
@@ -1936,6 +2065,7 @@ def serve(phase, dev, ops, card, cfg=None, max_prompt=896, params=None,
     launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
     by_route = {fn.__name__: dict(fn.launches_by_route)
                 for fn in (ops.flash_attention, ops.int8_matmul)}
+    by_route["flash_non_causal"] = ops.flash_attention.launches_non_causal
     st = eng.perf_stats()
     check_serve(phase, cfg, ecfg, eng, reqs, launches)
     if eng.pool.pages_in_use != 0:
@@ -2085,6 +2215,83 @@ def serve_moe(dev, ops, card, granite=None, mixtral=None):
     return legs, more
 
 
+def parity_runs(phase, dev, ops, cfg, params, prompts, budgets, runs,
+                max_len=1024, decode_block=8):
+    """Greedy requests through the engine in each of `runs` (mode, engine
+    kwargs, weights "dense" or "int8", the kernels it must launch), each
+    request's tokens against greedy_recompute (on the dequantized
+    weights for int8), each run's launches against expected_launches
+    (the non-causal flash launches too) and each admission of an
+    exact-length family holding rows of one length.  Returns (lines,
+    mismatches)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                     SamplingParams)
+    from repro_torch.serving import quantization as q_lib
+    deq = q_lib.dequant_tree(q_lib.quantize_tree(params, 8))
+    wants = {}
+
+    def want(weights, p, n):
+        key = (weights, tuple(p), n)
+        if key not in wants:
+            wants[key] = greedy_recompute(
+                tf, deq if weights == "int8" else params, cfg, p, n,
+                src_len=max_len)
+        return wants[key]
+    lines, mismatches = [], []
+    for mode, kw, weights, kernels in runs:
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            n_slots=4, max_len=max_len, decode_block=decode_block, **kw),
+            device=dev)
+        shapes = []
+        admit = eng._prefill_admit
+
+        def recording_admit(toks, lengths, row_pages, slots, *args,
+                            admit=admit, shapes=shapes):
+            shapes.append((tuple(toks.shape),
+                           sorted({int(n) for n in lengths[:len(slots)]})))
+            return admit(toks, lengths, row_pages, slots, *args)
+        eng._prefill_admit = recording_admit
+        reqs = [Request(model=cfg.name, prompt=p,
+                        sampling=SamplingParams(max_tokens=n))
+                for p, n in zip(prompts, budgets)]
+        ops.reset_launches()
+        for r in reqs:
+            assert eng.submit(r)
+        eng.run_until_done()
+        launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+        non_causal = ops.flash_attention.launches_non_causal
+        st = eng.perf_stats()
+        if {k for k, n in launched.items() if n} != kernels \
+                or launched != expected_launches(cfg, eng.ecfg, st):
+            raise AssertionError(f"{phase} {mode}: kernels {launched}, "
+                                 f"want exactly {sorted(kernels)}: "
+                                 f"{expected_launches(cfg, eng.ecfg, st)}")
+        if non_causal != flash_per_prefill(cfg)[1] \
+                * st["prefill_dispatches"]:
+            raise AssertionError(f"{phase} {mode}: {non_causal} non-causal "
+                                 "flash launches")
+        if not eng._supports_bucket \
+                and any(ls != [sh[1]] for sh, ls in shapes):
+            raise AssertionError(f"{phase} {mode}: admissions {shapes} "
+                                 "hold rows of another length")
+        if st["preemptions"] or eng.pool.pages_in_use:
+            raise AssertionError(f"{phase} {mode}: {st['preemptions']} "
+                                 f"preemptions, {eng.pool.pages_in_use} "
+                                 "pages held")
+        bad = [{"mode": f"{cfg.name}/{mode}", "prompt_len": len(p),
+                "got": r.output, "want": want(weights, p, n)}
+               for r, p, n in zip(reqs, prompts, budgets)
+               if r.output != want(weights, p, n)]
+        mismatches += bad
+        lines.append({"mode": f"{cfg.name}/{mode}", "paged": st["paged"],
+                      "paged_attention": st["paged_attention"],
+                      "admissions": shapes, "launches": launched,
+                      "flash_non_causal": non_causal, "match": not bad})
+        del eng
+    return lines, mismatches
+
+
 HYMBA_PARITY_LAYERS = 4     # of hymba-1.5b's 32, as reduced() cuts them
 
 
@@ -2116,10 +2323,6 @@ def parity_hymba(dev, ops, cfg=None, swap_cfg=None):
     replace the model (a CPU rehearsal)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build
-    from repro_torch.models import transformer as tf
-    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
-                                     SamplingParams)
-    from repro_torch.serving import quantization as q_lib
     cfg = cfg or dataclasses.replace(
         hymba_cut(ARCHS["hymba-1.5b"], HYMBA_PARITY_LAYERS), dtype="f32")
     params = build(cfg, dev).init(torch.Generator(device=dev).manual_seed(7))
@@ -2127,64 +2330,16 @@ def parity_hymba(dev, ops, cfg=None, swap_cfg=None):
     seed_norms(params, rng)
     lens, budgets = (10, 700, 2300, 3000), (16, 12, 8, 10)
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
-    deq = q_lib.dequant_tree(q_lib.quantize_tree(params, 8))
-    wants = {}
-
-    def want(weights, p, n):
-        key = (weights, tuple(p), n)
-        if key not in wants:
-            wants[key] = greedy_recompute(
-                tf, deq if weights == "int8" else params, cfg, p, n)
-        return wants[key]
-
     paged, gather = ({"paged_decode_attention", "flash_attention"},
                      {"decode_attention", "flash_attention"})
     runs = (("paged_attention", dict(paged_attention=True), "dense", paged),
             ("gather", {}, "dense", gather),
             ("gather_int8", dict(quantize="int8"), "int8",
              gather | {"int8_matmul"}))
-    lines, mismatches = [], []
-    for mode, kw, weights, kernels in runs:
-        eng = InferenceEngine(cfg, params, EngineConfig(
-            n_slots=4, max_len=4096, decode_block=4, **kw), device=dev)
-        shapes = []
-        admit = eng._prefill_admit
-
-        def recording_admit(toks, lengths, row_pages, slots, *args,
-                            admit=admit, shapes=shapes):
-            shapes.append((tuple(toks.shape),
-                           sorted({int(n) for n in lengths[:len(slots)]})))
-            return admit(toks, lengths, row_pages, slots, *args)
-        eng._prefill_admit = recording_admit
-        reqs = [Request(model=cfg.name, prompt=p,
-                        sampling=SamplingParams(max_tokens=n))
-                for p, n in zip(prompts, budgets)]
-        ops.reset_launches()
-        for r in reqs:
-            assert eng.submit(r)
-        eng.run_until_done()
-        launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
-        if {k for k, n in launched.items() if n} != kernels:
-            raise AssertionError(f"parity_hymba {mode}: kernels {launched}, "
-                                 f"want exactly {sorted(kernels)}")
-        if any(ls != [sh[1]] for sh, ls in shapes):
-            raise AssertionError(f"parity_hymba {mode}: admissions {shapes}"
-                                 " hold rows of another length")
-        st = eng.perf_stats()
-        if st["preemptions"] or eng.pool.pages_in_use:
-            raise AssertionError(f"parity_hymba {mode}: {st['preemptions']}"
-                                 f" preemptions, {eng.pool.pages_in_use} "
-                                 "pages held")
-        bad = [{"mode": f"hymba/{mode}", "prompt_len": len(p),
-                "got": r.output, "want": want(weights, p, n)}
-               for r, p, n in zip(reqs, prompts, budgets)
-               if r.output != want(weights, p, n)]
-        mismatches += bad
-        lines.append({"mode": f"{cfg.name}/{mode}", "layers": cfg.n_layers,
-                      "prompt_lens": list(lens), "admissions": shapes,
-                      "launches": launched, "match": not bad})
-        del eng
-    lines.append(hymba_swap_leg(dev, ops, swap_cfg or cfg, params))
+    lines, mismatches = parity_runs("parity_hymba", dev, ops, cfg, params,
+                                    prompts, budgets, runs, max_len=4096,
+                                    decode_block=4)
+    lines.append(swap_leg(dev, swap_cfg or cfg, params))
     if not lines[-1]["match"]:
         mismatches.append(lines[-1])
     emit({"phase": "parity_hymba", "heads": [cfg.n_heads, cfg.n_kv_heads],
@@ -2196,38 +2351,57 @@ def parity_hymba(dev, ops, cfg=None, swap_cfg=None):
     return lines
 
 
-def hymba_swap_leg(dev, ops, cfg, params):
-    """Two greedy requests (prompts 400 and 410, 48 tokens each) on a
-    pool of 70 pages of 16 (max_len 1024, 2 slots, paged attention) with
-    64 host pages: the decode growth runs the pool dry and one slot is
-    swapped out, then back in.  Each request must get the tokens the
-    same request gets without page pressure.  Returns the run's line."""
+def swap_leg(dev, cfg, params, kv_pages=70, lens=(400, 410),
+             swap_ms=None):
+    """Two greedy requests (prompts of `lens` tokens, 48 tokens each) on
+    a pool of `kv_pages` pages of 16 (max_len 1024, 2 slots, paged
+    attention; hymba's 400 and 410 on 70 pages, its 128 meta tokens
+    taking pages too) with 64 host pages: the decode growth runs the
+    pool dry and one slot is swapped out, then back in.  It holds >= 1
+    swap-out, as many swap-ins, every budget and no page held, and
+    compares each request's tokens with the same request's without page
+    pressure.  `swap_ms` (a dict) collects the host ms of each swap-out
+    and swap-in ("out", "in"; the stream drained before and after each
+    call).  Returns the run's line."""
     from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
                                      SamplingParams)
+    from repro_torch.serving import engine as engine_mod
     rng = np.random.default_rng(9)
-    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (400, 410)]
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
     outs, stats = {}, {}
-    for leg, kw in (("swap", dict(kv_pages=70, host_kv_pages=64)),
-                    ("roomy", {})):
-        eng = InferenceEngine(cfg, params, EngineConfig(
-            n_slots=2, max_len=1024, decode_block=4, paged_attention=True,
-            **kw), device=dev)
-        reqs = [Request(model=cfg.name, prompt=p,
-                        sampling=SamplingParams(max_tokens=48))
-                for p in prompts]
-        for r in reqs:
-            assert eng.submit(r)
-        eng.run_until_done()
-        st = eng.perf_stats()
-        if eng.pool.pages_in_use or st["host_pages_in_use"]:
-            raise AssertionError(f"parity_hymba swap {leg}: pages held")
-        outs[leg] = [r.output for r in reqs]
-        stats[leg] = {k: st[k] for k in ("swap_outs", "swap_ins",
-                                         "preemptions")}
+    saved = engine_mod.swap_out_slot, engine_mod.swap_in_slot
+    if swap_ms is not None:
+        engine_mod.swap_out_slot = timed(dev, saved[0],
+                                         swap_ms.setdefault("out", []))
+        engine_mod.swap_in_slot = timed(dev, saved[1],
+                                        swap_ms.setdefault("in", []))
+    try:
+        for leg, kw in (("swap", dict(kv_pages=kv_pages, host_kv_pages=64)),
+                        ("roomy", {})):
+            eng = InferenceEngine(cfg, params, EngineConfig(
+                n_slots=2, max_len=1024, decode_block=4,
+                paged_attention=True, **kw), device=dev)
+            reqs = [Request(model=cfg.name, prompt=p,
+                            sampling=SamplingParams(max_tokens=48))
+                    for p in prompts]
+            for r in reqs:
+                assert eng.submit(r)
+            eng.run_until_done()
+            st = eng.perf_stats()
+            if eng.pool.pages_in_use or st["host_pages_in_use"] \
+                    or any(len(r.output) != 48 for r in reqs):
+                raise AssertionError(f"{cfg.name} swap {leg}: pages held "
+                                     "or budgets missed")
+            outs[leg] = [r.output for r in reqs]
+            stats[leg] = {k: st[k] for k in ("swap_outs", "swap_ins",
+                                             "preemptions")}
+            del eng
+    finally:
+        engine_mod.swap_out_slot, engine_mod.swap_in_slot = saved
     if stats["swap"]["swap_outs"] < 1 \
             or stats["swap"]["swap_ins"] != stats["swap"]["swap_outs"]:
-        raise AssertionError(f"parity_hymba swap: {stats}")
-    return {"mode": f"{cfg.name}/swap_tier", "prompt_lens": [400, 410],
+        raise AssertionError(f"{cfg.name} swap: {stats}")
+    return {"mode": f"{cfg.name}/swap_tier", "prompt_lens": list(lens),
             **stats["swap"], "match": outs["swap"] == outs["roomy"]}
 
 
@@ -2262,22 +2436,29 @@ def serve_hymba(dev, ops, card, cfg=None):
     from repro_torch.models import build
     cfg = cfg or ARCHS["hymba-1.5b"]
     params = build(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
-    legs, more = {}, {}
     max_prompt = 1024 - cfg.n_meta_tokens - 64
-    for leg, kw in (("paged", dict(paged_attention=True)),
-                    ("int8", dict(quantize="int8")),
-                    ("long", dict(paged_attention=True, max_len=4096,
-                                  requests=lambda: hymba_long_requests(
-                                      cfg)))):
-        legs[leg], *more[leg] = serve("serve_hymba", dev, ops, card,
-                                      cfg=cfg, params=params,
-                                      max_prompt=max_prompt, **kw)
-        gc.collect()
-        torch.cuda.empty_cache()
+    out = serve_legs("serve_hymba", dev, ops, card, cfg, params, (
+        ("paged", dict(paged_attention=True, max_prompt=max_prompt)),
+        ("int8", dict(quantize="int8", max_prompt=max_prompt)),
+        ("long", dict(paged_attention=True, max_len=4096,
+                      requests=lambda: hymba_long_requests(cfg)))))
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return legs, more
+    return out
+
+
+def serve_legs(phase, dev, ops, card, cfg, params, legs):
+    """`serve` once a leg (name, serve's keyword arguments) of one model
+    with its weights `params`, the device's cached memory returned after
+    each.  Returns ({leg: launches}, {leg: (routes, prefill shapes)})."""
+    launches, more = {}, {}
+    for leg, kw in legs:
+        launches[leg], *more[leg] = serve(phase, dev, ops, card, cfg=cfg,
+                                          params=params, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, more
 
 
 def hymba_timings(dev, ops, refs, q_lib, int8_m):
@@ -2330,6 +2511,411 @@ def hymba_timings(dev, ops, refs, q_lib, int8_m):
                 "bound_ms": b_ms, "bound_by": b_by})
     out = {"int8_matmul": int8, "ssm": ssm}
     emit({"phase": "hymba_timings", **out})
+    return out
+
+
+# --------------------------------------------------------------------- #
+# xLSTM and the encoder-decoder
+
+# xlstm-125m's int8 products (K -> N): w_up (u and z), wq / wk / wv,
+# w_down, ffn_wi, ffn_wo; its tied head is 768 -> 50304
+XLSTM_INT8 = ((768, 3072), (1536, 1536), (1536, 768), (768, 2112),
+              (2112, 768))
+# seamless-m4t-large-v2's (K -> N): wq / wk / wv / wo (self and cross),
+# the gelu FFN's wi and wo; its untied head, 1024 -> 256206, has rows of
+# 256206 bytes, no whole number of 16-byte vectors ("skinny")
+SEAMLESS_INT8 = ((1024, 1024), (1024, 8192), (8192, 1024))
+ENCDEC_PARITY_LAYERS = 2    # of seamless's 24 + 24, the depth cut
+
+
+def encdec_cut(cfg, n_layers):
+    """An encoder-decoder at full width cut to n_layers decoder and
+    n_layers encoder layers."""
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               encdec=dataclasses.replace(
+                                   cfg.encdec, enc_layers=n_layers))
+
+
+def parity_xlstm(dev, ops, cfg=None):
+    """The paper's xlstm-125m at full width and depth (6 pairs of an
+    mLSTM and an sLSTM block, d 768, 4 heads, vocab 50304 tied) in f32,
+    the blocks' norm scales from a seed: greedy requests with prompts of
+    5, 300, 640 and 900 tokens at decode_block 8 in the contiguous mode,
+    through a paged-attention config (which serves contiguous: nothing to
+    page, as in JAX) and under int8.  Each request's tokens must equal
+    greedy_recompute (xLSTM's full forward at every step: a true
+    recompute for a family admitted at its exact length; on the
+    dequantized weights for int8), each admission hold rows of one
+    length, and each run launch exactly its kernels (none; int8: 7 x 6
+    + 1 int8 products a model call).  `cfg` replaces the model (a CPU
+    rehearsal)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = cfg or dataclasses.replace(ARCHS["xlstm-125m"], dtype="f32")
+    params = build(cfg, dev).init(torch.Generator(device=dev).manual_seed(11))
+    rng = np.random.default_rng(12)
+    seed_norms(params, rng)
+    lens, budgets = (5, 300, 640, 900), (12, 8, 5, 3)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    runs = (("contiguous", dict(paged=False), "dense", set()),
+            ("paged_config", dict(paged_attention=True), "dense", set()),
+            ("int8", dict(quantize="int8"), "int8", {"int8_matmul"}))
+    lines, mismatches = parity_runs("parity_xlstm", dev, ops, cfg, params,
+                                    prompts, budgets, runs)
+    if any(ln["paged"] for ln in lines):
+        raise AssertionError("parity_xlstm: an xlstm engine paged")
+    emit({"phase": "parity_xlstm", "model": cfg.name, "pairs":
+          cfg.n_layers // 2, "d_model": cfg.d_model, "prompt_lens":
+          list(lens), "budgets": list(budgets), "decode_block": 8,
+          "runs": lines, "match": not mismatches})
+    if mismatches:
+        raise AssertionError(f"parity_xlstm mismatches: {mismatches}")
+    return lines
+
+
+def parity_encdec(dev, ops, cfg=None):
+    """The paper's seamless-m4t-large-v2 at full width (d 1024, 16 heads,
+    hd 64, gelu d_ff 8192, vocab 256206 untied) cut to
+    ENCDEC_PARITY_LAYERS encoder and decoder layers, f32, its norm scales
+    from a seed, max_len 1024.  (a) Greedy requests with prompts of 10,
+    300, 600 and 900 tokens in the paged-attention, gather and contiguous
+    modes and in the gather mode under int8, each request's tokens equal
+    to greedy_recompute (the engine and the recompute feed the encoder
+    zero frames, under which the cross-attention adds exactly 0: ROADMAP
+    C17), each run's launches exact (flash: the decoder's causal
+    self-attention and the non-causal encoder and cross-attention; the
+    decode kernel for the cross-attention in every mode); then the swap
+    tier (prompts of 480 and 490 tokens on 64 pages with a host tier,
+    equal to the same requests with room).  (b) With random frames, the only run on the
+    card where the cross path carries values: the model's prefill of 2
+    rows of 300 tokens over 1024 frames and 8 decode steps on the
+    kernels (non-causal flash with Sq != Skv, the decode kernel over the
+    cross K/V) against the same calls on the plain versions, within
+    f32's 1e-4.  `cfg` replaces the model (a CPU rehearsal)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tf
+    cfg = cfg or dataclasses.replace(
+        encdec_cut(ARCHS["seamless-m4t-large-v2"], ENCDEC_PARITY_LAYERS),
+        dtype="f32")
+    params = build(cfg, dev).init(torch.Generator(device=dev).manual_seed(13))
+    rng = np.random.default_rng(14)
+    seed_norms(params, rng)
+    lens, budgets = (10, 300, 600, 900), (16, 12, 8, 10)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    paged, gather = ({"paged_decode_attention", "flash_attention",
+                      "decode_attention"},
+                     {"decode_attention", "flash_attention"})
+    runs = (("paged_attention", dict(paged_attention=True), "dense", paged),
+            ("gather", {}, "dense", gather),
+            ("contiguous", dict(paged=False), "dense", gather),
+            ("gather_int8", dict(quantize="int8"), "int8",
+             gather | {"int8_matmul"}))
+    lines, mismatches = parity_runs("parity_encdec", dev, ops, cfg, params,
+                                    prompts, budgets, runs)
+    lines.append(swap_leg(dev, cfg, params, kv_pages=64, lens=(480, 490)))
+    if not lines[-1]["match"]:
+        mismatches.append(lines[-1])
+    cross = encdec_cross_check(dev, ops, tf, cfg, params)
+    emit({"phase": "parity_encdec", "model": cfg.name,
+          "layers": [cfg.encdec.enc_layers, cfg.n_layers],
+          "d_model": cfg.d_model, "prompt_lens": list(lens),
+          "budgets": list(budgets), "runs": lines, "cross_path": cross,
+          "match": not mismatches})
+    if mismatches:
+        raise AssertionError(f"parity_encdec mismatches: {mismatches}")
+    return lines
+
+
+def encdec_cross_check(dev, ops, tf, cfg, params, rows=2, n_tok=300,
+                       src_len=1024, steps=8):
+    """The cross path with random frames: prefill and `steps` decode
+    steps (a contiguous cache) on the kernels, counted, then the same on
+    the plain versions; logits and the cross K/V held within f32's
+    tolerance.  Returns its line."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    toks = torch.randint(0, cfg.vocab, (rows, n_tok), generator=g,
+                         device=dev)
+    src = torch.randn(rows, src_len, cfg.d_model, generator=g, device=dev)
+    nxt = torch.randint(0, cfg.vocab, (steps, rows), generator=g,
+                        device=dev, dtype=torch.int32)
+
+    def run():
+        logits, cache, pos = tf.prefill(params, cfg, toks, src_embeds=src)
+        for name in ("k", "v"):
+            kv = cache[name]
+            cache[name] = kv.new_zeros((kv.shape[0], rows, n_tok + steps)
+                                       + tuple(kv.shape[3:]))
+            cache[name][:, :, :n_tok] = kv
+        outs = [logits, cache["ck"].clone()]
+        for tok in nxt:
+            pos = pos + 1
+            logits, cache = tf.decode_step(params, cfg, cache, tok, pos)
+            outs.append(logits)
+        return outs
+    ops.reset_launches()
+    got = run()
+    launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    non_causal = ops.flash_attention.launches_non_causal
+    n = cfg.n_layers
+    if non_causal != cfg.encdec.enc_layers + n \
+            or launched["flash_attention"] != cfg.encdec.enc_layers + 2 * n \
+            or launched["decode_attention"] != 2 * n * steps:
+        raise AssertionError(f"parity_encdec cross: launches {launched}, "
+                             f"{non_causal} non-causal")
+    with plain_attention(ops):
+        want = run()
+    if float(want[1].abs().max()) < 0.1:
+        raise AssertionError("parity_encdec cross: the cross K/V are ~0")
+    errs = [check_close(f"parity_encdec/cross_{i}", a, b, tol_of(a.dtype))
+            for i, (a, b) in enumerate(zip(got, want))]
+    return {"rows": rows, "tokens": n_tok, "src_len": src_len,
+            "decode_steps": steps, "launches": launched,
+            "flash_non_causal": non_causal,
+            "max_abs_err_prefill_logits": errs[0],
+            "max_abs_err_cross_k": errs[1],
+            "max_abs_err_decode_logits": max(errs[2:]),
+            "cross_k_max_abs": float(want[1].abs().max())}
+
+
+def serve_xlstm(dev, ops, card, cfg=None):
+    """The paper's xlstm-125m at full width and depth (6 pairs, d 768,
+    vocab 50304 tied), bf16, seeded weights, under serve_bf16's engine
+    and 12 requests (prompts 16-896), launch counters at 0 just before
+    each leg and read just after: (a) the contiguous mode, (b) quantize=
+    "int8" in the gather config (which serves contiguous: nothing to
+    page).  Each leg holds exact budgets, one exact length a prefill
+    admission, its exact launches (none; int8: 7 x 6 + 1 a model call)
+    and routes, and placement's charge equal to the engine's bytes (the
+    seven f32 state leaves), and prints tok/s, p50 step, TTFT and peak
+    device memory.  `cfg` replaces the model (a CPU rehearsal).  Returns
+    ({leg: launches}, {leg: (routes, prefill shapes)})."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = cfg or ARCHS["xlstm-125m"]
+    params = build(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    out = serve_legs("serve_xlstm", dev, ops, card, cfg, params, (
+        ("contiguous", dict(paged=False)), ("int8", dict(quantize="int8"))))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_seamless(dev, ops, card, cfg=None):
+    """The paper's seamless-m4t-large-v2 at full width and depth (24
+    encoder and 24 decoder layers, d 1024, 16 heads, hd 64, gelu d_ff
+    8192, vocab 256206 untied; 1.63 B params, 3.26 GB), bf16, seeded
+    weights, under serve_bf16's engine and 12 requests (8 slots of 1024:
+    the cross K/V, 805 MB, slot-resident), launch counters at 0 just
+    before each leg and read just after: the paged-attention mode, the
+    gather mode, and the gather mode under int8.  Each leg holds exact
+    budgets and every page returned, its exact launches (flash: 24
+    causal and 48 non-causal a prefill dispatch, counted on their own;
+    the decode kernel for the cross-attention, >= 24 a decode step, in
+    the paged leg too) and routes (the untied head's rows on "skinny"),
+    and placement's charge equal to the engine's bytes, cross K/V
+    included.  Then `seamless_swap_leg`.  `cfg` replaces the model (a
+    CPU rehearsal).  Returns ({leg: launches}, {leg: (routes, prefill
+    shapes)})."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = cfg or ARCHS["seamless-m4t-large-v2"]
+    params = build(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    legs, more = serve_legs("serve_seamless", dev, ops, card, cfg, params, (
+        ("paged", dict(paged_attention=True)), ("gather", {}),
+        ("int8", dict(quantize="int8"))))
+    for leg in legs:
+        if not more[leg][0]["flash_non_causal"] \
+                or legs[leg]["decode_attention"] < cfg.n_layers:
+            raise AssertionError(f"serve_seamless {leg}: launches "
+                                 f"{legs[leg]}, routes {more[leg][0]}")
+    seamless_swap_leg(dev, cfg, params, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return legs, more
+
+
+def seamless_swap_leg(dev, cfg, params, card):
+    """`swap_leg` at full width: prompts of 480 and 490 tokens on 64
+    pages, each swap moving the slot's cross K/V rows (n_layers x 1024 x
+    K x hd x 2 leaves: 100.7 MB in bf16) beside its private pages.  It
+    prints the host ms of each swap-out and swap-in, and whether the
+    tokens equal the same requests on a pool with room (bf16,
+    informational: the batch differs)."""
+    swap_ms = {}
+    line = swap_leg(dev, cfg, params, kv_pages=64, lens=(480, 490),
+                    swap_ms=swap_ms)
+    row_bytes = 2 * cfg.n_layers * 1024 * cfg.n_kv_heads * cfg.head_dim \
+        * params["embed"].element_size()
+    line["tokens_equal_roomy"] = line.pop("match")
+    emit({"phase": "serve_seamless_swap", **line,
+          "cross_kv_bytes_a_slot": row_bytes,
+          "host_ms_per_swap_out": float(np.mean(swap_ms["out"])),
+          "host_ms_per_swap_in": float(np.mean(swap_ms["in"])),
+          "swap_out_ms": swap_ms["out"], "swap_in_ms": swap_ms["in"],
+          "card": card})
+
+
+def xlstm_timings(dev, ops, refs, q_lib, int8_m):
+    """xlstm-125m's rows, bf16: the int8 products at decode M = 8 (w_up,
+    wq / wk / wv, w_down, ffn_wi, ffn_wo, the tied head) and w_up at
+    serve_xlstm's widest int8 prefill M `int8_m`; then its cells, plain
+    PyTorch as JAX's are jnp (no TPU kernel; ROADMAP B): one pair's
+    decode step over 8 slots, and one pair's prefill over 896 tokens,
+    the chunkwise mLSTM and the sLSTM scan apart, each against the bound
+    of the bytes it must move and the f32 operations it must do (at the
+    f32 peak outside the tensor cores: the cells run in f32)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import xlstm as xl
+    int8 = [int8_timing(dev, ops, refs, q_lib, f"xlstm_decode_{k}x{n}", 8,
+                        k, n, False, "skinny_tc") for k, n in XLSTM_INT8]
+    int8.append(int8_timing(dev, ops, refs, q_lib, "xlstm_head", 8, 768,
+                            50304, True, "skinny_tc"))
+    int8.append(int8_timing(dev, ops, refs, q_lib, "xlstm_prefill_w_up",
+                            int8_m, 768, 3072, False, "tensor_core"))
+    cfg = dataclasses.replace(ARCHS["xlstm-125m"], n_layers=2)   # one pair
+    d, inner, nh, hd_m, hd_s, _ = xl.dims(cfg)
+    params = build(cfg, dev).init(torch.Generator(device=dev).manual_seed(3))
+    mp, sp = xl._pair(params, 0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, S = 8, 896
+    cache = xl.init_cache(cfg, B, dev)
+    h = torch.randn(B, d, generator=g, device=dev).bfloat16()
+    w_bytes = sum(v.numel() * v.element_size()
+                  for blk in (mp, sp) for v in blk.values())
+    state = sum(v.numel() * 4 for v in cache.values())
+    # 2 flops a multiply-add of every matrix (the projections, the
+    # gates', the sLSTM's h @ r) a row, and the mLSTM's C (hd x hd a
+    # head): its update (3 a value) and C @ q
+    mat = sum(v.numel() for blk in (mp, sp) for v in blk.values()
+              if v.dim() >= 2)
+    step_flops = B * (2 * mat + 5 * nh * hd_m * hd_m)
+    b_ms, b_by = bound(w_bytes + 2 * state + 2 * h.numel() * 2, step_flops,
+                       BF16_FLOPS)
+    cells = [{"label": "xlstm_pair_decode_step",
+              "shape": f"B={B} d={d} inner={inner} H={nh} hd_m={hd_m} "
+              f"hd_s={hd_s} bf16 weights, f32 state, one pair",
+              "route": "plain PyTorch",
+              "ms": time_ms(lambda: xl.pair_step(mp, sp, cfg, cache, 0, h)),
+              "bound_ms": b_ms, "bound_by": b_by}]
+    q, k, v = (torch.randn(1, S, nh, hd_m, generator=g, device=dev)
+               .bfloat16() for _ in "qkv")
+    i_raw, f_raw = (torch.randn(1, S, nh, generator=g, device=dev)
+                    for _ in "if")
+    f_raw += 3.0
+    st0 = ssm_lib.mlstm_init_state(1, nh, hd_m, dev)
+    pairs = S * (S + 1) // 2                 # visible causal (t, s) pairs
+    b_ms, b_by = bound(4 * q.numel() * 2 + 2 * i_raw.numel() * 4
+                       + sum(x.numel() * 4 for x in st0),
+                       nh * (4 * hd_m * pairs + 4 * S * hd_m * hd_m),
+                       F32_FLOPS)
+    cells.append({"label": "xlstm_mlstm_chunkwise",
+                  "shape": f"B=1 S={S} H={nh} hd={hd_m}, bf16 q/k/v, f32 "
+                  f"inside, one chunk of {S} (S % {ssm_lib.CHUNK} != 0)",
+                  "route": "plain PyTorch",
+                  "ms": time_ms(lambda: ssm_lib.mlstm_chunkwise(
+                      q, k, v, i_raw, f_raw, st0), reps=10),
+                  "bound_ms": b_ms, "bound_by": b_by})
+    xw = torch.randn(1, S, 4, nh, hd_s, generator=g, device=dev)
+    s0 = ssm_lib.slstm_init_state(1, nh, hd_s, dev)
+    r = sp["r"]
+    b_ms, b_by = bound(xw.numel() * 4 + r.numel() * 4 + S * d * 4,
+                       2 * S * nh * hd_s * 4 * hd_s, F32_FLOPS)
+    cells.append({"label": "xlstm_slstm_scan",
+                  "shape": f"B=1 S={S} H={nh} hd={hd_s} f32, "
+                  f"{ssm_lib.SLSTM_STEP_OPS} launches a step",
+                  "route": "plain PyTorch",
+                  "ms": time_ms(lambda: ssm_lib.slstm_scan(xw, r, s0),
+                                reps=5),
+                  "bound_ms": b_ms, "bound_by": b_by})
+    out = {"int8_matmul": int8, "cells": cells}
+    emit({"phase": "xlstm_timings", **out})
+    del params, cache, q, k, v, xw
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_timings(dev, ops, refs, q_lib, int8_m, cross_shape):
+    """seamless-m4t-large-v2's kernel rows, bf16, each held against its
+    plain version first: flash non-causal at the encoder's shape (B=4
+    H=16 K=16 S=1024 hd=64) and at the cross-attention's (serve_seamless'
+    widest prefill `cross_shape` = (rows, bucket) queries over 1024
+    frames), against one unmasked SDPA call; the decode kernel at the
+    cross-attention's decode shape (B=8 K=16 G=1 S=1024 hd=64, every
+    position valid) against SDPA; the int8 products at decode M = 8
+    (1024 -> 1024, 1024 -> 8192, 8192 -> 1024, the untied head 1024 ->
+    256206 on "skinny") and 1024 -> 8192 at the widest int8 prefill M
+    `int8_m` (the encoder's rows x 1024 frames).  Returns {kernel:
+    [rows]}."""
+    F = torch.nn.functional
+    dt = torch.bfloat16
+    H, K, hd, Skv = 16, 16, 64, 1024
+    flash = []
+    for label, B, Sq in (("seamless_encoder", 4, Skv),
+                         ("seamless_cross",) + tuple(cross_shape)):
+        rng = np.random.default_rng(16)
+
+        def t(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev, dt)
+        q, k, v = t(B, H, Sq, hd), t(B, K, Skv, hd), t(B, K, Skv, hd)
+        ref = refs["flash_attention"]
+        got = on_route(ops.flash_attention, "tensor_core",
+                       lambda: ops.flash_attention(q, k, v, causal=False))
+        err = check_close(f"flash_attention/{label}", got,
+                          ref(q, k, v, causal=False), tol_of(dt))
+        b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                           4 * B * H * hd * Sq * Skv, BF16_FLOPS)
+        flash.append({
+            "label": label, "shape": f"B={B} H={H} K={K} Sq={Sq} Skv={Skv} "
+            f"hd={hd} bf16 non-causal", "kernel_route": "tensor_core",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: ops.flash_attention(q, k, v,
+                                                      causal=False)),
+            "plain_ms": time_ms(lambda: ref(q, k, v, causal=False), reps=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v))})
+        del q, k, v
+    B = 8
+    q, k, v, p = decode_case(dev, dt, B=B, K=K, G=1, S=Skv, hd=hd,
+                             pos=[Skv - 1] * B, seed=17, strided=True)
+    ref = refs["decode_attention"]
+    err = check_close("decode_attention/seamless_cross",
+                      ops.decode_attention(q, k, v, p), ref(q, k, v, p),
+                      tol_of(dt))
+    b_ms, b_by = bound(2 * B * Skv * K * hd * 2 + 2 * B * K * hd * 2 + B * 4,
+                       4 * B * Skv * K * hd, BF16_FLOPS)
+    decode = [{
+        "label": "seamless_cross", "shape": f"B={B} K={K} G=1 S={Skv} "
+        f"hd={hd} bf16, (B, S, K, hd) cross K/V view, every position valid",
+        "splits": dict(zip(("n_split", "chunk"), ops.decode_attention_splits(
+            B, K, Skv, ops._sm_count(dev.index)))),
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.decode_attention(q, k, v, p)),
+        "plain_ms": time_ms(lambda: ref(q, k, v, p), reps=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q.reshape(B, K, 1, hd), k, v))}]
+    del q, k, v
+    int8 = [int8_timing(dev, ops, refs, q_lib, f"seamless_decode_{kd}x{n}",
+                        8, kd, n, False, "skinny_tc")
+            for kd, n in SEAMLESS_INT8]
+    int8.append(int8_timing(dev, ops, refs, q_lib, "seamless_head", 8, 1024,
+                            256206, False, "skinny"))
+    int8.append(int8_timing(dev, ops, refs, q_lib, "seamless_prefill_wi",
+                            int8_m, 1024, 8192, False, "tensor_core"))
+    out = {"flash_attention": flash, "decode_attention": decode,
+           "int8_matmul": int8}
+    for rows in out.values():
+        for r in rows:
+            r["vs_library"] = (r["ms"] / r["library_ms"]
+                               if r["library_ms"] else None)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3247,6 +3833,8 @@ def main() -> int:
     parity_f32(dev, ops)
     parity_moe(dev, ops)
     parity_hymba(dev, ops)
+    parity_xlstm(dev, ops)
+    parity_encdec(dev, ops)
     bf16_launches, bf16_routes, bf16_shapes = serve(
         "serve_bf16", dev, ops, card, paged_attention=True)
     int8_launches, int8_routes, int8_shapes = serve(
@@ -3268,6 +3856,15 @@ def main() -> int:
     path_launches["serve_hymba"] = {
         name: sum(ln[name] for ln in hymba_legs.values())
         for name in next(iter(hymba_legs.values()))}
+    xlstm_legs, xlstm_more = serve_xlstm(dev, ops, card)
+    seamless_legs, seamless_more = serve_seamless(dev, ops, card)
+    for path, legs in (("serve_xlstm", xlstm_legs),
+                       ("serve_seamless", seamless_legs)):
+        path_launches[path] = {
+            name: sum(ln[name] for ln in legs.values())
+            for name in next(iter(legs.values()))}
+    seamless_non_causal = sum(m[0]["flash_non_causal"]
+                              for m in seamless_more.values())
     path_launches["serve_http"] = serve_http(dev, ops, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3281,7 +3878,8 @@ def main() -> int:
     moe_by_model = {"granite-moe-3b-a800m": [
         ln for leg, ln in moe_legs.items() if leg.startswith("granite")],
         "mixtral-8x22b": [moe_legs["mixtral"]],
-        "hymba-1.5b": list(hymba_legs.values())}
+        "hymba-1.5b": list(hymba_legs.values()),
+        "seamless-m4t-large-v2": list(seamless_legs.values())}
     for name, rows in gqa_timings(dev, ops, refs).items():
         for r in rows:     # a gemma's launches on its serve in serve_gemma
             if r["label"] in gemma:
@@ -3304,6 +3902,27 @@ def main() -> int:
     for r in hymba["int8_matmul"]:  # the serve_hymba int8 leg, by route
         r["launches_on_route"] = hymba_int8_routes[r["kernel_route"]]
     timings["int8_matmul"]["shapes"].extend(hymba["int8_matmul"])
+    xlstm = xlstm_timings(dev, ops, refs, q_lib,
+                          max(r * b for r, b in xlstm_more["int8"][1]))
+    for r in xlstm["int8_matmul"]:  # the serve_xlstm int8 leg, by route
+        r["launches_on_route"] = \
+            xlstm_more["int8"][0]["int8_matmul"][r["kernel_route"]]
+    timings["int8_matmul"]["shapes"].extend(xlstm["int8_matmul"])
+    # the widest int8 product of serve_seamless: the encoder's rows x 1024
+    # frames; the widest cross-attention: rows x bucket over 1024 frames
+    encdec = encdec_timings(
+        dev, ops, refs, q_lib,
+        max(r for r, _ in seamless_more["int8"][1]) * 1024,
+        max(seamless_more["paged"][1], key=lambda sh: sh[0] * sh[1]))
+    for r in encdec["int8_matmul"]:  # the serve_seamless int8 leg
+        r["launches_on_route"] = \
+            seamless_more["int8"][0]["int8_matmul"][r["kernel_route"]]
+    for r in encdec["flash_attention"]:
+        r["launches_non_causal"] = seamless_non_causal
+    for r in encdec["decode_attention"]:
+        r["launches"] = path_launches["serve_seamless"]["decode_attention"]
+    for name, rows in encdec.items():
+        timings[name].setdefault("shapes", []).extend(rows)
     c5_f32_tile_error(dev, ops, q_lib)
     plain_timings(dev, ops)
     meta = {
@@ -3336,6 +3955,13 @@ def main() -> int:
             raise AssertionError(f"{name} never ran on serve_moe")
         if not path_launches["serve_hymba"][name]:
             raise AssertionError(f"{name} never ran on serve_hymba")
+        if not path_launches["serve_seamless"][name]:
+            raise AssertionError(f"{name} never ran on serve_seamless")
+        if name == "int8_matmul" and not path_launches["serve_xlstm"][name]:
+            raise AssertionError(f"{name} never ran on serve_xlstm")
+        if name == "flash_attention" and not seamless_non_causal:
+            raise AssertionError("non-causal flash never ran on "
+                                 "serve_seamless")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "path": path, "max_abs_err": t["max_abs_err"],
@@ -3349,6 +3975,9 @@ def main() -> int:
                            if name in path_routes[path] else {}),
                         **({"shapes": t["shapes"]} if "shapes" in t else {}),
                         **({"splits": t["splits"]} if "splits" in t else {}),
+                        **({"launches_non_causal_by_path": {
+                            "serve_seamless": seamless_non_causal}}
+                           if name == "flash_attention" else {}),
                         "card": card})
     emit({"kernels": kernels})
     print(card, flush=True)

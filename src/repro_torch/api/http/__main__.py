@@ -14,8 +14,9 @@ This file differs from `repro.api.http.__main__` in these places:
   ``--device cpu --reduced`` is the reference's only mode: reduced
   configs, renamed to the paper's model ids so that chat templates and
   clients address them as such.
-- A zoo model the port refuses (`params.require_causal_decoder`;
-  ROADMAP.md A7) exits 2 with the reason, as an unknown name does.
+- A config the port cannot run (`params.require_supported`: none of
+  the zoo's families, xLSTM and the encoder-decoder among them, is
+  refused) exits 2 with the reason, as an unknown name does.
 - `ControllerConfig(real_param_threshold=)` lies above the largest
   served model's parameters, so every replica is a real engine (the
   default threshold deploys a full-width model in accounted mode, with
@@ -44,7 +45,7 @@ from repro_torch.configs import ZOO
 from repro_torch.core import (ControllerConfig, ModelCatalog, ModelDemand,
                               SDAIController)
 from repro_torch.device import resolve_device
-from repro_torch.params import require_causal_decoder, seeded_store
+from repro_torch.params import require_supported, seeded_store
 
 
 def _refuse(msg: str, code: int):
@@ -79,7 +80,7 @@ def build_service(argv: Optional[List[str]] = None
         if args.reduced:
             cfg = dataclasses.replace(cfg.reduced(), name=name)
         try:
-            require_causal_decoder(cfg)
+            require_supported(cfg)
         except NotImplementedError as e:
             _refuse(str(e), 2)
         cfgs.append(cfg)

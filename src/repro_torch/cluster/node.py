@@ -18,11 +18,16 @@ param tree's exact bytes, counted on the meta device: norms a config
 does not have, the f32 MoE router and Hymba's f32 SSM leaves and meta
 tokens, int8 scales; under int8 also the kernel operands'
 dequantized leaves and expanded scales, the MoE router in f32 among
-them), the scratch page each paged pool keeps at the sentinel's id, and
+them), the scratch page each paged pool keeps at the sentinel's id,
 Hymba's slot-resident SSM state in f32 (the config's `state_bytes`
-charges it at the model dtype).  The KV term is still the reference's
-`kv_pool_bytes`, so without a page budget a windowed model is still
-charged `min(max_len, window)` tokens a slot (C12).
+charges it at the model dtype), and in place of the config's xLSTM
+state (`state_bytes`: (n_layers // 2 + 1) x 2 halves at the model
+dtype) the seven f32 leaves an xLSTM engine holds over its n_layers // 2
+pairs.  An encoder-decoder's cross K/V over `max_len` source positions
+is the config's own term (`cache_bytes`, src = max_len).  The KV term
+is still the reference's `kv_pool_bytes`, so without a page budget a
+windowed model is still charged `min(max_len, window)` tokens a slot
+(C12).
 """
 from __future__ import annotations
 
@@ -34,10 +39,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
+import torch
+
 from repro_torch.cluster.hardware import (NODE_CLASSES,
                                           RUNTIME_RESERVE_FRACTION, NodeClass)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
+from repro_torch.models.xlstm import init_cache
 from repro_torch.serving.engine import (EngineConfig, EngineFailure,
                                         InferenceEngine)
 from repro_torch.serving.request import CODE_ENGINE_FAILED, Request
@@ -70,6 +78,9 @@ def instance_bytes(cfg: ArchConfig, quantize: str, n_slots: int,
     the quantity placement charges — the paper's 'model capacity' panel
     (VRAM required per instance).  Cached: placement calls this per
     (bin x commit) across thousand-node fleets."""
+    if cfg.block == "xlstm":            # the state's seven f32 leaves
+        return int(weight_bytes(cfg, quantize) + xlstm_state_bytes(
+            cfg, n_slots))
     kv = kv_pool_bytes(cfg, n_slots, max_len, page_size, kv_pages)
     if page_size:                       # the pools' scratch page
         kv += page_size * cfg.kv_bytes_per_token()
@@ -78,12 +89,19 @@ def instance_bytes(cfg: ArchConfig, quantize: str, n_slots: int,
     return int(weight_bytes(cfg, quantize) + kv)
 
 
+def xlstm_state_bytes(cfg: ArchConfig, n_slots: int) -> int:
+    """The bytes of an xLSTM engine's state for `n_slots` slots: its seven
+    f32 leaves over the pairs (`models.xlstm.init_cache`), counted on the
+    meta device."""
+    return sum(x.numel() * x.element_size() for x in init_cache(
+        cfg, n_slots, torch.device("meta")).values())
+
+
 @functools.lru_cache(maxsize=256)
 def weight_bytes(cfg: ArchConfig, quantize: str) -> int:
     """The device bytes of an engine's weights: the param tree at rest
     (quantized as the engine quantizes it), built on the meta device, and
     under int8 the kernel operands beside it."""
-    import torch
     from repro_torch.params import init_params
     from repro_torch.serving import quantization as q_lib
     params = init_params(cfg, None, torch.device("meta"))

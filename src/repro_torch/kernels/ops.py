@@ -9,9 +9,11 @@ two wrappers with more than one kernel (`flash_attention`,
 `int8_matmul`) pick it in a pure function of dtype, layout, scale, M and
 alignment (`flash_attention_route`, `int8_matmul_route`), never from a
 failure, and also count each launch by route in a plain dict,
-`<wrapper>.launches_by_route`.  Every count goes through `_count`, under
-one lock: the serving runtime launches from one pump thread per node,
-and an unlocked `+= 1` can lose an update.
+`<wrapper>.launches_by_route`; the flash wrapper also counts its
+non-causal launches (the encoder's and the cross-attention's) in
+`flash_attention.launches_non_causal`.  Every count goes through
+`_count`, under one lock: the serving runtime launches from one pump
+thread per node, and an unlocked `+= 1` can lose an update.
 
 Three kernels split their work across CTAs (decode attention its
 sequence, paged decode attention its page table's columns, the int8
@@ -222,13 +224,16 @@ def _split_buffers(device: torch.device, n_tickets: int,
 _count_lock = threading.Lock()
 
 
-def _count(wrapper, route: Optional[str] = None) -> None:
-    """One launch of `wrapper` (on `route`), counted exactly whatever the
-    threads launching."""
+def _count(wrapper, route: Optional[str] = None,
+           non_causal: bool = False) -> None:
+    """One launch of `wrapper` (on `route`; a non-causal flash launch),
+    counted exactly whatever the threads launching."""
     with _count_lock:
         wrapper.launches += 1
         if route is not None:
             wrapper.launches_by_route[route] += 1
+        if non_causal:
+            wrapper.launches_non_causal += 1
 
 
 def _run(name: str, device: torch.device, *args) -> None:
@@ -404,12 +409,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          out.data_ptr(), b, h, nkv, sq, skv, hd, int(causal), window, prefix,
          _DTYPES[q.dtype], FLASH_ROUTES.index(route), hd ** -0.5,
          *q.stride()[:3], *k.stride()[:3], *out.stride()[:3])
-    _count(flash_attention, route)
+    _count(flash_attention, route, non_causal=not causal)
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(FLASH_ROUTES, 0)
+flash_attention.launches_non_causal = 0
 
 
 DECODE_MIN_CHUNK = 64      # rows: the smallest chunk worth a CTA
@@ -616,3 +622,4 @@ def reset_launches() -> None:
             fn.launches = 0
             for route in getattr(fn, "launches_by_route", ()):
                 fn.launches_by_route[route] = 0
+        flash_attention.launches_non_causal = 0

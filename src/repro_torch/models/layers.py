@@ -41,6 +41,18 @@ def norm(x: torch.Tensor, scale, kind: str) -> torch.Tensor:
     return rms_norm(x, scale)
 
 
+def group_norm(x: torch.Tensor, n_groups: int, eps: float = 1e-6
+               ) -> torch.Tensor:
+    """Per-head group norm (xLSTM's cells): x (..., inner) in n_groups
+    groups, each normalised on its own in f32 (population variance), no
+    scale, cast back to x's dtype."""
+    dt = x.dtype
+    g = x.float().reshape(*x.shape[:-1], n_groups, x.shape[-1] // n_groups)
+    mu = g.mean(-1, keepdim=True)
+    var = g.var(-1, keepdim=True, correction=0)
+    return ((g - mu) * torch.rsqrt(var + eps)).reshape(x.shape).to(dt)
+
+
 # --------------------------------------------------------------------- #
 # RoPE (half-split, not interleaved)
 

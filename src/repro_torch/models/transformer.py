@@ -1,10 +1,12 @@
-"""Causal decoder: full-sequence forward, bucketed prefill, the
+"""The transformer family (the causal decoders, Hymba and the
+encoder-decoder): full-sequence forward, bucketed prefill, the
 prefix-cache suffix prefill, one decode step against a contiguous cache
 or straight against the paged KV pool, and the speculative verify
 against the paged pool.
 
-The counterpart of the causal decoder subset of
-`repro.models.transformer`, with the same stacked `(L, ...)` params (see
+The counterpart of `repro.models.transformer` (its xLSTM dispatch
+aside: the model facade routes xLSTM to `models.xlstm`), with the same
+stacked `(L, ...)` params (see
 `repro_torch.params`) and the same layouts at every public function: a
 SwiGLU or gelu FFN, dense or Mixture-of-Experts (`models.moe`, whose
 capacity comes from the sequence length each entry point feeds it), a
@@ -25,7 +27,23 @@ place.  `prefill` collects each layer's final state in the pass that
 computes its output; JAX re-runs the stack with every layer windowed to
 collect them, which departs from its own forward once a prompt and its
 meta tokens outrun the window (ROADMAP.md C15).  A recurrent state
-absorbs padding, so Hymba rows are prefilled at their exact length.  Prefill attention runs the flash kernel
+absorbs padding, so Hymba rows are prefilled at their exact length.
+
+The encoder-decoder (`cfg.encdec`): `src_embeds` (B, S_src, D), the
+audio frontend's frames, run through the encoder stack (`enc_layers`:
+non-causal self-attention with RoPE, the FFN) and the decoder's
+`final_norm`; each decoder layer then adds, after its self-attention, a
+cross-attention from `lnx`-normed queries (no RoPE) over K/V projected
+from the encoder's output by its `xattn` weights, non-causal.  The
+cache gains, slot-resident beside the pools or strips, each layer's
+cross K/V "ck", "cv" (L, B, S_src, K, hd), which `prefill` computes
+and the decode steps read with every position valid (pos = S_src - 1).
+In prefill the encoder's and the cross attention run the flash kernel
+with causal=False (the cross with Sq != Skv); in decode the cross
+attention runs the decode kernel over the slot's ck / cv in every mode,
+the paged one included (where the self-attention reads the pools).
+
+Prefill attention runs the flash kernel
 (`kernels.ops.flash_attention`); decode attention runs the decode kernel
 over a contiguous cache (`decode_step`, `kernels.ops.decode_attention`)
 or the paged decode kernel through the page table (`decode_step_paged`,
@@ -57,7 +75,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.params import Params, require_causal_decoder
+from repro_torch.params import Params, require_supported
 
 Cache = Dict[str, torch.Tensor]
 
@@ -98,13 +116,21 @@ def _dense(w) -> torch.Tensor:
 _HYMBA_LEAVES = ("branch_norm_attn", "branch_norm_ssm", "beta", "wo_comb")
 
 
-def _layer(params: Params, i: int) -> Params:
-    lp = params["layers"]
+def _require_transformer(cfg: ArchConfig) -> None:
+    require_supported(cfg)
+    if cfg.block == "xlstm":
+        raise NotImplementedError("xlstm runs models.xlstm")
+
+
+def _layer(params: Params, i: int, stack: str = "layers") -> Params:
+    """Layer i of the decoder (or, stack="enc_layers", of the encoder)."""
+    lp = params[stack]
     ffn = "moe" if "moe" in lp else "mlp"
-    subs = ("attn", ffn) + (("ssm",) if "ssm" in lp else ())
+    subs = ("attn", ffn) + tuple(sub for sub in ("ssm", "xattn")
+                                 if sub in lp)
     out = {sub: {k: _index(v, i) for k, v in lp[sub].items()}
            for sub in subs}
-    for name in ("ln1", "ln2") + _HYMBA_LEAVES:
+    for name in ("ln1", "ln2", "lnx") + _HYMBA_LEAVES:
         if name in lp:
             out[name] = _index(lp[name], i)
     return out
@@ -186,6 +212,18 @@ def zero_prefix_embeds(cfg: ArchConfig, batch: int,
                        dtype=torch_dtype(cfg.dtype), device=device)
 
 
+def zero_src_embeds(cfg: ArchConfig, batch: int, src_len: int,
+                    device: torch.device) -> Optional[torch.Tensor]:
+    """The encoder input the engine feeds an encoder-decoder, as JAX's
+    engine does (`_extra_inputs`): zeros (B, src_len, D) in the model
+    dtype, under which the encoder's output and every cross K/V are
+    exactly 0 (ROADMAP.md C17); None for any other model."""
+    if not cfg.is_encdec:
+        return None
+    return torch.zeros((batch, src_len, cfg.d_model),
+                       dtype=torch_dtype(cfg.dtype), device=device)
+
+
 def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                   prefix_embeds: Optional[torch.Tensor]
                   ) -> Tuple[torch.Tensor, int]:
@@ -205,12 +243,28 @@ def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     return torch.cat(parts, dim=1), prefix
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            impl: str, causal: bool, window: int = 0,
+            prefix: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, hd) over k, v (B, Skv, K, hd): the flash kernel, or
+    impl="full" the plain reference attention.  Returns (B, Sq, H, hd)."""
+    if impl == "full":
+        return attn_lib.full_attention(q, k, v, causal=causal,
+                                       window=window, prefix=prefix)
+    # the flash kernel takes the heads-major (B, H, S, hd) views in place
+    # and writes a (B, S, H, hd) buffer: no layout copies
+    return kernel_ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, prefix=prefix).transpose(1, 2)
+
+
 def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
-                     impl: str, prefix: int, window: int
-                     ) -> Tuple[torch.Tensor, Tuple]:
-    """Causal self-attention over a full sequence from position 0, with
-    the layer's window; the first `prefix` positions are exempt from it.
-    Returns (out (B, S, H, hd), (k, v) each (B, S, K, hd))."""
+                     impl: str, prefix: int, window: int,
+                     causal: bool = True) -> Tuple[torch.Tensor, Tuple]:
+    """Self-attention over a full sequence from position 0, with RoPE:
+    causal with the layer's window (the first `prefix` positions exempt
+    from it), or, for the encoder, non-causal.  Returns (out (B, S, H,
+    hd), (k, v) each (B, S, K, hd))."""
     q = _project(x, lp["attn"]["wq"])
     k = _project(x, lp["attn"]["wk"])
     v = _project(x, lp["attn"]["wv"])
@@ -218,16 +272,44 @@ def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
                               cfg.head_dim, cfg.rope_theta)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
-    if impl == "full":
-        out = attn_lib.full_attention(q, k, v, causal=True, window=window,
-                                      prefix=prefix)
-    else:
-        # the flash kernel takes the heads-major (B, H, S, hd) views in
-        # place and writes a (B, S, H, hd) buffer: no layout copies
-        out = kernel_ops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window, prefix=prefix).transpose(1, 2)
+    out = _attend(q, k, v, impl=impl, causal=causal, window=window,
+                  prefix=prefix)
     return out, (k, v)
+
+
+# --------------------------------------------------------------------- #
+# The encoder-decoder: the encoder stack and the cross-attention
+
+def _run_encoder(params: Params, cfg: ArchConfig, src_embeds: torch.Tensor,
+                 impl: str) -> torch.Tensor:
+    """The encoder over src_embeds (B, S_src, D): per layer non-causal
+    self-attention (RoPE from position 0) and the FFN, then the decoder's
+    final norm, as JAX's `_run_encoder`.  Returns (B, S_src, D)."""
+    h = src_embeds.to(torch_dtype(cfg.dtype))
+    for i in range(cfg.encdec.enc_layers):
+        lp = _layer(params, i, "enc_layers")
+        x = L.norm(h, lp.get("ln1"), cfg.norm)
+        a_out, _ = _attention_block(lp, cfg, x, impl=impl, prefix=0,
+                                    window=0, causal=False)
+        h = h + _out_project(a_out, lp["attn"]["wo"])
+        x = L.norm(h, lp.get("ln2"), cfg.norm)
+        h = h + _ffn(lp, cfg, x)
+    return L.norm(h, params.get("final_norm"), cfg.norm)
+
+
+def _cross_kv(lp: Params, enc_out: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross K/V (B, S_src, K, hd) from the encoder's
+    output: its xattn wk / wv, no RoPE."""
+    return (_project(enc_out, lp["xattn"]["wk"]),
+            _project(enc_out, lp["xattn"]["wv"]))
+
+
+def _cross_query(lp: Params, cfg: ArchConfig, h: torch.Tensor
+                 ) -> torch.Tensor:
+    """The cross-attention's queries (B, S, H, hd) from h: lnx, then
+    xattn wq, no RoPE."""
+    return _project(L.norm(h, lp.get("lnx"), cfg.norm), lp["xattn"]["wq"])
 
 
 # --------------------------------------------------------------------- #
@@ -289,9 +371,11 @@ def _hymba_mix(lp: Params, a_out: torch.Tensor, s_out: torch.Tensor,
 
 
 def _decoder_layer(lp: Params, cfg: ArchConfig, h: torch.Tensor, *,
-                   impl: str, prefix: int, window: int):
-    """One layer over a full sequence.  Returns (h, (k, v), the SSM's
-    final state (Hymba) or None)."""
+                   impl: str, prefix: int, window: int,
+                   xkv: Optional[Tuple] = None):
+    """One layer over a full sequence; an encoder-decoder's attends over
+    its cross K/V `xkv` after its self-attention.  Returns (h, (k, v),
+    the SSM's final state (Hymba) or None)."""
     x = L.norm(h, lp.get("ln1"), cfg.norm)
     a_out, kv = _attention_block(lp, cfg, x, impl=impl, prefix=prefix,
                                  window=window)
@@ -302,60 +386,80 @@ def _decoder_layer(lp: Params, cfg: ArchConfig, h: torch.Tensor, *,
                            h.dtype)
     else:
         h = h + _out_project(a_out, lp["attn"]["wo"])
+    if xkv is not None:
+        c_out = _attend(_cross_query(lp, cfg, h), *xkv, impl=impl,
+                        causal=False)
+        h = h + _out_project(c_out, lp["xattn"]["wo"])
     x = L.norm(h, lp.get("ln2"), cfg.norm)
     return h + _ffn(lp, cfg, x), kv, h_f
 
 
 def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-           impl: str, prefix_embeds: Optional[torch.Tensor]
+           impl: str, prefix_embeds: Optional[torch.Tensor],
+           src_embeds: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, Cache, int]:
-    """Embedding (meta tokens, then the prefix embeddings, first), every
-    layer and the final norm.  Returns (h (B, P + S, D), {"k", "v": (L,
-    B, P + S, K, hd)} and, for Hymba, "ssm_h": (L, B, inner, N) f32 each
-    layer's final SSM state from this very pass, P), P the prefix
+    """Embedding (meta tokens, then the prefix embeddings, first), the
+    encoder over `src_embeds` (an encoder-decoder), every layer and the
+    final norm.  Returns (h (B, P + S, D), {"k", "v": (L, B, P + S, K,
+    hd)} and, for Hymba, "ssm_h": (L, B, inner, N) f32 each layer's final
+    SSM state from this very pass, for an encoder-decoder "ck", "cv":
+    (L, B, S_src, K, hd) each layer's cross K/V, P), P the prefix
     length."""
-    require_causal_decoder(cfg)
+    _require_transformer(cfg)
     if impl not in ("flash", "full"):
         raise ValueError(f"impl must be 'flash' or 'full', not {impl!r}")
+    if cfg.is_encdec and src_embeds is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder needs src_embeds")
     h, prefix = _embed_inputs(params, cfg, tokens, prefix_embeds)
-    ks, vs, states = [], [], []
+    enc_out = (_run_encoder(params, cfg, src_embeds, impl)
+               if cfg.is_encdec else None)
+    ks, vs, states, xkvs = [], [], [], []
     for i in range(cfg.n_layers):
-        h, (k, v), h_f = _decoder_layer(_layer(params, i), cfg, h,
-                                        impl=impl, prefix=prefix,
-                                        window=_window(cfg, i))
+        lp = _layer(params, i)
+        xkv = _cross_kv(lp, enc_out) if enc_out is not None else None
+        h, (k, v), h_f = _decoder_layer(lp, cfg, h, impl=impl, prefix=prefix,
+                                        window=_window(cfg, i), xkv=xkv)
         ks.append(k)
         vs.append(v)
         states.append(h_f)
+        xkvs.append(xkv)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     if cfg.block == "hymba":
         cache["ssm_h"] = torch.stack(states)
+    if cfg.is_encdec:
+        cache["ck"] = torch.stack([ck for ck, _ in xkvs])
+        cache["cv"] = torch.stack([cv for _, cv in xkvs])
     return h, cache, prefix
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             impl: str = "flash",
-            prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+            prefix_embeds: Optional[torch.Tensor] = None,
+            src_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence logits (B, P + S, V), P the meta tokens and
-    prefix_embeds.shape[1] (0 without either), as JAX's forward.  impl="flash" runs prefill's flash
-    attention; impl="full" the plain reference attention (the no-cache
-    recompute oracle).  The engine feeds a vision model
-    `zero_prefix_embeds`; a recompute that stands for the engine passes
-    the same."""
+    prefix_embeds.shape[1] (0 without either), as JAX's forward; an
+    encoder-decoder needs `src_embeds`.  impl="flash" runs prefill's
+    flash attention; impl="full" the plain reference attention (the
+    no-cache recompute oracle).  The engine feeds a vision model
+    `zero_prefix_embeds` and an encoder-decoder `zero_src_embeds`; a
+    recompute that stands for the engine passes the same."""
     h, _, _ = _trunk(params, cfg, tokens, impl=impl,
-                     prefix_embeds=prefix_embeds)
+                     prefix_embeds=prefix_embeds, src_embeds=src_embeds)
     return _logits(params, cfg, h)
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             lengths: Optional[torch.Tensor] = None,
-            prefix_embeds: Optional[torch.Tensor] = None
+            prefix_embeds: Optional[torch.Tensor] = None,
+            src_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """Forward a right-padded batch through the flash attention kernel and
     return (last_logits (B, V), cache {"k", "v": (L, B, P + S, K, hd)},
     pos (B,) int32), P the meta and prefix tokens (0 without them); a
     Hymba cache also holds "ssm_h" (L, B, inner, N), collected in the same
-    pass.
+    pass, and an encoder-decoder's "ck", "cv" (L, B, S_src, K, hd), the
+    cross K/V of the encoder's output over `src_embeds` (B, S_src, D).
 
     lengths: (B,) valid token counts; each row's logits and `pos` come
     from its own last real token, pos = P + lengths - 1 (padded positions
@@ -366,7 +470,8 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     JAX's full-sequence head, without a (B, S, V) tensor.
     """
     h, cache, prefix = _trunk(params, cfg, tokens, impl="flash",
-                              prefix_embeds=prefix_embeds)
+                              prefix_embeds=prefix_embeds,
+                              src_embeds=src_embeds)
     b, s_tot = h.shape[:2]
     if lengths is None:
         pos = torch.full((b,), s_tot - 1, dtype=torch.int32,
@@ -378,11 +483,12 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 
 def _plain_causal_only(cfg: ArchConfig, name: str) -> None:
-    require_causal_decoder(cfg)
-    if cfg.block != "transformer" or cfg.swa_window or _prefix_len(cfg):
+    require_supported(cfg)
+    if cfg.block != "transformer" or cfg.swa_window or _prefix_len(cfg) \
+            or cfg.is_encdec:
         raise NotImplementedError(
             f"{name} supports plain causal decoders only (no recurrent "
-            f"state, no window, no meta or prefix tokens)")
+            f"state, no window, no meta or prefix tokens, no encoder)")
 
 
 def _land_suffix(cache: torch.Tensor, new: torch.Tensor,
@@ -463,9 +569,10 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     (B, K, S, hd) permuted view of each layer's cache in place, with the
     layer's window; the cache's first meta and prefix positions are
     exempt from it.  A Hymba cache's "ssm_h" (L, B, inner, N) advances
-    in place, every row, as JAX's scan steps every slot.  Returns
-    (logits (B, V), cache)."""
-    require_causal_decoder(cfg)
+    in place, every row, as JAX's scan steps every slot; an
+    encoder-decoder's "ck", "cv" (L, B, S_src, K, hd) are read
+    (`_cross_update`).  Returns (logits (B, V), cache)."""
+    _require_transformer(cfg)
     b = token.shape[0]
     nkv, hd = cfg.n_kv_heads, cfg.head_dim
     prefix = _prefix_len(cfg)
@@ -488,10 +595,29 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
             window=_window(cfg, i), prefix=prefix)
         h = h + _attn_update(lp, cfg, cache, i, x,
                              a_out.reshape(b, 1, q.shape[2], hd))
+        if cfg.is_encdec:
+            h = h + _cross_update(lp, cfg, cache, i, h)
         x = L.norm(h, lp.get("ln2"), cfg.norm)
         h = h + _ffn(lp, cfg, x)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
     return _logits(params, cfg, h)[:, 0], cache
+
+
+def _cross_update(lp: Params, cfg: ArchConfig, cache: Cache, i: int,
+                  h: torch.Tensor):
+    """An encoder-decoder's decode-step cross-attention residual: the
+    token's query h (B, 1, D) over layer i's slot-resident cross K/V,
+    every position of the source valid, through the decode kernel."""
+    ck, cv = cache["ck"][i], cache["cv"][i]                     # (B,Ss,K,hd)
+    b, nkv, hd = h.shape[0], cfg.n_kv_heads, cfg.head_dim
+    q = _cross_query(lp, cfg, h)[:, 0]                          # (B,H,hd)
+    src_pos = torch.full((b,), ck.shape[1] - 1, dtype=torch.int32,
+                         device=h.device)
+    out = kernel_ops.decode_attention(
+        q.reshape(b, nkv, q.shape[1] // nkv, hd), ck.permute(0, 2, 1, 3),
+        cv.permute(0, 2, 1, 3), src_pos)
+    return _out_project(out.reshape(b, 1, q.shape[1], hd),
+                        lp["xattn"]["wo"])
 
 
 def _attn_update(lp: Params, cfg: ArchConfig, cache: Cache, i: int,
@@ -539,14 +665,17 @@ def decode_step_paged(params: Params, cfg: ArchConfig, cache: Cache,
     the position of the new token; page_table/write_table: (B, pps) int32,
     sentinel == n_pages; cache {"k", "v": (L, n_pages + 1, ps, K, hd)},
     whose last page is the scratch page that dropped writes land in, and
-    a Hymba model's slot-resident "ssm_h" (L, n_slots, inner, N).
+    a Hymba model's slot-resident "ssm_h" (L, n_slots, inner, N) or an
+    encoder-decoder's slot-resident cross K/V "ck", "cv" (L, n_slots,
+    S_src, K, hd), which the cross-attention reads through the decode
+    kernel.
     Attention reads only the first n_pages, with the layer's window and
     the prefix, as `decode_step`.
 
     The new KV is written into the pools in place — the counterpart of
     JAX donating the cache buffers — and `cache` is returned as is.
     Returns (logits (B, V), cache)."""
-    require_causal_decoder(cfg)
+    _require_transformer(cfg)
     b = token.shape[0]
     nkv, hd = cfg.n_kv_heads, cfg.head_dim
     prefix = _prefix_len(cfg)
@@ -567,6 +696,8 @@ def decode_step_paged(params: Params, cfg: ArchConfig, cache: Cache,
             prefix=prefix)
         h = h + _attn_update(lp, cfg, cache, i, x,
                              a_out.reshape(b, 1, q.shape[2], hd))
+        if cfg.is_encdec:
+            h = h + _cross_update(lp, cfg, cache, i, h)
         x = L.norm(h, lp.get("ln2"), cfg.norm)
         h = h + _ffn(lp, cfg, x)
     h = L.norm(h, params.get("final_norm"), cfg.norm)

@@ -1,5 +1,7 @@
-"""Parameters of the causal decoder (dense or MoE FFN, or Hymba's hybrid
-attention + SSM layer): seeded init and JAX import.
+"""Parameters of every family the port serves: the decoder (dense or MoE
+FFN, Hymba's hybrid attention + SSM layer, the encoder-decoder's
+cross-attention and encoder stack) and xLSTM: seeded init and JAX
+import.
 
 The layout is the JAX package's, stacked over layers with a leading `L`
 dim, as a nested dict of tensors:
@@ -26,6 +28,27 @@ Hymba (`block="hymba"`, inner = n_heads * head_dim, r = max(8, inner //
     layers.branch_norm_attn / branch_norm_ssm (L, inner) = 0
     layers.beta (L, 2) f32 = 1            layers.wo_comb (L, inner, d)
 
+The encoder-decoder (`cfg.encdec`, L the decoder's depth, E its
+encoder's) adds to each decoder layer a cross-attention and its norm,
+and an encoder stack of plain layers (attention, FFN, ln1 / ln2):
+
+    layers.xattn.wq (L, d, h, hd)  wk, wv (L, d, K, hd)  wo (L, h, hd, d)
+    layers.lnx (L, d)                             rms-norm configs only
+    enc_layers.{attn, mlp, ln1, ln2}              as layers, stacked (E, ...)
+
+xLSTM (`block="xlstm"`, P = n_layers // 2 pairs, inner = 2 d, H heads,
+hd_m = inner / H, hd_s = d / H, f the sLSTM FFN's width;
+`models.xlstm.dims`):
+
+    embed (V, d) tied                     final_norm (d,)
+    pairs.mlstm.ln (P, d)  w_up (P, d, 2, inner)  index 0 = u, 1 = gate z
+    pairs.mlstm.wq / wk / wv (P, inner, H, hd_m)  w_down (P, inner, d)
+    pairs.mlstm.w_i / w_f (P, inner, H) f32   b_i (P, H) f32 = 0
+    pairs.mlstm.b_f (P, H) f32 = 3            gn (P, inner)
+    pairs.slstm.ln (P, d)  w_x (P, d, 4, H, hd_s) f32  (z, i, f, o)
+    pairs.slstm.r (P, 4, H, hd_s, hd_s) f32   b (P, 4, H, hd_s) f32 = 0
+    pairs.slstm.gn (P, d)  ffn_wi (P, d, f)  ffn_wo (P, f, d)
+
 `init_params` draws every leaf from the same distribution as the JAX
 init (truncated normal at +-2 sigma; 0.02 for embeddings, 1/sqrt(d_in)
 for dense layers; zeros for rms scales).  The numbers differ from
@@ -47,34 +70,38 @@ from repro_torch.device import (DeviceLike, generator_for, resolve_device,
 Params = Dict[str, Any]
 
 
-def require_causal_decoder(cfg: ArchConfig) -> None:
-    """The port's model covers causal decoders: a SwiGLU or gelu FFN,
-    dense or Mixture-of-Experts, an optional sliding window, an optional
-    vision frontend's prefix tokens, and Hymba's hybrid layer (attention
-    and a selective SSM side by side, meta tokens, per-layer global or
-    windowed attention).  The embedding family builds as such a decoder,
-    as `repro.models.build` builds it.  xLSTM and the encoder-decoder
-    are queued in ROADMAP.md A7."""
+def require_supported(cfg: ArchConfig) -> None:
+    """Refuse a config the port cannot run.  It runs every family of the
+    zoo: the decoder (a SwiGLU or gelu FFN, dense or Mixture-of-Experts,
+    an optional sliding window, an optional vision frontend's prefix
+    tokens, Hymba's hybrid layer with its meta tokens and per-layer
+    global or windowed attention, the encoder-decoder, whose audio
+    frontend's frames come in as the encoder's input) and xLSTM.  It
+    refuses configs that none of them builds: another block, Hymba
+    without an SSM state, meta tokens outside Hymba, prefix tokens on a
+    frontend other than vision, an audio frontend without an encoder, an
+    FFN it has no form for."""
     unsupported = []
-    if cfg.block not in ("transformer", "hymba"):
+    if cfg.block not in ("transformer", "hymba", "xlstm"):
         unsupported.append(f"block={cfg.block}")
     if cfg.block == "hymba" and cfg.ssm_state <= 0:
         unsupported.append(f"hymba with ssm_state={cfg.ssm_state}")
-    if cfg.encdec is not None:
-        unsupported.append("encoder-decoder")
+    if cfg.encdec is not None and cfg.block != "transformer":
+        unsupported.append(f"an encoder-decoder of block={cfg.block}")
     if cfg.n_meta_tokens and cfg.block != "hymba":
         unsupported.append("meta tokens outside hymba")
-    if cfg.frontend not in ("", "vision") \
-            or (cfg.n_prefix_tokens and cfg.frontend != "vision"):
+    if cfg.frontend not in ("", "vision", "audio") \
+            or (cfg.n_prefix_tokens and cfg.frontend != "vision") \
+            or (cfg.frontend == "audio" and cfg.encdec is None):
         unsupported.append(f"frontend={cfg.frontend!r} with "
                            f"{cfg.n_prefix_tokens} prefix tokens")
-    if cfg.d_ff <= 0 or cfg.act not in ("swiglu", "gelu"):
+    if cfg.block != "xlstm" and (cfg.d_ff <= 0
+                                 or cfg.act not in ("swiglu", "gelu")):
         unsupported.append(f"ffn act={cfg.act} d_ff={cfg.d_ff}")
     if unsupported:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unsupported)} is not ported yet "
-            f"(ROADMAP.md A7); repro_torch runs causal decoders and "
-            f"hymba")
+            f"{cfg.name}: {', '.join(unsupported)} is not supported; "
+            f"repro_torch runs the zoo's families")
 
 
 # --------------------------------------------------------------------- #
@@ -104,28 +131,61 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     from `generator`, which must live on that device.  On the meta device
     (no generator) the tree's shapes and dtypes alone, which is how
     placement counts an instance's bytes (`cluster.node`)."""
-    require_causal_decoder(cfg)
+    require_supported(cfg)
     dev = resolve_device(device)
     if dev.type != "meta" and generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     dt = torch_dtype(cfg.dtype)
-    n, d, hd = cfg.n_layers, cfg.d_model, cfg.head_dim
+
+    def dense(d_in, *shape, dtype=dt):
+        return _trunc_normal(shape, (1.0 / d_in) ** 0.5, dtype, generator,
+                             dev)
+
+    if cfg.block == "xlstm":
+        return _xlstm_params(cfg, dense, generator, dev)
+    layers = _layers(cfg, cfg.n_layers, dense, dev, cross=cfg.is_encdec)
+    params: Params = {
+        "embed": _trunc_normal((cfg.vocab, cfg.d_model), 0.02, dt,
+                               generator, dev),
+        "layers": layers}
+    if cfg.is_encdec:
+        params["enc_layers"] = _layers(cfg, cfg.encdec.enc_layers, dense,
+                                       dev)
+    if cfg.n_meta_tokens:
+        params["meta"] = _trunc_normal((cfg.n_meta_tokens, cfg.d_model),
+                                       0.02, dt, generator, dev)
+    if cfg.norm == "rms":
+        params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
+                                           device=dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _trunc_normal((cfg.d_model, cfg.vocab), 0.02, dt,
+                                          generator, dev)
+    return params
+
+
+def _layers(cfg: ArchConfig, n: int, dense, dev: torch.device,
+            cross: bool = False) -> Params:
+    """n stacked decoder layers (with the cross-attention and its norm
+    when `cross`), or, called without it for an encoder-decoder, its
+    encoder stack."""
+    d, hd = cfg.d_model, cfg.head_dim
     h, kv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-
-    def dense(d_in, *shape):
-        return _trunc_normal(shape, (1.0 / d_in) ** 0.5, dt, generator, dev)
-
+    dt = torch_dtype(cfg.dtype)
     layers: Params = {
         "attn": {"wq": dense(d, n, d, h, hd), "wk": dense(d, n, d, kv, hd),
                  "wv": dense(d, n, d, kv, hd)},
     }
     if cfg.block != "hymba":
         layers["attn"]["wo"] = dense(h * hd, n, h, hd, d)
+    if cross:
+        layers["xattn"] = {"wq": dense(d, n, d, h, hd),
+                           "wk": dense(d, n, d, kv, hd),
+                           "wv": dense(d, n, d, kv, hd),
+                           "wo": dense(h * hd, n, h, hd, d)}
     if cfg.moe is not None:
         e = cfg.moe.num_experts
         layers["moe"] = {
-            "router": _trunc_normal((n, d, e), (1.0 / d) ** 0.5,
-                                    torch.float32, generator, dev),
+            "router": dense(d, n, d, e, dtype=torch.float32),
             "wi": (dense(d, n, e, 2, d, f) if cfg.act == "swiglu"
                    else dense(d, n, e, d, f)),
             "wo": dense(f, n, e, f, d)}
@@ -135,20 +195,49 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                          "wo": dense(f, n, f, d)}
     if cfg.block == "hymba":
         layers.update(_hymba_layers(cfg, dense, dev))
-    params: Params = {
-        "embed": _trunc_normal((cfg.vocab, d), 0.02, dt, generator, dev),
-        "layers": layers}
-    if cfg.n_meta_tokens:
-        params["meta"] = _trunc_normal((cfg.n_meta_tokens, d), 0.02, dt,
-                                       generator, dev)
     if cfg.norm == "rms":
-        layers["ln1"] = torch.zeros((n, d), dtype=dt, device=dev)
-        layers["ln2"] = torch.zeros((n, d), dtype=dt, device=dev)
-        params["final_norm"] = torch.zeros((d,), dtype=dt, device=dev)
-    if not cfg.tie_embeddings:
-        params["lm_head"] = _trunc_normal((d, cfg.vocab), 0.02, dt,
-                                          generator, dev)
-    return params
+        for name in ("ln1", "ln2") + (("lnx",) if cross else ()):
+            layers[name] = torch.zeros((n, d), dtype=dt, device=dev)
+    return layers
+
+
+def _xlstm_params(cfg: ArchConfig, dense, generator: torch.Generator,
+                  dev: torch.device) -> Params:
+    """xLSTM's tree, drawn and filled as `repro.models.xlstm.init_params`
+    does: the gates' weights and biases in f32, the rest in the model
+    dtype, the forget gates' bias at 3 (open)."""
+    from repro_torch.models.xlstm import dims, n_pairs
+    p = n_pairs(cfg)
+    d, inner, h, hd_m, hd_s, ff = dims(cfg)
+    dt = torch_dtype(cfg.dtype)
+    f32 = torch.float32
+    zeros = lambda *shape, dtype=dt: torch.zeros(  # noqa: E731
+        shape, dtype=dtype, device=dev)
+    return {
+        "embed": _trunc_normal((cfg.vocab, d), 0.02, dt, generator, dev),
+        "pairs": {
+            "mlstm": {
+                "ln": zeros(p, d),
+                "w_up": dense(d, p, d, 2, inner),
+                "wq": dense(inner, p, inner, h, hd_m),
+                "wk": dense(inner, p, inner, h, hd_m),
+                "wv": dense(inner, p, inner, h, hd_m),
+                "w_i": dense(inner, p, inner, h, dtype=f32),
+                "b_i": zeros(p, h, dtype=f32),
+                "w_f": dense(inner, p, inner, h, dtype=f32),
+                "b_f": torch.full((p, h), 3.0, dtype=f32, device=dev),
+                "gn": zeros(p, inner),
+                "w_down": dense(inner, p, inner, d)},
+            "slstm": {
+                "ln": zeros(p, d),
+                "w_x": dense(d, p, d, 4, h, hd_s, dtype=f32),
+                "r": dense(hd_s, p, 4, h, hd_s, hd_s, dtype=f32),
+                "b": zeros(p, 4, h, hd_s, dtype=f32),
+                "gn": zeros(p, d),
+                "ffn_wi": dense(d, p, d, ff),
+                "ffn_wo": dense(ff, p, ff, d)}},
+        "final_norm": zeros(d),
+    }
 
 
 def _hymba_layers(cfg: ArchConfig, dense, dev: torch.device) -> Params:
@@ -194,7 +283,7 @@ def seeded_store(device: DeviceLike = None,
             return None
         if cfg.name not in trees:
             try:
-                require_causal_decoder(cfg)
+                require_supported(cfg)
             except NotImplementedError:
                 return None
             trees[cfg.name] = init_params(cfg, generator_for(dev, 0), dev)
@@ -219,7 +308,7 @@ def from_jax(tree: Params, cfg: ArchConfig, device: DeviceLike = None
     """Carry a JAX param pytree (leaves already `np.asarray`'d) across,
     leaf by leaf, keeping the stacked layout.  Takes numpy arrays only;
     it imports nothing of JAX."""
-    require_causal_decoder(cfg)
+    require_supported(cfg)
     dev = resolve_device(device)
 
     def conv(node):

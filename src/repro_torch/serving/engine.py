@@ -1,6 +1,7 @@
 """Continuous-batching inference engine on the card — the counterpart of
-`repro.serving.engine.InferenceEngine` for causal decoders (dense or MoE)
-and the Hymba hybrid.
+`repro.serving.engine.InferenceEngine` for every family the port runs:
+the causal decoders (dense or MoE), the Hymba hybrid, the
+encoder-decoder and xLSTM.
 
 Each `step()` issues at most two dispatches, each ending in exactly one
 host sync:
@@ -48,7 +49,23 @@ the prefilled rows' states into their slots, the decode steps advance
 it in place, and a preempted request resumes by recompute (prefill over
 its prompt and output so far, at their exact length) or from the swap
 tier, whose handle carries the slot's state (ROADMAP.md C16: JAX's does
-not).  A window or prefix tokens turn
+not).
+
+xLSTM, as in JAX: exact-length admission too; its state (seven f32
+leaves, `models.xlstm.init_cache`) has no sequence axis, so there is
+nothing to page: a paged or paged-attention config serves in the
+contiguous mode (no host tier, no prefix cache, no speculation), the
+pool only books the slots, and a slot decodes past `max_len` (the
+position limit is 2**30).  A preempted request resumes by recompute.
+
+The encoder-decoder, as in JAX: every admission feeds the encoder zero
+frames of (rows, max_len, D) (`zero_src_embeds`; the encoder's output
+and the cross K/V are then exactly 0, ROADMAP.md C17), and the cross
+K/V "ck", "cv" (L, n_slots, max_len, K, hd) are slot-resident in all
+three modes beside the pools or strips (the swap tier's handle carries
+the slot's rows).  The prefix cache and speculation stay off.
+
+A window or prefix tokens turn
 the prefix cache and speculation off, as in JAX; a MoE FFN keeps both
 on (its capacity then follows each dispatch's own length: the bucket,
 the suffix bucket, 1 in decode, D + 1 in the verify).
@@ -97,7 +114,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import (DeviceLike, generator_for, resolve_device,
                                 torch_dtype)
 from repro_torch.models import build
-from repro_torch.models.transformer import zero_prefix_embeds
+from repro_torch.models.transformer import (zero_prefix_embeds,
+                                            zero_src_embeds)
+from repro_torch.models.xlstm import init_cache as xlstm_cache
 from repro_torch.params import Params
 from repro_torch.serving import quantization as q_lib
 from repro_torch.serving import spec_decode as spec_lib
@@ -197,12 +216,15 @@ class InferenceEngine:
         # meta / vision-prefix tokens occupy cache slots ahead of the prompt
         self._prefix_tokens = cfg.n_meta_tokens + cfg.n_prefix_tokens
         # a recurrent state folds right-pads in: exact-length prefills
-        self._supports_bucket = cfg.block != "hymba"
+        self._supports_bucket = cfg.block not in ("hymba", "xlstm")
         self.scheduler = scheduler or Scheduler(SchedulerConfig())
         self._dead = False
         self._gen = generator_for(self.device, engine_cfg.seed)
-        self._pos_limit = engine_cfg.max_len
-        self._paged = engine_cfg.paged
+        # a constant-size state never runs out of cache positions
+        self._pos_limit = (engine_cfg.max_len if cfg.block != "xlstm"
+                           else 2 ** 30)
+        # xlstm's state has no sequence axis: nothing to page
+        self._paged = engine_cfg.paged and cfg.block != "xlstm"
         self._paged_attn = engine_cfg.paged_attention and self._paged
         self.pool = PagedKVPool(engine_cfg.n_slots, engine_cfg.max_len,
                                 page_size=engine_cfg.page_size,
@@ -213,10 +235,10 @@ class InferenceEngine:
         # its projected page cost against the engine's free page budget
         self.scheduler.pages_for = self._pages_for
         # prefix reuse needs page-aligned bucketed prefill over a plain
-        # causal decoder: recurrent state, windows and prefix tokens break
-        # block sharing (JAX's predicate; the enc-dec family it also
-        # excludes is one the port does not build)
+        # causal decoder: recurrent state, enc-dec cross KV, windows and
+        # prefix tokens break block sharing (JAX's predicate)
         self._prefix_ok = (self._paged and self._supports_bucket
+                           and not cfg.is_encdec
                            and self._prefix_tokens == 0
                            and cfg.swa_window == 0)
         # speculation needs the paged-attention verify and the same
@@ -234,23 +256,7 @@ class InferenceEngine:
                 self.params, bits=8 if engine_cfg.quantize == "int8" else 4)
             if engine_cfg.quantize == "int8":
                 self._int8 = q_lib.int8_operands(self.params)
-        dt = torch_dtype(cfg.dtype)
-        if self._paged:
-            self.cache = new_pools(cfg.n_layers, self.pool.n_pages,
-                                   self.pool.page_size, cfg.n_kv_heads,
-                                   cfg.head_dim, dt, self.device)
-        else:
-            shape = (cfg.n_layers, engine_cfg.n_slots, engine_cfg.max_len,
-                     cfg.n_kv_heads, cfg.head_dim)
-            self.cache = {name: torch.zeros(shape, dtype=dt,
-                                            device=self.device)
-                          for name in ("k", "v")}
-        if cfg.block == "hymba":
-            # slot-resident recurrent state, f32 as in JAX
-            self.cache["ssm_h"] = torch.zeros(
-                (cfg.n_layers, engine_cfg.n_slots,
-                 cfg.n_heads * cfg.head_dim, cfg.ssm_state),
-                dtype=torch.float32, device=self.device)
+        self.cache = self._init_cache()
         self.host_pool = (HostPagePool(engine_cfg.host_kv_pages,
                                        split_paged(self.cache)[0],
                                        pin=self.device.type == "cuda")
@@ -319,6 +325,35 @@ class InferenceEngine:
         self._prefill_programs: Set[Tuple[int, int]] = set()
         self._suffix_programs: Set[Tuple[int, int]] = set()
         self._decode_programs: Set[str] = set()
+
+    def _init_cache(self) -> Dict[str, torch.Tensor]:
+        """The physical cache: the KV page pools (or per-slot strips) and
+        beside them the slot-resident leaves: Hymba's SSM state (f32, as
+        in JAX), an encoder-decoder's cross K/V over max_len source
+        positions; for xLSTM its state leaves alone."""
+        cfg, ecfg, dev = self.cfg, self.ecfg, self.device
+        ns, ml = ecfg.n_slots, ecfg.max_len
+        if cfg.block == "xlstm":
+            return xlstm_cache(cfg, ns, dev)
+        dt = torch_dtype(cfg.dtype)
+        if self._paged:
+            cache = new_pools(cfg.n_layers, self.pool.n_pages,
+                              self.pool.page_size, cfg.n_kv_heads,
+                              cfg.head_dim, dt, dev)
+        else:
+            cache = {name: torch.zeros((cfg.n_layers, ns, ml, cfg.n_kv_heads,
+                                        cfg.head_dim), dtype=dt, device=dev)
+                     for name in ("k", "v")}
+        if cfg.block == "hymba":
+            cache["ssm_h"] = torch.zeros(
+                (cfg.n_layers, ns, cfg.n_heads * cfg.head_dim,
+                 cfg.ssm_state), dtype=torch.float32, device=dev)
+        if cfg.is_encdec:
+            for name in ("ck", "cv"):
+                cache[name] = torch.zeros((cfg.n_layers, ns, ml,
+                                           cfg.n_kv_heads, cfg.head_dim),
+                                          dtype=dt, device=dev)
+        return cache
 
     def _pages_for(self, req: Request) -> int:
         """Projected page cost of admitting `req` now: its full context
@@ -609,12 +644,15 @@ class InferenceEngine:
             self.prefill_traces += 1
         dev = self.device
         tokens = to_device(toks, dev)
-        # a vision model's prefix: zero embeddings, as JAX's _extra_inputs
+        # a vision model's prefix and an encoder-decoder's frames: zero
+        # embeddings, as JAX's _extra_inputs
         logits, rows, pos1 = self.model.prefill(
             self._run_params(), tokens,
             lengths=(to_device(lengths, dev) if self._supports_bucket
                      else None),
-            prefix_embeds=zero_prefix_embeds(self.cfg, toks.shape[0], dev))
+            prefix_embeds=zero_prefix_embeds(self.cfg, toks.shape[0], dev),
+            src_embeds=zero_src_embeds(self.cfg, toks.shape[0],
+                                       self.ecfg.max_len, dev))
         if self._paged:
             pool_p, pool_r = split_paged(self.cache)
             rows_p, rows_r = split_paged(rows)

@@ -97,18 +97,23 @@ def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor,
 # --------------------------------------------------------------------- #
 # the int8 kernel path
 
-# matmul weights of the decoder, by path (Hymba's SSM input projection and
-# its output projection too); other quantized leaves (stacked norm scales,
-# the MoE router, Hymba's meta tokens and its small SSM leaves) are
-# dequantized once by `int8_operands`
-_LINEARS = {("layers", "attn", "wq"), ("layers", "attn", "wk"),
-            ("layers", "attn", "wv"), ("layers", "attn", "wo"),
-            ("layers", "mlp", "wi"), ("layers", "mlp", "wo"),
-            ("layers", "ssm", "w_in"), ("layers", "wo_comb"),
-            ("embed",), ("lm_head",)}
+# matmul weights, by path: the decoder's (Hymba's SSM input projection and
+# its output projection too, an encoder-decoder's cross-attention and its
+# encoder stack) and xLSTM's blocks'; other quantized leaves (stacked norm
+# scales, the MoE router, Hymba's meta tokens and its small SSM leaves,
+# xLSTM's f32 gate weights and biases) are dequantized once by
+# `int8_operands`
+_LINEARS = {(stack, sub, w) for stack in ("layers", "enc_layers")
+            for sub, ws in (("attn", ("wq", "wk", "wv", "wo")),
+                            ("mlp", ("wi", "wo"))) for w in ws} \
+    | {("layers", "xattn", w) for w in ("wq", "wk", "wv", "wo")} \
+    | {("layers", "ssm", "w_in"), ("layers", "wo_comb"), ("embed",),
+       ("lm_head",)} \
+    | {("pairs", "mlstm", w) for w in ("w_up", "wq", "wk", "wv", "w_down")} \
+    | {("pairs", "slstm", "ffn_wi"), ("pairs", "slstm", "ffn_wo")}
 # linears whose (L, d, G, n) leaf the model multiplies as (d, G * n): the
 # per-n scale repeats over G in the kernel's per-column scale
-_GROUPED = ("wq", "wk", "wv", "w_in")
+_GROUPED = ("wq", "wk", "wv", "w_in", "w_up")
 # the MoE experts: batched products off the kernel, kept int8 at rest
 _EXPERTS = {("layers", "moe", "wi"), ("layers", "moe", "wo")}
 
@@ -120,7 +125,8 @@ def _col_scale(path, leaf) -> torch.Tensor:
     q = leaf[_QKEY]
     if path[-1] in _GROUPED:
         # (L, d, H, hd) -> (d, H*hd): the per-hd scale repeats over heads
-        # (w_in's per-inner scale over its two halves, u and z)
+        # (w_in's and w_up's per-inner scale over their two halves, u and
+        # z)
         return scale.reshape(1, 1, -1).expand(1, q.shape[2], -1) \
             .reshape(1, -1).contiguous()
     return scale.reshape(1, -1).contiguous()
@@ -150,7 +156,7 @@ def int8_operands(params: Params) -> Params:
 def operand_bytes(params: Params) -> int:
     """Device bytes `int8_operands(params)` allocates beside the int8
     tree `params` itself: the leaves it dequantizes and the per-column
-    scales it expands (wq, wk, wv, w_in); the other operands share the
+    scales it expands (wq, wk, wv, w_in, w_up); the other operands share the
     tree's storage (a grouped scale over one group is a view of it).  A
     function of shapes and dtypes only, so it also
     counts a tree built on the meta device (placement's count)."""

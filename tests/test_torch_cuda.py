@@ -880,17 +880,20 @@ def test_launch_counts_exact_from_pump_like_threads(cuda):
 
 
 SERVED_GQA = [
-    # model, H, K, hd of the full zoo configs (flash at B = 4, decode at 8)
+    # model, H, K, hd of the full zoo configs and of seamless-m4t-large-v2's
+    # decoder self-attention (flash at B = 4, decode at 8)
     ("llama3.2-1b", 32, 8, 64),
     ("qwen3-1.7b", 16, 8, 128),
+    ("seamless-m4t-large-v2", 16, 16, 64),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SERVED_GQA, ids=[c[0] for c in SERVED_GQA])
 def test_flash_kernel_at_the_served_gqa_shapes(cuda, case):
-    """A causal bf16 prefill of 4 rows of 1024 at the zoo models' heads
-    (G = 4, hd 64; G = 2, hd 128), through the model's strided views."""
+    """A causal bf16 prefill of 4 rows of 1024 at the served models' heads
+    (G = 4, hd 64; G = 2, hd 128; G = 1, hd 64), through the model's
+    strided views."""
     _, H, K, hd = case
     q, k, v = _tensors(15, cuda, torch.bfloat16, (4, 1024, H, hd),
                        (4, 1024, K, hd), (4, 1024, K, hd))
@@ -903,7 +906,7 @@ def test_flash_kernel_at_the_served_gqa_shapes(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SERVED_GQA, ids=[c[0] for c in SERVED_GQA])
 def test_decode_kernel_at_the_served_gqa_shapes(cuda, case):
-    """8 slots over a (B, S, K, hd) cache of 1024 at the zoo models'
+    """8 slots over a (B, S, K, hd) cache of 1024 at the served models'
     heads, ragged positions from a seed with one slot at 0 and one at
     1023."""
     _, H, K, hd = case
@@ -1065,3 +1068,157 @@ def test_hymba_engines_match_the_cpu(cuda, kv, mode):
     attn = (ops.paged_decode_attention if mode == "paged_attention"
             else ops.decode_attention)
     assert attn.launches > 0
+
+
+# the encoder-decoder's flash shapes at seamless-m4t-large-v2's width (16
+# heads over 16, hd 64): the encoder's self-attention over 1024 frames,
+# the cross-attention of a prefill bucket over them (Sq != Skv), and a
+# ragged reduced-width pair (hd 16)
+CROSS = [
+    # B, H, K, Sq, Skv, hd
+    (2, 16, 16, 1024, 1024, 64),
+    (4, 16, 16, 64, 1024, 64),
+    (2, 16, 16, 300, 1024, 64),
+    (2, 4, 4, 37, 19, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", CROSS)
+def test_flash_kernel_non_causal_cross_shapes(cuda, case, dt):
+    """Non-causal flash, Sq != Skv among the cases, against its plain
+    version; each launch counted as non-causal on its dtype's route."""
+    B, H, K, Sq, Skv, hd = case
+    dtype, tol = DTYPES[dt]
+    q, k, v = _tensors(9, cuda, dtype, (B, H, Sq, hd), (B, K, Skv, hd),
+                       (B, K, Skv, hd))
+    before = ops.flash_attention.launches_non_causal
+    got = _flash_checked(q, k, v, dt, causal=False)
+    assert ops.flash_attention.launches_non_causal == before + 1
+    _close(got, flash_attention_ref(q, k, v, causal=False), tol)
+
+
+def _engine_runs(cuda, cfg, params, prompts, budget, **kw):
+    """The same engine and greedy requests on the CPU and on the card:
+    {device: (tokens, counters)}, the card's launches left in the
+    wrappers' counters."""
+    from repro_torch.serving import (EngineConfig, InferenceEngine, Request,
+                                     SamplingParams)
+    runs = {}
+    for dev in ("cpu", cuda):
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            n_slots=4, max_len=64, page_size=8, decode_block=4, **kw),
+            device=dev)
+        reqs = [Request(model="m", prompt=p,
+                        sampling=SamplingParams(max_tokens=budget))
+                for p in prompts]
+        for r in reqs:
+            assert eng.submit(r)
+        ops.reset_launches()
+        eng.run_until_done()
+        st = eng.perf_stats()
+        runs[str(dev)] = ([r.output for r in reqs],
+                          {k: st[k] for k in (
+                              "dispatches", "host_syncs", "prefill_shapes",
+                              "prefill_dispatches", "decode_dispatches")})
+    return runs["cpu"], runs[str(cuda)]
+
+
+ENGINE_MODES = {"paged_attention": dict(paged_attention=True), "gather": {},
+                "contiguous": dict(paged=False),
+                "int8": dict(quantize="int8")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(ENGINE_MODES))
+def test_xlstm_engines_match_the_cpu(cuda, mode):
+    """The reduced xlstm-125m at 4 layers (2 pairs) in f32: the engine on
+    the card (every config in the contiguous mode: nothing to page) gives
+    the greedy tokens and counters of the same engine on the CPU, a
+    budget past max_len included; int8 launches 7 products a pair and
+    the head each model call."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = ARCHS["xlstm-125m"].reduced(dtype="f32", n_layers=4)
+    params = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (20, 37, 9)]
+    cpu, card = _engine_runs(cuda, cfg, params, prompts, 70,
+                             **ENGINE_MODES[mode])
+    assert card == cpu
+    assert all(len(t) == 70 for t in card[0])
+    assert ops.flash_attention.launches == 0
+    assert ops.decode_attention.launches == 0
+    assert ops.paged_decode_attention.launches == 0
+    if mode == "int8":
+        calls = card[1]["prefill_dispatches"] \
+            + 4 * card[1]["decode_dispatches"]
+        assert ops.int8_matmul.launches == (7 * 2 + 1) * calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(ENGINE_MODES))
+def test_encdec_engines_match_the_cpu(cuda, mode):
+    """The reduced seamless-m4t-large-v2 in f32: the engine on the card
+    gives the greedy tokens and counters of the same engine on the CPU;
+    the prefill runs non-causal flash (the encoder, the cross-attention)
+    and every decode mode the decode kernel (the cross-attention over
+    the slot-resident cross K/V)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = ARCHS["seamless-m4t-large-v2"].reduced(dtype="f32")
+    params = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(28)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (20, 37, 9)]
+    cpu, card = _engine_runs(cuda, cfg, params, prompts, 14,
+                             **ENGINE_MODES[mode])
+    assert card == cpu
+    assert ops.flash_attention.launches_non_causal > 0
+    assert ops.decode_attention.launches > 0
+    if mode == "paged_attention":
+        assert ops.paged_decode_attention.launches > 0
+
+
+@pytest.mark.cuda
+def test_encdec_cross_path_matches_the_plain_versions(cuda):
+    """With random frames (the engine feeds zeros, ROADMAP.md C17), the
+    model's prefill and 4 decode steps on the card (non-causal flash,
+    the decode kernel over the cross K/V) equal the same calls on the
+    CPU, through the plain versions, within f32's 1e-4."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tf
+    cfg = ARCHS["seamless-m4t-large-v2"].reduced(dtype="f32")
+    params = build(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(29)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 13)))
+    src = torch.from_numpy(rng.standard_normal(
+        (2, 40, cfg.d_model)).astype(np.float32))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2)).astype(
+        np.int32))
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        logits, rows, pos = tf.prefill(p, cfg, toks.to(dev),
+                                       src_embeds=src.to(dev))
+        cache = {name: rows[name] for name in ("ck", "cv")}
+        for name in ("k", "v"):
+            cache[name] = rows[name].new_zeros(
+                (cfg.n_layers, 2, 32, cfg.n_kv_heads, cfg.head_dim))
+            cache[name][:, :, :13] = rows[name]
+        got = [logits, rows["ck"]]
+        for tok in nxt:
+            pos = pos + 1
+            step, cache = tf.decode_step(p, cfg, cache, tok.to(dev), pos)
+            got.append(step)
+        outs[str(dev)] = [g.cpu() for g in got]
+    assert float(outs["cpu"][1].abs().max()) > 0.1
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        _close(got, want, 1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
