@@ -133,6 +133,25 @@ JSON line:
               1024 frames) and 8 decode steps on the kernels against the
               same calls on the plain versions within f32's 1e-4 (the
               only run where the cross path carries values).
+   parity_train — the trainer's numerics on the card against the port's
+              CPU path (itself held against JAX by the CPU tests):
+              OLMo-1B at full width cut to 2 of 16 layers and the full
+              xlstm-125m (6 pairs), f32, one batch of 2 x 128 tokens:
+              the loss under remat within 1e-5 relative, every gradient
+              leaf within 1e-4 of its largest magnitude (xLSTM's b_i
+              against w_i's, see tests/test_torch_loss.py), one AdamW
+              step from the same gradients within 1e-6 on both devices,
+              no kernel launched (training attends in plain PyTorch).
+   kv_quant — the int8 KV cache on OLMo-1B: 2 layers in f32, 8 prompts
+              of 1000 tokens into a cache of 1024, 8 teacher-forced
+              decode steps, the card within f32's 1e-4 of the CPU and
+              within 0.05 of the f32 cache's logit scale (argmax
+              agreement printed), the decode kernel n_layers times a
+              step over the dequantized f32 cache; then the full 16
+              layers in bf16 for the KV bytes (< 0.6 x the bf16 cache)
+              and the step's host ms; then the decode kernel's f32 route
+              timed at that shape (its row joins the kernels line's
+              decode_attention "shapes").
 5. serve_bf16 — a main path: the full OLMo-1B (16 layers, bf16, seeded
               random weights) serves 12 requests through
               InferenceEngine.submit/step in the paged-attention mode,
@@ -278,6 +297,18 @@ JSON line:
               of its own: /healthz and /v1/models list both models, one
               streamed chat ends in `data: [DONE]`, and SIGINT makes it
               print "draining..." and exit 0 within 60 s.
+12b. train_xlstm — repro_torch/examples/train_100m.py's code path on the
+              full xlstm-125m (its settings: batch 4, seq 64, 60 steps,
+              lr 6e-4, warmup 10): the last logged loss below the first;
+              then its --crash-at 30 leg equal to the uninterrupted run
+              bit for bit (params, moments, step); step ms p50 and the
+              checkpoint's save and restore seconds.
+12c. train_olmo — the full OLMo-1B (bf16 params, f32 moments, remat),
+              4 x 1024 tokens a step, 8 steps then 4 with int8 gradient
+              compression: every loss finite, the last below the first;
+              step ms p50, tokens/s, the model-FLOP rate (6 N D) as a
+              share of the data-sheet 989 TFLOP/s, peak memory, state
+              bytes.
 13. kernels — per kernel: its launches on the path that runs it (and on
               every serve), its error against the plain version, its
               time (CUDA events, median of 30 runs after warm-up, each
@@ -339,6 +370,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -2919,6 +2951,499 @@ def encdec_timings(dev, ops, refs, q_lib, int8_m, cross_shape):
     return out
 
 
+# --------------------------------------------------------------------- #
+# the trainer and the int8 KV cache
+
+TRAIN_LAYERS = 2            # of olmo-1b's 16 in parity_train and kv_quant
+
+
+def hold_grads(name, got, want, tol=1e-4) -> float:
+    """Each gradient leaf (card) within tol of the largest magnitude of
+    its CPU counterpart; xLSTM's input-gate bias b_i against its gate
+    weight w_i's, as tests/test_torch_loss.py holds it (its gradient is
+    0 in exact arithmetic but for the exp(-m) floor, so what is left is
+    rounding).  Returns the worst err / scale over the leaves."""
+    from repro_torch.training.tree import items
+    scale = {p: float(w.abs().max()) for p, w in items(want)}
+    worst = 0.0
+    for (path, g), (_, w) in zip(items(got), items(want)):
+        ref = scale["pairs/mlstm/w_i" if path == "pairs/mlstm/b_i"
+                    else path]
+        err = float((g.float().cpu() - w.float()).abs().max())
+        if not err <= tol * ref or not ref > 0:
+            raise AssertionError(f"{name} {path}: gradient error {err:.3e}"
+                                 f" beyond {tol} x {ref:.3e}")
+        worst = max(worst, err / ref)
+    return worst
+
+
+def parity_train(dev, ops, olmo=None, xlstm=None):
+    """The trainer's numerics on the card against the port's CPU path (the
+    plain PyTorch that the CPU tests hold against JAX): OLMo-1B at full
+    width cut to TRAIN_LAYERS of 16 layers and the full xlstm-125m (6
+    pairs), both in f32, seeded weights (xLSTM's norm scales from a seed
+    too), one batch of 2 x 128 tokens: the loss under remat (within 1e-5
+    relative) and every gradient leaf (within 1e-4 of its largest
+    magnitude) by autograd; then one AdamW step at step 5 (lr 1e-3, the
+    clip binding or not) from the CPU's gradients on both devices, the
+    params and moments within 1e-6 of each leaf's scale (at least 1).
+    No kernel runs (training attends in plain PyTorch): the launch counts
+    stay 0.  `olmo` / `xlstm` replace the models (a CPU rehearsal)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.tree import items, leaves, map_tree
+    cpu = torch.device("cpu")
+    olmo = olmo or dataclasses.replace(ARCHS["olmo-1b"], dtype="f32",
+                                       n_layers=TRAIN_LAYERS)
+    xlstm = xlstm or dataclasses.replace(ARCHS["xlstm-125m"], dtype="f32")
+    rows = []
+    for cfg, seed in ((olmo, 21), (xlstm, 22)):
+        params = build(cfg, cpu).init(torch.Generator().manual_seed(seed))
+        rng = np.random.default_rng(seed)
+        seed_norms(params, rng)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 129))
+                                .astype(np.int32))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].contiguous()}
+        on_card = map_tree(lambda t: t.to(dev), params)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        g_card, m_card = loss_and_grads(build(cfg, dev), on_card,
+                                        {k: v.to(dev)
+                                         for k, v in batch.items()})
+        sync(dev)
+        card_s = time.perf_counter() - t0
+        launched = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+        if any(launched.values()):
+            raise AssertionError(f"parity_train: kernels launched "
+                                 f"{launched}")
+        t0 = time.perf_counter()
+        g_cpu, m_cpu = loss_and_grads(build(cfg, cpu), params, batch)
+        cpu_s = time.perf_counter() - t0
+        loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
+            / abs(float(m_cpu["loss"]))
+        if not loss_err <= 1e-5:
+            raise AssertionError(f"parity_train {cfg.name}: loss "
+                                 f"{float(m_card['loss'])} vs "
+                                 f"{float(m_cpu['loss'])}")
+        grad_worst = hold_grads(f"parity_train {cfg.name}", g_card, g_cpu)
+        ocfg = opt_lib.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+        step = torch.tensor(5, dtype=torch.int32)
+        new = {}
+        for d, p in ((cpu, params), (dev, on_card)):
+            new[d.type] = opt_lib.adamw_update(
+                p, map_tree(lambda g: g.to(d), g_cpu), opt_lib.adamw_init(p),
+                step.to(d), ocfg)
+        opt_worst = 0.0
+        for part in ((0,), (1, "m"), (1, "v")):
+            got, want = new[dev.type][part[0]], new["cpu"][part[0]]
+            if len(part) > 1:
+                got, want = got[part[1]], want[part[1]]
+            for (path, g), w in zip(items(got), leaves(want)):
+                scale = max(1.0, float(w.float().abs().max()))
+                err = float((g.float().cpu() - w.float()).abs().max())
+                if not err <= 1e-6 * scale:
+                    raise AssertionError(f"parity_train {cfg.name} adamw "
+                                         f"{part} {path}: {err:.3e}")
+                opt_worst = max(opt_worst, err / scale)
+        rows.append({"model": cfg.name, "layers": cfg.n_layers,
+                     "d_model": cfg.d_model, "batch": [2, 128],
+                     "loss": float(m_card["loss"]),
+                     "loss_rel_err": loss_err,
+                     "grad_worst_err_over_scale": grad_worst,
+                     "adamw_worst_err_over_scale": opt_worst,
+                     "grad_norm": float(new[dev.type][2]["grad_norm"]),
+                     "card_s": card_s, "cpu_s": cpu_s, "launches": launched})
+        del params, on_card, g_card, g_cpu, new
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "parity_train", "tolerances": {
+        "loss_rel": 1e-5, "grad": "1e-4 x max|g| a leaf",
+        "adamw": "1e-6 x max(1, max|p|) a leaf"}, "models": rows})
+    return rows
+
+
+KV_ROWS, KV_PROMPT, KV_LEN, KV_STEPS = 8, 1000, 1024, 8
+
+
+def kv_prefill(dev, ops, cfg, params, prompts, kv_quant):
+    """prefill(cache_len=KV_LEN, kv_quant=) of the prompts on `dev`.
+    Returns (the cache, pos, the flash kernel's launches)."""
+    from repro_torch.models import build
+    ops.reset_launches()
+    with torch.no_grad():
+        _, cache, pos = build(cfg, dev).prefill(
+            params, prompts.to(dev), cache_len=KV_LEN, kv_quant=kv_quant)
+    return cache, pos, ops.flash_attention.launches
+
+
+def kv_decode(dev, ops, cfg, params, cache, pos, feed):
+    """One decode step a column of `feed` (teacher-forced tokens, the
+    same on every device) from `cache` (advanced in place) at pos + 1.
+    Returns (the steps' logits (steps, B, V) f32 on the host, the decode
+    kernel's launches a step, host ms a step)."""
+    from repro_torch.models import build
+    model = build(cfg, dev)
+    dec = ops.decode_attention
+    out, per_step, step_ms = [], [], []
+    with torch.no_grad():
+        for j in range(feed.shape[1]):
+            before = dec.launches
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = model.decode(params, cache, feed[:, j].to(dev),
+                                         pos + 1 + j)
+            sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(dec.launches - before)
+            out.append(logits.float().cpu())
+    return torch.stack(out), per_step, step_ms
+
+
+def kv_prefill_close(card, cpu):
+    """The card's prefilled int8 cache against the CPU's: scales within
+    1e-5 relative; q within one step, apart in under 1% of the values
+    (K and V round differently on the two devices, by ulps, and move a
+    value at a .5 tie).  Returns (the worst scale error, the count of q
+    values apart)."""
+    worst, apart = 0.0, 0
+    for name in ("k", "v"):
+        got, want = card[f"{name}_scale"].cpu(), cpu[f"{name}_scale"]
+        worst = max(worst, float(((got - want).abs()
+                                  / want.abs().clamp_min(1e-30)).max()))
+        dq = (card[name].cpu().int() - cpu[name].int()).abs()
+        if int(dq.max()) > 1 or float((dq > 0).float().mean()) >= 1e-2:
+            raise AssertionError(f"kv_quant: {name} q apart by "
+                                 f"{int(dq.max())} in {int((dq > 0).sum())}")
+        apart += int((dq > 0).sum())
+    if not worst <= 1e-5:
+        raise AssertionError(f"kv_quant: scales apart by {worst:.3e}")
+    return worst, apart
+
+
+def kv_quant(dev, ops, card, cfg=None, full=None):
+    """The int8 KV cache (transformer.prefill(kv_quant=True) and
+    decode_step's quantized branch) on OLMo-1B at full width.  (a) f32,
+    cut to TRAIN_LAYERS layers: KV_ROWS prompts of KV_PROMPT tokens
+    prefilled into an int8 cache of KV_LEN, then KV_STEPS teacher-forced
+    decode steps.  The card's int8 cache against the CPU's prefill of the
+    same prompts (the plain versions): scales within 1e-5 relative, q
+    within one step, apart in under 1% (the count printed): quantizing
+    is discontinuous, and the two devices' K and V differ by ulps.  The
+    decode steps from the card's prefilled cache, on the card and on the
+    CPU: the logits within f32's 1e-4 up to the first step whose new K or
+    V rounds to another int8 value on the two devices (counted, compared
+    in the caches after the steps), and from there within the
+    quantization's 0.05 of the logit scale; and within 0.05 of the scale
+    of the card's f32-cache logits (argmax agreement printed); the
+    flash kernel n_layers times in the prefill, the decode kernel
+    exactly n_layers times a step, over the dequantized f32 cache: its
+    f32 route (the wrapper refuses a q and caches of two dtypes). (b)
+    The full OLMo-1B (16 layers, bf16): the same traffic through the
+    int8 cache and through the bf16 cache, the launches as in (a), the
+    KV bytes (int8 + f32 scales) under 0.6 x the bf16 cache's, host ms a
+    decode step for each. Then the decode kernel's f32 route timed at
+    (b)'s shape (B=8 K=16 G=1 S=1024 hd=128 over the dequantized cache,
+    pos 1000-1007) beside its plain version, its bound and SDPA. `cfg` /
+    `full` replace the models (a CPU rehearsal). Returns (the f32
+    route's timing row, whose launches are (a) and (b)'s decode
+    launches, {kernel: launches in (a) and (b)})."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.models import build
+    from repro_torch.training.tree import map_tree
+    F = torch.nn.functional
+    cpu = torch.device("cpu")
+    cfg = cfg or dataclasses.replace(ARCHS["olmo-1b"], dtype="f32",
+                                     n_layers=TRAIN_LAYERS)
+    full = full or ARCHS["olmo-1b"]
+    rng = np.random.default_rng(31)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (KV_ROWS, KV_PROMPT)).astype(np.int32))
+    feed = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (KV_ROWS, KV_STEPS)).astype(np.int32))
+    params = build(cfg, cpu).init(torch.Generator().manual_seed(31))
+    on_card = map_tree(lambda t: t.to(dev), params)
+    c8, pos, flash = kv_prefill(dev, ops, cfg, on_card, prompts, True)
+    start = {k: v.cpu() for k, v in c8.items()}     # before decode moves it
+    scale_err, apart = kv_prefill_close(c8, kv_prefill(
+        cpu, ops, cfg, params, prompts, True)[0])
+    q8, per_step, _ = kv_decode(dev, ops, cfg, on_card, c8, pos, feed)
+    want = kv_decode(cpu, ops, cfg, params, start, pos.cpu(), feed)[0]
+    # the decode steps' writes (positions KV_PROMPT + j), card vs CPU
+    step_flips = [sum(int((c8[name][:, :, KV_PROMPT + j].cpu().int()
+                           - start[name][:, :, KV_PROMPT + j].int())
+                          .abs().gt(0).sum()) for name in ("k", "v"))
+                  for j in range(KV_STEPS)]
+    first = next((j for j, f in enumerate(step_flips) if f), KV_STEPS)
+    dense = kv_decode(dev, ops, cfg, on_card,
+                      *kv_prefill(dev, ops, cfg, on_card, prompts, False)[:2],
+                      feed)[0]
+    n = cfg.n_layers
+    if flash != n or per_step != [n] * KV_STEPS \
+            or c8["k"].dtype != torch.int8 \
+            or c8["k_scale"].dtype != torch.float32:
+        raise AssertionError(f"kv_quant: flash {flash}, decode a step "
+                             f"{per_step}, cache {c8['k'].dtype}")
+    err = check_close("kv_quant/card_vs_cpu", q8[:first], want[:first],
+                      1e-4) if first else None
+    scale = max(float(dense.abs().max()), 1.0)
+    flip_err = float((q8[first:] - want[first:]).abs().max()) \
+        if first < KV_STEPS else None
+    if flip_err is not None and not flip_err < 0.05 * scale:
+        raise AssertionError(f"kv_quant: past a flipped write {flip_err:.3e}"
+                             f" beyond 0.05 x {scale:.3e}")
+    quant_err = float((q8 - dense).abs().max())
+    if not quant_err < 0.05 * scale:
+        raise AssertionError(f"kv_quant: int8 vs f32 cache {quant_err:.3e}"
+                             f" beyond 0.05 x {scale:.3e}")
+    agree = int((q8.argmax(-1) == dense.argmax(-1)).sum())
+    checks = {"model": cfg.name, "layers": n, "dtype": cfg.dtype,
+              "rows": KV_ROWS, "prompt": KV_PROMPT, "cache_len": KV_LEN,
+              "steps": KV_STEPS, "prefill_scale_rel_err": scale_err,
+              "prefill_q_apart": f"{apart} of {2 * start['k'].numel()}",
+              "card_vs_cpu_max_abs_err": err,
+              "decode_write_flips_a_step": step_flips,
+              "card_vs_cpu_after_a_flip_max_abs": flip_err,
+              "int8_vs_f32_cache_max_abs": quant_err, "logit_scale": scale,
+              "argmax_agree": f"{agree} of {KV_ROWS * KV_STEPS}",
+              "flash_launches": flash, "decode_launches_a_step": per_step,
+              "k_dtype": str(c8["k"].dtype)}
+    del params, on_card, c8
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the full model in bf16
+    fparams = build(full, dev).init(torch.Generator(device=dev)
+                                    .manual_seed(32))
+    fc8, fpos, fflash = kv_prefill(dev, ops, full, fparams, prompts, True)
+    f8, fstep, ms8 = kv_decode(dev, ops, full, fparams, fc8, fpos, feed)
+    fc16, fpos16, _ = kv_prefill(dev, ops, full, fparams, prompts, False)
+    f16, _, ms16 = kv_decode(dev, ops, full, fparams, fc16, fpos16, feed)
+    nf = full.n_layers
+    if fflash != nf or fstep != [nf] * KV_STEPS:
+        raise AssertionError(f"kv_quant full: flash {fflash}, decode a step"
+                             f" {fstep}")
+    kv8 = sum(fc8[k].numel() * fc8[k].element_size()
+              for k in ("k", "v", "k_scale", "v_scale"))
+    kv16 = sum(fc16[k].numel() * fc16[k].element_size() for k in ("k", "v"))
+    if not kv8 < 0.6 * kv16:
+        raise AssertionError(f"kv_quant: int8 KV {kv8} B vs bf16 {kv16} B")
+    if not bool(torch.isfinite(f8).all()):
+        raise AssertionError("kv_quant full: non-finite logits")
+    full_row = {"model": full.name, "layers": nf, "dtype": full.dtype,
+                "kv_bytes_int8": kv8, "kv_bytes_bf16": kv16,
+                "ratio": kv8 / kv16, "flash_launches": fflash,
+                "decode_launches_a_step": fstep,
+                "argmax_agree_vs_bf16_cache":
+                    f"{int((f8.argmax(-1) == f16.argmax(-1)).sum())} of "
+                    f"{KV_ROWS * KV_STEPS}",
+                "decode_step_ms_p50_int8": pct(ms8[1:], 50),
+                "decode_step_ms_p50_bf16": pct(ms16[1:], 50)}
+    del fparams, fc8, fc16
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the decode kernel's f32 route at (b)'s shape, over a dequantized
+    # (B, S, K, hd) cache
+    K, G, hd, S = full.n_kv_heads, full.n_heads // full.n_kv_heads, \
+        full.head_dim, KV_LEN
+    pos = [KV_PROMPT + j for j in range(KV_ROWS)]
+    q, k, v, p = decode_case(dev, torch.float32, B=KV_ROWS, K=K, G=G, S=S,
+                             hd=hd, pos=pos, seed=33, strided=True)
+    kerr = check_close("decode_attention/f32_route", ops.decode_attention(
+        q, k, v, p), decode_attention_ref(q, k, v, p), 1e-4)
+    n_kv = sum(x + 1 for x in pos)
+    b_ms, b_by = bound(2 * n_kv * K * hd * 4 + 2 * KV_ROWS * K * G * hd * 4
+                       + KV_ROWS * 4, 4 * n_kv * K * G * hd, F32_FLOPS)
+    mask = (torch.arange(S, device=dev)[None, :]
+            <= p[:, None].long())[:, None, None, :]
+    row = {"label": "olmo-1b int8 KV (f32 route)",
+           "shape": f"B={KV_ROWS} K={K} G={G} S={S} hd={hd} f32, "
+                    f"(B, S, K, hd) dequantized cache view, pos "
+                    f"{pos[0]}-{pos[-1]}",
+           "splits": dict(zip(("n_split", "chunk"),
+                              ops.decode_attention_splits(
+                                  KV_ROWS, K, S, ops._sm_count(dev.index)))),
+           "max_abs_err": kerr,
+           "ms": time_ms(lambda: ops.decode_attention(q, k, v, p)),
+           "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, p),
+                               reps=10),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=mask)),
+           "launches": KV_STEPS * (n + nf)}
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    emit({"phase": "kv_quant", "checks": checks, "full": full_row,
+          "f32_route": row, "card": card})
+    return row, {"paged_decode_attention": 0, "flash_attention": n + nf,
+                 "decode_attention": row["launches"], "int8_matmul": 0}
+
+
+@contextlib.contextmanager
+def timed_train_steps(dev):
+    """Time every train step the trainers built inside the block run
+    (`train_loop.make_train_step`'s step and the compressed step), the
+    stream drained before and after each: its host ms, its device work
+    included.  Yields the list of ms."""
+    from repro_torch.training import train_loop
+    times = []
+    make = train_loop.make_train_step
+    comp = train_loop.Trainer._compressed_step
+
+    def timed_make(*args, **kw):
+        step, init = make(*args, **kw)
+        return timed(dev, step, times), init
+
+    def timed_comp(self, state, batch):
+        return timed(dev, lambda s, b: comp(self, s, b), times)(state, batch)
+    train_loop.make_train_step = timed_make
+    train_loop.Trainer._compressed_step = timed_comp
+    try:
+        yield times
+    finally:
+        train_loop.make_train_step = make
+        train_loop.Trainer._compressed_step = comp
+
+
+def state_bytes(state) -> int:
+    from repro_torch.training.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(state))
+
+
+def train_xlstm(dev, card, argv=()):
+    """The example repro_torch/examples/train_100m.py's code path on the
+    full xlstm-125m (6 pairs, d 768, vocab 50304, bf16 params, f32
+    moments) with its own settings (batch 4, seq 64, 60 steps, lr 6e-4,
+    warmup 10, checkpoints every 15 under build/): the last logged loss
+    below the first; then the --crash-at 30 leg (train 30 steps, a new
+    Trainer resumes from the checkpoint at 30 to 60), whose params,
+    moments and step equal the uninterrupted run's bit for bit.  Then
+    the final state saved once more and restored, each timed.  It prints
+    step ms p50 and the checkpoints' size.  `argv` adds flags (a CPU
+    rehearsal: --tiny)."""
+    from repro_torch.examples import train_100m
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training.tree import items, leaves
+    root = ROOT / "build" / "train_xlstm"
+    shutil.rmtree(root, ignore_errors=True)
+    log = []
+    with timed_train_steps(dev) as ms:
+        whole = train_100m.train(train_100m.parse(
+            ["--device", str(dev), "--ckpt", str(root / "whole"), *argv]),
+            log=log.append)
+        steps_whole = list(ms)
+        crash = train_100m.train(train_100m.parse(
+            ["--device", str(dev), "--ckpt", str(root / "crash"),
+             "--crash-at", "30", *argv]), log=log.append)
+    losses = [h["loss"] for h in whole["history"]]
+    if not losses[-1] < losses[0] or not np.isfinite(losses).all():
+        raise AssertionError(f"train_xlstm: losses {losses}")
+    if crash["resumed_from"] != 30:
+        raise AssertionError(f"train_xlstm: resumed from "
+                             f"{crash['resumed_from']}")
+    for (path, a), b in zip(items(whole["state"]), leaves(crash["state"])):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"train_xlstm: crash-resume differs at "
+                                 f"{path}")
+    ckpt = root / "timed.msgpack"
+    sync(dev)
+    t0 = time.perf_counter()
+    ckpt_lib.save(whole["state"], ckpt)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt_lib.restore(ckpt, whole["state"])
+    sync(dev)
+    restore_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                 leaves(whole["state"]))):
+        raise AssertionError("train_xlstm: restore differs")
+    size = ckpt.stat().st_size
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "train_xlstm", "steps": 60, "batch": 4, "seq": 64,
+          "losses": losses, "history_steps":
+          [h["step"] for h in whole["history"]],
+          "step_ms_p50": pct(steps_whole[1:], 50),
+          "first_step_ms": steps_whole[0],
+          "tokens_per_s": 4 * 64 / (pct(steps_whole[1:], 50) / 1e3),
+          "crash_resume_bitwise": True, "resumed_from": 30,
+          "ckpt_bytes": size, "state_bytes": state_bytes(whole["state"]),
+          "ckpt_save_s": save_s, "ckpt_restore_s": restore_s,
+          "wall_s": whole["wall_s"], "card": card})
+    del whole, crash, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def with_error(state, comp_lib):
+    """state with a zero error-feedback tree ("err") for compress_grads."""
+    state["err"] = comp_lib.init_error(state["params"])
+    return state
+
+
+def train_olmo(dev, card, cfg=None, batch=4, seq=1024):
+    """The full OLMo-1B (16 layers, d 2048, vocab 50304, bf16 params, f32
+    moments) trained under remat: batch 4 x seq 1024, lr 3e-4, warmup 2,
+    8 steps, then 4 more with compress_grads (the int8 error feedback;
+    the state goes on from step 8), no checkpoint, every step logged.
+    Every loss finite and the last below the first.  It prints step ms
+    p50 (the first step apart), tokens/s, the model-FLOP rate
+    (`roofline.model_flops_for`: 6 N D) as a share of the data-sheet
+    989 TFLOP/s bf16 peak, the peak device memory and the state's bytes.
+    `cfg`, `batch`, `seq` replace the model and shape (a CPU
+    rehearsal)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.roofline import model_flops_for
+    from repro_torch.training import compression as comp_lib
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    cfg = cfg or ARCHS["olmo-1b"]
+    dc = DataConfig(vocab=cfg.vocab, seq_len=seq, batch=batch)
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=12)
+    ckpt_dir = str(ROOT / "build" / "train_olmo")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with timed_train_steps(dev) as ms:
+        plain = Trainer(cfg, dc, TrainConfig(steps=8, ckpt_every=0,
+                                             log_every=1, ckpt_dir=ckpt_dir),
+                        ocfg, device=dev).run(resume=False)
+        n_state = state_bytes(plain["state"])
+        # the run is the state's only holder: each step frees the last
+        comp = Trainer(cfg, dc, TrainConfig(steps=12, ckpt_every=0,
+                                            log_every=1, ckpt_dir=ckpt_dir,
+                                            compress_grads=True),
+                       ocfg, device=dev).run(
+            resume=False, state=with_error(plain.pop("state"), comp_lib))
+    losses = [h["loss"] for h in plain["history"] + comp["history"]]
+    if len(losses) != 12 or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_olmo: losses {losses}")
+    p50 = pct(ms[1:8], 50)
+    p50_comp = pct(ms[8:], 50)
+    flops = model_flops_for(cfg, ShapeSpec("train_olmo", "train", seq,
+                                           batch))
+    emit({"phase": "train_olmo", "model": cfg.name, "layers": cfg.n_layers,
+          "batch": batch, "seq": seq, "remat": True, "losses": losses,
+          "step_ms": ms, "step_ms_p50": p50, "first_step_ms": ms[0],
+          "step_ms_p50_compressed": p50_comp,
+          "tokens_per_s": batch * seq / (p50 / 1e3),
+          "model_flops": flops,
+          "model_flop_rate_share_of_989_tflops": flops / (p50 / 1e3)
+          / BF16_FLOPS,
+          "peak_note": "989 TFLOP/s: the H100 SXM data-sheet dense bf16 "
+                       "peak at 700 W",
+          "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                   if dev.type == "cuda" else None),
+          "state_bytes": n_state,
+          "state_bytes_with_err": state_bytes(comp["state"]),
+          "card": card})
+    del plain, comp
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -3835,6 +4360,8 @@ def main() -> int:
     parity_hymba(dev, ops)
     parity_xlstm(dev, ops)
     parity_encdec(dev, ops)
+    parity_train(dev, ops)
+    kv_row, kv_launches = kv_quant(dev, ops, card)
     bf16_launches, bf16_routes, bf16_shapes = serve(
         "serve_bf16", dev, ops, card, paged_attention=True)
     int8_launches, int8_routes, int8_shapes = serve(
@@ -3866,9 +4393,12 @@ def main() -> int:
     seamless_non_causal = sum(m[0]["flash_non_causal"]
                               for m in seamless_more.values())
     path_launches["serve_http"] = serve_http(dev, ops, card)
+    path_launches["kv_quant"] = kv_launches
     gc.collect()
     torch.cuda.empty_cache()
     launcher_run(card)
+    train_xlstm(dev, card)
+    train_olmo(dev, card)
     # the prefill whose attention did the most work: rows x bucket^2; the
     # widest int8 product: rows x bucket
     widest = max(bf16_shapes, key=lambda s: s[0] * s[1] ** 2)
@@ -3923,6 +4453,7 @@ def main() -> int:
         r["launches"] = path_launches["serve_seamless"]["decode_attention"]
     for name, rows in encdec.items():
         timings[name].setdefault("shapes", []).extend(rows)
+    timings["decode_attention"]["shapes"].append(kv_row)
     c5_f32_tile_error(dev, ops, q_lib)
     plain_timings(dev, ops)
     meta = {

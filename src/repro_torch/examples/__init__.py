@@ -1,5 +1,6 @@
 """The JAX package's examples on the port (``python -m
-repro_torch.examples.quickstart``, ``.serve_testbed``, ``.wizard_flow``).
+repro_torch.examples.quickstart``, ``.serve_testbed``, ``.wizard_flow``,
+``.train_100m``).
 
 They run on the card by default with the paper's full-width zoo models;
 ``--device cpu --reduced`` runs reduced configs, renamed to the paper's

@@ -376,7 +376,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On the card q, k and v may be strided views (the last dim
     contiguous, 16-byte rows, k and v with the same strides), which takes
     the (B, H, S, hd) views of (B, S, H, hd) tensors in place; the output
-    is the (B, H, Sq, hd) view of a (B, Sq, H, hd) buffer."""
+    is the (B, H, Sq, hd) view of a (B, Sq, H, hd) buffer.
+
+    The kernel has no backward: an input that requires grad (with grad
+    mode on) raises, on every device, rather than being detached or
+    routed to the plain version (training attends in plain PyTorch,
+    `models.attention.attention`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: the kernel has no backward; "
+                           "differentiate models.attention.attention")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    prefix=prefix)

@@ -1,10 +1,12 @@
-"""Attention cores in plain PyTorch: the visibility mask, the GQA fold,
-the reference full attention, the suffix attention and the reference
-decode attention.  The model's attention goes through `kernels.ops` (the
-hand-written kernels on the card); `full_attention` and
-`decode_attention` are the plain counterparts of
-`repro.models.attention`'s and the oracles of the flash and decode
-kernels' plain versions.  `suffix_attention` is the prefix-cache
+"""Attention cores in plain PyTorch: the visibility mask, the GQA fold, the
+reference full attention, the chunked online-softmax attention, the
+suffix attention and the reference decode attention.  The model's
+attention goes through `kernels.ops` (the hand-written kernels on the
+card); `full_attention` and `decode_attention` are the plain
+counterparts of `repro.models.attention`'s and the oracles of the flash
+and decode kernels' plain versions; `attention` is JAX's `impl="auto"`
+dispatch (full, or chunked past 2048 keys), which training
+differentiates with autograd.  `suffix_attention` is the prefix-cache
 admission's attention, plain PyTorch on every device as it is jnp on
 every backend in JAX.
 """
@@ -109,3 +111,56 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bkgqd", w, v_cache.float())
     return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0, prefix: int = 0,
+                      chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV blocks of `chunk` (one block of the
+    whole length when S % chunk != 0), as JAX's `chunked_attention`: the
+    queries scaled by 1/sqrt(hd) before the product, a running max, sum
+    and accumulator in f32 carried from block to block.  Plain PyTorch
+    and differentiable: the long-sequence attention of training."""
+    b, qlen, h, hd = q.shape
+    s, nkv = k.shape[1], k.shape[2]
+    if s % chunk:
+        chunk = s
+    g = h // nkv
+    qf = _gqa_fold(q, nkv).float() / (hd ** 0.5)
+    q_pos = torch.arange(qlen, device=q.device)
+    m_run = torch.full((b, nkv, g, qlen), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros_like(m_run)
+    acc = torch.zeros((b, nkv, g, qlen, hd), dtype=torch.float32,
+                      device=q.device)
+    for t0 in range(0, s, chunk):
+        k_blk = k[:, t0:t0 + chunk].float()
+        v_blk = v[:, t0:t0 + chunk].float()
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k_blk)
+        msk = _mask(q_pos, t0 + torch.arange(chunk, device=q.device),
+                    causal=causal, window=window, prefix=prefix)
+        if msk is not None:
+            scores = torch.where(msk[None, None, None], scores,
+                                 torch.full_like(scores, NEG_INF))
+        m_new = torch.maximum(m_run, scores.amax(-1))
+        corr = torch.exp(m_run - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l_run = l_run * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                                   v_blk)
+        m_run = m_new
+    out = acc / l_run[..., None].clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, qlen, h, hd).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, prefix: int = 0,
+              chunk_threshold: int = 2048) -> torch.Tensor:
+    """JAX's `attention(impl="auto")`, the attention of its training
+    forward: `full_attention` up to `chunk_threshold` keys,
+    `chunked_attention` past it."""
+    if k.shape[1] <= chunk_threshold:
+        return full_attention(q, k, v, causal=causal, window=window,
+                              prefix=prefix)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             prefix=prefix)

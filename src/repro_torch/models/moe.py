@@ -97,10 +97,12 @@ def _dispatch(x: torch.Tensor, idx: torch.Tensor, e: int, c: int
         1, order, rank < c)
     # kept pairs own distinct slots; dropped ones land in a dump row
     dest = torch.where(keep, slot, e * c)
-    tok = torch.arange(n, device=dev) // k
+    # each token's row k times (pair s * k + j is token s): an expand,
+    # whose backward sums in a fixed order, where indexing's adds
+    # atomically on the card
+    pairs = x[:, :, None].expand(-1, -1, k, -1).reshape(b, n, x.shape[-1])
     expert_in = x.new_zeros((b, e * c + 1, x.shape[-1]))
-    expert_in.scatter_(1, dest[..., None].expand(-1, -1, x.shape[-1]),
-                       x[:, tok])
+    expert_in.scatter_(1, dest[..., None].expand(-1, -1, x.shape[-1]), pairs)
     return expert_in[:, :e * c], slot, keep
 
 

@@ -67,6 +67,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
@@ -151,10 +153,14 @@ def _prefix_len(cfg: ArchConfig) -> int:
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of the embedding.  `F.embedding`, not indexing: its
+    backward on the card sums each row's gradient in a fixed order, where
+    indexing's (`index_put_` with accumulate) adds them atomically, which
+    is not bit-reproducible from run to run."""
     e = params["embed"]
     if isinstance(e, dict):
         return (e["__q__"][tokens].float() * e["scale"]).to(e["dtype"])
-    return e[tokens]
+    return F.embedding(tokens, e)
 
 
 def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor
@@ -188,10 +194,21 @@ def _ffn(lp: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """The FFN: SwiGLU (wi (2, d, f)) or gelu (wi (d, f)), or the MoE
     FFN over x's own sequence length (its aux loss dropped, as on JAX's
     serving paths)."""
+    return _ffn_aux(lp, cfg, x)[0]
+
+
+def _ffn_aux(lp: Params, cfg: ArchConfig, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`_ffn` and the MoE load-balancing aux loss (None for a dense
+    FFN)."""
     if cfg.moe is not None:
         mp = lp["moe"]
         return moe_lib.moe_ffn(x, mp["router"], _dense(mp["wi"]),
-                               _dense(mp["wo"]), cfg.moe, cfg.act)[0]
+                               _dense(mp["wo"]), cfg.moe, cfg.act)
+    return _dense_ffn(lp, cfg, x), None
+
+
+def _dense_ffn(lp: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     wi, wo = lp["mlp"]["wi"], lp["mlp"]["wo"]
     if not isinstance(wi, dict):
         return L.mlp_apply(x, wi, wo, cfg.act)
@@ -246,11 +263,16 @@ def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             impl: str, causal: bool, window: int = 0,
             prefix: int = 0) -> torch.Tensor:
-    """q (B, Sq, H, hd) over k, v (B, Skv, K, hd): the flash kernel, or
-    impl="full" the plain reference attention.  Returns (B, Sq, H, hd)."""
+    """q (B, Sq, H, hd) over k, v (B, Skv, K, hd): the flash kernel;
+    impl="full" the plain reference attention; impl="auto" JAX's training
+    attention (`attention.attention`: full, chunked past 2048 keys), which
+    autograd differentiates.  Returns (B, Sq, H, hd)."""
     if impl == "full":
         return attn_lib.full_attention(q, k, v, causal=causal,
                                        window=window, prefix=prefix)
+    if impl == "auto":
+        return attn_lib.attention(q, k, v, causal=causal, window=window,
+                                  prefix=prefix)
     # the flash kernel takes the heads-major (B, H, S, hd) views in place
     # and writes a (B, S, H, hd) buffer: no layout copies
     return kernel_ops.flash_attention(
@@ -376,6 +398,15 @@ def _decoder_layer(lp: Params, cfg: ArchConfig, h: torch.Tensor, *,
     """One layer over a full sequence; an encoder-decoder's attends over
     its cross K/V `xkv` after its self-attention.  Returns (h, (k, v),
     the SSM's final state (Hymba) or None)."""
+    return _layer_forward(lp, cfg, h, impl=impl, prefix=prefix,
+                          window=window, xkv=xkv)[:3]
+
+
+def _layer_forward(lp: Params, cfg: ArchConfig, h: torch.Tensor, *,
+                   impl: str, prefix: int, window: int,
+                   xkv: Optional[Tuple] = None):
+    """`_decoder_layer` and the layer's MoE aux loss (None for a dense
+    FFN): (h, (k, v), h_f, aux)."""
     x = L.norm(h, lp.get("ln1"), cfg.norm)
     a_out, kv = _attention_block(lp, cfg, x, impl=impl, prefix=prefix,
                                  window=window)
@@ -391,68 +422,179 @@ def _decoder_layer(lp: Params, cfg: ArchConfig, h: torch.Tensor, *,
                         causal=False)
         h = h + _out_project(c_out, lp["xattn"]["wo"])
     x = L.norm(h, lp.get("ln2"), cfg.norm)
-    return h + _ffn(lp, cfg, x), kv, h_f
+    f_out, aux = _ffn_aux(lp, cfg, x)
+    return h + f_out, kv, h_f, aux
 
 
 def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
            impl: str, prefix_embeds: Optional[torch.Tensor],
-           src_embeds: Optional[torch.Tensor] = None
-           ) -> Tuple[torch.Tensor, Cache, int]:
+           src_embeds: Optional[torch.Tensor] = None, remat: bool = False,
+           collect: bool = True
+           ) -> Tuple[torch.Tensor, Cache, int, torch.Tensor]:
     """Embedding (meta tokens, then the prefix embeddings, first), the
     encoder over `src_embeds` (an encoder-decoder), every layer and the
     final norm.  Returns (h (B, P + S, D), {"k", "v": (L, B, P + S, K,
     hd)} and, for Hymba, "ssm_h": (L, B, inner, N) f32 each layer's final
     SSM state from this very pass, for an encoder-decoder "ck", "cv":
-    (L, B, S_src, K, hd) each layer's cross K/V, P), P the prefix
-    length."""
+    (L, B, S_src, K, hd) each layer's cross K/V, P, aux), P the prefix
+    length, aux the MoE aux loss summed over the layers (a 0-d f32 zero
+    without MoE), as JAX's forward.  `collect=False` returns {} for the
+    cache (a training forward keeps no K/V).  `remat=True` runs each
+    decoder layer (its cross K/V included) under
+    `torch.utils.checkpoint`, which keeps only the layer's input and
+    recomputes the rest in the backward: JAX's
+    `jax.checkpoint(nothing_saveable)` around its layer scan's body."""
     _require_transformer(cfg)
-    if impl not in ("flash", "full"):
-        raise ValueError(f"impl must be 'flash' or 'full', not {impl!r}")
+    if impl not in ("flash", "full", "auto"):
+        raise ValueError(f"impl must be 'flash', 'full' or 'auto', "
+                         f"not {impl!r}")
     if cfg.is_encdec and src_embeds is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder needs src_embeds")
     h, prefix = _embed_inputs(params, cfg, tokens, prefix_embeds)
     enc_out = (_run_encoder(params, cfg, src_embeds, impl)
                if cfg.is_encdec else None)
     ks, vs, states, xkvs = [], [], [], []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def layer(lp, h, window):
+        xkv = _cross_kv(lp, enc_out) if enc_out is not None else None
+        return (*_layer_forward(lp, cfg, h, impl=impl, prefix=prefix,
+                                window=window, xkv=xkv), xkv)
+
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        xkv = _cross_kv(lp, enc_out) if enc_out is not None else None
-        h, (k, v), h_f = _decoder_layer(lp, cfg, h, impl=impl, prefix=prefix,
-                                        window=_window(cfg, i), xkv=xkv)
-        ks.append(k)
-        vs.append(v)
-        states.append(h_f)
-        xkvs.append(xkv)
+        if remat:
+            out = checkpoint(layer, lp, h, _window(cfg, i),
+                             use_reentrant=False)
+        else:
+            out = layer(lp, h, _window(cfg, i))
+        h, (k, v), h_f, layer_aux, xkv = out
+        if layer_aux is not None:
+            aux = aux + layer_aux
+        if collect:
+            ks.append(k)
+            vs.append(v)
+            states.append(h_f)
+            xkvs.append(xkv)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
+    if not collect:
+        return h, {}, prefix, aux
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     if cfg.block == "hymba":
         cache["ssm_h"] = torch.stack(states)
     if cfg.is_encdec:
         cache["ck"] = torch.stack([ck for ck, _ in xkvs])
         cache["cv"] = torch.stack([cv for _, cv in xkvs])
-    return h, cache, prefix
+    return h, cache, prefix, aux
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             impl: str = "flash",
             prefix_embeds: Optional[torch.Tensor] = None,
-            src_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+            src_embeds: Optional[torch.Tensor] = None, remat: bool = False,
+            return_aux: bool = False):
     """Full-sequence logits (B, P + S, V), P the meta tokens and
     prefix_embeds.shape[1] (0 without either), as JAX's forward; an
     encoder-decoder needs `src_embeds`.  impl="flash" runs prefill's
     flash attention; impl="full" the plain reference attention (the
-    no-cache recompute oracle).  The engine feeds a vision model
-    `zero_prefix_embeds` and an encoder-decoder `zero_src_embeds`; a
-    recompute that stands for the engine passes the same."""
-    h, _, _ = _trunk(params, cfg, tokens, impl=impl,
-                     prefix_embeds=prefix_embeds, src_embeds=src_embeds)
-    return _logits(params, cfg, h)
+    no-cache recompute oracle); impl="auto" training's attention (full,
+    chunked past 2048 keys; plain PyTorch, differentiable).  The engine
+    feeds a vision model `zero_prefix_embeds` and an encoder-decoder
+    `zero_src_embeds`; a recompute that stands for the engine passes the
+    same.  `remat` checkpoints each layer (see `_trunk`); `return_aux`
+    returns (logits, aux), aux the MoE aux loss summed over the layers
+    (0 without MoE)."""
+    h, _, _, aux = _trunk(params, cfg, tokens, impl=impl,
+                          prefix_embeds=prefix_embeds, src_embeds=src_embeds,
+                          remat=remat, collect=False)
+    logits = _logits(params, cfg, h)
+    return (logits, aux) if return_aux else logits
+
+
+def nll_loss(logits: torch.Tensor, labels: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean next-token NLL over the labels that are not -100: f32
+    log_softmax of logits (B, S, V), labels (B, S).  Returns (loss, the
+    count of kept labels (at least 1) as f32)."""
+    mask = labels != -100
+    lab = torch.where(mask, labels, 0).long()
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -lp.gather(-1, lab[..., None])[..., 0]
+    denom = mask.sum().clamp_min(1)
+    loss = torch.where(mask, nll, 0.0).sum() / denom
+    return loss, denom.float()
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            *, remat: bool = False, aux_weight: float = 0.01):
+    """JAX's `loss_fn`: batch {"tokens", "labels" (-100 masked),
+    optional "prefix_embeds" / "src_embeds"}; the logits of the token
+    tail (past the meta and prefix tokens) against the labels, plus
+    aux_weight times the MoE aux loss.  The forward is training's
+    (impl="auto").  Returns (total, {"loss", "aux", "tokens"})."""
+    logits, aux = forward(params, cfg, batch["tokens"], impl="auto",
+                          prefix_embeds=batch.get("prefix_embeds"),
+                          src_embeds=batch.get("src_embeds"), remat=remat,
+                          return_aux=True)
+    labels = batch["labels"]
+    loss, denom = nll_loss(logits[:, -labels.shape[1]:], labels)
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux,
+                                     "tokens": denom}
+
+
+# --------------------------------------------------------------------- #
+# the int8 KV cache
+
+def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(position, head) absmax int8: x (..., hd) -> (q int8 (...,
+    hd), scale f32 (...)), as JAX's `kv_quantize` (round half to
+    even)."""
+    xf = x.float()
+    scale = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def kv_dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """q (..., hd) int8, scale (...) -> f32 (..., hd)."""
+    return q.float() * scale[..., None]
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device: torch.device, src_len: int = 0, dtype=None,
+               kv_quant: bool = False) -> Cache:
+    """A zero contiguous cache, as JAX's `init_cache`: "k", "v" (L, batch,
+    max_len, K, hd) in the model dtype, or int8 with "k_scale",
+    "v_scale" (L, batch, max_len, K) f32 under kv_quant; Hymba's "ssm_h"
+    (L, batch, inner, N) f32; an encoder-decoder's "ck", "cv" (L, batch,
+    src_len, K, hd).  max_len counts the meta and prefix tokens."""
+    _require_transformer(cfg)
+    dt = dtype or torch_dtype(cfg.dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    zeros = lambda shape, dt: torch.zeros(shape, dtype=dt,  # noqa: E731
+                                          device=device)
+    if kv_quant:
+        cache = {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                 "k_scale": zeros(shape[:-1], torch.float32),
+                 "v_scale": zeros(shape[:-1], torch.float32)}
+    else:
+        cache = {"k": zeros(shape, dt), "v": zeros(shape, dt)}
+    if cfg.block == "hymba":
+        cache["ssm_h"] = zeros((cfg.n_layers, batch,
+                                cfg.n_heads * cfg.head_dim, cfg.ssm_state),
+                               torch.float32)
+    if cfg.is_encdec:
+        xshape = (cfg.n_layers, batch, src_len, cfg.n_kv_heads,
+                  cfg.head_dim)
+        cache["ck"], cache["cv"] = zeros(xshape, dt), zeros(xshape, dt)
+    return cache
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             lengths: Optional[torch.Tensor] = None,
             prefix_embeds: Optional[torch.Tensor] = None,
-            src_embeds: Optional[torch.Tensor] = None
+            src_embeds: Optional[torch.Tensor] = None, cache_len: int = 0,
+            kv_quant: bool = False
             ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """Forward a right-padded batch through the flash attention kernel and
     return (last_logits (B, V), cache {"k", "v": (L, B, P + S, K, hd)},
@@ -468,11 +610,26 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     and without `lengths`, as JAX's engine prefills them.  Only the last
     hidden row of each sequence meets the LM head — the same logits as
     JAX's full-sequence head, without a (B, S, V) tensor.
+
+    cache_len: the cache's length when it exceeds P + S (the K/V at the
+    front, zeros behind, as JAX's); kv_quant: the int8 cache of
+    `init_cache(kv_quant=True)`, K/V quantized per position and head.
     """
-    h, cache, prefix = _trunk(params, cfg, tokens, impl="flash",
-                              prefix_embeds=prefix_embeds,
-                              src_embeds=src_embeds)
+    h, cache, prefix, _ = _trunk(params, cfg, tokens, impl="flash",
+                                 prefix_embeds=prefix_embeds,
+                                 src_embeds=src_embeds)
     b, s_tot = h.shape[:2]
+    if kv_quant or cache_len > s_tot:
+        full = init_cache(cfg, b, max(cache_len, s_tot), h.device,
+                          kv_quant=kv_quant)
+        for name in ("k", "v"):
+            kv = cache[name]
+            if kv_quant:
+                kv, scale = kv_quantize(kv)
+                full[f"{name}_scale"][:, :, :s_tot] = scale
+                cache[f"{name}_scale"] = full[f"{name}_scale"]
+            full[name][:, :, :s_tot] = kv
+            cache[name] = full[name]
     if lengths is None:
         pos = torch.full((b,), s_tot - 1, dtype=torch.int32,
                          device=h.device)
@@ -571,11 +728,19 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     exempt from it.  A Hymba cache's "ssm_h" (L, B, inner, N) advances
     in place, every row, as JAX's scan steps every slot; an
     encoder-decoder's "ck", "cv" (L, B, S_src, K, hd) are read
-    (`_cross_update`).  Returns (logits (B, V), cache)."""
+    (`_cross_update`).
+
+    An int8 cache (`init_cache(kv_quant=True)`: "k_scale" in it) takes
+    JAX's quantized branch: the new K/V quantized and written with their
+    scales at `pos`, then each layer's whole cache dequantized to f32 (B,
+    S, K, hd) and attended by the decode kernel on its f32 route, the
+    query cast up to f32 and the output back to the model dtype.  Returns
+    (logits (B, V), cache)."""
     _require_transformer(cfg)
     b = token.shape[0]
     nkv, hd = cfg.n_kv_heads, cfg.head_dim
     prefix = _prefix_len(cfg)
+    quant = "k_scale" in cache
     rows = torch.arange(b, device=token.device)
     w_pos = pos.long().clamp(0, cache["k"].shape[2] - 1)
     h = _embed(params, token)[:, None]                          # (B,1,D)
@@ -587,12 +752,19 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
         q = L.apply_rope(_project(x, lp["attn"]["wq"]), cos, sin)
         k_new = L.apply_rope(_project(x, lp["attn"]["wk"]), cos, sin)
         v_new = _project(x, lp["attn"]["wv"])
-        kc[rows, w_pos] = k_new[:, 0].to(kc.dtype)
-        vc[rows, w_pos] = v_new[:, 0].to(vc.dtype)
         qf = q[:, 0].reshape(b, nkv, q.shape[2] // nkv, hd)     # kv-major
+        if quant:
+            k_at, v_at = (_write_quantized(cache, name, i, new[:, 0], rows,
+                                           w_pos)
+                          for name, new in (("k", k_new), ("v", v_new)))
+            qf = qf.float()
+        else:
+            kc[rows, w_pos] = k_new[:, 0].to(kc.dtype)
+            vc[rows, w_pos] = v_new[:, 0].to(vc.dtype)
+            k_at, v_at = kc, vc
         a_out = kernel_ops.decode_attention(
-            qf, kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3), pos,
-            window=_window(cfg, i), prefix=prefix)
+            qf, k_at.permute(0, 2, 1, 3), v_at.permute(0, 2, 1, 3), pos,
+            window=_window(cfg, i), prefix=prefix).to(q.dtype)
         h = h + _attn_update(lp, cfg, cache, i, x,
                              a_out.reshape(b, 1, q.shape[2], hd))
         if cfg.is_encdec:
@@ -601,6 +773,17 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
         h = h + _ffn(lp, cfg, x)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
     return _logits(params, cfg, h)[:, 0], cache
+
+
+def _write_quantized(cache: Cache, name: str, i: int, new: torch.Tensor,
+                     rows: torch.Tensor, w_pos: torch.Tensor) -> torch.Tensor:
+    """Quantize one token's new (B, K, hd) K or V (`name`), write it and
+    its scales at w_pos into layer i of an int8 cache, in place, and
+    return the layer's whole cache dequantized, (B, S, K, hd) f32."""
+    q, scale = kv_quantize(new)
+    cache[name][i][rows, w_pos] = q
+    cache[f"{name}_scale"][i][rows, w_pos] = scale
+    return kv_dequant(cache[name][i], cache[f"{name}_scale"][i])
 
 
 def _cross_update(lp: Params, cfg: ArchConfig, cache: Cache, i: int,

@@ -30,6 +30,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -118,32 +119,26 @@ def _slstm_out(sp: Params, cfg: ArchConfig, hs: torch.Tensor,
 # full sequence
 
 def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-           chunked: bool) -> Tuple[torch.Tensor, Cache]:
+           chunked: bool, remat: bool = False) -> Tuple[torch.Tensor, Cache]:
     """Every pair from the init state, then the final norm.  Returns (h
     (B, S, d), the pairs' final states stacked as the cache when
-    `chunked`, else {})."""
-    _, _, nh, hd_m, hd_s, _ = dims(cfg)
+    `chunked`, else {}).  `remat` runs each pair under
+    `torch.utils.checkpoint` (its input kept, the rest recomputed in the
+    backward), as JAX's `jax.checkpoint(nothing_saveable)` around its
+    pair scan's body."""
     b, s = tokens.shape
-    dev = tokens.device
     h = _embed(params, tokens)
     chunked = chunked or s > PARALLEL_MAX
     finals = []
     for i in range(n_pairs(cfg)):
         mp, sp = _pair(params, i)
-        z, q, k, v, i_raw, f_raw = _mlstm_in(mp, cfg, L.rms_norm(h, mp["ln"]))
-        if chunked:
-            core, m_fin = ssm_lib.mlstm_chunkwise(
-                q, k, v, i_raw, f_raw, ssm_lib.mlstm_init_state(b, nh, hd_m,
-                                                                dev))
+        if remat:
+            h, fin = checkpoint(_pair_seq, mp, sp, cfg, h, chunked,
+                                use_reentrant=False)
         else:
-            core = ssm_lib.mlstm_parallel(q, k, v, i_raw, f_raw)
-        h = _mlstm_out(mp, cfg, core, z, h)
-        hs, s_fin = ssm_lib.slstm_scan(
-            _slstm_in(sp, cfg, h), sp["r"],
-            ssm_lib.slstm_init_state(b, nh, hd_s, dev))
-        h = _slstm_out(sp, cfg, hs, h)
+            h, fin = _pair_seq(mp, sp, cfg, h, chunked)
         if chunked:
-            finals.append((*m_fin, *s_fin))
+            finals.append(fin)
     h = L.rms_norm(h, params["final_norm"])
     if not finals:
         return h, {}
@@ -151,10 +146,34 @@ def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
                for j, name in enumerate(CACHE_LEAVES)}
 
 
-def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor
-            ) -> torch.Tensor:
-    """Full-sequence logits (B, S, V), as JAX's forward."""
-    h, _ = _trunk(params, cfg, tokens, chunked=False)
+def _pair_seq(mp: Params, sp: Params, cfg: ArchConfig, h: torch.Tensor,
+              chunked: bool):
+    """One pair over a full sequence from the init state: returns (h, its
+    final states (the mLSTM's C, n, m, then the sLSTM's c, n, m, h) when
+    `chunked`, else None)."""
+    _, _, nh, hd_m, hd_s, _ = dims(cfg)
+    b, dev = h.shape[0], h.device
+    z, q, k, v, i_raw, f_raw = _mlstm_in(mp, cfg, L.rms_norm(h, mp["ln"]))
+    m_fin = ()
+    if chunked:
+        core, m_fin = ssm_lib.mlstm_chunkwise(
+            q, k, v, i_raw, f_raw, ssm_lib.mlstm_init_state(b, nh, hd_m, dev))
+    else:
+        core = ssm_lib.mlstm_parallel(q, k, v, i_raw, f_raw)
+    h = _mlstm_out(mp, cfg, core, z, h)
+    hs, s_fin = ssm_lib.slstm_scan(
+        _slstm_in(sp, cfg, h), sp["r"],
+        ssm_lib.slstm_init_state(b, nh, hd_s, dev))
+    h = _slstm_out(sp, cfg, hs, h)
+    return h, ((*m_fin, *s_fin) if chunked else None)
+
+
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence logits (B, S, V), as JAX's forward; `remat`
+    checkpoints each pair (see `_trunk`).  Differentiable: training's
+    forward."""
+    h, _ = _trunk(params, cfg, tokens, chunked=False, remat=remat)
     return _logits(params, cfg, h)
 
 

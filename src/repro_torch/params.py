@@ -309,6 +309,13 @@ def from_jax(tree: Params, cfg: ArchConfig, device: DeviceLike = None
     leaf by leaf, keeping the stacked layout.  Takes numpy arrays only;
     it imports nothing of JAX."""
     require_supported(cfg)
+    return tree_from_jax(tree, device)
+
+
+def tree_from_jax(tree: Any, device: DeviceLike = None) -> Any:
+    """Any nested dict of numpy arrays (a JAX pytree `np.asarray`'d leaf
+    by leaf: params, a train state) as the same dict of tensors on
+    `device`, bf16 through its bits."""
     dev = resolve_device(device)
 
     def conv(node):

@@ -1222,3 +1222,108 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_int8_kv_decode_matches_cpu(cuda):
+    """The int8 KV cache on the card against the CPU (a reduced OLMo, 3
+    rows of 40 tokens into a cache of 64, 4 steps).  prefill(kv_quant=
+    True): scales within 1e-5 relative, q within one step (the devices'
+    K and V differ by ulps, which moves a value at a .5 tie).  The
+    decode steps (the decode kernel on its f32 route over the
+    dequantized cache) from the card's prefilled cache on both devices:
+    f32 1e-4."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfg = ARCHS["olmo-1b"].reduced(dtype="f32")
+    params = build(cfg, "cpu").init(torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(31)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 40)).astype(
+        np.int32))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 3)).astype(
+        np.int32))
+    caches = {}
+    for dev in ("cpu", cuda):
+        with torch.no_grad():
+            caches[str(dev)] = build(cfg, dev).prefill(
+                _to(params, dev), toks.to(dev), cache_len=64, kv_quant=True)
+    card, pos = caches[str(cuda)][1:]
+    want = caches["cpu"][1]
+    for name in ("k", "v"):
+        assert card[name].dtype == torch.int8
+        _close(card[f"{name}_scale"].cpu(), want[f"{name}_scale"], 1e-5)
+        assert int((card[name].cpu().int() - want[name].int()).abs().max()) \
+            <= 1
+    start = {k: v.cpu() for k, v in card.items()}
+    outs = {}
+    for dev, cache in ((cuda, card), ("cpu", start)):
+        model, p = build(cfg, dev), _to(params, dev)
+        ops.reset_launches()
+        got = []
+        with torch.no_grad():
+            for i, tok in enumerate(nxt):
+                step, cache = model.decode(p, cache, tok.to(dev),
+                                           pos.to(dev) + 1 + i)
+                got.append(step.cpu())
+        outs[str(dev)] = got
+        if dev == cuda:
+            assert ops.decode_attention.launches == 4 * cfg.n_layers
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        _close(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "xlstm-125m"])
+def test_train_step_matches_cpu(cuda, arch):
+    """One train step's loss and gradients (remat, autograd) at reduced
+    width on the card against the CPU: the loss within 1e-5 relative,
+    each gradient leaf within 1e-4 of its largest magnitude (xLSTM's b_i
+    against w_i's, as in tests/test_torch_loss.py); no kernel launches."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build
+    from repro_torch.training.tree import items
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[arch].reduced(dtype="f32")
+    params = build(cfg, "cpu").init(torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(41)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 33)).astype(
+        np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].contiguous()}
+    ops.reset_launches()
+    got, gm = loss_and_grads(build(cfg, cuda), _to(params, cuda),
+                             _to(batch, cuda))
+    assert all(fn.launches == 0 for fn in ops.WRAPPERS)
+    want, wm = loss_and_grads(build(cfg, "cpu"), params, batch)
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= \
+        1e-5 * abs(float(wm["loss"]))
+    scale = {p: float(w.abs().max()) for p, w in items(want)}
+    for (path, g), (_, w) in zip(items(got), items(want)):
+        ref = scale["pairs/mlstm/w_i" if path == "pairs/mlstm/b_i"
+                    else path]
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * ref, path
+
+
+@pytest.mark.cuda
+def test_crash_resume_on_the_card(cuda, tmp_path):
+    """train(8) == train(4) + crash + resume(4) on the card, bit for bit:
+    the step is deterministic there (the embedding's backward sums in a
+    fixed order)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    from repro_torch.training.tree import items, leaves
+    cfg = ARCHS["xlstm-125m"].reduced()
+    dc = DataConfig(vocab=cfg.vocab, seq_len=16, batch=2)
+
+    def run(steps, d):
+        return Trainer(cfg, dc, TrainConfig(steps=steps, ckpt_every=4,
+                                            ckpt_dir=str(tmp_path / d),
+                                            log_every=100),
+                       device=cuda).run()
+    full = run(8, "a")
+    run(4, "b")
+    resumed = run(8, "b")
+    assert resumed["resumed_from"] == 4
+    for (path, a), b in zip(items(full["state"]), leaves(resumed["state"])):
+        assert a.dtype == b.dtype and torch.equal(a, b), path

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it (the control plane too) loads no JAX
-and nothing of the JAX package, and its entry points, a real deploy of
-the control plane among them, need a card unless told to use the CPU."""
+"""The port stands alone: importing it (the control plane and the trainer
+too) loads no JAX, nothing of the JAX package and no msgpack, and its
+entry points, a real deploy of the control plane and the trainer among
+them, need a card unless told to use the CPU."""
 import os
 import subprocess
 import sys
@@ -17,10 +18,14 @@ import repro_torch.api, repro_torch.cluster, repro_torch.core
 import repro_torch.roofline
 import repro_torch.api.http, repro_torch.api.http.client
 import repro_torch.api.http.__main__, repro_torch.core.wizard
-import repro_torch.examples
+import repro_torch.examples, repro_torch.examples.train_100m
+import repro_torch.training.data, repro_torch.training.optimizer
+import repro_torch.training.compression, repro_torch.training.checkpoint
+import repro_torch.training.train_loop, repro_torch.launch.steps
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.")
+             or m == "msgpack" or m.startswith("msgpack."))
 assert not bad, bad
 
 import torch
@@ -55,6 +60,21 @@ if not torch.cuda.is_available():
         assert "CUDA" in str(e)
     else:
         raise AssertionError("a real deploy ran without CUDA and 'cpu'")
+# the trainer and the step builders, like every entry point, need a card
+# unless told to use the CPU
+if not torch.cuda.is_available():
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    from repro_torch.launch.steps import make_train_step
+    for call in (lambda: make_train_step(cfg),
+                 lambda: Trainer(cfg, DataConfig(vocab=cfg.vocab, seq_len=8,
+                                                 batch=2), TrainConfig())):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e)
+        else:
+            raise AssertionError("trained without CUDA and without 'cpu'")
 print("ok")
 """
 
