@@ -293,6 +293,29 @@ JSON line:
               swap tier at full width (seamless_swap_leg: two requests on
               64 pages, each swap moving the slot's 100.7 MB of cross
               K/V beside its pages; the host ms of each swap).
+11b. analysis — the port's static analyzer (src/repro_torch/analysis)
+              held to what the card did.  (a) Lock order: the port's
+              LockOrderTracker is installed before serve_gateway and
+              serve_http build their stacks and removed after each
+              (pump threads, a node crash and migration, HTTP streams):
+              no violation, no edge outside node -> instance ->
+              scheduler, acquisitions > 0; it prints the count and the
+              edges.  (b) The static hot path against the runtime's
+              syncs: `python -m repro_torch.analysis --check`'s verdict
+              (no new violation against analysis_baseline_torch.json),
+              then serve_bf16's engine and 12 requests stepped under
+              torch.cuda.set_sync_debug_mode("warn"), every
+              synchronizing call recorded with its stack and sited at
+              its innermost frame in the package.  The device->host
+              reads equal the engine's host_syncs delta; every read or
+              upload lies at a static site of its kind in a function the
+              HotPathSyncChecker reaches from InferenceEngine.step; every
+              read's function holds a waived hot-path-sync key.  It
+              prints reads and blocking uploads per decode block and per
+              admission, and the launches (counted from 0 just before
+              the steps, held as serve_bf16's).  The debug mode does not
+              see torch.cuda.synchronize() (a device-wide wait); the
+              static checker does.
 12. launcher — `python -m repro_torch.api.http --port 0` as a process
               of its own: /healthz and /v1/models list both models, one
               streamed chat ends in `data: [DONE]`, and SIGINT makes it
@@ -4312,6 +4335,218 @@ def launcher_run(card, argv=(), start_timeout_s=300, exit_timeout_s=60):
           "exit_limit_s": exit_timeout_s, "card": card})
 
 
+@contextlib.contextmanager
+def lock_tracking(tracker):
+    """The port's LockOrderTracker on every BackendNode, Instance and
+    Scheduler built inside the block (their ranked locks wrapped at
+    construction), removed after it."""
+    from repro_torch.analysis import install, uninstall
+    handle = install(tracker)
+    try:
+        yield tracker
+    finally:
+        uninstall(handle)
+
+
+SYNC_MESSAGE = "called a synchronizing CUDA operation"
+# the engine functions a step's host work happens in: each sync is
+# charged to the one on its stack
+ENGINE_PARTS = {"InferenceEngine._admit_prefill": "admission",
+                "InferenceEngine._admit_suffix": "admission",
+                "InferenceEngine._admit_swapped": "admission",
+                "InferenceEngine._decode_block": "decode_block"}
+
+
+class SyncRecorder:
+    """Every synchronizing CUDA call made inside the block, with its
+    Python stack: torch.cuda.set_sync_debug_mode("warn") turns each one
+    (a blocking copy either way, a stream synchronize, an op that reads
+    a size off the card) into a warning, and the warning hook records
+    the stack as (file, qualname, line) frames, innermost first.  Other
+    warnings pass through."""
+
+    def __init__(self):
+        self.records = []
+
+    def __enter__(self):
+        import warnings
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.filterwarnings("always", message=SYNC_MESSAGE)
+        passthrough = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None,
+                 line=None):
+            if not str(message).startswith(SYNC_MESSAGE):
+                return passthrough(message, category, filename, lineno,
+                                   file, line)
+            frame, stack = sys._getframe(1), []
+            while frame is not None:
+                code = frame.f_code
+                stack.append((code.co_filename, code.co_qualname,
+                              frame.f_lineno))
+                frame = frame.f_back
+            self.records.append(stack)
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+
+
+def static_hot_path():
+    """The port's static analyzer over src/repro_torch, as
+    `python -m repro_torch.analysis --check` runs it: every checker
+    against analysis_baseline_torch.json (no new violation, no waiver
+    without a reason), then the step's call graph from
+    InferenceEngine.step — the functions it reaches and their sync and
+    upload sites — and the waived hot-path-sync keys."""
+    from repro_torch.analysis import Baseline, run_checkers
+    from repro_torch.analysis.__main__ import ALL_CHECKERS
+    from repro_torch.analysis.core import ProjectIndex, load_modules
+    from repro_torch.analysis.hotpath import (DEFAULT_ENTRIES,
+                                              hot_path_sites,
+                                              reachable_uids)
+    src = ROOT / "src" / "repro_torch"
+    baseline = Baseline.load(ROOT / "analysis_baseline_torch.json")
+    found = run_checkers([src], [c() for c in ALL_CHECKERS.values()],
+                         root=ROOT)
+    new, _, stale = baseline.split(found)
+    if new or stale or baseline.unexplained():
+        raise AssertionError(
+            f"analysis --check: new {[v.key for v in new]}, stale {stale}, "
+            f"unexplained {baseline.unexplained()}")
+    index = ProjectIndex(load_modules([src], root=ROOT))
+    rule = "hot-path-sync::"
+    waived = {k[len(rule):].rsplit("::", 1)[0] for k in baseline.waivers
+              if k.startswith(rule)}
+    return (reachable_uids(index, DEFAULT_ENTRIES),
+            hot_path_sites(index, DEFAULT_ENTRIES), waived)
+
+
+def sync_site(stack, pkg):
+    """One recorded sync's site: (file, qualname, line) of the innermost
+    frame under the package directory `pkg` (a nested function's
+    qualname cut to its indexed function), the engine part on the stack
+    (ENGINE_PARTS, else "step") and every qualname of the package on the
+    stack; None when no frame lies in `pkg`."""
+    port = [(Path(f).resolve(), q.split(".<locals>")[0], ln)
+            for f, q, ln in stack if Path(f).resolve().is_relative_to(pkg)]
+    if not port:
+        return None
+    quals = [q for _, q, _ in port]
+    part = next((ENGINE_PARTS[q] for q in quals if q in ENGINE_PARTS),
+                "step")
+    return (*port[0], part, quals)
+
+
+def runtime_sync_sites(records, sites):
+    """Each recorded sync as (kind, site uid, line, engine part): read
+    ("sync") or upload by the static site whose lines hold its site
+    (None when no static site does)."""
+    by_uid = {}
+    for s in sites:
+        by_uid.setdefault(s.uid, []).append(s)
+    out = []
+    for stack in records:
+        found = sync_site(stack, (ROOT / "src" / "repro_torch").resolve())
+        if found is None:
+            raise AssertionError(f"a sync outside the port: {stack[:6]}")
+        path, qual, line, part, quals = found
+        if "InferenceEngine.step" not in quals:
+            raise AssertionError(f"a sync outside InferenceEngine.step: "
+                                 f"{path}:{line}")
+        uid = f"{path.relative_to(ROOT.resolve()).as_posix()}::{qual}"
+        kinds = {s.kind for s in by_uid.get(uid, [])
+                 if s.line <= line <= s.end_line}
+        kind = "sync" if "sync" in kinds else (kinds.pop() if kinds
+                                               else None)
+        out.append((kind, uid, line, part))
+    return out
+
+
+def analysis(dev, ops, card, tracker):
+    """The port's analyzer held to what the card's runs did.
+    (a) Lock order: `tracker` was installed over serve_gateway and
+    serve_http (pump threads, a node crash and migration, HTTP streams):
+    no violation, no edge outside the static hierarchy, some
+    acquisitions.  (b) The static hot path against the runtime's syncs:
+    serve_bf16's engine and 12 requests (the full OLMo-1B, bf16, paged
+    attention) stepped with every synchronizing CUDA call recorded
+    (SyncRecorder): the device->host reads must equal the engine's
+    host_syncs delta, every read or upload must sit at a static site of
+    its kind in a function the HotPathSyncChecker reaches from
+    InferenceEngine.step, and every read's function must hold a waived
+    hot-path-sync key in analysis_baseline_torch.json.  The launches are
+    counted from 0 just before the steps and read just after."""
+    if tracker.violations or tracker.disallowed_edges() \
+            or not tracker.acquisitions:
+        raise AssertionError(f"lock order on the card:\n{tracker.report()}")
+    t0 = time.perf_counter()
+    reached, sites, waived = static_hot_path()
+    static_s = time.perf_counter() - t0
+    cfg, ecfg, eng, make_requests, _ = serve_setup(dev,
+                                                   paged_attention=True)
+    reqs = make_requests()
+    for r in reqs:
+        assert eng.submit(r)
+    before = eng.perf_stats()
+    gc.collect()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with SyncRecorder() as rec:
+        steps = 0
+        while eng.slot_req or eng.scheduler.depth:
+            eng.step()
+            steps += 1
+            if steps > 1000:
+                raise AssertionError("the engine did not drain")
+    launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+    st = eng.perf_stats()
+    check_serve("analysis", cfg, ecfg, eng, reqs, launches)
+    found = runtime_sync_sites(rec.records, sites)
+    unclassified = sorted({(u, ln) for k, u, ln, _ in found if k is None})
+    off_graph = sorted({u for _, u, _, _ in found if u not in reached})
+    unwaived = sorted({u for k, u, _, _ in found
+                       if k == "sync" and u not in waived})
+    reads = sum(k == "sync" for k, *_ in found)
+    syncs = st["host_syncs"] - before["host_syncs"]
+    blocks = st["decode_dispatches"] - before["decode_dispatches"]
+    admissions = st["prefill_dispatches"] - before["prefill_dispatches"]
+    per = {}
+    for part, n in (("decode_block", blocks), ("admission", admissions)):
+        for kind, name in (("sync", "reads"), ("upload", "uploads")):
+            per[f"{name}_per_{part}"] = sum(
+                k == kind and p == part for k, _, _, p in found) / max(n, 1)
+    counts = {}
+    for k, u, ln, p in found:
+        key = f"{k} {u}:{ln} ({p})"
+        counts[key] = counts.get(key, 0) + 1
+    emit({"phase": "analysis", "model": cfg.name, "layers": cfg.n_layers,
+          "lock_acquisitions": tracker.acquisitions,
+          "lock_edges": sorted(map(list, tracker.edges)),
+          "lock_violations": len(tracker.violations),
+          "static_s": static_s, "reached_functions": len(reached),
+          "static_sync_sites": sum(s.kind == "sync" for s in sites),
+          "static_upload_sites": sum(s.kind == "upload" for s in sites),
+          "steps": steps, "decode_blocks": blocks, "admissions": admissions,
+          "host_syncs": syncs, "reads": reads,
+          "uploads": sum(k == "upload" for k, *_ in found),
+          **per, "sites": counts, "launches": launches,
+          "unclassified": unclassified, "off_graph": off_graph,
+          "unwaived": unwaived, "card": card})
+    if reads != syncs or unclassified or off_graph or unwaived:
+        raise AssertionError(
+            f"analysis: {reads} reads for {syncs} host_syncs; unclassified "
+            f"{unclassified}, off the static graph {off_graph}, reads "
+            f"without a waiver {unwaived}")
+    if eng.pool.pages_in_use != 0:
+        raise AssertionError(f"{eng.pool.pages_in_use} pages not returned")
+    return launches
+
+
 # --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4368,8 +4603,13 @@ def main() -> int:
         "serve_int8", dev, ops, card, quantize="int8")
     path_launches = {"serve_bf16": bf16_launches, "serve_int8": int8_launches,
                      "serve_prefix_swap": serve_prefix_swap(dev, ops, card),
-                     "serve_spec": serve_spec(dev, ops, card),
-                     "serve_gateway": serve_gateway(dev, ops, card)}
+                     "serve_spec": serve_spec(dev, ops, card)}
+    # the port's lock-order tracker over the threaded stacks: the
+    # analysis phase reads it
+    from repro_torch.analysis import LockOrderTracker
+    tracker = LockOrderTracker()
+    with lock_tracking(tracker):
+        path_launches["serve_gateway"] = serve_gateway(dev, ops, card)
     gc.collect()
     gemma = serve_gemma(dev, ops, card)
     path_launches["serve_gemma"] = {
@@ -4392,7 +4632,9 @@ def main() -> int:
             for name in next(iter(legs.values()))}
     seamless_non_causal = sum(m[0]["flash_non_causal"]
                               for m in seamless_more.values())
-    path_launches["serve_http"] = serve_http(dev, ops, card)
+    with lock_tracking(tracker):
+        path_launches["serve_http"] = serve_http(dev, ops, card)
+    path_launches["analysis"] = analysis(dev, ops, card, tracker)
     path_launches["kv_quant"] = kv_launches
     gc.collect()
     torch.cuda.empty_cache()

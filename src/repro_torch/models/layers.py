@@ -61,8 +61,10 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    # theta as a Python scalar: a tensor made of it on the card would be
+    # a blocking upload every model call (ROADMAP C19); pow casts it to
+    # f32, the same value bit for bit
+    freqs = 1.0 / torch.pow(theta, exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

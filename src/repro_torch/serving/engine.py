@@ -687,7 +687,9 @@ class InferenceEngine:
         self.top_ks[idx] = r_topk[:n]
         self.top_ps[idx] = r_topp[:n]
         self.eos_ids[idx] = r_eos[:n]
-        self.spec_table[idx] = -1
+        # index_fill_, not `[idx] = -1`: a Python scalar stored through a
+        # tensor index is a blocking upload on the card (ROADMAP C19)
+        self.spec_table.index_fill_(0, idx, -1)
         self.spec_prev[idx] = r_prev[:n]
         return first, done0
 
@@ -852,13 +854,13 @@ class InferenceEngine:
         rf = to_device(r_f32, dev)
         self.last_tok[idx] = ri[0]
         self.pos[idx] = ri[1]
-        self.active[idx] = True
+        self.active.index_fill_(0, idx, True)     # no upload (C19)
         self.remaining[idx] = ri[2]
         self.temps[idx] = rf[0]
         self.top_ks[idx] = ri[3]
         self.top_ps[idx] = rf[1]
         self.eos_ids[idx] = ri[4]
-        self.spec_table[idx] = -1
+        self.spec_table.index_fill_(0, idx, -1)
         self.spec_prev[idx] = ri[5]
 
     def _decode_mode(self) -> str:

@@ -1,0 +1,15 @@
+"""Seeded violation: a `.numpy()` of a tensor (no `.cpu()` under it) inside
+the engine step hot path (the checker roots reachability at
+InferenceEngine.step)."""
+import torch
+
+
+class InferenceEngine:
+    def step(self):
+        return self._read(self._forward())
+
+    def _read(self, logits):
+        return logits.numpy()
+
+    def _forward(self):
+        return torch.zeros(4)
