@@ -142,6 +142,22 @@ JSON line:
               against w_i's, see tests/test_torch_loss.py), one AdamW
               step from the same gradients within 1e-6 on both devices,
               no kernel launched (training attends in plain PyTorch).
+   sharded — the mesh (src/repro_torch/distributed): 4 ranks spawned,
+              each rank's tensors on the card (gloo, which stages CUDA
+              tensors through the host: NCCL refuses two ranks on one
+              device; one NCCL rank a card where 4 cards show), each
+              first checking all-gather, reduce-scatter and all-reduce
+              on its tensors; OLMo-1B at full width cut to 2 layers in
+              f32, batch 4 x 128, on a (2, 2) ("data", "model") mesh:
+              one fsdp and one fsdp_tp step against the unsharded step
+              on the card (loss, grad norm and every gradient leaf
+              within 1e-5 relative; the params' largest difference
+              printed), the Megatron helpers' counts of collectives and
+              fallbacks, remesh_state to (1, 2) and one more step; then
+              decode_attention_sharded over the 4 ranks at OLMo's decode
+              shape (f32, bf16) against decode_attention_ref and the
+              decode kernel, its wire bytes beside the KV bytes.  The
+              ms over gloo are no speed of the method.
    kv_quant — the int8 KV cache on OLMo-1B: 2 layers in f32, 8 prompts
               of 1000 tokens into a cache of 1024, 8 teacher-forced
               decode steps, the card within f32's 1e-4 of the CPU and
@@ -4546,6 +4562,296 @@ def analysis(dev, ops, card, tracker):
         raise AssertionError(f"{eng.pool.pages_in_use} pages not returned")
     return launches
 
+# --------------------------------------------------------------------- #
+# The sharded phase: a world of 4 ranks (4 processes on the one card over
+# gloo, or one NCCL rank a card on a machine with 4 or more)
+
+SHARDED_WORLD = 4
+SHARDED_BATCH, SHARDED_SEQ = 4, 128
+DECODE_SHAPE = (8, 16, 1, 1024, 128)        # OLMo-1B's decode: B K G S hd
+
+
+def sharded_decode_inputs(dtype, shape, seed=31):
+    """decode_attention_sharded's inputs at `shape` (B, K, G, S, hd), from
+    a seed: q (B, K, G, hd), caches (B, K, S, hd), ragged pos up to
+    S - 1."""
+    b, k, g, s, hd = shape
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, k, g, hd, generator=gen).to(dtype)
+    kc = torch.randn(b, k, s, hd, generator=gen).to(dtype)
+    vc = torch.randn(b, k, s, hd, generator=gen).to(dtype)
+    pos = torch.tensor([s - 1, 0, 1, s // 4 - 1, s // 4, s // 2 - 1,
+                        s * 2 // 3, s - 24][:b], dtype=torch.int32)
+    return q, kc, vc, pos
+
+
+def _check_collectives(dist, dev, world) -> dict:
+    """The three collectives the phase uses, on the world's tensors, each
+    held to its known result."""
+    rank = dist.get_rank()
+    x = torch.arange(8, dtype=torch.float32, device=dev) + rank
+    total = torch.arange(8, dtype=torch.float32) * world + sum(range(world))
+    out = {}
+    t = x.clone()
+    dist.all_reduce(t)
+    out["all_reduce"] = torch.equal(t.cpu(), total)
+    g = torch.empty(8 * world, device=dev)
+    dist.all_gather_into_tensor(g, x)
+    out["all_gather"] = torch.equal(g.cpu(), torch.cat(
+        [torch.arange(8, dtype=torch.float32) + r for r in range(world)]))
+    rs = torch.empty(8 // world, device=dev)
+    dist.reduce_scatter_tensor(rs, x)
+    out["reduce_scatter"] = torch.equal(
+        rs.cpu(), total[rank * (8 // world):(rank + 1) * (8 // world)])
+    if not all(out.values()):
+        raise AssertionError(f"sharded: collectives {out}")
+    return out
+
+
+def _local_err(dist, got, want, relative=False) -> float:
+    """The largest difference of any leaf between a tree of DTensors and
+    the same tree unsharded (full tensors on every rank), each rank
+    comparing its own blocks, the max over the world (relative: over
+    each leaf's largest magnitude)."""
+    from repro_torch.distributed.sharding import local_block
+    from repro_torch.training.tree import leaves
+    worst = 0.0
+    for g, w in zip(leaves(got), leaves(want), strict=True):
+        blk = local_block(w, g.device_mesh, g.placements).float()
+        d = float((g.to_local().float() - blk).abs().max())
+        if relative:
+            d /= max(float(w.float().abs().max()), 1e-30)
+        worst = max(worst, d)
+    t = torch.tensor([worst], device=leaves(want)[0].device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t)
+
+
+def sharded_worker(rank, world, store_path, out_dir, cfg, device,
+                   decode_shape):
+    """One rank of the sharded phase (see `sharded`): writes its readings
+    to out_dir/rank<r>.json."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import gather_tree, make_train_step
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, adamw_update
+    from repro_torch.training.train_loop import remesh_state
+    from repro_torch.training.tree import leaves
+    from torch.distributed.tensor.experimental import implicit_replication
+    per_card = device == "cuda" and torch.cuda.device_count() >= world
+    dev = torch.device(device, rank if per_card else 0) \
+        if device == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    timeout = datetime.timedelta(seconds=300)
+    dist.init_process_group("nccl" if per_card else "gloo",
+                            store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world, timeout=timeout)
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "device": str(dev)}
+    rec["collectives"] = _check_collectives(dist, dev, world)
+    mesh = make_mesh((2, 2), ("data", "model"), dev.type)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SHARDED_SEQ,
+                                  batch=SHARDED_BATCH, seed=3))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch_at(i).items()} for i in range(2)]
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    ref_step, ref_init = make_train_step(cfg, opt_cfg=ocfg, device=dev)
+
+    def at_step_one(state):
+        # lr is 0 at step 0 (the warmup); step 1 moves the params
+        state["step"] = state["step"] + 1
+        return state
+
+    def timed(fn, *args):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    ref0 = at_step_one(ref_init(torch.Generator(dev).manual_seed(5)))
+    g_ref, _ = ref_step.grads(ref0["params"], batches[0])
+    ref_step(ref0, batches[0])                          # warm
+    (ref1, m_ref), ref_ms = timed(ref_step, ref0, batches[0])
+    rec["steps"] = {}
+    for name in ("fsdp", "fsdp_tp"):
+        strategy = S.STRATEGIES[name](mesh)
+        step, init = make_train_step(cfg, mesh, strategy, opt_cfg=ocfg)
+        st = at_step_one(init(torch.Generator(dev).manual_seed(5)))
+        S.reset_counts()
+        # the train step's own two halves (`step.grads`, then AdamW, as
+        # the trainer's compressed step runs them), so the gradients are
+        # at hand without a second forward and backward
+        (g, m), grads_ms = timed(step.grads, st["params"], batches[0])
+        counts = {h: dict(c) for h, c in S.COUNTS.items()}
+        with implicit_replication():
+            (new_p, new_opt, om), update_ms = timed(
+                adamw_update, st["params"], g, st["opt"], st["step"], ocfg)
+        m, om = gather_tree(m), gather_tree(om)
+        rec["steps"][name] = {
+            "loss": float(m["loss"]), "loss_ref": float(m_ref["loss"]),
+            "grad_norm": float(om["grad_norm"]),
+            "grad_norm_ref": float(m_ref["grad_norm"]),
+            "max_grad_err_rel": _local_err(dist, g, g_ref, relative=True),
+            "max_param_err": _local_err(dist, new_p, ref1["params"]),
+            "ms": grads_ms + update_ms, "unsharded_ms": ref_ms,
+            "counts": counts}
+        del g
+        if name == "fsdp_tp":
+            kept = {"params": new_p, "opt": new_opt,
+                    "step": st["step"] + 1}
+    # remesh (2, 2) -> (1, 2) over ranks 0 and 1, one more step there
+    sub = make_mesh((1, 2), ("data", "model"), dev.type, ranks=[0, 1])
+    full = gather_tree(kept["params"])
+    moved, remesh_ms = timed(remesh_state, kept, cfg, sub,
+                             S.train_strategy(sub))
+    del kept
+    if moved is not None:
+        # each rank's new blocks of the params: the slices of the old
+        # values the new layout gives it
+        same = all(torch.equal(
+            b.to_local(), S.local_block(a, sub, b.placements))
+            for a, b in zip(leaves(full), leaves(moved["params"]),
+                            strict=True))
+        step, _ = make_train_step(cfg, sub, S.train_strategy(sub),
+                                  opt_cfg=ocfg)
+        (after, m), ms = timed(step, moved, batches[1])
+        want, wm = ref_step(ref1, batches[1])
+        sub_group = dist.new_group([0, 1])
+        rec["remesh"] = {
+            "bit_for_bit": same, "loss": float(m["loss"]),
+            "loss_ref": float(wm["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "grad_norm_ref": float(wm["grad_norm"]),
+            "max_param_err": _local_err(_Group(dist, sub_group),
+                                        after["params"], want["params"]),
+            "remesh_ms": remesh_ms, "ms": ms}
+    else:
+        dist.new_group([0, 1])
+    del full
+    # the sequence-sharded decode combine over a (4,) mesh
+    line = make_mesh((world,), ("model",), dev.type)
+    rec["decode"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kc, vc, pos = (t.to(dev) for t in sharded_decode_inputs(
+            dtype, decode_shape))
+        fn = ops.decode_attention_sharded(line, "model")
+        fn(q, kc, vc, pos)                                  # warm
+        fn.calls = fn.wire_bytes = 0
+        out, ms = timed(fn, q, kc, vc, pos)
+        if rank == 0:
+            torch.save(out.cpu(), Path(out_dir) / f"decode_{dtype}.pt")
+        rec["decode"][str(dtype)] = {"wire_bytes": fn.wire_bytes,
+                                     "kv_bytes": 2 * kc.numel()
+                                     * kc.element_size(), "ms": ms}
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+class _Group:
+    """torch.distributed's all_reduce bound to one group (`_local_err`
+    over a sub-mesh's ranks)."""
+
+    def __init__(self, dist, group):
+        self.ReduceOp, self._dist, self._group = dist.ReduceOp, dist, group
+
+    def all_reduce(self, t, op):
+        self._dist.all_reduce(t, op=op, group=self._group)
+
+
+def sharded(dev, ops, card, cfg=None, decode_shape=DECODE_SHAPE):
+    """The `sharded` phase: the mesh half of the trainer on a world of 4
+    ranks, each rank's tensors on the card (4 processes on one card over
+    gloo, which stages CUDA tensors through the host: NCCL refuses two
+    ranks on one device; with 4 or more cards one NCCL rank a card).
+    Every rank first checks all-gather, reduce-scatter and all-reduce on
+    its tensors.  Then OLMo-1B at full width cut to TRAIN_LAYERS layers
+    (parity_train's cut) in f32, batch 4 x 128, on a (2, 2) ("data",
+    "model") mesh: one fsdp step and one fsdp_tp step (at step 1: lr is 0
+    at step 0; each as the step's two halves, `step.grads` and AdamW, so
+    the gradients are at hand), each against the unsharded step on the
+    card (loss, grad norm and every gradient leaf within 1e-5 relative,
+    the gradients compared block by block on each rank; the params'
+    largest difference after the step is reported: Adam divides gradient
+    elements near its eps by their own square root, so rounding-level
+    gradients step apart by up to ~1e-5 at lr 1e-3), with the Megatron
+    helpers' counts of collectives against fallbacks; then remesh_state
+    of the fsdp_tp state to a (1, 2) mesh over ranks 0-1 (each rank's new
+    param blocks bit for bit the old values' slices) and one more step
+    there against the unsharded one.  Last, decode_attention_sharded over the 4 ranks at OLMo's decode
+    shape (B 8, K 16, G 1, S 1024, hd 128, ragged pos), f32 and bf16,
+    held to decode_attention_ref and to the hand-written decode kernel
+    (f32 1e-4, bf16 2e-2), its wire bytes beside the KV bytes.  Over
+    gloo through the host the step ms are no speed of the method.
+    `cfg` and `decode_shape` replace the model and the decode shape (a
+    CPU rehearsal with dev "cpu")."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    cfg = cfg or dataclasses.replace(ARCHS["olmo-1b"], dtype="f32",
+                                     n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(sharded_worker,
+                 args=(SHARDED_WORLD, str(Path(tmp) / "store"), tmp, cfg,
+                       dev.type, decode_shape), nprocs=SHARDED_WORLD)
+        recs = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(SHARDED_WORLD)]
+        outs = {k: torch.load(Path(tmp) / f"decode_{k}.pt")
+                for k in (torch.float32, torch.bfloat16)}
+    seconds = time.perf_counter() - t0
+    r0 = recs[0]
+    for name, s in r0["steps"].items():
+        for key in ("loss", "grad_norm"):
+            rel = abs(s[key] - s[key + "_ref"]) / abs(s[key + "_ref"])
+            if not rel <= 1e-5:
+                raise AssertionError(f"sharded {name}: {key} {s[key]} vs "
+                                     f"{s[key + '_ref']}")
+        if not s["max_grad_err_rel"] <= 1e-5:
+            raise AssertionError(f"sharded {name}: gradients {s}")
+    tp = r0["steps"]["fsdp_tp"]["counts"]
+    if not (tp["row"]["collective"] and tp["col"]["collective"]):
+        raise AssertionError(f"sharded fsdp_tp: helpers {tp}")
+    rm = r0["remesh"]
+    if not (rm["bit_for_bit"] and
+            abs(rm["loss"] - rm["loss_ref"]) <= 1e-5 * abs(rm["loss_ref"])):
+        raise AssertionError(f"sharded remesh: {rm}")
+    decode = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        q, kc, vc, pos = (t.to(dev) for t in sharded_decode_inputs(
+            dtype, decode_shape))
+        got = outs[dtype].to(dev)
+        ref = decode_attention_ref(q, kc, vc, pos)
+        ops.reset_launches()
+        kern = ops.decode_attention(q, kc, vc, pos)
+        err_ref = float((got.float() - ref.float()).abs().max())
+        err_kernel = float((got.float() - kern.float()).abs().max())
+        row = dict(r0["decode"][str(dtype)], err_ref=err_ref,
+                   err_kernel=err_kernel, tol=tol)
+        if not (err_ref <= tol and err_kernel <= tol
+                and row["wire_bytes"] < 0.1 * row["kv_bytes"]):
+            raise AssertionError(f"sharded decode {dtype}: {row}")
+        decode[str(dtype)] = row
+    ops.reset_launches()
+    emit({"phase": "sharded", "model": cfg.name, "layers": cfg.n_layers,
+          "world": SHARDED_WORLD, "backend": r0["backend"],
+          "decode_shape": list(decode_shape),
+          "batch": SHARDED_BATCH, "seq": SHARDED_SEQ,
+          "collectives": r0["collectives"], "steps": r0["steps"],
+          "remesh": rm, "decode": decode, "seconds": seconds,
+          "torch": torch.__version__, "card": card})
+    return seconds
+
 
 # --------------------------------------------------------------------- #
 def main() -> int:
@@ -4596,6 +4902,9 @@ def main() -> int:
     parity_xlstm(dev, ops)
     parity_encdec(dev, ops)
     parity_train(dev, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded(dev, ops, card)
     kv_row, kv_launches = kv_quant(dev, ops, card)
     bf16_launches, bf16_routes, bf16_shapes = serve(
         "serve_bf16", dev, ops, card, paged_attention=True)

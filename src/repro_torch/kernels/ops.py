@@ -631,3 +631,61 @@ def reset_launches() -> None:
             for route in getattr(fn, "launches_by_route", ()):
                 fn.launches_by_route[route] = 0
         flash_attention.launches_non_causal = 0
+
+
+# --------------------------------------------------------------------- #
+# Distributed flash-decode: KV sequence-sharded over one mesh axis,
+# partial (m, l, num) merged with small all-reduces — the decode for GQA
+# models whose kv_heads do not divide the TP axis.  JAX's combine is jnp
+# inside shard_map, so the port's is plain PyTorch on torch.distributed.
+
+def decode_attention_sharded(mesh, axis: str):
+    """Returns fn(q, k_cache, v_cache, pos) with k/v (B, K, S, hd)
+    sequence-sharded over the mesh axis `axis`: each rank computes the
+    flash-decode partials of its shard (`lse_partials_ref` at kv_offset
+    = its index on the axis x shard length), then one all-reduce MAX and
+    two all-reduce SUMs (JAX's pmax and two psums) merge them; wire
+    cost O(B*H*hd) instead of O(B*H*S).  A cache given as a DTensor
+    sharded on its dim 2 over `axis` is read as its local block; a full
+    cache is sliced to the rank's shard.  q and pos are the same on
+    every rank of the axis, and so is the result (a plain tensor, q's
+    dtype).  `fn.calls` and `fn.wire_bytes` count the calls and the
+    bytes each rank's ring all-reduces moved (2 (n - 1) / n of each
+    payload)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import axis_names, is_dtensor
+    from repro_torch.kernels.decode_attention import lse_partials_ref
+
+    dim = axis_names(mesh).index(axis)
+    n = mesh.size(dim)
+    group = mesh.get_group(axis)
+
+    def shard(cache: torch.Tensor, idx: int) -> torch.Tensor:
+        if is_dtensor(cache):
+            return cache.to_local()
+        s = cache.shape[2]
+        if s % n:
+            raise ValueError(f"cache length {s} is not a multiple of the "
+                             f"{n} ranks of axis {axis!r}")
+        return cache[:, :, idx * (s // n):(idx + 1) * (s // n)]
+
+    def fn(q, k_cache, v_cache, pos):
+        idx = mesh.get_local_rank(dim)
+        k_loc, v_loc = shard(k_cache, idx), shard(v_cache, idx)
+        m, l, num = lse_partials_ref(q, k_loc, v_loc, pos,
+                                     idx * k_loc.shape[2])
+        m_g = m.clone()
+        dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+        corr = torch.exp(m - m_g)
+        l_g = l * corr
+        num_g = num * corr[..., None]
+        dist.all_reduce(l_g, group=group)
+        dist.all_reduce(num_g, group=group)
+        payload = sum(t.numel() * t.element_size() for t in (m_g, l_g, num_g))
+        fn.calls += 1
+        fn.wire_bytes += 2 * (n - 1) * payload // n
+        return (num_g / l_g.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+    fn.calls = 0
+    fn.wire_bytes = 0
+    return fn

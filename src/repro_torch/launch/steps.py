@@ -1,13 +1,18 @@
-"""Step builders on one device — the counterpart of
-`repro.launch.steps` without its sharding: the train step (loss,
-autograd, AdamW), the prefill and decode steps (each with the int8 KV
-cache as an option, the `int8kv` variant of JAX's `lower_cell`), and
-stand-ins for every input (meta-device tensors: shapes and dtypes, no
-memory).
+"""Step builders — the counterpart of `repro.launch.steps`: the train
+step (loss, autograd, AdamW) on one device or sharded over a mesh, the
+prefill and decode steps on one device (each with the int8 KV cache as
+an option, the `int8kv` variant of JAX's `lower_cell`), the sharding
+trees of params, batches, caches and train states, and stand-ins for
+every input (meta-device tensors: shapes and dtypes, no memory).
 
-A mesh or a strategy raises NotImplementedError: sharding, the mesh,
-the dry run and `lower_cell` wait for the distributed slice (ROADMAP
-A9).
+The sharded train step (`make_train_step(cfg, mesh, strategy)`) holds
+its state as DTensors laid out by `state_shardings` and runs the loss
+with JAX's hooks: `sh` (the activations' layouts), `shw` (each layer's
+weights moved to their compute layout: `train_compute_strategy` under
+fsdp_tp, everything gathered under fsdp) and the three Megatron helpers
+attached to `sh`.  A mesh given to the prefill or decode step raises
+NotImplementedError: the sharded serving steps come with `lower_cell`
+and the dry run (the next slice of ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -17,18 +22,35 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import DeviceLike, torch_dtype
-from repro_torch.models import build
+from repro_torch.distributed.sharding import (Strategy, distribute,
+                                              full_tensor, is_dtensor,
+                                              make_sharder, redistribute,
+                                              make_tp_col_projector,
+                                              make_tp_gather,
+                                              make_tp_projector,
+                                              make_weight_sharder,
+                                              train_compute_strategy,
+                                              tree_shardings)
+from repro_torch.models import Model, build
 from repro_torch.training import optimizer as opt_lib
-from repro_torch.training.tree import leaves, map_tree
+from repro_torch.training.tree import leaves, map_tree, unflatten
 
 META = torch.device("meta")
+
+BATCH_AXES = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "prefix_embeds": ("batch", "seq", "embed"),
+    "src_embeds": ("batch", "seq", "embed"),
+}
 
 
 def _single_device(mesh, strategy) -> None:
     if mesh is not None or strategy is not None:
         raise NotImplementedError(
-            "repro_torch runs one device: a mesh or a sharding strategy "
-            "waits for the distributed slice (ROADMAP A9)")
+            "the sharded prefill and decode steps wait for slice 16 of the "
+            "port (lower_cell and the dry run, ROADMAP A9); repro_torch "
+            "runs them on one device")
 
 
 # --------------------------------------------------------------------- #
@@ -99,46 +121,179 @@ def state_specs(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 # --------------------------------------------------------------------- #
+# Sharding trees (DTensor placements, one per mesh dim)
+
+def param_shardings(model: Model, mesh, strategy: Strategy):
+    return tree_shardings(model.param_axes(), model.param_specs(), mesh,
+                          strategy)
+
+
+def batch_shardings(cfg: ArchConfig, specs: Dict, mesh, strategy: Strategy):
+    return {k: strategy.placements_for(BATCH_AXES[k], v.shape, mesh)
+            for k, v in specs.items()}
+
+
+def cache_shardings(model: Model, cache_specs, mesh, strategy: Strategy,
+                    kv_quant: bool = False):
+    return tree_shardings(model.cache_axes(kv_quant=kv_quant),
+                          cache_specs, mesh, strategy)
+
+
+def replicated(mesh):
+    from torch.distributed.tensor import Replicate
+    return (Replicate(),) * mesh.ndim
+
+
+def state_shardings(cfg: ArchConfig, mesh, strategy: Strategy):
+    ps = param_shardings(build(cfg, META), mesh, strategy)
+    return {"params": ps, "opt": {"m": ps, "v": ps},
+            "step": replicated(mesh)}
+
+
+def place_tree(tree, shardings, mesh):
+    """A tree of full tensors (alike on every rank) as DTensors in
+    `shardings` (a matching tree of placements), each rank keeping its
+    own blocks; no communication."""
+    out = [distribute(t, mesh, pl) for t, pl in zip(
+        leaves(tree), _placement_leaves(tree, shardings), strict=True)]
+    return unflatten(tree, out)
+
+
+def _placement_leaves(tree, shardings):
+    """The placements of `shardings` in the leaf order of `tree` (a
+    placements tuple is a leaf, not a level of the tree)."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in _placement_leaves(tree[k], shardings[k])]
+    return [shardings]
+
+
+def gather_tree(tree):
+    """A tree with every DTensor leaf gathered to its full tensor (a
+    collective over its mesh: every rank calls it)."""
+    return map_tree(full_tensor, tree)
+
+
+# --------------------------------------------------------------------- #
 # Step builders
+
+def _mesh_device(mesh, device: DeviceLike) -> DeviceLike:
+    if device is not None or mesh is None:
+        return device
+    return mesh.device_type
+
 
 def make_train_step(cfg: ArchConfig, mesh=None, strategy=None,
                     opt_cfg: Optional[opt_lib.AdamWConfig] = None,
                     device: DeviceLike = None):
     """Returns (train_step, init_state).  init_state(generator) -> {"params",
-    "opt": {"m", "v"}, "step"} on `device` ("cuda" unless given);
-    train_step(state, batch) -> (new state, {"loss", "aux", "grad_norm",
-    "lr"}), the loss under remat, its gradients by autograd, one AdamW
-    update.  Every metric stays a 0-d tensor on the device."""
-    _single_device(mesh, strategy)
-    model = build(cfg, device)
+    "opt": {"m", "v"}, "step"} on `device` ("cuda" unless given, or the
+    mesh's device type); train_step(state, batch) -> (new state, {"loss",
+    "aux", "grad_norm", "lr"}), the loss under remat, its gradients by
+    autograd, one AdamW update.  Every metric stays a 0-d tensor on the
+    device.
+
+    With a mesh and a strategy the state is DTensors laid out by
+    `state_shardings` (each rank draws the full init from the same
+    generator seed and keeps its blocks), a batch of full tensors is
+    laid out by `batch_shardings`, and the loss runs with JAX's `sh`,
+    `shw` and Megatron hooks; the metrics come back as plain 0-d tensors,
+    alike on every rank.  The gradients return to the params' layout by
+    the redistributions' own backward (all-gather forward, reduce-scatter
+    backward), and AdamW's global norm sums every rank's blocks."""
+    if (mesh is None) != (strategy is None):
+        raise ValueError("a sharded step needs both a mesh and a strategy")
+    model = build(cfg, _mesh_device(mesh, device))
     opt_cfg = opt_cfg or opt_lib.AdamWConfig()
+    sh = make_sharder(mesh, strategy)
+    shw = None
+    if mesh is not None:
+        # explicit per-layer FSDP weight gather: fsdp_tp gathers only the
+        # embed dim; pure fsdp gathers whole layer weights
+        comp = train_compute_strategy(mesh) if strategy.name == "fsdp_tp" \
+            else Strategy(rules={}, priority=[], name="gather_all")
+        shw = make_weight_sharder(mesh, comp)
+        # explicit Megatron-SP collectives: row-parallel reduce-scatter
+        # out-projections, the column-parallel gather + einsum, and the
+        # standalone seq gather
+        sh.tp_project = make_tp_projector(mesh, strategy, comp)
+        sh.tp_col_project = make_tp_col_projector(mesh, strategy, comp)
+        sh.tp_gather = make_tp_gather(mesh, strategy)
+        st_sh = state_shardings(cfg, mesh, strategy)
 
     def init_state(generator: torch.Generator):
         params = model.init(generator)
-        return {"params": params, "opt": opt_lib.adamw_init(params),
-                "step": torch.zeros((), dtype=torch.int32,
-                                    device=model.device)}
+        state = {"params": params, "opt": opt_lib.adamw_init(params),
+                 "step": torch.zeros((), dtype=torch.int32,
+                                     device=model.device)}
+        if mesh is not None:
+            state = place_tree(state, st_sh, mesh)
+        return state
 
     def train_step(state, batch):
-        grads, mets = loss_and_grads(model, state["params"], batch)
-        new_p, new_opt, om = opt_lib.adamw_update(
-            state["params"], grads, state["opt"], state["step"], opt_cfg)
+        if mesh is None:
+            grads, mets = loss_and_grads(model, state["params"], batch)
+            new_p, new_opt, om = opt_lib.adamw_update(
+                state["params"], grads, state["opt"], state["step"],
+                opt_cfg)
+        else:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            batch = place_batch(cfg, batch, mesh, strategy)
+            with implicit_replication():
+                grads, mets = loss_and_grads(model, state["params"], batch,
+                                             sh=sh, shw=shw)
+                new_p, new_opt, om = opt_lib.adamw_update(
+                    state["params"], grads, state["opt"], state["step"],
+                    opt_cfg)
+            mets = gather_tree(mets)
+            om = gather_tree(om)
         return ({"params": new_p, "opt": new_opt,
                  "step": state["step"] + 1},
                 {"loss": mets["loss"], "aux": mets["aux"],
                  "grad_norm": om["grad_norm"], "lr": om["lr"]})
 
+    def grads(params, batch):
+        """(grads, metrics) with the step's hooks and batch layout, for a
+        caller that updates on its own (the trainer's compressed step)."""
+        if mesh is None:
+            return loss_and_grads(model, params, batch)
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        batch = place_batch(cfg, batch, mesh, strategy)
+        with implicit_replication():
+            return loss_and_grads(model, params, batch, sh=sh, shw=shw)
+
+    train_step.grads = grads
     return train_step, init_state
 
 
-def loss_and_grads(model, params, batch, remat: bool = True):
+def place_batch(cfg: ArchConfig, batch: Dict[str, torch.Tensor], mesh,
+                strategy: Strategy) -> Dict[str, torch.Tensor]:
+    """A batch of full tensors (alike on every rank) as DTensors laid out
+    by `batch_shardings`; a batch of DTensors passes as it is."""
+    pl = batch_shardings(cfg, batch, mesh, strategy)
+    return {k: v if is_dtensor(v) else distribute(v, mesh, pl[k])
+            for k, v in batch.items()}
+
+
+def loss_and_grads(model, params, batch, remat: bool = True, sh=None,
+                   shw=None):
     """(grads, metrics) of model.loss at params: every leaf's gradient by
     autograd (`jax.value_and_grad`), the params themselves untouched
-    (the loss sees detached aliases that require grad)."""
+    (the loss sees detached aliases that require grad).  `sh` / `shw`:
+    a sharded step's hooks; its loss is made replicated before the
+    backward, so the seed gradient is one on every rank."""
     live = map_tree(lambda p: p.detach().requires_grad_(), params)
     flat = leaves(live)
     with torch.enable_grad():
-        total, mets = model.loss(live, batch, remat=remat)
+        if sh is None:
+            total, mets = model.loss(live, batch, remat=remat)
+        else:
+            total, mets = model.loss(live, batch, remat=remat, sh=sh,
+                                     shw=shw)
+            if is_dtensor(total):
+                total = redistribute(total, replicated(total.device_mesh))
         grads = torch.autograd.grad(total, flat, allow_unused=True)
     grads = iter(torch.zeros_like(p) if g is None else g
                  for p, g in zip(flat, grads))

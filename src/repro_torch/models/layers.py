@@ -84,6 +84,39 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 # --------------------------------------------------------------------- #
+# The sharded projections (`distributed.sharding`'s Megatron helpers)
+
+def row_project(sh, x, w, eq, x_axes, w_axes, out_axes, scatter_axis=1):
+    """Row-parallel (Megatron) out-projection: the explicit
+    reduce-scatter when the sharder carries a tp_project hook
+    (`distributed.sharding.make_tp_projector`), else einsum + layout."""
+    proj = getattr(sh, "tp_project", None)
+    if proj is not None:
+        return proj(x, w, eq, x_axes, w_axes, out_axes, scatter_axis)
+    return sh(torch.einsum(eq, x, w), out_axes)
+
+
+def col_project(sh, x, w, eq, x_axes, w_axes, out_axes, gather_axis=1):
+    """Column-parallel (Megatron f) projection: all_gather(x_seq) + the
+    einsum on the local blocks, so the backward is one reduce-scatter."""
+    proj = getattr(sh, "tp_col_project", None)
+    if proj is not None:
+        return proj(x, w, eq, x_axes, w_axes, out_axes, gather_axis)
+    return sh(torch.einsum(eq, x, w), out_axes)
+
+
+def seq_gather(sh, x, axes, axis: int = 1):
+    """Megatron-SP f-operator: gather the seq-sharded residual once per
+    block (an all-gather whose backward is a reduce-scatter).  Falls back
+    to a layout constraint when no tp_gather hook is attached."""
+    g = getattr(sh, "tp_gather", None)
+    if g is not None:
+        return g(x, axes, axis)
+    fallback = tuple("seq_attn" if a == "seq" else a for a in axes)
+    return sh(x, fallback)
+
+
+# --------------------------------------------------------------------- #
 # MLP
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -100,9 +133,13 @@ def gelu(h: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
-              act: str = "swiglu") -> torch.Tensor:
+              act: str = "swiglu", sh=None) -> torch.Tensor:
     """Dense FFN.  x: (B, S, D); wi: (2, D, F) for swiglu, (D, F) for
-    gelu; wo: (F, D)."""
-    if act == "swiglu":
-        return swiglu(x @ wi[0], x @ wi[1]) @ wo
-    return gelu(x @ wi) @ wo
+    gelu; wo: (F, D).  With a sharder the down-projection is
+    row-parallel (`row_project`)."""
+    h = swiglu(x @ wi[0], x @ wi[1]) if act == "swiglu" else gelu(x @ wi)
+    if sh is not None:
+        return row_project(sh, h, wo, "bsf,fd->bsd",
+                           ("batch", "seq_attn", "mlp"),
+                           ("mlp", "embed"), ("batch", "seq", "embed"))
+    return h @ wo

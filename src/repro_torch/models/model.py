@@ -31,20 +31,39 @@ class Model:
     def init(self, generator: torch.Generator) -> params_lib.Params:
         return params_lib.init_params(self.cfg, generator, self.device)
 
+    def param_axes(self) -> Dict:
+        """Each param's logical axes (`distributed.sharding`), the same
+        tree as JAX's."""
+        if self.cfg.block == "xlstm":
+            return xl.param_axes(self.cfg)
+        return tf.param_axes(self.cfg)
+
+    def param_specs(self) -> params_lib.Params:
+        """Every param as a meta tensor: shapes and dtypes, no memory."""
+        return params_lib.init_params(self.cfg, None, torch.device("meta"))
+
+    def cache_axes(self, kv_quant: bool = False) -> Dict:
+        """The decode cache's logical axes, as JAX's."""
+        if self.cfg.block == "xlstm":
+            return xl.cache_axes(self.cfg)
+        return tf.cache_axes(self.cfg, kv_quant=kv_quant)
+
     # ---------------- training ---------------- #
     def loss(self, params, batch: Dict[str, torch.Tensor], *,
-             remat: bool = False):
+             remat: bool = False, sh=None, shw=None):
         """(total loss, {"loss", "aux", "tokens"}) of a batch {"tokens",
         "labels" (-100 masked), optional "prefix_embeds" / "src_embeds"},
         differentiable in `params`.  xLSTM's is the plain mean NLL (aux
-        0, no aux term), as JAX's `Model.loss`."""
+        0, no aux term), as JAX's `Model.loss`.  `sh` / `shw` are a
+        sharded step's hooks (`distributed.sharding`)."""
         if self.cfg.block == "xlstm":
             logits = xl.forward(params, self.cfg, batch["tokens"],
-                                remat=remat)
+                                remat=remat, sh=sh, shw=shw)
             loss, denom = tf.nll_loss(logits, batch["labels"])
             return loss, {"loss": loss, "aux": torch.zeros_like(loss),
                           "tokens": denom}
-        return tf.loss_fn(params, self.cfg, batch, remat=remat)
+        return tf.loss_fn(params, self.cfg, batch, remat=remat, sh=sh,
+                          shw=shw)
 
     def forward(self, params, tokens, *, remat: bool = False, **kw):
         """(logits, aux): the full-sequence logits and the MoE aux loss

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed.sharding import local_map
 from repro_torch.models import layers as L
 
 # the keep masks of every moe_ffn call inside `keep_masks()`, else None
@@ -107,28 +108,59 @@ def _dispatch(x: torch.Tensor, idx: torch.Tensor, e: int, c: int
 
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, wi: torch.Tensor,
-            wo: torch.Tensor, moe: MoEConfig, act: str
+            wo: torch.Tensor, moe: MoEConfig, act: str, sh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D); wi (E, 2, D, F) swiglu / (E, D, F) gelu; wo (E, F, D).
     Returns (y (B, S, D), aux loss).  Every expert runs over all of its C
-    slots (kept or empty), as in JAX."""
+    slots (kept or empty), as in JAX.
+
+    `sh` (`distributed.sharding`), as JAX's hook: x laid out with its
+    sequence whole, the expert buffer as ("batch", "experts",
+    "capacity", "embed"), the down-projection row-parallel onto
+    "embed_rs".  The dispatch and the combine index within a row, so
+    they run on each rank's rows (`local_map`)."""
     b, s, d = x.shape
     e, cap = moe.num_experts, capacity(s, moe)
+    if sh is not None:
+        x = sh(x, ("batch", "seq_attn", "embed"))
     gates, idx, aux = router_topk(x, router_w, moe)
-    expert_in, slot, keep = _dispatch(x, idx, e, cap)
+    expert_in, slot, keep = local_map(
+        lambda x_, i_: _dispatch(x_, i_, e, cap), x, idx,
+        mapped=(True, True))
     if _keep_log is not None:
         _keep_log.append(keep)
     ein = expert_in.reshape(b, e, cap, d)
+    if sh is not None:
+        ein = sh(ein, ("batch", "experts", "capacity", "embed"))
     if act == "swiglu":
         h = L.swiglu(torch.einsum("becd,edf->becf", ein, wi[:, 0]),
                      torch.einsum("becd,edf->becf", ein, wi[:, 1]))
     else:
         h = L.gelu(torch.einsum("becd,edf->becf", ein, wi))
-    eout = torch.einsum("becf,efd->becd", h, wo).reshape(b, e * cap, d)
+    if sh is not None:
+        eout = L.row_project(sh, h, wo, "becf,efd->becd",
+                             ("batch", "experts", "capacity", "mlp"),
+                             ("experts", "mlp", "embed"),
+                             ("batch", "experts", "capacity", "embed_rs"),
+                             scatter_axis=3)
+    else:
+        eout = torch.einsum("becf,efd->becd", h, wo)
+    y = local_map(lambda o, sl, kp, g: _combine(o, sl, kp, g, moe.top_k),
+                  eout.reshape(b, e * cap, d), slot, keep, gates,
+                  mapped=(True,) * 4)
+    return y, aux
+
+
+def _combine(eout: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+             gates: torch.Tensor, k: int) -> torch.Tensor:
+    """Each pair's expert output (B, E * C, D) gathered back to its token
+    (a dropped pair adds nothing), weighted by its gate, summed over the
+    token's k pairs: (B, S, D)."""
+    b, d = eout.shape[0], eout.shape[-1]
     gathered = eout.gather(1, slot[..., None].expand(-1, -1, d))
     gathered = torch.where(keep[..., None], gathered, 0)
-    weighted = gathered * gates.reshape(b, -1, 1).to(x.dtype)
-    return weighted.reshape(b, s, moe.top_k, d).sum(2), aux
+    weighted = gathered * gates.reshape(b, -1, 1).to(eout.dtype)
+    return weighted.reshape(b, -1, k, d).sum(2)
 
 
 def moe_ffn_ref(x: torch.Tensor, router_w: torch.Tensor, wi: torch.Tensor,

@@ -72,6 +72,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
+from repro_torch.distributed.sharding import full_replicate, local_map
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
@@ -197,15 +198,42 @@ def _ffn(lp: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return _ffn_aux(lp, cfg, x)[0]
 
 
-def _ffn_aux(lp: Params, cfg: ArchConfig, x: torch.Tensor
+def _ffn_aux(lp: Params, cfg: ArchConfig, x: torch.Tensor, sh=None
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """`_ffn` and the MoE load-balancing aux loss (None for a dense
-    FFN)."""
+    FFN).  With a sharder (`distributed.sharding`) the MoE FFN gathers
+    the seq-sharded x first, and the dense FFN is Megatron's:
+    column-parallel up, row-parallel down."""
     if cfg.moe is not None:
         mp = lp["moe"]
+        if sh is not None:
+            x = L.seq_gather(sh, x, ("batch", "seq", "embed"))
         return moe_lib.moe_ffn(x, mp["router"], _dense(mp["wi"]),
-                               _dense(mp["wo"]), cfg.moe, cfg.act)
+                               _dense(mp["wo"]), cfg.moe, cfg.act, sh=sh)
+    if sh is not None:
+        return _dense_ffn_sharded(lp, cfg, x, sh), None
     return _dense_ffn(lp, cfg, x), None
+
+
+def _dense_ffn_sharded(lp: Params, cfg: ArchConfig, x: torch.Tensor, sh
+                       ) -> torch.Tensor:
+    """JAX's dense `_ffn` under a sharder: the up-projection through
+    `col_project`, the down-projection through `row_project`."""
+    wi, wo = lp["mlp"]["wi"], lp["mlp"]["wo"]
+    if cfg.act == "swiglu":
+        h2 = L.col_project(sh, x, wi, "bsd,gdf->bsgf",
+                           ("batch", "seq", "embed"),
+                           ("stack", "embed", "mlp"),
+                           ("batch", "seq_attn", "stack", "mlp"))
+        h = L.swiglu(h2[:, :, 0], h2[:, :, 1])
+    else:
+        h = L.gelu(L.col_project(sh, x, wi, "bsd,df->bsf",
+                                 ("batch", "seq", "embed"),
+                                 ("embed", "mlp"),
+                                 ("batch", "seq_attn", "mlp")))
+    return L.row_project(sh, h, wo, "bsf,fd->bsd",
+                         ("batch", "seq_attn", "mlp"),
+                         ("mlp", "embed"), ("batch", "seq", "embed"))
 
 
 def _dense_ffn(lp: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -242,10 +270,16 @@ def zero_src_embeds(cfg: ArchConfig, batch: int, src_len: int,
 
 
 def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                  prefix_embeds: Optional[torch.Tensor]
+                  prefix_embeds: Optional[torch.Tensor], sh=None
                   ) -> Tuple[torch.Tensor, int]:
     """(h (B, prefix + S, D), prefix): the meta tokens, then the prefix
-    embeddings, ahead of the token embeddings."""
+    embeddings, ahead of the token embeddings.  With a sharder h is laid
+    out as ("batch", "seq", "embed"), the tables read whole
+    (`lookup_tables`)."""
+    if sh is not None:
+        h, prefix = _embed_inputs(lookup_tables(params), cfg, tokens,
+                                  prefix_embeds)
+        return sh(h, ("batch", "seq", "embed")), prefix
     h = _embed(params, tokens)
     parts, prefix = [h], 0
     if prefix_embeds is not None:
@@ -258,6 +292,17 @@ def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     if len(parts) == 1:
         return h, 0
     return torch.cat(parts, dim=1), prefix
+
+
+def lookup_tables(params: Params) -> Params:
+    """params with the embedding (and the meta tokens) whole on every
+    rank, for a sharded step's lookup: the rows come out in the tokens'
+    own layout, and no DTensor op has to move either operand."""
+    out = dict(params)
+    for name in ("embed", "meta"):
+        if name in params:
+            out[name] = full_replicate(params[name])
+    return out
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -282,11 +327,16 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
                      impl: str, prefix: int, window: int,
-                     causal: bool = True) -> Tuple[torch.Tensor, Tuple]:
+                     causal: bool = True, sh=None
+                     ) -> Tuple[torch.Tensor, Tuple]:
     """Self-attention over a full sequence from position 0, with RoPE:
     causal with the layer's window (the first `prefix` positions exempt
     from it), or, for the encoder, non-causal.  Returns (out (B, S, H,
     hd), (k, v) each (B, S, K, hd))."""
+    if sh is not None:
+        return _attention_block_sharded(lp["attn"], cfg, x, sh, impl=impl,
+                                        prefix=prefix, window=window,
+                                        causal=causal)
     q = _project(x, lp["attn"]["wq"])
     k = _project(x, lp["attn"]["wk"])
     v = _project(x, lp["attn"]["wv"])
@@ -299,23 +349,82 @@ def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
     return out, (k, v)
 
 
+def _attention_block_sharded(ap: Params, cfg: ArchConfig, x: torch.Tensor,
+                             sh, *, impl: str, prefix: int, window: int,
+                             causal: bool, kv: Optional[Tuple] = None,
+                             rope: bool = True) -> Tuple[torch.Tensor, Tuple]:
+    """JAX's `_attention_block` under a sharder (Megatron-SP): q a
+    column-parallel projection, k and v projected and seq-gathered, all
+    three laid out as ("batch", "seq_attn", heads, "head_dim") for the
+    attention; `kv` the cross-attention's (k, v), without RoPE.  k and v
+    are projected from x with its sequence whole: DTensor does not
+    multiply a seq-sharded x by a head-sharded weight without moving one
+    of them, which XLA decides for itself."""
+    q = L.col_project(sh, x, ap["wq"], "bsd,dhk->bshk",
+                      ("batch", "seq", "embed"),
+                      ("embed", "heads", "head_dim"),
+                      ("batch", "seq_attn", "heads", "head_dim"))
+    if kv is None:
+        xs = sh(x, ("batch", "seq_attn", "embed"))
+        kv_axes = ("batch", "seq", "kv_heads", "head_dim")
+        k = L.seq_gather(sh, _project(xs, ap["wk"]), kv_axes)
+        v = L.seq_gather(sh, _project(xs, ap["wv"]), kv_axes)
+    else:
+        k, v = kv
+    if rope:
+        cos, sin = L.rope_cos_sin(torch.arange(q.shape[1], device=x.device),
+                                  cfg.head_dim, cfg.rope_theta)
+        q = L.apply_rope(q, cos, sin)
+        if kv is None:
+            k = L.apply_rope(k, cos, sin)
+    q = sh(q, ("batch", "seq_attn", "heads", "head_dim"))
+    k = sh(k, ("batch", "seq_attn", "kv_heads", "head_dim"))
+    v = sh(v, ("batch", "seq_attn", "kv_heads", "head_dim"))
+    # each rank attends its own rows and heads (kv-major heads: a block
+    # of q heads is the G-fold of the same block of kv heads)
+    out = local_map(
+        lambda q_, k_, v_: _attend(q_, k_, v_, impl=impl, causal=causal,
+                                   window=window, prefix=prefix),
+        q, k, v, mapped=(True, True, True), dims=(0, 2))
+    return out, (k, v)
+
+
+def _out_row_project(sh, a_out: torch.Tensor, wo) -> torch.Tensor:
+    """The attention's out-projection, row-parallel."""
+    return L.row_project(sh, a_out, wo, "bshk,hkd->bsd",
+                         ("batch", "seq_attn", "heads", "head_dim"),
+                         ("heads", "head_dim", "embed"),
+                         ("batch", "seq", "embed"))
+
+
 # --------------------------------------------------------------------- #
 # The encoder-decoder: the encoder stack and the cross-attention
 
 def _run_encoder(params: Params, cfg: ArchConfig, src_embeds: torch.Tensor,
-                 impl: str) -> torch.Tensor:
+                 impl: str, sh=None, shw=None) -> torch.Tensor:
     """The encoder over src_embeds (B, S_src, D): per layer non-causal
     self-attention (RoPE from position 0) and the FFN, then the decoder's
-    final norm, as JAX's `_run_encoder`.  Returns (B, S_src, D)."""
+    final norm, as JAX's `_run_encoder`.  Returns (B, S_src, D).  With a
+    sharder, as JAX's `enc_layer`; each layer's weights are moved to
+    their compute layout (`shw`) as the decoder's are."""
     h = src_embeds.to(torch_dtype(cfg.dtype))
+    enc_ax = _layer_axes(cfg) if shw is not None else None
     for i in range(cfg.encdec.enc_layers):
         lp = _layer(params, i, "enc_layers")
+        if shw is not None:
+            lp = shw(lp, enc_ax)
         x = L.norm(h, lp.get("ln1"), cfg.norm)
         a_out, _ = _attention_block(lp, cfg, x, impl=impl, prefix=0,
-                                    window=0, causal=False)
-        h = h + _out_project(a_out, lp["attn"]["wo"])
+                                    window=0, causal=False, sh=sh)
+        if sh is None:
+            h = h + _out_project(a_out, lp["attn"]["wo"])
+            x = L.norm(h, lp.get("ln2"), cfg.norm)
+            h = h + _ffn(lp, cfg, x)
+            continue
+        h = h + _out_row_project(sh, a_out, lp["attn"]["wo"])
         x = L.norm(h, lp.get("ln2"), cfg.norm)
-        h = h + _ffn(lp, cfg, x)
+        h = h + sh(_ffn_aux(lp, cfg, x, sh)[0], ("batch", "seq", "embed"))
+        h = sh(h, ("batch", "seq", "embed"))
     return L.norm(h, params.get("final_norm"), cfg.norm)
 
 
@@ -366,10 +475,16 @@ def _hymba_ssm_seq(sp: Params, cfg: ArchConfig, x: torch.Tensor,
     (zeros when None).  Returns (y (B, S, inner), h_final (B, inner, N)
     f32)."""
     u, z, dt, a, b_t, c_t = _ssm_inputs(sp, x)
-    if h0 is None:
-        h0 = torch.zeros((x.shape[0], u.shape[-1], cfg.ssm_state),
-                         dtype=torch.float32, device=x.device)
-    y, h_f = ssm_lib.selective_scan(u.float(), dt, a, b_t, c_t, h0)
+
+    def scan(u, dt, a, b_t, c_t):
+        h_0 = h0
+        if h_0 is None:
+            h_0 = torch.zeros((u.shape[0], u.shape[-1], cfg.ssm_state),
+                              dtype=torch.float32, device=u.device)
+        return ssm_lib.selective_scan(u, dt, a, b_t, c_t, h_0)
+    # under a sharder each rank scans its own rows
+    y, h_f = local_map(scan, u.float(), dt, a, b_t, c_t,
+                       mapped=(True, True, False, True, True))
     return _ssm_out(sp, y, u, z, x.dtype), h_f
 
 
@@ -404,9 +519,12 @@ def _decoder_layer(lp: Params, cfg: ArchConfig, h: torch.Tensor, *,
 
 def _layer_forward(lp: Params, cfg: ArchConfig, h: torch.Tensor, *,
                    impl: str, prefix: int, window: int,
-                   xkv: Optional[Tuple] = None):
+                   xkv: Optional[Tuple] = None, sh=None):
     """`_decoder_layer` and the layer's MoE aux loss (None for a dense
     FFN): (h, (k, v), h_f, aux)."""
+    if sh is not None:
+        return _layer_forward_sharded(lp, cfg, h, sh, impl=impl,
+                                      prefix=prefix, window=window, xkv=xkv)
     x = L.norm(h, lp.get("ln1"), cfg.norm)
     a_out, kv = _attention_block(lp, cfg, x, impl=impl, prefix=prefix,
                                  window=window)
@@ -426,10 +544,46 @@ def _layer_forward(lp: Params, cfg: ArchConfig, h: torch.Tensor, *,
     return h + f_out, kv, h_f, aux
 
 
+def _layer_forward_sharded(lp: Params, cfg: ArchConfig, h: torch.Tensor, sh,
+                           *, impl: str, prefix: int, window: int,
+                           xkv: Optional[Tuple] = None):
+    """JAX's `_decoder_layer` under a sharder: Hymba gathers the
+    seq-sharded x once for both branches, whose scan runs on each rank's
+    rows; every other out-projection is row-parallel; the residual stays
+    ("batch", "seq", "embed")."""
+    res = ("batch", "seq", "embed")
+    x = L.norm(h, lp.get("ln1"), cfg.norm)
+    h_f = None
+    if cfg.block == "hymba":
+        x = L.seq_gather(sh, x, res)
+        a_out, kv = _attention_block_sharded(lp["attn"], cfg, x, sh,
+                                             impl=impl, prefix=prefix,
+                                             window=window, causal=True)
+        s_out, h_f = _hymba_ssm_seq(lp["ssm"], cfg, x)
+        h = h + sh(_hymba_mix(lp, a_out.reshape(*a_out.shape[:2], -1),
+                              s_out, h.dtype), res)
+    else:
+        a_out, kv = _attention_block_sharded(lp["attn"], cfg, x, sh,
+                                             impl=impl, prefix=prefix,
+                                             window=window, causal=True)
+        h = h + _out_row_project(sh, a_out, lp["attn"]["wo"])
+    if xkv is not None:
+        x = L.norm(h, lp.get("lnx"), cfg.norm)
+        c_out, _ = _attention_block_sharded(lp["xattn"], cfg, x, sh,
+                                            impl=impl, prefix=0, window=0,
+                                            causal=False, kv=xkv,
+                                            rope=False)
+        h = h + _out_row_project(sh, c_out, lp["xattn"]["wo"])
+    x = L.norm(h, lp.get("ln2"), cfg.norm)
+    f_out, aux = _ffn_aux(lp, cfg, x, sh)
+    h = sh(h + sh(f_out, res), res)
+    return h, kv, h_f, aux
+
+
 def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
            impl: str, prefix_embeds: Optional[torch.Tensor],
            src_embeds: Optional[torch.Tensor] = None, remat: bool = False,
-           collect: bool = True
+           collect: bool = True, sh=None, shw=None
            ) -> Tuple[torch.Tensor, Cache, int, torch.Tensor]:
     """Embedding (meta tokens, then the prefix embeddings, first), the
     encoder over `src_embeds` (an encoder-decoder), every layer and the
@@ -443,26 +597,35 @@ def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     decoder layer (its cross K/V included) under
     `torch.utils.checkpoint`, which keeps only the layer's input and
     recomputes the rest in the backward: JAX's
-    `jax.checkpoint(nothing_saveable)` around its layer scan's body."""
+    `jax.checkpoint(nothing_saveable)` around its layer scan's body.
+    `sh` / `shw` (`distributed.sharding`) lay out the activations and
+    move each layer's weights to their compute layout; the default
+    (None) leaves every path as it is on one device."""
     _require_transformer(cfg)
     if impl not in ("flash", "full", "auto"):
         raise ValueError(f"impl must be 'flash', 'full' or 'auto', "
                          f"not {impl!r}")
     if cfg.is_encdec and src_embeds is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder needs src_embeds")
-    h, prefix = _embed_inputs(params, cfg, tokens, prefix_embeds)
-    enc_out = (_run_encoder(params, cfg, src_embeds, impl)
+    h, prefix = _embed_inputs(params, cfg, tokens, prefix_embeds, sh)
+    enc_out = (_run_encoder(params, cfg, src_embeds, impl, sh, shw)
                if cfg.is_encdec else None)
+    if enc_out is not None and sh is not None:
+        # the cross K/V are projected from the whole source sequence
+        enc_out = sh(enc_out, ("batch", "seq_attn", "embed"))
     ks, vs, states, xkvs = [], [], [], []
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    layer_ax = _layer_axes(cfg, cross=cfg.is_encdec) if shw else None
 
     def layer(lp, h, window):
         xkv = _cross_kv(lp, enc_out) if enc_out is not None else None
         return (*_layer_forward(lp, cfg, h, impl=impl, prefix=prefix,
-                                window=window, xkv=xkv), xkv)
+                                window=window, xkv=xkv, sh=sh), xkv)
 
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
+        if shw is not None:
+            lp = shw(lp, layer_ax)
         if remat:
             out = checkpoint(layer, lp, h, _window(cfg, i),
                              use_reentrant=False)
@@ -492,7 +655,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             impl: str = "flash",
             prefix_embeds: Optional[torch.Tensor] = None,
             src_embeds: Optional[torch.Tensor] = None, remat: bool = False,
-            return_aux: bool = False):
+            return_aux: bool = False, sh=None, shw=None):
     """Full-sequence logits (B, P + S, V), P the meta tokens and
     prefix_embeds.shape[1] (0 without either), as JAX's forward; an
     encoder-decoder needs `src_embeds`.  impl="flash" runs prefill's
@@ -503,30 +666,53 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     `zero_src_embeds`; a recompute that stands for the engine passes the
     same.  `remat` checkpoints each layer (see `_trunk`); `return_aux`
     returns (logits, aux), aux the MoE aux loss summed over the layers
-    (0 without MoE)."""
+    (0 without MoE).  `sh` / `shw`: the sharded step's hooks (see
+    `_trunk`); the logits are then laid out ("batch", "seq", "vocab")."""
     h, _, _, aux = _trunk(params, cfg, tokens, impl=impl,
                           prefix_embeds=prefix_embeds, src_embeds=src_embeds,
-                          remat=remat, collect=False)
-    logits = _logits(params, cfg, h)
+                          remat=remat, collect=False, sh=sh, shw=shw)
+    if sh is None:
+        logits = _logits(params, cfg, h)
+    else:
+        logits = sharded_logits(params, cfg, h, sh, shw)
     return (logits, aux) if return_aux else logits
+
+
+def sharded_logits(params: Params, cfg: ArchConfig, h: torch.Tensor, sh,
+                   shw) -> torch.Tensor:
+    """The LM head under a sharder: the head in its compute layout
+    (`shw`, ("embed", "vocab")), h with its sequence whole (the layout
+    the vocab-sharded logits take), the logits laid out ("batch", "seq",
+    "vocab")."""
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    if shw is not None:
+        head = shw(head, ("embed", "vocab"))
+    h = sh(h, ("batch", "seq_attn", "embed"))
+    return sh(h @ head, ("batch", "seq", "vocab"))
 
 
 def nll_loss(logits: torch.Tensor, labels: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The mean next-token NLL over the labels that are not -100: f32
     log_softmax of logits (B, S, V), labels (B, S).  Returns (loss, the
-    count of kept labels (at least 1) as f32)."""
-    mask = labels != -100
-    lab = torch.where(mask, labels, 0).long()
-    lp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -lp.gather(-1, lab[..., None])[..., 0]
-    denom = mask.sum().clamp_min(1)
-    loss = torch.where(mask, nll, 0.0).sum() / denom
+    count of kept labels (at least 1) as f32).  Sharded logits and
+    labels are read on each rank's rows (`local_map`), the sums then
+    reduced over the mesh."""
+    def token_nll(logits, labels):
+        mask = labels != -100
+        lab = torch.where(mask, labels, 0).long()
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -lp.gather(-1, lab[..., None])[..., 0]
+        return torch.where(mask, nll, 0.0)
+    nll = local_map(token_nll, logits, labels, mapped=(True, True))
+    denom = (labels != -100).sum().clamp_min(1)
+    loss = nll.sum() / denom
     return loss, denom.float()
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
-            *, remat: bool = False, aux_weight: float = 0.01):
+            *, remat: bool = False, aux_weight: float = 0.01, sh=None,
+            shw=None):
     """JAX's `loss_fn`: batch {"tokens", "labels" (-100 masked),
     optional "prefix_embeds" / "src_embeds"}; the logits of the token
     tail (past the meta and prefix tokens) against the labels, plus
@@ -535,11 +721,91 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     logits, aux = forward(params, cfg, batch["tokens"], impl="auto",
                           prefix_embeds=batch.get("prefix_embeds"),
                           src_embeds=batch.get("src_embeds"), remat=remat,
-                          return_aux=True)
+                          return_aux=True, sh=sh, shw=shw)
     labels = batch["labels"]
     loss, denom = nll_loss(logits[:, -labels.shape[1]:], labels)
     return loss + aux_weight * aux, {"loss": loss, "aux": aux,
                                      "tokens": denom}
+
+
+# --------------------------------------------------------------------- #
+# Logical axes (the sharding rules' names for each dim; `distributed`)
+
+def _layer_axes(cfg: ArchConfig, cross: bool = False) -> Dict:
+    """One layer's logical axes, as JAX's `_layer_axes`."""
+    p: Dict = {}
+    p["attn"] = {"wq": ("embed", "heads", "head_dim"),
+                 "wk": ("embed", "kv_heads", "head_dim"),
+                 "wv": ("embed", "kv_heads", "head_dim")}
+    if cfg.block != "hymba":
+        p["attn"]["wo"] = ("heads", "head_dim", "embed")
+    if cfg.norm == "rms":
+        p["ln1"] = ("embed",)
+        p["ln2"] = ("embed",)
+    if cross:
+        p["xattn"] = {"wq": ("embed", "heads", "head_dim"),
+                      "wk": ("embed", "kv_heads", "head_dim"),
+                      "wv": ("embed", "kv_heads", "head_dim"),
+                      "wo": ("heads", "head_dim", "embed")}
+        if cfg.norm == "rms":
+            p["lnx"] = ("embed",)
+    if cfg.moe:
+        wi = ("experts", "stack", "embed", "mlp") if cfg.act == "swiglu" \
+            else ("experts", "embed", "mlp")
+        p["moe"] = {"router": ("embed", "experts"), "wi": wi,
+                    "wo": ("experts", "mlp", "embed")}
+    elif cfg.d_ff > 0:
+        wi = ("stack", "embed", "mlp") if cfg.act == "swiglu" \
+            else ("embed", "mlp")
+        p["mlp"] = {"wi": wi, "wo": ("mlp", "embed")}
+    if cfg.block == "hymba":
+        p["ssm"] = {"w_in": ("embed", "stack", "inner"),
+                    "w_dt_a": ("inner", "rank"),
+                    "w_dt_b": ("rank", "inner"),
+                    "b_dt": ("inner",), "a_log": ("inner", "state"),
+                    "w_b": ("inner", "state"), "w_c": ("inner", "state"),
+                    "d_skip": ("inner",)}
+        p["branch_norm_attn"] = ("inner",)
+        p["branch_norm_ssm"] = ("inner",)
+        p["beta"] = ("stack",)
+        p["wo_comb"] = ("inner", "embed")
+    return p
+
+
+def _stack_axes(tree: Dict) -> Dict:
+    """("layers",) ahead of every leaf's axes."""
+    return {k: _stack_axes(v) if isinstance(v, dict) else ("layers",) + v
+            for k, v in tree.items()}
+
+
+def param_axes(cfg: ArchConfig) -> Dict:
+    """The params' logical axes, key for key JAX's `param_axes`."""
+    axes: Dict = {"embed": ("vocab", "embed")}
+    if cfg.n_meta_tokens:
+        axes["meta"] = ("prefix", "embed")
+    axes["layers"] = _stack_axes(_layer_axes(cfg, cross=cfg.is_encdec))
+    if cfg.is_encdec:
+        axes["enc_layers"] = _stack_axes(_layer_axes(cfg, cross=False))
+    if cfg.norm == "rms":
+        axes["final_norm"] = ("embed",)
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def cache_axes(cfg: ArchConfig, kv_quant: bool = False) -> Dict:
+    """The contiguous cache's logical axes, as JAX's `cache_axes`."""
+    kv = ("layers", "batch", "seq_kv", "kv_heads", "head_dim")
+    ax = {"k": kv, "v": kv}
+    if kv_quant:
+        ax["k_scale"] = kv[:-1]
+        ax["v_scale"] = kv[:-1]
+    if cfg.block == "hymba":
+        ax["ssm_h"] = ("layers", "batch", "inner", "state")
+    if cfg.is_encdec:
+        ax["ck"] = kv
+        ax["cv"] = kv
+    return ax
 
 
 # --------------------------------------------------------------------- #

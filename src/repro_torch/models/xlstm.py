@@ -33,10 +33,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import local_map
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.transformer import (_embed, _index, _logits,
-                                            _matmul, _project, _reshape)
+                                            _matmul, _project, _reshape,
+                                            lookup_tables, sharded_logits)
 from repro_torch.params import Params
 
 Cache = Dict[str, torch.Tensor]
@@ -68,16 +70,54 @@ def _pair(params: Params, i: int) -> Tuple[Params, Params]:
                  for blk in ("mlstm", "slstm"))
 
 
+def _pair_axes() -> Dict:
+    """One pair's logical axes, as JAX's `_pair_axes`."""
+    return {
+        "mlstm": {"ln": ("embed",),
+                  "w_up": ("embed", "stack", "inner"),
+                  "wq": ("inner", "heads", "head_dim"),
+                  "wk": ("inner", "heads", "head_dim"),
+                  "wv": ("inner", "heads", "head_dim"),
+                  "w_i": ("inner", "heads"), "b_i": ("heads",),
+                  "w_f": ("inner", "heads"), "b_f": ("heads",),
+                  "gn": ("inner",), "w_down": ("inner", "embed")},
+        "slstm": {"ln": ("embed",),
+                  "w_x": ("embed", "stack", "heads", "head_dim"),
+                  "r": ("stack", "heads", "head_dim", "head_dim2"),
+                  "b": ("stack", "heads", "head_dim"),
+                  "gn": ("embed",),
+                  "ffn_wi": ("embed", "mlp"), "ffn_wo": ("mlp", "embed")},
+    }
+
+
+def param_axes(cfg: ArchConfig) -> Dict:
+    """The params' logical axes, key for key JAX's `param_axes`."""
+    pairs = {blk: {k: ("layers",) + ax for k, ax in leaves.items()}
+             for blk, leaves in _pair_axes().items()}
+    return {"embed": ("vocab", "embed"), "pairs": pairs,
+            "final_norm": ("embed",)}
+
+
+def cache_axes(cfg: ArchConfig) -> Dict:
+    """The seven state leaves' logical axes, as JAX's `cache_axes`."""
+    vec = ("layers", "batch", "heads", "head_dim")
+    return {"mC": ("layers", "batch", "heads", "head_dim", "head_dim2"),
+            "mn": vec, "mm": ("layers", "batch", "heads"),
+            "sc": vec, "sn": vec, "sm": vec, "sh": vec}
+
+
 # --------------------------------------------------------------------- #
 # the two blocks, shared by the full-sequence and the one-token paths
 
-def _mlstm_in(mp: Params, cfg: ArchConfig, x: torch.Tensor):
+def _mlstm_in(mp: Params, cfg: ArchConfig, x: torch.Tensor, sh=None):
     """From the normed input x (..., d): u and the gate z (..., inner),
     q, k, v (..., H, hd_m) in x's dtype, and the f32 gate inputs i_raw,
-    f_raw (..., H)."""
+    f_raw (..., H).  A sharder lays u out as ("batch", "seq", "inner")."""
     d, inner, _, _, _, _ = dims(cfg)
     up = _matmul(x, _reshape(mp["w_up"], d, 2 * inner))
     u, z = up[..., :inner], up[..., inner:]
+    if sh is not None:
+        u = sh(u, ("batch", "seq", "inner"))
     q, k, v = (_project(u, mp[w]) for w in ("wq", "wk", "wv"))
     uf = u.float()
     i_raw = uf @ mp["w_i"] + mp["b_i"]
@@ -119,24 +159,36 @@ def _slstm_out(sp: Params, cfg: ArchConfig, hs: torch.Tensor,
 # full sequence
 
 def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-           chunked: bool, remat: bool = False) -> Tuple[torch.Tensor, Cache]:
+           chunked: bool, remat: bool = False, sh=None,
+           shw=None) -> Tuple[torch.Tensor, Cache]:
     """Every pair from the init state, then the final norm.  Returns (h
     (B, S, d), the pairs' final states stacked as the cache when
     `chunked`, else {}).  `remat` runs each pair under
     `torch.utils.checkpoint` (its input kept, the rest recomputed in the
     backward), as JAX's `jax.checkpoint(nothing_saveable)` around its
-    pair scan's body."""
+    pair scan's body.  `sh` / `shw` (`distributed.sharding`) lay out
+    the activations as JAX's forward does and move each pair's weights
+    to their compute layout; the cells run on each rank's rows."""
     b, s = tokens.shape
-    h = _embed(params, tokens)
+    res = ("batch", "seq", "embed")
+    if sh is not None:
+        h = sh(_embed(lookup_tables(params), tokens), res)
+    else:
+        h = _embed(params, tokens)
     chunked = chunked or s > PARALLEL_MAX
     finals = []
     for i in range(n_pairs(cfg)):
         mp, sp = _pair(params, i)
+        if shw is not None:
+            pp = shw({"mlstm": mp, "slstm": sp}, _pair_axes())
+            mp, sp = pp["mlstm"], pp["slstm"]
         if remat:
-            h, fin = checkpoint(_pair_seq, mp, sp, cfg, h, chunked,
+            h, fin = checkpoint(_pair_seq, mp, sp, cfg, h, chunked, sh,
                                 use_reentrant=False)
         else:
-            h, fin = _pair_seq(mp, sp, cfg, h, chunked)
+            h, fin = _pair_seq(mp, sp, cfg, h, chunked, sh)
+        if sh is not None:
+            h = sh(h, res)
         if chunked:
             finals.append(fin)
     h = L.rms_norm(h, params["final_norm"])
@@ -147,33 +199,44 @@ def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 
 def _pair_seq(mp: Params, sp: Params, cfg: ArchConfig, h: torch.Tensor,
-              chunked: bool):
+              chunked: bool, sh=None):
     """One pair over a full sequence from the init state: returns (h, its
     final states (the mLSTM's C, n, m, then the sLSTM's c, n, m, h) when
-    `chunked`, else None)."""
+    `chunked`, else None).  The cells run on each rank's rows under a
+    sharder (`local_map`; on plain tensors it is the call itself)."""
     _, _, nh, hd_m, hd_s, _ = dims(cfg)
-    b, dev = h.shape[0], h.device
-    z, q, k, v, i_raw, f_raw = _mlstm_in(mp, cfg, L.rms_norm(h, mp["ln"]))
+    z, q, k, v, i_raw, f_raw = _mlstm_in(mp, cfg, L.rms_norm(h, mp["ln"]),
+                                         sh)
+    rows = (True,) * 5
     m_fin = ()
     if chunked:
-        core, m_fin = ssm_lib.mlstm_chunkwise(
-            q, k, v, i_raw, f_raw, ssm_lib.mlstm_init_state(b, nh, hd_m, dev))
+        core, m_fin = local_map(
+            lambda q, k, v, i, f: ssm_lib.mlstm_chunkwise(
+                q, k, v, i, f,
+                ssm_lib.mlstm_init_state(q.shape[0], nh, hd_m, q.device)),
+            q, k, v, i_raw, f_raw, mapped=rows)
     else:
-        core = ssm_lib.mlstm_parallel(q, k, v, i_raw, f_raw)
+        core = local_map(ssm_lib.mlstm_parallel, q, k, v, i_raw, f_raw,
+                         mapped=rows)
     h = _mlstm_out(mp, cfg, core, z, h)
-    hs, s_fin = ssm_lib.slstm_scan(
-        _slstm_in(sp, cfg, h), sp["r"],
-        ssm_lib.slstm_init_state(b, nh, hd_s, dev))
+    hs, s_fin = local_map(
+        lambda xw, r: ssm_lib.slstm_scan(
+            xw, r, ssm_lib.slstm_init_state(xw.shape[0], nh, hd_s,
+                                            xw.device)),
+        _slstm_in(sp, cfg, h), sp["r"], mapped=(True, False))
     h = _slstm_out(sp, cfg, hs, h)
     return h, ((*m_fin, *s_fin) if chunked else None)
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, sh=None, shw=None) -> torch.Tensor:
     """Full-sequence logits (B, S, V), as JAX's forward; `remat`
-    checkpoints each pair (see `_trunk`).  Differentiable: training's
-    forward."""
-    h, _ = _trunk(params, cfg, tokens, chunked=False, remat=remat)
+    checkpoints each pair, `sh` / `shw` are the sharded step's hooks (see
+    `_trunk`).  Differentiable: training's forward."""
+    h, _ = _trunk(params, cfg, tokens, chunked=False, remat=remat, sh=sh,
+                  shw=shw)
+    if sh is not None:
+        return sharded_logits(params, cfg, h, sh, shw)
     return _logits(params, cfg, h)
 
 

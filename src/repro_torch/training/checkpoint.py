@@ -199,8 +199,11 @@ def save(tree: Tree, path: PathLike) -> None:
 
 def restore(path: PathLike, like: Tree) -> Tree:
     """Restore into the structure of `like`: each leaf converted to its
-    `like` leaf's dtype, on its device.  A missing leaf raises KeyError,
-    a shape that differs ValueError, as JAX's."""
+    `like` leaf's dtype, on its device; a DTensor leaf of `like` gets the
+    restored tensor in its own layout (each rank keeps its blocks).  A
+    missing leaf raises KeyError, a shape that differs ValueError, as
+    JAX's."""
+    from repro_torch.distributed.sharding import distribute, is_dtensor
     buf = bytearray(Path(path).stat().st_size)
     with open(path, "rb") as f:
         f.readinto(buf)
@@ -213,7 +216,10 @@ def restore(path: PathLike, like: Tree) -> Tree:
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: shape {tuple(t.shape)} != "
                              f"{tuple(leaf.shape)}")
-        out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+        t = t.to(device=leaf.device, dtype=leaf.dtype)
+        if is_dtensor(leaf):
+            t = distribute(t, leaf.device_mesh, leaf.placements)
+        out.append(t)
     return unflatten(like, out)
 
 

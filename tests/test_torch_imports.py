@@ -22,6 +22,11 @@ import repro_torch.examples, repro_torch.examples.train_100m
 import repro_torch.training.data, repro_torch.training.optimizer
 import repro_torch.training.compression, repro_torch.training.checkpoint
 import repro_torch.training.train_loop, repro_torch.launch.steps
+import repro_torch.distributed, repro_torch.distributed.sharding
+import repro_torch.launch.mesh
+# importing the mesh module starts no process group
+import torch.distributed
+assert not torch.distributed.is_initialized()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro.")

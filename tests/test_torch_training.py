@@ -466,11 +466,40 @@ def test_run_goes_on_from_a_given_state(tmp_path):
     assert list(tmp_path.iterdir()) == []
 
 
-def test_trainer_refuses_a_mesh():
+def test_trainer_refuses_a_mesh(tmp_path):
+    """A mesh without a strategy is refused; a "cpu" mesh of one rank
+    (`launch.mesh.make_mesh`, a one-rank gloo group started for it) with
+    a strategy is taken: every dim resolves unsharded there.  3 steps
+    match the unsharded trainer's losses (the sharded path's einsums sum
+    in another order than the plain path's matmuls), and the checkpoint
+    is the file the unsharded codec writes for the gathered state, as
+    long as the unsharded trainer's."""
+    from repro_torch.distributed import train_strategy_fsdp
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import gather_tree
+    from repro_torch.training import checkpoint as ckpt_lib
     cfg = ARCHS["olmo-1b"].reduced(dtype="f32")
     dc = DataConfig(vocab=cfg.vocab, seq_len=8, batch=2)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="mesh and a strategy"):
         Trainer(cfg, dc, TrainConfig(), mesh=object(), device="cpu")
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    runs = {}
+    for name, kw in (("mesh", {"mesh": mesh,
+                               "strategy": train_strategy_fsdp(mesh)}),
+                     ("plain", {"device": "cpu"})):
+        tc = TrainConfig(steps=3, ckpt_every=3, log_every=1,
+                         ckpt_dir=str(tmp_path / name))
+        runs[name] = Trainer(cfg, dc, tc, **kw).run()
+    assert all(is_dtensor(t) for t in leaves(runs["mesh"]["state"]))
+    np.testing.assert_allclose([h["loss"] for h in runs["mesh"]["history"]],
+                               [h["loss"] for h in runs["plain"]["history"]],
+                               rtol=1e-6)
+    files = [(tmp_path / n / "ckpt_00000003.msgpack").read_bytes()
+             for n in runs]
+    ckpt_lib.save(gather_tree(runs["mesh"]["state"]), tmp_path / "g.msgpack")
+    assert files[0] == (tmp_path / "g.msgpack").read_bytes()
+    assert len(files[0]) == len(files[1])
 
 
 def test_train_100m_tiny_crash_and_resume(tmp_path):
@@ -512,12 +541,13 @@ def test_specs_match_jax(name):
 
 
 def test_step_builders_refuse_a_mesh():
+    """The sharded prefill and decode steps wait for slice 16 (the train
+    step takes a mesh: tests/test_torch_distributed.py)."""
     cfg = ARCHS["olmo-1b"].reduced()
     shape = SHAPES["decode_32k"]
-    for call in (lambda: steps.make_train_step(cfg, mesh=object()),
-                 lambda: steps.make_prefill_step(cfg, shape, strategy=1),
+    for call in (lambda: steps.make_prefill_step(cfg, shape, strategy=1),
                  lambda: steps.make_decode_step(cfg, mesh=object())):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="slice 16"):
             call()
 
 
