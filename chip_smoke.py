@@ -158,6 +158,23 @@ JSON line:
               shape (f32, bf16) against decode_attention_ref and the
               decode kernel, its wire bytes beside the KV bytes.  The
               ms over gloo are no speed of the method.
+   sharded_serve — the sharded serving steps (launch/steps.py with a
+              mesh) on the same 4 ranks and (2, 2) mesh under the serve
+              strategy, f32 at full width cut to 2 layers: a sharded
+              prefill of 4 rows and 8 greedy sharded decode steps against
+              the unsharded steps on the card (tokens identical, logits
+              within 1e-4): OLMo-1B (16 kv heads over "model": on every
+              rank flash 2 launches, the decode kernel 16, counted from 0
+              before the sharded run), gemma3-1b (1 kv head: the cache's
+              positions over "model", window 512, hd 256; the combine's
+              wire bytes), OLMo's int8 KV cache (logits within 5e-3: int8
+              rounding ties); in each case the first and last call of
+              flash and of the decode kernel on the path held against
+              their plain versions on the same local blocks (1e-4);
+              then the roofline of the full OLMo-1B's
+              unsharded prefill (4 x 1024) and decode step (B 8, cache
+              1024) counted on meta tensors, beside their ms on the card
+              and model_flops_for (a reading).
    kv_quant — the int8 KV cache on OLMo-1B: 2 layers in f32, 8 prompts
               of 1000 tokens into a cache of 1024, 8 teacher-forced
               decode steps, the card within f32's 1e-4 of the CPU and
@@ -4854,6 +4871,318 @@ def sharded(dev, ops, card, cfg=None, decode_shape=DECODE_SHAPE):
 
 
 # --------------------------------------------------------------------- #
+# The sharded_serve phase: the sharded prefill and decode steps on the
+# same world of 4 ranks, then the roofline's count beside the card's time
+
+SERVE_ROWS, SERVE_STEPS = 4, 8
+# (case, model, prompt tokens, cache length, int8 KV); gemma3-1b's cache
+# splits its positions over "model" at 320, its window of 512 inside
+SERVE_CASES = (("olmo", "olmo-1b", 256, 264, False),
+               ("gemma", "gemma3-1b", 600, 640, False),
+               ("olmo_int8kv", "olmo-1b", 256, 264, True))
+# int8 K/V computed in another summation order can round one step apart
+# at a rounding boundary, which moves a logit by ~1e-4 at the CPU test's
+# width (its INT8KV_DECODE_TOL is 1e-3) and by up to 8.8e-4 at full
+# width on the card (PERF.md), hence 5e-3 here; the tokens stay equal
+SERVE_TOL = {"olmo": 1e-4, "gemma": 1e-4, "olmo_int8kv": 5e-3}
+# a kernel's output on the sharded path against its plain version on the
+# same f32 local blocks (check_close's atol = rtol)
+KERNEL_TOL = 1e-4
+
+
+def serve_greedy(prefill, decode, params, batch, steps):
+    """A prefill and `steps` greedy decode steps: (tokens, logits), one
+    (B,) / (B, V) full tensor a step (sharded logits gathered)."""
+    from repro_torch.distributed.sharding import full_tensor
+    logits, cache, pos = prefill(params, batch)
+    pos = full_tensor(pos)
+    toks, outs = [], []
+    for t in range(steps + 1):
+        logits = full_tensor(logits)
+        outs.append(logits)
+        toks.append(logits.argmax(-1).to(torch.int32))
+        if t == steps:
+            break
+        pos = pos + 1
+        logits, cache = decode(params, cache, toks[-1], pos)
+    return toks, outs, cache
+
+
+@contextlib.contextmanager
+def kernel_captures(ops, names=("flash_attention", "decode_attention")):
+    """Within it every call of the wrappers `names`, made as the models
+    make it (`ops.<name>`), runs as before, and the first and the last
+    call of each keep copies of their inputs and output (before the
+    cache is written again): yields {name: [(args, kwargs, out), ...]}."""
+    seen = {n: [] for n in names}
+    orig = {n: getattr(ops, n) for n in names}
+
+    def capture(n):
+        def call(*args, **kwargs):
+            out = orig[n](*args, **kwargs)
+            kept = (tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args), dict(kwargs), out.clone())
+            seen[n][1 if seen[n] else 0:] = [kept]
+            return out
+        # the wrapper counts its launches on whatever `ops.<name>` is
+        # (`ops._count`): the stand-in shares the wrapper's attributes
+        call.__dict__ = orig[n].__dict__
+        return call
+
+    for n in names:
+        setattr(ops, n, capture(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(ops, n, orig[n])
+
+
+def captured_vs_plain(seen, tol):
+    """Each captured kernel call's output held against its plain version
+    on the same inputs (atol = rtol = tol): one reading a call."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    refs = {"flash_attention": flash_attention_ref,
+            "decode_attention": decode_attention_ref}
+    out = []
+    for name, calls in seen.items():
+        for which, (args, kwargs, got) in zip(("first", "last"), calls):
+            want = refs[name](*args, **kwargs)
+            err = (got.float() - want.float()).abs()
+            out.append({"kernel": name, "call": which,
+                        "q": list(args[0].shape), "kv": list(args[1].shape),
+                        "kwargs": kwargs, "max_abs_err": float(err.max()),
+                        "ok": bool((err <= tol + tol * want.float().abs())
+                                   .all() and torch.isfinite(got).all())})
+    return out
+
+
+def serve_cut(name):
+    """`name` at full width cut to TRAIN_LAYERS layers, in f32 (a config
+    passes as it is: a CPU rehearsal's)."""
+    from repro_torch.configs import ARCHS, ZOO
+    if not isinstance(name, str):
+        return name
+    return dataclasses.replace({**ZOO, **ARCHS}[name], dtype="f32",
+                               n_layers=TRAIN_LAYERS)
+
+
+def sharded_serve_worker(rank, world, store_path, out_dir, device, cases):
+    """One rank of the sharded_serve phase (see `sharded_serve`): writes
+    its readings to out_dir/rank<r>.json."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build
+    from repro_torch.roofline.analysis import collective_bytes
+    per_card = device == "cuda" and torch.cuda.device_count() >= world
+    dev = torch.device(device, rank if per_card else 0) \
+        if device == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl" if per_card else "gloo",
+                            store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    mesh = make_mesh((2, 2), ("data", "model"), dev.type)
+    rec = {"rank": rank, "backend": dist.get_backend(), "cases": {}}
+    for case, name, prompt, cache_len, kv_quant in cases:
+        cfg = serve_cut(name)
+        strategy = S.pick_strategy("serve", mesh, cfg.num_params())
+        model = build(cfg, dev)
+        params = model.init(torch.Generator(dev).manual_seed(7))
+        gen = torch.Generator().manual_seed(11)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (SERVE_ROWS, prompt),
+                                         generator=gen,
+                                         dtype=torch.int32).to(dev)}
+        shape = ShapeSpec("sharded_serve", "decode", cache_len, SERVE_ROWS)
+        ref_t, ref_l, _ = serve_greedy(
+            steps.make_prefill_step(cfg, shape, kv_quant=kv_quant,
+                                    device=dev),
+            steps.make_decode_step(cfg, kv_quant=kv_quant, device=dev),
+            params, batch, SERVE_STEPS)
+        placed = steps.place_tree(
+            params, steps.param_shardings(model, mesh, strategy), mesh)
+        del params
+        prefill = steps.make_prefill_step(cfg, shape, mesh, strategy,
+                                          kv_quant=kv_quant)
+        decode = steps.make_decode_step(cfg, mesh, strategy,
+                                        kv_quant=kv_quant)
+        sync(dev)
+        # the sharded main path: the counts from 0 just before, read just
+        # after (each rank's own)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with S.record_collectives() as recs, kernel_captures(ops) as seen:
+            got_t, got_l, cache = serve_greedy(prefill, decode, placed,
+                                               batch, SERVE_STEPS)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {fn.__name__: fn.launches for fn in ops.WRAPPERS}
+        # the kernels' outputs on this path against their plain versions
+        # on the same local blocks (no launch: the outputs are the path's)
+        vs_plain = captured_vs_plain(seen, KERNEL_TOL)
+        del seen
+        rec["cases"][case] = {
+            "model": cfg.name, "strategy": strategy.name,
+            "prompt": prompt, "cache_len": cache_len, "kv_quant": kv_quant,
+            "tokens_equal": all(torch.equal(a, b)
+                                for a, b in zip(got_t, ref_t)),
+            "tokens": [t.tolist() for t in got_t],
+            "max_logit_err": max(float((a - b).abs().max())
+                                 for a, b in zip(got_l, ref_l)),
+            "launches": launches, "ms": ms, "kernel_vs_plain": vs_plain,
+            "wire_bytes": collective_bytes(recs),
+            "collectives": len(recs),
+            "cache_layout": {k: [str(p) for p in v.placements]
+                             for k, v in cache.items()},
+            "cache_block": list(cache["k"].to_local().shape)}
+        del placed, cache
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_serve(dev, ops, card, cases=SERVE_CASES, roofline_cfg=None):
+    """The `sharded_serve` phase: the sharded serving steps
+    (`launch.steps.make_prefill_step` / `make_decode_step` with a mesh) on
+    the `sharded` phase's world of 4 ranks and (2, 2) ("data", "model")
+    mesh under pick_strategy("serve").  Each case, at full width cut to
+    TRAIN_LAYERS layers in f32: a sharded prefill of 4 rows, then 8
+    greedy sharded decode steps, against the unsharded steps on the card
+    on the same params and prompts (tokens identical, logits within
+    SERVE_TOL).  OLMo-1B's 16 kv heads split over "model": on every rank
+    the flash kernel runs once a layer in the prefill and the decode
+    kernel once a layer a step, on its (rows, kv heads) block (counted
+    from 0 just before the sharded run); gemma3-1b's one kv head leaves
+    the cache's positions split over "model" (hd 256, window 512), merged
+    by the combine, whose wire bytes are printed; OLMo's int8 KV cache
+    against the unsharded int8-KV steps.  In each case the first and the
+    last call of flash and of the decode kernel on the sharded path (the
+    rank's (rows, heads) blocks; the cache 264 long, the last call at its
+    last position) are held against their plain versions on the same
+    inputs within KERNEL_TOL (`kernel_captures`).  Then the roofline
+    (`roofline.analysis.analyze` over `roofline.op_profile`'s count on
+    meta tensors) of the full OLMo-1B's unsharded prefill (4 x 1024) and
+    decode step (B 8, cache 1024), beside the steps' time on the card
+    and model_flops_for: a reading, not a gate.  `cases` and
+    `roofline_cfg` stand in for a CPU rehearsal."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(sharded_serve_worker,
+                 args=(SHARDED_WORLD, str(Path(tmp) / "store"), tmp,
+                       dev.type, cases), nprocs=SHARDED_WORLD)
+        recs = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(SHARDED_WORLD)]
+    spawn_s = time.perf_counter() - t0
+    for r in recs:
+        for case, c in r["cases"].items():
+            if not (c["tokens_equal"]
+                    and c["max_logit_err"] <= SERVE_TOL[case]):
+                raise AssertionError(f"sharded_serve {case} rank "
+                                     f"{r['rank']}: {c}")
+            if c["tokens"] != recs[0]["cases"][case]["tokens"]:
+                raise AssertionError(f"sharded_serve {case}: ranks differ")
+    for r in recs:
+        for case, c in r["cases"].items():
+            bad = [k for k in c["kernel_vs_plain"] if not k["ok"]]
+            if bad or not c["kernel_vs_plain"]:
+                raise AssertionError(f"sharded_serve {case} rank "
+                                     f"{r['rank']}: kernel against its "
+                                     f"plain version {bad or 'not read'}")
+    for r in recs:
+        for case, c in r["cases"].items():
+            n = serve_cut(dict((k, m) for k, m, *_ in cases)[case]).n_layers
+            want = {"flash_attention": n,
+                    "decode_attention": 0 if case == "gemma"
+                    else n * SERVE_STEPS}
+            got = {k: c["launches"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"sharded_serve {case} rank "
+                                     f"{r['rank']}: launches {got}")
+    gemma = recs[0]["cases"].get("gemma")
+    if gemma is not None and not gemma["wire_bytes"].get("all-reduce"):
+        raise AssertionError(f"sharded_serve gemma: no combine {gemma}")
+    roof = serve_roofline(dev, roofline_cfg)
+    ops.reset_launches()
+    emit({"phase": "sharded_serve", "world": SHARDED_WORLD,
+          "backend": recs[0]["backend"], "rows": SERVE_ROWS,
+          "steps": SERVE_STEPS, "cases": recs[0]["cases"],
+          "launches_by_rank": {r["rank"]: {k: c["launches"]
+                                           for k, c in r["cases"].items()}
+                               for r in recs},
+          "roofline": roof, "spawn_s": spawn_s,
+          "seconds": time.perf_counter() - t0, "torch": torch.__version__,
+          "card": card})
+    return recs[0]["cases"]["olmo"]["launches"]
+
+
+def serve_roofline(dev, cfg=None):
+    """The full OLMo-1B's unsharded prefill (4 x 1024) and decode step (B
+    8, cache 1024), counted on meta tensors (`op_profile`) and bounded by
+    `analyze` on one card, beside each step's median ms on the card (5
+    runs after 3 warm-ups, CUDA events, bf16) and model_flops_for."""
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.models import build
+    from repro_torch.roofline import op_profile
+    from repro_torch.roofline.analysis import analyze, model_flops_for
+    cfg = cfg or ARCHS["olmo-1b"]
+    meta = torch.device("meta")
+    out = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype}
+    params = build(cfg, dev).init(torch.Generator(dev).manual_seed(3))
+    gen = torch.Generator().manual_seed(5)
+    for kind, rows, seq in (("prefill", 4, 1024), ("decode", 8, 1024)):
+        shape = ShapeSpec(f"{kind}_{rows}x{seq}", kind, seq, rows)
+        pm = build(cfg, meta).param_specs()
+        if kind == "prefill":
+            step = steps.make_prefill_step(cfg, shape, device=meta)
+            args = (pm, steps.batch_specs(cfg, shape, with_labels=False))
+        else:
+            step = steps.make_decode_step(cfg, device=meta)
+            sp = steps.decode_specs(cfg, shape)
+            args = (pm, sp["cache"], sp["token"], sp["pos"])
+        _, prof = op_profile.count(step, *args)
+        roof = analyze(prof, 1, model_flops_for(cfg, shape))
+        # the same step on the card
+        if kind == "prefill":
+            batch = {"tokens": torch.randint(0, cfg.vocab, (rows, seq),
+                                             generator=gen,
+                                             dtype=torch.int32).to(dev)}
+            card_step = steps.make_prefill_step(cfg, shape, device=dev)
+            ms = time_ms(lambda: card_step(params, batch), reps=5)
+        else:
+            fill = steps.make_prefill_step(
+                cfg, dataclasses.replace(shape, kind="prefill"), device=dev)
+            toks = torch.randint(0, cfg.vocab, (rows, seq - 8),
+                                 generator=gen, dtype=torch.int32).to(dev)
+            logits, cache, pos = fill(params, {"tokens": toks})
+            card_step = steps.make_decode_step(cfg, device=dev)
+            tok = logits.argmax(-1).to(torch.int32)
+            ms = time_ms(lambda: card_step(params, cache, tok, pos + 1),
+                         reps=5)
+            del cache
+        out[kind] = {"rows": rows, "seq": seq,
+                     "counted_dot_flops": prof.flops,
+                     "model_flops": model_flops_for(cfg, shape),
+                     "bytes": prof.bytes, "kernel_bytes": prof.kernel_bytes,
+                     "compute_s": roof.compute_s, "memory_s": roof.memory_s,
+                     "memory_adj_s": roof.memory_adj_s,
+                     "bound_s": roof.bound_s(), "dominant": roof.dominant,
+                     "card_ms": ms}
+    del params
+    return out
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4905,6 +5234,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sharded(dev, ops, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_serve_launches = sharded_serve(dev, ops, card)
     kv_row, kv_launches = kv_quant(dev, ops, card)
     bf16_launches, bf16_routes, bf16_shapes = serve(
         "serve_bf16", dev, ops, card, paged_attention=True)
@@ -4945,6 +5277,7 @@ def main() -> int:
         path_launches["serve_http"] = serve_http(dev, ops, card)
     path_launches["analysis"] = analysis(dev, ops, card, tracker)
     path_launches["kv_quant"] = kv_launches
+    path_launches["sharded_serve"] = sharded_serve_launches
     gc.collect()
     torch.cuda.empty_cache()
     launcher_run(card)

@@ -35,19 +35,30 @@ would then move, it would move with its functional collectives).
 The three Megatron helpers (`make_tp_projector`, `make_tp_col_projector`,
 `make_tp_gather`) run on each rank's local blocks (`to_local()`, as
 `shard_map` does) with autograd all-gather and reduce-scatter functions
-over the TP group, and keep JAX's preconditions and fallbacks line for
-line.  Their shard_map transpose
+over the TP group, and keep JAX's preconditions line for line; where
+they fail a helper returns None and the caller
+(`models.layers.row_project` / `col_project`) takes JAX's fallback, the
+sharder's einsum and layout.  Their shard_map transpose
 rules are JAX's: the cotangent of an input replicated over a mesh axis
 is summed over it (the local block's gradient is `Partial`), and the
 cotangent of an output replicated over a mesh axis is divided by its
 size.  `COUNTS[helper]` counts how often each took its collective path
 and how often its fallback; `reset_counts()` zeroes them.
+
+Every collective the port issues itself (`_gather0`, `_scatter0`, the
+all-reduce, and the all-reduces of the decode's combine,
+`kernels.ops.lse_combine`) can be recorded: under `record_collectives()`
+each call appends a `CollectiveRecord` (kind, the full buffer's bytes,
+the group's size) to the list the context manager yields.
+`roofline.analysis.collective_bytes` prices the records in the ring
+model; nothing parses a program.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,6 +73,41 @@ COUNTS: Dict[str, Dict[str, int]] = {
 def reset_counts() -> None:
     for c in COUNTS.values():
         c["collective"] = c["fallback"] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveRecord:
+    """One collective a rank issued: its kind ("all-gather",
+    "reduce-scatter", "all-reduce"), the bytes of its full buffer (an
+    all-gather's output, a reduce-scatter's input, an all-reduce's
+    tensor) and the size of its group."""
+    kind: str
+    payload_bytes: int
+    group_size: int
+
+
+_RECORDS: List[List[CollectiveRecord]] = []
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[List[CollectiveRecord]]:
+    """Records every collective the port issues inside the block into
+    the list it yields (nested blocks each get their own copy)."""
+    rec: List[CollectiveRecord] = []
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def note_collective(kind: str, t: torch.Tensor, group_size: int) -> None:
+    """Appends one record of `kind` over the full buffer `t` to every
+    open `record_collectives` block."""
+    if _RECORDS:
+        r = CollectiveRecord(kind, t.numel() * t.element_size(), group_size)
+        for rec in _RECORDS:
+            rec.append(r)
 
 
 class PartitionSpec(tuple):
@@ -209,6 +255,7 @@ def _gather0(x: torch.Tensor, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=group)
+    note_collective("all-gather", out, n)
     return out
 
 
@@ -217,6 +264,7 @@ def _scatter0(x: torch.Tensor, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, x, group=group)
+    note_collective("reduce-scatter", x, n)
     return out
 
 
@@ -292,16 +340,23 @@ class _ReduceScatter(torch.autograd.Function):
         return _gather_blocks(g, ctx.dim, ctx.group), None, None
 
 
+def all_reduce_sum(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """The group's elementwise sum (or `op`, a `dist.ReduceOp`) of x, a
+    new tensor; recorded."""
+    import torch.distributed as dist
+    out = x.clone()
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
+    note_collective("all-reduce", out, dist.get_world_size(group))
+    return out
+
+
 class _AllReduce(torch.autograd.Function):
     """Partial -> Replicate: all-reduce; each partial block's gradient is
     the replicated gradient itself."""
 
     @staticmethod
     def forward(ctx, x, group):
-        import torch.distributed as dist
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return all_reduce_sum(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -409,6 +464,139 @@ def distribute(full: torch.Tensor, mesh, placements):
     from torch.distributed.tensor import DTensor
     return DTensor.from_local(local_block(full, mesh, placements), mesh,
                               tuple(placements), run_check=False)
+
+
+# --------------------------------------------------------------------- #
+# The serving steps' reads and writes on local blocks
+
+def shard_index(mesh, dims: Sequence[int]) -> int:
+    """This rank's block index along a tensor dim sharded over the mesh
+    dims `dims` (in mesh order): its coordinates over them, row-major."""
+    idx = 0
+    for d in dims:
+        idx = idx * mesh.size(d) + mesh.get_local_rank(d)
+    return idx
+
+
+def rows_placements(x) -> tuple:
+    """x's (a DTensor's) placements with only its row (dim 0) shards
+    kept: the layout of a (B,) or (B, ...) tensor that goes with x's
+    rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+
+
+def wrap(local: torch.Tensor, mesh, placements):
+    """A local block as a DTensor in `placements`, no check and no
+    collective (the block is the rank's own by construction)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, mesh, tuple(placements),
+                              run_check=False)
+
+
+def embed_rows(table, tokens):
+    """`F.embedding(tokens, table)` for a DTensor table (V, D) and DTensor
+    tokens (B, ...), without gathering the table: each rank looks its
+    tokens up in its own block of rows (zeros for a token outside it), and
+    the blocks' rows are summed over the mesh dims that split the
+    vocabulary, one all-reduce each (exact: one nonzero a token).  A
+    table sharded along D is first gathered along it; tokens sharded over
+    a vocabulary dim are gathered over it.  The rows come back in the
+    tokens' layout, replicated over the table's vocabulary dims."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = table.device_mesh
+    table = redistribute(table, tuple(p if p == Shard(0) else Replicate()
+                                      for p in table.placements))
+    vdims = [d for d, p in enumerate(table.placements) if p == Shard(0)]
+    tokens = redistribute(tokens, tuple(
+        Replicate() if d in vdims else p
+        for d, p in enumerate(tokens.placements)))
+    block = table.to_local()
+    n = block.shape[0]
+    rows = tokens.to_local().long() - shard_index(mesh, vdims) * n
+    hit = (rows >= 0) & (rows < n)
+    out = F.embedding(rows.clamp(0, n - 1), block)
+    out = torch.where(hit[..., None], out, torch.zeros_like(out))
+    for d in vdims:
+        out = all_reduce_sum(out, mesh.get_group(d))
+    return wrap(out, mesh, tokens.placements)
+
+
+def pick_rows(h, pos):
+    """h[b, pos[b]] for a DTensor h (B, S, D) and pos (B,) (a DTensor or a
+    full tensor alike on every rank): each rank takes the rows its block
+    of positions holds (zeros for the others), summed over the mesh dims
+    that split S, one all-reduce each (exact).  Returns (B, D) in h's
+    layout along B and D."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = h.device_mesh
+    row_pl = rows_placements(h)
+    if is_dtensor(pos):
+        pos = redistribute(pos, row_pl).to_local()
+    else:
+        pos = local_block(pos, mesh, row_pl)
+    sdims = [d for d, p in enumerate(h.placements) if p == Shard(1)]
+    block = h.to_local()
+    n = block.shape[1]
+    loc = pos.long() - shard_index(mesh, sdims) * n
+    hit = (loc >= 0) & (loc < n)
+    out = block[torch.arange(block.shape[0], device=block.device),
+                loc.clamp(0, n - 1)]
+    out = torch.where(hit[:, None], out, torch.zeros_like(out))
+    for d in sdims:
+        out = all_reduce_sum(out, mesh.get_group(d))
+    pl = tuple(Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
+               else Replicate() for p in h.placements)
+    return wrap(out, mesh, pl)
+
+
+def einsum_blocks(eq: str, a, b):
+    """torch.einsum(eq, a, b) on the local blocks of DTensors a and b
+    whose layouts need no collective: every mesh dim shards at most one
+    index, kept in the output, and shards it in both operands where both
+    carry it.  The result is laid out by the index each mesh dim shards.
+    Anything else (a sharded contracted index, a Partial or strided
+    operand, a plain tensor) is DTensor's own einsum.  The serving steps'
+    sharder uses it (`launch.steps.serve_hooks`): DTensor plans an
+    einsum whose reshapes merge a sharded dim into a strided layout by a
+    graph search that takes minutes on a 3-D mesh."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not (is_dtensor(a) and is_dtensor(b)):
+        return torch.einsum(eq, a, b)
+    ins, out = eq.replace(" ", "").split("->")
+    ia, ib = ins.split(",")
+    pl = []
+    for pa, pb in zip(a.placements, b.placements):
+        if any(not (type(p) is Shard or isinstance(p, Replicate))
+               for p in (pa, pb)):
+            return torch.einsum(eq, a, b)
+        la = ia[pa.dim] if type(pa) is Shard else None
+        lb = ib[pb.dim] if type(pb) is Shard else None
+        letter = la or lb
+        if letter is None:
+            pl.append(Replicate())
+            continue
+        if (la and lb and la != lb) or letter not in out \
+                or (letter in ia and la != letter) \
+                or (letter in ib and lb != letter):
+            return torch.einsum(eq, a, b)
+        pl.append(Shard(out.index(letter)))
+    return wrap(torch.einsum(eq, a.to_local(), b.to_local()), a.device_mesh,
+                pl)
+
+
+def store_block(leaf, i: int, value) -> None:
+    """leaf[i] = value for a stacked leaf (L, ...), in place.  A DTensor
+    leaf, not sharded along L, is written on its local block: value (a
+    DTensor) is laid out as leaf[i] first."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(leaf):
+        leaf[i] = value
+        return
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+               for p in leaf.placements)
+    leaf.to_local()[i].copy_(redistribute(value, pl).to_local())
 
 
 def _identity_sh(x, axes):
@@ -553,10 +741,11 @@ def make_tp_projector(mesh, act_strategy: Optional[Strategy],
                       w_strategy: Optional[Strategy]):
     """Explicit row-parallel (Megatron) out-projection: the einsum on the
     local blocks, then a reduce-scatter over the TP group (backward: an
-    all-gather), where an all-reduce would move twice the bytes.  Falls
-    back to a plain einsum + layout constraint whenever the
-    preconditions don't hold (contraction not sharded over exactly the
-    TP axis, scatter dim not divisible, decode S=1, ...).
+    all-gather), where an all-reduce would move twice the bytes.
+    Returns None whenever the preconditions don't hold (contraction not
+    sharded over exactly the TP axis, scatter dim not divisible, decode
+    S=1, ...): the caller (`models.layers.row_project`) then falls back
+    to the sharder's einsum + layout constraint.
 
     Returns project(x, w, eq, x_axes, w_axes, out_axes, scatter_axis).
     """
@@ -564,7 +753,6 @@ def make_tp_projector(mesh, act_strategy: Optional[Strategy],
         return None
     tp = _tp(mesh)[0]
     tp_size = axis_sizes(mesh)[tp]
-    sh = make_sharder(mesh, act_strategy)
 
     def project(x, w, eq, x_axes, w_axes, out_axes, scatter_axis):
         out_shape = _einsum_shape(eq, x.shape, w.shape)
@@ -579,7 +767,7 @@ def make_tp_projector(mesh, act_strategy: Optional[Strategy],
               x_parts.count(tp) == 1 and w_parts.count(tp) == 1)
         if not ok:
             COUNTS["row"]["fallback"] += 1
-            return sh(torch.einsum(eq, x, w), out_axes)
+            return None
         COUNTS["row"]["collective"] += 1
         out_parts = [None] * len(out_shape)
         out_parts[scatter_axis] = tp
@@ -600,12 +788,13 @@ def make_tp_col_projector(mesh, act_strategy: Optional[Strategy],
     """Column-parallel (Megatron f-operator) projection with the einsum
     on the local blocks: fwd = all_gather(x_seq) -> local einsum; bwd =
     one reduce-scatter.  Only used when the OUTPUT carries the tp axis
-    (q heads / mlp F); falls back to plain einsum + layout constraint.
+    (q heads / mlp F); returns None otherwise, and the caller
+    (`models.layers.col_project`) falls back to the sharder's einsum +
+    layout constraint.
     """
     if mesh is None or act_strategy is None or w_strategy is None:
         return None
     tp = _tp(mesh)[0]
-    sh = make_sharder(mesh, act_strategy)
 
     def project(x, w, eq, x_axes, w_axes, out_axes, gather_axis=1):
         out_shape = _einsum_shape(eq, x.shape, w.shape)
@@ -621,7 +810,7 @@ def make_tp_col_projector(mesh, act_strategy: Optional[Strategy],
               tp in out_parts and tp in w_parts)
         if not ok:
             COUNTS["col"]["fallback"] += 1
-            return sh(torch.einsum(eq, x, w), out_axes)
+            return None
         COUNTS["col"]["collective"] += 1
         x_full = _gather_sum(_enter(x, x_spec, mesh), gather_axis,
                              mesh.get_group(tp))

@@ -59,8 +59,9 @@ def lse_partials_ref(q: torch.Tensor, k_chunk: torch.Tensor,
         if prefix > 0:
             vis = vis | (slot < prefix)[None, :]
         valid = valid & vis
-    scores = torch.where(valid[:, None, None, :], scores,
-                         torch.tensor(-1e30, device=q.device))
+    # a Python scalar: a tensor made of it on the card would be a blocking
+    # upload every call (ROADMAP C19)
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
     m = scores.amax(-1)
     p = torch.exp(scores - m[..., None])
     return m, p.sum(-1), torch.einsum("bkgs,bksd->bkgd", p, v_chunk.float())

@@ -1,8 +1,10 @@
 """Public kernel wrappers, routed by device, and the kernels' build.
 
 Each wrapper takes the JAX package's layouts.  A CPU tensor goes to the
-kernel's plain PyTorch version; a CUDA tensor launches the hand-written
-kernel or raises — there is no fallback.  Each wrapper counts its
+kernel's plain PyTorch version, and so does a meta tensor (shapes and
+dtypes only, which computes nothing: the dry run's and the roofline's
+path, `launch.dryrun`); a CUDA tensor launches the hand-written kernel
+or raises — there is no fallback.  Each wrapper counts its
 launches in a plain integer attribute, `<wrapper>.launches`, which
 `chip_smoke.py` reads to show that the main path ran the kernels.  The
 two wrappers with more than one kernel (`flash_attention`,
@@ -52,6 +54,10 @@ from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.int8_matmul import int8_matmul_ref
 from repro_torch.kernels.paged_attention import (paged_decode_attention_ref,
                                                  paged_suffix_attention_ref)
+
+# the devices whose tensors take the plain versions; every other device
+# but "cuda" raises
+PLAIN_DEVICES = ("cpu", "meta")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -236,6 +242,29 @@ def _count(wrapper, route: Optional[str] = None,
             wrapper.launches_non_causal += 1
 
 
+# Observers of the plain versions (the roofline's op profile, which
+# tells the traffic a kernel keeps on chip from the rest): each has
+# kernel_enter(name) and kernel_exit(name, args, out), called around
+# every call of a kernel's plain version.
+PLAIN_OBSERVERS: list = []
+
+
+def _plain(name: str, ref, *args, **kwargs):
+    """ref(*args, **kwargs), the plain version of kernel `name`, seen by
+    every observer in PLAIN_OBSERVERS."""
+    if not PLAIN_OBSERVERS:
+        return ref(*args, **kwargs)
+    for obs in PLAIN_OBSERVERS:
+        obs.kernel_enter(name)
+    out = None
+    try:
+        out = ref(*args, **kwargs)
+        return out
+    finally:
+        for obs in reversed(PLAIN_OBSERVERS):
+            obs.kernel_exit(name, args, out)
+
+
 def _run(name: str, device: torch.device, *args) -> None:
     fn = getattr(_lib(name), name)
     stream = _stream(device)[1]
@@ -334,9 +363,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     with sentinel == P; pos (B,) int32.  Returns (B, K, G, hd).  On the
     card the table's columns run in chunks of pages, one CTA each
     (`paged_decode_attention_splits`)."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_ref(q, k_pool, v_pool, page_table, pos,
-                                          window=window, prefix=prefix)
+    if q.device.type in PLAIN_DEVICES:
+        return _plain("paged_decode_attention", paged_decode_attention_ref,
+                      q, k_pool, v_pool, page_table, pos, window=window,
+                      prefix=prefix)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
     out = _paged_decode(q, k_pool, v_pool, page_table, pos, window, prefix)
@@ -385,9 +415,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention: the kernel has no backward; "
                            "differentiate models.attention.attention")
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   prefix=prefix)
+    if q.device.type in PLAIN_DEVICES:
+        return _plain("flash_attention", flash_attention_ref, q, k, v,
+                      causal=causal, window=window, prefix=prefix)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     name = "flash_attention"
@@ -455,9 +485,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     number of 16-byte rows, the same strides for K and V.  That takes the
     `permute(0, 2, 1, 3)` view of a (B, S, K, hd) cache in place.  pos
     (B,) int32.  Returns (B, K, G, hd)."""
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, pos, window=window,
-                                    prefix=prefix)
+    if q.device.type in PLAIN_DEVICES:
+        return _plain("decode_attention", decode_attention_ref, q, k_cache,
+                      v_cache, pos, window=window, prefix=prefix)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     name = "decode_attention"
@@ -568,8 +598,8 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     with unit stride along N or along K (`embed_q.t()`); scale f32,
     contiguous, (1, N) per output channel or (K, 1) per input channel.
     Returns x @ (w_q * scale) as (M, N) in x.dtype."""
-    if x.device.type == "cpu":
-        return int8_matmul_ref(x, w_q, scale)
+    if x.device.type in PLAIN_DEVICES:
+        return _plain("int8_matmul", int8_matmul_ref, x, w_q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: no kernel for {x.device}")
     name = "int8_matmul"
@@ -634,27 +664,54 @@ def reset_launches() -> None:
 
 
 # --------------------------------------------------------------------- #
-# Distributed flash-decode: KV sequence-sharded over one mesh axis,
-# partial (m, l, num) merged with small all-reduces — the decode for GQA
-# models whose kv_heads do not divide the TP axis.  JAX's combine is jnp
-# inside shard_map, so the port's is plain PyTorch on torch.distributed.
+# Distributed flash-decode: KV sequence-sharded over mesh axes, partial
+# (m, l, num) merged with small all-reduces — the decode for GQA models
+# whose kv_heads do not divide the TP axis.  JAX's combine is jnp inside
+# shard_map, so the port's is plain PyTorch on torch.distributed.
+
+def lse_combine(q: torch.Tensor, k_shard: torch.Tensor,
+                v_shard: torch.Tensor, pos: torch.Tensor, kv_offset: int,
+                groups, *, window: int = 0, prefix: int = 0) -> torch.Tensor:
+    """Decode attention of q (B, K, G, hd) over a cache whose positions
+    are split across the ranks of `groups` (one process group a mesh
+    axis): this rank's shard k/v (B, K, S_shard, hd) starts at position
+    kv_offset.  Each rank computes its shard's partials
+    (`lse_partials_ref`, with the layer's window and prefix), then one
+    all-reduce MAX and two all-reduce SUMs a group merge them (JAX's pmax
+    and two psums; over several axes, one group after another).  Returns
+    (B, K, G, hd) in q's dtype, the same on every rank of the groups.
+    The all-reduces are recorded (`distributed.sharding`)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import all_reduce_sum
+    from repro_torch.kernels.decode_attention import lse_partials_ref
+
+    m, l, num = lse_partials_ref(q, k_shard, v_shard, pos, kv_offset,
+                                 window=window, prefix=prefix)
+    m_g = m
+    for g in groups:
+        m_g = all_reduce_sum(m_g, g, op=dist.ReduceOp.MAX)
+    corr = torch.exp(m - m_g)
+    l_g = l * corr
+    num_g = num * corr[..., None]
+    for g in groups:
+        l_g = all_reduce_sum(l_g, g)
+        num_g = all_reduce_sum(num_g, g)
+    return (num_g / l_g.clamp_min(1e-30)[..., None]).to(q.dtype)
+
 
 def decode_attention_sharded(mesh, axis: str):
     """Returns fn(q, k_cache, v_cache, pos) with k/v (B, K, S, hd)
-    sequence-sharded over the mesh axis `axis`: each rank computes the
-    flash-decode partials of its shard (`lse_partials_ref` at kv_offset
-    = its index on the axis x shard length), then one all-reduce MAX and
-    two all-reduce SUMs (JAX's pmax and two psums) merge them; wire
-    cost O(B*H*hd) instead of O(B*H*S).  A cache given as a DTensor
-    sharded on its dim 2 over `axis` is read as its local block; a full
-    cache is sliced to the rank's shard.  q and pos are the same on
-    every rank of the axis, and so is the result (a plain tensor, q's
-    dtype).  `fn.calls` and `fn.wire_bytes` count the calls and the
-    bytes each rank's ring all-reduces moved (2 (n - 1) / n of each
-    payload)."""
-    import torch.distributed as dist
-    from repro_torch.distributed.sharding import axis_names, is_dtensor
-    from repro_torch.kernels.decode_attention import lse_partials_ref
+    sequence-sharded over the mesh axis `axis`: each rank merges the
+    partials of its shard (at kv_offset = its index on the axis x shard
+    length) by `lse_combine`; wire cost O(B*H*hd) instead of O(B*H*S).
+    A cache given as a DTensor sharded on its dim 2 over `axis` is read
+    as its local block; a full cache is sliced to the rank's shard.  q
+    and pos are the same on every rank of the axis, and so is the result
+    (a plain tensor, q's dtype).  `fn.calls` and `fn.wire_bytes` count
+    the calls and the bytes each rank's ring all-reduces moved (2 (n - 1)
+    / n of each payload)."""
+    from repro_torch.distributed.sharding import (axis_names, is_dtensor,
+                                                  record_collectives)
 
     dim = axis_names(mesh).index(axis)
     n = mesh.size(dim)
@@ -672,19 +729,13 @@ def decode_attention_sharded(mesh, axis: str):
     def fn(q, k_cache, v_cache, pos):
         idx = mesh.get_local_rank(dim)
         k_loc, v_loc = shard(k_cache, idx), shard(v_cache, idx)
-        m, l, num = lse_partials_ref(q, k_loc, v_loc, pos,
-                                     idx * k_loc.shape[2])
-        m_g = m.clone()
-        dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
-        corr = torch.exp(m - m_g)
-        l_g = l * corr
-        num_g = num * corr[..., None]
-        dist.all_reduce(l_g, group=group)
-        dist.all_reduce(num_g, group=group)
-        payload = sum(t.numel() * t.element_size() for t in (m_g, l_g, num_g))
+        with record_collectives() as rec:
+            out = lse_combine(q, k_loc, v_loc, pos, idx * k_loc.shape[2],
+                              (group,))
+        payload = sum(r.payload_bytes for r in rec)
         fn.calls += 1
         fn.wire_bytes += 2 * (n - 1) * payload // n
-        return (num_g / l_g.clamp_min(1e-30)[..., None]).to(q.dtype)
+        return out
 
     fn.calls = 0
     fn.wire_bytes = 0

@@ -6,7 +6,10 @@ A mesh needs a process group.  `make_host_mesh` and `make_node_mesh(1)`
 start a one-rank group when none exists; a larger mesh needs the world
 its caller started (`torch.distributed.init_process_group` with an
 address, its world size and its rank), and raises when the world's size
-differs from the mesh's.
+differs from the mesh's.  The dry run (`launch.dryrun`) starts its own
+world of 256 or 512 ranks in one process on torch's fake backend
+(`start_fake_world`), whose collectives return at once and move nothing:
+over meta tensors that is all a step's shapes, layouts and counts need.
 """
 from __future__ import annotations
 
@@ -29,6 +32,24 @@ def _ensure_group(device_type: str, size: int) -> None:
     if dist.get_world_size() != size:
         raise RuntimeError(f"a mesh of {size} ranks in a world of "
                            f"{dist.get_world_size()}")
+
+
+def start_fake_world(size: int) -> None:
+    """A world of `size` ranks in this one process, this process rank 0,
+    on the fake backend (`torch.testing._internal.distributed.fake_pg`):
+    no second process, no device, no network.  A fake world of another
+    size is replaced; a real one raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a real process group is running; the dry "
+                               "run needs a process of its own")
+        if dist.get_world_size() == size:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=size)
 
 
 def make_mesh(shape: Sequence[int], names: Sequence[str],

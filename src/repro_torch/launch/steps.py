@@ -1,21 +1,26 @@
-"""Step builders — the counterpart of `repro.launch.steps`: the train
-step (loss, autograd, AdamW) on one device or sharded over a mesh, the
-prefill and decode steps on one device (each with the int8 KV cache as
-an option, the `int8kv` variant of JAX's `lower_cell`), the sharding
-trees of params, batches, caches and train states, and stand-ins for
-every input (meta-device tensors: shapes and dtypes, no memory).
+"""Step builders — the counterpart of `repro.launch.steps`: the train,
+prefill and decode steps, each on one device or sharded over a mesh
+(the prefill and decode steps with the int8 KV cache as an option, the
+`int8kv` variant), the sharding trees of params, batches, caches and
+train states, stand-ins for every input (meta-device tensors: shapes and
+dtypes, no memory), and `lower_cell`, the dry run's unit.
 
 The sharded train step (`make_train_step(cfg, mesh, strategy)`) holds
 its state as DTensors laid out by `state_shardings` and runs the loss
 with JAX's hooks: `sh` (the activations' layouts), `shw` (each layer's
 weights moved to their compute layout: `train_compute_strategy` under
 fsdp_tp, everything gathered under fsdp) and the three Megatron helpers
-attached to `sh`.  A mesh given to the prefill or decode step raises
-NotImplementedError: the sharded serving steps come with `lower_cell`
-and the dry run (the next slice of ROADMAP A9).
+attached to `sh`.  The sharded prefill and decode steps
+(`make_prefill_step` / `make_decode_step` with a mesh and a strategy)
+run the serving hooks (`serve_hooks`): the prefill's trunk is the
+training forward's, with the flash kernel on each rank's rows and heads;
+the decode step runs the decode kernel on each rank's block of the cache
+(rows and kv heads), or, when the cache's positions are split, merges
+the blocks' partials (`kernels.ops.lse_combine`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -23,12 +28,14 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import DeviceLike, torch_dtype
 from repro_torch.distributed.sharding import (Strategy, distribute,
-                                              full_tensor, is_dtensor,
-                                              make_sharder, redistribute,
+                                              einsum_blocks, full_tensor,
+                                              is_dtensor, make_sharder,
                                               make_tp_col_projector,
                                               make_tp_gather,
                                               make_tp_projector,
                                               make_weight_sharder,
+                                              pick_strategy, redistribute,
+                                              serve_strategy,
                                               train_compute_strategy,
                                               tree_shardings)
 from repro_torch.models import Model, build
@@ -43,14 +50,6 @@ BATCH_AXES = {
     "prefix_embeds": ("batch", "seq", "embed"),
     "src_embeds": ("batch", "seq", "embed"),
 }
-
-
-def _single_device(mesh, strategy) -> None:
-    if mesh is not None or strategy is not None:
-        raise NotImplementedError(
-            "the sharded prefill and decode steps wait for slice 16 of the "
-            "port (lower_cell and the dry run, ROADMAP A9); repro_torch "
-            "runs them on one device")
 
 
 # --------------------------------------------------------------------- #
@@ -301,22 +300,74 @@ def loss_and_grads(model, params, batch, remat: bool = True, sh=None,
             {k: v.detach() for k, v in mets.items()})
 
 
+def serve_hooks(mesh, strategy: Strategy):
+    """(sh, shw) of a sharded serving step: JAX's sharder with the three
+    Megatron helpers attached and `sh.einsum`, the product wherever a
+    helper falls back, on the local blocks where no collective is needed
+    (`einsum_blocks`), and the weight mover.  The serve strategy
+    stores the weights in their compute layout (over TP only), so shw is
+    None and the helpers take the strategy for both operands; any other
+    strategy's weights are moved to the serve strategy's layout a layer
+    at a time, as the train step moves them to theirs."""
+    compute = strategy if strategy.name == "serve" else serve_strategy(mesh)
+    sh = make_sharder(mesh, strategy)
+    sh.einsum = einsum_blocks
+    sh.tp_project = make_tp_projector(mesh, strategy, compute)
+    sh.tp_col_project = make_tp_col_projector(mesh, strategy, compute)
+    sh.tp_gather = make_tp_gather(mesh, strategy)
+    shw = None if compute is strategy else make_weight_sharder(mesh, compute)
+    return sh, shw
+
+
+def place_rows(x: torch.Tensor, mesh, strategy: Strategy) -> torch.Tensor:
+    """A (B,) tensor (alike on every rank) as a DTensor laid out
+    ("batch",); a DTensor passes as it is."""
+    if is_dtensor(x):
+        return x
+    return distribute(x, mesh, strategy.placements_for(("batch",), x.shape,
+                                                       mesh))
+
+
 def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
                       strategy=None, kv_quant: bool = False,
                       device: DeviceLike = None):
     """prefill_step(params, batch) -> (last logits (B, V), cache, pos),
     the cache `cache_len_for(shape)` long (int8 under kv_quant; xLSTM
-    ignores both)."""
-    _single_device(mesh, strategy)
-    model = build(cfg, device)
+    ignores both).
+
+    With a mesh and a strategy (JAX's `make_prefill_step(cfg, shape,
+    mesh, strategy)`): params are DTensors laid out by `param_shardings`,
+    a batch of full tensors is laid out by `batch_shardings` (a batch of
+    DTensors passes), the model runs with `serve_hooks` (the flash kernel
+    on each rank's rows and heads), and the cache comes back laid out by
+    `cache_shardings`, so the decode step takes it as it is; the logits
+    come back ("batch", "vocab") and pos ("batch",)."""
+    if (mesh is None) != (strategy is None):
+        raise ValueError("a sharded step needs both a mesh and a strategy")
+    model = build(cfg, _mesh_device(mesh, device))
     max_len = cache_len_for(cfg, shape)
+    if mesh is not None:
+        sh, shw = serve_hooks(mesh, strategy)
 
     def prefill_step(params, batch):
-        with torch.no_grad():
-            return model.prefill(params, batch["tokens"],
-                                 prefix_embeds=batch.get("prefix_embeds"),
-                                 src_embeds=batch.get("src_embeds"),
-                                 cache_len=max_len, kv_quant=kv_quant)
+        kw = dict(prefix_embeds=batch.get("prefix_embeds"),
+                  src_embeds=batch.get("src_embeds"), cache_len=max_len,
+                  kv_quant=kv_quant)
+        if mesh is None:
+            with torch.no_grad():
+                return model.prefill(params, batch["tokens"], **kw)
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        batch = place_batch(cfg, batch, mesh, strategy)
+        kw.update(prefix_embeds=batch.get("prefix_embeds"),
+                  src_embeds=batch.get("src_embeds"))
+        with torch.no_grad(), implicit_replication():
+            logits, cache, pos = model.prefill(params, batch["tokens"],
+                                               sh=sh, shw=shw, **kw)
+            pl = cache_shardings(model, cache, mesh, strategy,
+                                 kv_quant=kv_quant)
+            cache = {k: redistribute(v, pl[k]) for k, v in cache.items()}
+        return logits, cache, pos
     return prefill_step
 
 
@@ -325,14 +376,107 @@ def make_decode_step(cfg: ArchConfig, mesh=None, strategy=None,
     """decode_step(params, cache, token, pos) -> (logits (B, V), cache),
     the cache advanced in place.  kv_quant says the cache is int8 (from
     `make_prefill_step(kv_quant=True)`); a cache of the other kind
-    raises."""
-    _single_device(mesh, strategy)
-    model = build(cfg, device)
+    raises.
+
+    With a mesh and a strategy (JAX's `make_decode_step(cfg, mesh,
+    strategy)`): params and the cache are DTensors (the cache in any
+    layout, `cache_shardings`' as the prefill step leaves it, and written
+    in its local blocks: the counterpart of JAX donating it), token and
+    pos full (B,) tensors or DTensors laid out ("batch",); the logits
+    come back laid out ("batch", "vocab")."""
+    if (mesh is None) != (strategy is None):
+        raise ValueError("a sharded step needs both a mesh and a strategy")
+    model = build(cfg, _mesh_device(mesh, device))
+    if mesh is not None:
+        sh, shw = serve_hooks(mesh, strategy)
 
     def decode_step(params, cache, token, pos):
         if cfg.block != "xlstm" and ("k_scale" in cache) != kv_quant:
             raise ValueError(f"decode_step built with kv_quant={kv_quant} "
                              f"got a cache with keys {sorted(cache)}")
-        with torch.no_grad():
-            return model.decode(params, cache, token, pos)
+        if mesh is None:
+            with torch.no_grad():
+                return model.decode(params, cache, token, pos)
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        token, pos = (place_rows(t, mesh, strategy) for t in (token, pos))
+        with torch.no_grad(), implicit_replication():
+            return model.decode(params, cache, token, pos, sh=sh, shw=shw)
     return decode_step
+
+
+# --------------------------------------------------------------------- #
+# Lowering a cell (the dry run's unit)
+
+@dataclasses.dataclass
+class Cell:
+    """One (arch x shape x mesh) cell's step and its inputs, as meta
+    DTensors in their layouts: the counterpart of JAX's `.lower()` of
+    ShapeDtypeStructs.  `run()` runs the step once on them (nothing is
+    computed on meta tensors: shapes, dtypes and layouts flow, and every
+    collective goes to the world's process group)."""
+    kind: str
+    step: Any
+    args: tuple
+    donate_cache: bool = True
+
+    def run(self):
+        args = self.args
+        if self.kind == "decode" and not self.donate_cache:
+            args = (args[0], map_tree(torch.clone, args[1])) + args[2:]
+        return self.step(*args)
+
+    def inputs(self):
+        """The step's inputs' leaves (DTensors)."""
+        return [t for a in self.args for t in leaves(a)]
+
+
+def lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
+               strategy_override: str = "", donate_cache: bool = True,
+               variant: str = ""):
+    """Build (not run) the step for one (arch x shape x mesh) cell: JAX's
+    `lower_cell`.  Returns (cell, {"strategy", "variant"}).
+
+    `pick_strategy` picks the strategy ("train" for a train shape, else
+    "serve"; `strategy_override` names one).  The inputs are meta
+    tensors laid out on `mesh` (whose world the caller started; the dry
+    run's is the fake backend's): a train cell's state by
+    `state_shardings` and its batch by `batch_shardings`; a prefill cell's
+    params by `param_shardings` and its batch by `batch_shardings`; a
+    decode cell's params, its cache by `cache_shardings` (int8 under the
+    "int8kv" variant, which applies to decode cells of non-xLSTM configs
+    only) and token and pos by ("batch",).  `donate_cache=False` makes
+    the decode cell run on a copy of its cache."""
+    model = build(cfg, META)
+    strategy = pick_strategy(
+        "train" if shape.kind == "train" else "serve", mesh,
+        cfg.num_params(), override=strategy_override)
+    kv_quant = (variant == "int8kv" and shape.kind == "decode"
+                and cfg.block != "xlstm")
+    specs = input_specs(cfg, shape)
+    if kv_quant:
+        specs = decode_specs(cfg, shape, kv_quant=True)
+    if shape.kind == "train":
+        step, _ = make_train_step(cfg, mesh, strategy, device=META)
+        state = place_tree(state_specs(cfg),
+                           state_shardings(cfg, mesh, strategy), mesh)
+        args = (state, place_batch(cfg, specs["batch"], mesh, strategy))
+    else:
+        params = place_tree(model.param_specs(),
+                            param_shardings(model, mesh, strategy), mesh)
+        if shape.kind == "prefill":
+            step = make_prefill_step(cfg, shape, mesh, strategy,
+                                     device=META)
+            args = (params, place_batch(cfg, specs["batch"], mesh,
+                                        strategy))
+        else:
+            step = make_decode_step(cfg, mesh, strategy, kv_quant=kv_quant,
+                                    device=META)
+            cache = place_tree(specs["cache"], cache_shardings(
+                model, specs["cache"], mesh, strategy, kv_quant=kv_quant),
+                mesh)
+            args = (params, cache,
+                    place_rows(specs["token"], mesh, strategy),
+                    place_rows(specs["pos"], mesh, strategy))
+    cell = Cell(shape.kind, step, args, donate_cache)
+    return cell, {"strategy": strategy.name, "variant": variant}

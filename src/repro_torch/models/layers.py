@@ -89,20 +89,28 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 def row_project(sh, x, w, eq, x_axes, w_axes, out_axes, scatter_axis=1):
     """Row-parallel (Megatron) out-projection: the explicit
     reduce-scatter when the sharder carries a tp_project hook
-    (`distributed.sharding.make_tp_projector`), else einsum + layout."""
+    (`distributed.sharding.make_tp_projector`) whose preconditions hold,
+    else einsum + layout (`_fallback`)."""
     proj = getattr(sh, "tp_project", None)
-    if proj is not None:
-        return proj(x, w, eq, x_axes, w_axes, out_axes, scatter_axis)
-    return sh(torch.einsum(eq, x, w), out_axes)
+    out = None if proj is None else proj(x, w, eq, x_axes, w_axes, out_axes,
+                                         scatter_axis)
+    return _fallback(sh, x, w, eq, out_axes) if out is None else out
 
 
 def col_project(sh, x, w, eq, x_axes, w_axes, out_axes, gather_axis=1):
     """Column-parallel (Megatron f) projection: all_gather(x_seq) + the
-    einsum on the local blocks, so the backward is one reduce-scatter."""
+    einsum on the local blocks, so the backward is one reduce-scatter
+    (else einsum + layout, `_fallback`)."""
     proj = getattr(sh, "tp_col_project", None)
-    if proj is not None:
-        return proj(x, w, eq, x_axes, w_axes, out_axes, gather_axis)
-    return sh(torch.einsum(eq, x, w), out_axes)
+    out = None if proj is None else proj(x, w, eq, x_axes, w_axes, out_axes,
+                                         gather_axis)
+    return _fallback(sh, x, w, eq, out_axes) if out is None else out
+
+
+def _fallback(sh, x, w, eq, out_axes):
+    """A projection no Megatron helper takes: the sharder's einsum
+    (`sh.einsum`, torch.einsum by default) and its layout."""
+    return sh(getattr(sh, "einsum", torch.einsum)(eq, x, w), out_axes)
 
 
 def seq_gather(sh, x, axes, axis: int = 1):

@@ -88,19 +88,22 @@ class Model:
                              src_len=src_len, kv_quant=kv_quant)
 
     def prefill(self, params, tokens, lengths=None, prefix_embeds=None,
-                src_embeds=None, cache_len: int = 0, kv_quant: bool = False):
+                src_embeds=None, cache_len: int = 0, kv_quant: bool = False,
+                sh=None, shw=None):
         """Bucketed prefill; a vision model takes its prefix embeddings
         ahead of the tokens, an encoder-decoder its encoder's input
         frames.  `lengths` None: every row is exactly `tokens.shape[1]`
         long (the exact-length prefill of a recurrent family, whose state
         would absorb padding).  `cache_len` pads the cache to that length,
         `kv_quant` makes it int8 (`transformer.prefill`).  xLSTM takes its
-        tokens alone and drops the rest, as in JAX."""
+        tokens alone and drops the rest, as in JAX.  `sh` / `shw`: a
+        sharded serving step's hooks (`distributed.sharding`)."""
         if self.cfg.block == "xlstm":
-            return xl.prefill(params, self.cfg, tokens)
+            return xl.prefill(params, self.cfg, tokens, sh=sh, shw=shw)
         return tf.prefill(params, self.cfg, tokens, lengths=lengths,
                           prefix_embeds=prefix_embeds, src_embeds=src_embeds,
-                          cache_len=cache_len, kv_quant=kv_quant)
+                          cache_len=cache_len, kv_quant=kv_quant, sh=sh,
+                          shw=shw)
 
     def prefill_suffix(self, params, cache, tokens, offsets, lengths):
         """Extend per-row cache views with suffix tokens at per-row
@@ -109,11 +112,14 @@ class Model:
         return tf.prefill_suffix(params, self.cfg, cache, tokens, offsets,
                                  lengths)
 
-    def decode(self, params, cache, token, pos):
-        """One step; xLSTM's ignores `pos` (its state has no positions)."""
+    def decode(self, params, cache, token, pos, sh=None, shw=None):
+        """One step; xLSTM's ignores `pos` (its state has no positions).
+        `sh` / `shw`: a sharded serving step's hooks."""
         if self.cfg.block == "xlstm":
-            return xl.decode_step(params, self.cfg, cache, token)
-        return tf.decode_step(params, self.cfg, cache, token, pos)
+            return xl.decode_step(params, self.cfg, cache, token, sh=sh,
+                                  shw=shw)
+        return tf.decode_step(params, self.cfg, cache, token, pos, sh=sh,
+                              shw=shw)
 
     def decode_paged(self, params, cache, token, pos, page_table,
                      write_table):

@@ -72,7 +72,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
-from repro_torch.distributed.sharding import full_replicate, local_map
+from repro_torch.distributed.sharding import (embed_rows, full_replicate,
+                                              is_dtensor, local_map,
+                                              make_sharder, pick_rows,
+                                              redistribute, rows_placements,
+                                              shard_index, store_block, wrap)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
@@ -191,11 +195,18 @@ def _out_project(a: torch.Tensor, wo) -> torch.Tensor:
                    _reshape(wo, h * hd, d))
 
 
-def _ffn(lp: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def _ffn(lp: Params, cfg: ArchConfig, x: torch.Tensor, sh=None
+         ) -> torch.Tensor:
     """The FFN: SwiGLU (wi (2, d, f)) or gelu (wi (d, f)), or the MoE
     FFN over x's own sequence length (its aux loss dropped, as on JAX's
-    serving paths)."""
-    return _ffn_aux(lp, cfg, x)[0]
+    serving paths).  `sh`, a sharded decode step's sharder, reaches the
+    MoE FFN only: a dense FFN multiplies wi's two halves one at a time on
+    the DTensors as they stand (the einsum over the stacked (2, d, f)
+    weight would reshape its sharded f into a strided layout that DTensor
+    plans for minutes)."""
+    if cfg.moe is None:
+        return _dense_ffn(lp, cfg, x)
+    return _ffn_aux(lp, cfg, x, sh)[0]
 
 
 def _ffn_aux(lp: Params, cfg: ArchConfig, x: torch.Tensor, sh=None
@@ -684,11 +695,24 @@ def sharded_logits(params: Params, cfg: ArchConfig, h: torch.Tensor, sh,
     (`shw`, ("embed", "vocab")), h with its sequence whole (the layout
     the vocab-sharded logits take), the logits laid out ("batch", "seq",
     "vocab")."""
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    if shw is not None:
-        head = shw(head, ("embed", "vocab"))
     h = sh(h, ("batch", "seq_attn", "embed"))
-    return sh(h @ head, ("batch", "seq", "vocab"))
+    return sh(h @ sharded_head(params, cfg, shw), ("batch", "seq", "vocab"))
+
+
+def sharded_last_logits(params: Params, cfg: ArchConfig, h: torch.Tensor,
+                        pos, sh, shw) -> torch.Tensor:
+    """A sharded prefill's logits (B, V) laid out ("batch", "vocab"):
+    each row's hidden state h[b, pos[b]] (h (B, S, D), a DTensor; taken
+    where its block of positions lies, `pick_rows`) through the head."""
+    last = sh(pick_rows(h, pos), ("batch", "embed"))
+    return sh(last @ sharded_head(params, cfg, shw), ("batch", "vocab"))
+
+
+def sharded_head(params: Params, cfg: ArchConfig, shw):
+    """The LM head (d, V) under a sharder: the tied embedding's transpose
+    or lm_head, in its compute layout (`shw`, ("embed", "vocab"))."""
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return head if shw is None else shw(head, ("embed", "vocab"))
 
 
 def nll_loss(logits: torch.Tensor, labels: torch.Tensor
@@ -860,7 +884,7 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             lengths: Optional[torch.Tensor] = None,
             prefix_embeds: Optional[torch.Tensor] = None,
             src_embeds: Optional[torch.Tensor] = None, cache_len: int = 0,
-            kv_quant: bool = False
+            kv_quant: bool = False, sh=None, shw=None
             ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """Forward a right-padded batch through the flash attention kernel and
     return (last_logits (B, V), cache {"k", "v": (L, B, P + S, K, hd)},
@@ -880,22 +904,24 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     cache_len: the cache's length when it exceeds P + S (the K/V at the
     front, zeros behind, as JAX's); kv_quant: the int8 cache of
     `init_cache(kv_quant=True)`, K/V quantized per position and head.
+
+    `sh` / `shw`: a sharded serving step's hooks (`_trunk`; params and
+    inputs DTensors): the flash kernel runs on each rank's rows and heads,
+    the cache comes back as DTensors in the layout the trunk leaves it
+    (rows and kv heads as the activations'; every position on each rank),
+    pos and the logits laid out by rows (the logits also by vocabulary).
     """
+    if sh is not None:
+        return _prefill_sharded(params, cfg, tokens, lengths=lengths,
+                                prefix_embeds=prefix_embeds,
+                                src_embeds=src_embeds, cache_len=cache_len,
+                                kv_quant=kv_quant, sh=sh, shw=shw)
     h, cache, prefix, _ = _trunk(params, cfg, tokens, impl="flash",
                                  prefix_embeds=prefix_embeds,
                                  src_embeds=src_embeds)
     b, s_tot = h.shape[:2]
     if kv_quant or cache_len > s_tot:
-        full = init_cache(cfg, b, max(cache_len, s_tot), h.device,
-                          kv_quant=kv_quant)
-        for name in ("k", "v"):
-            kv = cache[name]
-            if kv_quant:
-                kv, scale = kv_quantize(kv)
-                full[f"{name}_scale"][:, :, :s_tot] = scale
-                cache[f"{name}_scale"] = full[f"{name}_scale"]
-            full[name][:, :, :s_tot] = kv
-            cache[name] = full[name]
+        cache.update(_pad_kv(cache, max(cache_len, s_tot), kv_quant))
     if lengths is None:
         pos = torch.full((b,), s_tot - 1, dtype=torch.int32,
                          device=h.device)
@@ -903,6 +929,54 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
         pos = (prefix + lengths.to(h.device) - 1).to(torch.int32)
     last = h[torch.arange(b, device=h.device), pos.long()]      # (B, D)
     return _logits(params, cfg, last), cache, pos
+
+
+def _prefill_sharded(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                     *, lengths, prefix_embeds, src_embeds, cache_len: int,
+                     kv_quant: bool, sh, shw):
+    """`prefill` under a sharder: the sharded trunk, each row's last
+    hidden row taken where its block of positions lies (`pick_rows`),
+    the cache padded (and quantized) on each rank's blocks."""
+    h, cache, prefix, _ = _trunk(params, cfg, tokens, impl="flash",
+                                 prefix_embeds=prefix_embeds,
+                                 src_embeds=src_embeds, sh=sh, shw=shw)
+    b, s_tot = h.shape[:2]
+    mesh = h.device_mesh
+    rows = h.to_local().shape[0]
+    dev = h.to_local().device
+    if lengths is None:
+        pos = torch.full((rows,), s_tot - 1, dtype=torch.int32, device=dev)
+    else:                           # lengths alike on every rank, on dev
+        from repro_torch.distributed.sharding import local_block
+        pos = (prefix + local_block(lengths, mesh, rows_placements(h))
+               - 1).to(torch.int32)
+    pos = wrap(pos, mesh, rows_placements(h))
+    if kv_quant or cache_len > s_tot:
+        # every position lies on each rank (the trunk leaves no position
+        # split), so each pads its own block
+        pl = cache["k"].placements
+        cache.update({n: wrap(t, mesh, pl) for n, t in _pad_kv(
+            {n: cache[n].to_local() for n in ("k", "v")},
+            max(cache_len, s_tot), kv_quant).items()})
+    return sharded_last_logits(params, cfg, h, pos, sh, shw), cache, pos
+
+
+def _pad_kv(cache: Cache, length: int, kv_quant: bool) -> Cache:
+    """cache's "k", "v" (L, B, S, K, hd) at the front of zero leaves
+    `length` long, new tensors: int8 with their "k_scale", "v_scale" (L,
+    B, length, K) f32 under kv_quant, as `init_cache(kv_quant=True)`."""
+    out = {}
+    for name in ("k", "v"):
+        kv = cache[name]
+        s = kv.shape[2]
+        if kv_quant:
+            kv, scale = kv_quantize(kv)
+            out[f"{name}_scale"] = scale.new_zeros(
+                scale.shape[:2] + (length,) + scale.shape[3:])
+            out[f"{name}_scale"][:, :, :s] = scale
+        out[name] = kv.new_zeros(kv.shape[:2] + (length,) + kv.shape[3:])
+        out[name][:, :, :s] = kv
+    return out
 
 
 def _plain_causal_only(cfg: ArchConfig, name: str) -> None:
@@ -978,7 +1052,7 @@ def prefill_suffix(params: Params, cfg: ArchConfig, cache: Cache,
 # decode
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
-                token: torch.Tensor, pos: torch.Tensor
+                token: torch.Tensor, pos: torch.Tensor, *, sh=None, shw=None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step against a contiguous cache {"k", "v": (L, B, S, K,
     hd)}: the engine's per-slot strips (`paged=False`) or the logical
@@ -991,9 +1065,9 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     as JAX's clamped dynamic_update_slice does.  Attention reads the
     (B, K, S, hd) permuted view of each layer's cache in place, with the
     layer's window; the cache's first meta and prefix positions are
-    exempt from it.  A Hymba cache's "ssm_h" (L, B, inner, N) advances
-    in place, every row, as JAX's scan steps every slot; an
-    encoder-decoder's "ck", "cv" (L, B, S_src, K, hd) are read
+    exempt from it (`_attend_cache`).  A Hymba cache's "ssm_h" (L, B,
+    inner, N) advances in place, every row, as JAX's scan steps every
+    slot; an encoder-decoder's "ck", "cv" (L, B, S_src, K, hd) are read
     (`_cross_update`).
 
     An int8 cache (`init_cache(kv_quant=True)`: "k_scale" in it) takes
@@ -1001,72 +1075,202 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     scales at `pos`, then each layer's whole cache dequantized to f32 (B,
     S, K, hd) and attended by the decode kernel on its f32 route, the
     query cast up to f32 and the output back to the model dtype.  Returns
-    (logits (B, V), cache)."""
+    (logits (B, V), cache).
+
+    `sh` / `shw`: a sharded serving step's hooks (params, cache, token
+    and pos DTensors), the counterpart of JAX's decode step jitted with
+    in-shardings (GSPMD lays its activations out; here each layout is
+    explicit).  The residual stays ("batch", "seq", "embed"); each
+    layer's weights are first moved to their compute layout (`shw`, None
+    when they are stored in it); q, k and v come out of their
+    projections laid out by heads, RoPE runs on each rank's block, and an
+    out-projection's or the FFN's sum over a sharded dim is all-reduced
+    by the sharder.  The attention and the cache write run on each
+    rank's blocks of the cache, in the cache's own layout; the token's
+    rows come from each rank's block of the vocabulary (`embed_rows`).
+    The logits come back laid out ("batch", "vocab")."""
     _require_transformer(cfg)
-    b = token.shape[0]
-    nkv, hd = cfg.n_kv_heads, cfg.head_dim
     prefix = _prefix_len(cfg)
-    quant = "k_scale" in cache
-    rows = torch.arange(b, device=token.device)
-    w_pos = pos.long().clamp(0, cache["k"].shape[2] - 1)
-    h = _embed(params, token)[:, None]                          # (B,1,D)
-    cos, sin = L.rope_cos_sin(pos[:, None], hd, cfg.rope_theta)
+    res, heads = ("batch", "seq", "embed"), ("batch", "seq", "heads",
+                                             "head_dim")
+    kv_heads = ("batch", "seq", "kv_heads", "head_dim")
+    sharded, sh = sh is not None, sh or make_sharder(None, None)
+    if sharded:
+        h = sh(embed_rows(params["embed"], token)[:, None], res)
+        rope = lambda t: _rope_rows(t, pos, cfg)            # noqa: E731
+    else:
+        h = _embed(params, token)[:, None]                      # (B,1,D)
+        cos, sin = L.rope_cos_sin(pos[:, None], cfg.head_dim,
+                                  cfg.rope_theta)
+        rope = lambda t: L.apply_rope(t, cos, sin)          # noqa: E731
+    layer_ax = _layer_axes(cfg, cross=cfg.is_encdec) if shw else None
+    memo: dict = {}
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        kc, vc = cache["k"][i], cache["v"][i]                   # (B,S,K,hd)
+        if shw is not None:
+            lp = shw(lp, layer_ax)
         x = L.norm(h, lp.get("ln1"), cfg.norm)
-        q = L.apply_rope(_project(x, lp["attn"]["wq"]), cos, sin)
-        k_new = L.apply_rope(_project(x, lp["attn"]["wk"]), cos, sin)
-        v_new = _project(x, lp["attn"]["wv"])
-        qf = q[:, 0].reshape(b, nkv, q.shape[2] // nkv, hd)     # kv-major
-        if quant:
-            k_at, v_at = (_write_quantized(cache, name, i, new[:, 0], rows,
-                                           w_pos)
-                          for name, new in (("k", k_new), ("v", v_new)))
-            qf = qf.float()
-        else:
-            kc[rows, w_pos] = k_new[:, 0].to(kc.dtype)
-            vc[rows, w_pos] = v_new[:, 0].to(vc.dtype)
-            k_at, v_at = kc, vc
-        a_out = kernel_ops.decode_attention(
-            qf, k_at.permute(0, 2, 1, 3), v_at.permute(0, 2, 1, 3), pos,
-            window=_window(cfg, i), prefix=prefix).to(q.dtype)
-        h = h + _attn_update(lp, cfg, cache, i, x,
-                             a_out.reshape(b, 1, q.shape[2], hd))
+        q = rope(sh(_project(x, lp["attn"]["wq"]), heads))
+        k_new = rope(sh(_project(x, lp["attn"]["wk"]), kv_heads))
+        v_new = sh(_project(x, lp["attn"]["wv"]), kv_heads)
+        a_out = sh(_attend_cache(q, cache, i, pos, new=(k_new, v_new),
+                                 window=_window(cfg, i), prefix=prefix,
+                                 memo=memo), heads)
+        h = h + sh(_attn_update(lp, cfg, cache, i, x, a_out), res)
         if cfg.is_encdec:
-            h = h + _cross_update(lp, cfg, cache, i, h)
+            h = h + sh(_cross_update(lp, cfg, cache, i, h, sh, memo), res)
         x = L.norm(h, lp.get("ln2"), cfg.norm)
-        h = h + _ffn(lp, cfg, x)
+        h = sh(h + sh(_ffn(lp, cfg, x, sh if sharded else None), res), res)
     h = L.norm(h, params.get("final_norm"), cfg.norm)
-    return _logits(params, cfg, h)[:, 0], cache
+    if not sharded:
+        return _logits(params, cfg, h)[:, 0], cache
+    logits = sh(h[:, 0], ("batch", "embed")) @ sharded_head(params, cfg, shw)
+    return sh(logits, ("batch", "vocab")), cache
 
 
-def _write_quantized(cache: Cache, name: str, i: int, new: torch.Tensor,
-                     rows: torch.Tensor, w_pos: torch.Tensor) -> torch.Tensor:
-    """Quantize one token's new (B, K, hd) K or V (`name`), write it and
-    its scales at w_pos into layer i of an int8 cache, in place, and
-    return the layer's whole cache dequantized, (B, S, K, hd) f32."""
+def _rope_rows(x, pos, cfg: ArchConfig):
+    """RoPE at each row's position on x (B, 1, heads, hd), a DTensor, on
+    each rank's block (pos laid out with x's rows)."""
+    p = redistribute(pos, rows_placements(x)).to_local()
+    cos, sin = L.rope_cos_sin(p[:, None], cfg.head_dim, cfg.rope_theta)
+    return wrap(L.apply_rope(x.to_local(), cos, sin), x.device_mesh,
+                x.placements)
+
+
+def _attend_cache(q, cache: Cache, i: int, pos, *, new=None,
+                  names=("k", "v"), window: int = 0, prefix: int = 0,
+                  memo: Optional[dict] = None):
+    """One decode step's attention of q (B, 1, H, hd), its heads kv-major,
+    over layer i of the cache leaves `names` (L, B, S, K, hd), through the
+    decode kernel on the (B, K, S, hd) permuted view in place.  `new`, the
+    token's (k, v) (B, 1, K, hd), is written at pos first (clamped to S -
+    1); an int8 cache ("k_scale" in it) is written quantized, read
+    dequantized in f32 and attended with the query cast up.  pos None
+    reads every position (the cross-attention).  Returns (B, 1, H, hd) in
+    q's dtype.  `memo`, a dict the caller keeps for one step, holds what
+    every layer's call works out alike (`_slots`), so that it is worked
+    out once a step.
+
+    A DTensor cache (a sharded serving step's) is read in its own layout,
+    on each rank's block of it: q and `new` are laid out with the cache's
+    rows and kv heads (a block of kv heads is the same block of q heads:
+    they are kv-major) and replicated over the mesh dims that split its
+    positions.  With no position split each rank runs the decode kernel
+    on its block; with one, the rank whose block holds pos writes the new
+    K/V, and the blocks' partials merge by `ops.lse_combine` over those
+    dims, the layer's window and prefix applied.  The result is laid out
+    as the q it read."""
+    leaf = cache[names[0]]
+    mesh, sdims = None, []
+    if is_dtensor(leaf):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, cpl = leaf.device_mesh, leaf.placements
+        follow = tuple(Shard(0) if p == Shard(1) else Shard(2)
+                       if p == Shard(3) else Replicate() for p in cpl)
+        sdims = [d for d, p in enumerate(cpl) if p == Shard(2)]
+        q = redistribute(q, follow).to_local()
+        if new is not None:
+            new = tuple(redistribute(t, follow).to_local() for t in new)
+        cache = {n: t.to_local() for n, t in cache.items()}
+    at = None if memo is None else memo.get(names)
+    if at is None:
+        at = _slots(leaf, pos, q.shape[0], cache[names[0]].shape[2],
+                    write=new is not None)
+        if memo is not None:
+            memo[names] = at
+    pos, rows, slot, hit = at
+    kc, vc = cache[names[0]][i], cache[names[1]][i]     # (B', S', K', hd)
+    qf = q[:, 0].reshape(q.shape[0], kc.shape[2], -1, q.shape[-1])
+    if new is not None:
+        scales = (cache.get(f"{n}_scale") for n in names)
+        kc, vc = (_write_kv(c, None if sc is None else sc[i], t[:, 0], rows,
+                            slot, hit)
+                  for c, sc, t in zip((kc, vc), scales, new))
+        if "k_scale" in cache:
+            qf = qf.float()
+    kt, vt = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+    if sdims:
+        out = kernel_ops.lse_combine(
+            qf, kt, vt, pos, shard_index(mesh, sdims) * kt.shape[2],
+            tuple(mesh.get_group(d) for d in sdims), window=window,
+            prefix=prefix)
+    else:
+        out = kernel_ops.decode_attention(qf, kt, vt, pos, window=window,
+                                          prefix=prefix)
+    out = out.to(q.dtype).reshape(q.shape)
+    return out if mesh is None else wrap(out, mesh, follow)
+
+
+def _slots(leaf, pos, b: int, n_loc: int, write: bool) -> tuple:
+    """Where one decode step reads and writes the cache leaf `leaf` (L,
+    B, S, K, hd) on this rank, whose block holds b rows and n_loc
+    positions: (pos, rows, slot, hit).  pos: the positions of this
+    rank's rows (S - 1 for every row when pos is None); with `write`,
+    rows and slot, the write's index in the block (pos clamped to S - 1,
+    as JAX's clamped dynamic_update_slice), and hit, where the positions
+    are split over ranks, whether this rank's block holds it (else
+    None)."""
+    s_len, mesh, sdims = leaf.shape[2], None, []
+    if is_dtensor(leaf):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, pl = leaf.device_mesh, leaf.placements
+        sdims = [d for d, p in enumerate(pl) if p == Shard(2)]
+        if pos is not None:
+            pos = redistribute(pos, tuple(
+                Shard(0) if p == Shard(1) else Replicate() for p in pl)
+                               ).to_local()
+        leaf = leaf.to_local()
+    if pos is None:
+        pos = torch.full((b,), s_len - 1, dtype=torch.int32,
+                         device=leaf.device)
+    if not write:
+        return pos, None, None, None
+    rows = torch.arange(b, device=leaf.device)
+    slot = pos.long().clamp(0, s_len - 1)
+    if not sdims:
+        return pos, rows, slot, None
+    loc = slot - shard_index(mesh, sdims) * n_loc
+    hit = (loc >= 0) & (loc < n_loc)
+    return pos, rows, loc.clamp(0, n_loc - 1), hit
+
+
+def _write_kv(blk: torch.Tensor, scale_blk: Optional[torch.Tensor],
+              new: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor,
+              hit=None) -> torch.Tensor:
+    """Write one token's new (B, K, hd) K or V at `slot` into one layer's
+    cache blk (B, S, K, hd) (the cache's, or one rank's block of it), in
+    place: quantized into an int8 blk, with its scales into scale_blk (B,
+    S, K); a row whose `hit` (B,) is False keeps what it held.  Returns
+    the layer as attention reads it: an int8 one dequantized to f32."""
+
+    def put(dst, val):
+        if hit is not None:
+            val = torch.where(hit.reshape(-1, *(1,) * (val.dim() - 1)),
+                              val, dst[rows, slot])
+        dst[rows, slot] = val
+
+    if scale_blk is None:
+        put(blk, new.to(blk.dtype))
+        return blk
     q, scale = kv_quantize(new)
-    cache[name][i][rows, w_pos] = q
-    cache[f"{name}_scale"][i][rows, w_pos] = scale
-    return kv_dequant(cache[name][i], cache[f"{name}_scale"][i])
+    put(blk, q)
+    put(scale_blk, scale)
+    return kv_dequant(blk, scale_blk)
 
 
 def _cross_update(lp: Params, cfg: ArchConfig, cache: Cache, i: int,
-                  h: torch.Tensor):
+                  h: torch.Tensor, sh=None, memo: Optional[dict] = None):
     """An encoder-decoder's decode-step cross-attention residual: the
     token's query h (B, 1, D) over layer i's slot-resident cross K/V,
-    every position of the source valid, through the decode kernel."""
-    ck, cv = cache["ck"][i], cache["cv"][i]                     # (B,Ss,K,hd)
-    b, nkv, hd = h.shape[0], cfg.n_kv_heads, cfg.head_dim
-    q = _cross_query(lp, cfg, h)[:, 0]                          # (B,H,hd)
-    src_pos = torch.full((b,), ck.shape[1] - 1, dtype=torch.int32,
-                         device=h.device)
-    out = kernel_ops.decode_attention(
-        q.reshape(b, nkv, q.shape[1] // nkv, hd), ck.permute(0, 2, 1, 3),
-        cv.permute(0, 2, 1, 3), src_pos)
-    return _out_project(out.reshape(b, 1, q.shape[1], hd),
-                        lp["xattn"]["wo"])
+    every position of the source valid, through the decode kernel
+    (`_attend_cache`, with the step's `memo`); `sh` lays the query and
+    the output out by heads in a sharded step."""
+    sh = sh or make_sharder(None, None)
+    heads = ("batch", "seq", "heads", "head_dim")
+    q = sh(_cross_query(lp, cfg, h), heads)
+    out = sh(_attend_cache(q, cache, i, None, names=("ck", "cv"),
+                           memo=memo), heads)
+    return _out_project(out, lp["xattn"]["wo"])
 
 
 def _attn_update(lp: Params, cfg: ArchConfig, cache: Cache, i: int,
@@ -1077,8 +1281,8 @@ def _attn_update(lp: Params, cfg: ArchConfig, cache: Cache, i: int,
     (advanced in place) mixed with it."""
     if cfg.block != "hymba":
         return _out_project(a_out, lp["attn"]["wo"])
-    s_out, cache["ssm_h"][i] = _hymba_ssm_step(lp["ssm"], x[:, 0],
-                                                cache["ssm_h"][i])
+    s_out, h_new = _hymba_ssm_step(lp["ssm"], x[:, 0], cache["ssm_h"][i])
+    store_block(cache["ssm_h"], i, h_new)
     return _hymba_mix(lp, a_out.reshape(a_out.shape[0], 1, -1),
                       s_out[:, None], x.dtype)
 

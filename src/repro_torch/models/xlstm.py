@@ -33,12 +33,16 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import local_map
+from repro_torch.distributed.sharding import (embed_rows, local_map,
+                                              rows_placements, store_block,
+                                              wrap)
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.transformer import (_embed, _index, _logits,
                                             _matmul, _project, _reshape,
-                                            lookup_tables, sharded_logits)
+                                            lookup_tables, sharded_head,
+                                            sharded_last_logits,
+                                            sharded_logits)
 from repro_torch.params import Params
 
 Cache = Dict[str, torch.Tensor]
@@ -240,16 +244,25 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     return _logits(params, cfg, h)
 
 
-def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor
-            ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
+def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            sh=None, shw=None) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     """Rows of one exact length (a state absorbs padding): returns
     (last_logits (B, V), the cache of each pair's final state (P, B, ...),
     pos (B,) int32 = S - 1).  The states come from the chunkwise mLSTM
-    form; only the last hidden row meets the LM head."""
-    h, cache = _trunk(params, cfg, tokens, chunked=True)
+    form; only the last hidden row meets the LM head.  `sh` / `shw`: a
+    sharded serving step's hooks (see `_trunk`); the last rows are taken
+    where their block of positions lies, pos and the logits come back
+    laid out by rows (the logits also by vocabulary), the states as the
+    cells leave them."""
+    h, cache = _trunk(params, cfg, tokens, chunked=True, sh=sh, shw=shw)
     b, s = tokens.shape
-    pos = torch.full((b,), s - 1, dtype=torch.int32, device=h.device)
-    return _logits(params, cfg, h[:, -1]), cache, pos
+    if sh is None:
+        pos = torch.full((b,), s - 1, dtype=torch.int32, device=h.device)
+        return _logits(params, cfg, h[:, -1]), cache, pos
+    pos = wrap(torch.full((h.to_local().shape[0],), s - 1,
+                          dtype=torch.int32, device=h.to_local().device),
+               h.device_mesh, rows_placements(h))
+    return sharded_last_logits(params, cfg, h, pos, sh, shw), cache, pos
 
 
 # --------------------------------------------------------------------- #
@@ -267,15 +280,32 @@ def init_cache(cfg: ArchConfig, batch: int, device: torch.device) -> Cache:
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
-                token: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+                token: torch.Tensor, *, sh=None, shw=None
+                ) -> Tuple[torch.Tensor, Cache]:
     """One token a row: token (B,) int32 against cache {mC, ...: (P, B,
     ...)}, every leaf advanced in place (every row).  Returns (logits (B,
-    V), cache)."""
-    h = _embed(params, token)                                   # (B, d)
+    V), cache).  `sh` / `shw`: a sharded serving step's hooks (params,
+    cache and token DTensors): the token's rows come from each rank's
+    block of the vocabulary (`embed_rows`), the pairs run as DTensor ops
+    with the residual laid out ("batch", "embed"), each new state is
+    written into its leaf's local block, and the logits come back laid
+    out ("batch", "vocab")."""
+    if sh is None:
+        h = _embed(params, token)                               # (B, d)
+    else:
+        h = sh(embed_rows(params["embed"], token), ("batch", "embed"))
     for i in range(n_pairs(cfg)):
-        h = pair_step(*_pair(params, i), cfg, cache, i, h)
+        mp, sp = _pair(params, i)
+        if shw is not None:
+            pp = shw({"mlstm": mp, "slstm": sp}, _pair_axes())
+            mp, sp = pp["mlstm"], pp["slstm"]
+        h = pair_step(mp, sp, cfg, cache, i, h)
+        if sh is not None:
+            h = sh(h, ("batch", "embed"))
     h = L.rms_norm(h, params["final_norm"])
-    return _logits(params, cfg, h), cache
+    if sh is None:
+        return _logits(params, cfg, h), cache
+    return sh(h @ sharded_head(params, cfg, shw), ("batch", "vocab")), cache
 
 
 def pair_step(mp: Params, sp: Params, cfg: ArchConfig, cache: Cache,
@@ -292,5 +322,5 @@ def pair_step(mp: Params, sp: Params, cfg: ArchConfig, cache: Cache,
         _slstm_in(sp, cfg, h), sp["r"],
         ssm_lib.SLSTMState(*(cache[n][i] for n in CACHE_LEAVES[3:])))
     for name, leaf in zip(CACHE_LEAVES, (*m_new, *s_new)):
-        cache[name][i] = leaf
+        store_block(cache[name], i, leaf)
     return _slstm_out(sp, cfg, s_new.h, h)

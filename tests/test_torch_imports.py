@@ -23,8 +23,10 @@ import repro_torch.training.data, repro_torch.training.optimizer
 import repro_torch.training.compression, repro_torch.training.checkpoint
 import repro_torch.training.train_loop, repro_torch.launch.steps
 import repro_torch.distributed, repro_torch.distributed.sharding
-import repro_torch.launch.mesh
-# importing the mesh module starts no process group
+import repro_torch.launch.mesh, repro_torch.launch.dryrun
+import repro_torch.roofline.op_profile, repro_torch.roofline.report
+import repro_torch.roofline.inspect
+# importing the mesh and dry-run modules starts no process group
 import torch.distributed
 assert not torch.distributed.is_initialized()
 bad = sorted(m for m in sys.modules

@@ -540,17 +540,6 @@ def test_specs_match_jax(name):
     assert got == want
 
 
-def test_step_builders_refuse_a_mesh():
-    """The sharded prefill and decode steps wait for slice 16 (the train
-    step takes a mesh: tests/test_torch_distributed.py)."""
-    cfg = ARCHS["olmo-1b"].reduced()
-    shape = SHAPES["decode_32k"]
-    for call in (lambda: steps.make_prefill_step(cfg, shape, strategy=1),
-                 lambda: steps.make_decode_step(cfg, mesh=object())):
-        with pytest.raises(NotImplementedError, match="slice 16"):
-            call()
-
-
 # ---------------------------- int8 KV ------------------------------- #
 @pytest.fixture(scope="module")
 def deepseek():
