@@ -158,6 +158,19 @@ JSON line:
               shape (f32, bf16) against decode_attention_ref and the
               decode kernel, its wire bytes beside the KV bytes.  The
               ms over gloo are no speed of the method.
+   sharded_moe — the sharded MoE train step on a 3-D mesh: 8 ranks
+              spawned on the card over gloo, each first checking its
+              collectives, on a (2, 2, 2) ("pod", "data", "model") mesh;
+              granite-moe-3b-a800m at full width cut to 2 layers in f32,
+              batch 4 x 128 (4 rows divide ("pod", "data") but not the 8
+              ranks: under fsdp the expert buffer's embed lands on
+              "model", the 2 x 16 x 16 mesh's condition at batch 256;
+              ROADMAP C21): one fsdp and one fsdp_tp step against the
+              unsharded step on the card (loss, grad norm and every
+              gradient leaf within 1e-5 relative; the params' largest
+              difference printed), the helpers' counts (fsdp_tp's row
+              and gather collectives non-zero).  The ms over gloo are no
+              speed of the method.
    sharded_serve — the sharded serving steps (launch/steps.py with a
               mesh) on the same 4 ranks and (2, 2) mesh under the serve
               strategy, f32 at full width cut to 2 layers: a sharded
@@ -4644,21 +4657,83 @@ def _local_err(dist, got, want, relative=False) -> float:
     return float(t)
 
 
-def sharded_worker(rank, world, store_path, out_dir, cfg, device,
-                   decode_shape):
-    """One rank of the sharded phase (see `sharded`): writes its readings
-    to out_dir/rank<r>.json."""
+def _timed_call(dev, fn, *args):
+    """fn(*args) and its wall ms, the card synchronized on both sides."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _at_step_one(state):
+    # lr is 0 at step 0 (the warmup); step 1 moves the params
+    state["step"] = state["step"] + 1
+    return state
+
+
+def _strategy_steps(dist, cfg, mesh, dev, batch, ocfg, ref):
+    """One fsdp and one fsdp_tp step at step 1 from the seed-5 init on
+    `mesh`, each as the step's two halves (`step.grads`, then AdamW, as
+    the trainer's compressed step runs them, so the gradients are at hand
+    without a second forward and backward), held against `ref`: the
+    unsharded step's "grads", its "params" after the step, its "loss"
+    and "grad_norm" and its "ms".  Returns ({strategy: readings}, the
+    fsdp_tp state after its step)."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.steps import gather_tree, make_train_step
+    from repro_torch.training.optimizer import adamw_update
+    from torch.distributed.tensor.experimental import implicit_replication
+    steps = {}
+    for name in ("fsdp", "fsdp_tp"):
+        strategy = S.STRATEGIES[name](mesh)
+        step, init = make_train_step(cfg, mesh, strategy, opt_cfg=ocfg)
+        st = _at_step_one(init(torch.Generator(dev).manual_seed(5)))
+        S.reset_counts()
+        (g, m), grads_ms = _timed_call(dev, step.grads, st["params"], batch)
+        counts = {h: dict(c) for h, c in S.COUNTS.items()}
+        with implicit_replication():
+            (new_p, new_opt, om), update_ms = _timed_call(
+                dev, adamw_update, st["params"], g, st["opt"], st["step"],
+                ocfg)
+        m, om = gather_tree(m), gather_tree(om)
+        steps[name] = {
+            "loss": float(m["loss"]), "loss_ref": ref["loss"],
+            "grad_norm": float(om["grad_norm"]),
+            "grad_norm_ref": ref["grad_norm"],
+            "max_grad_err_rel": _local_err(dist, g, ref["grads"],
+                                           relative=True),
+            "max_param_err": _local_err(dist, new_p, ref["params"]),
+            "ms": grads_ms + update_ms, "unsharded_ms": ref["ms"],
+            "counts": counts}
+        del g
+        if name == "fsdp_tp":
+            kept = {"params": new_p, "opt": new_opt,
+                    "step": st["step"] + 1}
+    return steps, kept
+
+
+def _check_steps(phase, steps):
+    """Loss, grad norm and every gradient leaf of each strategy's step
+    within 1e-5 relative of the unsharded step's."""
+    for name, s in steps.items():
+        for key in ("loss", "grad_norm"):
+            rel = abs(s[key] - s[key + "_ref"]) / abs(s[key + "_ref"])
+            if not rel <= 1e-5:
+                raise AssertionError(f"{phase} {name}: {key} {s[key]} vs "
+                                     f"{s[key + '_ref']}")
+        if not s["max_grad_err_rel"] <= 1e-5:
+            raise AssertionError(f"{phase} {name}: gradients {s}")
+
+
+def _init_world(rank, world, store_path, device):
+    """This rank's device (one card a rank where there are `world` cards,
+    else card 0, or the CPU) and its process group (NCCL across cards,
+    gloo otherwise), TF32 off."""
     import datetime
     import torch.distributed as dist
-    from repro_torch.distributed import sharding as S
-    from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.steps import gather_tree, make_train_step
-    from repro_torch.training.data import DataConfig, SyntheticLM
-    from repro_torch.training.optimizer import AdamWConfig, adamw_update
-    from repro_torch.training.train_loop import remesh_state
-    from repro_torch.training.tree import leaves
-    from torch.distributed.tensor.experimental import implicit_replication
     per_card = device == "cuda" and torch.cuda.device_count() >= world
     dev = torch.device(device, rank if per_card else 0) \
         if device == "cuda" else torch.device("cpu")
@@ -4669,6 +4744,22 @@ def sharded_worker(rank, world, store_path, out_dir, cfg, device,
     dist.init_process_group("nccl" if per_card else "gloo",
                             store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world, timeout=timeout)
+    return dist, dev
+
+
+def sharded_worker(rank, world, store_path, out_dir, cfg, device,
+                   decode_shape):
+    """One rank of the sharded phase (see `sharded`): writes its readings
+    to out_dir/rank<r>.json."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import gather_tree, make_train_step
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import remesh_state
+    from repro_torch.training.tree import leaves
+    dist, dev = _init_world(rank, world, store_path, device)
     rec = {"rank": rank, "backend": dist.get_backend(),
            "device": str(dev)}
     rec["collectives"] = _check_collectives(dist, dev, world)
@@ -4679,57 +4770,20 @@ def sharded_worker(rank, world, store_path, out_dir, cfg, device,
                 for k, v in data.batch_at(i).items()} for i in range(2)]
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=1)
     ref_step, ref_init = make_train_step(cfg, opt_cfg=ocfg, device=dev)
-
-    def at_step_one(state):
-        # lr is 0 at step 0 (the warmup); step 1 moves the params
-        state["step"] = state["step"] + 1
-        return state
-
-    def timed(fn, *args):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return out, (time.perf_counter() - t0) * 1e3
-
-    ref0 = at_step_one(ref_init(torch.Generator(dev).manual_seed(5)))
+    ref0 = _at_step_one(ref_init(torch.Generator(dev).manual_seed(5)))
     g_ref, _ = ref_step.grads(ref0["params"], batches[0])
     ref_step(ref0, batches[0])                          # warm
-    (ref1, m_ref), ref_ms = timed(ref_step, ref0, batches[0])
-    rec["steps"] = {}
-    for name in ("fsdp", "fsdp_tp"):
-        strategy = S.STRATEGIES[name](mesh)
-        step, init = make_train_step(cfg, mesh, strategy, opt_cfg=ocfg)
-        st = at_step_one(init(torch.Generator(dev).manual_seed(5)))
-        S.reset_counts()
-        # the train step's own two halves (`step.grads`, then AdamW, as
-        # the trainer's compressed step runs them), so the gradients are
-        # at hand without a second forward and backward
-        (g, m), grads_ms = timed(step.grads, st["params"], batches[0])
-        counts = {h: dict(c) for h, c in S.COUNTS.items()}
-        with implicit_replication():
-            (new_p, new_opt, om), update_ms = timed(
-                adamw_update, st["params"], g, st["opt"], st["step"], ocfg)
-        m, om = gather_tree(m), gather_tree(om)
-        rec["steps"][name] = {
-            "loss": float(m["loss"]), "loss_ref": float(m_ref["loss"]),
-            "grad_norm": float(om["grad_norm"]),
-            "grad_norm_ref": float(m_ref["grad_norm"]),
-            "max_grad_err_rel": _local_err(dist, g, g_ref, relative=True),
-            "max_param_err": _local_err(dist, new_p, ref1["params"]),
-            "ms": grads_ms + update_ms, "unsharded_ms": ref_ms,
-            "counts": counts}
-        del g
-        if name == "fsdp_tp":
-            kept = {"params": new_p, "opt": new_opt,
-                    "step": st["step"] + 1}
+    (ref1, m_ref), ref_ms = _timed_call(dev, ref_step, ref0, batches[0])
+    rec["steps"], kept = _strategy_steps(
+        dist, cfg, mesh, dev, batches[0], ocfg,
+        {"grads": g_ref, "params": ref1["params"],
+         "loss": float(m_ref["loss"]),
+         "grad_norm": float(m_ref["grad_norm"]), "ms": ref_ms})
     # remesh (2, 2) -> (1, 2) over ranks 0 and 1, one more step there
     sub = make_mesh((1, 2), ("data", "model"), dev.type, ranks=[0, 1])
     full = gather_tree(kept["params"])
-    moved, remesh_ms = timed(remesh_state, kept, cfg, sub,
-                             S.train_strategy(sub))
+    moved, remesh_ms = _timed_call(dev, remesh_state, kept, cfg, sub,
+                                   S.train_strategy(sub))
     del kept
     if moved is not None:
         # each rank's new blocks of the params: the slices of the old
@@ -4740,7 +4794,7 @@ def sharded_worker(rank, world, store_path, out_dir, cfg, device,
                             strict=True))
         step, _ = make_train_step(cfg, sub, S.train_strategy(sub),
                                   opt_cfg=ocfg)
-        (after, m), ms = timed(step, moved, batches[1])
+        (after, m), ms = _timed_call(dev, step, moved, batches[1])
         want, wm = ref_step(ref1, batches[1])
         sub_group = dist.new_group([0, 1])
         rec["remesh"] = {
@@ -4763,7 +4817,7 @@ def sharded_worker(rank, world, store_path, out_dir, cfg, device,
         fn = ops.decode_attention_sharded(line, "model")
         fn(q, kc, vc, pos)                                  # warm
         fn.calls = fn.wire_bytes = 0
-        out, ms = timed(fn, q, kc, vc, pos)
+        out, ms = _timed_call(dev, fn, q, kc, vc, pos)
         if rank == 0:
             torch.save(out.cpu(), Path(out_dir) / f"decode_{dtype}.pt")
         rec["decode"][str(dtype)] = {"wire_bytes": fn.wire_bytes,
@@ -4828,14 +4882,7 @@ def sharded(dev, ops, card, cfg=None, decode_shape=DECODE_SHAPE):
                 for k in (torch.float32, torch.bfloat16)}
     seconds = time.perf_counter() - t0
     r0 = recs[0]
-    for name, s in r0["steps"].items():
-        for key in ("loss", "grad_norm"):
-            rel = abs(s[key] - s[key + "_ref"]) / abs(s[key + "_ref"])
-            if not rel <= 1e-5:
-                raise AssertionError(f"sharded {name}: {key} {s[key]} vs "
-                                     f"{s[key + '_ref']}")
-        if not s["max_grad_err_rel"] <= 1e-5:
-            raise AssertionError(f"sharded {name}: gradients {s}")
+    _check_steps("sharded", r0["steps"])
     tp = r0["steps"]["fsdp_tp"]["counts"]
     if not (tp["row"]["collective"] and tp["col"]["collective"]):
         raise AssertionError(f"sharded fsdp_tp: helpers {tp}")
@@ -4866,6 +4913,121 @@ def sharded(dev, ops, card, cfg=None, decode_shape=DECODE_SHAPE):
           "batch": SHARDED_BATCH, "seq": SHARDED_SEQ,
           "collectives": r0["collectives"], "steps": r0["steps"],
           "remesh": rm, "decode": decode, "seconds": seconds,
+          "torch": torch.__version__, "card": card})
+    return seconds
+
+
+# --------------------------------------------------------------------- #
+# The sharded_moe phase: the sharded MoE train step on a 3-D mesh of 8
+# ranks (8 processes on the one card over gloo)
+
+MOE_WORLD = 8
+MOE_MESH = ((2, 2, 2), ("pod", "data", "model"))
+
+
+def sharded_moe_worker(rank, world, store_path, out_dir, cfg, device):
+    """One rank of the sharded_moe phase (see `sharded_moe`): reads the
+    unsharded step's batch and results from out_dir/ref.pt and writes
+    its readings to out_dir/rank<r>.json."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.tree import map_tree
+    dist, dev = _init_world(rank, world, store_path, device)
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "device": str(dev)}
+    rec["collectives"] = _check_collectives(dist, dev, world)
+    mesh = make_mesh(*MOE_MESH, dev.type)
+    ref = torch.load(Path(out_dir) / "ref.pt", mmap=True)
+    for k in ("batch", "grads", "params"):
+        ref[k] = map_tree(lambda t: t.to(dev), ref[k])
+    rec["steps"], _ = _strategy_steps(
+        dist, cfg, mesh, dev, ref.pop("batch"),
+        AdamWConfig(lr=1e-3, warmup_steps=1), ref)
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_moe(dev, ops, card, cfg=None):
+    """The `sharded_moe` phase: the sharded MoE train step (ROADMAP C21)
+    on a (2, 2, 2) ("pod", "data", "model") mesh of 8 ranks spawned on
+    the card over gloo (NCCL refuses two ranks on one device), each
+    first checking all-gather, reduce-scatter and all-reduce on its
+    tensors.  granite-moe-3b-a800m at full width (d 1536, F 512, 40
+    experts, top 8, 24 / 8 heads, vocab 49155) cut to TRAIN_LAYERS layers
+    in f32 (TF32 off: the router raises otherwise), batch 4 x 128: 4 rows
+    divide ("pod", "data") but not the 8 ranks, so under fsdp the expert
+    buffer's embed lands on "model", the multi-pod dry-run cell's
+    condition.  The unsharded step runs once, here, before the ranks
+    start (its batch, gradients, params after the step, loss and grad
+    norm go to the ranks through a file, so the card holds one unsharded
+    state, not 8); then each rank runs one fsdp and one fsdp_tp step at
+    step 1 (`_strategy_steps`): loss, grad norm and every gradient leaf
+    within 1e-5 relative, the gradients compared block by block on each
+    rank; the params' largest difference after the step and the
+    Megatron helpers' counts are reported, fsdp_tp's row and gather
+    collectives non-zero.  mixtral-8x22b at full width does not fit as
+    an unsharded reference beside 8 sharded states on one 80 GB card: the
+    CPU tests hold it (tests/test_torch_moe_mesh.py at reduced width on
+    the same mesh, tests/test_torch_dryrun_moe.py on the fake 512-rank
+    world).  Over gloo through the host the step ms are no speed of the
+    method.  `cfg` replaces the model (a CPU rehearsal with dev "cpu")."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.tree import map_tree
+    cfg = cfg or dataclasses.replace(ARCHS["granite-moe-3b-a800m"],
+                                     dtype="f32", n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SHARDED_SEQ,
+                                  batch=SHARDED_BATCH, seed=3))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(0).items()}
+    ref_step, ref_init = make_train_step(
+        cfg, opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=1), device=dev)
+    ref0 = _at_step_one(ref_init(torch.Generator(dev).manual_seed(5)))
+    g_ref, _ = ref_step.grads(ref0["params"], batch)
+    ref_step(ref0, batch)                               # warm
+    (ref1, m_ref), ref_ms = _timed_call(dev, ref_step, ref0, batch)
+    cpu = torch.Tensor.cpu
+    ref = {"batch": map_tree(cpu, batch), "grads": map_tree(cpu, g_ref),
+           "params": map_tree(cpu, ref1["params"]),
+           "loss": float(m_ref["loss"]),
+           "grad_norm": float(m_ref["grad_norm"]), "ms": ref_ms}
+    del ref0, ref1, g_ref, batch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(ref, Path(tmp) / "ref.pt")
+        del ref
+        mp.spawn(sharded_moe_worker,
+                 args=(MOE_WORLD, str(Path(tmp) / "store"), tmp, cfg,
+                       dev.type), nprocs=MOE_WORLD)
+        recs = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(MOE_WORLD)]
+    seconds = time.perf_counter() - t0
+    r0 = recs[0]
+    _check_steps("sharded_moe", r0["steps"])
+    for r in recs:
+        for name, s in r["steps"].items():
+            if (s["loss"], s["grad_norm"]) != (r0["steps"][name]["loss"],
+                                               r0["steps"][name]["grad_norm"]):
+                raise AssertionError(f"sharded_moe {name}: rank "
+                                     f"{r['rank']}'s metrics differ")
+    counts = {name: s["counts"] for name, s in r0["steps"].items()}
+    tp = counts["fsdp_tp"]
+    if not (tp["row"]["collective"] and tp["gather"]["collective"]):
+        raise AssertionError(f"sharded_moe fsdp_tp: helpers {tp}")
+    emit({"phase": "sharded_moe", "model": cfg.name,
+          "layers": cfg.n_layers, "world": MOE_WORLD,
+          "mesh": list(MOE_MESH[0]), "axes": list(MOE_MESH[1]),
+          "backend": r0["backend"], "batch": SHARDED_BATCH,
+          "seq": SHARDED_SEQ, "collectives": r0["collectives"],
+          "steps": r0["steps"], "counts": counts, "seconds": seconds,
           "torch": torch.__version__, "card": card})
     return seconds
 
@@ -5234,6 +5396,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sharded(dev, ops, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_moe(dev, ops, card)
     gc.collect()
     torch.cuda.empty_cache()
     sharded_serve_launches = sharded_serve(dev, ops, card)

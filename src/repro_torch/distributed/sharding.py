@@ -366,12 +366,15 @@ class _AllReduce(torch.autograd.Function):
 class _FromLocal(torch.autograd.Function):
     """Local blocks as a DTensor in `placements`.  DTensor's own
     `from_local` brings a gradient that arrives in another layout back
-    with the functional collectives; this one with `redistribute`."""
+    with the functional collectives; this one with `redistribute`.  A
+    Partial placement (each rank's block a summand) takes the replicated
+    gradient: the sum's gradient is every summand's."""
 
     @staticmethod
     def forward(ctx, local, mesh, placements):
-        from torch.distributed.tensor import DTensor
-        ctx.placements = placements
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        ctx.placements = tuple(Replicate() if isinstance(p, Partial) else p
+                               for p in placements)
         return DTensor.from_local(local, mesh, placements, run_check=False)
 
     @staticmethod
@@ -381,6 +384,7 @@ class _FromLocal(torch.autograd.Function):
 
 # the functions' entry points (module-level names, called bare)
 _from_local = _FromLocal.apply
+from_local = _from_local        # local blocks as a DTensor, under autograd
 _gather = _Gather.apply
 _slice = _Slice.apply
 _gather_sum = _GatherSum.apply
@@ -388,18 +392,47 @@ _reduce_scatter_fn = _ReduceScatter.apply
 _all_reduce = _AllReduce.apply
 
 
+def _check_movable(x, placements) -> None:
+    """Raises ValueError where `redistribute` cannot move x from or to
+    `placements`: a strided shard (a reshape that merged a sharded dim),
+    a Partial that is neither a sum nor a mean, or a dim its mesh dims
+    do not divide (every rank's block is taken to be the same size)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    for pl in (tuple(x.placements), tuple(placements)):
+        for p in pl:
+            if type(p) not in (Shard, Replicate) and not (
+                    isinstance(p, Partial) and p.reduce_op in ("sum", "avg")):
+                raise ValueError(
+                    f"redistribute: cannot move {p} of a tensor of shape "
+                    f"{tuple(x.shape)} in {tuple(x.placements)} to "
+                    f"{tuple(placements)}")
+        for d in range(x.ndim):
+            n = math.prod(mesh.size(i) for i, p in enumerate(pl)
+                          if p == Shard(d))
+            if x.shape[d] % n:
+                raise ValueError(
+                    f"redistribute: Shard({d}) in {pl} over {n} ranks does "
+                    f"not divide dim {d} of the global shape "
+                    f"{tuple(x.shape)}")
+
+
 def redistribute(x, placements):
-    """x (a DTensor) in `placements` (Shard, Replicate; Partial only as a
-    source) on its mesh, by the collectives above on its local block.
-    The tensor dims whose set of sharding mesh dims changes are gathered
-    first, innermost mesh dim first (a shard may only gain inner mesh
-    dims in place); then, mesh dims in order, a Partial is all-reduced
-    or reduce-scattered and a replicated dim sliced."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    """x (a DTensor) in `placements` (Shard, Replicate; Partial, a sum or
+    a mean, only as a source) on its mesh, by the collectives above on
+    its local block.  The tensor dims whose set of sharding mesh dims
+    changes are gathered first, innermost mesh dim first (a shard may
+    only gain inner mesh dims in place); then, mesh dims in order, a
+    Partial is all-reduced or reduce-scattered (a mean's sum divided by
+    the group's size) and a replicated dim sliced.  A strided or
+    uneven layout, at either end of a move, raises ValueError before any
+    collective (`_check_movable`)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     target = tuple(placements)
     cur = list(x.placements)
     if tuple(cur) == target:
         return x
+    _check_movable(x, target)
     mesh = x.device_mesh
     grad_pl = tuple(Replicate() if isinstance(p, Partial) else p
                     for p in cur)
@@ -422,6 +455,8 @@ def redistribute(x, placements):
         if isinstance(c, Partial):
             local = (_all_reduce(local, group) if isinstance(
                 t, Replicate) else _reduce_scatter_fn(local, t.dim, group))
+            if c.reduce_op == "avg":        # DTensor's mean over a shard
+                local = local / mesh.size(i)
         elif isinstance(t, Shard):
             local = _slice(local, t.dim, group)
         else:
@@ -553,37 +588,122 @@ def pick_rows(h, pos):
 
 def einsum_blocks(eq: str, a, b):
     """torch.einsum(eq, a, b) on the local blocks of DTensors a and b
-    whose layouts need no collective: every mesh dim shards at most one
-    index, kept in the output, and shards it in both operands where both
-    carry it.  The result is laid out by the index each mesh dim shards.
-    Anything else (a sharded contracted index, a Partial or strided
-    operand, a plain tensor) is DTensor's own einsum.  The serving steps'
-    sharder uses it (`launch.steps.serve_hooks`): DTensor plans an
+    whose layouts need no input moved: every mesh dim shards at most one
+    index.  An operand that carries that index but is replicated over
+    the mesh dim takes its own slice of it, locally (`_slice`: its
+    backward all-gathers the slice's gradient).  A kept index lays the
+    result out by it; a contracted one gives a Partial result (each
+    rank's product sums its slice of the index), which the caller lays
+    out (the sharder reduce-scatters or all-reduces it).  Anything else
+    (two indices on one mesh dim, an index sharded over several mesh
+    dims that an operand must slice, a Partial or strided operand, a
+    plain tensor) is DTensor's own einsum.
+
+    Under autograd an operand's block gradient is Partial over the mesh
+    dims that shard the result by an index the operand lacks (each rank
+    saw its own rows), and otherwise in the operand's layout.  The
+    serving steps' and the train step's sharders use it
+    (`launch.steps.serve_hooks`, `make_train_step`): DTensor plans an
     einsum whose reshapes merge a sharded dim into a strided layout by a
-    graph search that takes minutes on a 3-D mesh."""
-    from torch.distributed.tensor import Replicate, Shard
+    graph search that takes minutes on a 3-D mesh, moves inputs with
+    the functional collectives, and may lay a dim out unevenly."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     if not (is_dtensor(a) and is_dtensor(b)):
         return torch.einsum(eq, a, b)
     ins, out = eq.replace(" ", "").split("->")
-    ia, ib = ins.split(",")
-    pl = []
-    for pa, pb in zip(a.placements, b.placements):
-        if any(not (type(p) is Shard or isinstance(p, Replicate))
-               for p in (pa, pb)):
+    idx = ins.split(",")
+    xs = (a, b)
+    mesh = a.device_mesh
+    for x in xs:
+        if any(type(p) not in (Shard, Replicate) for p in x.placements):
             return torch.einsum(eq, a, b)
-        la = ia[pa.dim] if type(pa) is Shard else None
-        lb = ib[pb.dim] if type(pb) is Shard else None
-        letter = la or lb
-        if letter is None:
+    pl, cuts = [], ([], [])     # cuts[k]: (mesh dim, index) k slices
+    by = {}                     # index -> the mesh dims that shard it
+    for i in range(mesh.ndim):
+        letters = {ix[x.placements[i].dim] for ix, x in zip(idx, xs)
+                   if type(x.placements[i]) is Shard}
+        if not letters:
             pl.append(Replicate())
             continue
-        if (la and lb and la != lb) or letter not in out \
-                or (letter in ia and la != letter) \
-                or (letter in ib and lb != letter):
+        if len(letters) > 1:
             return torch.einsum(eq, a, b)
-        pl.append(Shard(out.index(letter)))
-    return wrap(torch.einsum(eq, a.to_local(), b.to_local()), a.device_mesh,
-                pl)
+        letter = letters.pop()
+        by.setdefault(letter, []).append(i)
+        for k, (ix, x) in enumerate(zip(idx, xs)):
+            if letter in ix and type(x.placements[i]) is not Shard:
+                cuts[k].append((i, letter))
+        pl.append(Shard(out.index(letter)) if letter in out else Partial())
+    if any(len(by[letter]) > 1 for c in cuts for _, letter in c):
+        return torch.einsum(eq, a, b)
+    locs = []
+    for k, (ix, x) in enumerate(zip(idx, xs)):
+        grad_pl = tuple(
+            p if type(p) is Shard else
+            Partial() if type(q) is Shard and out[q.dim] not in ix else
+            Replicate() for p, q in zip(x.placements, pl))
+        loc = x.to_local(grad_placements=grad_pl)
+        for i, letter in cuts[k]:
+            loc = _slice(loc, ix.index(letter), mesh.get_group(i))
+        locs.append(loc)
+    return _from_local(torch.einsum(eq, *locs), mesh, tuple(pl))
+
+
+def mean_blocks(x, dims: Sequence[int]):
+    """x.mean(dims) for a DTensor x, on its local blocks: each rank sums
+    its block over `dims`, the sums are added over the mesh dims that
+    shard them (`redistribute`'s all-reduce) and divided by the count.
+    The result keeps x's other dims' layout.  DTensor's own mean leaves a
+    Partial(avg), which it reduces with the functional collectives (an
+    average gloo does not take).  A plain tensor is x.mean(dims)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if not is_dtensor(x):
+        return x.mean(dim=tuple(dims))
+    dims = sorted(d % x.ndim for d in dims)
+    part, whole = [], []
+    for p in x.placements:
+        if type(p) is Shard and p.dim in dims:
+            part.append(Partial())
+            whole.append(Replicate())
+        else:
+            if type(p) is Shard:
+                p = Shard(p.dim - sum(d < p.dim for d in dims))
+            part.append(p)
+            whole.append(p)
+    total = _from_local(x.to_local().sum(dim=tuple(dims)), x.device_mesh,
+                        tuple(part))
+    return redistribute(total, tuple(whole)) / math.prod(x.shape[d]
+                                                         for d in dims)
+
+
+def clear_clashes(eq: str, a, b):
+    """a (a DTensor) gathered over every mesh dim on which a and b shard
+    different indices of `eq`, so that `einsum_blocks(eq, a, b)` runs on
+    the local blocks: b, a weight in its compute layout, keeps its
+    layout, and the activation moves (by `redistribute`).  A plain
+    tensor passes."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not (is_dtensor(a) and is_dtensor(b)):
+        return a
+    ia, ib = eq.replace(" ", "").split("->")[0].split(",")
+    pl = tuple(Replicate() if type(pa) is Shard and type(pb) is Shard
+               and ia[pa.dim] != ib[pb.dim] else pa
+               for pa, pb in zip(a.placements, b.placements))
+    return redistribute(a, pl)
+
+
+def select_blocks(x, dim: int, index: int):
+    """x.select(dim, index) for a DTensor x that no mesh dim shards along
+    `dim`, on its local block (no DTensor op: the gradient returns by
+    `redistribute`); a plain tensor is selected as it is."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(x):
+        return x.select(dim, index)
+    if any(p == Shard(dim) for p in x.placements):
+        raise ValueError(f"select_blocks: dim {dim} is sharded in "
+                         f"{tuple(x.placements)}")
+    pl = tuple(Shard(p.dim - 1) if type(p) is Shard and p.dim > dim else p
+               for p in x.placements)
+    return _from_local(x.to_local().select(dim, index), x.device_mesh, pl)
 
 
 def store_block(leaf, i: int, value) -> None:

@@ -218,6 +218,10 @@ def make_train_step(cfg: ArchConfig, mesh=None, strategy=None,
         sh.tp_project = make_tp_projector(mesh, strategy, comp)
         sh.tp_col_project = make_tp_col_projector(mesh, strategy, comp)
         sh.tp_gather = make_tp_gather(mesh, strategy)
+        # a projection no helper takes runs on the local blocks where no
+        # input must move (a Partial result where a contracted index is
+        # sharded), as in the serving steps
+        sh.einsum = einsum_blocks
         st_sh = state_shardings(cfg, mesh, strategy)
 
     def init_state(generator: torch.Generator):

@@ -41,15 +41,16 @@ def _gqa_fold(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0,
-                   prefix: int = 0) -> torch.Tensor:
-    """Reference attention, queries and keys both from position 0.
+                   prefix: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """Reference attention, keys from position 0 and queries from
+    `q_offset` (a block of a longer sequence's queries).
     q: (B, Q, H, hd); k, v: (B, S, K, hd).  Scores divide by sqrt(hd)
     after the product, in f32."""
     b, qlen, h, hd = q.shape
     s, nkv = k.shape[1], k.shape[2]
     qf = _gqa_fold(q, nkv).float()
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / (hd ** 0.5)
-    m = _mask(torch.arange(qlen, device=q.device),
+    m = _mask(q_offset + torch.arange(qlen, device=q.device),
               torch.arange(s, device=q.device), causal=causal,
               window=window, prefix=prefix)
     if m is not None:
@@ -115,19 +116,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0, prefix: int = 0,
-                      chunk: int = 1024) -> torch.Tensor:
+                      chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """Online-softmax attention over KV blocks of `chunk` (one block of the
     whole length when S % chunk != 0), as JAX's `chunked_attention`: the
-    queries scaled by 1/sqrt(hd) before the product, a running max, sum
-    and accumulator in f32 carried from block to block.  Plain PyTorch
-    and differentiable: the long-sequence attention of training."""
+    queries (from position `q_offset`) scaled by 1/sqrt(hd) before the
+    product, a running max, sum and accumulator in f32 carried from block
+    to block.  Plain PyTorch and differentiable: the long-sequence
+    attention of training."""
     b, qlen, h, hd = q.shape
     s, nkv = k.shape[1], k.shape[2]
     if s % chunk:
         chunk = s
     g = h // nkv
     qf = _gqa_fold(q, nkv).float() / (hd ** 0.5)
-    q_pos = torch.arange(qlen, device=q.device)
+    q_pos = q_offset + torch.arange(qlen, device=q.device)
     m_run = torch.full((b, nkv, g, qlen), NEG_INF, dtype=torch.float32,
                        device=q.device)
     l_run = torch.zeros_like(m_run)
@@ -155,12 +157,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, prefix: int = 0,
-              chunk_threshold: int = 2048) -> torch.Tensor:
+              chunk_threshold: int = 2048, q_offset: int = 0
+              ) -> torch.Tensor:
     """JAX's `attention(impl="auto")`, the attention of its training
     forward: `full_attention` up to `chunk_threshold` keys,
-    `chunked_attention` past it."""
+    `chunked_attention` past it; queries from position `q_offset`."""
     if k.shape[1] <= chunk_threshold:
         return full_attention(q, k, v, causal=causal, window=window,
-                              prefix=prefix)
+                              prefix=prefix, q_offset=q_offset)
     return chunked_attention(q, k, v, causal=causal, window=window,
-                             prefix=prefix)
+                             prefix=prefix, q_offset=q_offset)

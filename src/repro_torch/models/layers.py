@@ -12,17 +12,55 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (from_local, is_dtensor,
+                                              redistribute)
+
 
 # --------------------------------------------------------------------- #
 # Norms
 
 def rms_norm(x: torch.Tensor, scale=None, eps: float = 1e-6) -> torch.Tensor:
+    if is_dtensor(x) and (scale is None or (is_dtensor(scale)
+                                            and scale.dim() == 1)):
+        from torch.distributed.tensor import Shard
+        if any(p == Shard(x.ndim - 1) for p in x.placements):
+            return _rms_norm_blocks(x, scale, eps)
     dt = x.dtype
     xf = x.float()
     xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
     if scale is not None:
         xf = xf * (1.0 + scale.float()) if scale.dim() == 1 else xf * scale
     return xf.to(dt)
+
+
+def _rms_norm_blocks(x, scale, eps: float):
+    """`rms_norm` of a DTensor x whose last dim is sharded, on its local
+    blocks: each rank's sum of squares summed over the mesh dims that
+    split the last dim (one all-reduce each, `redistribute`), the scale
+    (a 1-D DTensor) taken as its slice of the last dim.  DTensor's own
+    ops would gather the statistic's operands with the functional
+    collectives."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, d = x.device_mesh, x.ndim - 1
+    split = tuple(Partial() if p == Shard(d) else p for p in x.placements)
+    xf = x.to_local().float()
+    ss = from_local(xf.square().sum(-1, keepdim=True), mesh, split)
+    whole = tuple(Replicate() if isinstance(p, Partial) else p
+                  for p in split)
+    ms = redistribute(ss, whole).to_local(grad_placements=split) \
+        / x.shape[-1]
+    xf = xf * torch.rsqrt(ms + eps)
+    if scale is not None:
+        # its slice of the last dim; its block gradient is Partial over
+        # the mesh dims that split the rows
+        pl = tuple(Shard(0) if p == Shard(d) else Replicate()
+                   for p in x.placements)
+        grad_pl = tuple(Shard(0) if p == Shard(d) else Partial()
+                        if isinstance(p, Shard) else Replicate()
+                        for p in x.placements)
+        scale = redistribute(scale, pl).to_local(grad_placements=grad_pl)
+        xf = xf * (1.0 + scale.float())
+    return from_local(xf.to(x.dtype), mesh, x.placements)
 
 
 def nonparam_ln(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -107,10 +145,15 @@ def col_project(sh, x, w, eq, x_axes, w_axes, out_axes, gather_axis=1):
     return _fallback(sh, x, w, eq, out_axes) if out is None else out
 
 
+def sharded_einsum(sh):
+    """The sharder's einsum (`sh.einsum`, torch.einsum by default)."""
+    return getattr(sh, "einsum", torch.einsum)
+
+
 def _fallback(sh, x, w, eq, out_axes):
-    """A projection no Megatron helper takes: the sharder's einsum
-    (`sh.einsum`, torch.einsum by default) and its layout."""
-    return sh(getattr(sh, "einsum", torch.einsum)(eq, x, w), out_axes)
+    """A projection no Megatron helper takes: the sharder's einsum and its
+    layout."""
+    return sh(sharded_einsum(sh)(eq, x, w), out_axes)
 
 
 def seq_gather(sh, x, axes, axis: int = 1):

@@ -30,7 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.distributed.sharding import local_map
+from repro_torch.distributed.sharding import (clear_clashes, einsum_blocks,
+                                              is_dtensor, local_map,
+                                              mean_blocks, redistribute,
+                                              rows_placements, select_blocks)
 from repro_torch.models import layers as L
 
 # the keep masks of every moe_ffn call inside `keep_masks()`, else None
@@ -54,19 +57,37 @@ def router_topk(x: torch.Tensor, router_w: torch.Tensor, moe: MoEConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> gates (B, S, k) f32 (renormalised over the k),
     idx (B, S, k) int64 in descending probability, the load-balancing
-    aux loss (a 0-d f32 tensor)."""
+    aux loss (a 0-d f32 tensor).  For DTensors the logits are each rank's
+    rows with the experts whole (the product on the local blocks, a
+    Partial one summed by `redistribute`) and the routing runs on the
+    local blocks (`local_map`), its means by `mean_blocks`: DTensor's
+    own softmax and top-k gradients would gather, and its means reduce,
+    with the functional collectives."""
     if x.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("moe router: TF32 is on "
                            "(torch.backends.cuda.matmul.allow_tf32); the "
                            "router's f32 product must stay f32")
-    logits = x.float() @ router_w.float()
-    probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.topk(probs, moe.top_k, dim=-1, sorted=True)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    if is_dtensor(x) and is_dtensor(router_w):
+        logits = redistribute(
+            einsum_blocks("bsd,de->bse", x.float(), router_w.float()),
+            rows_placements(x))
+    else:
+        logits = x.float() @ router_w.float()
+    probs, gates, idx = local_map(lambda lg: _route(lg, moe.top_k), logits,
+                                  mapped=(True,))
     e = moe.num_experts
-    density = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
-    aux = e * (density * probs.mean(dim=(0, 1))).sum()
+    density = mean_blocks(F.one_hot(idx[..., 0], e).float(), (0, 1))
+    aux = e * (density * mean_blocks(probs, (0, 1))).sum()
     return gates, idx, aux
+
+
+def _route(logits: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router's probabilities, its top-k gates (renormalised) and
+    their experts, from its f32 logits."""
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1, sorted=True)
+    return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
 
 
 def capacity(seq: int, moe: MoEConfig) -> int:
@@ -77,9 +98,10 @@ def capacity(seq: int, moe: MoEConfig) -> int:
 def _dispatch(x: torch.Tensor, idx: torch.Tensor, e: int, c: int
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort-based dispatch of every row at once.  x (B, S, D); idx
-    (B, S, k).  Returns (expert_in (B, E * C, D), slot (B, S * k), keep
+    (B, S, k).  Returns (expert_in (B, E, C, D), slot (B, S * k), keep
     (B, S * k)) with pairs in s-major order; a dropped pair's slot is
-    its expert's last (masked by keep)."""
+    its expert's last (masked by keep), slot `e * C + c` being expert
+    e's c-th."""
     b, s, k = idx.shape
     n = s * k
     dev = x.device
@@ -104,7 +126,7 @@ def _dispatch(x: torch.Tensor, idx: torch.Tensor, e: int, c: int
     pairs = x[:, :, None].expand(-1, -1, k, -1).reshape(b, n, x.shape[-1])
     expert_in = x.new_zeros((b, e * c + 1, x.shape[-1]))
     expert_in.scatter_(1, dest[..., None].expand(-1, -1, x.shape[-1]), pairs)
-    return expert_in[:, :e * c], slot, keep
+    return expert_in[:, :e * c].reshape(b, e, c, -1), slot, keep
 
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, wi: torch.Tensor,
@@ -118,45 +140,67 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, wi: torch.Tensor,
     sequence whole, the expert buffer as ("batch", "experts",
     "capacity", "embed"), the down-projection row-parallel onto
     "embed_rs".  The dispatch and the combine index within a row, so
-    they run on each rank's rows (`local_map`)."""
-    b, s, d = x.shape
-    e, cap = moe.num_experts, capacity(s, moe)
+    they run on each rank's rows (`local_map`), and every expert product
+    runs on the local blocks (`_expert_products`)."""
+    e, cap = moe.num_experts, capacity(x.shape[1], moe)
     if sh is not None:
         x = sh(x, ("batch", "seq_attn", "embed"))
     gates, idx, aux = router_topk(x, router_w, moe)
-    expert_in, slot, keep = local_map(
+    ein, slot, keep = local_map(
         lambda x_, i_: _dispatch(x_, i_, e, cap), x, idx,
         mapped=(True, True))
     if _keep_log is not None:
         _keep_log.append(keep)
-    ein = expert_in.reshape(b, e, cap, d)
-    if sh is not None:
-        ein = sh(ein, ("batch", "experts", "capacity", "embed"))
-    if act == "swiglu":
-        h = L.swiglu(torch.einsum("becd,edf->becf", ein, wi[:, 0]),
-                     torch.einsum("becd,edf->becf", ein, wi[:, 1]))
-    else:
-        h = L.gelu(torch.einsum("becd,edf->becf", ein, wi))
-    if sh is not None:
-        eout = L.row_project(sh, h, wo, "becf,efd->becd",
-                             ("batch", "experts", "capacity", "mlp"),
-                             ("experts", "mlp", "embed"),
-                             ("batch", "experts", "capacity", "embed_rs"),
-                             scatter_axis=3)
-    else:
-        eout = torch.einsum("becf,efd->becd", h, wo)
+    eout = _expert_products(ein, wi, wo, act, sh)
     y = local_map(lambda o, sl, kp, g: _combine(o, sl, kp, g, moe.top_k),
-                  eout.reshape(b, e * cap, d), slot, keep, gates,
-                  mapped=(True,) * 4)
+                  eout, slot, keep, gates, mapped=(True,) * 4)
     return y, aux
+
+
+_H_AXES = ("batch", "experts", "capacity", "mlp")
+
+
+def _expert_products(ein: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                     act: str, sh=None) -> torch.Tensor:
+    """ein (B, E, C, D) through every expert's FFN: (B, E, C, D).
+
+    Under a sharder the up-projections run on the local blocks
+    (`einsum_blocks`) and their results are laid out as _H_AXES: where
+    ein's embed is sharded over a mesh dim that wi is replicated over
+    (fsdp with the batch off "model"), each rank multiplies its slice of
+    D by wi's rows for it and the partial sums are reduce-scattered onto
+    F, so no rank multiplies more than its share.  Where ein and wi
+    shard different indices over one mesh dim (the experts and F under
+    fsdp_tp), ein is gathered there first (`clear_clashes`).  wi's halves
+    are taken on the local blocks (`select_blocks`).  The
+    down-projection is row-parallel (`layers.row_project`), whose
+    fallback is the sharder's `einsum_blocks` and the "embed_rs"
+    layout."""
+    eq_up, eq_down = "becd,edf->becf", "becf,efd->becd"
+    halves = [select_blocks(wi, 1, j) for j in range(2)] \
+        if act == "swiglu" else [wi]
+    if sh is None:
+        h = [torch.einsum(eq_up, ein, w) for w in halves]
+    else:
+        ein = clear_clashes(eq_up, sh(ein, ("batch", "experts", "capacity",
+                                            "embed")), halves[0])
+        h = [sh(einsum_blocks(eq_up, ein, w), _H_AXES) for w in halves]
+    h = L.swiglu(*h) if act == "swiglu" else L.gelu(h[0])
+    if sh is None:
+        return torch.einsum(eq_down, h, wo)
+    return L.row_project(sh, h, wo, eq_down, _H_AXES,
+                         ("experts", "mlp", "embed"),
+                         ("batch", "experts", "capacity", "embed_rs"),
+                         scatter_axis=3)
 
 
 def _combine(eout: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
              gates: torch.Tensor, k: int) -> torch.Tensor:
-    """Each pair's expert output (B, E * C, D) gathered back to its token
+    """Each pair's expert output (B, E, C, D) gathered back to its token
     (a dropped pair adds nothing), weighted by its gate, summed over the
     token's k pairs: (B, S, D)."""
     b, d = eout.shape[0], eout.shape[-1]
+    eout = eout.reshape(b, -1, d)
     gathered = eout.gather(1, slot[..., None].expand(-1, -1, d))
     gathered = torch.where(keep[..., None], gathered, 0)
     weighted = gathered * gates.reshape(b, -1, 1).to(eout.dtype)

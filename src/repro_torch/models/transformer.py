@@ -72,7 +72,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
-from repro_torch.distributed.sharding import (embed_rows, full_replicate,
+from repro_torch.distributed.sharding import (embed_rows, from_local,
+                                              full_replicate,
                                               is_dtensor, local_map,
                                               make_sharder, pick_rows,
                                               redistribute, rows_placements,
@@ -318,17 +319,19 @@ def lookup_tables(params: Params) -> Params:
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             impl: str, causal: bool, window: int = 0,
-            prefix: int = 0) -> torch.Tensor:
+            prefix: int = 0, q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd) over k, v (B, Skv, K, hd): the flash kernel;
     impl="full" the plain reference attention; impl="auto" JAX's training
     attention (`attention.attention`: full, chunked past 2048 keys), which
-    autograd differentiates.  Returns (B, Sq, H, hd)."""
+    autograd differentiates; the plain two with queries from position
+    `q_offset` (the flash kernel's from 0).  Returns (B, Sq, H, hd)."""
     if impl == "full":
         return attn_lib.full_attention(q, k, v, causal=causal,
-                                       window=window, prefix=prefix)
+                                       window=window, prefix=prefix,
+                                       q_offset=q_offset)
     if impl == "auto":
         return attn_lib.attention(q, k, v, causal=causal, window=window,
-                                  prefix=prefix)
+                                  prefix=prefix, q_offset=q_offset)
     # the flash kernel takes the heads-major (B, H, S, hd) views in place
     # and writes a (B, S, H, hd) buffer: no layout copies
     return kernel_ops.flash_attention(
@@ -363,14 +366,24 @@ def _attention_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, *,
 def _attention_block_sharded(ap: Params, cfg: ArchConfig, x: torch.Tensor,
                              sh, *, impl: str, prefix: int, window: int,
                              causal: bool, kv: Optional[Tuple] = None,
-                             rope: bool = True) -> Tuple[torch.Tensor, Tuple]:
+                             rope: bool = True, split_seq: bool = False
+                             ) -> Tuple[torch.Tensor, Tuple]:
     """JAX's `_attention_block` under a sharder (Megatron-SP): q a
     column-parallel projection, k and v projected and seq-gathered, all
     three laid out as ("batch", "seq_attn", heads, "head_dim") for the
     attention; `kv` the cross-attention's (k, v), without RoPE.  k and v
     are projected from x with its sequence whole: DTensor does not
     multiply a seq-sharded x by a head-sharded weight without moving one
-    of them, which XLA decides for itself."""
+    of them, which XLA decides for itself.
+
+    `split_seq` (the training self-attention, impl="auto"): q is laid out
+    ("batch", "seq", heads, "head_dim") instead, which is JAX's layout
+    wherever the heads take the TP axis or the batch takes every mesh
+    dim; where neither does (24 heads on 16 "model" ranks with the batch
+    on ("pod", "data")), q's sequence takes the axis, and each rank
+    attends its block of queries over the whole k and v
+    (`_attend_query_blocks`) instead of every rank attending all of
+    them."""
     q = L.col_project(sh, x, ap["wq"], "bsd,dhk->bshk",
                       ("batch", "seq", "embed"),
                       ("embed", "heads", "head_dim"),
@@ -378,8 +391,8 @@ def _attention_block_sharded(ap: Params, cfg: ArchConfig, x: torch.Tensor,
     if kv is None:
         xs = sh(x, ("batch", "seq_attn", "embed"))
         kv_axes = ("batch", "seq", "kv_heads", "head_dim")
-        k = L.seq_gather(sh, _project(xs, ap["wk"]), kv_axes)
-        v = L.seq_gather(sh, _project(xs, ap["wv"]), kv_axes)
+        k, v = (L.seq_gather(sh, L.sharded_einsum(sh)(
+            "bsd,dhk->bshk", xs, ap[w]), kv_axes) for w in ("wk", "wv"))
     else:
         k, v = kv
     if rope:
@@ -388,16 +401,39 @@ def _attention_block_sharded(ap: Params, cfg: ArchConfig, x: torch.Tensor,
         q = L.apply_rope(q, cos, sin)
         if kv is None:
             k = L.apply_rope(k, cos, sin)
-    q = sh(q, ("batch", "seq_attn", "heads", "head_dim"))
+    q = sh(q, ("batch", "seq" if split_seq else "seq_attn", "heads",
+               "head_dim"))
     k = sh(k, ("batch", "seq_attn", "kv_heads", "head_dim"))
     v = sh(v, ("batch", "seq_attn", "kv_heads", "head_dim"))
+    kw = dict(impl=impl, causal=causal, window=window, prefix=prefix)
+    if is_dtensor(q):
+        from torch.distributed.tensor import Shard
+        if any(p == Shard(1) for p in q.placements):
+            return _attend_query_blocks(q, k, v, **kw), (k, v)
     # each rank attends its own rows and heads (kv-major heads: a block
     # of q heads is the G-fold of the same block of kv heads)
-    out = local_map(
-        lambda q_, k_, v_: _attend(q_, k_, v_, impl=impl, causal=causal,
-                                   window=window, prefix=prefix),
-        q, k, v, mapped=(True, True, True), dims=(0, 2))
+    out = local_map(lambda q_, k_, v_: _attend(q_, k_, v_, **kw),
+                    q, k, v, mapped=(True, True, True), dims=(0, 2))
     return out, (k, v)
+
+
+def _attend_query_blocks(q, k, v, **kw):
+    """The attention of a DTensor q whose sequence is sharded: each rank
+    attends its block of queries, from the block's offset, over the whole
+    k and v, which are laid out as q with the sequence whole; their block
+    gradients are Partial over the mesh dims that split the queries (each
+    rank saw its own queries)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    sdims = [i for i, p in enumerate(q.placements) if p == Shard(1)]
+    kv_pl = tuple(Replicate() if p == Shard(1) else p for p in q.placements)
+    grad_pl = tuple(Partial() if p == Shard(1) else p for p in q.placements)
+    k_l, v_l = (redistribute(t, kv_pl).to_local(grad_placements=grad_pl)
+                for t in (k, v))
+    q_l = q.to_local()
+    out = _attend(q_l, k_l, v_l, q_offset=shard_index(mesh, sdims)
+                  * q_l.shape[1], **kw)
+    return from_local(out, mesh, q.placements)
 
 
 def _out_row_project(sh, a_out: torch.Tensor, wo) -> torch.Tensor:
@@ -576,7 +612,8 @@ def _layer_forward_sharded(lp: Params, cfg: ArchConfig, h: torch.Tensor, sh,
     else:
         a_out, kv = _attention_block_sharded(lp["attn"], cfg, x, sh,
                                              impl=impl, prefix=prefix,
-                                             window=window, causal=True)
+                                             window=window, causal=True,
+                                             split_seq=impl == "auto")
         h = h + _out_row_project(sh, a_out, lp["attn"]["wo"])
     if xkv is not None:
         x = L.norm(h, lp.get("lnx"), cfg.norm)
@@ -650,7 +687,10 @@ def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             vs.append(v)
             states.append(h_f)
             xkvs.append(xkv)
-    h = L.norm(h, params.get("final_norm"), cfg.norm)
+    final = params.get("final_norm")
+    if shw is not None and final is not None:
+        final = shw(final, ("embed",))      # its compute layout, as ln1's
+    h = L.norm(h, final, cfg.norm)
     if not collect:
         return h, {}, prefix, aux
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -694,9 +734,12 @@ def sharded_logits(params: Params, cfg: ArchConfig, h: torch.Tensor, sh,
     """The LM head under a sharder: the head in its compute layout
     (`shw`, ("embed", "vocab")), h with its sequence whole (the layout
     the vocab-sharded logits take), the logits laid out ("batch", "seq",
-    "vocab")."""
+    "vocab"), the product the sharder's (`sh.einsum`: on the local
+    blocks, a Partial result where h's embed is sharded)."""
     h = sh(h, ("batch", "seq_attn", "embed"))
-    return sh(h @ sharded_head(params, cfg, shw), ("batch", "seq", "vocab"))
+    return sh(L.sharded_einsum(sh)("bsd,dv->bsv", h,
+                                   sharded_head(params, cfg, shw)),
+              ("batch", "seq", "vocab"))
 
 
 def sharded_last_logits(params: Params, cfg: ArchConfig, h: torch.Tensor,
@@ -747,7 +790,11 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                           src_embeds=batch.get("src_embeds"), remat=remat,
                           return_aux=True, sh=sh, shw=shw)
     labels = batch["labels"]
-    loss, denom = nll_loss(logits[:, -labels.shape[1]:], labels)
+    if logits.shape[1] != labels.shape[1]:
+        # past the meta and prefix tokens (a slice of a DTensor's sharded
+        # sequence gathers it in DTensor's backward: taken only if real)
+        logits = logits[:, -labels.shape[1]:]
+    loss, denom = nll_loss(logits, labels)
     return loss + aux_weight * aux, {"loss": loss, "aux": aux,
                                      "tokens": denom}
 

@@ -121,12 +121,12 @@ def run_oracle(path: Path) -> dict:
         return dict(z)
 
 
-def spawn_world(fn, tmp: Path, *args) -> list:
-    """fn(rank, store path, out dir, *args) on WORLD spawned ranks; the
+def spawn_world(fn, tmp: Path, *args, world: int = WORLD) -> list:
+    """fn(rank, store path, out dir, *args) on `world` spawned ranks; the
     ranks' pickled records, in rank order."""
     import torch.multiprocessing as mp
     ctx = mp.start_processes(fn, args=(str(tmp / "store"), str(tmp), *args),
-                             nprocs=WORLD, join=False, start_method="spawn")
+                             nprocs=world, join=False, start_method="spawn")
     deadline = 240.0
     import time
     t0 = time.monotonic()
@@ -136,14 +136,14 @@ def spawn_world(fn, tmp: Path, *args) -> list:
                 p.kill()
             raise TimeoutError("the world did not finish")
     return [pickle.loads((tmp / f"rank{r}.pkl").read_bytes())
-            for r in range(WORLD)]
+            for r in range(world)]
 
 
-def init_rank(rank: int, store: str):
+def init_rank(rank: int, store: str, world: int = WORLD):
     import torch.distributed as dist
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store, WORLD),
-                            rank=rank, world_size=WORLD,
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=120))
     return dist
 
