@@ -52,7 +52,12 @@ JSON line:
               at hd 64 over 16 KV heads (B * K = 128) in both decode
               kernels (pos 0, either side of two chunk edges, the cache
               end; twice bit for bit) and its causal prefill in flash
-              (H 16, S 1024 and a ragged 300).
+              (H 16, S 1024 and a ragged 300).  Then bf16 flash's tile
+              edges in both dtypes (`kernels.flash_attention.
+              tile_edge_cases`: every head dim, lengths either side of a
+              tile, causal Sq < Skv, windows at 127 / 128 / 129, a
+              prefix across a tile, G 1-6, grids below and above two
+              waves) and the model-layout views at hd 64 / 128 / 256.
               Last, ROADMAP C5: the f32 int8 product at M = 4096, 8192 ->
               2048 on four seeds against the f64 product within the f32
               summation bound (K + 4) u sum |x||w|.
@@ -187,7 +192,10 @@ JSON line:
               then the roofline of the full OLMo-1B's
               unsharded prefill (4 x 1024) and decode step (B 8, cache
               1024) counted on meta tensors, beside their ms on the card
-              and model_flops_for (a reading).
+              and model_flops_for (a reading), and that prefill's logits
+              through the flash kernel held to the plain attention's
+              (RMS distance from the same weights in f32 within 1.5x the
+              plain path's).
    kv_quant — the int8 KV cache on OLMo-1B: 2 layers in f32, 8 prompts
               of 1000 tokens into a cache of 1024, 8 teacher-forced
               decode steps, the card within f32's 1e-4 of the CPU and
@@ -871,8 +879,54 @@ def kernel_checks(dev, ops, refs, q_lib):
             ("split_seamless", dict(B=8, K=16, G=1, S=1024, hd=64,
                                     pos=SEAMLESS_POS, strided=True), 0, 0)],
             rows, 5000)
+    # the tensor-core route's tile edges (seeds from 6000), both dtypes
+    for dtype in (torch.bfloat16, torch.float32):
+        check_flash_sweep(dev, ops, refs, dtype, rows, 6000)
     c5_seeds(dev, ops, q_lib, rows)
     return rows
+
+
+def check_flash_sweep(dev, ops, refs, dtype, rows, seed0):
+    """The bf16 route's tile edges (`kernels.flash_attention.
+    tile_edge_cases`) against the plain version on the dtype's route,
+    then the model-layout views (the (B, H, S, hd) views of (B, S, H, hd)
+    tensors, read in place through their own strides) at hd 64, 128 and
+    256."""
+    from repro_torch.kernels.flash_attention import tile_edge_cases
+    ref = refs["flash_attention"]
+    for name, B, H, K, Sq, Skv, hd, win, pre, causal in tile_edge_cases():
+        rng = np.random.default_rng(seed0 + len(rows))
+
+        def t(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev, dtype)
+        q, k, v = t(B, H, Sq, hd), t(B, K, Skv, hd), t(B, K, Skv, hd)
+        kw = dict(causal=causal, window=win, prefix=pre)
+        got = on_route(ops.flash_attention, flash_route(dtype),
+                       lambda: ops.flash_attention(q, k, v, **kw))
+        torch.cuda.synchronize()
+        err = check_close(f"flash_attention/{name}", got, ref(q, k, v, **kw),
+                          tol_of(dtype))
+        rows.append({"kernel": "flash_attention", "case": name,
+                     "dtype": str(dtype), "route": flash_route(dtype),
+                     "max_abs_err": err})
+    for hd in (64, 128, 256):
+        rng = np.random.default_rng(seed0 + len(rows))
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (2, 300, h, hd)).astype(np.float32)).to(dev, dtype).transpose(
+                1, 2) for h in (8, 2, 2))
+        got = on_route(ops.flash_attention, flash_route(dtype),
+                       lambda: ops.flash_attention(q, k, v))
+        torch.cuda.synchronize()
+        if not got.transpose(1, 2).is_contiguous():
+            raise AssertionError("flash_attention: output not a (B, S, H, "
+                                 "hd) buffer")
+        err = check_close(f"flash_attention/views_hd{hd}", got,
+                          ref(q.contiguous(), k.contiguous(),
+                              v.contiguous()), tol_of(dtype))
+        rows.append({"kernel": "flash_attention", "case": f"views_hd{hd}",
+                     "dtype": str(dtype), "route": flash_route(dtype),
+                     "max_abs_err": err})
 
 
 C5_SEEDS = range(4000, 4004)
@@ -5287,11 +5341,53 @@ def sharded_serve(dev, ops, card, cases=SERVE_CASES, roofline_cfg=None):
     return recs[0]["cases"]["olmo"]["launches"]
 
 
+def prefill_logits_check(cfg, params, tokens):
+    """The model's bf16 logits over `tokens` (the full OLMo-1B's prefill
+    batch, 4 x 1024) through the flash kernel against the same weights
+    through the plain attention (impl="full"), each beside the same
+    weights in f32 through the plain attention.  The kernel rounds P to
+    bf16 before P.V and sums in another order, the plain attention keeps
+    P in f32; the rest of both is the same bf16 model, whose own rounding
+    sets the scale of their distance from f32.  So the kernel's logits
+    must stay within 1.5 x the plain path's RMS distance from the f32
+    model: a wrong tile or mask moves a layer's attention by O(1) and the
+    logits by far more.  Returns the distances."""
+    from repro_torch.models import transformer as tf
+    with torch.no_grad():
+        got = tf.forward(params, cfg, tokens, impl="flash").float()
+        plain = tf.forward(params, cfg, tokens, impl="full").float()
+        p32 = torch.utils._pytree.tree_map(
+            lambda t: t.float() if t.is_floating_point() else t, params)
+        ref = tf.forward(p32, dataclasses.replace(cfg, dtype="f32"), tokens,
+                         impl="full").float()
+        del p32
+
+    def rms(a, b):
+        return float((a - b).pow(2).mean().sqrt())
+    row = {"shape": list(got.shape),
+           "max_abs_kernel_vs_plain": float((got - plain).abs().max()),
+           "rms_kernel_vs_plain": rms(got, plain),
+           "rms_kernel_vs_f32": rms(got, ref),
+           "rms_plain_vs_f32": rms(plain, ref),
+           "logits_rms": float(ref.pow(2).mean().sqrt()),
+           "argmax_kernel_eq_plain": float(
+               (got.argmax(-1) == plain.argmax(-1)).float().mean())}
+    if not bool(torch.isfinite(got).all()) \
+            or row["rms_kernel_vs_f32"] > 1.5 * row["rms_plain_vs_f32"]:
+        raise AssertionError(f"prefill logits through the flash kernel: "
+                             f"{row}")
+    del got, plain, ref
+    torch.cuda.empty_cache()
+    return row
+
+
 def serve_roofline(dev, cfg=None):
     """The full OLMo-1B's unsharded prefill (4 x 1024) and decode step (B
     8, cache 1024), counted on meta tensors (`op_profile`) and bounded by
     `analyze` on one card, beside each step's median ms on the card (5
-    runs after 3 warm-ups, CUDA events, bf16) and model_flops_for."""
+    runs after 3 warm-ups, CUDA events, bf16) and model_flops_for; the
+    prefill batch's logits through the flash kernel are held to the plain
+    attention's (`prefill_logits_check`)."""
     from repro_torch.configs import ARCHS, ShapeSpec
     from repro_torch.launch import steps
     from repro_torch.models import build
@@ -5321,6 +5417,8 @@ def serve_roofline(dev, cfg=None):
                                              dtype=torch.int32).to(dev)}
             card_step = steps.make_prefill_step(cfg, shape, device=dev)
             ms = time_ms(lambda: card_step(params, batch), reps=5)
+            out["prefill_logits"] = prefill_logits_check(cfg, params,
+                                                         batch["tokens"])
         else:
             fill = steps.make_prefill_step(
                 cfg, dataclasses.replace(shape, kind="prefill"), device=dev)

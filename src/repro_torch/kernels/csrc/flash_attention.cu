@@ -22,36 +22,44 @@
 // hd) buffer.
 //
 // The TPU grid's sequential kv axis becomes a loop inside one CTA per
-// (64-row query tile, batch * head); the loop stops at the causal
+// (query tile, batch * head): 128 query rows on the tensor-core route, 64
+// on the CUDA-core one; the loop stops at the causal
 // frontier and skips tiles wholly left of the window.  Ragged edges are
 // masked in the kernel (the Pallas wrapper asserts Sq % block_q == 0, but
 // prefill buckets are any power of two >= 8).  Two routes, chosen by the
 // caller (kernels/ops.py, flash_attention_route) from the dtype:
 //
-//   tensor_core (bf16): the FlashAttention-2 structure on
-//   mma.sync.m16n8k16 bf16 with f32 accumulators.  4 warps, each owning
-//   16 query rows; Q is loaded once into registers as A fragments
-//   (ldmatrix), passing through the second K/V buffer before that holds
-//   a tile; K and V tiles of 64 rows stay bf16 in a swizzled (16-byte
-//   chunk c of row r at c ^ f(r), so 8 rows at one chunk hit 8 bank
-//   groups), double-buffered cp.async ring, the next tile's copy in
-//   flight while this one computes.  64 KB of shared memory per CTA let
-//   3 CTAs (12 warps) share an SM where the registers allow (hd <= 64;
-//   hd 128 runs 2 without spilling), to hide the latency of each warp's
-//   product-softmax-product chain.  At hd 256 a warp's output alone is
-//   32 n8 tiles, 128 f32 registers a thread, and its Q fragments 64 more:
-//   held together they pass ptxas' 255.  So at hd 256 Q stays in a
-//   shared tile of its own and each k16 step reloads its fragment there
-//   (one ldmatrix beside the step's four for K), and the kv tiles are 32
-//   rows (the score tile's 16 registers instead of 32): 96 KB of shared
-//   memory, two CTAs an SM.
-//   S = Q.K^T takes K rows as the column-major B operand (ldmatrix, at
-//   offsets stepped by XOR, one register per operand); the online
-//   softmax stays in registers, reduced across the 4 lanes of a quad
-//   with shuffles, and masks only the diagonal, ragged and window-edge
-//   tiles; P is rounded to bf16 and reused in registers as the A operand
-//   of P.V (V through ldmatrix.trans).  The score tile never touches
-//   shared memory.
+//   tensor_core (bf16): the FlashAttention-3 structure on wgmma and TMA.
+//   A persistent grid, one CTA an SM, whose CTAs take work items (a query
+//   tile of 64 rows a consumer warpgroup, of one batch and head) from a
+//   counter in device memory, in sections of heads whose K and V come to
+//   about 16 MB (read from device memory once, then from L2), the query
+//   tiles with the most kv tiles under the causal mask first within each.
+//   The last warpgroup is the producer: setmaxnreg hands its registers to
+//   the consumers, and one of its threads issues every copy with TMA
+//   (4-D tensor maps over the strided views, built on the host per call):
+//   each item's Q into one of two buffers (one at hd 256), so that the
+//   next item's Q lands during this one, then K and V tiles of BK rows
+//   (128; 64 at hd 256, where the output fragment alone is 128 f32
+//   registers a thread) through a ring of stages with full and empty
+//   mbarriers.  Tiles are stored as column blocks of at most 64 bf16 with
+//   TMA's swizzle of the block's width (128 bytes; 64 at hd 32, 32 at hd
+//   16), the layout wgmma's descriptors read.  Two consumer warpgroups
+//   (three at hd <= 64 without a causal mask) each own 64 query rows:
+//   S = Q.K^T on wgmma m64nBKk16 with both operands in shared memory (K
+//   is K-major: no transpose), the online softmax in registers on the
+//   accumulator's fragment (f32 m and l, exp2 on the MUFU unit with
+//   sm_scale * log2 e folded into one fma; masks only on the diagonal,
+//   ragged and window-edge tiles), then O += P.V on wgmma with P rounded
+//   to bf16 as the register A operand and V read MN-major through the
+//   descriptor's transpose bit.  Each tile's Q.K^T is issued before the
+//   previous tile's P.V, so its softmax runs while P.V is in flight, and
+//   the warpgroups take turns on named barriers to issue, so that one
+//   warpgroup's exponentials run under the others' products.  TMA zero-
+//   fills rows past Sq or Skv (a zero key scores 0, so kv >= Skv is
+//   masked).  The epilogue divides by max(l, 1e-30) and writes bf16
+//   through shared memory (the warpgroup's rows of its Q buffer) with a
+//   TMA store, which writes no row past Sq.
 //
 //   cuda_core (f32): 64x64 tiles staged in shared memory in f32 and
 //   multiplied on the CUDA cores, kept for f32 exactness (f32 on the
@@ -59,6 +67,8 @@
 //   the score tile, 4 threads per query row do the online-softmax
 //   rescale, and each thread accumulates a 4 x hd/16 block of the
 //   output in registers.
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -266,331 +276,552 @@ __global__ void __launch_bounds__(kThreads, flash_min_blocks<HD>())
   }
 }
 
-// ---- tensor_core route (bf16) --------------------------------------- //
-constexpr int kTcBQ = 64;                    // query rows per CTA
-constexpr int kTcThreads = kTcBQ / 16 * 32;  // a warp per 16 query rows
-
-// CTAs per SM (64 KB of shared memory each): 3, at most 168 registers a
-// thread; hd 128's fragments take more (ptxas spills at 168), so 2; hd
-// 256 (96 KB) 2, at most 255 registers.
-template <int HD>
-constexpr int tc_min_blocks() {
-  return HD >= 128 ? 2 : 3;
+// ---- tensor_core route (bf16): wgmma, TMA, warp specialisation ------ //
+// NWG consumer warpgroups, 64 query rows each: three where hd <= 64 and
+// no causal mask (short products leave the softmax more to hide behind,
+// and no diagonal tile wastes a third of its rows), else two.  The
+// producer warpgroup comes after them; setmaxnreg moves its registers to
+// the consumers within the 65536 a CTA launches with (128 x 40 + 256 x
+// 232, or 128 x 32 + 384 x 160).
+__host__ __device__ constexpr int tc_wgs(int hd, bool causal) {
+  return hd <= 64 && !causal ? 3 : 2;
 }
+__host__ __device__ constexpr int tc_producer_regs(int nwg) {
+  return nwg == 3 ? 32 : 40;
+}
+__host__ __device__ constexpr int tc_consumer_regs(int nwg) {
+  return nwg == 3 ? 160 : 232;
+}
+constexpr float kTcMasked = -__builtin_huge_valf();   // a masked score
 
-// kv rows per tile, and whether Q stays in a shared tile of its own (its
-// fragments reloaded each k16 step) rather than in registers: see the
-// header, hd 256.
+// kv rows per tile: at hd 256 the output fragment alone is 128 f32
+// registers a thread, so the score tile is 64 wide there.
 template <int HD>
 __host__ __device__ constexpr int tc_bk() {
-  return HD >= 256 ? 32 : kBK;
+  return HD >= 256 ? 64 : 128;
+}
+// K/V stages in the ring: as many as shared memory holds beside Q.
+template <int HD>
+__host__ __device__ constexpr int tc_stages() {
+  return HD >= 128 ? 2 : 4;
+}
+// A tile is stored as column blocks of at most 64 bf16 (128 bytes) a row,
+// each [rows][block width] with TMA's swizzle of the block's width: 128
+// bytes at hd >= 64, 64 at hd 32, 32 at hd 16.
+template <int HD>
+__host__ __device__ constexpr int tc_row_bytes() {
+  return (HD < 64 ? HD : 64) * 2;
 }
 template <int HD>
-__host__ __device__ constexpr bool tc_q_shared() {
-  return HD >= 256;
+__host__ __device__ constexpr int tc_swizzle_bits() {   // Swizzle<B, 4, 3>
+  return tc_row_bytes<HD>() == 128 ? 3 : tc_row_bytes<HD>() == 64 ? 2 : 1;
+}
+template <int HD>
+__host__ __device__ constexpr int tc_desc_layout() {    // wgmma descriptor
+  return 4 - tc_swizzle_bits<HD>();
+}
+template <int HD, int NWG>
+__host__ __device__ constexpr uint32_t tc_q_bytes() {
+  return (uint32_t)64 * NWG * HD * 2;
+}
+template <int HD>
+__host__ __device__ constexpr uint32_t tc_kv_bytes() {
+  return (uint32_t)tc_bk<HD>() * HD * 2;
+}
+// Q buffers: two where shared memory holds them, so that the next work
+// item's Q lands while this one computes; one at hd 256.
+template <int HD>
+__host__ __device__ constexpr int tc_q_bufs() {
+  return HD >= 256 ? 1 : 2;
+}
+// Q[i], then K[s], V[s] for each stage, then the mbarriers (Q full and
+// empty for each Q buffer; K full, V full, K empty, V empty for each
+// stage), then the work item of each Q buffer; 1024 bytes of slack to
+// align the base to the 128-byte swizzle's period.
+template <int HD, int NWG>
+constexpr size_t tc_smem_bytes() {
+  return tc_q_bufs<HD>() * tc_q_bytes<HD, NWG>() +
+         2 * tc_stages<HD>() * tc_kv_bytes<HD>() +
+         8 * (2 * tc_q_bufs<HD>() + 4 * tc_stages<HD>()) +
+         4 * tc_q_bufs<HD>() + 1024;
+}
+// K and V bytes a section of work items reads (see flash_tc).
+constexpr long long kTcSectionBytes = 16ll << 20;
+
+// exp2 on the MUFU unit in one instruction (inputs <= 0; -inf gives 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
+// The consumer's per-tile state: this thread's share of the 64 x BK score
+// tile (S, then P in f32), of P as wgmma's A fragments, of the 64 x HD
+// output and the online softmax of its two rows (l / 4 and l / 4 + 8 of
+// its warp's 16).
 template <int HD>
-constexpr size_t tc_smem_bytes() {        // K[0], V[0], K[1], V[1] (, Q)
-  return ((size_t)4 * tc_bk<HD>() + (tc_q_shared<HD>() ? kTcBQ : 0)) * HD *
-         sizeof(__nv_bfloat16);
-}
-
-// Element offset of 16-byte chunk c of row r in a swizzled [rows][HD]
-// bf16 tile: 8 consecutive rows at one chunk land in 8 different 16-byte
-// bank groups, for ldmatrix and for cp.async alike.
-template <int HD>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int C = HD / 8;                // chunks per row
-  if constexpr (C >= 8) {
-    return r * HD + ((c ^ (r & 7)) << 3);
-  } else {
-    return r * HD + ((c ^ ((r / (8 / C)) % C)) << 3);
-  }
-}
-
-// A thread's share of a tile copy: chunk c of rows r0, r0 + STEP, ...
-// Where STEP is a multiple of the swizzle's period in rows (8), the
-// swizzled column is the same for all of them; at hd 256 (STEP 4) each
-// row's is computed.
-template <int HD>
-struct TileLoader {
-  static constexpr int C = HD / 8;              // 16-byte chunks per row
-  static constexpr int STEP = kTcThreads / C;   // rows per pass
-  int r0, c;
-  uint32_t dst0;                                // byte offset in a tile
-  int src0;                                     // element offset in a row
-
-  __device__ __forceinline__ TileLoader() {
-    r0 = threadIdx.x / C;
-    c = threadIdx.x % C;
-    dst0 = 2 * swz<HD>(r0, c);
-    src0 = c * 8;
-  }
-
-  // cp.async ROWS rows of HD bf16 (rows `row` elements apart) into the
-  // swizzled tile at `dst`; rows >= n_valid are zero-filled.
-  template <int ROWS>
-  __device__ __forceinline__ void load(uint32_t dst,
-                                       const __nv_bfloat16* src,
-                                       long long row, int n_valid) const {
-    const __nv_bfloat16* p = src + src0 + r0 * row;
-#pragma unroll
-    for (int j = 0; j < (ROWS + STEP - 1) / STEP; ++j) {
-      const int r = r0 + j * STEP;
-      const uint32_t at = STEP % 8 == 0 ? dst0 + j * STEP * HD * 2
-                                        : 2 * swz<HD>(r, c);
-      if (ROWS % STEP == 0 || r < ROWS)
-        repro::cp_async16(dst + at, r < n_valid ? p + j * STEP * row : src,
-                          r < n_valid ? 16 : 0);
-    }
-  }
+struct TcState {
+  static constexpr int BK = tc_bk<HD>();
+  float s[BK / 2];
+  uint32_t p[BK / 16][4];
+  float o[HD / 2];
+  float m[2], l[2];
 };
 
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads, tc_min_blocks<HD>()) flash_tc(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int H, int n_kv, int Sq, int Skv, int causal, int window, int prefix,
-    float sm_scale, Strides st) {
-  using namespace repro;
-  constexpr int BK = tc_bk<HD>();          // kv rows per tile
-  constexpr bool QS = tc_q_shared<HD>();   // Q in its own shared tile
-  constexpr int NKS = HD / 16;             // k16 steps of Q.K^T
-  constexpr int NDT = HD / 8;              // n8 tiles of the output
-  constexpr int NST = BK / 8;              // n8 tiles of the score tile
-  constexpr int TILE = BK * HD;            // elements per tile
-  extern __shared__ __align__(16) __nv_bfloat16 tsm[];
-  const uint32_t sK = smem_addr(tsm);     // K[0], V[0], K[1], V[1] (, Q)
-  const uint32_t sQ = sK + 8u * TILE;     // used when QS
-  const TileLoader<HD> loader;
-
-  // heaviest query tiles (most kv tiles under the causal mask) first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcBQ;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / n_kv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c4 = lane % 4;
-  const int mi = lane / 8, mr = lane % 8;  // ldmatrix: matrix, row
-  // This lane's ldmatrix byte offsets at k16 step 0, for matrices that
-  // step 8 rows with mi / 2 and a chunk with mi % 2 (K) or the other way
-  // round (V, Q).  Step j is the offset XOR 32 j: the chunk 2 j + x is
-  // (2 j) ^ x, XOR commutes with the swizzle's, and the row part is a
-  // multiple of the power-of-two row size, above every bit it touches.
-  // Whole 16-row blocks (np, kk, warp) add, keeping the swizzle.
-  const uint32_t k_lane = 2 * swz<HD>(mr + (mi / 2) * 8, mi % 2);
-  const uint32_t v_lane = 2 * swz<HD>(mr + (mi % 2) * 8, mi / 2);
-
-  const __nv_bfloat16* kb = k + b * st.kb + kvh * st.kh;
-  const __nv_bfloat16* vb = v + b * st.kb + kvh * st.kh;
-
-  const int kv_end = causal ? min(Skv, q0 + kTcBQ) : Skv;
-  const int n_tiles = (kv_end + BK - 1) / BK;
-  // the kv tiles the Pallas kernel visits: up to the causal frontier,
-  // minus those wholly left of the window that hold no prefix position
-  auto visited = [&](int t) {
-    if (!(causal && window > 0)) return true;
-    const int k0 = t * BK;
-    return k0 + BK - 1 > q0 - window || (prefix > 0 && k0 < prefix);
-  };
-  auto next_tile = [&](int t) {
-    do { ++t; } while (t < n_tiles && !visited(t));
-    return t;
-  };
-  // byte addresses of K[buf] and V[buf] (computed, not indexed: an array
-  // indexed at run time would live in local memory)
-  auto kbuf = [&](int buf) { return sK + 4u * TILE * buf; };
-  auto vbuf = [&](int buf) { return sK + 4u * TILE * buf + 2u * TILE; };
-  auto load_kv = [&](int tile, int buf) {
-    const long long off = (long long)tile * BK * st.ks;
-    loader.template load<BK>(kbuf(buf), kb + off, st.ks, Skv - tile * BK);
-    loader.template load<BK>(vbuf(buf), vb + off, st.ks, Skv - tile * BK);
-  };
-
-  // Q (at most two tiles) passes through K[1] and V[1], free until the
-  // first prefetch, or stays in its own tile (QS)
-  static_assert(QS || kTcBQ <= 2 * BK, "Q must fit in K[1] and V[1]");
-  const uint32_t q_tile = QS ? sQ : kbuf(1);
-  int t = next_tile(-1);
-  loader.template load<kTcBQ>(q_tile, q + b * st.qb + h * st.qh + q0 * st.qs,
-                              st.qs, Sq - q0);
-  if (t < n_tiles) load_kv(t, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Q fragments (A operand, 16 rows x HD): matrix mi = rows +8 (mi % 2),
-  // chunk +1 (mi / 2); with QS one k16 step's at a time, in the loop
-  const uint32_t q_warp = q_tile + warp * 16 * HD * 2;
-  uint32_t qf[QS ? 1 : NKS][4];
-  if constexpr (!QS) {
+// S = Q . K^T for this warpgroup's 64 rows, both operands K-major in
+// shared memory (Q's column blocks BQ rows apart), one wgmma m64nBKk16 per
+// 16 columns of hd.
+template <int HD, int BQ>
+__device__ __forceinline__ void tc_qk(TcState<HD>& st, uint32_t q_wg,
+                                      uint32_t kbuf) {
+  constexpr int RB = tc_row_bytes<HD>(), KB = RB / 32;   // k16 steps a block
+  constexpr int L = tc_desc_layout<HD>();
 #pragma unroll
-    for (int ks = 0; ks < NKS; ++ks)
-      ldmatrix_x4(q_warp + (v_lane ^ (32 * ks)), qf[ks]);
-    __syncthreads();   // every warp holds its Q: buffer 1 takes a tile
-  }
-
-  float o[NDT][4];
-#pragma unroll
-  for (int i = 0; i < NDT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  // scores in log2 units: exp2(s * scale * log2 e) == exp(s * scale)
-  const float sc = sm_scale * 1.4426950408889634f;
-
-  int buf = 0;
-  while (t < n_tiles) {
-    const int tn = next_tile(t);
-    if (tn < n_tiles) load_kv(tn, buf ^ 1);   // in flight meanwhile
-    cp_async_commit();
-    const int k0 = t * BK;
-
-    // S = Q.K^T: 16 rows x BK kv per warp, NST n8 tiles
-    float s[NST][4];
-#pragma unroll
-    for (int i = 0; i < NST; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < NKS; ++ks) {
-      if constexpr (QS) ldmatrix_x4(q_warp + (v_lane ^ (32 * ks)), qf[0]);
-      const uint32_t(&a)[4] = qf[QS ? 0 : ks];
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t r[4];   // matrix mi: kv rows +8 (mi / 2), chunk +1 (mi % 2)
-        ldmatrix_x4(kbuf(buf) + np * 16 * HD * 2 + (k_lane ^ (32 * ks)), r);
-        mma_bf16_16816(s[2 * np], a, r[0], r[1]);
-        mma_bf16_16816(s[2 * np + 1], a, r[2], r[3]);
-      }
-    }
-
-    // fragment value e of n8 tile nt: row g + 8 (e / 2), col 8 nt +
-    // 2 c4 + e % 2
-    const bool edge =
-        k0 + BK > Skv ||
-        (causal && (k0 + BK - 1 > q0 ||
-                    (window > 0 && k0 <= q0 + kTcBQ - 1 - window)));
-#pragma unroll
-    for (int nt = 0; nt < NST; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] *= sc;
-    if (edge) {
-#pragma unroll
-      for (int nt = 0; nt < NST; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qp = q0 + warp * 16 + g + 8 * (e / 2);
-          const int kp = k0 + 8 * nt + 2 * c4 + e % 2;
-          bool ok = kp < Skv;
-          if (causal) {
-            ok = ok && kp <= qp;
-            if (window > 0)
-              ok = ok && (kp > qp - window || (prefix > 0 && kp < prefix));
-          }
-          if (!ok) s[nt][e] = kNegInf;
-        }
-    }
-
-    // online softmax, rows g (hh = 0) and g + 8 (hh = 1)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int nt = 0; nt < NST; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * hh], s[nt][2 * hh + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[hh], mx);
-      const float corr = exp2f(m_run[hh] - m_new);
-      m_run[hh] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NST; ++nt)
-#pragma unroll
-        for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
-          const float p = exp2f(s[nt][e] - m_new);
-          s[nt][e] = p;
-          sum += p;
-        }
-      l_run[hh] = l_run[hh] * corr + sum;   // this lane's columns only
-#pragma unroll
-      for (int dt = 0; dt < NDT; ++dt) {
-        o[dt][2 * hh] *= corr;
-        o[dt][2 * hh + 1] *= corr;
-      }
-    }
-
-    // O += P.V: P (bf16) from the score fragments, V through ldmatrix.trans
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t r[4];   // matrix mi: kv rows +8 (mi % 2), chunk +1 (mi / 2)
-        ldmatrix_x4_trans(vbuf(buf) + kk * 16 * HD * 2 + (v_lane ^ (32 * dp)),
-                          r);
-        mma_bf16_16816(o[2 * dp], a, r[0], r[1]);
-        mma_bf16_16816(o[2 * dp + 1], a, r[2], r[3]);
-      }
-    }
-
-    cp_async_wait<0>();
-    __syncthreads();   // the next tile has landed; this one is free
-    t = tn;
-    buf ^= 1;
-  }
-
-  __nv_bfloat16* ob = out + b * st.ob + h * st.oh;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    float l = l_run[hh];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    const int row = q0 + warp * 16 + g + 8 * hh;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int dt = 0; dt < NDT; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row * st.os + dt * 8 + 2 * c4) =
-          __floats2bfloat162_rn(o[dt][2 * hh] * inv, o[dt][2 * hh + 1] * inv);
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const uint32_t off = (ks % KB) * 32;
+    repro::wgmma_ss<tc_bk<HD>(), 0>(
+        st.s,
+        repro::smem_desc(q_wg + (ks / KB) * BQ * RB + off, 16, 8 * RB, L),
+        repro::smem_desc(kbuf + (ks / KB) * tc_bk<HD>() * RB + off, 16,
+                         8 * RB, L),
+        ks > 0);
   }
 }
 
+// O += P . V: P from registers, V (kv rows x hd, hd contiguous) read
+// MN-major through the descriptor's transpose bit, 16 kv rows a step.
 template <int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
-              int H, int K, int Sq, int Skv, int causal, int window,
-              int prefix, float sm_scale, const Strides& st, bool tc,
-              cudaStream_t stream) {
-  if (tc) {
-    const dim3 grid((Sq + kTcBQ - 1) / kTcBQ, B * H);
-    constexpr size_t smem = tc_smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_tc<HD><<<grid, kTcThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), H, K, Sq, Skv, causal, window,
-        prefix, sm_scale, st);
-  } else {
-    const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-    constexpr size_t smem = smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<float, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_kernel<float, HD><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), H, K, Sq,
-        Skv, causal, window, prefix, sm_scale, st);
+__device__ __forceinline__ void tc_pv(TcState<HD>& st, uint32_t vbuf) {
+  constexpr int RB = tc_row_bytes<HD>(), BK = tc_bk<HD>();
+  constexpr int L = tc_desc_layout<HD>();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    repro::wgmma_rs<HD, 1>(
+        st.o, st.p[kk],
+        repro::smem_desc(vbuf + kk * 16 * RB, BK * RB, 8 * RB, L), 1);
+}
+
+// Mask tile k0 where it needs it, then fold it into the online softmax:
+// st.s becomes P (f32), corr the factor the output's rows are rescaled
+// by.  Scores stay unscaled until exp2(s * sc - m) (one fma), sc =
+// sm_scale * log2 e, m in the scaled units.  Masked scores are -inf, and
+// a row with no visible key yet subtracts 0: its P and l stay 0 (JAX's
+// kernel gives such a row P = 1 on its -1e30 scores; the first visible
+// key's correction wipes either, and every query sees its own key).
+template <int HD>
+__device__ __forceinline__ void tc_softmax(TcState<HD>& st, int k0, int row0,
+                                           int wq0, int Skv, int causal,
+                                           int window, int prefix, float sc,
+                                           float (&corr)[2]) {
+  constexpr int BK = tc_bk<HD>();
+  const int lane = threadIdx.x % 32;
+  const bool edge =
+      k0 + BK > Skv ||
+      (causal && (k0 + BK - 1 > wq0 ||
+                  (window > 0 && k0 <= wq0 + 63 - window)));
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qp = row0 + 8 * (e / 2);
+        const int kp = k0 + 8 * j + 2 * (lane % 4) + e % 2;
+        bool ok = kp < Skv;
+        if (causal) {
+          ok = ok && kp <= qp;
+          if (window > 0) ok = ok && (kp > qp - window || kp < prefix);
+        }
+        if (!ok) st.s[4 * j + e] = kTcMasked;
+      }
   }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mq[4] = {kTcMasked, kTcMasked, kTcMasked, kTcMasked};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      mq[j % 4] = fmaxf(mq[j % 4],
+                        fmaxf(st.s[4 * j + 2 * h], st.s[4 * j + 2 * h + 1]));
+    float mx = fmaxf(fmaxf(mq[0], mq[1]), fmaxf(mq[2], mq[3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(st.m[h], mx * sc);
+    const float m_use = m_new == kTcMasked ? 0.f : m_new;
+    corr[h] = fast_exp2(st.m[h] - m_use);
+    st.m[h] = m_new;
+    float sq[4] = {0.f, 0.f, 0.f, 0.f};   // four chains, not one
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = fast_exp2(fmaf(st.s[4 * j + 2 * h + e], sc, -m_use));
+        st.s[4 * j + 2 * h + e] = p;
+        sq[j % 4] += p;
+      }
+    // this lane's columns only
+    st.l[h] = st.l[h] * corr[h] + ((sq[0] + sq[1]) + (sq[2] + sq[3]));
+  }
+}
+
+// P (f32 accumulator layout) to bf16 A fragments: k16 step kk is n8
+// tiles 2kk and 2kk + 1 of the score fragment, exactly the A layout.
+template <int HD>
+__device__ __forceinline__ void tc_to_p(TcState<HD>& st) {
+#pragma unroll
+  for (int kk = 0; kk < tc_bk<HD>() / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      st.p[kk][r] = repro::pack_bf16x2(st.s[8 * kk + 2 * r],
+                                       st.s[8 * kk + 2 * r + 1]);
+}
+
+template <int HD>
+__device__ __forceinline__ void tc_rescale(TcState<HD>& st,
+                                           const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.o[4 * j + e] *= corr[e / 2];
+}
+
+template <int HD, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1) flash_tc(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_o, int* __restrict__ sched,
+    int B, int H, int n_kv, int Sq, int Skv, int causal, int window,
+    int prefix, float sm_scale) {
+  using namespace repro;
+  constexpr int BK = tc_bk<HD>(), NS = tc_stages<HD>(), NQ = tc_q_bufs<HD>();
+  constexpr int BQ = 64 * NWG;
+  constexpr int RB = tc_row_bytes<HD>(), CB = RB / 2, NB = HD / CB;
+  constexpr uint32_t QB = tc_q_bytes<HD, NWG>(), KVB = tc_kv_bytes<HD>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sKV = sQ + NQ * QB;  // K[s] at sKV + 2 s KVB, V[s] + KVB
+  const uint32_t bars = sKV + 2 * NS * KVB;
+  auto q_full = [&](int i) { return bars + 8 * i; };
+  auto q_empty = [&](int i) { return bars + 8 * (NQ + i); };
+  auto k_full = [&](int s) { return bars + 8 * (2 * NQ + s); };
+  auto v_full = [&](int s) { return bars + 8 * (2 * NQ + NS + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (2 * NQ + 2 * NS + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (2 * NQ + 3 * NS + s); };
+  auto kbuf = [&](int s) { return sKV + 2 * s * KVB; };
+  auto vbuf = [&](int s) { return sKV + 2 * s * KVB + KVB; };
+  // the work item in Q buffer i, or -1: the CTA's items are done
+  int* const item = reinterpret_cast<int*>(
+      smem_raw + (bars - smem_addr(smem_raw)) + 8 * (2 * NQ + 4 * NS));
+
+  // Work items, one a (query tile, batch * head), in sections of SB
+  // (batch, head) pairs whose K and V come to about kTcSectionBytes, so
+  // that the CTAs read a section's K and V from device memory once, while
+  // they compute, and then from L2; within a section the query tiles
+  // with the most kv tiles under the causal mask come first, so that the
+  // longest items do not form the tail.  The CTAs take items in order
+  // from a counter in device memory (`sched`) as their producers free up.
+  const int BH = B * H, n_qt = (Sq + BQ - 1) / BQ;
+  const int n_items = BH * n_qt;
+  const long long kv_bytes = 4ll * B * n_kv * Skv * HD;
+  const int SB = (int)min((long long)BH,
+                          (BH * kTcSectionBytes + kv_bytes - 1) / kv_bytes);
+  int q0 = 0, b = 0, h = 0, n_tiles = 0;
+  auto decode = [&](int w) {
+    const int sec0 = w / (SB * n_qt) * SB;         // the section's first
+    const int nb = min(SB, BH - sec0);             // its (batch, head)s
+    const int in = w - sec0 * n_qt;
+    q0 = (n_qt - 1 - in / nb) * BQ;
+    b = (sec0 + in % nb) / H;
+    h = (sec0 + in % nb) % H;
+    const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+    n_tiles = (kv_end + BK - 1) / BK;
+  };
+  // the kv tiles the Pallas kernel visits: up to the causal frontier,
+  // minus those wholly left of the window that hold no prefix position
+  auto next_tile = [&](int t) {
+    do { ++t; } while (t < n_tiles && causal && window > 0 &&
+                       t * BK + BK - 1 <= q0 - window && t * BK >= prefix);
+    return t;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NQ; ++i) {
+      mbar_init(q_full(i), 1);            // the producer + its bytes
+      mbar_init(q_empty(i), NWG);         // one arrival per consumer WG
+    }
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), NWG);
+      mbar_init(v_empty(s), NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {   // the producer: one thread issues every copy
+    setmaxnreg_dec<tc_producer_regs(NWG)>();
+    if (threadIdx.x == 128 * NWG) {
+      int it = 0;   // kv tiles loaded so far, over all of this CTA's items
+      for (int r = 0;; ++r) {
+        const int w = atomicAdd(sched, 1);
+        // every CTA fetches once past the last item: the launch's last
+        // fetch leaves the counter at 0 for the next launch
+        if (w == n_items + (int)gridDim.x - 1) atomicExch(sched, 0);
+        const int qi = r % NQ;
+        if (r >= NQ) mbar_wait(q_empty(qi), (r / NQ - 1) & 1);
+        item[qi] = w < n_items ? w : -1;
+        if (w >= n_items) {
+          mbar_arrive(q_full(qi));
+          break;
+        }
+        decode(w);
+        const int kvh = h / (H / n_kv);
+        mbar_arrive_expect_tx(q_full(qi), QB);
+        for (int c = 0; c < NB; ++c)
+          tma_load_4d(sQ + qi * QB + c * BQ * RB, &tm_q, q_full(qi),
+                      c * CB, q0, h, b);
+        for (int t = next_tile(-1); t < n_tiles; t = next_tile(t), ++it) {
+          const int s = it % NS;
+          const uint32_t ph = (it / NS - 1) & 1;
+          if (it >= NS) mbar_wait(k_empty(s), ph);
+          mbar_arrive_expect_tx(k_full(s), KVB);
+          for (int c = 0; c < NB; ++c)
+            tma_load_4d(kbuf(s) + c * BK * RB, &tm_k, k_full(s), c * CB,
+                        t * BK, kvh, b);
+          if (it >= NS) mbar_wait(v_empty(s), ph);
+          mbar_arrive_expect_tx(v_full(s), KVB);
+          for (int c = 0; c < NB; ++c)
+            tma_load_4d(vbuf(s) + c * BK * RB, &tm_v, v_full(s), c * CB,
+                        t * BK, kvh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns query rows q0 + 64 wg ... + 63
+  setmaxnreg_inc<tc_consumer_regs(NWG)>();
+  const int tw = threadIdx.x % 128;
+  const float sc = sm_scale * 1.4426950408889634f;
+  // the schedule: WG wg waits on barrier 1 + wg to issue its products
+  // and then lets the next go (barrier 1 + (wg + 1) % NWG), so that one
+  // WG's exponentials run under the others' products; WG 0 goes first.
+  const int my_turn = 1 + wg, their_turn = 1 + (wg + 1) % NWG;
+  if (wg == NWG - 1) named_bar_arrive(1, 256);
+
+  int it = 0;   // kv tiles consumed so far, over all of this CTA's items
+  for (int r = 0;; ++r) {
+    const int qi = r % NQ;
+    mbar_wait(q_full(qi), (r / NQ) & 1);
+    const int w = item[qi];
+    if (w < 0) break;
+    decode(w);
+    const int wq0 = q0 + 64 * wg;
+    const int row0 = wq0 + 16 * (tw / 32) + (tw % 32) / 4;
+    const uint32_t q_wg = sQ + qi * QB + 64 * wg * RB;
+
+    TcState<HD> st;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) st.s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) st.o[i] = 0.f;
+    st.m[0] = st.m[1] = kTcMasked;
+    st.l[0] = st.l[1] = 0.f;
+    float corr[2];
+
+    // the first tile: S only
+    int t = next_tile(-1);
+    named_bar_sync(my_turn, 256);
+    mbar_wait(k_full(it % NS), (it / NS) & 1);
+    fence_acc(st.s);
+    wgmma_fence();
+    tc_qk<HD, BQ>(st, q_wg, kbuf(it % NS));
+    wgmma_commit();
+    named_bar_arrive(their_turn, 256);
+    wgmma_wait<0>();
+    fence_acc(st.s);
+    if (tw == 0) mbar_arrive(k_empty(it % NS));
+    tc_softmax<HD>(st, t * BK, row0, wq0, Skv, causal, window, prefix, sc,
+                   corr);
+    tc_to_p<HD>(st);
+
+    // then each tile's S is issued before the previous tile's P . V, and
+    // its softmax runs while P . V is in flight
+    for (int tn = next_tile(t); tn < n_tiles; t = tn, tn = next_tile(tn)) {
+      const int sp = it % NS, pp = (it / NS) & 1;
+      ++it;
+      const int sn = it % NS;
+      named_bar_sync(my_turn, 256);
+      mbar_wait(k_full(sn), (it / NS) & 1);
+      fence_acc(st.o);
+      wgmma_fence();
+      tc_qk<HD, BQ>(st, q_wg, kbuf(sn));
+      wgmma_commit();
+      mbar_wait(v_full(sp), pp);
+      tc_pv<HD>(st, vbuf(sp));
+      wgmma_commit();
+      named_bar_arrive(their_turn, 256);
+      wgmma_wait<1>();                    // S of tile tn
+      fence_acc(st.s);
+      if (tw == 0) mbar_arrive(k_empty(sn));
+      tc_softmax<HD>(st, tn * BK, row0, wq0, Skv, causal, window, prefix,
+                     sc, corr);
+      wgmma_wait<0>();                    // P . V of tile t
+      fence_acc(st.o);
+      fence_frag(st.p);
+      if (tw == 0) mbar_arrive(v_empty(sp));
+      tc_rescale<HD>(st, corr);
+      tc_to_p<HD>(st);
+    }
+
+    // the last tile's P . V
+    named_bar_sync(my_turn, 256);
+    mbar_wait(v_full(it % NS), (it / NS) & 1);
+    fence_acc(st.o);
+    wgmma_fence();
+    tc_pv<HD>(st, vbuf(it % NS));
+    wgmma_commit();
+    named_bar_arrive(their_turn, 256);
+    wgmma_wait<0>();
+    fence_acc(st.o);
+    fence_frag(st.p);
+    if (tw == 0) mbar_arrive(v_empty(it % NS));
+    ++it;
+
+    // epilogue: O / max(l, 1e-30) as bf16 into this WG's rows of its Q
+    // buffer (its last Q . K^T is done), swizzled as TMA lays a tile;
+    // one thread stores them with TMA, which writes no row past Sq, and
+    // frees the rows for the next Q once the store has read them
+    float inv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float l = st.l[hh];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[hh] = 1.f / fmaxf(l, 1e-30f);
+    }
+    constexpr uint32_t SWZ = (1u << tc_swizzle_bits<HD>()) - 1;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int rr = 16 * (tw / 32) + (tw % 32) / 4 + 8 * hh;
+        const int col = 8 * jj + 2 * (tw % 4);
+        uint32_t off = rr * RB + (col % CB) * 2;
+        off ^= ((off >> 7) & SWZ) << 4;
+        st_shared_b32(q_wg + (col / CB) * BQ * RB + off,
+                      pack_bf16x2(st.o[4 * jj + 2 * hh] * inv[hh],
+                                  st.o[4 * jj + 2 * hh + 1] * inv[hh]));
+      }
+    fence_proxy_async();
+    named_bar_sync(1 + NWG + wg, 128);
+    if (tw == 0) {
+      if (wq0 < Sq) {
+        for (int c = 0; c < NB; ++c)
+          tma_store_4d(&tm_o, q_wg + c * BQ * RB, c * CB, wq0, h, b);
+        bulk_commit();
+        bulk_wait_read<0>();
+      }
+      mbar_arrive(q_empty(qi));
+    }
+  }
+  if (wg == 0) named_bar_sync(1, 256);  // the last WG's last arrival
+}
+
+// A 4-D tensor map over a (B, heads, rows, HD) bf16 view with element
+// strides (sb, sh, ss) and a unit last stride: boxes of one block's
+// columns x box_rows rows, swizzled as the kernel reads them.  A stride of
+// a dimension of size 1 is never followed: it is given as one row.
+template <int HD>
+bool tc_map(repro::EncodeTiled encode, CUtensorMap* map, const void* p,
+            int B, int heads, int rows, long long sb, long long sh,
+            long long ss, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const long long one = HD * 2;
+  const cuuint64_t strides[3] = {
+      (cuuint64_t)(rows > 1 ? ss * 2 : one),
+      (cuuint64_t)(heads > 1 ? sh * 2 : one),
+      (cuuint64_t)(B > 1 ? sb * 2 : one)};
+  const cuuint32_t box[4] = {(cuuint32_t)(tc_row_bytes<HD>() / 2),
+                             (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  constexpr CUtensorMapSwizzle swz =
+      tc_row_bytes<HD>() == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : tc_row_bytes<HD>() == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(p), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The four tensor maps (built per call: the pointers change) and the
+// launch of NWG consumer warpgroups: one CTA an SM at most, each taking
+// work items until they are done; a map that cannot be encoded is
+// refused.
+template <int HD, int NWG>
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              int* sched, int B, int H, int K, int Sq, int Skv, int causal,
+              int window, int prefix, float sm_scale, const Strides& st,
+              cudaStream_t stream) {
+  constexpr int BQ = 64 * NWG;
+  const repro::EncodeTiled encode = repro::encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv, to;
+  if (!tc_map<HD>(encode, &tq, q, B, H, Sq, st.qb, st.qh, st.qs, BQ) ||
+      !tc_map<HD>(encode, &tk, k, B, K, Skv, st.kb, st.kh, st.ks,
+                  tc_bk<HD>()) ||
+      !tc_map<HD>(encode, &tv, v, B, K, Skv, st.kb, st.kh, st.ks,
+                  tc_bk<HD>()) ||
+      !tc_map<HD>(encode, &to, out, B, H, Sq, st.ob, st.oh, st.os, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = tc_smem_bytes<HD, NWG>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tc<HD, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, n_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  const long long n_items = (long long)B * H * ((Sq + BQ - 1) / BQ);
+  if (n_items > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(n_items < n_sm ? n_items : n_sm);
+  constexpr int threads = 128 * (NWG + 1);
+  flash_tc<HD, NWG><<<grid, threads, smem, stream>>>(
+      tq, tk, tv, to, sched, B, H, K, Sq, Skv, causal, window, prefix,
+      sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* out,
+              int* sched, int B, int H, int K, int Sq, int Skv, int causal,
+              int window, int prefix, float sm_scale, const Strides& st,
+              bool tc, cudaStream_t stream) {
+  if (tc) {
+    if constexpr (tc_wgs(HD, false) == 3) {   // built only where it runs
+      if (tc_wgs(HD, causal) == 3)
+        return launch_tc<HD, 3>(q, k, v, out, sched, B, H, K, Sq, Skv,
+                                causal, window, prefix, sm_scale, st, stream);
+    }
+    return launch_tc<HD, 2>(q, k, v, out, sched, B, H, K, Sq, Skv, causal,
+                            window, prefix, sm_scale, st, stream);
+  }
+  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+  constexpr size_t smem = smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<float, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_kernel<float, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, K, Sq, Skv,
+      causal, window, prefix, sm_scale, st);
   return (int)cudaGetLastError();
 }
 
@@ -601,35 +832,36 @@ extern "C" {
 // q (B, H, Sq, hd); k, v (B, K, Skv, hd) with H % K == 0; out (B, H, Sq,
 // hd); strided views with the element strides (batch, head, row) given,
 // the last dim contiguous, rows 16-byte aligned.  dtype: 0 = f32, 1 =
-// bf16.  route: 0 = tensor_core (bf16), 1 = cuda_core (f32).  Returns the
+// bf16.  route: 0 = tensor_core (bf16), 1 = cuda_core (f32).  sched: an
+// int32 counter at 0 in device memory, which the tensor-core route's CTAs
+// take work items from and leave at 0 (launches that may overlap need
+// counters of their own); the CUDA-core route reads none.  Returns the
 // cudaError_t of the launch (0 on success).
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int B, int H, int K, int Sq, int Skv, int hd, int causal,
                     int window, int prefix, int dtype, int route,
                     float sm_scale, long long qb, long long qh, long long qs,
                     long long kb, long long kh, long long ks, long long ob,
-                    long long oh, long long os, void* stream) {
+                    long long oh, long long os, void* sched, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || H == 0 || Sq == 0) return 0;
   if (Skv == 0 || K == 0 || H % K) return (int)cudaErrorInvalidValue;
   const Strides st{qb, qh, qs, kb, kh, ks, ob, oh, os};
   // route 0 (tensor_core) takes bf16, route 1 (cuda_core) f32
-  if ((route == 0 && dtype != 1) || (route == 1 && dtype != 0) || route > 1)
+  if ((route == 0 && (dtype != 1 || sched == nullptr)) ||
+      (route == 1 && dtype != 0) || route > 1)
     return (int)cudaErrorInvalidValue;
   const bool tc = route == 0;
+  int* const ctr = static_cast<int*>(sched);
+#define FLASH_HD(D)                                                     \
+  case D:                                                               \
+    return launch_hd<D>(q, k, v, out, ctr, B, H, K, Sq, Skv, causal,    \
+                        window, prefix, sm_scale, st, tc, s);
   switch (hd) {
-    case 16: return launch_hd<16>(q, k, v, out, B, H, K, Sq, Skv, causal,
-                                  window, prefix, sm_scale, st, tc, s);
-    case 32: return launch_hd<32>(q, k, v, out, B, H, K, Sq, Skv, causal,
-                                  window, prefix, sm_scale, st, tc, s);
-    case 64: return launch_hd<64>(q, k, v, out, B, H, K, Sq, Skv, causal,
-                                  window, prefix, sm_scale, st, tc, s);
-    case 128: return launch_hd<128>(q, k, v, out, B, H, K, Sq, Skv, causal,
-                                    window, prefix, sm_scale, st, tc, s);
-    case 256: return launch_hd<256>(q, k, v, out, B, H, K, Sq, Skv, causal,
-                                    window, prefix, sm_scale, st, tc, s);
+    FLASH_HD(16) FLASH_HD(32) FLASH_HD(64) FLASH_HD(128) FLASH_HD(256)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_HD
 }
 
 const char* error_string(int code) {

@@ -51,8 +51,6 @@
 //                     NK head view, unaligned rows): a 64 x 64 x 32 f32
 //                     CUDA-core tiling, kept for f32 exactness (f32 on
 //                     the tensor cores would be TF32).
-#include <cuda.h>
-
 #include "common.cuh"
 
 namespace {
@@ -700,71 +698,6 @@ constexpr uint32_t kTcAtom = kTcBK * 128;              // 8192
 constexpr uint32_t kTcStage = kTcA + kTcRaw + 2 * kTcAtom;
 constexpr size_t kTcSmem = (size_t)kTcStages * kTcStage + 1024 + 64;
 
-// A shared-memory matrix descriptor with 128-byte swizzle.
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-// d (64 x 128 f32, this warpgroup's fragment) += A . B, one k16 step:
-// A (64 x 16 bf16, K-major) and B (16 x 128 bf16, N-major: imm-trans-b
-// = 1) read from shared memory through their descriptors.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// One TMA tile load into shared memory, completing on the mbarrier `bar`;
-// c0 is the innermost coordinate.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1)
-      : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
 // 16 int8 values (a 16-byte chunk) to 16 bf16, exactly: each byte b,
 // sign-flipped to b + 128, becomes the low byte of the f32 2^23 + b + 128,
 // from which 2^23 + 128 is subtracted.
@@ -859,20 +792,20 @@ __global__ void __launch_bounds__(kTcThreads, 1) tc_mm(
     named_bar_sync(1, 256);
 
     fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTcBK / 16; ++kk)
-      wgmma_m64n128k16(
-          acc, desc_b128(st + wg * 64 * 128 + kk * 32, 16, 1024),
-          desc_b128(st + kTcA + kTcRaw + kk * 16 * 128, kTcAtom, 1024));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wgmma_ss<128, 1>(
+          acc, smem_desc(st + wg * 64 * 128 + kk * 32, 16, 1024, 1),
+          smem_desc(st + kTcA + kTcRaw + kk * 16 * 128, kTcAtom, 1024, 1), 1);
+    wgmma_commit();
     // the previous step's products are done: release its stage
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    wgmma_wait<1>();
     fence_acc(acc);
     if (i > 0 && t % 128 == 0)
       mbar_arrive(bars + 8 * (kTcStages + (i - 1) % kTcStages));
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_wait<0>();
   fence_acc(acc);
 
   // epilogue: the accumulator fragment of wgmma m64nN: value 4j + 2h + e
@@ -901,30 +834,6 @@ __global__ void __launch_bounds__(kTcThreads, 1) tc_mm(
   }
 }
 
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The two tensor maps (built per call: the pointers change) and the launch.
 // Needs K % 8 == 0, w_row % 16 == 0 and 16-byte aligned x and w_q.
 int launch_tc(const __nv_bfloat16* x, const int8_t* w, const float* scale,
@@ -933,7 +842,7 @@ int launch_tc(const __nv_bfloat16* x, const int8_t* w, const float* scale,
   if (K % 8 || w_row % 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16)
     return (int)cudaErrorInvalidValue;
-  const EncodeTiled encode = encode_tiled();
+  const repro::EncodeTiled encode = repro::encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tm_x, tm_w;
   const cuuint32_t ones[2] = {1, 1};

@@ -25,7 +25,9 @@ shapes and the SM count (`decode_attention_splits`,
 `paged_decode_attention_splits`, `int8_skinny_tc_splits`).  All three
 find the last CTA through counters that the kernels leave at 0, and
 write their f32 partials into a buffer that is kept between calls: one
-pair of buffers per (device, stream), `_split_buffers`.
+pair of buffers per (device, stream), `_split_buffers`.  The bf16 flash
+kernel's persistent CTAs take their work items from the first of those
+counters, which each launch also leaves at 0.
 
 Build: at first use on the card, every `csrc/*.cu` is compiled by `nvcc`
 for sm_90a into its own shared library with a plain C interface (all
@@ -136,7 +138,8 @@ def _lib(name: str) -> ctypes.CDLL:
             f = ctypes.c_float
             fn.argtypes = {
                 "paged_decode_attention": [p] * 8 + [i] * 12 + [f, p],
-                "flash_attention": [p] * 4 + [i] * 11 + [f] + [ll] * 9 + [p],
+                "flash_attention": ([p] * 4 + [i] * 11 + [f] + [ll] * 9
+                                    + [p] * 2),
                 "decode_attention": ([p] * 7 + [i] * 5 + [ll] * 3
                                      + [i] * 5 + [f, p]),
                 "int8_matmul": ([p] * 6 + [i] * 3 + [ll] * 2 + [i] * 5
@@ -211,12 +214,13 @@ def _split_buffers(device: torch.device, n_tickets: int,
                    n_ws: int) -> tuple:
     """(counters, partials) for the kernels that split work across CTAs:
     at least `n_tickets` int32 counters, zeroed once at allocation (the
-    kernels find the last CTA of a group through them and leave them at
-    0), and at least `n_ws` f32 partials, which every launch writes before
-    it reads them.  One pair per (device, current stream), kept between
-    calls: launches on one stream run in order, so each finds the pair
-    free; a launch on another stream gets a pair of its own, so no
-    counter or partial is ever shared by launches that may overlap."""
+    kernels find the last CTA of a group, or bf16 flash its next work
+    item, through them and leave them at 0), and at least `n_ws` f32
+    partials, which every launch writes before it reads them.  One pair
+    per (device, current stream), kept between calls: launches on one
+    stream run in order, so each finds the pair free; a launch on another
+    stream gets a pair of its own, so no counter or partial is ever
+    shared by launches that may overlap."""
     bufs = _split_bufs.setdefault(_stream(device)[0], [None, None])
     if bufs[0] is None or bufs[0].numel() < n_tickets:
         bufs[0] = torch.zeros(max(n_tickets, 4096), dtype=torch.int32,
@@ -392,8 +396,9 @@ FLASH_ROUTES = ("tensor_core", "cuda_core")
 
 def flash_attention_route(dtype: torch.dtype) -> str:
     """The flash kernel for this dtype: bf16 runs on the tensor cores
-    (mma.sync), f32 on the CUDA cores (f32 on the tensor cores would be
-    TF32, a numerics change)."""
+    (wgmma fed by TMA, warp-specialised: the FlashAttention-3 structure),
+    f32 on the CUDA cores (f32 on the tensor cores would be TF32, a
+    numerics change)."""
     return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
 
 
@@ -443,10 +448,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       device=q.device).transpose(1, 2)
     _check_aligned(name, q, k, v, out)
     route = flash_attention_route(q.dtype)
+    # the tensor-core route's CTAs take their work items from a counter
+    # that each launch leaves at 0
+    sched = _split_buffers(q.device, 1, 0)[0]
     _run(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          out.data_ptr(), b, h, nkv, sq, skv, hd, int(causal), window, prefix,
          _DTYPES[q.dtype], FLASH_ROUTES.index(route), hd ** -0.5,
-         *q.stride()[:3], *k.stride()[:3], *out.stride()[:3])
+         *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
+         sched.data_ptr())
     _count(flash_attention, route, non_causal=not causal)
     return out
 

@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_ref
-from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention import (flash_attention_ref,
+                                                  tile_edge_cases)
 from repro_torch.kernels.int8_matmul import int8_matmul_ref
 from repro_torch.kernels.paged_attention import paged_decode_attention_ref
 from repro_torch.serving.quantization import quantize_array
@@ -207,11 +208,16 @@ FLASH = [
     # hymba-1.5b: G 5, 128 meta tokens + 2400, window 2048
     (1, 25, 5, 2528, 2528, 64, 2048, 128, True),
 ]
+
+
+# the bf16 route's tile edges
+FLASH += [case[1:] for case in tile_edge_cases()]
 FLASH_ROUTE = {"f32": "cuda_core", "bf16": "tensor_core"}
 
 
 def _flash_checked(q, k, v, dt, **kw):
-    """One flash launch, asserting it took the dtype's route."""
+    """One flash launch, asserting it took the dtype's route and left the
+    tensor-core route's work counter at 0 for the next launch."""
     route = FLASH_ROUTE[dt]
     before = ops.flash_attention.launches
     by_route = ops.flash_attention.launches_by_route[route]
@@ -219,6 +225,7 @@ def _flash_checked(q, k, v, dt, **kw):
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
     assert ops.flash_attention.launches_by_route[route] == by_route + 1
+    assert int(ops._split_buffers(q.device, 1, 0)[0][0]) == 0
     return got
 
 
@@ -239,12 +246,14 @@ def test_flash_kernel_matches_plain(cuda, case, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", sorted(DTYPES))
-def test_flash_kernel_takes_model_layout_views(cuda, dt):
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_kernel_takes_model_layout_views(cuda, dt, hd):
     """The (B, H, S, hd) views of the model's (B, S, H, hd) tensors, read
-    in place; the output is the view of a (B, S, H, hd) buffer."""
+    in place (the tensor maps take the views' own strides); the output is
+    the view of a (B, S, H, hd) buffer."""
     dtype, tol = DTYPES[dt]
-    q, k, v = _tensors(4, cuda, dtype, (2, 300, 8, 64), (2, 300, 2, 64),
-                       (2, 300, 2, 64))
+    q, k, v = _tensors(4, cuda, dtype, (2, 300, 8, hd), (2, 300, 2, hd),
+                       (2, 300, 2, hd))
     qv, kv, vv = (t.transpose(1, 2) for t in (q, k, v))
     got = _flash_checked(qv, kv, vv, dt, causal=True)
     assert got.transpose(1, 2).is_contiguous()
@@ -644,9 +653,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 @pytest.mark.cuda
 def test_kernels_refuse_a_route_whose_conditions_fail(cuda):
     """The C entries check the route they are given: f32 x on the int8
-    tensor-core routes (tensor_core, skinny_tc), and f32 on the flash
-    tensor-core route, are refused with an error the wrapper raises, not
-    run."""
+    tensor-core routes (tensor_core, skinny_tc), and on the flash
+    tensor-core route f32 or bf16 without its work counter, are refused
+    with an error the wrapper raises, not run."""
     x = torch.zeros(32, 64, device=cuda)
     w = torch.zeros(64, 128, dtype=torch.int8, device=cuda)
     sc = torch.ones(1, 128, device=cuda)
@@ -656,12 +665,16 @@ def test_kernels_refuse_a_route_whose_conditions_fail(cuda):
             ops._run("int8_matmul", cuda, x.data_ptr(), w.data_ptr(),
                      sc.data_ptr(), out.data_ptr(), None, None, m, 128, 64,
                      128, 1, 0, 0, ops.INT8_ROUTES.index(route), 1, 4)
-    q = torch.zeros(1, 2, 8, 16, device=cuda)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        ops._run("flash_attention", cuda, q.data_ptr(), q.data_ptr(),
-                 q.data_ptr(), q.data_ptr(), 1, 2, 2, 8, 8, 16, 1, 0, 0, 0,
-                 ops.FLASH_ROUTES.index("tensor_core"), 0.25,
-                 *q.stride()[:3], *q.stride()[:3], *q.stride()[:3])
+    sched = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for dtype, ctr in ((torch.float32, sched.data_ptr()),
+                       (torch.bfloat16, None)):
+        q = torch.zeros(1, 2, 8, 16, dtype=dtype, device=cuda)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._run("flash_attention", cuda, q.data_ptr(), q.data_ptr(),
+                     q.data_ptr(), q.data_ptr(), 1, 2, 2, 8, 8, 16, 1, 0, 0,
+                     ops._DTYPES[dtype], ops.FLASH_ROUTES.index("tensor_core"),
+                     0.25, *q.stride()[:3], *q.stride()[:3], *q.stride()[:3],
+                     ctr)
 
 
 # --------------------------------------------------------------------- #

@@ -1,5 +1,5 @@
-"""Time the serves' decode kernels of one checkout on fixed yardsticks,
-on one CUDA device, so that two checkouts can be compared.
+"""Time the serves' kernels of one checkout on fixed yardsticks, on one
+CUDA device, so that two checkouts can be compared.
 
     python3 tools/compare_kernels.py [--src ROOT] [--label NAME]
 
@@ -14,8 +14,15 @@ K=16 G=1 hd=128, pages of 16, a table of 64 columns, ragged pos up to
 1023; no single PyTorch call computes it), decode_attention (B=8 K=16
 G=1 S=1024 hd=128, the (B, S, K, hd) cache view, the same pos) beside
 one SDPA call with the ragged mask, and int8_matmul at M = 8 (2048 ->
-2048, 2048 -> 8192, 8192 -> 2048, the tied head 2048 -> 50304) beside
-one torch.matmul on the weight dequantized beforehand.  For each call it
+2048, 2048 -> 8192, 8192 -> 2048, the tied head 2048 -> 50304) and at
+the prefill's M = 4096 (the first three, on the `tensor_core` route)
+beside one torch.matmul on the weight dequantized beforehand, and the
+bf16 flash kernel at the served prefill shapes of PERF.md section 6
+(FLASH_SHAPES, each first held to its plain version within bf16's 2e-2)
+beside one SDPA call with enable_gqa (under the window's boolean mask
+where there is one), with its bound: the larger of the bytes of q, k, v
+and out over 3.35 TB/s and 4 hd flops a visible (query, key) pair of a
+head over 989 TFLOP/s.  For each call it
 reports
 
 - event_ms: CUDA events around the call, each from a cold L2 (a 256 MiB
@@ -52,6 +59,22 @@ import torch
 
 REPS = 30
 SLEEP_CYCLES = 400_000      # ~0.2 ms at the H100's 1.98 GHz boost clock
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+# label: (B, H, K, Sq, Skv, hd, window, prefix, causal), as chip_smoke.py
+# times flash (kernel_timings, gqa_timings, encdec_timings)
+FLASH_SHAPES = {
+    "olmo-1b": (4, 16, 16, 1024, 1024, 128, 0, 0, True),
+    "llama3.2-1b": (4, 32, 8, 1024, 1024, 64, 0, 0, True),
+    "qwen3-1.7b": (4, 16, 8, 1024, 1024, 128, 0, 0, True),
+    "gemma3-1b": (4, 4, 1, 1024, 1024, 256, 512, 0, True),
+    "gemma3-4b": (2, 8, 4, 1280, 1280, 256, 1024, 256, True),
+    "granite-moe-3b-a800m": (4, 24, 8, 1024, 1024, 64, 0, 0, True),
+    "mixtral-8x22b": (4, 48, 8, 1024, 1024, 128, 4096, 0, True),
+    "hymba-1.5b": (2, 25, 5, 2528, 2528, 64, 2048, 128, True),
+    "seamless-m4t-large-v2": (4, 16, 16, 1024, 1024, 64, 0, 0, True),
+    "seamless_encoder": (4, 16, 16, 1024, 1024, 64, 0, 0, False),
+}
 _flush = []
 
 
@@ -193,24 +216,65 @@ def main() -> int:
           "library": measure(lambda: F.scaled_dot_product_attention(
               q, k, v, attn_mask=mask))})
 
-    for label, K, N, tied in (("decode_attn", 2048, 2048, False),
-                              ("decode", 2048, 8192, False),
-                              ("decode_down", 8192, 2048, False),
-                              ("head", 2048, 50304, True)):
+    for label, M, K, N, tied in (("decode_attn", 8, 2048, 2048, False),
+                                 ("decode", 8, 2048, 8192, False),
+                                 ("decode_down", 8, 8192, 2048, False),
+                                 ("head", 8, 2048, 50304, True),
+                                 ("prefill_attn", 4096, 2048, 2048, False),
+                                 ("prefill", 4096, 2048, 8192, False),
+                                 ("prefill_down", 4096, 8192, 2048, False)):
         rng = np.random.default_rng(10)
         w = tensor(rng, dev, torch.float32, *((N, K) if tied else (K, N)))
         qd = q_lib.quantize_array(w * 0.1, 8)
         wq, sc = qd["__q__"], qd["scale"]
         if tied:
             wq, sc = wq.t(), sc.t()
-        x = tensor(rng, dev, bf16, 8, K)
+        x = tensor(rng, dev, bf16, M, K)
         w16 = (wq.float() * sc).to(bf16)
         emit({**head, "kernel": "int8_matmul", "label": label,
-              "shape": f"M=8 K={K} N={N} bf16",
+              "shape": f"M={M} K={K} N={N} bf16",
               "route": ops.int8_matmul_route(x, wq, sc),
               "wrapper": measure(lambda: ops.int8_matmul(x, wq, sc)),
               "library": measure(lambda: torch.matmul(x, w16))})
         del w16
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    F = torch.nn.functional
+    for label, shape in FLASH_SHAPES.items():
+        B, H, K, Sq, Skv, hd, win, pre, causal = shape
+        rng = np.random.default_rng(11)
+        q = tensor(rng, dev, bf16, B, H, Sq, hd)
+        k, v = (tensor(rng, dev, bf16, B, K, Skv, hd) for _ in range(2))
+        kw = dict(causal=causal, window=win, prefix=pre)
+        got = ops.flash_attention(q, k, v, **kw).float()
+        want = flash_attention_ref(q, k, v, **kw).float()
+        err = (got - want).abs()
+        if bool((err > 2e-2 + 2e-2 * want.abs()).any()):
+            raise AssertionError(f"flash_attention/{label}: max |err| "
+                                 f"{float(err.max())}")
+        mask = None
+        if causal:
+            qp = torch.arange(Sq, device=dev)[:, None]
+            kp = torch.arange(Skv, device=dev)[None, :]
+            mask = kp <= qp
+            if win:
+                mask &= (kp > qp - win) | (kp < pre)
+        pairs = B * (int(mask.sum()) if causal else Sq * Skv)
+        t_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+            / HBM_BYTES_PER_S
+        t_ops = 4 * H * hd * pairs / BF16_FLOPS
+        emit({**head, "kernel": "flash_attention", "label": label,
+              "shape": dict(zip("B H K Sq Skv hd window prefix causal"
+                                .split(), shape)),
+              "route": ops.flash_attention_route(q.dtype),
+              "max_abs_err": float(err.max()),
+              "bound_ms": max(t_bytes, t_ops) * 1e3,
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "wrapper": measure(lambda: ops.flash_attention(q, k, v, **kw)),
+              "library": measure(lambda: F.scaled_dot_product_attention(
+                  q, k, v, attn_mask=mask if win else None,
+                  is_causal=causal and not win, enable_gqa=True))})
+        del q, k, v, got, want, err, mask
     return 0
 
 
