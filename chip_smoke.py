@@ -22,12 +22,13 @@ JSON line:
               across chunks, with a prefix, G = 16, head_dim 16), each
               flash and int8 launch also held to its
               route (bf16 flash and bf16 int8 with M > 16 on aligned
-              rows: "tensor_core"; bf16 int8 with M <= 16 on aligned rows
-              "skinny_tc"; f32 flash "cuda_core"; f32 or unaligned int8
+              rows: "tensor_core"; bf16 int8 with M <= 16, rows of any
+              alignment, "skinny_tc"; f32 flash "cuda_core"; f32 int8
               with M <= 16 "skinny"; the rest "cuda_core_tile"), and the
               three kernels that split work across CTAs (decode
-              attention, paged decode attention, skinny_tc) held to
-              bit-identical output over two launches.  Then head_dim 256
+              attention, paged decode attention, skinny_tc) and the int8
+              tensor-core route held to bit-identical output over two
+              launches.  Then head_dim 256
               at gemma's shapes (gemma3-1b: G = 4 over 1 KV head, window
               512; gemma3-4b: G = 2, window 1024, 256 prefix tokens): the
               three attention kernels with pos 0, pos on a chunk edge and
@@ -68,6 +69,14 @@ JSON line:
               order of summation (int8 is exact in bf16; skinny_tc's
               head carries x times its per-K scale as a bf16 hi/lo pair,
               to ~2^-17).
+3b. int8_prefill — the full OLMo-1B's int8 prefill (16 layers, seeded
+              bf16 weights quantized per channel, 4 x 1024 tokens)
+              through the kernels (every projection on the int8
+              "tensor_core" route at M = 4096, 7 a layer; flash), its
+              logits held within 1.5 x the plain version's RMS distance
+              from the f32 model (the same int8 weights dequantized, f32,
+              plain attention); the plain version runs the int8 matmul's
+              and attention's plain PyTorch on the same bf16 model.
 4. parity_f32 — a 2-layer full-width OLMo-1B in f32 serves 4 greedy
               requests through the engine in each decode mode (paged
               attention, gather, contiguous) and in the gather mode with
@@ -324,7 +333,7 @@ JSON line:
               4096 in the paged-attention mode with 4 prompts of
               2100-3500 tokens where the window masks.  Each leg is held
               as serve_bf16 is, its routes exact (the untied head's
-              32001-byte rows on "skinny") and every prefill admission a
+              32001-byte rows on "skinny_tc") and every prefill admission a
               group of one exact length.
 10d. serve_xlstm — the paper's xlstm-125m at full width and depth, bf16,
               seeded weights, serve_bf16's engine and 12 requests in the
@@ -342,7 +351,7 @@ JSON line:
               flash 24 causal and 48 non-causal launches a prefill
               dispatch (counted on their own), the decode kernel 24 a
               decode step for the cross-attention even in the paged leg,
-              the untied head's 256206-byte rows on "skinny"; the charge
+              the untied head's 256206-byte rows on "skinny_tc"; the charge
               equal to the engine's bytes, cross K/V included.  Then the
               swap tier at full width (seamless_swap_leg: two requests on
               64 pages, each swap moving the slot's 100.7 MB of cross
@@ -425,7 +434,7 @@ JSON line:
               serve_seamless' widest cross prefill over 1024 frames, the
               decode kernel at the cross shape B=8 K=16 S=1024 with every
               position valid, each against unmasked SDPA; the int8
-              products at seamless's shapes, its head on "skinny").
+              products at seamless's shapes, its head on "skinny_tc").
               The line also asserts every kernel ran on serve_seamless
               (flash non-causal among its launches) and int8 on
               serve_xlstm.
@@ -447,6 +456,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -774,14 +784,14 @@ def kernel_checks(dev, ops, refs, q_lib):
              "skinny_tc"),
             ("head_ragged_5x272x61", dict(M=5, K=272, N=61, head=True),
              "skinny_tc"),
-            # K % 8 != 0: unaligned rows
+            # K % 8 != 0: unaligned rows (x padded by the wrapper)
             ("ragged_3x100x77", dict(M=3, K=100, N=77, head=False),
-             "skinny"),
+             "skinny_tc"),
             # K % 8 != 0 and N % 16 != 0: unaligned rows
             ("ragged_70x100x77", dict(M=70, K=100, N=77, head=False),
              "cuda_core_tile"),
             ("head_ragged_5x37x61", dict(M=5, K=37, N=61, head=True),
-             "skinny"),
+             "skinny_tc"),
         ]
         # gemma3-1b's gelu shapes: wq 1152 -> 1024, wk / wv -> 256, wi
         # -> 6912, wo 1024 -> 1152, down 6912 -> 1152, the tied head
@@ -808,6 +818,9 @@ def kernel_checks(dev, ops, refs, q_lib):
         torch.cuda.synchronize()
         err = check_close(f"int8_matmul/{name}", got,
                           refs["int8_matmul"](x, wq, sc), 2e-2)
+        if not torch.equal(got, ops.int8_matmul(x, wq, sc)):
+            raise AssertionError(f"int8_matmul/{name}: two launches "
+                                 "differ")
         rows.append({"kernel": "int8_matmul", "case": name,
                      "dtype": str(torch.bfloat16), "route": "tensor_core",
                      "max_abs_err": err})
@@ -859,9 +872,8 @@ def kernel_checks(dev, ops, refs, q_lib):
                                             pos=HYMBA_POS, strided=True),
              w, 128) for w in (2048, 0)], rows, 3000)
         icases = [(f"hymba_m{m}_{k}x{n}", dict(M=m, K=k, N=n, head=False),
-                   ("skinny_tc" if m <= 16 else "tensor_core")
-                   if n % 16 == 0 else
-                   ("skinny" if m <= 16 else "cuda_core_tile"))
+                   "skinny_tc" if m <= 16 else
+                   ("tensor_core" if n % 16 == 0 else "cuda_core_tile"))
                   for m in (8, 1024) for k, n in HYMBA_INT8]
         check_int8(dev, ops, refs, q_lib, dtype, icases, rows, 3000)
     # seamless-m4t-large-v2's decoder self-attention (seeds from 5000): G = 1
@@ -1023,7 +1035,8 @@ def check_decode(dev, ops, refs, dtype, cases, rows, seed0=0):
 
 def check_int8(dev, ops, refs, q_lib, dtype, cases, rows, seed0=0):
     """Each (name, shape, route of bf16 x) case of the int8 matmul against
-    its plain version, on its route; skinny_tc twice, bit for bit."""
+    its plain version, on its route; the two tensor-core routes twice,
+    bit for bit."""
     for name, kw, bf16_route in cases:
         x, wq, sc = int8_case(dev, dtype, q_lib, seed=seed0 + len(rows),
                               **kw)
@@ -1036,7 +1049,7 @@ def check_int8(dev, ops, refs, q_lib, dtype, cases, rows, seed0=0):
         rows.append({"kernel": "int8_matmul", "case": name,
                      "dtype": str(dtype), "route": route,
                      "max_abs_err": err})
-        if route == "skinny_tc" and not torch.equal(
+        if route in ("skinny_tc", "tensor_core") and not torch.equal(
                 got, ops.int8_matmul(x, wq, sc)):
             raise AssertionError(f"int8_matmul/{name}: two launches "
                                  "differ")
@@ -1149,6 +1162,9 @@ def int8_timing(dev, ops, refs, q_lib, label, M, Kd, N, head, route):
                    lambda: ops.int8_matmul(x, wq, sc))
     err = check_close(f"int8_matmul/timed_{label}", got, mm_ref(x, wq, sc),
                       tol_of(dt))
+    if not torch.equal(got, ops.int8_matmul(x, wq, sc)):   # fixed sum order
+        raise AssertionError(f"int8_matmul/timed_{label}: two launches "
+                             "differ")
     # bytes: int8 weights, x, out (bf16) and the scale, each once;
     # operations at the bf16 tensor-core peak, the rate the card has for
     # this product
@@ -2152,31 +2168,28 @@ def expected_routes(cfg, ecfg, st, dispatch_shapes):
     `int8_products` have M = rows x bucket, on the tensor cores when
     M > 16 (an encoder-decoder's encoder and cross wk / wv take the rows'
     max_len frames: M = rows x max_len), and the head M = rows; every
-    decode step has M = n_slots; M <= 16 (bf16 x, aligned rows) is
-    skinny_tc.  An untied head of N % 16 != 0 (hymba's 32001,
-    seamless's 256206) has rows that are no whole number of 16-byte
-    vectors: M <= 16 on "skinny"."""
+    decode step has M = n_slots; M <= 16 (bf16 x) is skinny_tc whatever
+    the rows, the untied heads' of N % 16 != 0 too (hymba's 32001,
+    seamless's 256206: no whole number of 16-byte vectors); none runs
+    on "skinny"."""
     causal, non_causal = flash_per_prefill(cfg)
     flash = {"tensor_core": (causal + non_causal) * st["prefill_dispatches"],
              "cuda_core": 0}
     int8 = {"skinny": 0, "tensor_core": 0, "cuda_core_tile": 0,
             "skinny_tc": 0}
     if ecfg.quantize == "int8":
-        head_row = cfg.d_model if cfg.tie_embeddings else cfg.vocab
 
-        def route(m, wide, row=16):
-            if m > 16:
-                return wide
-            return "skinny_tc" if row % 16 == 0 else "skinny"
+        def route(m, wide):
+            return wide if m > 16 else "skinny_tc"
         n = int8_products(cfg, False)
         frames = int8_products(cfg, True) - n
         for rows, bucket in dispatch_shapes:
             int8[route(rows * bucket, "tensor_core")] += n
             int8[route(rows * ecfg.max_len, "tensor_core")] += frames
-            int8[route(rows, "cuda_core_tile", head_row)] += 1   # the head
+            int8[route(rows, "cuda_core_tile")] += 1   # the head
         steps = ecfg.decode_block * st["decode_dispatches"]
         int8[route(ecfg.n_slots, "tensor_core")] += n * steps
-        int8[route(ecfg.n_slots, "cuda_core_tile", head_row)] += steps
+        int8[route(ecfg.n_slots, "cuda_core_tile")] += steps
     return {"flash_attention": flash, "int8_matmul": int8,
             "flash_non_causal": non_causal * st["prefill_dispatches"]}
 
@@ -2619,7 +2632,7 @@ def serve_legs(phase, dev, ops, card, cfg, params, legs):
 def hymba_timings(dev, ops, refs, q_lib, int8_m):
     """The int8 products at hymba-1.5b's shapes, bf16: decode M = 8 for
     wq, wk / wv, w_in, gate / up, down and the untied head (its 32001-byte
-    rows on "skinny"), and w_in at serve_hymba's widest int8 prefill M
+    rows unaligned), and w_in at serve_hymba's widest int8 prefill M
     `int8_m`; then its SSM branch, plain PyTorch as JAX's is jnp (no TPU
     kernel; ROADMAP B7): one layer's decode step over 8 slots and one
     layer's selective scan over 2048 tokens, against the bound of the
@@ -2629,9 +2642,7 @@ def hymba_timings(dev, ops, refs, q_lib, int8_m):
     from repro_torch.models import transformer as tf
     from repro_torch.models import build
     int8 = [int8_timing(dev, ops, refs, q_lib, f"hymba_decode_{k}x{n}", 8,
-                        k, n, False, "skinny_tc" if n % 16 == 0
-                        else "skinny")
-            for k, n in HYMBA_INT8]
+                        k, n, False, "skinny_tc") for k, n in HYMBA_INT8]
     int8.append(int8_timing(dev, ops, refs, q_lib, "hymba_prefill_w_in",
                             int8_m, 1600, 3200, False, "tensor_core"))
     cfg = dataclasses.replace(ARCHS["hymba-1.5b"], n_layers=1)
@@ -2678,7 +2689,8 @@ XLSTM_INT8 = ((768, 3072), (1536, 1536), (1536, 768), (768, 2112),
               (2112, 768))
 # seamless-m4t-large-v2's (K -> N): wq / wk / wv / wo (self and cross),
 # the gelu FFN's wi and wo; its untied head, 1024 -> 256206, has rows of
-# 256206 bytes, no whole number of 16-byte vectors ("skinny")
+# 256206 bytes, no whole number of 16-byte vectors (on "skinny_tc" all
+# the same, by TMA from the rows' residue classes)
 SEAMLESS_INT8 = ((1024, 1024), (1024, 8192), (8192, 1024))
 ENCDEC_PARITY_LAYERS = 2    # of seamless's 24 + 24, the depth cut
 
@@ -2868,7 +2880,7 @@ def serve_seamless(dev, ops, card, cfg=None):
     budgets and every page returned, its exact launches (flash: 24
     causal and 48 non-causal a prefill dispatch, counted on their own;
     the decode kernel for the cross-attention, >= 24 a decode step, in
-    the paged leg too) and routes (the untied head's rows on "skinny"),
+    the paged leg too) and routes (the untied head's rows on "skinny_tc"),
     and placement's charge equal to the engine's bytes, cross K/V
     included.  Then `seamless_swap_leg`.  `cfg` replaces the model (a
     CPU rehearsal).  Returns ({leg: launches}, {leg: (routes, prefill
@@ -3003,7 +3015,7 @@ def encdec_timings(dev, ops, refs, q_lib, int8_m, cross_shape):
     cross-attention's decode shape (B=8 K=16 G=1 S=1024 hd=64, every
     position valid) against SDPA; the int8 products at decode M = 8
     (1024 -> 1024, 1024 -> 8192, 8192 -> 1024, the untied head 1024 ->
-    256206 on "skinny") and 1024 -> 8192 at the widest int8 prefill M
+    256206, its rows unaligned) and 1024 -> 8192 at the widest int8 prefill M
     `int8_m` (the encoder's rows x 1024 frames).  Returns {kernel:
     [rows]}."""
     F = torch.nn.functional
@@ -3061,7 +3073,7 @@ def encdec_timings(dev, ops, refs, q_lib, int8_m, cross_shape):
                         8, kd, n, False, "skinny_tc")
             for kd, n in SEAMLESS_INT8]
     int8.append(int8_timing(dev, ops, refs, q_lib, "seamless_head", 8, 1024,
-                            256206, False, "skinny"))
+                            256206, False, "skinny_tc"))
     int8.append(int8_timing(dev, ops, refs, q_lib, "seamless_prefill_wi",
                             int8_m, 1024, 8192, False, "tensor_core"))
     out = {"flash_attention": flash, "decode_attention": decode,
@@ -5381,6 +5393,91 @@ def prefill_logits_check(cfg, params, tokens):
     return row
 
 
+def int8_prefill(dev, ops, card, cfg=None, rows=4, seq=1024):
+    """The full OLMo-1B's int8 prefill (`rows` x `seq` tokens) through the
+    kernels against its plain version, each beside the f32 model on the
+    same int8 weights: the model under quantize="int8"
+    (`quantization.int8_operands`) runs transformer.forward with flash,
+    every projection on the int8 kernel (M = rows x seq: "tensor_core",
+    7 a layer; the tied head at M > 16 on "cuda_core_tile"), then the
+    same operands with `ops.int8_matmul` swapped for its plain version
+    (dequantize, multiply in f32, round to bf16) and the plain
+    attention, then the dequantized weights in f32 through the plain
+    attention.  The kernel's products differ from the plain version's in
+    the order of their f32 sums, flash in its P rounding; the rest is the
+    same bf16 model, whose own rounding sets the scale of both paths'
+    distance from f32.  So the kernels' logits must stay within 1.5 x the
+    plain path's RMS distance from the f32 model (the limit
+    `prefill_logits_check` holds flash to): a wrong fragment, swizzle or
+    scale moves a product by
+    O(1) and the logits by far more.  `cfg` replaces the model (a CPU
+    rehearsal with the ops wrappers stubbed)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.int8_matmul import int8_matmul_ref
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import quantization as q_lib
+    t0 = time.perf_counter()
+    cfg = cfg or ARCHS["olmo-1b"]
+    params = build(cfg, dev).init(torch.Generator(dev).manual_seed(11))
+    seed_norms(params, np.random.default_rng(12))
+    qtree = q_lib.quantize_tree(params, 8)
+    del params
+    operands = q_lib.int8_operands(qtree)
+    tokens = torch.randint(0, cfg.vocab, (rows, seq),
+                           generator=torch.Generator().manual_seed(13),
+                           dtype=torch.int32).to(dev)
+    ops.reset_launches()
+    with torch.no_grad():
+        got = tf.forward(operands, cfg, tokens, impl="flash").float()
+    launches = {"int8_matmul": dict(ops.int8_matmul.launches_by_route),
+                "flash_attention": ops.flash_attention.launches}
+    want_tc = 7 * cfg.n_layers if rows * seq > 16 else 0
+    if launches["int8_matmul"]["tensor_core"] != want_tc:
+        raise AssertionError(f"int8_prefill: launches {launches}, want "
+                             f"{want_tc} on tensor_core")
+    kernel = ops.int8_matmul
+    ops.int8_matmul = int8_matmul_ref    # the plain version, on the card
+    try:
+        with torch.no_grad():
+            plain = tf.forward(operands, cfg, tokens, impl="full").float()
+    finally:
+        ops.int8_matmul = kernel
+    del operands
+    f32 = torch.utils._pytree.tree_map(
+        lambda t: t.float() if t.is_floating_point() else t,
+        q_lib.dequant_tree(qtree))
+    del qtree
+    with torch.no_grad():
+        ref = tf.forward(f32, dataclasses.replace(cfg, dtype="f32"), tokens,
+                         impl="full").float()
+    del f32
+
+    def rms(a, b):
+        return float((a - b).pow(2).mean().sqrt())
+    row = {"phase": "int8_prefill", "model": cfg.name, "rows": rows,
+           "seq": seq, "logits_shape": list(got.shape),
+           "launches": launches,
+           "max_abs_kernel_vs_plain": float((got - plain).abs().max()),
+           "rms_kernel_vs_plain": rms(got, plain),
+           "rms_kernel_vs_f32": rms(got, ref),
+           "rms_plain_vs_f32": rms(plain, ref),
+           "logits_rms": float(ref.pow(2).mean().sqrt()),
+           "argmax_kernel_eq_plain": float(
+               (got.argmax(-1) == plain.argmax(-1)).float().mean()),
+           "seconds": time.perf_counter() - t0, "card": card}
+    del got, plain, ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    emit(row)
+    if not math.isfinite(row["rms_kernel_vs_f32"]) \
+            or row["rms_kernel_vs_f32"] > 1.5 * row["rms_plain_vs_f32"]:
+        raise AssertionError(f"int8 prefill logits through the kernels: "
+                             f"{row}")
+    return row
+
+
+
 def serve_roofline(dev, cfg=None):
     """The full OLMo-1B's unsharded prefill (4 x 1024) and decode step (B
     8, cache 1024), counted on meta tensors (`op_profile`) and bounded by
@@ -5484,6 +5581,9 @@ def main() -> int:
 
     rows = kernel_checks(dev, ops, refs, q_lib)
     emit({"phase": "kernel_checks", "cases": rows})
+    int8_prefill(dev, ops, card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     parity_f32(dev, ops)
     parity_moe(dev, ops)

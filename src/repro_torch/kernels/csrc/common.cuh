@@ -373,7 +373,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// mbarriers (shared::cta; the kernels launch no clusters).
+// mbarriers of the calling CTA (shared::cta; in a cluster too).
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
                :: "r"(bar), "r"(count) : "memory");
@@ -679,6 +679,50 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(scale_d), "n"(TB));
+  } else if constexpr (N == 192) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95 "
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
   } else if constexpr (N == 256) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
@@ -792,11 +836,69 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
          "r"(c2), "r"(c3)
       : "memory");
 }
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 template <int N> __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// Wait until the committed stores are complete (not only their reads).
+template <int N> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void tma_load_1d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+// Fetch a tensor map (a kernel parameter) ahead of its first copy.
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- thread block clusters ------------------------------------------- //
+
+// Every thread of every CTA of the cluster arrives (its shared-memory
+// writes released) and waits for the others (theirs acquired).  All
+// threads of a warp execute it together.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The two halves of cluster_sync: arrive without ordering (a CTA says it
+// has started, before any other reads or writes its shared memory) and
+// wait for the phase (each thread alternates arrive and wait).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// The shared-memory address `addr` of this CTA as the same address in the
+// CTA of cluster rank `rank`, and a load from there.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n"
+               :: "r"(addr), "f"(v) : "memory");
 }
 
 typedef CUresult (*EncodeTiled)(
@@ -823,6 +925,54 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// A tensor map of rank 1 or 2 (no interleave, L2 promotion of 128 bytes,
+// zero fill past the bounds), encoded once for each distinct set of
+// arguments: a small cache per host thread keeps the last 64.  The map is
+// a pure function of its arguments, so a pointer freed and reused for a
+// tensor of the same layout finds a map that is still right.  False where
+// the map cannot be encoded.
+inline bool tensor_map(CUtensorMap* out, CUtensorMapDataType dtype, int rank,
+                       const void* p, uint64_t d0, uint64_t d1,
+                       uint64_t stride_bytes, uint32_t b0, uint32_t b1,
+                       CUtensorMapSwizzle swizzle) {
+  struct Entry {
+    const void* p;
+    uint64_t d0, d1, stride;
+    uint32_t b0, b1;
+    int dtype, rank, swizzle;
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 64;
+  thread_local Entry cache[kEntries];
+  thread_local int used = 0, next = 0;
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.p == p && e.d0 == d0 && e.d1 == d1 && e.stride == stride_bytes &&
+        e.b0 == b0 && e.b1 == b1 && e.dtype == (int)dtype &&
+        e.rank == rank && e.swizzle == (int)swizzle) {
+      *out = e.map;
+      return true;
+    }
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {stride_bytes};
+  const cuuint32_t box[2] = {b0, b1};
+  const cuuint32_t ones[2] = {1, 1};
+  if (encode(out, dtype, rank, const_cast<void*>(p), dims, strides, box,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  Entry& e = cache[next];
+  e = Entry{p, d0, d1, stride_bytes, b0, b1, (int)dtype, rank, (int)swizzle,
+            *out};
+  next = (next + 1) % kEntries;
+  if (used < kEntries) ++used;
+  return true;
 }
 
 }  // namespace repro

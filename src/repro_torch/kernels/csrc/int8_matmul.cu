@@ -17,36 +17,27 @@
 //
 // Routes, chosen by the caller (kernels/ops.py, int8_matmul_route) from
 // dtype, layout, scale, M and alignment, never from a failure:
-//   0 skinny          M <= 16 with f32 x or unaligned rows.  Bound by
-//                     the bytes of w_q (each weight byte feeds 2 M flops)
-//                     in principle, by the CUDA cores' int-to-float
-//                     conversion and M FMAs per weight byte in practice:
-//                     w_q is streamed once with 16-byte loads per lane,
-//                     kept packed in registers, up to 8 rows of x in
-//                     registers.  f32 stays here: on the tensor cores it
-//                     would be TF32.
-//   3 skinny_tc       bf16 x, M <= 16, K % 8 == 0, 16-byte aligned rows
-//                     (KN or NK, per-N or 16-byte aligned per-K scale):
-//                     decode and the tied head of a bf16 model.  The
-//                     same bytes on the
-//                     tensor cores (mma.sync with A and B swapped, the
-//                     weight as A), K split across CTAs for small N; see
-//                     skinny_tc below.
-//   1 tensor_core     bf16 x, M > 16, KN, per-N scale, 16-byte rows: the
-//                     prefill projections.  Bound by operations (989
-//                     TFLOP/s bf16 on the tensor cores; int8 values are
-//                     exact in bf16, so a bf16 x bf16 product with f32
-//                     accumulation differs from the plain version only in
-//                     the order of summation).  A 128 x 128 output tile
-//                     per CTA: one producer thread keeps a 4-stage ring
-//                     of TMA loads in flight (the x tile with 128-byte
-//                     swizzle, the raw int8 tile), the two consumer
-//                     warpgroups widen each int8 tile to bf16 into the
-//                     swizzled N-major layout the wgmma B descriptor
-//                     reads, then each runs wgmma m64n128k16 on its 64
-//                     rows, the widening of the next tile overlapping the
-//                     tensor cores' work on this one.  TMA's zero fill
-//                     covers the ragged edges of M, N and K.
+//   0 skinny          M <= 16 with f32 x.  Bound by the bytes of w_q
+//                     (each weight byte feeds 2 M flops) in principle,
+//                     by the CUDA cores' int-to-float conversion and M
+//                     FMAs per weight byte in practice: w_q is streamed
+//                     once with 16-byte loads per lane, kept packed in
+//                     registers, up to 8 rows of x in registers.  f32
+//                     stays here: on the tensor cores it would be TF32.
+//   3 skinny_tc       bf16 x, M <= 16, KN or NK, either scale, weight
+//                     rows of any stride and alignment: decode and the
+//                     heads of a bf16 model.  The same bytes on the tensor
+//                     cores (mma.sync with A and B swapped, the weight as
+//                     A), in one wave with the weight in flight from the
+//                     start through a TMA ring, the K split of a column
+//                     tile summed in a thread block cluster; see skinny_tc
+//                     below.
+//   1 tensor_core     bf16 x, M > 16, KN, per-N scale, K % 8 == 0,
+//                     N % 8 == 0, 16-byte rows: the prefill projections.
+//                     Bound by operations (989 TFLOP/s bf16 on the tensor
+//                     cores).  out^T = (w_q s)^T x^T on wgmma with the
+//                     int8 weight widened into its register A operand, a
+//                     persistent grid, TMA in and out; see tc_mm below.
 //   2 cuda_core_tile  everything else with M > 16 (f32 x, the per-K-scale
 //                     NK head view, unaligned rows): a 64 x 64 x 32 f32
 //                     CUDA-core tiling, kept for f32 exactness (f32 on
@@ -258,66 +249,51 @@ __global__ void __launch_bounds__(kThreads) skinny_nk(
     }
 }
 
-// ---- skinny_tc: bf16 x, M <= 16, on the tensor cores ---------------- //
-// mma.sync m16n8k16 with A and B swapped: the weight is A, 16 output
-// columns a tile (MMA rows), and x is B, its <= 8 rows the MMA's n = 8
-// (two B tiles for M up to 16).  Nothing passes through shared memory on
-// the way in.  The sum over k does not care in which order each k16 step
-// lists its 16 k, so every lane's 16-byte load is mapped straight onto its
-// own fragment registers (x's fragment takes the same k order):
-//   KN (w rows along N): a step is 16 k.  Lane (g = lane/4, t = lane%4)
-//     loads columns 16g..16g+15 of rows k = 4t..4t+3: 128 contiguous bytes
-//     per row across the 8 lanes of one t.  Tile i's MMA row r is column
-//     16 (r % 8) + 2i + r / 8, its logical k 2t, 2t+1, 2t+8, 2t+9 are rows
-//     4t..4t+3, so x's fragment is x[g][4t..4t+3], one 8-byte load.  Each
-//     bf16 pair of the A fragment joins bytes of two loads (two k).
-//   NK (w rows along K, the tied head's embed_q.t()): a step is 64 k.
-//     Lane (g, t) loads k 16t..16t+15 of columns g and g+8 of each of 4
-//     tiles; k16 step j takes bytes 4j..4j+3 as its logical k 2t, 2t+1,
-//     2t+8, 2t+9, and x's fragment is x[g][16t+4j..16t+4j+3].
-// Each int8 is widened exactly (the byte permute of widen16, one
-// subtraction) and paired into bf16x2 registers; sums are f32.  The per-N
-// scale multiplies the f32 sum once at the end.  A per-K scale (the tied
-// head's, one per d) cannot, so it is folded into x: x * s in f32, split
-// into two bf16 terms, hi = bf16(x s) and lo = bf16(x s - hi), each
-// multiplied by the exact bf16 weight on the tensor cores (one more MMA
-// per tile and step, the same weight fragment).  hi alone, one rounding
-// of x s to bf16, strays from the plain f32 product by up to 2^-9 of
-// each term, ~0.03 in an output near 0 at K = 2048: past the 2e-2
-// tolerance the route is held to.  hi + lo carries x s to ~2^-17, so the
-// route differs from the plain version only in the order of its f32
-// sums (tests/test_torch_kernels.py emulates the split).
-//
-// Pipeline: each warp keeps a ring of RING steps of raw loads in its
-// registers (KN 4 x 2 KB, NK 2 x 4 KB of weight per warp, each step's x
-// values and scales beside it), issuing step s + RING as soon as step s
-// is widened, so 8 KB of weight is in flight per warp and 32-128 KB per
-// SM, and no step waits on a load issued when it starts.  A CTA of
-// kStWarps warps owns COLS columns and a range of `per` steps, dealt
-// round-robin to its warps; their sums meet in shared memory in warp
-// order.  Small N cannot fill 132 SMs with column tiles
-// alone (2048 -> 2048: 16 tiles of 128), so K is split over gridDim.y
-// CTAs too (ops.int8_skinny_tc_splits: at least 2 x the SM count of
-// CTAs); each stores an f32 partial, and the last to finish (common.cuh
-// last_to_arrive) sums them in split order: deterministic, one launch.
-//
-// Bound: the bytes of w_q, each read once (K N bytes; x, the scale and
-// the output are a few KB), over 3.35 TB/s.  Per weight byte the kernel
-// spends ~2.5 instructions widening it and 2 M / 256 of an MMA, where the
-// CUDA-core skinny kernels spent a conversion and M FMAs.
-constexpr int kStWarps = 4;
-constexpr int kStThreads = 32 * kStWarps;
-
-// Value e of the sign-flipped word u (u = word ^ 0x80808080), exactly, as
+// ---- int8 -> bf16 fragments, shared by the two tensor-core routes ---- //
+// Value e of the sign-flipped word v (v = word ^ 0x80808080), exactly, as
 // an f32: 2^23 + (b + 128) - (2^23 + 128).
-__device__ __forceinline__ float i8f(uint32_t u, int e) {
-  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + e)) -
+__device__ __forceinline__ float i8f(uint32_t v, int e) {
+  return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440 + e)) -
          8388736.f;
 }
 
-// Word j of a 16-byte run (j is a constant once unrolled).
-__device__ __forceinline__ uint32_t word(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+// Two integer-valued f32 (|f| <= 128: their low 16 bits are 0) as a
+// bf16x2, f0 in the low half: their high halves, exactly.
+__device__ __forceinline__ uint32_t pk(float f0, float f1) {
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+}
+
+// The A fragments (m16n8k16's, and each warp's share of wgmma's register
+// A) of two 16-row tiles from four words of int8, read at the k rows 2t,
+// 2t + 1, 2t + 8, 2t + 9 of a k16 step (t = lane % 4), four consecutive
+// output channels n + 0..3 a word.  Channel n + 2b + h is row g + 8h of
+// tile b (g = lane / 4): the tiles' rows are a permutation of n that the
+// caller undoes when it stores the result.
+__device__ __forceinline__ void widen_kn(const uint32_t (&u)[4],
+                                         uint32_t (&a)[2][4]) {
+  uint32_t v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = u[j] ^ 0x80808080u;
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      a[b][h] = pk(i8f(v[0], 2 * b + h), i8f(v[1], 2 * b + h));
+      a[b][2 + h] = pk(i8f(v[2], 2 * b + h), i8f(v[3], 2 * b + h));
+    }
+}
+
+// The A fragment of one 16-row tile from a word of int8 in each of its
+// rows g and g + 8, four consecutive k (4t..4t+3) a word, taken as the
+// fragment's k 2t, 2t + 1, 2t + 8, 2t + 9: a k order that the B fragment
+// (x, from the same four k) repeats.
+__device__ __forceinline__ void widen_nk(uint32_t u0, uint32_t u8,
+                                         uint32_t (&a)[4]) {
+  const uint32_t v0 = u0 ^ 0x80808080u, v8 = u8 ^ 0x80808080u;
+  a[0] = pk(i8f(v0, 0), i8f(v0, 1));
+  a[1] = pk(i8f(v8, 0), i8f(v8, 1));
+  a[2] = pk(i8f(v0, 2), i8f(v0, 3));
+  a[3] = pk(i8f(v8, 2), i8f(v8, 3));
 }
 
 // x * s for four bf16 of x (two bf16x2 words) and their four per-K
@@ -335,269 +311,586 @@ __device__ __forceinline__ void split_xs(const uint2& raw, const float4& s,
   lo.y = repro::pack_bf16x2(f[2] - rb.x, f[3] - rb.y);
 }
 
-// KN: a step is 16 k, 8 tiles of 16 columns, 4 weight loads a lane and
-// 4 x values per x row; NK: a step is 64 k, 4 tiles, 8 weight loads and
-// 16 x values per x row.
-template <bool KN> struct StShape;
-template <> struct StShape<true> {
-  static constexpr int COLS = 128, STEP_K = 16, LOADS = 4, RING = 4, NT = 8;
-  static constexpr int XQ = 1;   // 4-value x quads per x row and step
+// ---- skinny_tc: bf16 x, M <= 16, on the tensor cores ---------------- //
+// mma.sync m16n8k16 with A and B swapped: the weight is A (16 output
+// channels a tile), x is B (its <= 8 rows the MMA's n = 8; two B tiles
+// for M up to 16).  At M <= 16 the weight is the only operand of size:
+// wgmma's 64-row minimum would buy nothing, and the bound is its bytes.
+//
+// One wave with the bytes in flight from the start.  A CTA owns a column
+// tile (COLS output channels) and a range of `per` stages of its K; a
+// stage is 64 weight rows of 128 bytes (KN: 64 k x 128 n; NK: 64 n x 128
+// k) with the x rows (and per-K scales) of its k.  The producer warp
+// issues the copies of every stage the ring holds at once (kStRing
+// stages, up to ~112 KB of weight an SM; kStRingPair where two CTAs
+// share an SM), then refills each stage as the consumers free it.  On
+// 16-byte aligned weight rows (row stride % 16 == 0, an aligned pointer)
+// a stage's weight is one TMA tile with the 128-byte swizzle.  Rows of
+// any other stride (the untied heads: 32001- or 256206-byte rows, or an
+// offset view) start at offsets that repeat every P rows (StMaps): one
+// tensor map a residue class reads the rows of the class, from the
+// 16-byte boundary below, as one box a stage, and the consumers realign
+// each 4-byte word with a funnel shift (a copy per row, or 16-byte
+// cp.async per lane, read the same heads at a third of the rate: too
+// many small requests).  x and the per-K scale come by TMA (zero past M
+// and K); the wrapper copies an x whose rows are no whole number of
+// 16-byte vectors, or a per-K scale off a 16-byte boundary, first.
+//
+// Eight consumer warps: warp w takes 32 (KN) or 16 (NK) of the tile's
+// channels, w % 4, and every other k16 step of a stage, w / 4; its
+// 4-byte shared loads give four channels at one k (KN: widen_kn, two
+// MMA tiles a k16 step) or four k of one channel (NK: widen_nk), and are
+// widened exactly to bf16 in registers.  A per-N scale multiplies the
+// f32 sum once at the end.  A per-K scale (the tied head's, one per d)
+// cannot, so it is folded into x: x * s in f32, split into two bf16
+// terms, hi = bf16(x s) and lo = bf16(x s - hi), each multiplied by the
+// exact bf16 weight on the tensor cores (one more MMA per tile and step,
+// the same weight fragment).  hi alone, one rounding of x s to bf16,
+// strays from the plain f32 product by up to 2^-9 of each term, ~0.03
+// in an output near 0 at K = 2048: past the 2e-2 tolerance the route is
+// held to.  hi + lo carries x s to ~2^-17, so the route differs from the
+// plain version only in the order of its f32 sums
+// (tests/test_torch_kernels.py emulates the split).
+//
+// The K split: small N cannot fill 132 SMs with column tiles alone
+// (2048 -> 2048: 16 tiles of 128), so the `cluster` CTAs of a column
+// tile (ops.int8_skinny_tc_splits: up to 8) form a thread block cluster,
+// each over its own k stages.  Their f32 partials meet in distributed
+// shared memory: each CTA stores its partial of rank q's slice of the
+// columns into q's inbox, and after one cluster barrier each rank sums
+// its inbox in rank order, so no partial goes to device memory, no
+// ticket is taken, and the bits are the same at every launch.  With no
+// split (as many tiles as a wave holds, or more: the heads), the CTAs of
+// the one wave (two an SM where the tiles outnumber the SMs) walk the
+// column tiles in turn while the producer streams on.  Each output's per-N scale is loaded at its tile's start, off the
+// epilogue's path.
+//
+// Bound: the bytes of w_q, each read once (K N bytes; x, the scale and
+// the output are a few KB), over 3.35 TB/s.  Per weight byte the kernel
+// spends ~3 instructions widening it and 2 M / 256 of an MMA.
+constexpr int kStConsumers = 8;
+constexpr int kStThreads = 32 * (kStConsumers + 1);
+constexpr int kStRows = 64;           // weight rows a stage
+constexpr int kStPitch = 160;  // an unaligned row: 128 + its offset (< 16),
+                               // each class's box 128-byte aligned
+constexpr uint32_t kStXBytes = 4096;  // x: up to 16 rows x 128 k x 2 B
+constexpr uint32_t kStWBytes = kStRows * kStPitch;
+constexpr uint32_t kStSBytes = 512;   // the per-K scale of 128 k
+constexpr uint32_t kStStage = 15360;  // x | w | scale, a multiple of 1024
+constexpr int kStRing = 14;
+// the ring where two CTAs an SM must fit: a clustered launch (clusters of
+// up to 8 then pack one wave of 128 CTAs into 132 SMs; at the full ring,
+// one CTA an SM, eight-CTA clusters pack only 15 = 120 CTAs) and a grid
+// of more CTAs than SMs (the heads: two CTAs an SM stream the weight
+// faster than one with twice the ring)
+constexpr int kStRingPair = 6;
+// the k groups' partials: KN one [16][128 + 4] f32, NK three [16][64 + 4]
+constexpr uint32_t kStRed = 3 * 16 * (64 + 4) * 4;
+// a cluster's inbox: [cluster][16][cw] f32 of this CTA's column slice,
+// cw = ceil(COLS / cluster): at most 16 x 135 floats
+constexpr uint32_t kStInbox = 16 * 136 * 4;
+static_assert(kStXBytes + kStWBytes + kStSBytes <= kStStage, "stage");
+
+// KN: a tile of 128 channels, 64 k a stage; NK: 64 channels, 128 k.
+template <bool KN> struct StGeom;
+template <> struct StGeom<true> {
+  static constexpr int COLS = 128, STAGE_K = 64, XBOXES = 1;
 };
-template <> struct StShape<false> {
-  static constexpr int COLS = 64, STEP_K = 64, LOADS = 8, RING = 2, NT = 4;
-  static constexpr int XQ = 4;
+template <> struct StGeom<false> {
+  static constexpr int COLS = 64, STAGE_K = 128, XBOXES = 2;
 };
 
-// One step's operands as they arrive: the raw int8 weight, the lane's x
-// values (bf16, raw) and, with a per-K scale, their scales.
-template <bool KN, int MT, bool PER_K> struct StSlot {
-  uint4 w[StShape<KN>::LOADS];
-  uint2 x[MT][StShape<KN>::XQ];
-  float4 s[PER_K ? StShape<KN>::XQ : 1];
+// The ring of a launch of `ctas` CTAs (a cluster of `cluster` a tile, or
+// walking `tiles`), each streaming `per` stages of a tile, on n_sm SMs.
+constexpr int st_ring(int cluster, int per, int tiles, int ctas, int n_sm) {
+  const long long streamed = (long long)per * ((tiles + ctas - 1) / ctas);
+  const int cap = cluster > 1 || ctas > n_sm ? kStRingPair : kStRing;
+  return streamed < cap ? (int)streamed : cap;
+}
+
+// The SM count of the current device, found once a process and device.
+inline int st_sm_count() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && cached[dev] > 0) return cached[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < 64) cached[dev] = n;
+  return n;
+}
+
+__host__ __device__ constexpr size_t st_smem_bytes(int ring, int cluster) {
+  return 1024 + (size_t)ring * kStStage + kStRed +
+         (cluster > 1 ? kStInbox : 0) + 16 * (size_t)ring;
+}
+
+// Word `off` (a multiple of 4) of weight row `row` of a stage: swizzled
+// as TMA lands a 128-byte-row tile; or, for unaligned rows, in the box of
+// the row's residue class (row % P: rows of one class share their offset
+// `delta` within a 16-byte aligned span, see StMaps), kStPitch bytes a
+// row, realigned with a funnel shift.
+template <bool ALIGNED>
+__device__ __forceinline__ uint32_t st_word(const uint8_t* wbuf, int row,
+                                            int off, uint32_t delta,
+                                            int log2p) {
+  if constexpr (ALIGNED) {
+    return *reinterpret_cast<const uint32_t*>(
+        wbuf + row * 128 + (((off >> 4) ^ (row & 7)) << 4) + (off & 15));
+  } else {
+    const int srow = ((row & ((1 << log2p) - 1)) << (6 - log2p)) +
+                     (row >> log2p);
+    const uint32_t b = srow * kStPitch + delta + off;
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(wbuf + (b & ~3u));
+    return __funnelshift_r(p[0], p[1], (b & 3u) * 8);
+  }
+}
+
+// The weight's tensor maps.  Aligned rows: m[0], 128-byte boxes with the
+// 128-byte swizzle.  Rows of a stride R that is no multiple of 16 start
+// at offsets that repeat with period P = 16 / gcd(R, 16); the rows of
+// residue r (r + P j) lie a multiple of 16 bytes apart, so m[r] maps them
+// from the 16-byte boundary below row r (stride P R, kStPitch-byte boxes
+// of 64 / P rows), each row landing `delta` bytes into its box row.  A
+// pointer off a 16-byte boundary with aligned rows is P = 1.
+struct StMaps {
+  CUtensorMap m[16];
 };
 
-template <bool KN, int MT, bool PER_K>
-__global__ void __launch_bounds__(kStThreads) skinny_tc(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ ws, unsigned* __restrict__ tickets, int M, int N,
-    int K, long long w_row, int per) {
-  using S = StShape<KN>;
-  using Slot = StSlot<KN, MT, PER_K>;
-  constexpr int COLS = S::COLS, STEP_K = S::STEP_K, LOADS = S::LOADS;
-  constexpr int RING = S::RING, NT = S::NT, XQ = S::XQ;
-  __shared__ float red[MT * 8][COLS + 4];
+struct StArgs {
+  const int8_t* w;
+  const float* scale;
+  __nv_bfloat16* out;
+  int M, N, K;
+  long long w_row;
+  int per, ring;   // stages a CTA's split, ring stages in use
+  int log2p;       // unaligned rows: log2 of their period P
+};
+
+template <bool KN, int MT, bool PER_K, bool ALIGNED>
+__global__ void __launch_bounds__(kStThreads, 1) skinny_tc(
+    const __grid_constant__ StMaps wm,
+    const __grid_constant__ CUtensorMap tm_x,
+    const __grid_constant__ CUtensorMap tm_s, const StArgs a) {
+  using namespace repro;
+  using G = StGeom<KN>;
+  constexpr int COLS = G::COLS, STAGE_K = G::STAGE_K;
+  constexpr uint32_t XBOX = MT * 8 * 128;   // one x box: MT*8 rows x 64 k
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_addr(smem_raw);
+  const uint32_t base = (raw_base + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw_base);
+  const int ring = a.ring;
+  const uint32_t red = base + ring * kStStage;
+  float* const red_p = reinterpret_cast<float*>(gbase + ring * kStStage);
+  const int cluster = gridDim.x;
+  const uint32_t inbox = red + kStRed;
+  float* const inbox_p = red_p + kStRed / 4;
+  const uint32_t bars = inbox + (cluster > 1 ? kStInbox : 0);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (ring + s); };
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int n0 = blockIdx.x * COLS;
-  const int n_steps = (K + STEP_K - 1) / STEP_K;
-  const int s_lo = blockIdx.y * per;
-  const int s_hi = min(s_lo + per, n_steps);
+  const int n_stages = (a.K + STAGE_K - 1) / STAGE_K;
+  const int s_lo = blockIdx.x * a.per;
+  const int s_hi = min(s_lo + a.per, n_stages);
+  const int tiles = (a.N + COLS - 1) / COLS;
 
-  // step s's operands, all issued at once (zeros past K, N, M and s_hi):
-  // x and the scale ride in the ring with the weight, so no step waits on
-  // a load issued when it starts
-  auto load_step = [&](int s, Slot& r) {
-#pragma unroll
-    for (int j = 0; j < LOADS; ++j) r.w[j] = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int q = 0; q < XQ; ++q) r.x[mt][q] = make_uint2(0u, 0u);
-    if constexpr (PER_K)
-#pragma unroll
-      for (int q = 0; q < XQ; ++q) r.s[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s >= s_hi) return;
-    // this lane's first k of the step: KN rows 4t..4t+3, NK 16t..16t+15
-    const int k = s * STEP_K + (KN ? 4 * t : 16 * t);
-    if constexpr (KN) {
-      const int n = n0 + 16 * g;
-#pragma unroll
-      for (int j = 0; j < LOADS; ++j)
-        if (k + j < K)
-          r.w[j] = load_raw16(w + (size_t)(k + j) * w_row + n, true, N - n);
-    } else {
-#pragma unroll
-      for (int j = 0; j < LOADS; ++j) {
-        const int n = n0 + 16 * (j / 2) + g + 8 * (j % 2);
-        if (n < N && k < K)
-          r.w[j] = load_raw16(w + (size_t)n * w_row + k, true, K - k);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ring; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kStConsumers);
     }
-#pragma unroll
-    for (int q = 0; q < XQ; ++q) {
-      if (k + 4 * q >= K) continue;   // K % 8 == 0: quads in or out
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int m = g + 8 * mt;
-        if (m < M)
-          r.x[mt][q] = *reinterpret_cast<const uint2*>(
-              x + (size_t)m * K + k + 4 * q);
-      }
-      if constexpr (PER_K)
-        r.s[q] = *reinterpret_cast<const float4*>(scale + k + 4 * q);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // this CTA has started: the others may write its inbox (after their
+  // matching wait)
+  if (cluster > 1) cluster_arrive_relaxed();
+
+  if (warp == kStConsumers) {   // the producer warp
+    if (lane == 0) {
+      for (int r = 0; r < (1 << a.log2p); ++r) tma_prefetch(&wm.m[r]);
+      tma_prefetch(&tm_x);
+      if constexpr (PER_K) tma_prefetch(&tm_s);
     }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mt][i][c] = 0.f;
-
-  // one step's MMAs
-  auto mma_step = [&](const Slot& r) {
-    uint2 xb[MT][XQ], xl[MT][XQ];   // B fragments: x (or hi, lo of x s)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int q = 0; q < XQ; ++q) {
-        if constexpr (PER_K) split_xs(r.x[mt][q], r.s[q], xb[mt][q],
-                                      xl[mt][q]);
-        else xb[mt][q] = r.x[mt][q];
-      }
-    if constexpr (KN) {
-      uint32_t u[4][4];   // [k row j][word q], sign-flipped
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) u[j][q] = word(r.w[j], q) ^ 0x80808080u;
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        const int q = i / 2, p = i % 2;
-        const uint32_t a[4] = {
-            repro::pack_bf16x2(i8f(u[0][q], 2 * p), i8f(u[1][q], 2 * p)),
-            repro::pack_bf16x2(i8f(u[0][q], 2 * p + 1),
-                               i8f(u[1][q], 2 * p + 1)),
-            repro::pack_bf16x2(i8f(u[2][q], 2 * p), i8f(u[3][q], 2 * p)),
-            repro::pack_bf16x2(i8f(u[2][q], 2 * p + 1),
-                               i8f(u[3][q], 2 * p + 1))};
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          repro::mma_bf16_16816(acc[mt][i], a, xb[mt][0].x, xb[mt][0].y);
-          if constexpr (PER_K)
-            repro::mma_bf16_16816(acc[mt][i], a, xl[mt][0].x, xl[mt][0].y);
+    const uint32_t wlo = (uint32_t)reinterpret_cast<uintptr_t>(a.w);
+    const uint32_t xs_bytes =
+        G::XBOXES * XBOX + (PER_K ? STAGE_K * 4 : 0);
+    int it = 0;
+    for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+      const int n0 = tile * COLS;
+      for (int st = s_lo; st < s_hi; ++st, ++it) {
+        const int slot = it % ring;
+        if (it >= ring) mbar_wait(empty(slot), (it / ring - 1) & 1);
+        const uint32_t sb = base + slot * kStStage;
+        const int k0 = st * STAGE_K;
+        if (lane == 0) {
+          if constexpr (ALIGNED) {
+            mbar_arrive_expect_tx(full(slot), kStRows * 128 + xs_bytes);
+            tma_load_2d(sb + kStXBytes, &wm.m[0], full(slot), KN ? n0 : k0,
+                        KN ? k0 : n0);
+          } else {
+            // a box of each residue class with rows in this stage
+            const int row0 = KN ? k0 : n0, nrows = KN ? a.K : a.N;
+            const int P = 1 << a.log2p, box = kStRows >> a.log2p;
+            const int classes = min(P, nrows - row0);
+            mbar_arrive_expect_tx(full(slot),
+                                  classes * box * kStPitch + xs_bytes);
+            for (int r = 0; r < classes; ++r)
+              tma_load_2d(sb + kStXBytes + r * box * kStPitch, &wm.m[r],
+                          full(slot), KN ? n0 : k0, row0 >> a.log2p);
+          }
         }
+        if (lane == 0) {
+#pragma unroll
+          for (int c = 0; c < G::XBOXES; ++c)
+            tma_load_2d(sb + c * XBOX, &tm_x, full(slot), k0 + 64 * c, 0);
+          if constexpr (PER_K)
+            tma_load_1d(sb + kStXBytes + kStWBytes, &tm_s, full(slot), k0);
+        }
+        __syncwarp();
       }
-    } else {
+    }
+    if (cluster > 1) {   // the consumers' cluster barriers
+      cluster_wait();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // the consumers: warp w takes channels cg (KN: 32 of 128; NK: 32 of
+  // 64, two MMA tiles either way) and k group `grp` of the stage's k16
+  // steps (KN: 2 groups of 2 of 4; NK: 4 groups of 2 of 8), so that each
+  // x fragment (and per-K split) serves two weight tiles
+  constexpr int GROUPS = KN ? 2 : 4;
+  constexpr int RED_PITCH = COLS + 4;
+  const int cg = KN ? warp % 4 : warp % 2, grp = KN ? warp / 4 : warp / 2;
+  const int g = lane / 4, t4 = lane % 4;
+  const uint32_t wlo = (uint32_t)reinterpret_cast<uintptr_t>(a.w);
+  const uint32_t wrow = (uint32_t)a.w_row;
+  constexpr int NT = 2;   // MMA tiles a warp
+  int it = 0;
+  // the output column of this thread: fixed for a tile (256 threads over
+  // [rows][COLS] or, in a cluster, this rank's [rows][cw] slice)
+  const int cw = (COLS + cluster - 1) / cluster;
+  const int out_col = cluster == 1 ? threadIdx.x % COLS
+                                   : blockIdx.x * cw + threadIdx.x % cw;
+  for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const int n0 = tile * COLS;
+    // its per-N scale, loaded now so that the epilogue waits on nothing
+    const float out_scale = !PER_K && out_col < COLS && n0 + out_col < a.N
+                                ? a.scale[n0 + out_col] : 1.f;
+    float acc[MT][NT][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {       // k16 step j of the 64
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int i = 0; i < NT; ++i) {
-          const uint32_t ug = word(r.w[2 * i], j) ^ 0x80808080u;
-          const uint32_t u8 = word(r.w[2 * i + 1], j) ^ 0x80808080u;
-          const uint32_t a[4] = {
-              repro::pack_bf16x2(i8f(ug, 0), i8f(ug, 1)),
-              repro::pack_bf16x2(i8f(u8, 0), i8f(u8, 1)),
-              repro::pack_bf16x2(i8f(ug, 2), i8f(ug, 3)),
-              repro::pack_bf16x2(i8f(u8, 2), i8f(u8, 3))};
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][i][c] = 0.f;
+
+    for (int st = s_lo; st < s_hi; ++st, ++it) {
+      const int slot = it % ring;
+      mbar_wait(full(slot), (it / ring) & 1);
+      const uint8_t* sx = gbase + slot * kStStage;
+      const uint8_t* sw = sx + kStXBytes;
+      const float* ss = reinterpret_cast<const float*>(sw + kStWBytes);
+      const int k0 = st * STAGE_K;
+      if constexpr (KN) {
+        // k16 steps grp and grp + 2; rows 16 kk + 2t (+1, +8, +9), the
+        // words of channels 32 cg + 4 g .. + 3
+        uint32_t u[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r0 = 16 * (grp + 2 * h) + 2 * t4;
+          const int rows[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t delta =
+                ALIGNED ? 0u
+                        : (wlo + (uint32_t)(k0 + rows[j]) * wrow +
+                           (uint32_t)n0) & 15u;
+            u[h][j] = st_word<ALIGNED>(sw, rows[j], 32 * cg + 4 * g, delta,
+                                       a.log2p);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kk = grp + 2 * h;
+          uint32_t af[2][4];
+          widen_kn(u[h], af);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            repro::mma_bf16_16816(acc[mt][i], a, xb[mt][j].x, xb[mt][j].y);
-            if constexpr (PER_K)
-              repro::mma_bf16_16816(acc[mt][i], a, xl[mt][j].x,
-                                    xl[mt][j].y);
+            const int m = g + 8 * mt;
+            const uint8_t* xr = sx + m * 128;
+            uint2 xb;
+            xb.x = *reinterpret_cast<const uint32_t*>(
+                xr + (((2 * kk) ^ (m & 7)) << 4) + 4 * t4);
+            xb.y = *reinterpret_cast<const uint32_t*>(
+                xr + (((2 * kk + 1) ^ (m & 7)) << 4) + 4 * t4);
+            if constexpr (PER_K) {
+              const float2 s01 = *reinterpret_cast<const float2*>(
+                  ss + 16 * kk + 2 * t4);
+              const float2 s89 = *reinterpret_cast<const float2*>(
+                  ss + 16 * kk + 2 * t4 + 8);
+              uint2 hi, lo;
+              split_xs(xb, make_float4(s01.x, s01.y, s89.x, s89.y), hi, lo);
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                mma_bf16_16816(acc[mt][i], af[i], hi.x, hi.y);
+                mma_bf16_16816(acc[mt][i], af[i], lo.x, lo.y);
+              }
+            } else {
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+                mma_bf16_16816(acc[mt][i], af[i], xb.x, xb.y);
+            }
+          }
+        }
+      } else {
+        // tiles of channels 32 cg + 16 i + g and + 8 (i = 0, 1), k16
+        // steps grp and grp + 4: the word of k 16 j + 4t .. + 3 of each
+        uint32_t u[2][2][2];   // [step][tile][row g, g + 8]
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = 32 * cg + 16 * i + g + 8 * r;
+            const uint32_t delta =
+                ALIGNED ? 0u
+                        : (wlo + (uint32_t)(n0 + row) * wrow +
+                           (uint32_t)k0) & 15u;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              u[h][i][r] = st_word<ALIGNED>(
+                  sw, row, 16 * (grp + 4 * h) + 4 * t4, delta, a.log2p);
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = grp + 4 * h;
+          uint32_t af[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) widen_nk(u[h][i][0], u[h][i][1], af[i]);
+          const int kb = 16 * (j & 3) + 4 * t4;   // k within its x box
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const int m = g + 8 * mt;
+            const int chunk = (2 * kb) >> 4;
+            const uint2 xb = *reinterpret_cast<const uint2*>(
+                sx + (j >> 2) * XBOX + m * 128 +
+                ((chunk ^ (m & 7)) << 4) + ((2 * kb) & 15));
+            if constexpr (PER_K) {
+              const float4 s = *reinterpret_cast<const float4*>(
+                  ss + 16 * j + 4 * t4);
+              uint2 hi, lo;
+              split_xs(xb, s, hi, lo);
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                mma_bf16_16816(acc[mt][i], af[i], hi.x, hi.y);
+                mma_bf16_16816(acc[mt][i], af[i], lo.x, lo.y);
+              }
+            } else {
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+                mma_bf16_16816(acc[mt][i], af[i], xb.x, xb.y);
+            }
           }
         }
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(slot));
     }
-  };
 
-  // this warp's steps: s_lo + warp, s_lo + warp + 4, ...; a ring of RING
-  // steps of raw loads in flight
-  Slot ring[RING];
-  constexpr int W = kStWarps;
-  const int first = s_lo + warp;
+    // the k groups meet in shared memory (groups 1.. store, group 0 adds
+    // them in group order): the CTA's partial, [m][channel] f32 in slot 0.
+    // The accumulator fragment: c0, c1 are MMA row g, c2, c3 row g + 8,
+    // at columns (x rows) 2t, 2t + 1.
+    auto red_at = [&](int mt, int i, int c) {
+      const int m = 8 * mt + 2 * t4 + (c & 1);
+      const int col = KN ? 32 * cg + 4 * g + 2 * i + (c >> 1)
+                         : 32 * cg + 16 * i + g + 8 * (c >> 1);
+      return m * RED_PITCH + col;
+    };
+    constexpr int SLOT = 16 * RED_PITCH;
+    named_bar_sync(1, 32 * kStConsumers);   // the last tile's readers
+    if (grp > 0)
 #pragma unroll
-  for (int u = 0; u < RING; ++u) load_step(first + W * u, ring[u]);
-  for (int s = first; s < s_hi; s += W * RING) {
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int u = 0; u < RING; ++u) {
-      const int su = s + W * u;
-      if (su < s_hi) {
-        mma_step(ring[u]);
-        load_step(su + W * RING, ring[u]);
-      }
-    }
-  }
-
-  // the warps' sums meet in shared memory, added in warp order; the
-  // accumulator fragment: c0, c1 are MMA row g, c2, c3 row g + 8, at
-  // columns (x rows) 2t, 2t + 1
-  for (int wi = 0; wi < W; ++wi) {
-    if (warp == wi) {
+        for (int i = 0; i < NT; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            red_p[(grp - 1) * SLOT + red_at(mt, i, c)] = acc[mt][i][c];
+    named_bar_sync(1, 32 * kStConsumers);
+    if (grp == 0)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int i = 0; i < NT; ++i)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const int m = 8 * mt + 2 * t + (c & 1);
-            const int col = KN ? 16 * g + 2 * i + (c >> 1)
-                               : 16 * i + g + 8 * (c >> 1);
-            red[m][col] =
-                wi == 0 ? acc[mt][i][c] : red[m][col] + acc[mt][i][c];
-          }
-    }
-    __syncthreads();
-  }
-
-  const int rows = min(M, MT * 8);
-  const int n_ks = gridDim.y;
-  // partials of this column tile: [n_ks][rows][COLS] f32
-  float* part = n_ks > 1 ? ws + (size_t)blockIdx.x * n_ks * rows * COLS
-                         : nullptr;
-  for (int idx = threadIdx.x; idx < rows * COLS; idx += kStThreads) {
-    const int m = idx / COLS, col = idx % COLS, n = n0 + col;
-    const float sum = red[m][col];
-    if (n_ks == 1) {
-      if (n < N)
-        out[(size_t)m * N + n] =
-            __float2bfloat16(PER_K ? sum : sum * scale[n]);
-    } else {
-      part[(size_t)blockIdx.y * rows * COLS + idx] = sum;
-    }
-  }
-  if (n_ks == 1) return;
-  if (!repro::last_to_arrive(tickets + blockIdx.x, (unsigned)n_ks)) return;
-  // the partials' sum in split order, 4 columns a thread (16-byte loads
-  // through L2), the split loop unrolled so that its loads overlap
-  const float4* p4 = reinterpret_cast<const float4*>(part);
-  const int n4 = rows * COLS / 4;
-  for (int i = threadIdx.x; i < n4; i += kStThreads) {
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int s = 0; s < n_ks; ++s) {
-      const float4 v = __ldcg(p4 + (size_t)s * n4 + i);
-      sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
-    }
-    const int m = 4 * i / COLS, n = n0 + 4 * i % COLS;
-    const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+            const int at = red_at(mt, i, c);
+            float v = acc[mt][i][c];
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (n + e < N)
-        out[(size_t)m * N + n + e] =
-            __float2bfloat16(PER_K ? v[e] : v[e] * scale[n + e]);
+            for (int q = 0; q < GROUPS - 1; ++q) v += red_p[q * SLOT + at];
+            red_p[at] = v;
+          }
+    named_bar_sync(1, 32 * kStConsumers);
+
+    const int rows = min(a.M, MT * 8);
+    if (cluster == 1) {
+      for (int idx = threadIdx.x; idx < rows * COLS;
+           idx += 32 * kStConsumers) {   // idx % COLS == out_col
+        const int m = idx / COLS, col = idx % COLS, n = n0 + col;
+        if (n < a.N) {
+          const float v = red_p[m * RED_PITCH + col];
+          a.out[(size_t)m * a.N + n] = __float2bfloat16(v * out_scale);
+        }
+      }
+    } else {
+      // rank q owns columns [q cw, q cw + cw): each CTA stores its partial
+      // of them into q's inbox, row `rank`, and after one cluster barrier
+      // each rank sums its inbox over ranks 0, 1, ... in order
+      const int rank = blockIdx.x;
+      cluster_wait();   // every CTA has started
+      for (int idx = threadIdx.x; idx < rows * COLS;
+           idx += 32 * kStConsumers) {
+        const int m = idx / COLS, col = idx % COLS;
+        const int q = col / cw, c = col % cw;
+        st_cluster_f32(cluster_map(inbox + 4u * ((rank * 16 + m) * cw + c),
+                                   (uint32_t)q),
+                       red_p[m * RED_PITCH + col]);
+      }
+      cluster_sync();
+      for (int idx = threadIdx.x; idx < rows * cw;
+           idx += 32 * kStConsumers) {
+        const int m = idx / cw, c = idx % cw, col = rank * cw + c;
+        const int n = n0 + col;
+        if (col < COLS && n < a.N) {
+          float v = 0.f;
+          for (int r = 0; r < cluster; ++r)
+            v += inbox_p[(r * 16 + m) * cw + c];
+          // col == out_col but where 256 is no multiple of cw (3, 5-7)
+          const float sc = PER_K ? 1.f : col == out_col ? out_scale
+                                                        : a.scale[n];
+          a.out[(size_t)m * a.N + n] = __float2bfloat16(v * sc);
+        }
+      }
+    }
   }
 }
 
-// Needs M <= 16, K % 8 == 0, 16-byte aligned x, w_q and weight rows, a
-// 16-byte aligned per-K scale (read four floats at a time), and a split
-// of the k steps that leaves no CTA empty.
+// The maps and the launch.  Needs M <= 16, x 16-byte aligned with rows
+// of ldx % 8 == 0 elements (ldx >= K), a 16-byte aligned per-K scale, a
+// split of the stages into `cluster` (1-8) ranges of `per` that leaves
+// none empty, and, with a cluster, one column tile a cluster (`ctas` the
+// tile count); without, `ctas` CTAs walk the tiles.
 int launch_skinny_tc(const __nv_bfloat16* x, const int8_t* w,
-                     const float* scale, __nv_bfloat16* out, float* ws,
-                     unsigned* tickets, int M, int N, int K, bool kn,
-                     long long w_row, bool scale_per_k, int n_ks, int per,
+                     const float* scale, __nv_bfloat16* out, int M, int N,
+                     int K, long long ldx, bool kn, long long w_row,
+                     bool scale_per_k, int cluster, int per, int ctas,
                      cudaStream_t stream) {
-  const int cols = kn ? StShape<true>::COLS : StShape<false>::COLS;
-  const int step_k = kn ? StShape<true>::STEP_K : StShape<false>::STEP_K;
-  const int n_steps = (K + step_k - 1) / step_k;
-  if (M > 16 || K % 8 || w_row % 16 ||
+  const int cols = kn ? StGeom<true>::COLS : StGeom<false>::COLS;
+  const int stage_k = kn ? StGeom<true>::STAGE_K : StGeom<false>::STAGE_K;
+  const int n_stages = (K + stage_k - 1) / stage_k;
+  const int tiles = (N + cols - 1) / cols;
+  if (M > 16 || ldx % 8 || ldx < K ||
       reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16 ||
       (scale_per_k && reinterpret_cast<uintptr_t>(scale) % 16) ||
-      n_ks < 1 || per < 1 || (long long)n_ks * per < n_steps ||
-      (long long)(n_ks - 1) * per >= n_steps ||
-      (n_ks > 1 && (ws == nullptr || tickets == nullptr)))
+      cluster < 1 || cluster > 8 || per < 1 ||
+      (long long)cluster * per < n_stages ||
+      (long long)(cluster - 1) * per >= n_stages || ctas < 1 ||
+      ctas > tiles || (cluster > 1 && ctas != tiles))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + cols - 1) / cols, n_ks);
-#define REPRO_LAUNCH(KN, MT, PER_K)                                         \
-  skinny_tc<KN, MT, PER_K><<<grid, kStThreads, 0, stream>>>(                \
-      x, w, scale, out, ws, tickets, M, N, K, w_row, per)
-#define REPRO_LAUNCH_M(KN, PER_K)                                           \
-  if (M <= 8) REPRO_LAUNCH(KN, 1, PER_K); else REPRO_LAUNCH(KN, 2, PER_K)
-  if (kn) {
-    if (scale_per_k) { REPRO_LAUNCH_M(true, true); }
-    else { REPRO_LAUNCH_M(true, false); }
+  const bool aligned = w_row % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int mt = M <= 8 ? 1 : 2;
+  const int nrows = kn ? K : N, ncols = kn ? N : K;
+  StMaps wm = {};
+  CUtensorMap tm_x, tm_s;
+  int log2p = 0;
+  if (aligned) {
+    if (!repro::tensor_map(&wm.m[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w,
+                           ncols, nrows, (uint64_t)w_row, 128, kStRows,
+                           CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
   } else {
-    if (scale_per_k) { REPRO_LAUNCH_M(false, true); }
-    else { REPRO_LAUNCH_M(false, false); }
+    const int rem = (int)(w_row % 16);   // P = 16 / gcd(R, 16)
+    log2p = rem == 0 ? 0 : rem % 2 ? 4 : rem % 4 ? 3 : rem % 8 ? 2 : 1;
+    // a class's rows no closer than its shifted width (an aligned stride
+    // on an unaligned pointer: every other row)
+    while (log2p < 4 && ((long long)w_row << log2p) < ncols + 16) ++log2p;
+    const int P = 1 << log2p;
+    for (int r = 0; r < P && r < nrows; ++r) {
+      const uintptr_t at = reinterpret_cast<uintptr_t>(w + r * w_row);
+      const uint64_t delta = at % 16;
+      if (!repro::tensor_map(&wm.m[r], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                             reinterpret_cast<const void*>(at - delta),
+                             ncols + delta, (nrows - r + P - 1) / P,
+                             (uint64_t)(P * w_row), kStPitch,
+                             kStRows >> log2p, CU_TENSOR_MAP_SWIZZLE_NONE))
+        return (int)cudaErrorInvalidValue;
+    }
   }
-#undef REPRO_LAUNCH_M
-#undef REPRO_LAUNCH
-  return (int)cudaGetLastError();
+  if (!repro::tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M,
+                         (uint64_t)ldx * 2, 64, 8 * mt,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  if (scale_per_k) {
+    if (!repro::tensor_map(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, scale,
+                           K, 1, 16, stage_k, 1, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    tm_s = CUtensorMap{};
+  }
+  const int ring = st_ring(cluster, per, tiles, ctas, st_sm_count());
+  const size_t smem = st_smem_bytes(ring, cluster);
+  const StArgs args{w, scale, out, M, N, K, w_row, per, ring, log2p};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, ctas);
+  cfg.blockDim = dim3(kStThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the kernels' attributes, once a process and device
+  static bool attr_set[64][16] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  auto go = [&](auto kernel, int variant) -> int {
+    if (dev < 64 && !attr_set[dev][variant]) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)st_smem_bytes(kStRing, 1));
+      if (e != cudaSuccess) return (int)e;
+      attr_set[dev][variant] = true;
+    }
+    cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, wm, tm_x, tm_s, args);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  };
+#define REPRO_ST(KN, MT, PK, AL)                                            \
+  return go(skinny_tc<KN, MT, PK, AL>,                                      \
+            (KN) * 8 + ((MT) - 1) * 4 + (PK) * 2 + (AL))
+#define REPRO_ST_AL(KN, MT, PK)                                             \
+  if (aligned) { REPRO_ST(KN, MT, PK, true); } else { REPRO_ST(KN, MT, PK, false); }
+#define REPRO_ST_PK(KN, MT)                                                 \
+  if (scale_per_k) { REPRO_ST_AL(KN, MT, true) } else { REPRO_ST_AL(KN, MT, false) }
+#define REPRO_ST_MT(KN)                                                     \
+  if (mt == 1) { REPRO_ST_PK(KN, 1) } else { REPRO_ST_PK(KN, 2) }
+  if (kn) { REPRO_ST_MT(true) } else { REPRO_ST_MT(false) }
+  return (int)cudaErrorInvalidValue;   // not reached
+#undef REPRO_ST_MT
+#undef REPRO_ST_PK
+#undef REPRO_ST_AL
+#undef REPRO_ST
 }
 
 // ---- cuda_core_tile: M > 16, f32 x or NK or unaligned --------------- //
@@ -680,201 +973,269 @@ __global__ void __launch_bounds__(kThreads) tile_mm(
 }
 
 // ---- tensor_core: bf16 x, KN, per-N scale -------------------------- //
-// CTA tile 128 x 128, K in steps of 64 through a ring of kStages stages.
-// Per stage, from a 1024-byte aligned base:
-//   A    x tile, 128 rows (m) x 64 bf16 (k): 128-byte rows, TMA's 128-byte
-//        swizzle (16-byte chunk c of row r at chunk c ^ (r % 8));
-//   RAW  int8 tile, 64 rows (k) x 128 bytes (n), as TMA lands it;
-//   B    the widened tile, two 64-column atoms (n), each 64 rows (k) x
-//        128 bytes with the same swizzle: the N-major layout of wgmma's
-//        B operand (LBO = the atom stride, SBO = 8 rows = 1024 bytes).
-// Threads 0-255 are the consumer warpgroups (rows 0-63 and 64-127 of the
-// tile); thread 256 is the producer, the rest of its warpgroup idles.
-constexpr int kTcBM = 128, kTcBN = 128, kTcBK = 64, kTcStages = 4;
+// The product is computed transposed, out^T = (w_q s)^T x^T, so that the
+// int8 weight is wgmma's A operand, fed from registers, and x is B, read
+// by wgmma from shared memory: the widened weight is never written to
+// shared memory, and no barrier couples the widening to the products
+// (the structure of CUTLASS's Hopper mixed-input mainloop, written by
+// hand here).
+//
+// A CTA tile is 128 channels (n) x BM rows of x (m: 256, 192 or 128,
+// ops.int8_tensor_core_tile_m), K in stages of 64 through a ring of
+// kTcStages stages; per
+// stage, from a 1024-byte aligned base: the raw int8 weight as one TMA
+// box of 64 k x 128 n and x as BM m x 64 k bf16 (K-major: wgmma's B
+// without a transpose), both with the 128-byte swizzle.  Warp w of
+// consumer warpgroup wg owns channels 64 wg + 16 w .. + 15, lane (g, t)
+// the pair 2g, 2g + 1 of them (rows g and g + 8 of the warp's slice of
+// the m64 A operand): four 2-byte shared loads, at k rows 2t, 2t + 1,
+// 2t + 8, 2t + 9 of a k16 step (the swizzle spreads a warp's loads over
+// 16 banks, two lanes a word), are widened exactly (widen_pair) into the
+// A fragment of one wgmma m64nBMk16.  The widening is ALU work that does
+// not overlap the tensor cores (measured: it adds its own time), so the
+// tile is as wide along m as the registers allow: each widened weight
+// feeds BM rows of x.  Fragments are double-buffered across k16 steps,
+// so that the next step's loads and widening are issued while this
+// step's product is in flight; a register an async wgmma reads stays
+// untouched until the wgmma_wait that retires it (fence_frag).
+//
+// A persistent grid: one CTA an SM walks the output tiles in a static
+// order (m fastest, so that CTAs in flight share weight tiles), and the
+// producer warp (setmaxnreg.dec) runs on into the next tile's stages
+// while the consumers finish this one.  The epilogue scales each
+// accumulator row (a channel) by its channel's scale, stores the bf16
+// tile transposed back to (m, n) through shared memory (a [BM][64] block
+// a warpgroup, swizzled; 4-byte stores of a channel pair) and writes it
+// with a TMA store, which writes nothing past M or N.  TMA's zero fill
+// covers the ragged edges of M, N and K.
+//
+// Bound: operations, 2 M N K over 989 TFLOP/s (bf16); int8 values are
+// exact in bf16, so the route differs from the plain version only in the
+// order of its f32 sums.
+constexpr int kTcBN = 128, kTcBK = 64, kTcStages = 4;
 constexpr int kTcThreads = 384;
-constexpr uint32_t kTcA = kTcBM * kTcBK * 2;           // 16384
-constexpr uint32_t kTcRaw = kTcBK * kTcBN;             // 8192
-constexpr uint32_t kTcAtom = kTcBK * 128;              // 8192
-constexpr uint32_t kTcStage = kTcA + kTcRaw + 2 * kTcAtom;
-constexpr size_t kTcSmem = (size_t)kTcStages * kTcStage + 1024 + 64;
+constexpr uint32_t kTcW = kTcBK * kTcBN;   // 64 k x 128 n int8
 
-// 16 int8 values (a 16-byte chunk) to 16 bf16, exactly: each byte b,
-// sign-flipped to b + 128, becomes the low byte of the f32 2^23 + b + 128,
-// from which 2^23 + 128 is subtracted.
-__device__ __forceinline__ void widen16(const uint4& raw, uint4& lo,
-                                        uint4& hi) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-  uint32_t o[8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t u = w[i] ^ 0x80808080u;
-    float f[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + e)) -
-             8388736.f;
-    o[2 * i] = repro::pack_bf16x2(f[0], f[1]);
-    o[2 * i + 1] = repro::pack_bf16x2(f[2], f[3]);
-  }
-  lo = make_uint4(o[0], o[1], o[2], o[3]);
-  hi = make_uint4(o[4], o[5], o[6], o[7]);
+template <int BM> struct TcGeom {
+  static constexpr uint32_t X = BM * kTcBK * 2;        // BM x 64 bf16
+  static constexpr uint32_t STAGE = kTcW + X;
+  static constexpr uint32_t OUT = BM * 128;            // a WG's [BM][64]
+  static constexpr size_t SMEM =
+      1024 + (size_t)kTcStages * STAGE + 2 * OUT + 16 * kTcStages;
+};
+
+// Widen the weight pair of a k16 step: raw[j] holds channels (n, n + 1)
+// at k rows 2t, 2t + 1, 2t + 8, 2t + 9 in its low 16 bits; a[0] / a[1]
+// are rows g / g + 8 (channels n / n + 1) at k 2t, 2t + 1, a[2] / a[3]
+// the same at 2t + 8, 2t + 9.
+__device__ __forceinline__ void widen_pair(const uint32_t (&raw)[4],
+                                           uint32_t (&a)[4]) {
+  const uint32_t v01 = __byte_perm(raw[0], raw[1], 0x5410) ^ 0x80808080u;
+  const uint32_t v89 = __byte_perm(raw[2], raw[3], 0x5410) ^ 0x80808080u;
+  a[0] = pk(i8f(v01, 0), i8f(v01, 2));
+  a[1] = pk(i8f(v01, 1), i8f(v01, 3));
+  a[2] = pk(i8f(v89, 0), i8f(v89, 2));
+  a[3] = pk(i8f(v89, 1), i8f(v89, 3));
 }
 
+template <int BM>
 __global__ void __launch_bounds__(kTcThreads, 1) tc_mm(
     const __grid_constant__ CUtensorMap tm_x,
     const __grid_constant__ CUtensorMap tm_w,
-    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M,
-    int N, int K) {
+    const __grid_constant__ CUtensorMap tm_o,
+    const float* __restrict__ scale, int M, int N, int K) {
   using namespace repro;
+  using G = TcGeom<BM>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_base = smem_addr(smem_raw);
   const uint32_t base = (raw_base + 1023u) & ~1023u;
-  const uint32_t bars = base + kTcStages * kTcStage;   // full[s], empty[s]
   uint8_t* const gbase = smem_raw + (base - raw_base);
-  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
+  const uint32_t obase = base + kTcStages * G::STAGE;
+  const uint32_t bars = obase + 2 * G::OUT;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kTcStages + s); };
+  const int m_tiles = (M + BM - 1) / BM;
+  const int tiles = m_tiles * ((N + kTcBN - 1) / kTcBN);
   const int nk = (K + kTcBK - 1) / kTcBK;
-  const int t = threadIdx.x;
 
-  if (t == 0) {
+  if (threadIdx.x == 0) {
     for (int s = 0; s < kTcStages; ++s) {
-      mbar_init(bars + 8 * s, 1);                    // the producer + tx
-      mbar_init(bars + 8 * (kTcStages + s), 2);      // one per consumer WG
+      mbar_init(full(s), 1);      // the producer + its bytes
+      mbar_init(empty(s), 2);     // one arrival per consumer warpgroup
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (t >= 256) {                                    // producer
-    if (t == 256) {
-      for (int i = 0; i < nk; ++i) {
-        const int s = i % kTcStages;
-        if (i >= kTcStages)
-          mbar_wait(bars + 8 * (kTcStages + s), (i / kTcStages - 1) & 1);
-        const uint32_t st = base + s * kTcStage;
-        mbar_arrive_expect_tx(bars + 8 * s, kTcA + kTcRaw);
-        tma_load_2d(st, &tm_x, bars + 8 * s, i * kTcBK, m0);
-        tma_load_2d(st + kTcA, &tm_w, bars + 8 * s, n0, i * kTcBK);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {   // the producer: one thread issues every copy
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      tma_prefetch(&tm_w);
+      tma_prefetch(&tm_x);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % m_tiles) * BM, n0 = (tile / m_tiles) * kTcBN;
+        for (int i = 0; i < nk; ++i, ++it) {
+          const int s = it % kTcStages;
+          if (it >= kTcStages) mbar_wait(empty(s), (it / kTcStages - 1) & 1);
+          const uint32_t st = base + s * G::STAGE;
+          mbar_arrive_expect_tx(full(s), G::STAGE);
+          tma_load_2d(st, &tm_w, full(s), n0, i * kTcBK);
+          tma_load_2d(st + kTcW, &tm_x, full(s), i * kTcBK, m0);
+        }
       }
     }
     return;
   }
 
-  const int wg = t / 128;
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  setmaxnreg_inc<232>();
+  const int tw = threadIdx.x % 128, w = tw / 32, l = tw % 32;
+  const int g = l / 4, t4 = l % 4;
+  // this lane's channel pair: bytes 2g, 2g + 1 of 16-byte chunk 4 wg + w
+  // of a row, swizzled by the row (k rows 2t and 2t + 8 share a phase,
+  // as do 2t + 1 and 2t + 9)
+  const int c16 = 4 * wg + w;
+  const int off0 = ((c16 ^ ((2 * t4) & 7)) << 4) + 2 * g;
+  const int off1 = ((c16 ^ ((2 * t4 + 1) & 7)) << 4) + 2 * g;
+  float acc[BM / 2];
+  uint32_t frag[2][4];   // [k16 step parity][register]
+  uint32_t raw[4];
 
-  for (int i = 0; i < nk; ++i) {
-    const int s = i % kTcStages;
-    const uint32_t st = base + s * kTcStage;
-    mbar_wait(bars + 8 * s, (i / kTcStages) & 1);
-    // widen RAW -> B: 512 16-byte chunks of int8, two per thread.  Threads
-    // of the second atom store their two halves in the other order, so
-    // that 8 neighbouring threads hit 8 different bank groups.
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int idx = t + 256 * j;
-      const int r = idx / 8, c16 = idx % 8;
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          gbase + s * kTcStage + kTcA + r * 128 + c16 * 16);
-      uint4 lo, hi;
-      widen16(raw, lo, hi);
-      const bool swap = c16 & 4;
-      const int cc = (c16 % 4) * 2;
-      uint8_t* row = gbase + s * kTcStage + kTcA + kTcRaw +
-                     (c16 / 4) * kTcAtom + r * 128;
-      *reinterpret_cast<uint4*>(row + (((cc + swap) ^ (r & 7)) << 4)) =
-          swap ? hi : lo;
-      *reinterpret_cast<uint4*>(row + (((cc + !swap) ^ (r & 7)) << 4)) =
-          swap ? lo : hi;
-    }
-    fence_proxy_async();
-    named_bar_sync(1, 256);
+  // the raw weight pairs of k16 step kk of stage s
+  auto load_raw = [&](int s, int kk) {
+    const uint8_t* box = gbase + s * G::STAGE + (16 * kk + 2 * t4) * 128;
+    raw[0] = *reinterpret_cast<const uint16_t*>(box + off0);
+    raw[1] = *reinterpret_cast<const uint16_t*>(box + 128 + off1);
+    raw[2] = *reinterpret_cast<const uint16_t*>(box + 8 * 128 + off0);
+    raw[3] = *reinterpret_cast<const uint16_t*>(box + 9 * 128 + off1);
+  };
 
-    fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTcBK / 16; ++kk)
-      wgmma_ss<128, 1>(
-          acc, smem_desc(st + wg * 64 * 128 + kk * 32, 16, 1024, 1),
-          smem_desc(st + kTcA + kTcRaw + kk * 16 * 128, kTcAtom, 1024, 1), 1);
-    wgmma_commit();
-    // the previous step's products are done: release its stage
-    wgmma_wait<1>();
-    fence_acc(acc);
-    if (i > 0 && t % 128 == 0)
-      mbar_arrive(bars + 8 * (kTcStages + (i - 1) % kTcStages));
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile % m_tiles) * BM, n0 = (tile / m_tiles) * kTcBN;
+    const int n = n0 + 64 * wg + 16 * w + 2 * g;   // this lane's pair
+    const float sc0 = n < N ? scale[n] : 0.f;
+    const float sc1 = n + 1 < N ? scale[n + 1] : 0.f;
 
-  // epilogue: the accumulator fragment of wgmma m64nN: value 4j + 2h + e
-  // of lane l in warp w is row 16w + l/4 + 8h, column 8j + 2(l%4) + e.
-  const int w = (t % 128) / 32, l = t % 32;
-  const bool pair = (N % 2) == 0;
+    mbar_wait(full(it % kTcStages), (it / kTcStages) & 1);
+    load_raw(it % kTcStages, 0);
+    widen_pair(raw, frag[0]);
+    for (int i = 0; i < nk; ++i, ++it) {
+      const int s = it % kTcStages;
+      const uint32_t xs = base + s * G::STAGE + kTcW;
 #pragma unroll
-  for (int j = 0; j < kTcBN / 8; ++j) {
-    const int n = n0 + 8 * j + 2 * (l % 4);
-    if (n >= N) continue;
-    const float s0 = scale[n], s1 = n + 1 < N ? scale[n + 1] : 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wg * 64 + 16 * w + l / 4 + 8 * h;
-      if (m >= M) continue;
-      __nv_bfloat16* o = out + (size_t)m * N + n;
-      const float v0 = acc[4 * j + 2 * h] * s0;
-      const float v1 = acc[4 * j + 2 * h + 1] * s1;
-      if (pair && n + 1 < N) {
-        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
-      } else {
-        o[0] = __float2bfloat16(v0);
-        if (n + 1 < N) o[1] = __float2bfloat16(v1);
+      for (int kk = 0; kk < 4; ++kk) {
+        const int cur = kk & 1;
+        wgmma_fence();
+        wgmma_rs<BM, 0>(acc, frag[cur], smem_desc(xs + kk * 32, 16, 1024, 1),
+                        i > 0 || kk > 0);
+        wgmma_commit();
+        // the next step's raw pairs: in this stage, or in the next one
+        const bool more = kk < 3 || i + 1 < nk;
+        if (kk < 3) {
+          load_raw(s, kk + 1);
+        } else if (more) {
+          const int sn = (it + 1) % kTcStages;
+          mbar_wait(full(sn), ((it + 1) / kTcStages) & 1);
+          load_raw(sn, 0);
+        }
+        // the previous step's product is done: its fragment is free, and
+        // after a stage's first step the last stage is released
+        wgmma_wait<1>();
+        fence_acc(acc);
+        fence_frag(frag);
+        if (kk == 0 && i > 0 && tw == 0)
+          mbar_arrive(empty((it - 1) % kTcStages));
+        if (more) widen_pair(raw, frag[cur ^ 1]);
       }
     }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_frag(frag);
+    if (tw == 0) mbar_arrive(empty((it - 1) % kTcStages));
+
+    // epilogue: value 4j + 2h + e is channel n + h, row of x 8j + 2t + e;
+    // a channel pair a row is one 4-byte store into the warpgroup's
+    // [BM][64] out block, swizzled as TMA stores it
+    const uint32_t ob = obase + wg * G::OUT;
+    if (tw == 0) bulk_wait_read<0>();   // the last tile's store read it
+    named_bar_sync(1 + wg, 128);
+    const int oc = 2 * w + (g >> 2);   // the pair's 16-byte chunk in a row
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = 8 * j + 2 * t4 + e;
+        st_shared_b32(ob + m * 128 + ((oc ^ (m & 7)) << 4) + 4 * (g & 3),
+                      pack_bf16x2(acc[4 * j + e] * sc0,
+                                  acc[4 * j + 2 + e] * sc1));
+      }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+    if (tw == 0) {
+      if (n0 + 64 * wg < N) tma_store_2d(&tm_o, ob, n0 + 64 * wg, m0);
+      bulk_commit();
+    }
   }
+  if (tw == 0) bulk_wait<0>();
 }
 
-// The two tensor maps (built per call: the pointers change) and the launch.
-// Needs K % 8 == 0, w_row % 16 == 0 and 16-byte aligned x and w_q.
+// The three tensor maps (cached while the pointers repeat) and the
+// launch of at most `ctas` persistent CTAs (one an SM) of tiles BM rows
+// of x tall (256, 192 or 128).  Needs K % 8 == 0, N % 8 == 0 (the output's
+// rows for the TMA store), w_row % 16 == 0 and 16-byte aligned x, w_q and
+// out.
+template <int BM>
+int launch_tc_bm(const __nv_bfloat16* x, const int8_t* w, const float* scale,
+                 __nv_bfloat16* out, int M, int N, int K, long long w_row,
+                 int ctas, cudaStream_t stream) {
+  using G = TcGeom<BM>;
+  CUtensorMap tm_x, tm_w, tm_o;
+  if (!repro::tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M,
+                         (uint64_t)K * 2, kTcBK, BM,
+                         CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !repro::tensor_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, N, K,
+                         (uint64_t)w_row, kTcBN, kTcBK,
+                         CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !repro::tensor_map(&tm_o, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out, N,
+                         M, (uint64_t)N * 2, 64, BM,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set[64] = {};   // once a process and device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(
+        tc_mm<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)G::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) attr_set[dev] = true;
+  }
+  const long long tiles =
+      (long long)((M + BM - 1) / BM) * ((N + kTcBN - 1) / kTcBN);
+  const int grid = (int)(tiles < ctas ? tiles : ctas);
+  tc_mm<BM><<<grid, kTcThreads, G::SMEM, stream>>>(tm_x, tm_w, tm_o, scale,
+                                                     M, N, K);
+  return (int)cudaGetLastError();
+}
+
 int launch_tc(const __nv_bfloat16* x, const int8_t* w, const float* scale,
               __nv_bfloat16* out, int M, int N, int K, long long w_row,
-              cudaStream_t stream) {
-  if (K % 8 || w_row % 16 || reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16)
+              int bm, int ctas, cudaStream_t stream) {
+  if (K % 8 || N % 8 || w_row % 16 || ctas < 1 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorInvalidValue;
-  const repro::EncodeTiled encode = repro::encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap tm_x, tm_w;
-  const cuuint32_t ones[2] = {1, 1};
-  {
-    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
-    const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-    const cuuint32_t box[2] = {kTcBK, kTcBM};
-    if (encode(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-               const_cast<__nv_bfloat16*>(x), dims, strides, box, ones,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return (int)cudaErrorInvalidValue;
-  }
-  {
-    const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
-    const cuuint64_t strides[1] = {(cuuint64_t)w_row};
-    const cuuint32_t box[2] = {kTcBN, kTcBK};
-    if (encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-               const_cast<int8_t*>(w), dims, strides, box, ones,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      tc_mm, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
-  tc_mm<<<grid, kTcThreads, kTcSmem, stream>>>(tm_x, tm_w, scale, out, M, N,
-                                               K);
-  return (int)cudaGetLastError();
+  if (bm == 256)
+    return launch_tc_bm<256>(x, w, scale, out, M, N, K, w_row, ctas, stream);
+  if (bm == 192)
+    return launch_tc_bm<192>(x, w, scale, out, M, N, K, w_row, ctas, stream);
+  if (bm == 128)
+    return launch_tc_bm<128>(x, w, scale, out, M, N, K, w_row, ctas, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 constexpr int kSkinnyMaxM = 16;
@@ -938,23 +1299,25 @@ int launch(const void* xp, const int8_t* w, const float* scale, void* op,
 
 extern "C" {
 
-// x (M, K) row-major; w_q int8 with element strides (swk, swn) over
-// (K, N), one of them 1; scale f32, N values (scale_per_k == 0) or K
-// values (scale_per_k == 1), contiguous; out (M, N) row-major in x's
-// dtype.  dtype: 0 = f32, 1 = bf16.  route: 0 skinny (M <= 16), 1
-// tensor_core (bf16, KN, per-N scale, K % 8 == 0, 16-byte aligned rows),
-// 2 cuda_core_tile, 3 skinny_tc (bf16, M <= 16, K % 8 == 0, 16-byte
-// aligned rows and per-K scale); a route whose conditions do not hold is
-// refused.
-// skinny_tc only: its k steps (16 k for KN, 64 for NK) run in n_ks
-// splits of `per` steps, with, for n_ks > 1, ws holding ceil(N / cols)
-// * n_ks * M * cols floats (cols 128 for KN, 64 for NK) and tickets
-// ceil(N / cols) zeroed counters (left zeroed).  Returns the cudaError_t
-// of the launch (0 on success).
+// x (M, K) row-major, rows ldx elements apart (ldx == K but on
+// skinny_tc, which takes ldx % 8 == 0, ldx >= K); w_q int8 with element
+// strides (swk, swn) over (K, N), one of them 1; scale f32, N values
+// (scale_per_k == 0) or K values (scale_per_k == 1), contiguous; out
+// (M, N) row-major in x's dtype.  dtype: 0 = f32, 1 = bf16.  route: 0
+// skinny (M <= 16), 1 tensor_core (bf16, KN, per-N scale, K % 8 == 0,
+// N % 8 == 0, 16-byte aligned rows and pointers), 2 cuda_core_tile, 3
+// skinny_tc (bf16, M <= 16, x 16-byte aligned, a 16-byte aligned per-K
+// scale; weight rows of any stride and alignment); a route whose
+// conditions do not hold is refused.  tensor_core: `ctas` persistent
+// CTAs (at most one an SM).  skinny_tc: the k stages (64 k for KN, 128
+// for NK) in `cluster` splits of `per` stages, a cluster of `cluster`
+// CTAs a column tile (`ctas` the column tiles) or, with cluster 1, `ctas`
+// CTAs walking the tiles.  Returns the cudaError_t of the launch (0 on
+// success).
 int int8_matmul(const void* x, const void* w_q, const float* scale,
-                void* out, void* ws, void* tickets, int M, int N, int K,
-                long long swk, long long swn, int scale_per_k, int dtype,
-                int route, int n_ks, int per, void* stream) {
+                void* out, int M, int N, int K, long long swk, long long swn,
+                long long ldx, int scale_per_k, int dtype, int route,
+                int cluster, int per, int ctas, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;
   if (K == 0) return (int)cudaErrorInvalidValue;
@@ -964,18 +1327,19 @@ int int8_matmul(const void* x, const void* w_q, const float* scale,
   else if (swk == 1) { kn = false; w_row = swn; }
   else return (int)cudaErrorInvalidValue;
   const int8_t* w = static_cast<const int8_t*>(w_q);
-  if (route == kTensorCore) {
-    if (dtype != 1 || !kn || scale_per_k) return (int)cudaErrorInvalidValue;
-    return launch_tc(static_cast<const __nv_bfloat16*>(x), w, scale,
-                     static_cast<__nv_bfloat16*>(out), M, N, K, w_row, s);
-  }
   if (route == kSkinnyTc) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     return launch_skinny_tc(static_cast<const __nv_bfloat16*>(x), w, scale,
-                            static_cast<__nv_bfloat16*>(out),
-                            static_cast<float*>(ws),
-                            static_cast<unsigned*>(tickets), M, N, K, kn,
-                            w_row, scale_per_k != 0, n_ks, per, s);
+                            static_cast<__nv_bfloat16*>(out), M, N, K, ldx,
+                            kn, w_row, scale_per_k != 0, cluster, per, ctas,
+                            s);
+  }
+  if (ldx != K) return (int)cudaErrorInvalidValue;
+  if (route == kTensorCore) {
+    if (dtype != 1 || !kn || scale_per_k) return (int)cudaErrorInvalidValue;
+    return launch_tc(static_cast<const __nv_bfloat16*>(x), w, scale,
+                     static_cast<__nv_bfloat16*>(out), M, N, K, w_row, per,
+                     ctas, s);
   }
   const bool vec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                    w_row % 16 == 0;
@@ -989,6 +1353,38 @@ int int8_matmul(const void* x, const void* w_q, const float* scale,
     return launch<__nv_bfloat16>(x, w, scale, out, M, N, K, kn, w_row,
                                  scale_per_k != 0, vec, xvec, route, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// CTAs of the skinny_tc kernel (route 3) the card holds at once for a
+// launch of `ctas` CTAs in clusters of `cluster` (1-8), each streaming
+// `per` stages of `tiles` column tiles (the ring, and so the shared
+// memory, such a launch gets); 0 where the card cannot say (or the
+// arguments are not a launch).
+int int8_matmul_resident(int route, int cluster, int per, int tiles,
+                         int ctas) {
+  if (route != kSkinnyTc || cluster < 1 || cluster > 8 || per < 1 ||
+      tiles < 1 || ctas < 1)
+    return 0;
+  const int ring = st_ring(cluster, per, tiles, ctas, st_sm_count());
+  auto kernel = skinny_tc<true, 1, false, true>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)st_smem_bytes(kStRing, 1)) != cudaSuccess)
+    return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 64);
+  cfg.blockDim = dim3(kStThreads);
+  cfg.dynamicSmemBytes = st_smem_bytes(ring, cluster);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+    return 0;
+  return n * cluster;
 }
 
 const char* error_string(int code) {

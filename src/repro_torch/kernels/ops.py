@@ -19,15 +19,17 @@ thread per node, and an unlocked `+= 1` can lose an update.
 
 Three kernels split their work across CTAs (decode attention its
 sequence, paged decode attention its page table's columns, the int8
-`skinny_tc` route its K) and merge the f32 partials in the CTA that
-finishes last.  Their wrappers pick the split in a pure function of the
-shapes and the SM count (`decode_attention_splits`,
-`paged_decode_attention_splits`, `int8_skinny_tc_splits`).  All three
-find the last CTA through counters that the kernels leave at 0, and
-write their f32 partials into a buffer that is kept between calls: one
-pair of buffers per (device, stream), `_split_buffers`.  The bf16 flash
-kernel's persistent CTAs take their work items from the first of those
-counters, which each launch also leaves at 0.
+`skinny_tc` route its K), and their wrappers pick the split in a pure
+function of the shapes and the SM count (`decode_attention_splits`,
+`paged_decode_attention_splits`, `int8_skinny_tc_splits`).  The two
+decode kernels merge their f32 partials in the CTA that finishes last:
+they find it through counters that the kernels leave at 0, and write
+the partials into a buffer that is kept between calls, one pair of
+buffers per (device, stream), `_split_buffers`.  `skinny_tc`'s splits of
+a column tile form a thread block cluster and sum their partials in
+distributed shared memory.  The bf16 flash kernel's persistent CTAs take
+their work items from the first of those counters, which each launch
+also leaves at 0.
 
 Build: at first use on the card, every `csrc/*.cu` is compiled by `nvcc`
 for sm_90a into its own shared library with a plain C interface (all
@@ -142,10 +144,13 @@ def _lib(name: str) -> ctypes.CDLL:
                                     + [p] * 2),
                 "decode_attention": ([p] * 7 + [i] * 5 + [ll] * 3
                                      + [i] * 5 + [f, p]),
-                "int8_matmul": ([p] * 6 + [i] * 3 + [ll] * 2 + [i] * 5
+                "int8_matmul": ([p] * 4 + [i] * 3 + [ll] * 3 + [i] * 6
                                 + [p]),
             }[name]
             fn.restype = i
+            if name == "int8_matmul":
+                lib.int8_matmul_resident.argtypes = [i] * 5
+                lib.int8_matmul_resident.restype = i
             lib.error_string.argtypes = [i]
             lib.error_string.restype = ctypes.c_char_p
             _libs[name] = lib
@@ -551,54 +556,75 @@ SKINNY_MAX_M = 16
 
 def int8_matmul_route(x: torch.Tensor, w_q: torch.Tensor,
                       scale: torch.Tensor) -> str:
-    """The int8 kernel for these operands.  M <= 16 (decode, the tied
-    head): "skinny_tc" for bf16 x on 16-byte aligned rows (K % 8 == 0,
-    the weight's non-unit stride % 16 == 0, both pointers 16-byte
-    aligned), KN or NK, either scale (a per-K one 16-byte aligned); "skinny" for f32 x (on the tensor
-    cores it would be TF32) or unaligned rows.  M > 16: "tensor_core" for
-    bf16 x on a (K, N) weight with unit stride along N, a per-N scale and
-    16-byte aligned rows — every prefill projection; "cuda_core_tile" for
-    the rest (f32 x, the per-K-scale (K, N) view of the tied head,
-    unaligned rows)."""
+    """The int8 kernel for these operands.  M <= 16 (decode, the heads):
+    "skinny_tc" for bf16 x, KN or NK, either scale, rows of any stride
+    and alignment (the untied heads' 32001- and 256206-byte rows
+    included); "skinny" for f32 x (on the tensor cores it would be TF32).
+    M > 16: "tensor_core" for bf16 x on a (K, N) weight with unit stride
+    along N, a per-N scale, K % 8 == 0, N % 8 == 0 and 16-byte aligned
+    rows and pointers (TMA's tiles) — every prefill projection;
+    "cuda_core_tile" for the rest (f32 x, the per-K-scale (K, N) view of
+    the tied head, unaligned rows)."""
     m, k = x.shape
     swk, swn = w_q.stride()
     if m <= SKINNY_MAX_M:
-        row = swk if swn == 1 else swn
-        per_k = tuple(scale.shape) == (k, 1)   # read 4 floats at a time
-        if x.dtype == torch.bfloat16 and 1 in (swk, swn) and k % 8 == 0 \
-                and row % 16 == 0 and x.data_ptr() % 16 == 0 \
-                and w_q.data_ptr() % 16 == 0 \
-                and not (per_k and scale.data_ptr() % 16):
-            return "skinny_tc"
-        return "skinny"
+        return "skinny_tc" if x.dtype == torch.bfloat16 else "skinny"
     if x.dtype == torch.bfloat16 and swn == 1 \
             and tuple(scale.shape) == (1, w_q.shape[1]) and k % 8 == 0 \
-            and swk % 16 == 0 and x.data_ptr() % 16 == 0 \
-            and w_q.data_ptr() % 16 == 0:
+            and w_q.shape[1] % 8 == 0 and swk % 16 == 0 \
+            and x.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0:
         return "tensor_core"
     return "cuda_core_tile"
 
 
-SKINNY_TC_TILE = {True: (128, 16), False: (64, 64)}   # KN/NK: cols, k a step
-SKINNY_TC_CTAS_PER_SM = 2
+TC_TILE_N = 128             # the tensor-core route's tile: channels,
+TC_TILE_M = (256, 192, 128)  # and the rows of x it may span
+TC_WIDEN = 46                # a tile's widening, in rows of products
+
+
+@functools.lru_cache(maxsize=None)
+def int8_tensor_core_tile_m(m: int, n: int, n_sm: int) -> int:
+    """The rows of x a tensor-core tile spans, of TC_TILE_M: the fewest
+    rounds of the persistent grid (tiles over n_sm, rounded up) times a
+    tile's time, which grows with its rows plus a fixed TC_WIDEN for the
+    widening of its weights (the widening adds its time to the products,
+    and each widened weight feeds all the tile's rows; TC_WIDEN is set
+    from the three heights' times at the served shapes on the H100).
+    256 at OLMo-1B's prefill, 192 at hymba's, xlstm's and granite's 1536
+    -> 1536 (whole rounds), 128 for a short M or few channels (granite's
+    1536 -> 512)."""
+    def cost(bm):
+        rounds = -(-(-(-m // bm) * -(-n // TC_TILE_N)) // n_sm)
+        return rounds * (bm + TC_WIDEN)
+    return min(TC_TILE_M, key=cost)
+
+
+# KN / NK: output channels a column tile, k a stage (64 rows of 128 B)
+SKINNY_TC_TILE = {True: (128, 64), False: (64, 128)}
+SKINNY_TC_MAX_CLUSTER = 8     # a portable thread block cluster
 
 
 @functools.lru_cache(maxsize=None)
 def int8_skinny_tc_splits(k: int, n: int, kn: bool, n_sm: int) -> tuple:
-    """(n_ks, per): the skinny_tc kernel's split of its k steps (16 k for
-    a KN weight, 64 for NK) into n_ks CTAs of `per` steps per column
-    tile: the longest `per` for which tiles x n_ks reaches
-    SKINNY_TC_CTAS_PER_SM CTAs per SM, where K allows.  More splits cost
-    more f32 partials and a longer merge, fewer leave SMs idle (PERF.md
-    section 6).  No split is empty."""
-    cols, step_k = SKINNY_TC_TILE[kn]
+    """(cluster, per, ctas) of the skinny_tc kernel: its k stages (64 k
+    for a KN weight, 128 for NK) in `cluster` splits of `per` stages, the
+    splits of a column tile one thread block cluster that sums its
+    partials in distributed shared memory.  The grid is one wave: the
+    column tiles times the cluster fill at most the SMs that clusters of
+    up to SKINNY_TC_MAX_CLUSTER pack into (n_sm rounded down to a
+    multiple of 8: 128 of 132), with the longest splits that do.  With
+    no split (as many tiles as that, or more: the heads) `ctas` CTAs walk
+    the tiles, two an SM where the tiles outnumber the SMs (the kernel
+    then halves their ring so that two fit).  tools/sweep_splits.py times
+    the other splits (PERF.md section 6).  No split is empty."""
+    cols, stage_k = SKINNY_TC_TILE[kn]
     tiles = -(-n // cols)
-    steps = -(-k // step_k)
-    target = SKINNY_TC_CTAS_PER_SM * n_sm
-    per = -(-steps // max(1, min(steps, -(-target // tiles))))
-    while per > 1 and tiles * -(-steps // per) < target:
-        per -= 1
-    return -(-steps // per), per
+    stages = -(-k // stage_k)
+    wave = max(1, n_sm // SKINNY_TC_MAX_CLUSTER) * SKINNY_TC_MAX_CLUSTER
+    cluster = max(1, min(SKINNY_TC_MAX_CLUSTER, wave // tiles, stages))
+    per = -(-stages // cluster)
+    cluster = -(-stages // per)
+    return cluster, per, (tiles if cluster > 1 else min(tiles, 2 * n_sm))
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -606,7 +632,13 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     """x (M, K) f32 or bf16, contiguous; w_q (K, N) int8, a strided view
     with unit stride along N or along K (`embed_q.t()`); scale f32,
     contiguous, (1, N) per output channel or (K, 1) per input channel.
-    Returns x @ (w_q * scale) as (M, N) in x.dtype."""
+    Returns x @ (w_q * scale) as (M, N) in x.dtype.
+
+    On the skinny_tc route x's rows are read by TMA in whole 16-byte
+    vectors and a per-K scale four floats at a time: an x with K % 8 != 0
+    or off a 16-byte boundary is first copied into zero-padded rows, a
+    per-K scale off a 16-byte boundary into an aligned buffer (neither
+    happens on the served paths)."""
     if x.device.type in PLAIN_DEVICES:
         return _plain("int8_matmul", int8_matmul_ref, x, w_q, scale)
     if x.device.type != "cuda":
@@ -638,20 +670,22 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"{name}: K = 0")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     route = int8_matmul_route(x, w_q, scale)
-    n_ks, per, ws, tickets = 1, 1, None, None
+    ldx, cluster, per, ctas = k, 1, 1, 1
+    n_sm = _sm_count(x.device.index)
     if route == "skinny_tc":
-        kn = swn == 1
-        n_ks, per = int8_skinny_tc_splits(k, n, kn,
-                                          _sm_count(x.device.index))
-        if n_ks > 1:   # f32 partials per column tile and split
-            cols = SKINNY_TC_TILE[kn][0]
-            tiles = -(-n // cols)
-            tickets, ws = _split_buffers(x.device, tiles,
-                                         tiles * n_ks * m * cols)
+        if k % 8 or x.data_ptr() % 16:
+            ldx = -(-k // 8) * 8
+            xp = torch.zeros((m, ldx), dtype=x.dtype, device=x.device)
+            xp[:, :k] = x
+            x = xp
+        if per_k and scale.data_ptr() % 16:
+            scale = scale.clone()
+        cluster, per, ctas = int8_skinny_tc_splits(k, n, swn == 1, n_sm)
+    elif route == "tensor_core":   # persistent: at most one CTA an SM
+        per, ctas = int8_tensor_core_tile_m(m, n, n_sm), n_sm
     _run(name, x.device, x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-         out.data_ptr(), ws.data_ptr() if ws is not None else None,
-         tickets.data_ptr() if tickets is not None else None, m, n, k, swk,
-         swn, per_k, _DTYPES[x.dtype], INT8_ROUTES.index(route), n_ks, per)
+         out.data_ptr(), m, n, k, swk, swn, ldx, per_k, _DTYPES[x.dtype],
+         INT8_ROUTES.index(route), cluster, per, ctas)
     _count(int8_matmul, route)
     return out
 

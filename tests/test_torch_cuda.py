@@ -334,8 +334,8 @@ INT8 = [
     (8, 8192, 2048, "kn", "skinny_tc"),
     (1, 2048, 8192, "kn", "skinny_tc"),
     (16, 8192, 2048, "kn", "skinny_tc"),     # two x tiles, split K
-    (3, 100, 77, "kn", "skinny"),            # ragged M, K, N; unaligned
-    (13, 33, 200, "kn", "skinny"),
+    (3, 100, 77, "kn", "skinny_tc"),         # ragged M, K, N; unaligned
+    (13, 33, 200, "kn", "skinny_tc"),
     (13, 136, 208, "kn", "skinny_tc"),       # ragged M, K, N; aligned
     (9, 264, 77, "kn_pad", "skinny_tc"),
     (70, 100, 77, "kn", "cuda_core_tile"),   # K % 8, N % 16: unaligned rows
@@ -344,7 +344,7 @@ INT8 = [
     (2, 2048, 50304, "head", "skinny_tc"),
     (5, 272, 61, "head", "skinny_tc"),       # ragged, aligned
     (40, 96, 200, "head", "cuda_core_tile"),
-    (5, 37, 61, "head", "skinny"),
+    (5, 37, 61, "head", "skinny_tc"),
     # granite-moe-3b-a800m: decode (M = 8) and prefill (M > 16) wq / wo
     # 1536 -> 1536 and wk / wv 1536 -> 512, the tied head's odd N
     (8, 1536, 1536, "kn", "skinny_tc"),
@@ -353,11 +353,12 @@ INT8 = [
     (64, 1536, 512, "kn", "tensor_core"),
     (8, 1536, 49155, "head", "skinny_tc"),
     # hymba-1.5b: w_in 1600 -> 3200, down 5504 -> 1600, the untied head's
-    # 32001-byte rows (unaligned: skinny, cuda_core_tile)
+    # 32001-byte rows (unaligned: skinny_tc for bf16, cuda_core_tile at
+    # M > 16)
     (8, 1600, 3200, "kn", "skinny_tc"),
     (8, 5504, 1600, "kn", "skinny_tc"),
     (64, 1600, 3200, "kn", "tensor_core"),
-    (8, 1600, 32001, "kn", "skinny"),
+    (8, 1600, 32001, "kn", "skinny_tc"),
     (64, 1600, 32001, "kn", "cuda_core_tile"),
 ]
 
@@ -501,26 +502,111 @@ def on_one_route(wrapper, route, call):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["head", "kn"])
 def test_int8_unaligned_per_k_scale_stays_skinny(cuda, layout):
-    """skinny_tc reads a per-K scale four floats at a time, so a per-K
-    scale off a 16-byte boundary routes to skinny (and the C entry refuses
-    it on skinny_tc): no misaligned read, the same product."""
+    """skinny_tc reads a per-K scale by TMA, from a 16-byte boundary: the
+    wrapper copies a per-K scale off such a boundary into an aligned
+    buffer, so bf16 x still runs on skinny_tc (f32 x alone stays on
+    skinny), with the same product; the C entry refuses the unaligned
+    scale itself on skinny_tc."""
     x, wq, sc = _int8_operands(cuda, 14, 8, 2048, 512, "head")
     if layout == "kn":
         wq = wq.contiguous()
-    x = x.to(torch.bfloat16)
     shifted = torch.empty(sc.numel() + 1, device=cuda)[1:].view(-1, 1)
     shifted.copy_(sc)
     assert shifted.data_ptr() % 16
     assert ops.int8_matmul_route(x, wq, shifted) == "skinny"
-    got = on_one_route(ops.int8_matmul, "skinny",
+    x = x.to(torch.bfloat16)
+    assert ops.int8_matmul_route(x, wq, shifted) == "skinny_tc"
+    got = on_one_route(ops.int8_matmul, "skinny_tc",
                        lambda: ops.int8_matmul(x, wq, shifted))
     _close(got, int8_matmul_ref(x, wq, sc), 2e-2)
     out = torch.empty(8, 512, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         ops._run("int8_matmul", cuda, x.data_ptr(), wq.data_ptr(),
-                 shifted.data_ptr(), out.data_ptr(), None, None, 8, 512,
-                 2048, *wq.stride(), 1, 1,
-                 ops.INT8_ROUTES.index("skinny_tc"), 1, 128)
+                 shifted.data_ptr(), out.data_ptr(), 8, 512, 2048,
+                 *wq.stride(), 2048, 1, 1,
+                 ops.INT8_ROUTES.index("skinny_tc"), 1, 32, 4)
+
+
+# the tensor-core route's ragged edges: M, N, K of the served prefills
+# and around them; (17 x 320: fewer tiles than SMs; 4096 x 8192: more)
+INT8_TC_EDGES = [(m, n, k) for m in (17, 100, 816, 853, 4096)
+                 for n in (320, 512, 3072, 8192)
+                 for k in (768, 1536, 1600, 5504, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_TC_EDGES)
+def test_int8_tensor_core_ragged_edges(cuda, case):
+    """Every (M, N, K) of the grid on the tensor-core route, held to the
+    plain version, and twice bit for bit (a static tile order, f32 sums
+    in a fixed order)."""
+    M, N, K = case
+    x, wq, sc = _int8_operands(cuda, 15, M, K, N, "kn")
+    x = x.to(torch.bfloat16)
+    assert ops.int8_matmul_route(x, wq, sc) == "tensor_core"
+    got = on_one_route(ops.int8_matmul, "tensor_core",
+                       lambda: ops.int8_matmul(x, wq, sc))
+    _close(got, int8_matmul_ref(x, wq, sc), 2e-2)
+    assert torch.equal(got, ops.int8_matmul(x, wq, sc))
+
+
+def _int8_view(dev, seed, M, K, N, layout, per_k, offset, row):
+    """x (bf16) and an int8 weight as a (K, N) view `offset` bytes into a
+    buffer of rows `row` bytes apart (KN: rows of N along k; NK: rows of K
+    along n, the (K, N) view its transpose), with a per-N or per-K
+    scale."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    wq = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    sc = torch.from_numpy((rng.random((K, 1) if per_k else (1, N)) * 0.002
+                           + 0.0005).astype(np.float32))
+    rows, cols = (K, N) if layout == "kn" else (N, K)
+    buf = torch.zeros(offset + rows * row + 16, dtype=torch.int8,
+                      device=dev)
+    view = buf[offset:offset + rows * row].view(rows, row)[:, :cols]
+    view.copy_((wq if layout == "kn" else wq.t()).to(dev))
+    w = view if layout == "kn" else view.t()
+    return x.to(dev, torch.bfloat16), w, sc.to(dev)
+
+
+def _skinny_tc_checked(x, w, sc):
+    assert ops.int8_matmul_route(x, w, sc) == "skinny_tc"
+    got = on_one_route(ops.int8_matmul, "skinny_tc",
+                       lambda: ops.int8_matmul(x, w, sc))
+    _close(got, int8_matmul_ref(x, w, sc), 2e-2)
+    assert torch.equal(got, ops.int8_matmul(x, w, sc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_k", [False, True])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("M", [1, 8, 9, 16])
+def test_int8_skinny_tc_offset_views(cuda, M, layout, per_k):
+    """skinny_tc on weight views 1 to 15 bytes past a 16-byte boundary
+    (rows of 528 bytes: every row shares the pointer's offset), held to
+    the plain version and twice bit for bit."""
+    for offset in range(1, 16):
+        x, w, sc = _int8_view(cuda, 16 + offset, M, 520, 300, layout, per_k,
+                              offset, 528)
+        assert w.data_ptr() % 16 == offset
+        _skinny_tc_checked(x, w, sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_k", [False, True])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("M", [1, 8, 9, 16])
+@pytest.mark.parametrize("row", [32001, 256206])
+def test_int8_skinny_tc_unaligned_rows(cuda, row, M, layout, per_k):
+    """skinny_tc on rows of 32001 bytes (hymba's untied head, 1600 ->
+    32001) and 256206 bytes (seamless's, 1024 -> 256206): KN the heads
+    themselves, NK a (K, N) view over 300 such rows; held to the plain
+    version and twice bit for bit."""
+    K, N = (1600, 32001) if row == 32001 else (1024, 256206)
+    if layout == "nk":
+        K, N = 1032, 300
+    x, w, sc = _int8_view(cuda, 17, M, K, N, layout, per_k, 0, row)
+    _skinny_tc_checked(x, w, sc)
 
 
 @pytest.mark.cuda
@@ -663,8 +749,8 @@ def test_kernels_refuse_a_route_whose_conditions_fail(cuda):
     for m, route in ((32, "tensor_core"), (8, "skinny_tc")):
         with pytest.raises(RuntimeError, match="launch failed"):
             ops._run("int8_matmul", cuda, x.data_ptr(), w.data_ptr(),
-                     sc.data_ptr(), out.data_ptr(), None, None, m, 128, 64,
-                     128, 1, 0, 0, ops.INT8_ROUTES.index(route), 1, 4)
+                     sc.data_ptr(), out.data_ptr(), m, 128, 64, 128, 1, 64,
+                     0, 0, ops.INT8_ROUTES.index(route), 1, 1, 1)
     sched = torch.zeros(1, dtype=torch.int32, device=cuda)
     for dtype, ctr in ((torch.float32, sched.data_ptr()),
                        (torch.bfloat16, None)):

@@ -504,11 +504,14 @@ def test_int8_route_selection():
     w_off = torch.zeros(64 * 128 + 8, dtype=torch.int8)[8:].view(64, 128)
     assert route(x, w_off, per_n) == "cuda_core_tile"           # w pointer
     assert route(torch.zeros(17, 64, dtype=f32), w, per_n) == "cuda_core_tile"
+    padded = torch.zeros(64, 144, dtype=torch.int8)[:, :77]     # N % 8: no
+    assert route(x, padded, torch.ones(1, 77)) == "cuda_core_tile"  # TMA store
 
 
 def test_int8_skinny_route_selection():
-    """M <= 16: bf16 x on aligned KN and NK operands (either scale) takes
-    the tensor cores; f32 x or unaligned rows stay on "skinny"."""
+    """M <= 16: bf16 x takes the tensor cores on KN and NK operands,
+    either scale, rows of any stride and alignment; f32 x stays on
+    "skinny"."""
     bf16, f32 = torch.bfloat16, torch.float32
     route = ops.int8_matmul_route
     x = torch.zeros(8, 64, dtype=bf16)
@@ -524,42 +527,93 @@ def test_int8_skinny_route_selection():
     assert route(x.float(), nk, per_k) == "skinny"
     x100 = torch.zeros(8, 100, dtype=bf16)              # K % 8
     assert route(x100, torch.zeros(100, 128, dtype=torch.int8), per_n) \
-        == "skinny"
+        == "skinny_tc"
+    assert route(x100.float(), torch.zeros(100, 128, dtype=torch.int8),
+                 per_n) == "skinny"
     narrow = torch.zeros(64, 136, dtype=torch.int8)[:, :120]   # row % 16
-    assert route(x, narrow, torch.ones(1, 120)) == "skinny"
+    assert route(x, narrow, torch.ones(1, 120)) == "skinny_tc"
+    assert route(x.float(), narrow, torch.ones(1, 120)) == "skinny"
     nk_odd = torch.zeros(128, 72, dtype=torch.int8)[:, :64].t()
-    assert route(x, nk_odd, per_k) == "skinny"          # NK row % 16
+    assert route(x, nk_odd, per_k) == "skinny_tc"       # NK row % 16
     shifted = torch.zeros(8 * 64 + 1, dtype=bf16)[1:].view(8, 64)
-    assert route(shifted, kn, per_n) == "skinny"        # x pointer
+    assert route(shifted, kn, per_n) == "skinny_tc"     # x pointer
     w_off = torch.zeros(64 * 128 + 8, dtype=torch.int8)[8:].view(64, 128)
-    assert route(x, w_off, per_n) == "skinny"           # w pointer
+    assert route(x, w_off, per_n) == "skinny_tc"        # w pointer
     padded = torch.zeros(64, 144, dtype=torch.int8)[:, :77]    # ragged N
     assert route(x, padded, torch.ones(1, 77)) == "skinny_tc"
-    shifted_k = torch.ones(64 + 1)[1:].view(64, 1)      # per-K scale,
-    assert shifted_k.data_ptr() % 16                    # read 4 at a time
-    assert route(x, nk, shifted_k) == "skinny"
-    assert route(x, kn, shifted_k) == "skinny"
+    shifted_k = torch.ones(64 + 1)[1:].view(64, 1)      # per-K scale off
+    assert shifted_k.data_ptr() % 16                    # a 16-byte line
+    assert route(x, nk, shifted_k) == "skinny_tc"
+    assert route(x, kn, shifted_k) == "skinny_tc"
     shifted_n = torch.ones(128 + 1)[1:].view(1, 128)    # per-N: read 1
     assert route(x, kn, shifted_n) == "skinny_tc"
+    # the untied heads' rows: 32001 (hymba) and 256206 (seamless) bytes
+    for v in (32001, 256206):
+        head = torch.empty(0, dtype=torch.int8).new_empty(
+            (64, v)).as_strided((64, v), (v, 1))
+        assert route(x, head, torch.ones(1, v)) == "skinny_tc"
+        assert route(x.float(), head, torch.ones(1, v)) == "skinny"
     assert route(torch.zeros(8, 64, dtype=f32), kn, per_n) == "skinny"
 
 
 def test_int8_skinny_tc_splits():
-    """At least 2 CTAs per SM of 132 at every OLMo-1B decode shape (M = 8:
-    2048 -> 2048, 2048 -> 8192, 8192 -> 2048, the tied head), and no
-    empty split anywhere."""
-    for k, n, kn in ((2048, 2048, True), (2048, 8192, True),
-                     (8192, 2048, True), (2048, 50304, False)):
-        n_ks, per = ops.int8_skinny_tc_splits(k, n, kn, 132)
-        cols, _ = ops.SKINNY_TC_TILE[kn]
-        assert -(-n // cols) * n_ks >= 2 * 132, (k, n, n_ks)
+    """The cluster rule at 132 SMs: a K split only where the column tiles
+    leave SMs idle, every split a thread block cluster of at most 8 CTAs,
+    the tiles times the cluster within one wave of 128 CTAs, the longest
+    splits that reach it, no split empty; with no split, at most two CTAs
+    an SM walk the tiles.  At OLMo-1B's decode shapes (M = 8) that is
+    2048 -> 2048: 8 x 16 tiles; 2048 -> 8192: 2 x 64; 8192 -> 2048: 8 x
+    16; the tied head (NK): no split, 264 CTAs over 786 tiles."""
+    want = {(2048, 2048, True): (8, 4, 16), (2048, 8192, True): (2, 16, 64),
+            (8192, 2048, True): (8, 16, 16),
+            (2048, 50304, False): (1, 16, 264),
+            (1024, 256206, True): (1, 16, 264),    # seamless' untied head
+            (1600, 32001, True): (1, 25, 251)}     # hymba's
+    for (k, n, kn), split in want.items():
+        assert ops.int8_skinny_tc_splits(k, n, kn, 132) == split, (k, n, kn)
     for k in range(8, 9000, 136):
-        for n in (1, 77, 2048, 50304):
+        for n in (1, 77, 2048, 8192, 50304):
             for kn in (True, False):
-                n_ks, per = ops.int8_skinny_tc_splits(k, n, kn, 132)
-                steps = -(-k // ops.SKINNY_TC_TILE[kn][1])
-                assert n_ks >= 1 and per >= 1
-                assert (n_ks - 1) * per < steps <= n_ks * per
+                cluster, per, ctas = ops.int8_skinny_tc_splits(k, n, kn, 132)
+                cols, stage_k = ops.SKINNY_TC_TILE[kn]
+                tiles, stages = -(-n // cols), -(-k // stage_k)
+                assert 1 <= cluster <= ops.SKINNY_TC_MAX_CLUSTER and per >= 1
+                assert (cluster - 1) * per < stages <= cluster * per
+                if cluster > 1:
+                    assert ctas == tiles and tiles * cluster <= 128
+                    # a cluster one larger would overflow the wave or K
+                    longer = -(-stages // (per - 1)) if per > 1 else None
+                    assert longer is None or tiles * longer > 128 \
+                        or longer > ops.SKINNY_TC_MAX_CLUSTER
+                else:
+                    assert ctas == min(tiles, 2 * 132)
+                    assert tiles * 2 > 128 or stages == 1
+
+
+def test_int8_tensor_core_tile_m():
+    """The tensor-core route's tile height: the fewest rounds of the
+    persistent grid times a tile's time (its rows plus the widening's
+    fixed share).  At 132 SMs: OLMo-1B's prefill (4096 rows) and
+    seamless's frames take 256 rows; granite's 1536 -> 1536 (192 tiles of
+    256 would take two rounds for 1.45 rounds of work), hymba's 816 and
+    xlstm's 853 rows take 192; granite's 1536 -> 512 and short admissions
+    take 128."""
+    tile = ops.int8_tensor_core_tile_m
+    want = {(4096, 2048): 256, (4096, 8192): 256, (4096, 1536): 192,
+            (4096, 512): 128, (816, 3200): 192, (853, 3072): 192,
+            (17, 2048): 128}
+    for (m, n), bm in want.items():
+        assert tile(m, n, 132) == bm, (m, n)
+
+    def cost(m, n, bm):
+        tiles = -(-m // bm) * -(-n // ops.TC_TILE_N)
+        return -(-tiles // 132) * (bm + ops.TC_WIDEN)
+    for m in range(17, 9000, 211):
+        for n in (8, 512, 1536, 3200, 8192):
+            bm = tile(m, n, 132)
+            assert bm in ops.TC_TILE_M
+            assert all(cost(m, n, bm) <= cost(m, n, o)
+                       for o in ops.TC_TILE_M)
 
 
 def test_flash_route_selection():

@@ -2,6 +2,7 @@
 CUDA device, so that two checkouts can be compared.
 
     python3 tools/compare_kernels.py [--src ROOT] [--label NAME]
+                                     [--kernels int8_matmul,...]
 
 Imports `repro_torch` from ROOT/src (default: this checkout) and nothing
 else of a checkout, so each checkout runs in a process of its own: to
@@ -13,10 +14,13 @@ Cases, at the OLMo-1B bf16 decode shapes: paged_decode_attention (B=8
 K=16 G=1 hd=128, pages of 16, a table of 64 columns, ragged pos up to
 1023; no single PyTorch call computes it), decode_attention (B=8 K=16
 G=1 S=1024 hd=128, the (B, S, K, hd) cache view, the same pos) beside
-one SDPA call with the ragged mask, and int8_matmul at M = 8 (2048 ->
-2048, 2048 -> 8192, 8192 -> 2048, the tied head 2048 -> 50304) and at
-the prefill's M = 4096 (the first three, on the `tensor_core` route)
-beside one torch.matmul on the weight dequantized beforehand, and the
+one SDPA call with the ragged mask, and int8_matmul at every served
+product of PERF.md section 6 (INT8_SHAPES: OLMo-1B's, granite's,
+hymba's, xlstm's and seamless's at decode M = 8, their tied or untied
+heads, the 32001- and 256206-byte rows of the untied ones included, and
+their prefills at the M the serves dispatch), each first held to its
+plain version within bf16's 2e-2, beside one torch.matmul on the weight
+dequantized beforehand, and the
 bf16 flash kernel at the served prefill shapes of PERF.md section 6
 (FLASH_SHAPES, each first held to its plain version within bf16's 2e-2)
 beside one SDPA call with enable_gqa (under the window's boolean mask
@@ -39,6 +43,7 @@ reports
   call runs (torch.profiler, 30 cold-L2 calls), a check on both timings
   that no host time can enter.
 
+--kernels limits the run to the named wrappers (comma-separated).
 It also prints a sha256 of decode_attention's output at its timed shape,
 which two checkouts with the same decode kernel share bit for bit.  One
 JSON line per case, each with the card's name and power limit; exits
@@ -74,6 +79,34 @@ FLASH_SHAPES = {
     "hymba-1.5b": (2, 25, 5, 2528, 2528, 64, 2048, 128, True),
     "seamless-m4t-large-v2": (4, 16, 16, 1024, 1024, 64, 0, 0, True),
     "seamless_encoder": (4, 16, 16, 1024, 1024, 64, 0, 0, False),
+}
+# label: (M, K, N, tied head), as PERF.md section 6 lists the int8 rows
+INT8_SHAPES = {
+    "olmo_decode_attn": (8, 2048, 2048, False),
+    "olmo_decode": (8, 2048, 8192, False),
+    "olmo_decode_down": (8, 8192, 2048, False),
+    "olmo_head": (8, 2048, 50304, True),
+    "olmo_prefill_attn": (4096, 2048, 2048, False),
+    "olmo_prefill": (4096, 2048, 8192, False),
+    "olmo_prefill_down": (4096, 8192, 2048, False),
+    "granite_decode_attn": (8, 1536, 1536, False),
+    "granite_decode_kv": (8, 1536, 512, False),
+    "granite_head": (8, 1536, 49155, True),
+    "granite_prefill_attn": (4096, 1536, 1536, False),
+    "granite_prefill_kv": (4096, 1536, 512, False),
+    **{f"hymba_decode_{k}x{n}": (8, k, n, False) for k, n in (
+        (1600, 1600), (1600, 320), (1600, 3200), (1600, 5504),
+        (5504, 1600))},
+    "hymba_head": (8, 1600, 32001, False),
+    "hymba_prefill_w_in": (816, 1600, 3200, False),
+    **{f"xlstm_decode_{k}x{n}": (8, k, n, False) for k, n in (
+        (768, 3072), (1536, 1536), (1536, 768), (768, 2112), (2112, 768))},
+    "xlstm_head": (8, 768, 50304, True),
+    "xlstm_prefill_w_up": (853, 768, 3072, False),
+    **{f"seamless_decode_{k}x{n}": (8, k, n, False) for k, n in (
+        (1024, 1024), (1024, 8192), (8192, 1024))},
+    "seamless_head": (8, 1024, 256206, False),
+    "seamless_prefill_wi": (4096, 1024, 8192, False),
 }
 _flush = []
 
@@ -167,7 +200,11 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]),
                     help="root of the checkout whose src/ is imported")
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--kernels", default="paged_decode_attention,"
+                    "decode_attention,int8_matmul,flash_attention",
+                    help="the wrappers to time, comma-separated")
     args = ap.parse_args()
+    run = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 2
@@ -195,10 +232,11 @@ def main() -> int:
     pq = tensor(rng, dev, bf16, 8, 16, 1, 128)
     pools = [tensor(rng, dev, bf16, n_pages, 16, 16, 128) for _ in range(2)]
     ptable = torch.from_numpy(table).to(dev)
-    emit({**head, "kernel": "paged_decode_attention",
-          "shape": "B=8 K=16 G=1 hd=128 ps=16 pps=64 bf16",
-          "wrapper": measure(lambda: ops.paged_decode_attention(
-              pq, *pools, ptable, p))})
+    if "paged_decode_attention" in run:
+        emit({**head, "kernel": "paged_decode_attention",
+              "shape": "B=8 K=16 G=1 hd=128 ps=16 pps=64 bf16",
+              "wrapper": measure(lambda: ops.paged_decode_attention(
+                  pq, *pools, ptable, p))})
 
     rng = np.random.default_rng(9)
     q = tensor(rng, dev, bf16, 8, 16, 1, 128)
@@ -208,39 +246,53 @@ def main() -> int:
             <= p[:, None].long())[:, None, None, :]
     F = torch.nn.functional
     got = ops.decode_attention(q, k, v, p)
-    emit({**head, "kernel": "decode_attention",
-          "shape": "B=8 K=16 G=1 S=1024 hd=128 bf16, (B, S, K, hd) view",
-          "sha256": hashlib.sha256(
-              got.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
-          "wrapper": measure(lambda: ops.decode_attention(q, k, v, p)),
-          "library": measure(lambda: F.scaled_dot_product_attention(
-              q, k, v, attn_mask=mask))})
+    if "decode_attention" in run:
+        emit({**head, "kernel": "decode_attention",
+              "shape": "B=8 K=16 G=1 S=1024 hd=128 bf16, (B, S, K, hd) view",
+              "sha256": hashlib.sha256(
+                  got.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
+              "wrapper": measure(lambda: ops.decode_attention(q, k, v, p)),
+              "library": measure(lambda: F.scaled_dot_product_attention(
+                  q, k, v, attn_mask=mask))})
 
-    for label, M, K, N, tied in (("decode_attn", 8, 2048, 2048, False),
-                                 ("decode", 8, 2048, 8192, False),
-                                 ("decode_down", 8, 8192, 2048, False),
-                                 ("head", 8, 2048, 50304, True),
-                                 ("prefill_attn", 4096, 2048, 2048, False),
-                                 ("prefill", 4096, 2048, 8192, False),
-                                 ("prefill_down", 4096, 8192, 2048, False)):
+    from repro_torch.kernels.int8_matmul import int8_matmul_ref
+    for label, (M, K, N, tied) in INT8_SHAPES.items():
+        if "int8_matmul" not in run:
+            break
         rng = np.random.default_rng(10)
         w = tensor(rng, dev, torch.float32, *((N, K) if tied else (K, N)))
         qd = q_lib.quantize_array(w * 0.1, 8)
         wq, sc = qd["__q__"], qd["scale"]
+        del w, qd
         if tied:
             wq, sc = wq.t(), sc.t()
         x = tensor(rng, dev, bf16, M, K)
+        got = ops.int8_matmul(x, wq, sc).float()
+        want = int8_matmul_ref(x, wq, sc).float()
+        err = (got - want).abs()
+        if bool((err > 2e-2 + 2e-2 * want.abs()).any()):
+            raise AssertionError(f"int8_matmul/{label}: max |err| "
+                                 f"{float(err.max())}")
+        t_bytes = (K * N + 2 * (M * K + M * N) + 4 * sc.numel()) \
+            / HBM_BYTES_PER_S
+        t_ops = 2 * M * K * N / BF16_FLOPS
+        del got, want, err
         w16 = (wq.float() * sc).to(bf16)
         emit({**head, "kernel": "int8_matmul", "label": label,
               "shape": f"M={M} K={K} N={N} bf16",
               "route": ops.int8_matmul_route(x, wq, sc),
+              "bound_ms": max(t_bytes, t_ops) * 1e3,
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
               "wrapper": measure(lambda: ops.int8_matmul(x, wq, sc)),
               "library": measure(lambda: torch.matmul(x, w16))})
-        del w16
+        del w16, x, wq, sc
+        torch.cuda.empty_cache()
 
     from repro_torch.kernels.flash_attention import flash_attention_ref
     F = torch.nn.functional
     for label, shape in FLASH_SHAPES.items():
+        if "flash_attention" not in run:
+            break
         B, H, K, Sq, Skv, hd, win, pre, causal = shape
         rng = np.random.default_rng(11)
         q = tensor(rng, dev, bf16, B, H, Sq, hd)

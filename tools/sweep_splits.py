@@ -10,7 +10,11 @@ of 64 columns, ragged pos up to 1023) over its pages per chunk,
 decode_attention (B=8 K=16 G=1 S=1024 hd=128 bf16, the (B, S, K, hd)
 cache view, the same pos) over its chunk sizes, and the int8_matmul
 skinny_tc route (M = 8, bf16: 2048 -> 2048, 2048 -> 8192, 8192 -> 2048
-and the tied head) over its K splits.  Each configuration is launched
+and the tied head) over its clusters: the K split into 1, 2, 4 or 8
+CTAs of a thread block cluster, each column tile a cluster (with no
+split, the CTAs of one wave walking the tiles, two an SM where the tiles
+outnumber the SMs), beside the CTAs the card holds at once for such a
+launch (its ring sets its shared memory).  Each configuration is launched
 with the split given (the paged kernel through ops._paged_decode, the
 others through their C entries), held to the wrapper's output (bf16
 2e-2), and timed as chip_smoke.py times kernels (CUDA events, cold L2,
@@ -34,6 +38,10 @@ mixtral-8x22b's G=6 hd=128 with its window of 4096 and without one
 kernel's window test), and G=4 and G=8 at hd=128 beside it (G = 6 runs
 the kernels' 8-row group variant, G = 4 the 4-row one); then skinny_tc at granite's M = 8 products (1536
 -> 1536, 1536 -> 512, the tied head 1536 -> 49155).
+
+With --int8 it sweeps only skinny_tc, at every served M = 8 product of
+PERF.md section 6 (OLMo-1B's, granite's, hymba's, xlstm's, seamless's,
+the heads).
 """
 from __future__ import annotations
 
@@ -120,6 +128,9 @@ def main() -> int:
     card = chip_smoke.card_line()
     n_sm = ops._sm_count(0)
     ops.build()
+    if "--int8" in sys.argv[1:]:
+        sweep_skinny_tc(dev, ops, q_lib, card, n_sm, INT8_DECODE)
+        return 0
     if "--gemma" in sys.argv[1:]:
         sweep_decode_kernels(dev, ops, card, n_sm, K=1, G=4, hd=256,
                              window=512)
@@ -144,40 +155,64 @@ def main() -> int:
 
 
 def sweep_skinny_tc(dev, ops, q_lib, card, n_sm, shapes):
-    """The int8 matmul's skinny_tc route over its K splits at each
+    """The int8 matmul's skinny_tc route over its clusters at each
     (label, M, K, N, head) of `shapes`."""
+    lib = ops._lib("int8_matmul")
     for label, M, K, N, head in shapes:
         x, wq, sc = chip_smoke.int8_case(dev, torch.bfloat16, q_lib, M=M,
                                          K=K, N=N, head=head, seed=10)
         swk, swn = wq.stride()
         kn = swn == 1
-        cols, step_k = ops.SKINNY_TC_TILE[kn]
-        tiles, steps = -(-N // cols), -(-K // step_k)
+        cols, stage_k = ops.SKINNY_TC_TILE[kn]
+        tiles, stages = -(-N // cols), -(-K // stage_k)
         want = ops.int8_matmul(x, wq, sc)
         out = torch.empty_like(want)
         chosen = ops.int8_skinny_tc_splits(K, N, kn, n_sm)
-        times = {}
-        for split in sorted({1, 2, 4, 8, 16, 24, 32, chosen[0]}):
-            if split > steps:
+        times, resident = {}, {}
+        for split in sorted({1, 2, 4, 8, chosen[0]}):
+            if split > stages:
                 continue
-            per = -(-steps // split)
-            n_ks = -(-steps // per)
-            tickets, ws = ops._split_buffers(dev, tiles,
-                                             tiles * n_ks * M * cols)
+            per = -(-stages // split)
+            cluster = -(-stages // per)
+            ctas = tiles if cluster > 1 else min(tiles, 2 * n_sm)
+            resident[f"{cluster}"] = lib.int8_matmul_resident(
+                ops.INT8_ROUTES.index("skinny_tc"), cluster, per, tiles,
+                ctas)
 
-            def call(n_ks=n_ks, per=per, ws=ws, tickets=tickets):
+            def call(cluster=cluster, per=per, ctas=ctas):
                 ops._run("int8_matmul", dev, x.data_ptr(), wq.data_ptr(),
-                         sc.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                         tickets.data_ptr(), M, N, K, swk, swn, int(head), 1,
-                         ops.INT8_ROUTES.index("skinny_tc"), n_ks, per)
+                         sc.data_ptr(), out.data_ptr(), M, N, K, swk, swn, K,
+                         int(head), 1, ops.INT8_ROUTES.index("skinny_tc"),
+                         cluster, per, ctas)
             call()
             close(out, want)
-            times[f"{n_ks}x{per}"] = chip_smoke.time_ms(call)
+            times[f"{cluster}x{per}"] = chip_smoke.time_ms(call)
         chip_smoke.emit({"kernel": "int8_matmul (skinny_tc)", "label": label,
                          "shape": f"M={M} K={K} N={N} bf16",
-                         "ms_by_splits_x_steps": times,
+                         "ms_by_cluster_x_stages": times,
+                         "resident_ctas_by_cluster": resident,
                          "wrapper_choice": f"{chosen[0]}x{chosen[1]}",
                          "card": card})
+
+
+# every served M = 8 product of PERF.md section 6: (label, M, K, N, head)
+INT8_DECODE = (
+    ("olmo_decode_attn", 8, 2048, 2048, False),
+    ("olmo_decode", 8, 2048, 8192, False),
+    ("olmo_decode_down", 8, 8192, 2048, False),
+    ("olmo_head", 8, 2048, 50304, True),
+    ("granite_decode_attn", 8, 1536, 1536, False),
+    ("granite_decode_kv", 8, 1536, 512, False),
+    ("granite_head", 8, 1536, 49155, True),
+    *((f"hymba_decode_{k}x{n}", 8, k, n, False) for k, n in
+      ((1600, 1600), (1600, 320), (1600, 3200), (1600, 5504), (5504, 1600),
+       (1600, 32001))),
+    *((f"xlstm_decode_{k}x{n}", 8, k, n, False) for k, n in
+      ((768, 3072), (1536, 1536), (1536, 768), (768, 2112), (2112, 768))),
+    ("xlstm_head", 8, 768, 50304, True),
+    *((f"seamless_decode_{k}x{n}", 8, k, n, False) for k, n in
+      ((1024, 1024), (1024, 8192), (8192, 1024), (1024, 256206))),
+)
 
 
 if __name__ == "__main__":
