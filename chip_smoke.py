@@ -530,6 +530,22 @@ def check_close(name, got, want, tol) -> float:
     return float(err.max())
 
 
+def decode_splits(ops, dev, B, K, S, hd, dtype) -> dict:
+    """The decode wrapper's split at this shape, on the dtype's route."""
+    return dict(zip(("n_split", "chunk", "cluster"),
+                    ops.decode_attention_splits(
+                        B, K, S, ops._sm_count(dev.index), hd,
+                        ops.decode_attention_route(dtype))))
+
+
+def paged_splits(ops, dev, B, K, pps, ps, hd, dtype) -> dict:
+    """The paged wrapper's split at this shape, on the dtype's route."""
+    return dict(zip(("n_split", "pages_per_chunk", "cluster"),
+                    ops.paged_decode_attention_splits(
+                        B, K, pps, ps, ops._sm_count(dev.index), hd,
+                        ops.decode_attention_route(dtype))))
+
+
 def tol_of(dtype) -> float:
     return 1e-4 if dtype == torch.float32 else 2e-2
 
@@ -977,18 +993,21 @@ def check_paged(dev, ops, refs, dtype, cases, rows, seed0=0):
     """Each (name, shape, window, prefix) case of the paged kernel against
     its plain version (seed seed0 + rows so far), appended to `rows`; the
     OLMo case and the split_ cases launch twice, bit for bit."""
+    route = ops.decode_attention_route(dtype)
     for name, kw, win, pre in cases:
         args = paged_case(dev, dtype, seed=seed0 + len(rows), **kw)
-        got = ops.paged_decode_attention(*args, window=win, prefix=pre)
+        got = on_route(ops.paged_decode_attention, route,
+                       lambda: ops.paged_decode_attention(
+                           *args, window=win, prefix=pre))
         torch.cuda.synchronize()
         want = refs["paged_decode_attention"](*args, window=win, prefix=pre)
         err = check_close(f"paged_decode_attention/{name}", got, want,
                           tol_of(dtype))
         rows.append({"kernel": "paged_decode_attention", "case": name,
-                     "dtype": str(dtype), "max_abs_err": err,
+                     "dtype": str(dtype), "route": route, "max_abs_err": err,
                      "splits": ops.paged_decode_attention_splits(
                          kw["B"], kw["K"], kw["pps"], kw["ps"],
-                         ops._sm_count(dev.index))})
+                         ops._sm_count(dev.index), kw["hd"], route)})
         if name == "olmo_decode" or name.startswith("split_"):
             again = ops.paged_decode_attention(*args, window=win, prefix=pre)
             if not torch.equal(got, again):
@@ -1017,15 +1036,22 @@ def check_flash(dev, ops, refs, dtype, cases, rows, seed0=0):
 def check_decode(dev, ops, refs, dtype, cases, rows, seed0=0):
     """Each case of the decode kernel against its plain version; the OLMo
     case and the split_ cases launch twice, bit for bit."""
+    route = ops.decode_attention_route(dtype)
     for name, kw, win, pre in cases:
         args = decode_case(dev, dtype, seed=seed0 + len(rows), **kw)
-        got = ops.decode_attention(*args, window=win, prefix=pre)
+        got = on_route(ops.decode_attention, route,
+                       lambda: ops.decode_attention(
+                           *args, window=win, prefix=pre))
         torch.cuda.synchronize()
         want = refs["decode_attention"](*args, window=win, prefix=pre)
         err = check_close(f"decode_attention/{name}", got, want,
                           tol_of(dtype))
         rows.append({"kernel": "decode_attention", "case": name,
-                     "dtype": str(dtype), "max_abs_err": err})
+                     "dtype": str(dtype), "route": route,
+                     "max_abs_err": err,
+                     "splits": ops.decode_attention_splits(
+                         kw["B"], kw["K"], kw["S"],
+                         ops._sm_count(dev.index), kw["hd"], route)})
         if name == "olmo_decode_strided" or name.startswith("split_"):
             again = ops.decode_attention(*args, window=win, prefix=pre)
             if not torch.equal(got, again):
@@ -1085,11 +1111,10 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
                       ops.paged_decode_attention(*args), paged_ref(*args),
                       tol_of(dt))
     b_ms, b_by = bound(kv_bytes + args[3].numel() * 4, kv_flops, BF16_FLOPS)
-    n_split, ppc = ops.paged_decode_attention_splits(8, 16, 64, 16,
-                                                     ops._sm_count(dev.index))
     out["paged_decode_attention"] = {
         "shape": "B=8 K=16 G=1 hd=128 ps=16 pps=64 bf16, pos up to 1023",
-        "splits": {"n_split": n_split, "pages_per_chunk": ppc},
+        "kernel_route": "tensor_core",
+        "splits": paged_splits(ops, dev, 8, 16, 64, 16, 128, dt),
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.paged_decode_attention(*args)),
         "plain_ms": time_ms(lambda: paged_ref(*args), reps=10),
@@ -1108,6 +1133,8 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
     out["decode_attention"] = {
         "shape": "B=8 K=16 G=1 S=1024 hd=128 bf16, (B, S, K, hd) cache "
                  "view, pos up to 1023",
+        "kernel_route": "tensor_core",
+        "splits": decode_splits(ops, dev, 8, 16, 1024, 128, dt),
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.decode_attention(q, k, v, p)),
         "plain_ms": time_ms(lambda: dec_ref(q, k, v, p), reps=10),
@@ -1317,9 +1344,8 @@ def gqa_timings(dev, ops, refs):
         out["paged_decode_attention"].append({
             "label": model, "shape": f"B={B} K={K} G={G} hd={hd} ps=16 "
             f"pps={pps}{tag} bf16, pos {S - 1}",
-            "splits": dict(zip(("n_split", "pages_per_chunk"),
-                               ops.paged_decode_attention_splits(
-                                   B, K, pps, 16, ops._sm_count(dev.index)))),
+            "kernel_route": "tensor_core",
+            "splits": paged_splits(ops, dev, B, K, pps, 16, hd, dt),
             "max_abs_err": err,
             "ms": time_ms(lambda: ops.paged_decode_attention(*args, **kw)),
             "plain_ms": time_ms(lambda: ref(*args, **kw), reps=10),
@@ -1335,9 +1361,8 @@ def gqa_timings(dev, ops, refs):
         out["decode_attention"].append({
             "label": model, "shape": f"B={B} K={K} G={G} S={S} hd={hd}{tag} "
             f"bf16, (B, S, K, hd) cache view, pos {S - 1}",
-            "splits": dict(zip(("n_split", "chunk"),
-                               ops.decode_attention_splits(
-                                   B, K, S, ops._sm_count(dev.index)))),
+            "kernel_route": "tensor_core",
+            "splits": decode_splits(ops, dev, B, K, S, hd, dt),
             "max_abs_err": err,
             "ms": time_ms(lambda: ops.decode_attention(q, k, v, p, **kw)),
             "plain_ms": time_ms(lambda: ref(q, k, v, p, **kw), reps=10),
@@ -2234,6 +2259,17 @@ def serve(phase, dev, ops, card, cfg=None, max_prompt=896, params=None,
     by_route = {fn.__name__: dict(fn.launches_by_route)
                 for fn in (ops.flash_attention, ops.int8_matmul)}
     by_route["flash_non_causal"] = ops.flash_attention.launches_non_causal
+    # every decode launch of the model's dtype on its route (bf16: the
+    # tensor cores)
+    dec_route = ops.decode_attention_route(
+        torch.bfloat16 if cfg.dtype == "bf16" else torch.float32)
+    dec_by_route = {fn.__name__: dict(fn.launches_by_route) for fn in (
+        ops.decode_attention, ops.paged_decode_attention)}
+    for fn in (ops.decode_attention, ops.paged_decode_attention):
+        if fn.launches_by_route[dec_route] != fn.launches:
+            raise AssertionError(f"{phase}: {fn.__name__} launches "
+                                 f"{dec_by_route[fn.__name__]}, want all "
+                                 f"{fn.launches} on {dec_route}")
     st = eng.perf_stats()
     check_serve(phase, cfg, ecfg, eng, reqs, launches)
     if eng.pool.pages_in_use != 0:
@@ -2246,6 +2282,7 @@ def serve(phase, dev, ops, card, cfg=None, max_prompt=896, params=None,
     if by_route != want:
         raise AssertionError(f"{phase} launches by route {by_route}, "
                              f"want {want}")
+    by_route.update(dec_by_route)
     mem = eng.memory_report()
     # what placement charges an instance of this engine (cluster/node.py),
     # with the engine's page budget and with none, beside what it holds:
@@ -3060,8 +3097,8 @@ def encdec_timings(dev, ops, refs, q_lib, int8_m, cross_shape):
     decode = [{
         "label": "seamless_cross", "shape": f"B={B} K={K} G=1 S={Skv} "
         f"hd={hd} bf16, (B, S, K, hd) cross K/V view, every position valid",
-        "splits": dict(zip(("n_split", "chunk"), ops.decode_attention_splits(
-            B, K, Skv, ops._sm_count(dev.index)))),
+        "kernel_route": "tensor_core",
+        "splits": decode_splits(ops, dev, B, K, Skv, hd, dt),
         "max_abs_err": err,
         "ms": time_ms(lambda: ops.decode_attention(q, k, v, p)),
         "plain_ms": time_ms(lambda: ref(q, k, v, p), reps=10),
@@ -3396,9 +3433,9 @@ def kv_quant(dev, ops, card, cfg=None, full=None):
            "shape": f"B={KV_ROWS} K={K} G={G} S={S} hd={hd} f32, "
                     f"(B, S, K, hd) dequantized cache view, pos "
                     f"{pos[0]}-{pos[-1]}",
-           "splits": dict(zip(("n_split", "chunk"),
-                              ops.decode_attention_splits(
-                                  KV_ROWS, K, S, ops._sm_count(dev.index)))),
+           "kernel_route": "cuda_core",
+           "splits": decode_splits(ops, dev, KV_ROWS, K, S, hd,
+                                   torch.float32),
            "max_abs_err": kerr,
            "ms": time_ms(lambda: ops.decode_attention(q, k, v, p)),
            "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, p),
@@ -5478,6 +5515,125 @@ def int8_prefill(dev, ops, card, cfg=None, rows=4, seq=1024):
 
 
 
+def bf16_decode(dev, ops, card, cfg=None, rows=8, cache_len=1024, steps=8):
+    """The full OLMo-1B's bf16 decode through the split decode kernel
+    against its plain version, each beside the f32 model on the same
+    weights: one prefill of ragged prompts (one row of cache_len - steps
+    tokens, the others shorter; plain attention) fills a cache of
+    cache_len, then `steps` decode steps with the same forced tokens run
+    `transformer.decode_step` twice from copies of that cache: through
+    `ops.decode_attention` (the contiguous cache's permuted view, on the
+    tensor-core route: n_layers launches a step) and through its plain
+    version, then the weights in f32 do the same (their own f32 prefill,
+    plain attention).  The kernel differs from the plain version in the
+    order of its f32 sums and in rounding P to bf16 before P.V; the rest
+    is the same bf16 model, whose own rounding sets the scale of both
+    paths' distance from f32.  So the kernel's logits must stay within
+    1.05 x the plain path's RMS distance from the f32 model: a wrong
+    fragment, mask or merge moves an attention output by O(1) and the
+    logits by far more.  `cfg` replaces the model (a CPU rehearsal with
+    the ops wrappers stubbed)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    cfg = cfg or ARCHS["olmo-1b"]
+    params = build(cfg, dev).init(torch.Generator(dev).manual_seed(21))
+    seed_norms(params, np.random.default_rng(22))
+    rng = np.random.default_rng(23)
+    longest = cache_len - steps
+    lengths = rng.integers(longest // 8, longest, rows)
+    lengths[0] = longest
+    lengths = torch.tensor(lengths.tolist(), dtype=torch.int32, device=dev)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (rows, longest))
+                              .astype(np.int32)).to(dev)
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab, (steps, rows))
+                              .astype(np.int32)).to(dev)
+
+    def plain_attention():
+        saved = ops.flash_attention, ops.decode_attention
+        ops.flash_attention = flash_attention_ref
+        ops.decode_attention = decode_attention_ref
+        return saved
+
+    def decode(p, c, cache, pos):
+        out = []
+        with torch.no_grad():
+            for i in range(steps):
+                logits, cache = tf.decode_step(p, c, cache, forced[i],
+                                               pos + 1 + i)
+                out.append(logits.float())
+        return torch.stack(out)
+
+    def prefill(p, c):
+        saved = plain_attention()
+        try:
+            with torch.no_grad():
+                _, cache, pos = tf.prefill(p, c, prompt, lengths=lengths,
+                                           cache_len=cache_len)
+        finally:
+            ops.flash_attention, ops.decode_attention = saved
+        return cache, pos
+
+    cache, pos = prefill(params, cfg)
+    copy = {k: v.clone() for k, v in cache.items()}
+    ops.reset_launches()
+    got = decode(params, cfg, cache, pos)
+    launches = {"decode_attention":
+                dict(ops.decode_attention.launches_by_route),
+                "flash_attention": ops.flash_attention.launches}
+    want = cfg.n_layers * steps
+    if launches["decode_attention"]["tensor_core"] != want \
+            or ops.decode_attention.launches != want \
+            or launches["flash_attention"]:
+        raise AssertionError(f"bf16_decode: launches {launches}, want "
+                             f"{want} decode launches on tensor_core")
+    saved = plain_attention()
+    try:
+        plain = decode(params, cfg, copy, pos)
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+    del cache, copy
+    f32 = torch.utils._pytree.tree_map(
+        lambda t: t.float() if t.is_floating_point() else t, params)
+    del params
+    c32 = dataclasses.replace(cfg, dtype="f32")
+    cache, pos32 = prefill(f32, c32)
+    saved = plain_attention()
+    try:
+        ref = decode(f32, c32, cache, pos32)
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+    del f32, cache
+
+    def rms(a, b):
+        return float((a - b).pow(2).mean().sqrt())
+    row = {"phase": "bf16_decode", "model": cfg.name, "rows": rows,
+           "cache_len": cache_len, "steps": steps,
+           "prompt_lengths": lengths.tolist(),
+           "logits_shape": list(got.shape), "launches": launches,
+           "splits": decode_splits(ops, dev, rows, cfg.n_kv_heads, cache_len,
+                                   cfg.head_dim, torch.bfloat16),
+           "max_abs_kernel_vs_plain": float((got - plain).abs().max()),
+           "rms_kernel_vs_plain": rms(got, plain),
+           "rms_kernel_vs_f32": rms(got, ref),
+           "rms_plain_vs_f32": rms(plain, ref),
+           "logits_rms": float(ref.pow(2).mean().sqrt()),
+           "argmax_kernel_eq_plain": float(
+               (got.argmax(-1) == plain.argmax(-1)).float().mean()),
+           "seconds": time.perf_counter() - t0, "card": card}
+    del got, plain, ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    emit(row)
+    if not math.isfinite(row["rms_kernel_vs_f32"]) \
+            or row["rms_kernel_vs_f32"] > 1.05 * row["rms_plain_vs_f32"]:
+        raise AssertionError(f"bf16 decode logits through the kernel: {row}")
+    return row
+
+
 def serve_roofline(dev, cfg=None):
     """The full OLMo-1B's unsharded prefill (4 x 1024) and decode step (B
     8, cache 1024), counted on meta tensors (`op_profile`) and bounded by
@@ -5582,6 +5738,9 @@ def main() -> int:
     rows = kernel_checks(dev, ops, refs, q_lib)
     emit({"phase": "kernel_checks", "cases": rows})
     int8_prefill(dev, ops, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_decode(dev, ops, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5753,6 +5912,8 @@ def main() -> int:
                            if name in path_routes[path] else {}),
                         **({"shapes": t["shapes"]} if "shapes" in t else {}),
                         **({"splits": t["splits"]} if "splits" in t else {}),
+                        **({"kernel_route": t["kernel_route"]}
+                           if "kernel_route" in t else {}),
                         **({"launches_non_causal_by_path": {
                             "serve_seamless": seamless_non_causal}}
                            if name == "flash_attention" else {}),

@@ -927,52 +927,98 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of rank 1 or 2 (no interleave, L2 promotion of 128 bytes,
-// zero fill past the bounds), encoded once for each distinct set of
-// arguments: a small cache per host thread keeps the last 64.  The map is
-// a pure function of its arguments, so a pointer freed and reused for a
-// tensor of the same layout finds a map that is still right.  False where
-// the map cannot be encoded.
-inline bool tensor_map(CUtensorMap* out, CUtensorMapDataType dtype, int rank,
-                       const void* p, uint64_t d0, uint64_t d1,
-                       uint64_t stride_bytes, uint32_t b0, uint32_t b1,
-                       CUtensorMapSwizzle swizzle) {
+// encode(out, ...) (no interleave, L2 promotion of 128 bytes, zero fill
+// past the bounds) from any host thread.  The encoder checks the global
+// address in the calling thread's current context, and a thread whose
+// first CUDA call this is has none yet (its launch came back refused):
+// where the encoder refuses, cudaFree(nullptr) binds the device's primary
+// context to the thread and the map is encoded once more.
+inline bool encode_map(EncodeTiled encode, CUtensorMap* out,
+                       CUtensorMapDataType dtype, int rank, const void* p,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  for (int attempt = 0; attempt < 2; ++attempt) {
+    if (encode(out, dtype, rank, const_cast<void*>(p), dims, strides, box,
+               ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS)
+      return true;
+    if (attempt == 0) cudaFree(nullptr);
+  }
+  return false;
+}
+
+// A tensor map of rank 1 to 4 (dims, strides in bytes of dims 1.., box;
+// as encode_map), encoded once for each distinct set of arguments: each
+// host thread keeps the last 4 of each of 32 sets, so the maps of a
+// weight, or of every layer's cache, stay encoded from call to call.  A
+// map is a pure function of its arguments, so a pointer freed and reused
+// for a tensor of the same layout finds a map that is still right.
+// False where the map cannot be encoded.
+inline bool tensor_map_nd(CUtensorMap* out, CUtensorMapDataType dtype,
+                          int rank, const void* p, const uint64_t (&dims)[4],
+                          const uint64_t (&strides)[3],
+                          const uint32_t (&box)[4],
+                          CUtensorMapSwizzle swizzle) {
   struct Entry {
-    const void* p;
-    uint64_t d0, d1, stride;
-    uint32_t b0, b1;
-    int dtype, rank, swizzle;
     CUtensorMap map;
+    const void* p;
+    uint64_t dims[4], strides[3];
+    uint32_t box[4];
+    int dtype, rank, swizzle;
   };
-  constexpr int kEntries = 64;
-  thread_local Entry cache[kEntries];
-  thread_local int used = 0, next = 0;
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = cache[i];
-    if (e.p == p && e.d0 == d0 && e.d1 == d1 && e.stride == stride_bytes &&
-        e.b0 == b0 && e.b1 == b1 && e.dtype == (int)dtype &&
-        e.rank == rank && e.swizzle == (int)swizzle) {
-      *out = e.map;
+  constexpr int kSets = 32, kWays = 4;
+  thread_local Entry cache[kSets][kWays];
+  thread_local int filled[kSets] = {}, next[kSets] = {};
+  auto same = [&](const Entry& e) {
+    if (e.p != p || e.dtype != (int)dtype || e.rank != rank ||
+        e.swizzle != (int)swizzle)
+      return false;
+    for (int i = 0; i < 4; ++i)
+      if (e.dims[i] != dims[i] || e.box[i] != box[i]) return false;
+    for (int i = 0; i < 3; ++i)
+      if (e.strides[i] != strides[i]) return false;
+    return true;
+  };
+  uint64_t h = reinterpret_cast<uintptr_t>(p) >> 4;
+  h ^= dims[1] * 0x9E3779B97F4A7C15ull ^ strides[0] * 31 ^ box[1] ^ box[2];
+  const int set = (int)((h ^ (h >> 29)) % kSets);
+  for (int w = 0; w < filled[set]; ++w) {
+    if (same(cache[set][w])) {
+      *out = cache[set][w].map;
       return true;
     }
   }
   const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {d0, d1};
-  const cuuint64_t strides[1] = {stride_bytes};
-  const cuuint32_t box[2] = {b0, b1};
-  const cuuint32_t ones[2] = {1, 1};
-  if (encode(out, dtype, rank, const_cast<void*>(p), dims, strides, box,
-             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (encode == nullptr ||
+      !encode_map(encode, out, dtype, rank, p, dims, strides, box, swizzle))
     return false;
-  Entry& e = cache[next];
-  e = Entry{p, d0, d1, stride_bytes, b0, b1, (int)dtype, rank, (int)swizzle,
-            *out};
-  next = (next + 1) % kEntries;
-  if (used < kEntries) ++used;
+  const int w = filled[set] < kWays ? filled[set]++ : next[set]++ % kWays;
+  Entry& e = cache[set][w];
+  e.map = *out;
+  e.p = p;
+  e.dtype = (int)dtype;
+  e.rank = rank;
+  e.swizzle = (int)swizzle;
+  for (int i = 0; i < 4; ++i) {
+    e.dims[i] = dims[i];
+    e.box[i] = box[i];
+  }
+  for (int i = 0; i < 3; ++i) e.strides[i] = strides[i];
   return true;
+}
+
+// tensor_map_nd at rank 1 or 2: dims (d0, d1), the row stride in bytes,
+// box (b0, b1).
+inline bool tensor_map(CUtensorMap* out, CUtensorMapDataType dtype, int rank,
+                       const void* p, uint64_t d0, uint64_t d1,
+                       uint64_t stride_bytes, uint32_t b0, uint32_t b1,
+                       CUtensorMapSwizzle swizzle) {
+  const uint64_t dims[4] = {d0, d1, 1, 1};
+  const uint64_t strides[3] = {stride_bytes, 0, 0};
+  const uint32_t box[4] = {b0, b1, 1, 1};
+  return tensor_map_nd(out, dtype, rank, p, dims, strides, box, swizzle);
 }
 
 }  // namespace repro

@@ -12,44 +12,44 @@
 // far below the card's ~295 flops per byte, so the least time is
 // 2 * sum_b (pos_b + 1) * K * hd * sizeof(T) over 3.35 TB/s.
 //
-// Design.  One CTA per (row, kv head) (the TPU grid's sequential kv axis
-// turned into a loop) gave 128 CTAs of 4 warps at the OLMo-1B decode
-// shape: one per SM, too few 16-byte loads in flight to pull an SM's share
-// of the card's bandwidth.  So the positions 0..min(pos, S-1) are cut into
-// chunks of `chunk` rows and the grid is (B * K, n_split): one CTA per
-// chunk.  The wrapper picks n_split and chunk from B, K, S and the SM count
+// The positions 0..min(pos, S-1) are cut into chunks of `chunk` rows, one
+// CTA each; the wrapper picks the split from the shapes and the SM count
 // alone (ops.decode_attention_splits), never from pos, so nothing is read
-// back to the host.  Inside a chunk the CTA works as before: 4 warps, a
-// group of min(hd / VEC, 32) lanes per key row with 16-byte loads along
-// hd (at hd 256 in f32 a lane loads two vectors a row), the
-// group's own online-softmax state in registers, a log-sum-exp merge of
-// the groups in shared memory.  UNROLL rows per group are loaded before
-// any is used, packed (4 registers a row, widened just before use), 8 of
-// them when G <= 2, so a warp keeps 16 rows of K and of V in flight
-// (common.cuh fold_block, shared with the paged kernel, as are the
-// running-chunk mask and the merge below: running_chunks, finish_split).
+// back to the host.  A later chunk runs only if it begins at or before
+// min(pos, S-1) and reaches the window or the prefix (common.cuh
+// running_chunks, the Pallas kernel's block skip at chunk granularity).
+// The cache is read in place through strides (row t of (b, kh) at b * sb
+// + kh * sk + t * ss elements), so a (B, S, K, hd) cache is taken through
+// its (B, K, S, hd) permuted view with no copy.
 //
-// The splits meet as in JAX's sequence-sharded combine (ops.py,
-// _lse_partials and decode_attention_sharded): each CTA stores its f32
-// partial (m, l, acc[hd]) per query row in a workspace the wrapper
-// allocates; the last CTA of a (row, kv head) to finish, found through a
-// counter the kernel leaves at 0 (common.cuh last_to_arrive), merges them
-// in split order (merge_splits), so two launches give bit-identical
-// results.  One launch and no second merge kernel: the serve's decode is
-// bound by host launches (PERF.md section 5), and the merge reads a few
-// KB.  Chunk 0 always runs; a later chunk runs only if it begins at or
-// before min(pos, S-1) and reaches the window or the prefix (the Pallas
-// kernel's block skip at chunk granularity).  A chunk that does not run
-// stores nothing and the merge skips it: its empty partial (m = -1e30,
-// l = 0) would weigh exactly 0, so leaving it out changes no bit.  A row
-// that only one chunk serves is written directly by that CTA, with the
-// same arithmetic as the merge of one partial.  Within a chunk, blocks
-// wholly outside the window and prefix are skipped as before.  The cache
-// is read in place through strides (row t of (b, kh) at b * sb + kh * sk
-// + t * ss elements), so a (B, S, K, hd) cache is taken through its
-// (B, K, S, hd) permuted view with no copy.  G above 8 runs in chunks of
-// 8 query rows, one launch each on the same workspace and counters.
-#include "common.cuh"
+// Two routes, picked by dtype (ops.decode_attention_route):
+//
+// bf16, "tensor_core": decode_common.cuh's body, shared with the paged
+// kernel (ContigRows here): K/V tiles of 64 rows through an async-copy
+// ring fed by a producer warp, the query group on the tensor cores (keys
+// on M, the group on N), one softmax step a tile, and the chunks of a
+// (row, kv head) merged in a thread block cluster (`cluster` = n_split),
+// or, with cluster 1, through the global workspace below.  G above 16 runs
+// in launches of 16 query rows.
+//
+// f32, "cuda_core": on the CUDA cores in f32 (on the tensor cores it
+// would be TF32).  4 warps a CTA; a group of min(hd / VEC, 32) lanes a key
+// row with 16-byte loads along hd (two vectors a lane at hd 256), the
+// group's own online-softmax state in registers, a log-sum-exp merge of
+// the groups in shared memory; UNROLL rows per group are loaded before any
+// is used, packed, so a warp keeps 16 rows of K and of V in flight
+// (common.cuh fold_block, shared with the paged kernel, as are the
+// running-chunk mask and the merge below).  The splits meet as in JAX's
+// sequence-sharded combine (ops.py, _lse_partials and
+// decode_attention_sharded): each CTA stores its f32 partial (m, l,
+// acc[hd]) per query row in a workspace the wrapper allocates; the last
+// CTA of a (row, kv head) to finish, found through a counter the kernel
+// leaves at 0 (common.cuh last_to_arrive), merges them in split order
+// (merge_splits), so two launches give bit-identical results.  A row that
+// only one chunk serves is written directly by that CTA.  G above 8 runs
+// in chunks of 8 query rows, one launch each on the same workspace and
+// counters.
+#include "decode_common.cuh"
 
 namespace {
 
@@ -152,17 +152,17 @@ void launch_hd(const void* q, const void* k, const void* v, const int* pos,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* pos,
-           void* out, float* ws, unsigned* tickets, int B, int K, int G,
-           int hd, int S, long long sb, long long sk, long long ss,
-           int window, int prefix, float sm_scale, int n_split, int chunk,
-           cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, const int* pos,
+               void* out, float* ws, unsigned* tickets, int B, int K, int G,
+               int hd, int S, long long sb, long long sk, long long ss,
+               int window, int prefix, float sm_scale, int n_split, int chunk,
+               cudaStream_t stream) {
   switch (hd) {
 #define REPRO_HD(HD)                                                        \
   case HD:                                                                  \
-    launch_hd<T, HD>(q, k, v, pos, out, ws, tickets, B, K, G, S, sb, sk,    \
-                     ss, window, prefix, sm_scale, n_split, chunk, stream); \
+    launch_hd<float, HD>(q, k, v, pos, out, ws, tickets, B, K, G, S, sb,    \
+                         sk, ss, window, prefix, sm_scale, n_split, chunk,  \
+                         stream);                                           \
     break;
     REPRO_HD(16) REPRO_HD(32) REPRO_HD(64) REPRO_HD(128) REPRO_HD(256)
 #undef REPRO_HD
@@ -178,35 +178,44 @@ extern "C" {
 // q (B, K, G, hd) contiguous; k_cache, v_cache (B, K, S, hd) with element
 // strides sb, sk, ss over (B, K, S) and the last dim contiguous, the same
 // for both; pos (B,) int32; out (B, K, G, hd) contiguous.  Pointers and
-// rows 16-byte aligned.  dtype: 0 = f32, 1 = bf16.  The sequence runs in
-// n_split chunks of `chunk` rows (1 <= n_split <= 32, every chunk holding
-// at least one of the S rows); with n_split > 1, ws holds
-// B * K * n_split * 8 * (hd + 2) floats and tickets B * K zeroed counters
-// (left zeroed).  Returns the cudaError_t of the launch (0 on success).
+// rows 16-byte aligned.  dtype: 0 = f32 (the cuda_core route), 1 = bf16
+// (tensor_core).  The sequence runs in n_split chunks of `chunk` rows (1
+// <= n_split <= 32, every chunk holding at least one of the S rows).
+// cluster: 1, or (bf16 only) n_split, up to 16: the chunks of a (row, kv
+// head) form one thread block cluster and merge in distributed shared
+// memory.  With n_split > 1 and cluster 1, ws holds B * K * n_split * 16
+// * (hd + 2) floats and tickets B * K zeroed counters (left zeroed).
+// Returns the cudaError_t of the launch (0 on success).
 int decode_attention(const void* q, const void* k_cache, const void* v_cache,
                      const int* pos, void* out, void* ws, void* tickets,
                      int B, int K, int G, int hd, int S, long long sb,
                      long long sk, long long ss, int window, int prefix,
-                     int dtype, int n_split, int chunk, float sm_scale,
-                     void* stream) {
+                     int dtype, int n_split, int chunk, int cluster,
+                     float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || K == 0 || G == 0) return 0;
   if (n_split < 1 || n_split > kMaxSplits || chunk < 1 ||
       (long long)chunk * n_split < S ||
-      (long long)chunk * (n_split - 1) >= S ||
-      (n_split > 1 && (ws == nullptr || tickets == nullptr)))
+      (long long)chunk * (n_split - 1) >= S || cluster < 1 ||
+      (cluster == 1 && n_split > 1 && (ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   float* w = static_cast<float*>(ws);
   unsigned* tk = static_cast<unsigned*>(tickets);
-  if (dtype == 0)
-    return launch<float>(q, k_cache, v_cache, pos, out, w, tk, B, K, G, hd,
-                         S, sb, sk, ss, window, prefix, sm_scale, n_split,
-                         chunk, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_cache, v_cache, pos, out, w, tk, B, K,
-                                 G, hd, S, sb, sk, ss, window, prefix,
-                                 sm_scale, n_split, chunk, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (cluster != 1) return (int)cudaErrorInvalidValue;
+    return launch_f32(q, k_cache, v_cache, pos, out, w, tk, B, K, G, hd, S,
+                      sb, sk, ss, window, prefix, sm_scale, n_split, chunk,
+                      s);
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  using repro::dtc::bf16;
+  const repro::dtc::ContigParams src{k_cache, v_cache, B, K, S,
+                                     sb, sk, ss, chunk};
+  const repro::dtc::Args a{static_cast<const bf16*>(q),
+                           static_cast<bf16*>(out), pos, w, tk, K, G, 0,
+                           window, prefix, cluster,
+                           sm_scale * repro::dtc::kLog2e};
+  return repro::dtc::launch(src, a, hd, n_split, B * K, s);
 }
 
 const char* error_string(int code) {

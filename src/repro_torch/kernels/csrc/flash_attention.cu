@@ -746,16 +746,12 @@ bool tc_map(repro::EncodeTiled encode, CUtensorMap* map, const void* p,
       (cuuint64_t)(B > 1 ? sb * 2 : one)};
   const cuuint32_t box[4] = {(cuuint32_t)(tc_row_bytes<HD>() / 2),
                              (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
   constexpr CUtensorMapSwizzle swz =
       tc_row_bytes<HD>() == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
       : tc_row_bytes<HD>() == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                  : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(p), dims, strides, box, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return repro::encode_map(encode, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                           p, dims, strides, box, swz);
 }
 
 // The four tensor maps (built per call: the pointers change) and the

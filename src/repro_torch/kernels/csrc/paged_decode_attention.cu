@@ -14,49 +14,51 @@
 // card's ~295 flops per byte, so the least time is
 // 2 * sum_b (pos_b + 1) * K * hd * sizeof(T) over 3.35 TB/s.
 //
-// Design.  The TPU grid walks the page axis sequentially ("arbitrary")
-// with (m, l, acc) in VMEM scratch.  One CTA per (slot, kv head) looping
-// over all of the slot's pages gave 128 CTAs of 4 warps at the OLMo-1B
-// decode shape: one per SM, too few 16-byte loads in flight to pull an
-// SM's share of the card's bandwidth (9.2x the byte bound).  So the
-// table's columns are cut into chunks of `ppc` pages and the grid is
-// (B * K, n_split), one CTA per chunk; the wrapper picks n_split and ppc
-// from B, K, the table's width, the page size and the SM count alone
-// (ops.paged_decode_attention_splits), never from pos or the table, so
-// nothing is read back to the host.
+// The TPU grid walks the page axis sequentially ("arbitrary") with (m, l,
+// acc) in VMEM scratch.  Here the table's columns are cut into chunks of
+// `ppc` pages and the grid is one CTA per chunk of each (slot, kv head);
+// the wrapper picks the split from B, K, the table's width, the page size
+// and the SM count alone (ops.paged_decode_attention_splits), never from
+// pos or the table, so nothing is read back to the host.  Chunk 0 always
+// runs; a later chunk runs only if its first row c * ppc * ps is at or
+// before pos and it reaches the window or the prefix (common.cuh
+// running_chunks), the same mask in every CTA.  A running chunk whose
+// pages are all sentinels (or all outside the window) has the empty
+// partial m = -1e30, l = 0: in the merge its weight is exp(-1e30 - max) =
+// 0 exactly beside any chunk with a visible row, so it changes no bit.
 //
-// Inside a chunk: the CTA reads the chunk's page ids once, up front, in
-// one coalesced load (lane i of warp w holds column w + 4i), issued beside
-// the load of pos, and hands them out with shuffles, so no K/V load waits
-// behind a dependent table load page after page.  The 4 warps take the
-// chunk's pages round-robin; a group of min(hd / VEC, 32) lanes owns a
-// token row (two vectors a lane at hd 256 in f32), 16-byte loads along
-// hd (a page row of one kv head is K*hd elements from
-// the next), its own online-softmax state in registers (common.cuh
-// fold_block / online_row), and a page's rows are loaded packed before any
-// is used, 8 rows a group when G <= 2, so a warp keeps a whole page of K
-// and V (16 rows at hd 128, bf16) in flight.  Rows past pos are not read.
+// Two routes, picked by dtype (ops.decode_attention_route):
 //
-// The chunks meet as in JAX's sequence-sharded combine (ops.py,
-// _lse_partials and decode_attention_sharded), the same code as the
-// contiguous decode kernel (common.cuh finish_split): each CTA stores its
-// f32 partial (m, l, acc[hd]) per query row in a workspace the wrapper
-// allocates; the last CTA of a (slot, kv head) to finish, found through a
-// counter the kernel leaves at 0, merges them in chunk order, so two
-// launches give bit-identical results.  A slot that one chunk serves is
-// written directly.  Chunk 0 always runs; a later chunk runs only if its
-// first row c * ppc * ps is at or before pos and it reaches the window or
-// the prefix (common.cuh running_chunks), the same mask in every CTA.  A
-// chunk that does not run stores nothing and the merge skips it.  A
-// running chunk whose pages are all sentinels (or all outside the window)
-// stores the empty partial m = -1e30, l = 0, acc = 0: in the merge its
-// weight is exp(-1e30 - max) = 0 exactly beside any chunk with a visible
-// row, so it changes no bit.  G above 8 runs in chunks of 8 query rows,
-// one launch each on the same workspace and counters.  No tensor cores: G
-// is 1..8 rows, far below an MMA tile, and the kernel is bound by the
-// bytes it reads.
+// bf16, "tensor_core": decode_common.cuh's body, shared with the
+// contiguous kernel (PagedRows here): a chunk's rows in tiles of 64 (a
+// tile spans several pages where ps < 64; its page ids are read one tile
+// ahead of the copies), K/V through an async-copy ring fed by a producer
+// warp (one bulk copy a row: a page row of one kv head is K * hd elements
+// from the next), the query group on the tensor cores, one softmax step a
+// tile, and the chunks of a slot merged in a thread block cluster
+// (`cluster` = n_split) or, with cluster 1, through the global workspace
+// below.  G above 16 runs in launches of 16 query rows.
+//
+// f32, "cuda_core": on the CUDA cores in f32.  The CTA reads the chunk's
+// page ids once, up front, in one coalesced load (lane i of warp w holds
+// column w + 4i), issued beside the load of pos, and hands them out with
+// shuffles, so no K/V load waits behind a dependent table load page after
+// page.  The 4 warps take the chunk's pages round-robin; a group of
+// min(hd / VEC, 32) lanes owns a token row (two vectors a lane at hd 256),
+// 16-byte loads along hd, its own online-softmax state in registers
+// (common.cuh fold_block / online_row), and a page's rows are loaded
+// packed before any is used, 8 rows a group when G <= 2.  Rows past pos
+// are not read.  The chunks meet as in JAX's sequence-sharded combine
+// (ops.py, _lse_partials and decode_attention_sharded), the same code as
+// the contiguous decode kernel (common.cuh finish_split): each CTA stores
+// its f32 partial in a workspace the wrapper allocates; the last CTA of a
+// (slot, kv head) to finish, found through a counter the kernel leaves at
+// 0, merges them in chunk order, so two launches give bit-identical
+// results.  A slot that one chunk serves is written directly.  G above 8
+// runs in chunks of 8 query rows, one launch each on the same workspace
+// and counters.
 
-#include "common.cuh"
+#include "decode_common.cuh"
 
 namespace {
 
@@ -183,18 +185,17 @@ void launch_hd(const void* q, const void* kp, const void* vp,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* kp, const void* vp, const int* table,
-           const int* pos, void* out, float* ws, unsigned* tickets, int B,
-           int K, int G, int hd, int P, int ps, int pps, int window,
-           int prefix, float sm_scale, int n_split, int ppc,
-           cudaStream_t stream) {
+int launch_f32(const void* q, const void* kp, const void* vp,
+               const int* table, const int* pos, void* out, float* ws,
+               unsigned* tickets, int B, int K, int G, int hd, int P, int ps,
+               int pps, int window, int prefix, float sm_scale, int n_split,
+               int ppc, cudaStream_t stream) {
   switch (hd) {
 #define REPRO_HD(HD)                                                        \
   case HD:                                                                  \
-    launch_hd<T, HD>(q, kp, vp, table, pos, out, ws, tickets, B, K, G, P,   \
-                     ps, pps, window, prefix, sm_scale, n_split, ppc,       \
-                     stream);                                               \
+    launch_hd<float, HD>(q, kp, vp, table, pos, out, ws, tickets, B, K, G,  \
+                         P, ps, pps, window, prefix, sm_scale, n_split,     \
+                         ppc, stream);                                      \
     break;
     REPRO_HD(16) REPRO_HD(32) REPRO_HD(64) REPRO_HD(128) REPRO_HD(256)
 #undef REPRO_HD
@@ -209,37 +210,45 @@ extern "C" {
 
 // q (B, K, G, hd); k_pool, v_pool (P, ps, K, hd); page_table (B, pps)
 // int32 with sentinel P; pos (B,) int32; out (B, K, G, hd).  All
-// contiguous, 16-byte aligned.  dtype: 0 = f32, 1 = bf16.  The table's
-// columns run in n_split chunks of ppc pages (1 <= n_split <= 32, every
-// chunk holding at least one of the pps columns); with n_split > 1, ws
-// holds B * K * n_split * 8 * (hd + 2) floats and tickets B * K zeroed
-// counters (left zeroed).  Returns the cudaError_t of the launch (0 on
-// success).
+// contiguous, 16-byte aligned.  dtype: 0 = f32 (the cuda_core route), 1 =
+// bf16 (tensor_core).  The table's columns run in n_split chunks of ppc
+// pages (1 <= n_split <= 32, every chunk holding at least one of the pps
+// columns).  cluster: 1, or (bf16 only) n_split, up to 16: the chunks of a
+// (slot, kv head) form one thread block cluster and merge in distributed
+// shared memory.  With n_split > 1 and cluster 1, ws holds B * K *
+// n_split * 16 * (hd + 2) floats and tickets B * K zeroed counters (left
+// zeroed).  Returns the cudaError_t of the launch (0 on success).
 int paged_decode_attention(const void* q, const void* k_pool,
                            const void* v_pool, const int* page_table,
                            const int* pos, void* out, void* ws,
                            void* tickets, int B, int K, int G, int hd, int P,
                            int ps, int pps, int window, int prefix,
-                           int dtype, int n_split, int ppc, float sm_scale,
-                           void* stream) {
+                           int dtype, int n_split, int ppc, int cluster,
+                           float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || K == 0 || G == 0) return 0;
   if (n_split < 1 || n_split > kMaxSplits || ppc < 1 || ps < 1 ||
       (long long)ppc * n_split < pps ||
-      (long long)ppc * (n_split - 1) >= pps ||
-      (n_split > 1 && (ws == nullptr || tickets == nullptr)))
+      (long long)ppc * (n_split - 1) >= pps || cluster < 1 ||
+      (cluster == 1 && n_split > 1 && (ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   float* w = static_cast<float*>(ws);
   unsigned* tk = static_cast<unsigned*>(tickets);
-  if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, page_table, pos, out, w, tk, B,
-                         K, G, hd, P, ps, pps, window, prefix, sm_scale,
-                         n_split, ppc, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, page_table, pos, out, w,
-                                 tk, B, K, G, hd, P, ps, pps, window, prefix,
-                                 sm_scale, n_split, ppc, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (cluster != 1) return (int)cudaErrorInvalidValue;
+    return launch_f32(q, k_pool, v_pool, page_table, pos, out, w, tk, B, K,
+                      G, hd, P, ps, pps, window, prefix, sm_scale, n_split,
+                      ppc, s);
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  using repro::dtc::bf16;
+  const repro::dtc::PagedParams src{k_pool, v_pool, page_table, P, ps, K,
+                                    pps, ppc};
+  const repro::dtc::Args a{static_cast<const bf16*>(q),
+                           static_cast<bf16*>(out), pos, w, tk, K, G, 0,
+                           window, prefix, cluster,
+                           sm_scale * repro::dtc::kLog2e};
+  return repro::dtc::launch(src, a, hd, n_split, B * K, s);
 }
 
 const char* error_string(int code) {

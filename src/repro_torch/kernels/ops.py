@@ -6,30 +6,32 @@ dtypes only, which computes nothing: the dry run's and the roofline's
 path, `launch.dryrun`); a CUDA tensor launches the hand-written kernel
 or raises — there is no fallback.  Each wrapper counts its
 launches in a plain integer attribute, `<wrapper>.launches`, which
-`chip_smoke.py` reads to show that the main path ran the kernels.  The
-two wrappers with more than one kernel (`flash_attention`,
-`int8_matmul`) pick it in a pure function of dtype, layout, scale, M and
-alignment (`flash_attention_route`, `int8_matmul_route`), never from a
-failure, and also count each launch by route in a plain dict,
-`<wrapper>.launches_by_route`; the flash wrapper also counts its
-non-causal launches (the encoder's and the cross-attention's) in
-`flash_attention.launches_non_causal`.  Every count goes through
-`_count`, under one lock: the serving runtime launches from one pump
-thread per node, and an unlocked `+= 1` can lose an update.
+`chip_smoke.py` reads to show that the main path ran the kernels.  Every
+wrapper has more than one kernel, picked in a pure function of dtype
+(and, for the int8 product, layout, scale, M and alignment) —
+`flash_attention_route`, `decode_attention_route` (both decode
+wrappers), `int8_matmul_route` — never from a failure, and counts each
+launch by route too, in a plain dict, `<wrapper>.launches_by_route`; the
+flash wrapper also counts its non-causal launches (the encoder's and the
+cross-attention's) in `flash_attention.launches_non_causal`.  Every
+count goes through `_count`, under one lock: the serving runtime
+launches from one pump thread per node, and an unlocked `+= 1` can lose
+an update.
 
 Three kernels split their work across CTAs (decode attention its
 sequence, paged decode attention its page table's columns, the int8
 `skinny_tc` route its K), and their wrappers pick the split in a pure
 function of the shapes and the SM count (`decode_attention_splits`,
-`paged_decode_attention_splits`, `int8_skinny_tc_splits`).  The two
-decode kernels merge their f32 partials in the CTA that finishes last:
-they find it through counters that the kernels leave at 0, and write
-the partials into a buffer that is kept between calls, one pair of
-buffers per (device, stream), `_split_buffers`.  `skinny_tc`'s splits of
-a column tile form a thread block cluster and sum their partials in
-distributed shared memory.  The bf16 flash kernel's persistent CTAs take
-their work items from the first of those counters, which each launch
-also leaves at 0.
+`paged_decode_attention_splits`, `int8_skinny_tc_splits`).  On the
+tensor-core routes the splits of a unit of work form a thread block
+cluster and merge their partials in distributed shared memory.  The
+decode kernels' f32 route (and a bf16 launch given more chunks than a
+cluster) merges its f32 partials in the CTA that finishes last: it finds
+it through counters that the kernels leave at 0, and writes the partials
+into a buffer that is kept between calls, one pair of buffers per
+(device, stream), `_split_buffers`.  The bf16 flash kernel's persistent
+CTAs take their work items from the first of those counters, which each
+launch also leaves at 0.
 
 Build: at first use on the card, every `csrc/*.cu` is compiled by `nvcc`
 for sm_90a into its own shared library with a plain C interface (all
@@ -139,11 +141,11 @@ def _lib(name: str) -> ctypes.CDLL:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             f = ctypes.c_float
             fn.argtypes = {
-                "paged_decode_attention": [p] * 8 + [i] * 12 + [f, p],
+                "paged_decode_attention": [p] * 8 + [i] * 13 + [f, p],
                 "flash_attention": ([p] * 4 + [i] * 11 + [f] + [ll] * 9
                                     + [p] * 2),
                 "decode_attention": ([p] * 7 + [i] * 5 + [ll] * 3
-                                     + [i] * 5 + [f, p]),
+                                     + [i] * 6 + [f, p]),
                 "int8_matmul": ([p] * 4 + [i] * 3 + [ll] * 3 + [i] * 6
                                 + [p]),
             }[name]
@@ -291,30 +293,109 @@ def _run(name: str, device: torch.device, *args) -> None:
 # --------------------------------------------------------------------- #
 # wrappers
 
+DECODE_ROUTES = ("tensor_core", "cuda_core")
+
+
+def decode_attention_route(dtype: torch.dtype) -> str:
+    """The split decode kernels' route for this dtype (both kernels): bf16
+    runs on the tensor cores (K/V tiles through an async-copy ring, the
+    query group on N of mma.sync, one softmax step a tile, the chunks
+    merged in a thread block cluster; csrc/decode_common.cuh), f32 on the
+    CUDA cores (on the tensor cores it would be TF32, a numerics change)."""
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
+# the tensor-core route (csrc/decode_common.cuh)
+DECODE_TILE_ROWS = 64         # key rows a tile
+DECODE_MAX_CLUSTER = 8        # the rule's clusters: portable ones
+DECODE_MAX_G = 16             # query rows a launch (the products' N)
+# CTAs an SM holds at once at each head dim (the kernel's Geom<HD>: its
+# ring of 3 or 4 stages of 64 K and V rows, and its launch bounds)
+DECODE_TC_CTAS_PER_SM = {16: 3, 32: 3, 64: 3, 128: 2, 256: 1}
+# the CTAs each kernel's split aims for, as a share of the SMs: the
+# contiguous kernel copies a tile in max(1, hd / 64) TMA boxes of K and
+# as many of V, and on an H100 one CTA a (row, kv head) keeps the card's
+# bandwidth busy from 64 of them on; the paged kernel copies a box a
+# page (4 times as many at pages of 16) and needs its copies spread over
+# more SMs (tools/sweep_splits.py, PERF.md section 6)
+DECODE_TC_SM_SHARE = {"decode_attention": 0.5,
+                      "paged_decode_attention": 1.5}
+DECODE_MAX_CHUNK_TILES = 16   # tiles a chunk, where the wave allows
+
+# the CUDA-core route (f32)
 PAGED_MIN_ROWS = 64        # rows (pages x page size) worth a CTA
-PAGED_MAX_SPLITS = 32      # the kernel's mask of running chunks
+PAGED_MAX_SPLITS = 32      # the kernels' mask of running chunks
 PAGED_CTAS_PER_SM = 4      # CTAs an SM holds at once (128 threads, ~125
                            # registers each): the grid aims for one wave
 
 
+def _tc_chunk_rows(b: int, nkv: int, rows: int, hd: int, n_sm: int,
+                   kernel: str) -> int:
+    """Rows a chunk of the tensor-core route (a whole number of tiles).
+    The chunks of a (row, kv head) form one cluster of c CTAs: c aims for
+    DECODE_TC_SM_SHARE[kernel] x n_sm CTAs over the B * K (row, kv head)s,
+    is at most DECODE_MAX_CLUSTER and the rows' tiles, and keeps the grid
+    in one wave: B * K * c CTAs within the DECODE_TC_CTAS_PER_SM slots of
+    the SMs, within 3/4 of them for clusters of more than 2 (larger
+    clusters must fit whole in a group of SMs, and the packing strands
+    slots: on an H100, qwen3's paged decode with every position valid
+    took 1.4x as long at 4 chunks as at 2).  A chunk holds at most
+    DECODE_MAX_CHUNK_TILES tiles where the wave allows (a CTA streams its
+    tiles one after another: hymba's 4096 rows in 2 chunks took 1.2x as
+    long as in 4 there).  A thin grid (gemma3-1b's one kv head) gets clusters
+    of 8; OLMo-1B's 128 (row, kv head)s one chunk each in the contiguous
+    kernel and 2 in the paged one."""
+    tiles = -(-rows // DECODE_TILE_ROWS)
+    pairs = b * nkv
+    slots = n_sm * DECODE_TC_CTAS_PER_SM[hd]
+    want = max(int(DECODE_TC_SM_SHARE[kernel] * n_sm / pairs + 0.5),
+               -(-tiles // DECODE_MAX_CHUNK_TILES))
+    cluster = 1
+    for c in range(2, min(DECODE_MAX_CLUSTER, tiles, want) + 1):
+        if pairs * c <= (slots if c <= 2 else slots * 3 // 4):
+            cluster = c
+    return -(-tiles // cluster) * DECODE_TILE_ROWS
+
+
 @functools.lru_cache(maxsize=None)
 def paged_decode_attention_splits(b: int, nkv: int, pps: int, ps: int,
-                                  n_sm: int) -> tuple:
-    """(n_split, ppc) of the paged kernel's split of the page table's pps
-    columns: chunks of `ppc` pages, each a CTA, each at least
-    PAGED_MIN_ROWS rows where the table allows, as many as one wave of
-    PAGED_CTAS_PER_SM CTAs per SM holds (B * K * n_split at most that),
-    at most PAGED_MAX_SPLITS.  At the OLMo-1B decode shape that is 4
-    chunks of 16 pages, the fastest of tools/sweep_splits.py's sweep: a
-    fifth chunk starts a second wave, a third fewer leave slots idle
-    (PERF.md section 6).  A function of the shapes and the SM count
+                                  n_sm: int, hd: int = 128,
+                                  route: str = "tensor_core") -> tuple:
+    """(n_split, ppc, cluster) of the paged kernel's split of the page
+    table's pps columns: chunks of `ppc` pages, each a CTA.
+
+    tensor_core: the chunks of a (slot, kv head) are one thread block
+    cluster (cluster == n_split), sized by `_tc_chunk_rows` from the rows
+    the table spans.  cuda_core (f32): chunks of at least PAGED_MIN_ROWS
+    rows where the table allows, as many as one wave of PAGED_CTAS_PER_SM
+    CTAs per SM holds, at most PAGED_MAX_SPLITS, merged through the global
+    workspace (cluster 1).  A function of the shapes and the SM count
     alone, never of `pos` or the table: the wrapper reads nothing back
     from the card.  Every chunk holds at least one column."""
+    if route == "tensor_core":
+        rows = _tc_chunk_rows(b, nkv, pps * ps, hd, n_sm,
+                              "paged_decode_attention")
+        ppc = min(pps, -(-rows // ps))
+        n = -(-pps // ppc)
+        return n, ppc, n
     wave = PAGED_CTAS_PER_SM * n_sm // (b * nkv)
     min_ppc = -(-PAGED_MIN_ROWS // ps)
     n = max(1, min(wave, -(-pps // min_ppc), PAGED_MAX_SPLITS))
     ppc = -(-pps // n)
-    return -(-pps // ppc), ppc
+    return -(-pps // ppc), ppc, 1
+
+
+def _split_workspace(device: torch.device, b: int, nkv: int, hd: int,
+                     n_split: int, cluster: int) -> tuple:
+    """(ws, tickets) pointers of a split launch: the global merge's f32
+    partials (per split and query row, DECODE_MAX_G rows a launch: m, l,
+    acc) and counters; None, None where no chunk stores a partial there
+    (one chunk, or a cluster)."""
+    if n_split == 1 or cluster > 1:
+        return None, None
+    tickets, ws = _split_buffers(device, b * nkv, b * nkv * n_split
+                                 * DECODE_MAX_G * (hd + 2))
+    return ws.data_ptr(), tickets.data_ptr()
 
 
 def _paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
@@ -322,8 +403,9 @@ def _paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
                   pos: torch.Tensor, window: int, prefix: int,
                   splits: tuple | None = None) -> torch.Tensor:
     """The paged kernel's launch on CUDA tensors, split as `splits`
-    (n_split, ppc), by default the wrapper's rule; counts nothing.  The
-    sweep and the card tests take other splits through it."""
+    (n_split, ppc) with cluster 1 (the global merge) or (n_split, ppc,
+    cluster), by default the wrapper's rule; counts nothing.  The sweep
+    and the card tests take other splits through it."""
     name = "paged_decode_attention"
     _check_cuda(name, q, k_pool, v_pool, page_table, pos)
     b, nkv, g, hd = q.shape
@@ -349,18 +431,16 @@ def _paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     _check_aligned(name, q, k_pool, v_pool, out)
     pps = page_table.shape[1]
-    n_split, ppc = splits or paged_decode_attention_splits(
-        b, nkv, pps, ps, _sm_count(q.device.index))
-    ws = tickets = None
-    if n_split > 1:   # per split and query row (chunks of 8): m, l, acc
-        tickets, ws = _split_buffers(q.device, b * nkv,
-                                     b * nkv * n_split * 8 * (hd + 2))
+    if splits is None:
+        splits = paged_decode_attention_splits(
+            b, nkv, pps, ps, _sm_count(q.device.index), hd,
+            decode_attention_route(q.dtype))
+    n_split, ppc, cluster = (*splits, 1)[:3]
+    ws, tickets = _split_workspace(q.device, b, nkv, hd, n_split, cluster)
     _run(name, q.device, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-         page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-         ws.data_ptr() if ws is not None else None,
-         tickets.data_ptr() if tickets is not None else None, b, nkv, g, hd,
-         n_pages, ps, pps, window, prefix, _DTYPES[q.dtype], n_split, ppc,
-         hd ** -0.5)
+         page_table.data_ptr(), pos.data_ptr(), out.data_ptr(), ws, tickets,
+         b, nkv, g, hd, n_pages, ps, pps, window, prefix, _DTYPES[q.dtype],
+         n_split, ppc, cluster, hd ** -0.5)
     return out
 
 
@@ -371,7 +451,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """q (B, K, G, hd); pools (P, ps, K, hd); page_table (B, pps) int32
     with sentinel == P; pos (B,) int32.  Returns (B, K, G, hd).  On the
     card the table's columns run in chunks of pages, one CTA each
-    (`paged_decode_attention_splits`)."""
+    (`paged_decode_attention_splits`), on the dtype's route
+    (`decode_attention_route`)."""
     if q.device.type in PLAIN_DEVICES:
         return _plain("paged_decode_attention", paged_decode_attention_ref,
                       q, k_pool, v_pool, page_table, pos, window=window,
@@ -379,11 +460,12 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
     out = _paged_decode(q, k_pool, v_pool, page_table, pos, window, prefix)
-    _count(paged_decode_attention)
+    _count(paged_decode_attention, decode_attention_route(q.dtype))
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_route = dict.fromkeys(DECODE_ROUTES, 0)
 
 
 def paged_suffix_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -470,40 +552,44 @@ flash_attention.launches_by_route = dict.fromkeys(FLASH_ROUTES, 0)
 flash_attention.launches_non_causal = 0
 
 
-DECODE_MIN_CHUNK = 64      # rows: the smallest chunk worth a CTA
-DECODE_MAX_SPLITS = 32     # the kernel's mask of running chunks
-DECODE_CTAS_PER_SM = 4     # the grid the split aims for
+DECODE_MIN_CHUNK = 64      # the CUDA-core route: rows worth a CTA,
+DECODE_MAX_SPLITS = 32     # the kernels' mask of running chunks,
+DECODE_CTAS_PER_SM = 4     # and the grid its split aims for
 
 
 @functools.lru_cache(maxsize=None)
-def decode_attention_splits(b: int, nkv: int, s: int,
-                            n_sm: int) -> tuple:
-    """(n_split, chunk) of the decode kernel's sequence split: chunks of
-    `chunk` rows (a multiple of DECODE_MIN_CHUNK), each a CTA, enough of
-    them that B * K * n_split reaches DECODE_CTAS_PER_SM CTAs per SM where
-    S allows, at most DECODE_MAX_SPLITS.  A function of the shapes and the
-    SM count alone, never of `pos`: the wrapper reads nothing back from the
-    card.  Every chunk holds at least one of the S rows."""
+def decode_attention_splits(b: int, nkv: int, s: int, n_sm: int,
+                            hd: int = 128,
+                            route: str = "tensor_core") -> tuple:
+    """(n_split, chunk, cluster) of the decode kernel's sequence split:
+    chunks of `chunk` rows, each a CTA.
+
+    tensor_core: the chunks of a (row, kv head) are one thread block
+    cluster (cluster == n_split), `_tc_chunk_rows` rows each.  cuda_core
+    (f32): chunks of a multiple of DECODE_MIN_CHUNK rows, enough of them
+    that B * K * n_split reaches DECODE_CTAS_PER_SM CTAs per SM where S
+    allows, at most DECODE_MAX_SPLITS, merged through the global workspace
+    (cluster 1).  A function of the shapes and the SM count alone, never
+    of `pos`: the wrapper reads nothing back from the card.  Every chunk
+    holds at least one of the S rows."""
+    if route == "tensor_core":
+        chunk = _tc_chunk_rows(b, nkv, s, hd, n_sm, "decode_attention")
+        n = -(-s // chunk)
+        return n, chunk, n
     want = -(-DECODE_CTAS_PER_SM * n_sm // (b * nkv))
     n = max(1, min(want, -(-s // DECODE_MIN_CHUNK), DECODE_MAX_SPLITS))
     chunk = -(-s // n)
     chunk = -(-chunk // DECODE_MIN_CHUNK) * DECODE_MIN_CHUNK
-    return -(-s // chunk), chunk
+    return -(-s // chunk), chunk, 1
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: torch.Tensor, *,
-                     window: int = 0, prefix: int = 0) -> torch.Tensor:
-    """q (B, K, G, hd) contiguous; caches (B, K, S, hd), S any length, as
-    strided views: the last dim contiguous, every other stride a whole
-    number of 16-byte rows, the same strides for K and V.  That takes the
-    `permute(0, 2, 1, 3)` view of a (B, S, K, hd) cache in place.  pos
-    (B,) int32.  Returns (B, K, G, hd)."""
-    if q.device.type in PLAIN_DEVICES:
-        return _plain("decode_attention", decode_attention_ref, q, k_cache,
-                      v_cache, pos, window=window, prefix=prefix)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: no kernel for {q.device}")
+def _decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            pos: torch.Tensor, window: int, prefix: int,
+            splits: tuple | None = None) -> torch.Tensor:
+    """The decode kernel's launch on CUDA tensors, split as `splits`
+    (n_split, chunk, cluster), by default the wrapper's rule; counts
+    nothing.  The sweep and the card tests take other splits through
+    it."""
     name = "decode_attention"
     _check_cuda(name, q, pos)
     _check_device(name, q, k_cache, v_cache, pos)
@@ -531,23 +617,39 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise TypeError(f"{name}: window and prefix must be static ints")
     out = torch.empty_like(q)
     _check_aligned(name, q, k_cache, v_cache, out)
-    n_split, chunk = decode_attention_splits(b, nkv, s,
-                                             _sm_count(q.device.index))
-    ws = tickets = None
-    if n_split > 1:   # per split and query row (chunks of 8): m, l, acc
-        tickets, ws = _split_buffers(q.device, b * nkv,
-                                     b * nkv * n_split * 8 * (hd + 2))
+    n_split, chunk, cluster = splits or decode_attention_splits(
+        b, nkv, s, _sm_count(q.device.index), hd,
+        decode_attention_route(q.dtype))
+    ws, tickets = _split_workspace(q.device, b, nkv, hd, n_split, cluster)
     _run(name, q.device, q.data_ptr(), k_cache.data_ptr(),
-         v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(),
-         ws.data_ptr() if ws is not None else None,
-         tickets.data_ptr() if tickets is not None else None, b, nkv, g, hd,
-         s, *strides[:3], window, prefix, _DTYPES[q.dtype], n_split, chunk,
-         hd ** -0.5)
-    _count(decode_attention)
+         v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), ws, tickets, b,
+         nkv, g, hd, s, *strides[:3], window, prefix, _DTYPES[q.dtype],
+         n_split, chunk, cluster, hd ** -0.5)
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     window: int = 0, prefix: int = 0) -> torch.Tensor:
+    """q (B, K, G, hd) contiguous; caches (B, K, S, hd), S any length, as
+    strided views: the last dim contiguous, every other stride a whole
+    number of 16-byte rows, the same strides for K and V.  That takes the
+    `permute(0, 2, 1, 3)` view of a (B, S, K, hd) cache in place.  pos
+    (B,) int32.  Returns (B, K, G, hd).  On the card the sequence runs in
+    chunks, one CTA each (`decode_attention_splits`), on the dtype's route
+    (`decode_attention_route`)."""
+    if q.device.type in PLAIN_DEVICES:
+        return _plain("decode_attention", decode_attention_ref, q, k_cache,
+                      v_cache, pos, window=window, prefix=prefix)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for {q.device}")
+    out = _decode(q, k_cache, v_cache, pos, window, prefix)
+    _count(decode_attention, decode_attention_route(q.dtype))
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_route = dict.fromkeys(DECODE_ROUTES, 0)
 
 
 INT8_ROUTES = ("skinny", "tensor_core", "cuda_core_tile", "skinny_tc")

@@ -321,7 +321,9 @@ def test_launch_counts_are_exact_under_threads():
     switching threads every microsecond, lose no update."""
     n_threads, n_each = 8, 4000
     routed = {ops.flash_attention: "tensor_core",
-              ops.int8_matmul: "skinny_tc"}
+              ops.int8_matmul: "skinny_tc",
+              ops.decode_attention: "tensor_core",
+              ops.paged_decode_attention: "cuda_core"}
     start = threading.Barrier(n_threads)
 
     def work():

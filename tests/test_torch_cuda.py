@@ -5,14 +5,16 @@ with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: f32 1e-4 (another summation order than the plain version),
+Tolerances: f32 1e-4 (another summation order than the plain version;
+the split decode kernels' edge cases hold their f32 route to 2e-5),
 bf16 2e-2 (as tests/test_kernels.py).  The int8 products are held
 against the plain dequantize-then-multiply, so they too differ only in
 the order of summation (int8 values are exact in bf16, so the
 tensor-core route's bf16 x bf16 product with f32 sums is too, and the
 skinny_tc route's head, which carries x times its per-K scale as a bf16
-hi/lo pair, to ~2^-17).  Every flash and int8 launch is also held to its
-route through the wrapper's `launches_by_route`.  The three kernels that
+hi/lo pair, to ~2^-17).  Every flash, int8 and split decode launch is
+also held to its route through the wrapper's `launches_by_route`.  The
+three kernels that
 split their work across CTAs (decode attention's sequence, paged decode
 attention's page-table columns, skinny_tc's K) merge in a fixed order:
 two launches give bit-identical outputs, on one stream and on two.
@@ -85,12 +87,23 @@ def test_paged_kernel_matches_plain(cuda, case, dt):
                          (n_pages, ps, K, hd), (n_pages, ps, K, hd))
     args = (q, kp, vp, torch.from_numpy(table).to(cuda),
             torch.tensor(pos, dtype=torch.int32, device=cuda))
-    before = ops.paged_decode_attention.launches
-    got = ops.paged_decode_attention(*args, window=win, prefix=pre)
-    torch.cuda.synchronize()
-    assert ops.paged_decode_attention.launches == before + 1
+    got = _decode_checked(ops.paged_decode_attention, args, window=win,
+                          prefix=pre)
     _close(got, paged_decode_attention_ref(*args, window=win, prefix=pre),
            tol)
+
+
+def _decode_checked(wrapper, args, **kw):
+    """One launch of a split decode wrapper, asserting it counted once,
+    on the route of its dtype."""
+    route = ops.decode_attention_route(args[0].dtype)
+    before = wrapper.launches
+    by_route = wrapper.launches_by_route[route]
+    got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert wrapper.launches_by_route[route] == by_route + 1
+    return got
 
 
 # the split's edges: at these B * K and tables the wrapper cuts the table
@@ -154,23 +167,26 @@ def _paged_inputs(dev, dtype, case, seed):
 def test_paged_kernel_split_edges(cuda, case, dt):
     """The wrapper's split, then one page a chunk
     where the table allows it, chunks of 3 and 7 pages (short last
-    chunks) and one chunk."""
+    chunks) and one chunk, merged through the workspace and, on the
+    tensor-core route, in a cluster where the chunks fit one."""
     B, K, G, n_pages, pps, ps, hd, win, pre = case[:9]
     dtype, tol = DTYPES[dt]
     args = _paged_inputs(cuda, dtype, case, 3)
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert ops.paged_decode_attention_splits(B, K, pps, ps, n_sm)[0] > 1
+    assert ops.paged_decode_attention_splits(
+        B, K, pps, ps, n_sm, hd, ops.decode_attention_route(dtype))[0] > 1
     want = paged_decode_attention_ref(*args, window=win, prefix=pre)
-    before = ops.paged_decode_attention.launches
-    got = ops.paged_decode_attention(*args, window=win, prefix=pre)
-    torch.cuda.synchronize()
-    assert ops.paged_decode_attention.launches == before + 1
+    got = _decode_checked(ops.paged_decode_attention, args, window=win,
+                          prefix=pre)
     _close(got, want, tol)
     for ppc in (1, 3, 7, pps):
         n = -(-pps // ppc)
         if n <= ops.PAGED_MAX_SPLITS:
             _close(ops._paged_decode(*args, win, pre, splits=(n, ppc)), want,
                    tol)
+        if dtype == torch.bfloat16 and n <= 16:
+            _close(ops._paged_decode(*args, win, pre, splits=(n, ppc, n)),
+                   want, tol)
 
 
 @pytest.mark.cuda
@@ -312,14 +328,157 @@ def test_decode_kernel_matches_plain(cuda, case, dt, strided):
     else:
         kc, vc = _tensors(7, cuda, dtype, (B, K, S, hd), (B, K, S, hd))
     args = (q, kc, vc, torch.tensor(pos, dtype=torch.int32, device=cuda))
-    if case in SPLIT:   # the cases mean chunks of 64 rows
-        n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-        assert ops.decode_attention_splits(B, K, S, n_sm)[1] == 64
-    before = ops.decode_attention.launches
-    got = ops.decode_attention(*args, window=win, prefix=pre)
-    torch.cuda.synchronize()
-    assert ops.decode_attention.launches == before + 1
-    _close(got, decode_attention_ref(*args, window=win, prefix=pre), tol)
+    want = decode_attention_ref(*args, window=win, prefix=pre)
+    got = _decode_checked(ops.decode_attention, args, window=win, prefix=pre)
+    _close(got, want, tol)
+    if case in SPLIT:   # the cases mean chunks of 64 rows: the workspace
+        n = -(-S // 64)  # merge, and (tensor cores) a cluster of 16
+        _close(ops._decode(*args, win, pre, splits=(n, 64, 1)), want, tol)
+        if dtype == torch.bfloat16:
+            _close(ops._decode(*args, win, pre, splits=(16, -(-S // 16), 16)),
+                   want, tol)
+
+
+# the split decode kernels' own tolerances: bf16 2e-2, f32 2e-5
+SPLIT_TOL = {"f32": (torch.float32, 2e-5), "bf16": (torch.bfloat16, 2e-2)}
+
+
+def _split_pair(dev, dtype, B, K, G, S, hd, pos, seed, holes=()):
+    """The same rows twice: a (B, S, K, hd) cache's permuted view for the
+    contiguous kernel, and pages of 16 through a table for the paged one
+    (slot b's column j on page b * pps + j; the columns in `holes` of
+    every slot at the sentinel, their rows masked in the contiguous
+    kernel's plain version by a pos-independent check in the test)."""
+    pps = -(-S // 16)
+    q, kc, vc = _tensors(seed, dev, dtype, (B, K, G, hd), (B, pps * 16, K, hd),
+                         (B, pps * 16, K, hd))
+    n_pages = B * pps
+    table = torch.arange(n_pages, dtype=torch.int32,
+                         device=dev).reshape(B, pps)
+    for j in holes:
+        table[:, j] = n_pages
+    kp, vp = (c.reshape(n_pages, 16, K, hd) for c in (kc, vc))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    dargs = (q, kc[:, :S].permute(0, 2, 1, 3), vc[:, :S].permute(0, 2, 1, 3),
+             p)
+    return dargs, (q, kp, vp, table, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(SPLIT_TOL))
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8, 12, 16])
+def test_split_decode_kernels_group_and_head_dims(cuda, G, hd, dt):
+    """Both kernels at every query group the tensor-core route takes in
+    one launch (N = 8 or 16) and every head dim, ragged pos with one slot
+    at 0; each launch on its dtype's route."""
+    dtype, tol = SPLIT_TOL[dt]
+    B, K, S = 3, 2, 320
+    dargs, pargs = _split_pair(cuda, dtype, B, K, G, S, hd, [0, 130, 319],
+                               40 + G)
+    got = _decode_checked(ops.decode_attention, dargs)
+    _close(got, decode_attention_ref(*dargs), tol)
+    got = _decode_checked(ops.paged_decode_attention, pargs)
+    _close(got, paged_decode_attention_ref(*pargs), tol)
+
+
+# B, K, G, S, hd, window, prefix, pos ("edges": the rule's chunk edges
+# and the tile edges around them)
+SPLIT_EDGES = [
+    (4, 2, 4, 512, 64, 0, 0, [0, 63, 64, 65]),           # pos 0, tile edges
+    (4, 2, 2, 1024, 128, 0, 0, "edges"),                 # chunk edges
+    (3, 2, 4, 1024, 64, 100, 40, [300, 701, 1023]),      # window, prefix
+    (3, 2, 4, 1024, 64, 130, 20, [149, 150, 1023]),      # ... cutting tiles
+    (2, 1, 8, 1024, 256, 512, 0, [600, 1023]),           # hd 256, window
+    (2, 2, 16, 1024, 32, 0, 0, [0, 1023]),               # N = 16, hd 32
+]
+
+
+def _edge_pos(case, n_sm, dtype):
+    B, K, G, S, hd, win, pre, pos = case
+    if pos != "edges":
+        return pos
+    _, chunk, _ = ops.decode_attention_splits(
+        B, K, S, n_sm, hd, ops.decode_attention_route(dtype))
+    return [chunk - 1, chunk, chunk + 63, chunk + 64][:B]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(SPLIT_TOL))
+@pytest.mark.parametrize("case", SPLIT_EDGES)
+def test_split_decode_kernels_at_their_edges(cuda, case, dt):
+    """Both kernels at the rule's split, with the chunks merged through the
+    workspace (chunks of 64 rows, cluster 1) and, on the tensor-core
+    route, in clusters of 4, 8 and 16 (a non-portable cluster); pos at 0
+    and at tile and chunk edges, a window edge and a prefix inside a
+    tile; two launches of each bit-identical."""
+    B, K, G, S, hd, win, pre, _ = case
+    dtype, tol = SPLIT_TOL[dt]
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pos = _edge_pos(case, n_sm, dtype)
+    dargs, pargs = _split_pair(cuda, dtype, B, K, G, S, hd, pos, 60)
+    kw = dict(window=win, prefix=pre)
+    want = decode_attention_ref(*dargs, **kw)
+    _close(paged_decode_attention_ref(*pargs, **kw), want, tol)
+    pps = pargs[3].shape[1]
+    splits = [None, (-(-S // 64), 64, 1)]
+    psplits = [None, (-(-pps // 4), 4, 1)]
+    if dtype == torch.bfloat16:
+        splits += [(n, -(-S // n), n) for n in (4, 8, 16)]
+        psplits += [(n, -(-pps // n), n) for n in (4, 8, 16)]
+    for sp in splits:
+        a = ops._decode(*dargs, win, pre, splits=sp)
+        b = ops._decode(*dargs, win, pre, splits=sp)
+        torch.cuda.synchronize()
+        _close(a, want, tol)
+        assert torch.equal(a, b), sp
+    for sp in psplits:
+        a = ops._paged_decode(*pargs, win, pre, splits=sp)
+        b = ops._paged_decode(*pargs, win, pre, splits=sp)
+        torch.cuda.synchronize()
+        _close(a, want, tol)
+        assert torch.equal(a, b), sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(SPLIT_TOL))
+def test_paged_kernel_sentinel_holes_and_empty_chunks(cuda, dt):
+    """Sentinel pages mid-table (every third column, a page of 16 inside
+    a 64-row tile) and a whole chunk of sentinels (columns 16-31: chunk 1
+    of chunks of 16 pages, and of the cluster of 4), held to the plain
+    version, which masks the same rows; the empty chunk weighs 0."""
+    dtype, tol = SPLIT_TOL[dt]
+    holes = [j for j in range(64) if j % 3 == 1 or 16 <= j < 32]
+    _, pargs = _split_pair(cuda, dtype, 4, 2, 4, 1024, 128,
+                           [0, 300, 700, 1023], 70, holes=holes)
+    want = paged_decode_attention_ref(*pargs)
+    got = _decode_checked(ops.paged_decode_attention, pargs)
+    _close(got, want, tol)
+    sps = [(4, 16, 1), (32, 2, 1)]
+    if dtype == torch.bfloat16:
+        sps += [(4, 16, 4), (16, 4, 16)]
+    for sp in sps:
+        _close(ops._paged_decode(*pargs, 0, 0, splits=sp), want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(SPLIT_TOL))
+def test_decode_kernel_offset_views(cuda, dt):
+    """The cache as a view that starts 3 rows into a longer (B, S', K,
+    hd) buffer (the pointer off its allocation, the row stride K hd) and
+    as a view of every other kv head: the tensor maps take the views'
+    own strides."""
+    dtype, tol = SPLIT_TOL[dt]
+    B, K, G, S, hd = 4, 4, 2, 700, 64
+    q, big_k, big_v = _tensors(80, cuda, dtype, (B, K // 2, G, hd),
+                               (B, S + 9, K, hd), (B, S + 9, K, hd))
+    pos = torch.tensor([0, 64, 400, 699], dtype=torch.int32, device=cuda)
+    for sl in (slice(0, K // 2), slice(1, K, 2)):
+        k = big_k[:, 3:3 + S, sl].permute(0, 2, 1, 3)
+        v = big_v[:, 3:3 + S, sl].permute(0, 2, 1, 3)
+        got = _decode_checked(ops.decode_attention, (q, k, v, pos))
+        _close(got, decode_attention_ref(q, k.contiguous(), v.contiguous(),
+                                         pos), tol)
 
 
 INT8 = [
@@ -626,6 +785,9 @@ def test_split_kernels_on_two_streams(cuda):
     want_d = ops.decode_attention(*dargs, window=win, prefix=pre)
     want_m = ops.int8_matmul(x, wq, sc)
     want_p = ops.paged_decode_attention(*pargs)
+    # the workspace merge of the same rows (chunks of 64, cluster 1)
+    glob = (16, 64, 1)
+    want_g = ops._decode(*dargs, win, pre, splits=glob)
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(cuda) for _ in range(2)]
     got = {0: [], 1: []}
@@ -637,7 +799,8 @@ def test_split_kernels_on_two_streams(cuda):
                 got[i].append((ops.decode_attention(*dargs, window=win,
                                                     prefix=pre),
                                ops.int8_matmul(x, wq, sc),
-                               ops.paged_decode_attention(*pargs)))
+                               ops.paged_decode_attention(*pargs),
+                               ops._decode(*dargs, win, pre, splits=glob)))
     torch.cuda.synchronize()
     ptrs = set()
     for st in streams:
@@ -645,9 +808,9 @@ def test_split_kernels_on_two_streams(cuda):
             ptrs.add(ops._split_buffers(q.device, 1, 1)[0].data_ptr())
     assert len(ptrs) == 2
     for outs in got.values():
-        for d, m, pa in outs:
+        for d, m, pa, dg in outs:
             assert torch.equal(d, want_d) and torch.equal(m, want_m)
-            assert torch.equal(pa, want_p)
+            assert torch.equal(pa, want_p) and torch.equal(dg, want_g)
 
 
 @pytest.mark.cuda
@@ -728,6 +891,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                    pos)
     with pytest.raises(RuntimeError, match="launch failed"):   # 33 chunks
         ops._paged_decode(q, kp, vp, table, pos, 0, 0, splits=(33, 1))
+    # clusters: f32 has none; a cluster is all the chunks, 16 at most
+    pps = table.shape[1]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops._paged_decode(q, kp, vp, table, pos, 0, 0,
+                          splits=(2, -(-pps // 2), 2))
+    bargs = [t.to(torch.bfloat16) for t in (q, kp, vp)]
+    for n, cl in ((4, 2), (pps, pps)):        # pps 32: a cluster of 32
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._paged_decode(*bargs, table, pos, 0, 0,
+                              splits=(n, -(-pps // n), cl))
+    kc = torch.zeros(2, 4, 1024, 64, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(2, 4, 1, 64, dtype=torch.bfloat16, device=cuda)
+    pos = torch.full((2,), 1023, dtype=torch.int32, device=cuda)
+    for splits in ((4, 256, 2), (32, 32, 32), (33, 32, 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._decode(q, kc, kc, pos, 0, 0, splits=splits)
     x = torch.zeros(4, 8, device=cuda)
     w = torch.zeros(8, 6, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="scale"):
@@ -976,6 +1155,51 @@ def test_launch_counts_exact_from_pump_like_threads(cuda):
     assert not bad
     assert ops.decode_attention.launches == n_threads * n_each
     ops.reset_launches()
+
+
+@pytest.mark.cuda
+def test_tensor_map_kernels_launch_from_new_threads(cuda):
+    """The kernels that copy through TMA (both decode kernels' bf16 route,
+    bf16 flash, int8 skinny_tc) launch from threads whose first CUDA call
+    is the wrapper's, each with tensors of its own (new tensor maps), and
+    give what they give on the main thread: the map encoder needs a
+    context current on the calling thread, which such a thread had not
+    yet bound."""
+    import threading
+    dargs, pargs = _split_pair(cuda, torch.bfloat16, 4, 2, 4, 256, 64,
+                               [255, 100, 7, 0], 90)
+    fq, fk, fv = _tensors(91, cuda, torch.bfloat16, (1, 4, 128, 64),
+                          (1, 2, 128, 64), (1, 2, 128, 64))
+    x, wq, sc = _int8_operands(cuda, 92, 8, 512, 256, "kn")
+    x = x.to(torch.bfloat16)
+
+    def calls(d, p, f, xx):
+        return (ops.decode_attention(*d), ops.paged_decode_attention(*p),
+                ops.flash_attention(*f), ops.int8_matmul(xx, wq, sc))
+
+    def copies():   # made on the main thread: new pointers, new maps
+        return ([t.clone() for t in dargs], [t.clone() for t in pargs],
+                [t.clone() for t in (fq, fk, fv)], x.clone())
+    want = calls(dargs, pargs, (fq, fk, fv), x)
+    inputs = [copies() for _ in range(6)]
+    torch.cuda.synchronize()
+    got, errors = {}, []
+
+    def work(i):
+        try:
+            got[i] = calls(*inputs[i])
+        except Exception as e:      # raised on the thread: report it here
+            errors.append(repr(e))
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for outs in got.values():
+        for g, w in zip(outs, want):
+            assert torch.equal(g, w)
 
 
 SERVED_GQA = [

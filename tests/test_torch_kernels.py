@@ -11,16 +11,16 @@ tests/test_kernels.py); int8 products f32 1e-4, bf16 5e-2 (the bf16
 rounding of x and of the output).  The kernels themselves are held against these
 plain versions on the card by tests/test_torch_cuda.py.
 
-The route functions of the two wrappers with more than one kernel
-(`flash_attention_route`, `int8_matmul_route`) are held to each branch
+The route functions of the wrappers (`flash_attention_route`,
+`decode_attention_route`, `int8_matmul_route`) are held to each branch
 here, and plain emulations of the tensor-core kernels' arithmetic (bf16
-operands, f32 sums; flash's P rounded to bf16 before P.V; skinny_tc's
-per-K scale folded into x as a bf16 hi/lo pair) against the JAX reference
-at bf16's 2e-2, skinny_tc's at 5e-2.  The split decode kernel's
-composition (per-chunk LSE partials merged in chunk order) is held
-against JAX's `_lse_partials`, its reference and its Pallas kernel at
-1e-4, and the pure split functions of both split kernels to their
-contracts.
+operands, f32 sums; flash's and the split decode kernels' P rounded to
+bf16 before P.V; skinny_tc's per-K scale folded into x as a bf16 hi/lo
+pair) against the JAX reference at bf16's 2e-2, skinny_tc's at 5e-2.
+The split decode kernel's composition (per-chunk LSE partials merged in
+chunk order) is held against JAX's `_lse_partials`, its reference and
+its Pallas kernel at 1e-4, and the pure split functions of both split
+kernels to their contracts.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -209,7 +209,8 @@ def test_split_paged_composition_matches_jax(case):
     chunking whose last chunk is short."""
     q, kp, vp, table, pos, win, pre = _split_paged_case(case, 13)
     B, K, _, _, pps, ps = case[:6]
-    _, ppc = ops.paged_decode_attention_splits(B, K, pps, ps, 132)
+    _, ppc, _ = ops.paged_decode_attention_splits(B, K, pps, ps, 132,
+                                                  q.shape[-1])
     _split_paged_check(q, kp, vp, table, pos, win, pre, sorted({ppc, 1, 3}))
 
 
@@ -239,21 +240,48 @@ def test_paged_lse_partials_of_empty_chunks():
 
 
 def test_paged_decode_attention_splits():
-    """At least 2 CTAs per SM on 132 SMs at the OLMo-1B decode shape
-    (B=8, K=16, 64 pages of 16), one split when the table fits one chunk,
-    and never a chunk without a column."""
-    n, ppc = ops.paged_decode_attention_splits(8, 16, 64, 16, 132)
-    assert 8 * 16 * n >= 2 * 132 and n > 1
-    assert ops.paged_decode_attention_splits(8, 16, 4, 16, 132) == (1, 4)
-    assert ops.paged_decode_attention_splits(1, 1, 1, 8, 132) == (1, 1)
-    for b, k, pps, ps, n_sm in [(b, k, pps, ps, n_sm) for b in (1, 3, 8, 64)
-                                for k in (1, 2, 16)
-                                for pps in range(1, 300, 13)
-                                for ps in (1, 8, 16, 64)
-                                for n_sm in (1, 132)]:
-        n, ppc = ops.paged_decode_attention_splits(b, k, pps, ps, n_sm)
-        assert 1 <= n <= ops.PAGED_MAX_SPLITS and ppc >= 1
-        assert (n - 1) * ppc < pps <= n * ppc, (b, k, pps, ps, n_sm, n, ppc)
+    """The tensor-core route (bf16): the chunks of a (slot, kv head) are
+    one cluster of at most DECODE_MAX_CLUSTER (within the kernel's 16),
+    the grid of one wave at 132 SMs fits the CTAs it holds beside the
+    other (slot, kv head)s, gemma3-1b's one kv head gets 8 chunks, the
+    OLMo-1B decode shape 2, the K = 8 models' 3.  The CUDA-core route (f32): at
+    least 2 CTAs per SM at the OLMo-1B shape, merged through the
+    workspace.  Both: one split when the table fits one chunk, the chunks
+    cover the table's columns, none is empty, and the rule reads nothing
+    but shapes."""
+    tc, cc = "tensor_core", "cuda_core"
+    assert ops.paged_decode_attention_splits(8, 16, 64, 16, 132, 128) \
+        == (2, 32, 2)                                      # OLMo-1B
+    assert ops.paged_decode_attention_splits(8, 8, 64, 16, 132, 128) \
+        == (3, 24, 3)                                      # qwen3, mixtral
+    assert ops.paged_decode_attention_splits(8, 1, 64, 16, 132, 256) \
+        == (8, 8, 8)                                       # gemma3-1b
+    n, ppc, cl = ops.paged_decode_attention_splits(8, 16, 64, 16, 132, 128,
+                                                   cc)
+    assert 8 * 16 * n >= 2 * 132 and n > 1 and cl == 1
+    for route in (tc, cc):
+        assert ops.paged_decode_attention_splits(8, 16, 4, 16, 132, 128,
+                                                 route) == (1, 4, 1)
+        assert ops.paged_decode_attention_splits(1, 1, 1, 8, 132, 64,
+                                                 route) == (1, 1, 1)
+    for b, k, pps, ps, n_sm, hd in [
+            (b, k, pps, ps, n_sm, hd) for b in (1, 3, 8, 64)
+            for k in (1, 2, 16) for pps in range(1, 300, 13)
+            for ps in (1, 8, 12, 16, 64) for n_sm in (1, 132)
+            for hd in ops.HEAD_DIMS]:
+        for route in (tc, cc):
+            args = (b, k, pps, ps, n_sm, hd, route)
+            n, ppc, cl = ops.paged_decode_attention_splits(*args)
+            assert 1 <= n <= ops.PAGED_MAX_SPLITS and ppc >= 1
+            assert (n - 1) * ppc < pps <= n * ppc, (args, n, ppc)
+            if route == cc:
+                assert cl == 1
+                continue
+            assert cl == n <= ops.DECODE_MAX_CLUSTER <= 16
+            wave = max(1, n_sm // 8) * 8 * ops.DECODE_TC_CTAS_PER_SM[hd]
+            assert b * k * n <= max(wave, b * k), (args, n)
+            ops.paged_decode_attention_splits.cache_clear()
+            assert ops.paged_decode_attention_splits(*args) == (n, ppc, cl)
 
 
 # ------------------- flash attention ------------------------------- #
@@ -392,7 +420,7 @@ def test_split_decode_composition_matches_jax(case):
     want_kernel = jax_decode(*args, window=win, prefix=pre, block_k=bk,
                              interpret=True)
     want_ref = jax_ref.decode_attention_ref(*args, window=win, prefix=pre)
-    _, chunk = ops.decode_attention_splits(B, K, S, 132)
+    _, chunk, _ = ops.decode_attention_splits(B, K, S, 132, hd)
     for c in sorted({chunk, ops.DECODE_MIN_CHUNK}):
         got = split_decode_ref(
             _torch(q, torch.float32), _torch(kc, torch.float32),
@@ -403,20 +431,42 @@ def test_split_decode_composition_matches_jax(case):
 
 
 def test_decode_attention_splits():
-    """At least 2 waves of CTAs on 132 SMs at the OLMo-1B decode shape
-    (B=8, K=16, S=1024), one split when S fits one chunk, and never a
-    chunk without rows."""
-    n, c = ops.decode_attention_splits(8, 16, 1024, 132)
-    assert 8 * 16 * n >= 2 * 132
-    assert ops.decode_attention_splits(8, 16, 64, 132) == (1, 64)
-    assert ops.decode_attention_splits(1, 1, 40, 132) == (1, 64)
-    for b, k, s, n_sm in [(b, k, s, n_sm) for b in (1, 3, 8, 64)
-                          for k in (1, 2, 16) for s in range(1, 3000, 37)
-                          for n_sm in (1, 132)]:
-        n, c = ops.decode_attention_splits(b, k, s, n_sm)
-        assert 1 <= n <= ops.DECODE_MAX_SPLITS and c % ops.DECODE_MIN_CHUNK \
-            == 0
-        assert (n - 1) * c < s <= n * c, (b, k, s, n_sm, n, c)
+    """The tensor-core route (bf16): chunks of whole 64-row tiles, one
+    cluster a (row, kv head) of at most DECODE_MAX_CLUSTER (within the
+    kernel's 16), the grid of one wave at 132 SMs, gemma3-1b's thin grid
+    (one kv head) cut into 8 chunks, OLMo-1B's wide one not cut.  The CUDA-core route (f32): at least
+    2 waves of CTAs at the OLMo-1B decode shape (B=8, K=16, S=1024),
+    chunks of a multiple of 64 rows, merged through the workspace.  Both:
+    one split when S fits one chunk, the chunks cover S, none is empty,
+    and the rule reads nothing but shapes."""
+    tc, cc = "tensor_core", "cuda_core"
+    assert ops.decode_attention_splits(8, 16, 1024, 132, 128) \
+        == (1, 1024, 1)                                    # OLMo-1B
+    assert ops.decode_attention_splits(8, 1, 1024, 132, 256) == (8, 128, 8)
+    assert ops.decode_attention_splits(8, 4, 1024, 132, 256) \
+        == (2, 512, 2)                                     # gemma3-4b
+    n, c, cl = ops.decode_attention_splits(8, 16, 1024, 132, 128, cc)
+    assert 8 * 16 * n >= 2 * 132 and cl == 1
+    for route in (tc, cc):
+        assert ops.decode_attention_splits(8, 16, 64, 132, 128, route) \
+            == (1, 64, 1)
+        assert ops.decode_attention_splits(1, 1, 40, 132, 16, route) \
+            == (1, 64, 1)
+    for b, k, s, n_sm, hd in [(b, k, s, n_sm, hd) for b in (1, 3, 8, 64)
+                              for k in (1, 2, 16) for s in range(1, 3000, 37)
+                              for n_sm in (1, 132) for hd in ops.HEAD_DIMS]:
+        for route in (tc, cc):
+            args = (b, k, s, n_sm, hd, route)
+            n, c, cl = ops.decode_attention_splits(*args)
+            assert 1 <= n <= ops.DECODE_MAX_SPLITS
+            assert (n - 1) * c < s <= n * c, (args, n, c)
+            if route == cc:
+                assert c % ops.DECODE_MIN_CHUNK == 0 and cl == 1
+                continue
+            assert c % ops.DECODE_TILE_ROWS == 0
+            assert cl == n <= ops.DECODE_MAX_CLUSTER <= 16
+            wave = max(1, n_sm // 8) * 8 * ops.DECODE_TC_CTAS_PER_SM[hd]
+            assert b * k * n <= max(wave, b * k), (args, n)
 
 
 # ------------------- int8 matmul ----------------------------------- #
@@ -621,15 +671,32 @@ def test_flash_route_selection():
     assert ops.flash_attention_route(torch.float32) == "cuda_core"
 
 
+def test_decode_route_selection():
+    """Both split decode kernels: bf16 on the tensor cores, f32 on the
+    CUDA cores (TF32 would change the numerics); each route's split."""
+    assert ops.decode_attention_route(torch.bfloat16) == "tensor_core"
+    assert ops.decode_attention_route(torch.float32) == "cuda_core"
+    assert set(ops.DECODE_ROUTES) == {"tensor_core", "cuda_core"}
+    for fn in (ops.decode_attention, ops.paged_decode_attention):
+        assert set(fn.launches_by_route) == set(ops.DECODE_ROUTES)
+    assert ops.decode_attention_splits(8, 16, 1024, 132, 128,
+                                       "cuda_core") == (4, 256, 1)
+    assert ops.decode_attention_splits(8, 1, 1024, 132, 256,
+                                       "tensor_core")[2] == 8
+
+
 def test_reset_launches_zeroes_the_route_counters():
     ops.int8_matmul.launches_by_route["tensor_core"] = 3
     ops.flash_attention.launches_by_route["cuda_core"] = 2
+    ops.decode_attention.launches_by_route["tensor_core"] = 4
+    ops.paged_decode_attention.launches_by_route["cuda_core"] = 5
     ops.reset_launches()
     assert set(ops.int8_matmul.launches_by_route) == set(ops.INT8_ROUTES)
     assert set(ops.flash_attention.launches_by_route) \
         == set(ops.FLASH_ROUTES)
-    assert not any(ops.int8_matmul.launches_by_route.values())
-    assert not any(ops.flash_attention.launches_by_route.values())
+    for fn in (ops.int8_matmul, ops.flash_attention, ops.decode_attention,
+               ops.paged_decode_attention):
+        assert not any(fn.launches_by_route.values())
 
 
 # ------------------- the tensor-core kernels' numerics ------------- #
@@ -789,6 +856,106 @@ def test_flash_tensor_core_numerics_match_jax(case):
     got = _flash_tc_emulation(*(_torch(a, torch.bfloat16) for a in (q, k, v)),
                               causal=True, window=win, prefix=pre,
                               bk=32 if hd >= 256 else 64)
+    _close(_f32(got), want.astype(jnp.float32), BF16_TOL)
+
+
+def _decode_tc_emulation(q, k, v, pos, *, chunk, ncw, window=0, prefix=0,
+                         visible=None):
+    """The split decode kernels' tensor-core arithmetic in plain torch:
+    bf16 q, k, v over a (B, K, S, hd) cache; chunks of `chunk` rows, each
+    cut into 64-row tiles dealt to `ncw` warps in turn, each warp with its
+    own online softmax in log2 units (one step a tile; masked scores weigh
+    0), P rounded to bf16 before P.V (f32 sums, l from the unrounded P);
+    the warps merged in warp order, then the chunks in chunk order (exp2
+    of the m differences), one division at the end.  `visible` (B, S)
+    masks rows besides pos, window and prefix (sentinel pages)."""
+    b, nkv, g, hd = q.shape
+    s_len = k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    sc = hd ** -0.5 * 1.4426950408889634
+    kp = torch.arange(s_len)
+    ok = kp[None, :] <= pos.long()[:, None]
+    if window > 0:
+        ok = ok & ((kp[None, :] > pos.long()[:, None] - window)
+                   | (kp < prefix)[None, :])
+    if visible is not None:
+        ok = ok & visible
+    parts = []
+    for c0 in range(0, s_len, chunk):
+        warps = [(torch.full((b, nkv, g), -1e30), torch.zeros(b, nkv, g),
+                  torch.zeros(b, nkv, g, hd)) for _ in range(ncw)]
+        for i, t0 in enumerate(range(c0, min(c0 + chunk, s_len), 64)):
+            rows = torch.arange(t0, min(t0 + 64, c0 + chunk, s_len))
+            m, lsum, o = warps[i % ncw]
+            sc_t = torch.einsum("bkgd,bksd->bkgs", qf, kf[:, :, rows]) * sc
+            vis = ok[:, rows][:, None, None, :]
+            sc_t = torch.where(vis, sc_t, torch.tensor(-1e30))
+            m_new = torch.maximum(m, sc_t.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.where(vis, torch.exp2(sc_t - m_new[..., None]),
+                            torch.tensor(0.0))
+            lsum = lsum * corr + p.sum(-1)
+            o = o * corr[..., None] + torch.einsum(
+                "bkgs,bksd->bkgd", p.to(torch.bfloat16).float(),
+                vf[:, :, rows])
+            warps[i % ncw] = (m_new, lsum, o)
+        parts.append(warps)
+    flat = [w for ws in parts for w in ws]   # chunk order, warp order
+    m_g = torch.stack([m for m, _, _ in flat]).amax(0)
+    l_g = torch.zeros_like(m_g)
+    o_g = torch.zeros(b, nkv, g, hd)
+    for ws in parts:   # the CTA's warps first, then the chunks
+        m_c = torch.stack([m for m, _, _ in ws]).amax(0)
+        l_c = sum(l_ * torch.exp2(m - m_c) for m, l_, _ in ws)
+        o_c = sum(o * torch.exp2(m - m_c)[..., None] for m, _, o in ws)
+        w = torch.exp2(m_c - m_g)
+        l_g = l_g + l_c * w
+        o_g = o_g + o_c * w[..., None]
+    return (o_g / l_g.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_tensor_core_numerics_match_jax(case):
+    """bf16 tolerance 2e-2 (as tests/test_kernels.py) at the wrapper's
+    split on 132 SMs and at one chunk: besides the order of the sums, the
+    emulation rounds P to bf16 before P.V, a relative error of at most
+    2^-9 a weight."""
+    B, K, G, S, hd, win, pre, _, _ = case
+    q, kc, vc, pos = _decode_inputs(case)
+    jargs = [_jax(a, jnp.bfloat16) for a in (q, kc, vc)] + [jnp.asarray(pos)]
+    want = jax_ref.decode_attention_ref(*jargs, window=win, prefix=pre)
+    _, chunk, _ = ops.decode_attention_splits(B, K, S, 132, hd)
+    ncw = 3 if hd >= 64 else 4
+    for c in sorted({chunk, -(-S // 64) * 64}):
+        got = _decode_tc_emulation(
+            *(_torch(a, torch.bfloat16) for a in (q, kc, vc)),
+            torch.from_numpy(pos), chunk=c, ncw=ncw, window=win, prefix=pre)
+        _close(_f32(got), want.astype(jnp.float32), BF16_TOL)
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_tensor_core_numerics_match_jax(case):
+    """The paged kernel's tensor-core arithmetic: the emulation over the
+    table's logical view with sentinel pages' rows masked, at the
+    wrapper's split on 132 SMs, against the JAX reference in bf16."""
+    B, K, G, n_pages, pps, ps, hd, win = case
+    q, kp, vp, table, pos = _paged_case(4, B, K, G, n_pages, pps, ps, hd)
+    table[1, 1] = n_pages             # a hole: a sentinel mid-table
+    jargs = [_jax(a, jnp.bfloat16) for a in (q, kp, vp)]
+    want = jax_pa.paged_decode_attention_ref(
+        *jargs, jnp.asarray(table), jnp.asarray(pos), window=win)
+    tq, tk, tv = (_torch(a, torch.bfloat16) for a in (q, kp, vp))
+    ttab = torch.from_numpy(table).long()
+    mapped = ttab < n_pages
+    safe = torch.where(mapped, ttab, torch.zeros_like(ttab))
+    # the logical (B, K, pps * ps, hd) view the table maps
+    kl, vl = (t[safe].permute(0, 3, 1, 2, 4).reshape(B, K, pps * ps, hd)
+              for t in (tk, tv))
+    visible = mapped.repeat_interleave(ps, 1)
+    _, ppc, _ = ops.paged_decode_attention_splits(B, K, pps, ps, 132, hd)
+    got = _decode_tc_emulation(tq, kl, vl, torch.from_numpy(pos),
+                               chunk=ppc * ps, ncw=3 if hd >= 64 else 4,
+                               window=win, visible=visible)
     _close(_f32(got), want.astype(jnp.float32), BF16_TOL)
 
 

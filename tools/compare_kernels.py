@@ -10,11 +10,18 @@ compare a commit with its parent on one card, unpack the parent with
 `git archive` into a gitignored directory and run, in one command,
 parent, change, change, parent.
 
-Cases, at the OLMo-1B bf16 decode shapes: paged_decode_attention (B=8
-K=16 G=1 hd=128, pages of 16, a table of 64 columns, ragged pos up to
-1023; no single PyTorch call computes it), decode_attention (B=8 K=16
-G=1 S=1024 hd=128, the (B, S, K, hd) cache view, the same pos) beside
-one SDPA call with the ragged mask, and int8_matmul at every served
+Cases: paged_decode_attention and decode_attention at every served
+decode shape (DECODE_SHAPES: OLMo-1B's B=8 K=16 G=1 hd=128 with ragged
+pos up to 1023, and chip_smoke.py's SERVED_GQA models at B=8 over S =
+1024, hymba's 4096, with every position valid; decode_attention also at
+kv_quant's f32 shape), each first held to its plain version (bf16 2e-2,
+f32 1e-4), with its route, its split and its bound (the bytes of the
+visible K/V rows, q and out over 3.35 TB/s), decode_attention beside one
+SDPA call (enable_gqa, the ragged or window mask where there is one; no
+single PyTorch call computes the paged kernel); at OLMo-1B's shape both
+kernels also at pos one row before and at a chunk edge of the wrapper's
+split (`merge_probe`: one chunk runs and stores directly, against two
+that merge); int8_matmul at every served
 product of PERF.md section 6 (INT8_SHAPES: OLMo-1B's, granite's,
 hymba's, xlstm's and seamless's at decode M = 8, their tied or untied
 heads, the 32001- and 256206-byte rows of the untied ones included, and
@@ -33,18 +40,30 @@ reports
   buffer written before the start event), median of 30.  The wrapper's
   host work (checks, allocations, the ctypes call) counts where it
   outlasts the flush.
+- clean_ms (the decode kernels and SDPA beside them): waited_ms from an
+  L2 emptied by reading, not writing, the 256 MiB buffer, so that the
+  call's reads evict no dirty line (after a write, up to the L2's ~50 MB
+  goes back to device memory while the call reads).
 - waited_ms: the same with a 0.2 ms device-side wait
   (torch.cuda._sleep) before the start event, which holds the start
   until the host has enqueued the call: the device work alone.
   chip_smoke.py times kernels so.
 - host_us: the host's time per call, median of 10 batches of 20 calls
-  issued without a sync: what the call costs a host-bound serve.
+  issued without a sync: what the call costs a host-bound serve;
+  host_us_long the least of 3 batches of 500 calls (the one other
+  processes on a shared host disturbed least), host_cpu_us the calling
+  thread's CPU time a call over those batches (time.thread_time: the
+  time the thread ran, not the time it waited for the host's other
+  processes).
 - kernel_us: the profiler's device time per launch of each kernel the
   call runs (torch.profiler, 30 cold-L2 calls), a check on both timings
   that no host time can enter.
 
---kernels limits the run to the named wrappers (comma-separated).
-It also prints a sha256 of decode_attention's output at its timed shape,
+--kernels limits the run to the named wrappers (comma-separated);
+--host-only times only the host's us a call (the least and the median
+of 10 batches of 500 calls), for a comparison of host cost run as many
+alternating times as its spread needs.
+It also prints a sha256 of decode_attention's output at OLMo-1B's shape,
 which two checkouts with the same decode kernel share bit for bit.  One
 JSON line per case, each with the card's name and power limit; exits
 non-zero without a CUDA device.
@@ -79,6 +98,22 @@ FLASH_SHAPES = {
     "hymba-1.5b": (2, 25, 5, 2528, 2528, 64, 2048, 128, True),
     "seamless-m4t-large-v2": (4, 16, 16, 1024, 1024, 64, 0, 0, True),
     "seamless_encoder": (4, 16, 16, 1024, 1024, 64, 0, 0, False),
+}
+# label: (B, K, G, S, hd, window, prefix, dtype, pos): OLMo-1B's ragged
+# decode, chip_smoke.py's SERVED_GQA at every position valid (hymba at
+# max_len 4096), and kv_quant's f32 route (decode_attention only)
+DECODE_SHAPES = {
+    "olmo-1b": (8, 16, 1, 1024, 128, 0, 0, "bf16", "ragged"),
+    "llama3.2-1b": (8, 8, 4, 1024, 64, 0, 0, "bf16", "full"),
+    "qwen3-1.7b": (8, 8, 2, 1024, 128, 0, 0, "bf16", "full"),
+    "gemma3-1b": (8, 1, 4, 1024, 256, 512, 0, "bf16", "full"),
+    "gemma3-4b": (8, 4, 2, 1024, 256, 1024, 256, "bf16", "full"),
+    "granite-moe-3b-a800m": (8, 8, 3, 1024, 64, 0, 0, "bf16", "full"),
+    "mixtral-8x22b": (8, 8, 6, 1024, 128, 4096, 0, "bf16", "full"),
+    "hymba-1.5b": (8, 5, 5, 4096, 64, 2048, 128, "bf16", "full"),
+    "seamless-m4t-large-v2": (8, 16, 1, 1024, 64, 0, 0, "bf16", "full"),
+    "olmo-1b int8 KV (f32 route)": (8, 16, 1, 1024, 128, 0, 0, "f32",
+                                    "kv_quant"),
 }
 # label: (M, K, N, tied head), as PERF.md section 6 lists the int8 rows
 INT8_SHAPES = {
@@ -130,7 +165,16 @@ def cold() -> None:
     _flush[0].zero_()
 
 
-def event_ms(fn, wait: bool) -> float:
+def cold_clean() -> None:
+    """L2 emptied of the call's data by reading the 256 MiB buffer: the
+    lines it leaves are clean, so the call's reads evict nothing that
+    must be written back (cold() leaves ~50 MB of dirty lines)."""
+    if not _flush:
+        cold()
+    _flush[0].view(torch.int64).sum()
+
+
+def event_ms(fn, wait: bool, clean: bool = False) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -138,7 +182,10 @@ def event_ms(fn, wait: bool) -> float:
     for _ in range(REPS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        cold()
+        if clean:
+            cold_clean()
+        else:
+            cold()
         if wait:
             torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
@@ -149,7 +196,11 @@ def event_ms(fn, wait: bool) -> float:
     return float(np.median(times))
 
 
-def host_us(fn) -> float:
+def host_us(fn) -> tuple:
+    """The median of 10 batches' host us a call (20 calls a batch), and
+    over 3 batches of 500 calls the least host us a call and the median
+    of the calling thread's CPU us a call (its clock is too coarse for a
+    batch of 20 on the card's machine)."""
     fn()
     torch.cuda.synchronize()
     per_call = []
@@ -159,7 +210,16 @@ def host_us(fn) -> float:
             fn()
         per_call.append((time.perf_counter() - t0) / 20)
         torch.cuda.synchronize()
-    return float(np.median(per_call)) * 1e6
+    long, cpu = [], []
+    for _ in range(3):
+        c0, t0 = time.thread_time(), time.perf_counter()
+        for _ in range(500):
+            fn()
+        long.append((time.perf_counter() - t0) / 500)
+        cpu.append((time.thread_time() - c0) / 500)
+        torch.cuda.synchronize()
+    return (float(np.median(per_call)) * 1e6, float(min(long)) * 1e6,
+            float(np.median(cpu)) * 1e6)
 
 
 def kernel_us(fn) -> dict:
@@ -184,10 +244,156 @@ def kernel_us(fn) -> dict:
     return out
 
 
-def measure(fn) -> dict:
-    return {"event_ms": event_ms(fn, wait=False),
-            "waited_ms": event_ms(fn, wait=True),
-            "host_us": host_us(fn), "kernel_us": kernel_us(fn)}
+HOST_ONLY = False   # --host-only
+
+
+def measure(fn, clean: bool = False) -> dict:
+    """The four timings; with `clean`, also waited_ms from an L2 holding
+    only clean lines (clean_ms).  With --host-only, only the host's us a
+    call: the least and the median of 10 batches of 500 calls."""
+    if HOST_ONLY:
+        fn()
+        torch.cuda.synchronize()
+        per_call = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fn()
+            per_call.append((time.perf_counter() - t0) / 500)
+            torch.cuda.synchronize()
+        return {"host_us_least": float(min(per_call)) * 1e6,
+                "host_us_median": float(np.median(per_call)) * 1e6}
+    host, host_long, host_cpu = host_us(fn)
+    out = {"event_ms": event_ms(fn, wait=False),
+           "waited_ms": event_ms(fn, wait=True),
+           "host_us": host, "host_us_long": host_long,
+           "host_cpu_us": host_cpu, "kernel_us": kernel_us(fn)}
+    if clean:
+        out["clean_ms"] = event_ms(fn, wait=True, clean=True)
+    return out
+
+
+def splits_of(ops, paged: bool, *shape) -> list:
+    """The wrapper's split at (B, K, S or pps, [ps,] n_sm, hd, route) in
+    this checkout (a checkout before the tensor-core route takes the
+    shapes without hd and route)."""
+    fn = (ops.paged_decode_attention_splits if paged
+          else ops.decode_attention_splits)
+    try:
+        return list(fn(*shape))
+    except TypeError:
+        return list(fn(*shape[:-2]))
+
+
+def decode_cases(ops, dev, head, run) -> None:
+    """Both decode kernels at DECODE_SHAPES (see the module docstring)."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.paged_attention import \
+        paged_decode_attention_ref
+    F = torch.nn.functional
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, (B, K, G, S, hd, win, pre, dt, kind) in DECODE_SHAPES.items():
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        tol = 2e-2 if dt == "bf16" else 1e-4
+        route = "tensor_core" if dt == "bf16" else "cuda_core"
+        if kind == "ragged":
+            pos = np.random.default_rng(1).integers(1, S, B)
+            pos[0], pos[-1] = 0, S - 1
+        elif kind == "kv_quant":
+            pos = np.arange(1000, 1000 + B)
+        else:
+            pos = np.full(B, S - 1)
+        p = torch.tensor(pos.tolist(), dtype=torch.int32, device=dev)
+        vis = sum(int(x) + 1 if not win else
+                  min(int(x) + 1, win) + min(pre, max(int(x) + 1 - win, 0))
+                  for x in pos)
+        sz = 2 if dt == "bf16" else 4
+        t_bytes = (2 * vis * K * hd * sz + 2 * B * K * G * hd * sz
+                   + B * 4) / HBM_BYTES_PER_S
+        kw = dict(window=win, prefix=pre)
+        rows = {"case": label}
+
+        def probe(fn, chunk_rows):
+            """fn(pos) timed at pos chunk_rows - 1 (one chunk) and
+            chunk_rows (two chunks, merged), every slot."""
+            out = {"chunk_rows": chunk_rows}
+            for name, at in (("one_chunk", chunk_rows - 1),
+                             ("two_chunks", chunk_rows)):
+                pp = torch.full((B,), at, dtype=torch.int32, device=dev)
+                out[name] = measure(lambda: fn(pp))
+            return out
+
+        if "paged_decode_attention" in run and kind != "kv_quant":
+            rng = np.random.default_rng(7)
+            pps = S // 16
+            n_pages = B * pps + 3
+            table = np.full((B, pps), n_pages, np.int32)
+            perm = iter(rng.permutation(n_pages))
+            for i, pi in enumerate(pos):
+                for j in range(int(pi) // 16 + 1):
+                    table[i, j] = next(perm)
+            pq = tensor(rng, dev, dtype, B, K, G, hd)
+            pools = [tensor(rng, dev, dtype, n_pages, 16, K, hd)
+                     for _ in range(2)]
+            ptable = torch.from_numpy(table).to(dev)
+            got = ops.paged_decode_attention(pq, *pools, ptable, p, **kw)
+            want = paged_decode_attention_ref(pq, *pools, ptable, p, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            if err > tol:
+                raise AssertionError(f"paged_decode_attention/{label}: {err}")
+            split = splits_of(ops, True, B, K, pps, 16, n_sm, hd, route)
+            row = {**head, **rows, "kernel": "paged_decode_attention",
+                   "shape": f"B={B} K={K} G={G} hd={hd} ps=16 pps={pps} "
+                            f"window={win} prefix={pre} {dt}, pos {kind}",
+                   "route": route, "splits": split, "max_abs_err": err,
+                   "bound_ms": t_bytes * 1e3, "bound_by": "bytes",
+                   "wrapper": measure(lambda: ops.paged_decode_attention(
+                       pq, *pools, ptable, p, **kw), clean=True)}
+            if label == "olmo-1b" and split[0] > 1:
+                full = torch.arange(pps, dtype=torch.int32,
+                                    device=dev).repeat(B, 1)
+                row["merge_probe"] = probe(
+                    lambda pp: ops.paged_decode_attention(
+                        pq, *pools, full, pp), split[1] * 16)
+            emit(row)
+            del pools, pq
+        if "decode_attention" in run:
+            rng = np.random.default_rng(9)
+            q = tensor(rng, dev, dtype, B, K, G, hd)
+            k, v = (tensor(rng, dev, dtype, B, S, K, hd).permute(0, 2, 1, 3)
+                    for _ in range(2))
+            got = ops.decode_attention(q, k, v, p, **kw)
+            want = decode_attention_ref(q, k, v, p, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            if err > tol:
+                raise AssertionError(f"decode_attention/{label}: {err}")
+            kp = torch.arange(S, device=dev)[None, :]
+            mask = kp <= p[:, None].long()
+            if win:
+                mask &= (kp > p[:, None].long() - win) | (kp < pre)
+            qh = q.reshape(B, K * G, 1, hd)
+            split = splits_of(ops, False, B, K, S, n_sm, hd, route)
+            row = {**head, **rows, "kernel": "decode_attention",
+                   "shape": f"B={B} K={K} G={G} S={S} hd={hd} window={win} "
+                            f"prefix={pre} {dt}, (B, S, K, hd) view, pos "
+                            f"{kind}",
+                   "route": route, "splits": split, "max_abs_err": err,
+                   "bound_ms": t_bytes * 1e3, "bound_by": "bytes",
+                   "wrapper": measure(lambda: ops.decode_attention(
+                       q, k, v, p, **kw), clean=True),
+                   "library": measure(
+                       lambda: F.scaled_dot_product_attention(
+                           qh, k, v, attn_mask=mask[:, None, None, :],
+                           enable_gqa=True), clean=True)}
+            if label == "olmo-1b":
+                row["sha256"] = hashlib.sha256(got.view(
+                    torch.int16).cpu().numpy().tobytes()).hexdigest()
+            if label == "olmo-1b" and split[0] > 1:
+                row["merge_probe"] = probe(
+                    lambda pp: ops.decode_attention(q, k, v, pp), split[1])
+            emit(row)
+            del q, k, v
+        torch.cuda.empty_cache()
 
 
 def tensor(rng, dev, dtype, *shape):
@@ -203,7 +409,12 @@ def main() -> int:
     ap.add_argument("--kernels", default="paged_decode_attention,"
                     "decode_attention,int8_matmul,flash_attention",
                     help="the wrappers to time, comma-separated")
+    ap.add_argument("--host-only", action="store_true",
+                    help="time only the host's us a call (alternate the "
+                    "checkouts' runs to see a difference of a few us)")
     args = ap.parse_args()
+    global HOST_ONLY
+    HOST_ONLY = args.host_only
     run = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
@@ -217,43 +428,7 @@ def main() -> int:
             "torch": torch.__version__}
     bf16 = torch.bfloat16
 
-    rng = np.random.default_rng(1)
-    pos = rng.integers(1, 1024, 8)
-    pos[0], pos[-1] = 0, 1023
-    p = torch.tensor(pos, dtype=torch.int32, device=dev)
-
-    rng = np.random.default_rng(7)
-    n_pages = 8 * 64 + 3
-    table = np.full((8, 64), n_pages, np.int32)
-    perm = iter(rng.permutation(n_pages))
-    for i, pi in enumerate(pos):
-        for j in range(pi // 16 + 1):
-            table[i, j] = next(perm)
-    pq = tensor(rng, dev, bf16, 8, 16, 1, 128)
-    pools = [tensor(rng, dev, bf16, n_pages, 16, 16, 128) for _ in range(2)]
-    ptable = torch.from_numpy(table).to(dev)
-    if "paged_decode_attention" in run:
-        emit({**head, "kernel": "paged_decode_attention",
-              "shape": "B=8 K=16 G=1 hd=128 ps=16 pps=64 bf16",
-              "wrapper": measure(lambda: ops.paged_decode_attention(
-                  pq, *pools, ptable, p))})
-
-    rng = np.random.default_rng(9)
-    q = tensor(rng, dev, bf16, 8, 16, 1, 128)
-    k, v = (tensor(rng, dev, bf16, 8, 1024, 16, 128).permute(0, 2, 1, 3)
-            for _ in range(2))
-    mask = (torch.arange(1024, device=dev)[None, :]
-            <= p[:, None].long())[:, None, None, :]
-    F = torch.nn.functional
-    got = ops.decode_attention(q, k, v, p)
-    if "decode_attention" in run:
-        emit({**head, "kernel": "decode_attention",
-              "shape": "B=8 K=16 G=1 S=1024 hd=128 bf16, (B, S, K, hd) view",
-              "sha256": hashlib.sha256(
-                  got.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
-              "wrapper": measure(lambda: ops.decode_attention(q, k, v, p)),
-              "library": measure(lambda: F.scaled_dot_product_attention(
-                  q, k, v, attn_mask=mask))})
+    decode_cases(ops, dev, head, run)
 
     from repro_torch.kernels.int8_matmul import int8_matmul_ref
     for label, (M, K, N, tied) in INT8_SHAPES.items():

@@ -1,47 +1,54 @@
-"""Time the three split kernels at the OLMo-1B decode shapes over their
-split counts, on one CUDA device.
+"""Time the three split kernels at the served decode shapes over their
+splits, on one CUDA device.
 
     python3 tools/sweep_splits.py
     python3 tools/sweep_splits.py --gemma
     python3 tools/sweep_splits.py --moe
+    python3 tools/sweep_splits.py --served
+    python3 tools/sweep_splits.py --int8
 
-paged_decode_attention (B=8 K=16 G=1 hd=128 bf16, pages of 16, a table
-of 64 columns, ragged pos up to 1023) over its pages per chunk,
-decode_attention (B=8 K=16 G=1 S=1024 hd=128 bf16, the (B, S, K, hd)
-cache view, the same pos) over its chunk sizes, and the int8_matmul
-skinny_tc route (M = 8, bf16: 2048 -> 2048, 2048 -> 8192, 8192 -> 2048
-and the tied head) over its clusters: the K split into 1, 2, 4 or 8
-CTAs of a thread block cluster, each column tile a cluster (with no
-split, the CTAs of one wave walking the tiles, two an SM where the tiles
-outnumber the SMs), beside the CTAs the card holds at once for such a
-launch (its ring sets its shared memory).  Each configuration is launched
-with the split given (the paged kernel through ops._paged_decode, the
-others through their C entries), held to the wrapper's output (bf16
-2e-2), and timed as chip_smoke.py times kernels (CUDA events, cold L2,
-a 0.2 ms device-side wait, median of 30).  The wrapper's own choice
-(ops.paged_decode_attention_splits, ops.decode_attention_splits,
-ops.int8_skinny_tc_splits) is marked.  A paged chunking that needs more
-chunks than the kernel's 32-bit running-chunk mask holds is listed as
-not launchable.  Prints one JSON line per kernel and shape, each with
-the card's name and power limit; exits non-zero without a CUDA device.
+The two decode kernels on their bf16 (tensor-core) route:
+paged_decode_attention (pages of 16, a table of S / 16 columns) and
+decode_attention (the (B, S, K, hd) cache view), B = 8, each over its
+splits: the (row, kv head)'s chunks as one thread block cluster of c = 1,
+2, 3, 4, 6, 8 and 16 CTAs (16: a non-portable cluster; chunks of whole
+64-row tiles), and chunks of 64 and 128 rows merged through the global
+workspace (cluster 1; where that makes at most 32 chunks, the kernels'
+running-chunk mask).  With no flag: OLMo-1B's shape (K=16 G=1 hd=128
+S=1024) at the ragged pos of chip_smoke.py's timings and with every
+position valid, then the int8_matmul skinny_tc route (M = 8, bf16: 2048
+-> 2048, 2048 -> 8192, 8192 -> 2048 and the tied head) over its
+clusters: the K split into 1, 2, 4 or 8 CTAs of a thread block cluster,
+each column tile a cluster (with no split, the CTAs of one wave walking
+the tiles, two an SM where the tiles outnumber the SMs), beside the CTAs
+the card holds at once for such a launch (its ring sets its shared
+memory).  Each configuration is launched with the split given (through
+ops._paged_decode, ops._decode, and the int8 C entry), held to the
+wrapper's output (bf16 2e-2), and timed as chip_smoke.py times kernels
+(CUDA events, cold L2, a 0.2 ms device-side wait, median of 30).  The
+wrapper's own choice (ops.paged_decode_attention_splits,
+ops.decode_attention_splits, ops.int8_skinny_tc_splits) is marked.
+Prints one JSON line per kernel and shape, each with the card's name and
+power limit; exits non-zero without a CUDA device.
 
-With --gemma it sweeps instead the two decode kernels at gemma3-1b's
-decode shape (B=8 K=1 G=4 hd=256 bf16, window 512, the same ragged pos;
-the paged kernel over a table of 64 columns of 16-row pages), where one
+--gemma: the two decode kernels at gemma3-1b's decode shape (K=1 G=4
+hd=256, window 512; every position valid and the ragged pos), where one
 KV head leaves 8 (slot, head) pairs and the window skips half of a
 slot's rows.
 
-With --moe it sweeps the two decode kernels at the MoE models' groups,
-B=8 K=8 at the same ragged pos: granite-moe-3b-a800m's G=3 hd=64, and
-mixtral-8x22b's G=6 hd=128 with its window of 4096 and without one
-(the window skips nothing at S = 1024, so the two differ only by the
-kernel's window test), and G=4 and G=8 at hd=128 beside it (G = 6 runs
-the kernels' 8-row group variant, G = 4 the 4-row one); then skinny_tc at granite's M = 8 products (1536
--> 1536, 1536 -> 512, the tied head 1536 -> 49155).
+--moe: the two decode kernels at the MoE models' groups, K=8 at the
+ragged pos: granite-moe-3b-a800m's G=3 hd=64, and mixtral-8x22b's G=6
+hd=128 with its window of 4096 and without one (the window skips nothing
+at S = 1024), and G=4 and G=8 at hd=128 beside it (G = 1..8 run the same
+products, N = 8); then skinny_tc at granite's M = 8 products (1536 ->
+1536, 1536 -> 512, the tied head 1536 -> 49155).
 
-With --int8 it sweeps only skinny_tc, at every served M = 8 product of
-PERF.md section 6 (OLMo-1B's, granite's, hymba's, xlstm's, seamless's,
-the heads).
+--served: the two decode kernels at every chip_smoke.py SERVED_GQA shape
+with every position valid (hymba-1.5b at S = 4096), as gqa_timings times
+them.
+
+--int8: only skinny_tc, at every served M = 8 product of PERF.md section
+6 (OLMo-1B's, granite's, hymba's, xlstm's, seamless's, the heads).
 """
 from __future__ import annotations
 
@@ -63,59 +70,56 @@ def close(got, want):
                                rtol=2e-2)
 
 
-def sweep_decode_kernels(dev, ops, card, n_sm, *, K, G, hd, window):
-    """The paged kernel over its pages per chunk and the decode kernel
-    over its chunk sizes, B = 8 at the OLMo-1B decode's ragged pos."""
-    B, S = 8, 1024
-    pos = chip_smoke.olmo_decode_pos(np.random.default_rng(1), B, S)
-    tag = f" window={window}" if window else ""
+def sweep_decode_kernels(dev, ops, card, n_sm, *, K, G, hd, window,
+                         prefix=0, S=1024, full=False):
+    """Both decode kernels over their splits (see the module docstring),
+    B = 8 at the OLMo-1B decode's ragged pos, or at pos S - 1 (`full`)."""
+    B, pps = 8, S // 16
+    pos = ([S - 1] * B if full else
+           chip_smoke.olmo_decode_pos(np.random.default_rng(1), B, S))
+    tag = (f" window={window}" if window else "") + \
+        (f" prefix={prefix}" if prefix else "")
+    kw = dict(window=window, prefix=prefix)
+    tiles = -(-S // 64)
+    splits = {}
+    for c in (1, 2, 3, 4, 6, 8, 16):
+        if c <= tiles:
+            rows = -(-tiles // c) * 64
+            splits[f"cluster {c}"] = (c, rows)
+    for rows in (64, 128):
+        if -(-S // rows) <= ops.DECODE_MAX_SPLITS:
+            splits[f"global {-(-S // rows)}x{rows}"] = (1, rows)
     pargs = chip_smoke.paged_case(dev, torch.bfloat16, B=B, K=K, G=G, hd=hd,
-                                  ps=16, pps=64, pos=pos, seed=7)
-    want = ops.paged_decode_attention(*pargs, window=window)
-    chosen = ops.paged_decode_attention_splits(B, K, 64, 16, n_sm)
-    times = {}
-    for ppc in sorted({1, 2, 3, 4, 6, 8, 11, 13, 16, 22, 32, 64,
-                       chosen[1]}):
-        n = -(-64 // ppc)
-        if n > ops.PAGED_MAX_SPLITS:
-            times[f"{n}x{ppc}"] = f"not launchable: {n} chunks"
-            continue
+                                  ps=16, pps=pps, pos=pos, seed=7)
+    dargs = chip_smoke.decode_case(dev, torch.bfloat16, B=B, K=K, G=G, S=S,
+                                   hd=hd, pos=pos, seed=9, strided=True)
+    for name, args in (("paged_decode_attention", pargs),
+                       ("decode_attention", dargs)):
+        paged = name.startswith("paged")
+        want = getattr(ops, name)(*args, **kw)
+        chosen = (ops.paged_decode_attention_splits(B, K, pps, 16, n_sm, hd)
+                  if paged else ops.decode_attention_splits(B, K, S, n_sm,
+                                                            hd))
+        times = {}
+        for label, (c, rows) in splits.items():
+            n = -(-S // rows)
+            sp = ((n, rows // 16, c if c > 1 else 1) if paged
+                  else (n, rows, c if c > 1 else 1))
+            if sp == tuple(chosen):
+                label += " (wrapper)"
 
-        def call(n=n, ppc=ppc):
-            return ops._paged_decode(*pargs, window, 0, splits=(n, ppc))
-        close(call(), want)
-        times[f"{n}x{ppc}"] = chip_smoke.time_ms(call)
-    chip_smoke.emit({"kernel": "paged_decode_attention", "shape": f"B={B} "
-                     f"K={K} G={G} hd={hd} ps=16 pps=64{tag} bf16, pos up "
-                     "to 1023", "ms_by_splits_x_pages": times,
-                     "wrapper_choice": f"{chosen[0]}x{chosen[1]}",
-                     "card": card})
-
-    q, k, v, p = chip_smoke.decode_case(dev, torch.bfloat16, B=B, K=K, G=G,
-                                        S=S, hd=hd, pos=pos, seed=9,
-                                        strided=True)
-    want = ops.decode_attention(q, k, v, p, window=window)
-    out = torch.empty_like(q)
-    chosen = ops.decode_attention_splits(B, K, S, n_sm)
-    times = {}
-    for chunk in (64, 128, 192, 256, 512, 1024):
-        n = -(-S // chunk)
-        tickets, ws = ops._split_buffers(dev, B * K,
-                                         B * K * n * 8 * (hd + 2))
-
-        def call(n=n, chunk=chunk, ws=ws, tickets=tickets):
-            ops._run("decode_attention", dev, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), p.data_ptr(), out.data_ptr(),
-                     ws.data_ptr(), tickets.data_ptr(), B, K, G, hd, S,
-                     *k.stride()[:3], window, 0, 1, n, chunk, hd ** -0.5)
-        call()
-        close(out, want)
-        times[f"{n}x{chunk}"] = chip_smoke.time_ms(call)
-    chip_smoke.emit({"kernel": "decode_attention", "shape": f"B={B} K={K} "
-                     f"G={G} S={S} hd={hd}{tag} bf16",
-                     "ms_by_splits_x_chunk": times,
-                     "wrapper_choice": f"{chosen[0]}x{chosen[1]}",
-                     "card": card})
+            def call(sp=sp):
+                if paged:
+                    return ops._paged_decode(*args, window, prefix,
+                                             splits=sp)
+                return ops._decode(*args, window, prefix, splits=sp)
+            close(call(), want)
+            times[label] = chip_smoke.time_ms(call)
+        chip_smoke.emit({"kernel": name, "shape": f"B={B} K={K} G={G} "
+                         f"S={S} hd={hd}{tag} bf16, pos "
+                         f"{'S - 1' if full else 'ragged up to S - 1'}",
+                         "ms_by_split": times,
+                         "wrapper_choice": list(chosen), "card": card})
 
 
 def main() -> int:
@@ -132,8 +136,15 @@ def main() -> int:
         sweep_skinny_tc(dev, ops, q_lib, card, n_sm, INT8_DECODE)
         return 0
     if "--gemma" in sys.argv[1:]:
-        sweep_decode_kernels(dev, ops, card, n_sm, K=1, G=4, hd=256,
-                             window=512)
+        for full in (True, False):
+            sweep_decode_kernels(dev, ops, card, n_sm, K=1, G=4, hd=256,
+                                 window=512, full=full)
+        return 0
+    if "--served" in sys.argv[1:]:
+        for model, (H, K, hd, win, pre) in chip_smoke.SERVED_GQA.items():
+            S = chip_smoke.GQA_LENGTHS.get(model, (1024, 1024))[0]
+            sweep_decode_kernels(dev, ops, card, n_sm, K=K, G=H // K, hd=hd,
+                                 window=win, prefix=pre, S=S, full=True)
         return 0
     if "--moe" in sys.argv[1:]:
         for G, hd, window in ((3, 64, 0), (6, 128, 4096), (6, 128, 0),
@@ -145,7 +156,9 @@ def main() -> int:
             ("granite_decode_kv", 8, 1536, 512, False),
             ("granite_head", 8, 1536, 49155, True)))
         return 0
-    sweep_decode_kernels(dev, ops, card, n_sm, K=16, G=1, hd=128, window=0)
+    for full in (False, True):
+        sweep_decode_kernels(dev, ops, card, n_sm, K=16, G=1, hd=128,
+                             window=0, full=full)
     sweep_skinny_tc(dev, ops, q_lib, card, n_sm, (
         ("decode_attn", 8, 2048, 2048, False),
         ("decode", 8, 2048, 8192, False),
