@@ -147,6 +147,17 @@ JSON line:
               1024 frames) and 8 decode steps on the kernels against the
               same calls on the plain versions within f32's 1e-4 (the
               only run where the cross path carries values).
+   parity_archs — the ARCHS configs no other phase runs, at full width
+              cut to 2 layers, f32, max_len 1024: phi4-mini-3.8b (G = 3,
+              hd 128, vocab 200064 tied), deepseek-7b (32 kv heads, d_ff
+              11008) and starcoder2-3b (G = 12 over 2 kv heads, a window
+              of 4096 wider than the cache) with prompts of 10-900 tokens
+              in the paged-attention, gather and contiguous modes at
+              decode blocks of 1 and 8 and in the gather mode under int8;
+              internvl2-76b (d 8192, G = 8, 256 zero prefix positions)
+              with prompts of 10-700 in the paged-attention mode and the
+              gather mode under int8; tokens equal to greedy_recompute,
+              launches exact.
    parity_train — the trainer's numerics on the card against the port's
               CPU path (itself held against JAX by the CPU tests):
               OLMo-1B at full width cut to 2 of 16 layers and the full
@@ -167,7 +178,16 @@ JSON line:
               on the card (loss, grad norm and every gradient leaf
               within 1e-5 relative; the params' largest difference
               printed), the Megatron helpers' counts of collectives and
-              fallbacks, remesh_state to (1, 2) and one more step; then
+              fallbacks, remesh_state to (1, 2) and one more step;
+              before it, one fsdp_tp step of hymba-1.5b (vocab 32001,
+              which "model" does not divide, and 128 meta tokens) and of
+              the zoo's gemma3-4b (256 vision prefix positions, vocab
+              262144), each at full width cut to 2 layers in f32, 2
+              rows of 128 tokens, against its unsharded step (the bound
+              sits above f32 rounding there: tools/grad_rounding.py;
+              ROADMAP C23: the loss's tail past the
+              meta and prefix positions taken on the local blocks), each
+              leg's seconds printed; then
               decode_attention_sharded over the 4 ranks at OLMo's decode
               shape (f32, bf16) against decode_attention_ref and the
               decode kernel, its wire bytes beside the KV bytes.  The
@@ -356,6 +376,14 @@ JSON line:
               swap tier at full width (seamless_swap_leg: two requests on
               64 pages, each swap moving the slot's 100.7 MB of cross
               K/V beside its pages; the host ms of each swap).
+10f. serve_archs — phi4-mini-3.8b, deepseek-7b and starcoder2-3b at full
+              width and depth in bf16 (paged attention), deepseek-7b again
+              under int8 (gather), internvl2-76b in bf16 cut to 8 of 80
+              layers (paged attention, prompts <= 704 beside its 256
+              prefix positions): serve_bf16's engine and 12 requests,
+              held as every serve (budgets, pages, placement's charge,
+              launches, routes, every decode launch on "tensor_core");
+              the phase's seconds on a line of its own.
 11b. analysis — the port's static analyzer (src/repro_torch/analysis)
               held to what the card did.  (a) Lock order: the port's
               LockOrderTracker is installed before serve_gateway and
@@ -437,7 +465,14 @@ JSON line:
               products at seamless's shapes, its head on "skinny_tc").
               The line also asserts every kernel ran on serve_seamless
               (flash non-causal among its launches) and int8 on
-              serve_xlstm.
+              serve_xlstm; every attention kernel on serve_archs and int8
+              on its int8 leg.  SERVED_GQA holds serve_archs' four
+              models too (their rows carry their serve_archs launches),
+              and archs_timings their int8 decode products and heads
+              (phi4's tied 3072 -> 200064, deepseek's 4096 -> 11008 ->
+              4096 and 4096 -> 102400, starcoder2's 3072 -> 12288 ->
+              3072 and 3072 -> 49152, internvl2's 8192 -> 28672 and
+              8192 -> 128256).
               The line asserts every kernel ran on serve_moe and on
               serve_hymba; the attention kernels' rows at the MoE,
               hymba and seamless shapes (hymba at S = 4096, flash at 128
@@ -629,13 +664,19 @@ def decode_case(dev, dtype, *, B, K, G, S, hd, pos, seed, strided):
             torch.tensor(pos, dtype=torch.int32, device=dev))
 
 
-def int8_case(dev, dtype, q_lib, *, M, K, N, head, seed):
+def int8_case(dev, dtype, q_lib, *, M, K, N, head, seed, on_device=False):
     """x and an int8 weight quantized per output channel, or, for the
     tied head's route, the (K, N) view of an (N, K) embedding quantized
-    per K with its (K, 1) scale."""
+    per K with its (K, 1) scale, drawn on the host from a seed, or, with
+    `on_device`, on the device (a head of 10^9 weights takes seconds to
+    draw on the host).  The checks that hold f32 products to a fixed
+    1e-4 keep the host's draws (ROADMAP C24)."""
     rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def t(*shape):
+        if on_device:
+            return torch.randn(shape, generator=gen, device=dev)
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev)
     w = (t(N, K) if head else t(K, N)) * 0.1
@@ -1178,13 +1219,15 @@ def kernel_timings(dev, ops, refs, q_lib, prefill_shape, int8_m):
     return out
 
 
-def int8_timing(dev, ops, refs, q_lib, label, M, Kd, N, head, route):
+def int8_timing(dev, ops, refs, q_lib, label, M, Kd, N, head, route,
+                on_device=False):
     """One bf16 int8 product x (M, Kd) @ w (Kd, N) (the tied head's
     layout when `head`) on `route`, held against its plain version, then
-    timed beside it and the library yardstick.  Returns its row."""
+    timed beside it and the library yardstick (`on_device`: int8_case's).
+    Returns its row."""
     dt, mm_ref = torch.bfloat16, refs["int8_matmul"]
     x, wq, sc = int8_case(dev, dt, q_lib, M=M, K=Kd, N=N, head=head,
-                          seed=10)
+                          seed=10, on_device=on_device)
     got = on_route(ops.int8_matmul, route,
                    lambda: ops.int8_matmul(x, wq, sc))
     err = check_close(f"int8_matmul/timed_{label}", got, mm_ref(x, wq, sc),
@@ -1294,6 +1337,13 @@ SERVED_GQA = {
     "hymba-1.5b": (25, 5, 64, 2048, 128),
     # configs/seamless_m4t_large.py: its decoder self-attention
     "seamless-m4t-large-v2": (16, 16, 64, 0, 0),
+    # the ARCHS configs serve_archs serves (configs/phi4_mini_3_8b.py,
+    # deepseek_7b.py, starcoder2_3b.py: G = 12 and a window wider than
+    # the cache; internvl2_76b.py: 256 vision prefix positions)
+    "phi4-mini-3.8b": (24, 8, 128, 0, 0),
+    "deepseek-7b": (32, 32, 128, 0, 0),
+    "starcoder2-3b": (24, 2, 128, 4096, 0),
+    "internvl2-76b": (64, 8, 128, 0, 256),
 }
 # decode S and flash S past the prefix, where not 1024 (so that the
 # window bites)
@@ -2423,7 +2473,8 @@ def serve_moe(dev, ops, card, granite=None, mixtral=None):
 def parity_runs(phase, dev, ops, cfg, params, prompts, budgets, runs,
                 max_len=1024, decode_block=8):
     """Greedy requests through the engine in each of `runs` (mode, engine
-    kwargs, weights "dense" or "int8", the kernels it must launch), each
+    kwargs, weights "dense" or "int8", the kernels it must launch; the
+    kwargs may name the run's own decode_block), each
     request's tokens against greedy_recompute (on the dequantized
     weights for int8), each run's launches against expected_launches
     (the non-causal flash launches too) and each admission of an
@@ -2445,9 +2496,9 @@ def parity_runs(phase, dev, ops, cfg, params, prompts, budgets, runs,
         return wants[key]
     lines, mismatches = [], []
     for mode, kw, weights, kernels in runs:
-        eng = InferenceEngine(cfg, params, EngineConfig(
-            n_slots=4, max_len=max_len, decode_block=decode_block, **kw),
-            device=dev)
+        eng = InferenceEngine(cfg, params, EngineConfig(**{
+            "n_slots": 4, "max_len": max_len, "decode_block": decode_block,
+            **kw}), device=dev)
         shapes = []
         admit = eng._prefill_admit
 
@@ -3125,6 +3176,154 @@ def encdec_timings(dev, ops, refs, q_lib, int8_m, cross_shape):
 
 # --------------------------------------------------------------------- #
 # the trainer and the int8 KV cache
+
+# --------------------------------------------------------------------- #
+# The ARCHS configs no other phase runs
+
+ARCHS_DENSE = ("phi4-mini-3.8b", "deepseek-7b", "starcoder2-3b")
+ARCHS_VISION = "internvl2-76b"
+INTERNVL2_SERVE_LAYERS = 8  # of internvl2-76b's 80 in serve_archs
+
+
+def parity_archs(dev, ops, cfgs=None):
+    """phi4-mini-3.8b (24 heads over 8, hd 128, vocab 200064 tied),
+    deepseek-7b (32 heads over 32, d_ff 11008, vocab 102400 untied) and
+    starcoder2-3b (24 heads over 2: G = 12, hd 128, gelu, a window of
+    4096 wider than max_len, vocab 49152 untied) at full width cut to
+    TRAIN_LAYERS layers, f32, norm scales from a seed, max_len 1024,
+    prompts of 10, 300, 600 and 900 tokens: the paged-attention, gather
+    and contiguous modes at decode blocks K = 1 and 8, and the gather
+    mode under int8 (K = 8).  Then internvl2-76b (d 8192, 64 heads over
+    8, hd 128, vocab 128256 untied) at full width cut to TRAIN_LAYERS
+    layers, f32, its 256 zero prefix positions ahead of every prompt, so
+    prompts of 10, 200, 400 and 700 tokens (prefix + prompt + budget <=
+    max_len), in the paged-attention mode and the gather mode under
+    int8.  Each request's tokens must equal `greedy_recompute` (on the
+    dequantized weights for int8), each run launch exactly
+    `expected_launches` (`parity_runs`).  `cfgs` ({name: config})
+    replaces the models (a CPU rehearsal)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfgs = cfgs or {name: dataclasses.replace(
+        ARCHS[name], n_layers=TRAIN_LAYERS, dtype="f32")
+        for name in ARCHS_DENSE + (ARCHS_VISION,)}
+    paged, gather = ({"paged_decode_attention", "flash_attention"},
+                     {"decode_attention", "flash_attention"})
+    int8 = ("gather_int8", dict(quantize="int8"), "int8",
+            gather | {"int8_matmul"})
+    t0 = time.perf_counter()
+    lines, mismatches, reduced = [], [], {}
+    for i, (name, cfg) in enumerate(cfgs.items()):
+        params = build(cfg, dev).init(
+            torch.Generator(device=dev).manual_seed(17 + i))
+        rng = np.random.default_rng(18 + i)
+        seed_norms(params, rng)
+        if cfg.n_prefix_tokens:
+            lens = (10, 200, 400, 700)
+            runs = (("paged_attention", dict(paged_attention=True), "dense",
+                     paged), int8)
+            reduced[name] = (f"{TRAIN_LAYERS} of {ARCHS[name].n_layers} "
+                             f"layers; prompts <= 700 with its "
+                             f"{cfg.n_prefix_tokens} prefix positions in "
+                             "max_len 1024")
+        else:
+            lens = (10, 300, 600, 900)
+            runs = tuple(
+                (f"{mode}_k{k}", dict(kw, decode_block=k), "dense", kern)
+                for k in (1, 8) for mode, kw, kern in (
+                    ("paged_attention", dict(paged_attention=True), paged),
+                    ("gather", {}, gather),
+                    ("contiguous", dict(paged=False), gather))) + (int8,)
+            reduced[name] = f"{TRAIN_LAYERS} of {ARCHS[name].n_layers} layers"
+        prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+        got, bad = parity_runs("parity_archs", dev, ops, cfg, params,
+                               prompts, (16, 12, 8, 10), runs)
+        lines += got
+        mismatches += bad
+        del params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    emit({"phase": "parity_archs", "models": {
+        name: {"heads": [c.n_heads, c.n_kv_heads], "head_dim": c.head_dim,
+               "d_model": c.d_model, "d_ff": c.d_ff, "vocab": c.vocab,
+               "window": c.swa_window, "prefix": c.n_prefix_tokens}
+        for name, c in cfgs.items()}, "reduced": reduced,
+        "budgets": [16, 12, 8, 10], "runs": lines,
+        "match": not mismatches, "seconds": time.perf_counter() - t0})
+    if mismatches:
+        raise AssertionError(f"parity_archs mismatches: {mismatches}")
+    return lines
+
+
+def serve_archs(dev, ops, card, cfgs=None):
+    """phi4-mini-3.8b, deepseek-7b and starcoder2-3b whole (32, 30 and 30
+    layers), bf16, seeded weights, each under serve_bf16's engine and 12
+    requests in the paged-attention mode, and deepseek-7b a second time
+    under quantize="int8" in the gather mode (the widest dense products
+    of the repo's models); then internvl2-76b in bf16 cut to
+    INTERNVL2_SERVE_LAYERS of its 80 layers (the time budget) in the
+    paged-attention mode, prompts capped at 704 so that its 256 prefix
+    positions + prompt + budget <= 1024.  Each leg (`serve`) holds exact
+    budgets, every page returned, placement's charge equal to what the
+    engine holds, its exact launches and routes (every decode launch on
+    "tensor_core"), and prints tok/s, p50 step, TTFT and peak device
+    memory.  `cfgs` ({name: config}) replaces the models (a CPU
+    rehearsal).  Returns ({"model/leg": launches}, {"model/leg":
+    (routes, prefill shapes)}) and the phase's seconds."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build
+    cfgs = cfgs or {**{name: ARCHS[name] for name in ARCHS_DENSE},
+                    ARCHS_VISION: dataclasses.replace(
+                        ARCHS[ARCHS_VISION],
+                        n_layers=INTERNVL2_SERVE_LAYERS)}
+    t0 = time.perf_counter()
+    launches, more = {}, {}
+    for name, cfg in cfgs.items():
+        params = build(cfg, dev).init(
+            torch.Generator(device=dev).manual_seed(0))
+        kw = {}
+        if cfg.n_prefix_tokens:
+            kw = dict(max_prompt=1024 - cfg.n_prefix_tokens - 64,
+                      note=f"{cfg.n_layers} of {ARCHS[name].n_layers} "
+                      "layers (the time budget); prompts <= "
+                      f"{1024 - cfg.n_prefix_tokens - 64}")
+        legs = [("paged", dict(kw, paged_attention=True))]
+        if name == "deepseek-7b":
+            legs.append(("int8", dict(kw, quantize="int8")))
+        got, extra = serve_legs("serve_archs", dev, ops, card, cfg, params,
+                                legs)
+        for leg in got:
+            launches[f"{name}/{leg}"] = got[leg]
+            more[f"{name}/{leg}"] = extra[leg]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, more, time.perf_counter() - t0
+
+
+def archs_timings(dev, ops, refs, q_lib):
+    """The int8 products at serve_archs' decode shapes, bf16, M = 8 on
+    "skinny_tc": phi4-mini-3.8b's tied head 3072 -> 200064; deepseek-7b's
+    4096 -> 11008, 11008 -> 4096 and untied head 4096 -> 102400;
+    starcoder2-3b's 3072 -> 12288, 12288 -> 3072 and head 3072 -> 49152;
+    internvl2-76b's 8192 -> 28672 and head 8192 -> 128256; each held to
+    its plain version, timed beside it and the library yardstick
+    (`int8_timing`, the weights drawn on the device)."""
+    rows = [int8_timing(dev, ops, refs, q_lib, *case, on_device=True)
+            for case in (
+        ("phi4_head", 8, 3072, 200064, True, "skinny_tc"),
+        ("deepseek_up", 8, 4096, 11008, False, "skinny_tc"),
+        ("deepseek_down", 8, 11008, 4096, False, "skinny_tc"),
+        ("deepseek_head", 8, 4096, 102400, False, "skinny_tc"),
+        ("starcoder2_up", 8, 3072, 12288, False, "skinny_tc"),
+        ("starcoder2_down", 8, 12288, 3072, False, "skinny_tc"),
+        ("starcoder2_head", 8, 3072, 49152, False, "skinny_tc"),
+        ("internvl2_up", 8, 8192, 28672, False, "skinny_tc"),
+        ("internvl2_head", 8, 8192, 128256, False, "skinny_tc"))]
+    emit({"phase": "archs_timings", "int8_matmul": rows})
+    return rows
+
 
 TRAIN_LAYERS = 2            # of olmo-1b's 16 in parity_train and kv_quant
 
@@ -4701,6 +4900,11 @@ def analysis(dev, ops, card, tracker):
 
 SHARDED_WORLD = 4
 SHARDED_BATCH, SHARDED_SEQ = 4, 128
+# the family legs' rows: at 4 rows of gemma3-4b (384 positions with its
+# prefix, vocab 262144) the unsharded step on the card and on the CPU
+# already differ by 1.1e-5 of wk's largest gradient (f32 rounding,
+# tools/grad_rounding.py), above the phase's 1e-5 bound
+FAMILY_ROWS = 2
 DECODE_SHAPE = (8, 16, 1, 1024, 128)        # OLMo-1B's decode: B K G S hd
 
 
@@ -4741,23 +4945,31 @@ def _check_collectives(dist, dev, world) -> dict:
     return out
 
 
-def _local_err(dist, got, want, relative=False) -> float:
-    """The largest difference of any leaf between a tree of DTensors and
-    the same tree unsharded (full tensors on every rank), each rank
-    comparing its own blocks, the max over the world (relative: over
-    each leaf's largest magnitude)."""
+def _leaf_errs(dist, got, want, relative=False) -> dict:
+    """Each leaf's largest difference between a tree of DTensors and the
+    same tree unsharded (full tensors on every rank), each rank comparing
+    its own blocks, the max over the world (relative: over the leaf's
+    largest magnitude), by the leaf's path."""
     from repro_torch.distributed.sharding import local_block
-    from repro_torch.training.tree import leaves
-    worst = 0.0
-    for g, w in zip(leaves(got), leaves(want), strict=True):
+    from repro_torch.training.tree import items
+    want = dict(items(want))
+    errs = {}
+    for path, g in items(got):
+        w = want[path]
         blk = local_block(w, g.device_mesh, g.placements).float()
         d = float((g.to_local().float() - blk).abs().max())
         if relative:
             d /= max(float(w.float().abs().max()), 1e-30)
-        worst = max(worst, d)
-    t = torch.tensor([worst], device=leaves(want)[0].device)
+        errs[path] = d
+    t = torch.tensor(list(errs.values()), device=next(iter(want.values()))
+                     .device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return float(t)
+    return dict(zip(errs, t.tolist()))
+
+
+def _local_err(dist, got, want, relative=False) -> float:
+    """The largest of `_leaf_errs`."""
+    return max(_leaf_errs(dist, got, want, relative).values())
 
 
 def _timed_call(dev, fn, *args):
@@ -4777,23 +4989,42 @@ def _at_step_one(state):
     return state
 
 
-def _strategy_steps(dist, cfg, mesh, dev, batch, ocfg, ref):
-    """One fsdp and one fsdp_tp step at step 1 from the seed-5 init on
-    `mesh`, each as the step's two halves (`step.grads`, then AdamW, as
-    the trainer's compressed step runs them, so the gradients are at hand
-    without a second forward and backward), held against `ref`: the
-    unsharded step's "grads", its "params" after the step, its "loss"
-    and "grad_norm" and its "ms".  Returns ({strategy: readings}, the
-    fsdp_tp state after its step)."""
+def _in_turn(dist, dev, fn):
+    """fn() on each rank in turn, a barrier after each, the rank's cached
+    device memory returned after its turn: one full-width init or
+    unsharded reference on the shared card at a time.  Returns this
+    rank's fn()."""
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            out = fn()
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _strategy_steps(dist, cfg, mesh, dev, batch, ocfg, ref,
+                    names=("fsdp", "fsdp_tp")):
+    """One step of each strategy in `names` at step 1 from the seed-5
+    init on `mesh` (the ranks placing their states in turn), each as the
+    step's two halves (`step.grads`, then AdamW, as the trainer's
+    compressed step runs them, so the gradients are at hand without a
+    second forward and backward), held against `ref`: the unsharded
+    step's "grads", its "loss" and "grad_norm", its "ms" and, where
+    given, its "params" after the step.  Returns ({strategy: readings},
+    the fsdp_tp state after its step)."""
     from repro_torch.distributed import sharding as S
     from repro_torch.launch.steps import gather_tree, make_train_step
     from repro_torch.training.optimizer import adamw_update
     from torch.distributed.tensor.experimental import implicit_replication
     steps = {}
-    for name in ("fsdp", "fsdp_tp"):
+    for name in names:
         strategy = S.STRATEGIES[name](mesh)
         step, init = make_train_step(cfg, mesh, strategy, opt_cfg=ocfg)
-        st = _at_step_one(init(torch.Generator(dev).manual_seed(5)))
+        st = _in_turn(dist, dev, lambda: _at_step_one(
+            init(torch.Generator(dev).manual_seed(5))))
         S.reset_counts()
         (g, m), grads_ms = _timed_call(dev, step.grads, st["params"], batch)
         counts = {h: dict(c) for h, c in S.COUNTS.items()}
@@ -4802,13 +5033,16 @@ def _strategy_steps(dist, cfg, mesh, dev, batch, ocfg, ref):
                 dev, adamw_update, st["params"], g, st["opt"], st["step"],
                 ocfg)
         m, om = gather_tree(m), gather_tree(om)
+        errs = _leaf_errs(dist, g, ref["grads"], relative=True)
         steps[name] = {
             "loss": float(m["loss"]), "loss_ref": ref["loss"],
             "grad_norm": float(om["grad_norm"]),
             "grad_norm_ref": ref["grad_norm"],
-            "max_grad_err_rel": _local_err(dist, g, ref["grads"],
-                                           relative=True),
-            "max_param_err": _local_err(dist, new_p, ref["params"]),
+            "max_grad_err_rel": max(errs.values()),
+            "worst_grad_leaves": sorted(errs.items(),
+                                        key=lambda kv: -kv[1])[:3],
+            **({"max_param_err": _local_err(dist, new_p, ref["params"])}
+               if "params" in ref else {}),
             "ms": grads_ms + update_ms, "unsharded_ms": ref["ms"],
             "counts": counts}
         del g
@@ -4816,6 +5050,46 @@ def _strategy_steps(dist, cfg, mesh, dev, batch, ocfg, ref):
             kept = {"params": new_p, "opt": new_opt,
                     "step": st["step"] + 1}
     return steps, kept
+
+
+def _family_leg(dist, cfg, mesh, dev, ocfg):
+    """One fsdp_tp step of `cfg` at step 1 on `mesh` against the
+    unsharded step (`_strategy_steps`: loss, grad norm and every gradient
+    leaf), on FAMILY_ROWS rows of SHARDED_SEQ tokens from a seed and,
+    for a vision model, its prefix embeddings from a seed.  The ranks
+    take the unsharded reference's gradients in turn (`_in_turn`), so
+    the card never holds four full-width references' activations at
+    once.  Returns the readings and the leg's seconds."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import global_norm
+    t0 = time.perf_counter()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SHARDED_SEQ,
+                                  batch=FAMILY_ROWS, seed=3))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(0).items()}
+    if cfg.n_prefix_tokens:
+        batch["prefix_embeds"] = torch.randn(
+            FAMILY_ROWS, cfg.n_prefix_tokens, cfg.d_model,
+            generator=torch.Generator().manual_seed(4)).to(dev)
+    ref_step, _ = make_train_step(cfg, opt_cfg=ocfg, device=dev)
+
+    def reference():
+        params = build(cfg, dev).init(torch.Generator(dev).manual_seed(5))
+        (g, m), ms = _timed_call(dev, ref_step.grads, params, batch)
+        return {"grads": g, "loss": float(m["loss"]),
+                "grad_norm": float(global_norm(g)), "ms": ms}
+    steps, _ = _strategy_steps(dist, cfg, mesh, dev, batch, ocfg,
+                               _in_turn(dist, dev, reference),
+                               names=("fsdp_tp",))
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": cfg.n_layers, "vocab": cfg.vocab,
+            "rows": FAMILY_ROWS, "seq": SHARDED_SEQ,
+            "prefix": cfg.n_meta_tokens + cfg.n_prefix_tokens,
+            "steps": steps, "seconds": time.perf_counter() - t0}
 
 
 def _check_steps(phase, steps):
@@ -4851,7 +5125,7 @@ def _init_world(rank, world, store_path, device):
 
 
 def sharded_worker(rank, world, store_path, out_dir, cfg, device,
-                   decode_shape):
+                   decode_shape, families):
     """One rank of the sharded phase (see `sharded`): writes its readings
     to out_dir/rank<r>.json."""
     from repro_torch.distributed import sharding as S
@@ -4867,11 +5141,15 @@ def sharded_worker(rank, world, store_path, out_dir, cfg, device,
            "device": str(dev)}
     rec["collectives"] = _check_collectives(dist, dev, world)
     mesh = make_mesh((2, 2), ("data", "model"), dev.type)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    # first (the card holds nothing else of this rank's yet) the families
+    # whose layouts OLMo's do not reach (ROADMAP C23)
+    rec["families"] = {label: _family_leg(dist, fcfg, mesh, dev, ocfg)
+                       for label, fcfg in families}
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SHARDED_SEQ,
                                   batch=SHARDED_BATCH, seed=3))
     batches = [{k: torch.from_numpy(v).to(dev)
                 for k, v in data.batch_at(i).items()} for i in range(2)]
-    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1)
     ref_step, ref_init = make_train_step(cfg, opt_cfg=ocfg, device=dev)
     ref0 = _at_step_one(ref_init(torch.Generator(dev).manual_seed(5)))
     g_ref, _ = ref_step.grads(ref0["params"], batches[0])
@@ -4942,7 +5220,22 @@ class _Group:
         self._dist.all_reduce(t, op=op, group=self._group)
 
 
-def sharded(dev, ops, card, cfg=None, decode_shape=DECODE_SHAPE):
+def sharded_families():
+    """The sharded phase's other legs, f32 at full width cut to
+    TRAIN_LAYERS layers: hymba-1.5b (d 1600, 25 heads over 5, 128 meta
+    tokens, vocab 32001, which "model" does not divide, so its logits
+    keep the sequence sharded) and the zoo's gemma3-4b (the vision
+    frontend's 256 prefix positions, vocab 262144 tied, window 1024),
+    the vision model that fits beside its unsharded reference."""
+    from repro_torch.configs import ARCHS, ZOO
+    return (("hymba-1.5b", dataclasses.replace(
+                hymba_cut(ARCHS["hymba-1.5b"], TRAIN_LAYERS), dtype="f32")),
+            ("gemma3-4b", dataclasses.replace(
+                ZOO["gemma3-4b"], n_layers=TRAIN_LAYERS, dtype="f32")))
+
+
+def sharded(dev, ops, card, cfg=None, decode_shape=DECODE_SHAPE,
+            families=None):
     """The `sharded` phase: the mesh half of the trainer on a world of 4
     ranks, each rank's tensors on the card (4 processes on one card over
     gloo, which stages CUDA tensors through the host: NCCL refuses two
@@ -4958,7 +5251,11 @@ def sharded(dev, ops, card, cfg=None, decode_shape=DECODE_SHAPE):
     largest difference after the step is reported: Adam divides gradient
     elements near its eps by their own square root, so rounding-level
     gradients step apart by up to ~1e-5 at lr 1e-3), with the Megatron
-    helpers' counts of collectives against fallbacks; then remesh_state
+    helpers' counts of collectives against fallbacks; before it, the
+    same fsdp_tp check for each of `sharded_families` on FAMILY_ROWS rows
+    (ROADMAP C23: the loss's tail past hymba's meta and gemma3-4b's
+    prefix positions, the families' own layers), each leg's seconds in
+    the line; then remesh_state
     of the fsdp_tp state to a (1, 2) mesh over ranks 0-1 (each rank's new
     param blocks bit for bit the old values' slices) and one more step
     there against the unsharded one.  Last, decode_attention_sharded over the 4 ranks at OLMo's decode
@@ -4966,19 +5263,22 @@ def sharded(dev, ops, card, cfg=None, decode_shape=DECODE_SHAPE):
     held to decode_attention_ref and to the hand-written decode kernel
     (f32 1e-4, bf16 2e-2), its wire bytes beside the KV bytes.  Over
     gloo through the host the step ms are no speed of the method.
-    `cfg` and `decode_shape` replace the model and the decode shape (a
-    CPU rehearsal with dev "cpu")."""
+    `cfg`, `decode_shape` and `families` ((label, config) pairs) replace
+    the model, the decode shape and the families (a CPU rehearsal with
+    dev "cpu")."""
     import tempfile
     import torch.multiprocessing as mp
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.decode_attention import decode_attention_ref
     cfg = cfg or dataclasses.replace(ARCHS["olmo-1b"], dtype="f32",
                                      n_layers=TRAIN_LAYERS)
+    families = sharded_families() if families is None else families
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(sharded_worker,
                  args=(SHARDED_WORLD, str(Path(tmp) / "store"), tmp, cfg,
-                       dev.type, decode_shape), nprocs=SHARDED_WORLD)
+                       dev.type, decode_shape, families),
+                 nprocs=SHARDED_WORLD)
         recs = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                 for r in range(SHARDED_WORLD)]
         outs = {k: torch.load(Path(tmp) / f"decode_{k}.pt")
@@ -4986,6 +5286,8 @@ def sharded(dev, ops, card, cfg=None, decode_shape=DECODE_SHAPE):
     seconds = time.perf_counter() - t0
     r0 = recs[0]
     _check_steps("sharded", r0["steps"])
+    for label, leg in r0["families"].items():
+        _check_steps(f"sharded {label}", leg["steps"])
     tp = r0["steps"]["fsdp_tp"]["counts"]
     if not (tp["row"]["collective"] and tp["col"]["collective"]):
         raise AssertionError(f"sharded fsdp_tp: helpers {tp}")
@@ -5015,6 +5317,7 @@ def sharded(dev, ops, card, cfg=None, decode_shape=DECODE_SHAPE):
           "decode_shape": list(decode_shape),
           "batch": SHARDED_BATCH, "seq": SHARDED_SEQ,
           "collectives": r0["collectives"], "steps": r0["steps"],
+          "families": r0["families"],
           "remesh": rm, "decode": decode, "seconds": seconds,
           "torch": torch.__version__, "card": card})
     return seconds
@@ -5749,6 +6052,9 @@ def main() -> int:
     parity_hymba(dev, ops)
     parity_xlstm(dev, ops)
     parity_encdec(dev, ops)
+    parity_archs(dev, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
     parity_train(dev, ops)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5788,8 +6094,12 @@ def main() -> int:
         for name in next(iter(hymba_legs.values()))}
     xlstm_legs, xlstm_more = serve_xlstm(dev, ops, card)
     seamless_legs, seamless_more = serve_seamless(dev, ops, card)
+    archs_legs, archs_more, archs_s = serve_archs(dev, ops, card)
+    emit({"phase": "serve_archs", "legs": sorted(archs_legs),
+          "seconds": archs_s})
     for path, legs in (("serve_xlstm", xlstm_legs),
-                       ("serve_seamless", seamless_legs)):
+                       ("serve_seamless", seamless_legs),
+                       ("serve_archs", archs_legs)):
         path_launches[path] = {
             name: sum(ln[name] for ln in legs.values())
             for name in next(iter(legs.values()))}
@@ -5815,7 +6125,10 @@ def main() -> int:
         ln for leg, ln in moe_legs.items() if leg.startswith("granite")],
         "mixtral-8x22b": [moe_legs["mixtral"]],
         "hymba-1.5b": list(hymba_legs.values()),
-        "seamless-m4t-large-v2": list(seamless_legs.values())}
+        "seamless-m4t-large-v2": list(seamless_legs.values()),
+        **{name: [ln for leg, ln in archs_legs.items()
+                  if leg.startswith(name + "/")]
+           for name in ARCHS_DENSE + (ARCHS_VISION,)}}
     for name, rows in gqa_timings(dev, ops, refs).items():
         for r in rows:     # a gemma's launches on its serve in serve_gemma
             if r["label"] in gemma:
@@ -5844,6 +6157,13 @@ def main() -> int:
         r["launches_on_route"] = \
             xlstm_more["int8"][0]["int8_matmul"][r["kernel_route"]]
     timings["int8_matmul"]["shapes"].extend(xlstm["int8_matmul"])
+    archs_int8 = archs_timings(dev, ops, refs, q_lib)
+    for r in archs_int8:    # serve_archs' int8 leg is deepseek-7b's
+        r["launches_on_route"] = (
+            archs_more["deepseek-7b/int8"][0]["int8_matmul"][
+                r["kernel_route"]] if r["label"].startswith("deepseek")
+            else 0)
+    timings["int8_matmul"]["shapes"].extend(archs_int8)
     # the widest int8 product of serve_seamless: the encoder's rows x 1024
     # frames; the widest cross-attention: rows x bucket over 1024 frames
     encdec = encdec_timings(
@@ -5896,6 +6216,9 @@ def main() -> int:
             raise AssertionError(f"{name} never ran on serve_seamless")
         if name == "int8_matmul" and not path_launches["serve_xlstm"][name]:
             raise AssertionError(f"{name} never ran on serve_xlstm")
+        if not (archs_legs["deepseek-7b/int8"] if name == "int8_matmul"
+                else path_launches["serve_archs"])[name]:
+            raise AssertionError(f"{name} never ran on serve_archs")
         if name == "flash_attention" and not seamless_non_causal:
             raise AssertionError("non-causal flash never ran on "
                                  "serve_seamless")

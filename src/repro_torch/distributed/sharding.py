@@ -648,6 +648,23 @@ def einsum_blocks(eq: str, a, b):
     return _from_local(torch.einsum(eq, *locs), mesh, tuple(pl))
 
 
+def cat_blocks(parts: Sequence[torch.Tensor], dim: int):
+    """torch.cat(parts, dim) for DTensors, on the local blocks: each part
+    is laid out (by `redistribute`) as the last with `dim` whole, so the
+    blocks join in place; the result keeps that layout.  DTensor's own
+    cat would gather a sharded `dim` with its functional all-gather.
+    Plain tensors are torch.cat."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = parts[-1]
+    if not is_dtensor(last):
+        return torch.cat(parts, dim)
+    pl = tuple(Replicate() if p == Shard(dim) else p
+               for p in last.placements)
+    return _from_local(torch.cat([redistribute(p, pl).to_local()
+                                  for p in parts], dim),
+                       last.device_mesh, pl)
+
+
 def mean_blocks(x, dims: Sequence[int]):
     """x.mean(dims) for a DTensor x, on its local blocks: each rank sums
     its block over `dims`, the sums are added over the mesh dims that
@@ -844,7 +861,11 @@ def local_map(fn, *args, mapped: Sequence[bool], dims: Sequence[int] = (0,)):
         elif m:
             local.append(redistribute(a, pl).to_local())
         else:
+            # a new node in the replicated layout: its block's Partial
+            # gradient is summed there (by `redistribute`), even where the
+            # move to it was none, and never leaves as a Partial
             a = redistribute(a, (Replicate(),) * mesh.ndim)
+            a = _from_local(a.to_local(), mesh, a.placements)
             local.append(a.to_local(grad_placements=grad_pl))
 
     def wrap(o):
@@ -855,6 +876,19 @@ def local_map(fn, *args, mapped: Sequence[bool], dims: Sequence[int] = (0,)):
             return type(o)(*vals) if hasattr(o, "_fields") else tuple(vals)
         return o
     return wrap(fn(*local))
+
+
+def rows_map(fn, weights, *xs):
+    """fn(*xs, weights) on each rank's rows of the xs (`local_map` over
+    dim 0), with `weights` (a nested dict of tensors) whole on every
+    rank: a block whose products would clash with the rows' layout runs
+    as on one device, every move the port's own.  Each weight's gradient
+    is summed over the mesh dims that split the rows.  With plain
+    tensors this is fn(*xs, weights)."""
+    from repro_torch.training.tree import leaves, unflatten
+    ws, n = leaves(weights), len(xs)
+    return local_map(lambda *a: fn(*a[:n], unflatten(weights, a[n:])),
+                     *xs, *ws, mapped=(True,) * n + (False,) * len(ws))
 
 
 def make_tp_projector(mesh, act_strategy: Optional[Strategy],

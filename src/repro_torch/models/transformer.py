@@ -72,12 +72,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
-from repro_torch.distributed.sharding import (embed_rows, from_local,
-                                              full_replicate,
+from repro_torch.distributed.sharding import (cat_blocks, embed_rows,
+                                              from_local, full_replicate,
                                               is_dtensor, local_map,
                                               make_sharder, pick_rows,
-                                              redistribute, rows_placements,
-                                              shard_index, store_block, wrap)
+                                              redistribute, rows_map,
+                                              rows_placements, shard_index,
+                                              store_block, wrap)
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
@@ -303,7 +304,7 @@ def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         prefix += cfg.n_meta_tokens
     if len(parts) == 1:
         return h, 0
-    return torch.cat(parts, dim=1), prefix
+    return cat_blocks(parts, 1), prefix
 
 
 def lookup_tables(params: Params) -> Params:
@@ -472,7 +473,10 @@ def _run_encoder(params: Params, cfg: ArchConfig, src_embeds: torch.Tensor,
         x = L.norm(h, lp.get("ln2"), cfg.norm)
         h = h + sh(_ffn_aux(lp, cfg, x, sh)[0], ("batch", "seq", "embed"))
         h = sh(h, ("batch", "seq", "embed"))
-    return L.norm(h, params.get("final_norm"), cfg.norm)
+    final = params.get("final_norm")
+    if shw is not None and final is not None:
+        final = shw(final, ("embed",))      # its compute layout
+    return L.norm(h, final, cfg.norm)
 
 
 def _cross_kv(lp: Params, enc_out: torch.Tensor
@@ -520,18 +524,12 @@ def _hymba_ssm_seq(sp: Params, cfg: ArchConfig, x: torch.Tensor,
                    h0: Optional[torch.Tensor] = None):
     """The SSM branch over a full sequence x (B, S, D) from state h0
     (zeros when None).  Returns (y (B, S, inner), h_final (B, inner, N)
-    f32)."""
+    f32).  A sharded layer runs it on each rank's rows (`rows_map`)."""
     u, z, dt, a, b_t, c_t = _ssm_inputs(sp, x)
-
-    def scan(u, dt, a, b_t, c_t):
-        h_0 = h0
-        if h_0 is None:
-            h_0 = torch.zeros((u.shape[0], u.shape[-1], cfg.ssm_state),
-                              dtype=torch.float32, device=u.device)
-        return ssm_lib.selective_scan(u, dt, a, b_t, c_t, h_0)
-    # under a sharder each rank scans its own rows
-    y, h_f = local_map(scan, u.float(), dt, a, b_t, c_t,
-                       mapped=(True, True, False, True, True))
+    if h0 is None:
+        h0 = torch.zeros((u.shape[0], u.shape[-1], cfg.ssm_state),
+                         dtype=torch.float32, device=u.device)
+    y, h_f = ssm_lib.selective_scan(u.float(), dt, a, b_t, c_t, h0)
     return _ssm_out(sp, y, u, z, x.dtype), h_f
 
 
@@ -606,9 +604,16 @@ def _layer_forward_sharded(lp: Params, cfg: ArchConfig, h: torch.Tensor, sh,
         a_out, kv = _attention_block_sharded(lp["attn"], cfg, x, sh,
                                              impl=impl, prefix=prefix,
                                              window=window, causal=True)
-        s_out, h_f = _hymba_ssm_seq(lp["ssm"], cfg, x)
-        h = h + sh(_hymba_mix(lp, a_out.reshape(*a_out.shape[:2], -1),
-                              s_out, h.dtype), res)
+        # the SSM and the mix on each rank's rows, their weights whole
+        # (their inner dim on "model" would clash with the rows' layout,
+        # or split 25 heads unevenly, in DTensor's ops)
+        def branch(x, a_out, w):
+            s_out, h_f = _hymba_ssm_seq(w["ssm"], cfg, x)
+            return _hymba_mix(w, a_out, s_out, h.dtype), h_f
+        mix, h_f = rows_map(branch, {k: lp[k] for k in ("ssm",)
+                                     + _HYMBA_LEAVES},
+                            x, a_out.reshape(*a_out.shape[:2], -1))
+        h = h + sh(mix, res)
     else:
         a_out, kv = _attention_block_sharded(lp["attn"], cfg, x, sh,
                                              impl=impl, prefix=prefix,
@@ -785,15 +790,29 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     tail (past the meta and prefix tokens) against the labels, plus
     aux_weight times the MoE aux loss.  The forward is training's
     (impl="auto").  Returns (total, {"loss", "aux", "tokens"})."""
-    logits, aux = forward(params, cfg, batch["tokens"], impl="auto",
-                          prefix_embeds=batch.get("prefix_embeds"),
-                          src_embeds=batch.get("src_embeds"), remat=remat,
-                          return_aux=True, sh=sh, shw=shw)
     labels = batch["labels"]
-    if logits.shape[1] != labels.shape[1]:
-        # past the meta and prefix tokens (a slice of a DTensor's sharded
-        # sequence gathers it in DTensor's backward: taken only if real)
-        logits = logits[:, -labels.shape[1]:]
+    n = labels.shape[1]
+    if sh is None:
+        logits, aux = forward(params, cfg, batch["tokens"], impl="auto",
+                              prefix_embeds=batch.get("prefix_embeds"),
+                              src_embeds=batch.get("src_embeds"),
+                              remat=remat, return_aux=True)
+        if logits.shape[1] != n:
+            logits = logits[:, -n:]     # past the meta and prefix tokens
+    else:
+        h, _, _, aux = _trunk(params, cfg, batch["tokens"], impl="auto",
+                              prefix_embeds=batch.get("prefix_embeds"),
+                              src_embeds=batch.get("src_embeds"),
+                              remat=remat, collect=False, sh=sh, shw=shw)
+        if h.shape[1] != n:
+            # past the meta and prefix tokens, before the head: h with
+            # its sequence whole (the layout the head takes), each rank
+            # slicing its own block (DTensor's slice of a sharded
+            # sequence would gather it with its functional all-gather)
+            h = local_map(lambda x: x[:, -n:],
+                          sh(h, ("batch", "seq_attn", "embed")),
+                          mapped=(True,), dims=(0, 2))
+        logits = sharded_logits(params, cfg, h, sh, shw)
     loss, denom = nll_loss(logits, labels)
     return loss + aux_weight * aux, {"loss": loss, "aux": aux,
                                      "tokens": denom}

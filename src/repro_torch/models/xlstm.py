@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import (embed_rows, local_map,
+from repro_torch.distributed.sharding import (embed_rows, rows_map,
                                               rows_placements, store_block,
                                               wrap)
 from repro_torch.models import layers as L
@@ -113,15 +113,13 @@ def cache_axes(cfg: ArchConfig) -> Dict:
 # --------------------------------------------------------------------- #
 # the two blocks, shared by the full-sequence and the one-token paths
 
-def _mlstm_in(mp: Params, cfg: ArchConfig, x: torch.Tensor, sh=None):
+def _mlstm_in(mp: Params, cfg: ArchConfig, x: torch.Tensor):
     """From the normed input x (..., d): u and the gate z (..., inner),
     q, k, v (..., H, hd_m) in x's dtype, and the f32 gate inputs i_raw,
-    f_raw (..., H).  A sharder lays u out as ("batch", "seq", "inner")."""
+    f_raw (..., H)."""
     d, inner, _, _, _, _ = dims(cfg)
     up = _matmul(x, _reshape(mp["w_up"], d, 2 * inner))
     u, z = up[..., :inner], up[..., inner:]
-    if sh is not None:
-        u = sh(u, ("batch", "seq", "inner"))
     q, k, v = (_project(u, mp[w]) for w in ("wq", "wk", "wv"))
     uf = u.float()
     i_raw = uf @ mp["w_i"] + mp["b_i"]
@@ -172,7 +170,7 @@ def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     backward), as JAX's `jax.checkpoint(nothing_saveable)` around its
     pair scan's body.  `sh` / `shw` (`distributed.sharding`) lay out
     the activations as JAX's forward does and move each pair's weights
-    to their compute layout; the cells run on each rank's rows."""
+    to their compute layout; each pair runs on each rank's rows."""
     b, s = tokens.shape
     res = ("batch", "seq", "embed")
     if sh is not None:
@@ -195,7 +193,10 @@ def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             h = sh(h, res)
         if chunked:
             finals.append(fin)
-    h = L.rms_norm(h, params["final_norm"])
+    final = params["final_norm"]
+    if shw is not None:
+        final = shw(final, ("embed",))      # its compute layout
+    h = L.rms_norm(h, final)
     if not finals:
         return h, {}
     return h, {name: torch.stack([f[j] for f in finals])
@@ -206,28 +207,29 @@ def _pair_seq(mp: Params, sp: Params, cfg: ArchConfig, h: torch.Tensor,
               chunked: bool, sh=None):
     """One pair over a full sequence from the init state: returns (h, its
     final states (the mLSTM's C, n, m, then the sLSTM's c, n, m, h) when
-    `chunked`, else None).  The cells run on each rank's rows under a
-    sharder (`local_map`; on plain tensors it is the call itself)."""
+    `chunked`, else None).  Under a sharder the pair runs on each rank's
+    rows with its weights whole (`rows_map`): its products' layouts
+    (the residual's sequence, the weights' inner and heads, all on
+    "model") would clash in DTensor's ops, which would move them with
+    its functional all-gather."""
+    if sh is not None:
+        return rows_map(lambda h, w: _pair_seq(w["mlstm"], w["slstm"], cfg,
+                                               h, chunked),
+                        {"mlstm": mp, "slstm": sp}, h)
     _, _, nh, hd_m, hd_s, _ = dims(cfg)
-    z, q, k, v, i_raw, f_raw = _mlstm_in(mp, cfg, L.rms_norm(h, mp["ln"]),
-                                         sh)
-    rows = (True,) * 5
+    z, q, k, v, i_raw, f_raw = _mlstm_in(mp, cfg, L.rms_norm(h, mp["ln"]))
     m_fin = ()
     if chunked:
-        core, m_fin = local_map(
-            lambda q, k, v, i, f: ssm_lib.mlstm_chunkwise(
-                q, k, v, i, f,
-                ssm_lib.mlstm_init_state(q.shape[0], nh, hd_m, q.device)),
-            q, k, v, i_raw, f_raw, mapped=rows)
+        core, m_fin = ssm_lib.mlstm_chunkwise(
+            q, k, v, i_raw, f_raw,
+            ssm_lib.mlstm_init_state(q.shape[0], nh, hd_m, q.device))
     else:
-        core = local_map(ssm_lib.mlstm_parallel, q, k, v, i_raw, f_raw,
-                         mapped=rows)
+        core = ssm_lib.mlstm_parallel(q, k, v, i_raw, f_raw)
     h = _mlstm_out(mp, cfg, core, z, h)
-    hs, s_fin = local_map(
-        lambda xw, r: ssm_lib.slstm_scan(
-            xw, r, ssm_lib.slstm_init_state(xw.shape[0], nh, hd_s,
-                                            xw.device)),
-        _slstm_in(sp, cfg, h), sp["r"], mapped=(True, False))
+    xw = _slstm_in(sp, cfg, h)
+    hs, s_fin = ssm_lib.slstm_scan(
+        xw, sp["r"], ssm_lib.slstm_init_state(xw.shape[0], nh, hd_s,
+                                              xw.device))
     h = _slstm_out(sp, cfg, hs, h)
     return h, ((*m_fin, *s_fin) if chunked else None)
 

@@ -148,17 +148,23 @@ def init_rank(rank: int, store: str, world: int = WORLD):
     return dist
 
 
-class NoFunctionalGather:
-    """A dispatch mode that raises on the functional all-gather and
-    all-to-all: torch 2.11's crash on CUDA tensors over gloo (see
-    `distributed.sharding`), which the port's sharded path must not
-    reach."""
+class NoGatherUnderDTensor:
+    """A dispatch mode that lets DTensor dispatch its own ops first
+    (NotImplemented for a DTensor operand), so it sees the collectives
+    DTensor's redistributions run on the local blocks, and raises on
+    the functional all-gather and all-to-all: torch 2.11's crash on CUDA
+    tensors over gloo (see `distributed.sharding`), which the port's
+    sharded path must not reach.  DTensor's functional all-reduce (of a
+    Partial loss, norm or mean) runs there and passes."""
 
     def __new__(cls):
+        from torch.distributed.tensor import DTensor
         from torch.utils._python_dispatch import TorchDispatchMode
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
                 name = str(func)
                 if "c10d_functional" in name and (
                         "all_gather" in name or "all_to_all" in name):
@@ -182,7 +188,7 @@ def _steps(cfg, mesh, strategy, state, batches, oc, detect=False):
     mets = []
     for b in batches:
         if detect:
-            with NoFunctionalGather():
+            with NoGatherUnderDTensor():
                 state, m = step(state, b)
         else:
             state, m = step(state, b)
@@ -238,7 +244,7 @@ def model_world(rank, store, out, oracle_path):
                                           oc)}
         for name in ("fsdp", "fsdp_tp"):
             res = _steps(cfg, mesh, S.STRATEGIES[name](mesh), state,
-                         batches, oc, detect=dtype == "f32")
+                         batches, oc, detect=True)
             rec[dtype][name] = (res[0], _np_tree(res[1]), res[2])
         un = rec[dtype]["unsharded"]
         rec[dtype]["unsharded"] = (un[0], _np_tree(un[1]), un[2])

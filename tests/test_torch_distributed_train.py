@@ -2,7 +2,8 @@
 world on the CPU (one spawn; the helpers live in
 test_torch_distributed.py): reduced granite-moe under fsdp_tp (the
 experts axis, the MoE's seq gather on its collective path), reduced
-xlstm under fsdp and fsdp_tp, hymba and seamless under fsdp_tp, against
+xlstm under fsdp and fsdp_tp, hymba (also with a vocabulary of 257),
+seamless and internvl2 (its prefix embeddings) under fsdp_tp, against
 the unsharded step; `remesh_state` from (2, 2)
 to (1, 2) and to (4,), bit for bit; the `Trainer` on a mesh: 3 steps,
 its checkpoint, a crash and the resume onto the mesh, and the compressed
@@ -18,13 +19,27 @@ from test_torch_distributed import (WORLD, _np_tree, _rel, _steps,
                                     init_rank, spawn_world)
 
 
-# (config, strategy): the issue's two, and the other families' layers
-# (hymba's hybrid layer, the encoder-decoder's encoder and cross
-# attention) under fsdp_tp, each step under the dispatch mode that fails
-# on a functional all-gather (test_torch_distributed.py)
+# (config, strategy): the MoE and xLSTM steps, and the other families'
+# layers (hymba's hybrid layer, the encoder-decoder's encoder and cross
+# attention, the vision prefix) under fsdp_tp, each step under the
+# dispatch mode that fails on a functional all-gather, DTensor's own
+# included (test_torch_distributed.py).  "hymba-1.5b/vocab257" is hymba
+# with a vocabulary "model" does not divide (as its 32001): the logits
+# keep the sequence sharded, and the loss takes the tail past the meta
+# tokens from it; internvl2's batch carries its prefix embeddings
 FAMILIES = [("granite-moe-3b-a800m", "fsdp_tp"), ("xlstm-125m", "fsdp"),
             ("xlstm-125m", "fsdp_tp"), ("hymba-1.5b", "fsdp_tp"),
-            ("seamless-m4t-large-v2", "fsdp_tp")]
+            ("seamless-m4t-large-v2", "fsdp_tp"),
+            ("hymba-1.5b/vocab257", "fsdp_tp"), ("internvl2-76b", "fsdp_tp")]
+# a FAMILIES name's config overrides past the reduced config's
+VARIANTS = {"hymba-1.5b/vocab257": {"vocab": 257}}
+
+
+def family_config(name: str):
+    from repro_torch.configs import ARCHS
+    arch = name.split("/")[0]
+    return ARCHS[arch].reduced(dtype="f32", name=name.replace("/", "-")
+                               + "-f32", **VARIANTS.get(name, {}))
 
 
 def train_world(rank, store, out):
@@ -46,15 +61,19 @@ def train_world(rank, store, out):
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
     oc = AdamWConfig(lr=1e-3, warmup_steps=1)
     for name, strat in FAMILIES:
-        cfg = ARCHS[name].reduced(dtype="f32", name=f"{name}-f32")
+        cfg = family_config(name)
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, batch=4))
         batches = [{k: torch.from_numpy(v) for k, v in
                     data.batch_at(t).items()} for t in range(2)]
-        if cfg.is_encdec:       # the encoder's frames, from a seed
-            for t, b in enumerate(batches):
-                b["src_embeds"] = torch.randn(
-                    4, 16, cfg.d_model,
-                    generator=torch.Generator().manual_seed(t))
+        for t, b in enumerate(batches):
+            # the encoder's frames and the vision prefix, from a seed
+            g = torch.Generator().manual_seed(t)
+            if cfg.is_encdec:
+                b["src_embeds"] = torch.randn(4, 16, cfg.d_model,
+                                              generator=g)
+            if cfg.n_prefix_tokens:
+                b["prefix_embeds"] = torch.randn(
+                    4, cfg.n_prefix_tokens, cfg.d_model, generator=g)
         params = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
         state = {"params": params, "opt": adamw_init(params),
                  "step": torch.zeros((), dtype=torch.int32)}

@@ -215,3 +215,38 @@ def test_training_forward_never_launches_a_kernel(monkeypatch):
     model.loss(model.init(torch.Generator().manual_seed(0)),
                {k: torch.from_numpy(v) for k, v in b.items()})
     assert calls == []
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "internvl2-76b"])
+def test_unsharded_loss_slices_the_logits_bit_for_bit(name):
+    """With no mesh `loss_fn` slices the forward's logits past the meta
+    (hymba) or prefix (internvl2) positions, as it did before the sharded
+    loss took its tail on the local blocks: the loss, its metrics and
+    every gradient equal, bit for bit, the forward's logits sliced
+    through `nll_loss` plus 0.01 aux."""
+    from repro_torch.models import transformer as tf
+    cfg = ARCHS[name].reduced(dtype="f32")
+    params = build(cfg, CPU).init(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    n = batch["labels"].shape[1]
+
+    def before(p):
+        logits, aux = tf.forward(p, cfg, batch["tokens"], impl="auto",
+                                 prefix_embeds=batch.get("prefix_embeds"),
+                                 return_aux=True)
+        assert logits.shape[1] > n
+        loss, denom = tf.nll_loss(logits[:, -n:], batch["labels"])
+        return loss + 0.01 * aux, {"loss": loss, "aux": aux,
+                                   "tokens": denom}
+
+    got, want = [], []
+    for fn, out in ((lambda p: tf.loss_fn(p, cfg, batch), got),
+                    (before, want)):
+        flat = [t.detach().requires_grad_() for t in leaves(params)]
+        total, mets = fn(unflatten(params, flat))
+        out.append((total.detach(), {k: v.detach() for k, v in mets.items()},
+                    torch.autograd.grad(total, flat)))
+    (l0, m0, g0), (l1, m1, g1) = got[0], want[0]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(m0[k], m1[k]) for k in m1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1, strict=True))

@@ -33,8 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_distributed import (_np_tree, _rel, _steps, init_rank,
-                                    spawn_world)
+from test_torch_distributed import (NoGatherUnderDTensor, _np_tree, _rel,
+                                    _steps, init_rank, spawn_world)
 
 REPO = Path(__file__).resolve().parents[1]
 WORLD = 8
@@ -99,30 +99,6 @@ def _configs():
         "mixtral": ARCHS["mixtral-8x22b"].reduced(dtype="f32",
                                                   name="mixtral-f32"),
     }
-
-
-class NoGatherUnderDTensor:
-    """A dispatch mode that lets DTensor dispatch its own ops first
-    (NotImplemented for a DTensor operand), so it sees the collectives
-    DTensor's redistributions run on the local blocks, and raises on
-    the functional all-gather and all-to-all: torch 2.11's crash on CUDA
-    tensors over gloo (see `distributed.sharding`).  DTensor's functional
-    all-reduce (of a Partial loss, norm or mean) runs there and passes."""
-
-    def __new__(cls):
-        from torch.distributed.tensor import DTensor
-        from torch.utils._python_dispatch import TorchDispatchMode
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                if any(issubclass(t, DTensor) for t in types):
-                    return NotImplemented
-                name = str(func)
-                if "c10d_functional" in name and (
-                        "all_gather" in name or "all_to_all" in name):
-                    raise AssertionError(f"functional collective {name}")
-                return func(*args, **(kwargs or {}))
-        return Mode()
 
 
 class NoDTensorEinsum:
